@@ -1,0 +1,52 @@
+"""Public wrapper of the flash-attention kernel, in model layout
+(port of ``repro/kernels/flash_attention/ops.py``).
+
+``flash_attention(q, k, v)`` takes ``[B, S, H, D]`` tensors:
+
+* on CUDA tensors it launches the Hopper kernel (``kernel.py``) or raises —
+  there is no fallback and no switch;
+* on CPU tensors it computes the plain version (``ref.attention_ref``),
+  which is how the tests on a machine without a card reach the same math.
+
+``flash_attention.launches`` counts kernel launches (a plain integer; the
+plain version does not count), so a run can show that its path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import kernel
+from .ref import attention_ref
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    devices = {t.device.type for t in (q, k, v)}
+    if devices == {"cpu"}:
+        o = attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, scale=scale,
+        )
+        return o.transpose(1, 2)
+    if devices == {"cuda"}:
+        o = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
+        flash_attention.launches += 1
+        return o
+    raise ValueError(f"flash_attention: tensors on {sorted(devices)}; takes all-CPU or all-CUDA")
+
+
+flash_attention.launches = 0

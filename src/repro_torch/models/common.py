@@ -1,0 +1,175 @@
+"""Shared model substrate: parameter registry, norms, rotary, MLP
+(port of ``repro.models.common``).
+
+Models declare their parameters as :class:`ParamDef` tables with *logical
+axis names* per dimension (``embed``, ``heads``, ``vocab``, ...).  The
+sharding rule table (``repro_torch.dist.sharding``) maps logical axes to
+mesh axes and derives every parameter's UCP
+:class:`~repro_torch.core.patterns.ParamSpec` from the same table, so the
+names and shapes here must equal the reference's for checkpoints to
+interchange.
+
+The building blocks are plain functions on tensors in the reference's
+layout (``[B, S, H, D]``) and with its cast order, so both packages compute
+the same numbers from the same weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.pytree import unflatten_from_paths
+
+__all__ = [
+    "ParamDef",
+    "ParamRegistry",
+    "rms_norm",
+    "rotary_embedding",
+    "apply_rope",
+    "swiglu",
+    "cast_tree",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declaration of one (possibly layer-stacked) parameter tensor.
+
+    ``shape``      logical shape (stacked scan dim first when ``stacked``)
+    ``axes``       logical axis name per dim (layers | embed | vocab | heads |
+                   qkv_fused | mlp | ...); the sharding rule table maps these
+                   to mesh axes
+    ``parts``      named sub-fragment sizes along ``parts_dim`` (fused dims)
+    ``init``       normal | zeros | ones
+    ``fan_in_dim`` dimension whose size scales normal init (1/sqrt(fan_in))
+    """
+
+    path: str
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    init: str = "normal"
+    fan_in_dim: int | None = None
+    parts: tuple[tuple[str, int], ...] | None = None
+    parts_dim: int | None = None
+    kind: str = "dense"
+    stacked: bool = False
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"{self.path}: shape/axes rank mismatch")
+        if self.parts is not None:
+            if self.parts_dim is None:
+                raise ValueError(f"{self.path}: parts without parts_dim")
+            total = sum(s for _, s in self.parts)
+            if total != self.shape[self.parts_dim]:
+                raise ValueError(
+                    f"{self.path}: parts sum {total} != dim {self.shape[self.parts_dim]}"
+                )
+
+    @property
+    def stacked_dim(self) -> int | None:
+        return 0 if self.stacked else None
+
+
+class ParamRegistry:
+    """Ordered collection of ParamDefs with initialization."""
+
+    def __init__(self, defs: Sequence[ParamDef]):
+        self.defs: dict[str, ParamDef] = {}
+        for d in defs:
+            if d.path in self.defs:
+                raise ValueError(f"duplicate param {d.path}")
+            self.defs[d.path] = d
+
+    def __iter__(self):
+        return iter(self.defs.values())
+
+    def __getitem__(self, path: str) -> ParamDef:
+        return self.defs[path]
+
+    def num_params(self) -> int:
+        return sum(math.prod(d.shape) for d in self.defs.values())
+
+    def init(
+        self, generator: torch.Generator, *, dtype=torch.float32, device=None
+    ) -> dict:
+        """Nested params, drawn in registry order from ``generator`` on its
+        device (``device`` defaults to the generator's).  The numbers differ
+        from the reference's ``jax.random`` draws; tests that compare the
+        two packages load one set of weights into both instead."""
+        device = torch.device(device) if device is not None else generator.device
+        return unflatten_from_paths(
+            {d.path: _init_leaf(generator, d, dtype, device) for d in self.defs.values()}
+        )
+
+
+def _init_leaf(g: torch.Generator, d: ParamDef, dtype, device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init != "normal":
+        raise NotImplementedError(
+            f"{d.path}: init {d.init!r} belongs to the SSM family "
+            "(ROADMAP queue 1, item 6: other model families)"
+        )
+    fan_in = d.shape[d.fan_in_dim] if d.fan_in_dim is not None else d.shape[-1]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(d.shape, generator=g, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# NN building blocks (plain functions, dtype-polymorphic)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Cast order of the reference: ``(xf·rsqrt(mean(xf²)+eps)).to(dt) * scale.to(dt)``."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
+
+
+def rotary_embedding(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) of shape [..., head_dim/2] in float32 for ``positions``."""
+    half = head_dim // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=positions.device)
+        / half
+    )
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Half-split rope (not interleaved).  x: [..., seq, heads, head_dim];
+    sin/cos: [..., seq, head_dim/2]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    s = sin[..., None, :].to(x.dtype)
+    c = cos[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def cast_tree(tree, dtype):
+    """Cast every tensor leaf of a nested dict (the once-per-load cast of
+    fp32 master weights to the compute dtype)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
