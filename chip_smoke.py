@@ -3,41 +3,70 @@
 
     python3 chip_smoke.py
 
-Phases, any failure exits non-zero:
+Phases, any failure exits non-zero (no phase catches its own failure, and
+nothing falls back to the CPU or to a plain version):
 
-1. device  — require CUDA (no CPU fallback); print the card's name and
-   power limit as ``nvidia-smi`` reports them;
-2. build   — compile the flash-attention kernel from this checkout's CUDA
-   source with nvcc (sm_90a); print the build seconds and ptxas' report;
-3. kernel  — the kernel against its plain PyTorch version on the card at the
+1. device  — require CUDA; print the card's name and power limit as
+   ``nvidia-smi`` reports them;
+2. build   — compile both kernel sources of this checkout with nvcc
+   (sm_90a), one process each, started together; print the build seconds
+   and ptxas' report;
+3. kernel flash_attention — against its plain PyTorch version at the
    serving slice's shapes (B=4, S=512 and a ragged 500, 15:5 heads, D=64,
    bf16, causal; a window=128 case; an fp32 case), max abs error beside the
    tolerance; then kernel, plain and library
    (``scaled_dot_product_attention``, timed as a yardstick only) times;
-4. main path, full smollm-360m at all 32 layers: init on the card from a
-   seeded generator; ``write_distributed`` under data=2,model=2 (fp32
-   weights and both Adam moments); weights-only restore under
-   data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), each
-   bit-equal to the saved weights; prefill 4 × 512 tokens and 16 greedy
-   decode steps from each restore, the kernel's launch count read around
-   each run; both restores give the same tokens; the card's fp32 logits
-   agree with the port's CPU path (plain attention) on a short prompt;
-5. the kernels line (JSON), then the result line (JSON, last).
+4. kernel block_quant — quantize and dequantize against their plain version
+   for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
+   to 1e30 and one moment shard of ``layers.blk.w_up`` under
+   data=2,model=2, checked byte for byte (q, scales and the decoded fp32);
+   then kernel and plain times and the bound (bytes over 3.35 TB/s; no
+   single PyTorch call computes this function, so no library time);
+5. serve, full smollm-360m at all 32 layers: init on the card from a
+   seeded generator; ``write_distributed`` of the weights under
+   data=2,model=2; weights-only restore under data=1,model=1
+   (RESHARD_STREAM) and data=2,model=2 (DIRECT), each bit-equal to the
+   save; prefill 4 × 512 tokens and 16 greedy decode steps from each
+   restore, the flash kernel's launches counted around each run; both give
+   the same tokens; the card's fp32 logits agree with the port's CPU path;
+6. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
+   from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
+   6 uninterrupted steps (the baseline); separately 3 steps under a
+   ``CheckpointManager`` with ``CheckpointPolicy(codec="int8:b256",
+   save_interval=3, async_save=True)`` and plan data=2,model=2; resume
+   under data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), each
+   with params bit-equal to the save, both moments equal to the codec's
+   served view (every coded shard re-cut from the restored state hashes to
+   the manifest's served digest) and step 3; steps 4-6 from each resume
+   (finite losses, printed beside the baseline's); the launch counts
+   (quantize == coded shards written, dequantize >= that plus the coded
+   shards read per resume, flash-attention 0); step time, tokens/s, save
+   GB/s, coded/raw bytes, restore seconds and one profiled step's device
+   busy share;
+7. the kernels line (JSON), the card line, then the result line (JSON, last).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
+BQ_SOURCE = "src/repro_torch/kernels/block_quant/csrc/block_quant.cu"
+BQ_REPLACES = {
+    "quantize_blocks": "src/repro/kernels/block_quant/kernel.py:56",
+    "dequantize_blocks": "src/repro/kernels/block_quant/kernel.py:86",
+}
+QDTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -200,9 +229,9 @@ def kernel_phase(torch, F, kernel, ref):
     return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
-def main_path(torch, ops):
+def serve_phase(torch, ops):
     """Save, restore two ways, and serve full smollm-360m on the card."""
-    from repro_torch.ckpt.saver import snapshot, write_distributed
+    from repro_torch.ckpt.saver import snapshot_weights, write_distributed
     from repro_torch.configs import get_config
     from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
@@ -235,7 +264,7 @@ def main_path(torch, ops):
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        snap = snapshot(params)
+        snap = snapshot_weights(params)
         snap_s = time.perf_counter() - t0
         res = write_distributed(snap, src_plan, 1, ckpt_root / "step_00000001",
                                 config_fingerprint=cfg.fingerprint())
@@ -310,6 +339,236 @@ def main_path(torch, ops):
     return runs
 
 
+def build_all(kernels):
+    """Build every kernel source at once (one nvcc each, in parallel)."""
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        reports = dict(zip(kernels, pool.map(lambda k: k.build()[1], kernels.values())))
+    for name, report in reports.items():
+        usage = [ln.strip() for ln in report["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
+        print(f"build {name}: {'compiled' if report['compiled'] else 'cached'} in "
+              f"{report['seconds']:.2f} s -> {Path(report['library']).relative_to(ROOT)}")
+        for ln in usage:
+            print(f"  ptxas: {ln}")
+
+
+def w_up_moment_shard_numel() -> int:
+    """Elements of one moment shard of layers.blk.w_up under data=2,model=2."""
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.core.layout import MeshSpec
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.models import build_model
+
+    cfg, mesh, par = get_config("smollm-360m"), MeshSpec.from_dict({"data": 2, "model": 2}), \
+        ParallelismConfig()
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    spec = make_plan(cfg, lm.registry, par, mesh).param_specs["layers.blk.w_up"]
+    shape = spec.layout_for(StateKind.EXP_AVG, mesh).local_shape
+    print(f"kernel block_quant: a w_up moment shard under data=2,model=2 is {tuple(shape)}")
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def block_quant_phase(torch, bq_ops, bq_ref):
+    """The block-quant kernels against their plain version, byte for byte,
+    then their times at the w_up moment shard's shape (int8:b256)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    shard_n = w_up_moment_shard_numel()
+    spread = torch.exp(torch.empty(shard_n // 256, 1, device=dev).uniform_(-20, 5, generator=g))
+    cases = {
+        "ragged count 1000": torch.randn(1000, generator=g, device=dev) * 3,
+        "all-zero block": torch.cat([torch.randn(256, generator=g, device=dev),
+                                     torch.zeros(256, device=dev),
+                                     torch.randn(77, generator=g, device=dev)]),
+        "values up to 1e30": torch.tensor([1e30, -1e30, 0.5, 0.0, 3e29, -7.0] * 100, device=dev),
+        f"w_up moment shard ({shard_n})":
+            (torch.randn(shard_n // 256, 256, generator=g, device=dev) * spread).reshape(-1),
+    }
+    worst = 0.0
+    for label, x in cases.items():
+        for qd in QDTYPES:
+            q, s = bq_ops.block_quantize(x, block=256, dtype=qd)
+            d = bq_ops.block_dequantize(q, s, count=x.numel())
+            pq, ps = bq_ref.quantize_blocks(bq_ref.blocked(x, block=256), dtype=qd)
+            pd = bq_ref.dequantize_blocks(pq, ps, count=x.numel())
+            torch.cuda.synchronize()
+            same = (torch.equal(q.view(torch.uint8), pq.view(torch.uint8))
+                    and torch.equal(s.view(torch.int32), ps.view(torch.int32))
+                    and torch.equal(d.view(torch.int32), pd.view(torch.int32)))
+            err = (d - pd).abs().max().item()
+            worst = max(worst, err)
+            print(f"kernel block_quant {label} {qd}: q, scales and decoded byte-equal to the "
+                  f"plain version: {same} (max_abs_err {err:.1e})")
+            check(same and bool(torch.isfinite(d).all()),
+                  f"block_quant {label} {qd}: kernel disagrees with its plain version")
+    x = cases[f"w_up moment shard ({shard_n})"]
+    blocks = bq_ref.blocked(x, block=256)
+    q, s = bq_ops.block_quantize(x, block=256, dtype="int8")
+    runs = {
+        "quantize_blocks": {
+            "kernel": lambda: bq_ops.block_quantize(x, block=256, dtype="int8"),
+            "plain": lambda: bq_ref.quantize_blocks(blocks, dtype="int8"),
+        },
+        "dequantize_blocks": {
+            "kernel": lambda: bq_ops.block_dequantize(q, s, count=shard_n),
+            "plain": lambda: bq_ref.dequantize_blocks(q, s, count=shard_n),
+        },
+    }
+    nblocks = blocks.shape[0]
+    moved = {  # each input read once, each output written once
+        "quantize_blocks": 4 * shard_n + shard_n + 4 * nblocks,
+        "dequantize_blocks": shard_n + 4 * nblocks + 4 * shard_n,
+    }
+    out = {}
+    for name, fns in runs.items():
+        times: dict[str, list[float]] = {"kernel": [], "plain": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[which].append(cuda_ms(torch, fns[which]))
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        bound_ms = moved[name] / PEAK_BYTES_PER_S * 1e3
+        print(f"kernel {name} int8:b256 on {shard_n} elements: kernel_ms {ms['kernel']:.4f} "
+              f"plain_ms {ms['plain']:.4f} bound_ms {bound_ms:.5f} (bytes: "
+              f"{moved[name] / 1e6:.2f} MB) library_ms None (no single PyTorch call)")
+        out[name] = dict(ms=ms, bound_ms=bound_ms, max_abs_err=worst)
+    return out
+
+
+def served_view_matches(torch, state, src_plan, manifest) -> int:
+    """Re-cut every coded shard from the restored moments under the Source
+    plan and hash it: each must equal the manifest's served digest.
+    Returns the number of shards checked."""
+    from repro_torch.core.dist_ckpt import shard_digest_key
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.core.tensor_io import content_digest
+
+    checked = 0
+    for kind, tree in ((StateKind.EXP_AVG, state.exp_avg), (StateKind.EXP_AVG_SQ, state.exp_avg_sq)):
+        for name, t in flatten_with_paths(tree).items():
+            spec = src_plan.param_specs[name]
+            logical = tuple(slice(0, n) for n in spec.logical_shape)
+            full = torch.zeros(spec.runtime_shape, dtype=t.dtype, device=t.device)
+            full[logical] = t[logical]
+            layout = spec.layout_for(kind, src_plan.mesh)
+            for rank in range(len(layout.entries)):
+                key = shard_digest_key(rank, name, kind)
+                if key not in manifest.shard_digests:
+                    continue
+                got = content_digest(slice_shard(full, layout, rank))
+                check(got == manifest.shard_digests[key], f"{key}: not the served view")
+                checked += 1
+    return checked
+
+
+def train_phase(torch, ops, bq_ops):
+    """Train full smollm-360m; save coded under data=2,model=2; resume under
+    two layouts; continue.  Returns the launch counts and measurements."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    check(parallel.compute_dtype == "bfloat16" and parallel.moment_dtype == "float32",
+          "train: not bf16 compute with fp32 moments")
+    root = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(mesh, **kw):
+        return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(mesh),
+                              batch_size=8, seq_len=512, device=dev, **kw)
+
+    out = {}
+    try:
+        ops.flash_attention.launches = 0
+        bq_ops.block_quantize.launches = bq_ops.block_dequantize.launches = 0
+        base = trainer("data=2,model=2")
+        state, hist = base.run(base.init_state(), 0, 6)
+        baseline = [h["loss"] for h in hist]
+        step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
+        print(f"train baseline smollm-360m 32 layers, 8x512 tokens, 6 steps: losses "
+              f"{[round(v, 4) for v in baseline]}; median step {step_s * 1e3:.1f} ms "
+              f"({8 * 512 / step_s:.0f} tokens/s)")
+        check(all(map(math.isfinite, baseline)), "baseline loss not finite")
+        batch = base.batch(6)
+        wall, busy, top = device_profile(torch, lambda: base.step_fn(state, batch))
+        print(f"profile train step: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
+              f"idle share {max(0.0, 1 - busy / wall):.3f}")
+        for key, ms, count in top:
+            print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        del state, base
+        torch.cuda.empty_cache()
+
+        policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
+        src = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
+        saved, hist = src.run(src.init_state(), 0, 3)
+        src.manager.close()
+        drift = max(abs(h["loss"] - b) for h, b in zip(hist, baseline))
+        print(f"train coded run steps 1-3: max |loss - baseline| {drift:.2e}")
+        check(drift <= 2e-2, "the coded run left the baseline before saving")
+        (res,) = src.save_results
+        src_plan = src.plan
+        manifest = DistCheckpoint.open(src.manager.step_dir(3)).manifest
+        n_coded = len(manifest.shard_codecs)
+        quant = bq_ops.block_quantize.launches
+        dequant_save = bq_ops.block_dequantize.launches
+        print(f"train save step 3 (data=2,model=2, int8:b256 moments, async): "
+              f"{res.bytes_written / 1e9:.3f} GB in {res.shards_written} shards, "
+              f"{res.wall_time_s:.2f} s ({res.bytes_written / 1e9 / res.wall_time_s:.3f} GB/s); "
+              f"coded {res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB "
+              f"(ratio {res.coded_bytes / res.coded_raw_bytes:.4f}); device->host "
+              f"{res.device_to_host_bytes / 1e9:.3f} GB for the coded shards; "
+              f"{n_coded} coded shards, quantize launches {quant}, dequantize launches "
+              f"{dequant_save}")
+        check(n_coded > 0 and quant == n_coded, f"quantize launches {quant} != {n_coded} coded shards")
+        check(dequant_save >= n_coded, f"dequantize launches {dequant_save} < {n_coded}")
+        saved_params = flatten_with_paths(saved.params)
+        del src
+
+        restore_s = {}
+        for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
+            before = bq_ops.block_dequantize.launches
+            tgt = trainer(mesh, ckpt_dir=str(root), policy=CheckpointPolicy(async_save=False,
+                                                                            save_interval=1000))
+            state, info = tgt.init_or_restore()
+            read = bq_ops.block_dequantize.launches - before
+            check(info is not None and info.mode.value == expect,
+                  f"{mesh}: planned {info and info.mode.value}, want {expect}")
+            check(state.step == 3, f"{mesh}: restored step {state.step}")
+            for name, t in flatten_with_paths(state.params).items():
+                logical = tuple(slice(0, n) for n in saved_params[name].shape)
+                check(torch.equal(t[logical], saved_params[name]), f"{mesh}: {name} differs")
+            n_checked = served_view_matches(torch, state, src_plan, manifest)
+            check(n_checked == n_coded, f"{mesh}: {n_checked} served digests checked")
+            check(read >= n_coded, f"{mesh}: {read} dequantize launches < {n_coded} coded shards")
+            restore_s[expect] = info.wall_time_s
+            _, hist = tgt.run(state, 3, 3)
+            resumed = [h["loss"] for h in hist]
+            check(all(map(math.isfinite, resumed)), f"{mesh}: resumed loss not finite")
+            print(f"train resume {mesh}: {info.mode.value} in {info.wall_time_s:.2f} s, params "
+                  f"bit-equal, {n_checked} moment shards equal to the served view, step 3, "
+                  f"{read} dequantize launches; steps 4-6 losses "
+                  + ", ".join(f"{a:.4f} (baseline {b:.4f})" for a, b in zip(resumed, baseline[3:])))
+            del state, tgt
+            torch.cuda.empty_cache()
+        flash = ops.flash_attention.launches
+        check(flash == 0, f"{flash} flash-attention launches during training")
+        out = dict(quantize=quant, dequantize=bq_ops.block_dequantize.launches, step_s=step_s,
+                   restore_s=restore_s)
+        print(f"train launches: quantize {quant}, dequantize {out['dequantize']}, "
+              f"flash_attention {flash}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -320,38 +579,52 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
 
+    from repro_torch.kernels.block_quant import kernel as bq_kernel
+    from repro_torch.kernels.block_quant import ops as bq_ops
+    from repro_torch.kernels.block_quant import ref as bq_ref
     from repro_torch.kernels.flash_attention import kernel, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-          f"torch {torch.__version__} cuda {torch.version.cuda}")
+          f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    _, report = kernel.build()
-    usage = [ln.strip() for ln in report["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
-    print(f"build: {'compiled' if report['compiled'] else 'cached'} in "
-          f"{report['seconds']:.2f} s -> {Path(report['library']).relative_to(ROOT)}")
-    for ln in usage:
-        print(f"  ptxas: {ln}")
-
+    build_all({"flash_attention": kernel, "block_quant": bq_kernel})
     k = kernel_phase(torch, F, kernel, ref)
-    runs = main_path(torch, ops)
-    launches = runs["data=1,model=1"]["launches"]
+    bq = block_quant_phase(torch, bq_ops, bq_ref)
+    runs = serve_phase(torch, ops)
+    train = train_phase(torch, ops, bq_ops)
 
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches,
+        "launches": runs["data=1,model=1"]["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"]["kernel"],
         "plain_ms": k["ms"]["plain"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["ms"]["library"],
-    }]}))
+    }]
+    for name, count in (("quantize_blocks", train["quantize"]),
+                        ("dequantize_blocks", train["dequantize"])):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": BQ_SOURCE,
+            "replaces": BQ_REPLACES[name],
+            "launches": count,
+            "max_abs_err": bq[name]["max_abs_err"],
+            "ms": bq[name]["ms"]["kernel"],
+            "plain_ms": bq[name]["ms"]["plain"],
+            "bound_ms": bq[name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,1 +1,3 @@
-"""Distributed checkpoint save and weights-only restore of the port."""
+"""Checkpointing of the port: distributed saves (raw or coded, sync or
+async), the manager and policy, and restore of the weights or the full
+train state."""

@@ -1,8 +1,10 @@
 """Universal Checkpointing core, ported: shard geometry, the UCP pattern
-language, the distributed on-disk format and resume planning.
+language, the distributed on-disk format, the shard codec and resume
+planning.
 
-Pure numpy, like ``repro.core``: a checkpoint written by either package
-reads in the other.
+Numpy, like ``repro.core``, with torch where a shard lives on the card (a
+coded moment is encoded and decoded there): a checkpoint written by either
+package reads in the other.
 """
 
 from .convert import assemble_atom

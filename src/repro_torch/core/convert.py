@@ -13,7 +13,7 @@ import numpy as np
 from .engine import CheckpointEngine
 from .ops import strip_padding
 from .patterns import ParamSpec, StateKind
-from .tensor_io import resolve_dtype
+from .tensor_io import staging_like, to_staging
 
 __all__ = ["assemble_atom"]
 
@@ -34,24 +34,27 @@ def assemble_atom(
     partitions included), then strips the padding (and averages replicas of
     ``params_to_average``).  ``out``: optional destination of logical
     shape; when no strip or average is needed, fragments go straight in.
+    Fragments decoded on a card (coded shards read through a CUDA engine)
+    make the atom a tensor on that card.
     """
     mesh = source.manifest.mesh
     layout = spec.layout_for(kind, mesh)
-    dtype = resolve_dtype(spec.states[kind].dtype)
     direct = (
         out is not None
         and not spec.average
         and tuple(spec.runtime_shape) == tuple(spec.logical_shape)
     )
-    target = out if direct else np.zeros(spec.runtime_shape, dtype=dtype)
-
-    for rank in source.writing_ranks(spec.name, kind):
-        if engine is not None:
-            shard = engine.read_fragment(source, rank, spec.name, kind)
-        else:
-            shard = source.read_fragment(rank, spec.name, kind)
+    shards = [
+        (rank, engine.read_fragment(source, rank, spec.name, kind) if engine is not None
+         else source.read_fragment(rank, spec.name, kind))
+        for rank in source.writing_ranks(spec.name, kind)
+    ]
+    target = out if direct else staging_like(
+        [s for _, s in shards], spec.runtime_shape, spec.states[kind].dtype, zero=True
+    )
+    for rank, shard in shards:
         for e in layout.entries[rank]:
-            target[e.atom_index()] = shard[e.shard_index()]
+            target[e.atom_index()] = to_staging(target, shard[e.shard_index()])
 
     atom = target if direct else strip_padding(target, spec)
     if out is not None and not direct:

@@ -13,8 +13,9 @@ written once, by the lowest rank of each replica group (``save_mode="dedup"``).
 
 The port reads every manifest the reference writes, delta provenance
 included (``shard_sources``/``base_dirs`` resolve a shard to the step
-directory that holds its bytes).  Only the ``raw`` codec is read: a shard
-tagged with a block-quantized codec raises (ROADMAP queue 1, item 5).
+directory that holds its bytes).  :meth:`DistCheckpoint.read_shard` is the
+one decode point of coded shards (:mod:`repro_torch.core.codec`): every
+reader above it serves coded checkpoints unchanged.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ from typing import Any, Mapping
 
 import numpy as np
 
-from . import clock
+from . import clock, codec
 from .layout import MeshSpec, ShardLayout
 from .patterns import ParamSpec, StateKind
-from .tensor_io import load_tensor, save_tensor
+from .tensor_io import content_digest, load_tensor, save_tensor
 
 __all__ = [
     "DistManifest",
@@ -225,18 +226,48 @@ class DistCheckpoint:
         return cls(root, manifest)
 
     def read_shard(
-        self, rank: int, name: str, kind: StateKind, *, mmap: bool = True
-    ) -> np.ndarray:
-        """Open one shard (mmap).  Raises for a coded (non-raw) shard."""
+        self, rank: int, name: str, kind: StateKind, *, mmap: bool = True, device=None
+    ):
+        """Open one shard: a raw shard as a (mmap'd) numpy array; a coded one
+        decoded, on ``device`` when that is a CUDA device (the dequantize
+        kernel) and with numpy otherwise."""
+        path = self.shard_path(rank, name, kind)
         tag = self.manifest.codec_tag(shard_digest_key(rank, name, kind))
-        if tag != "raw":
-            raise NotImplementedError(
-                f"shard {shard_digest_key(rank, name, kind)} uses codec {tag!r}; "
-                "only raw shards are read so far (ROADMAP queue 1, item 5: codec)"
-            )
         dtype = self.manifest.params[name].states[kind].dtype
-        return load_tensor(self.shard_path(rank, name, kind), dtype=dtype, mmap=mmap)
+        if tag == "raw":
+            return load_tensor(path, dtype=dtype, mmap=mmap)
+        return codec.decode_file(path, tag, dtype=dtype, device=device)
 
-    def read_fragment(self, rank: int, name: str, kind: StateKind) -> np.ndarray:
+    def read_fragment(self, rank: int, name: str, kind: StateKind, *, device=None):
         """FragmentSource read: one persisted shard file."""
-        return self.read_shard(rank, name, kind)
+        return self.read_shard(rank, name, kind, device=device)
+
+    def validate(self) -> list[str]:
+        """Integrity check: every expected shard file exists and its served
+        content matches the digest recorded at save time (a coded shard is
+        decoded first).  Returns the problems; empty means clean."""
+        problems: list[str] = []
+        for name, spec in self.manifest.params.items():
+            for kind in spec.states:
+                for rank in self.writing_ranks(name, kind):
+                    key = shard_digest_key(rank, name, kind)
+                    path = self.shard_path(rank, name, kind)
+                    if not path.exists():
+                        problems.append(f"missing shard file {path}")
+                        continue
+                    want = self.manifest.shard_digests.get(key)
+                    if want is None:
+                        continue  # pre-digest checkpoint: existence only
+                    try:
+                        arr = self.read_shard(rank, name, kind)
+                    except (OSError, ValueError) as e:  # unreadable == corrupt
+                        problems.append(f"unreadable shard {path}: {e}")
+                        continue
+                    try:
+                        got = content_digest(arr, want.split(":", 1)[0])
+                    except ValueError:
+                        problems.append(f"{key}: unrecognized recorded digest {want!r}")
+                        continue
+                    if got != want:
+                        problems.append(f"{key}: digest {got} != recorded {want}")
+        return problems

@@ -4,16 +4,21 @@ The reference engine owns a fragment index, a handle cache, a buffer arena
 and a worker pool.  This port keeps what the restore path needs to give the
 same bytes: :class:`FragmentIndex` (which fragments overlap a region) and a
 serial :class:`CheckpointEngine` with cached indexes, fragment reads,
-staging allocation (plain numpy: with no arena there is nothing to
-recycle) and memoized consolidated atoms.  The thread pool, the
+staging allocation (plain numpy or, on a device, torch: with no arena
+there is nothing to recycle) and memoized consolidated atoms.  The thread pool, the
 handle cache and the arena wait for the parallel-I/O item of the ROADMAP
 (queue 1, item 3); the reference's ``workers=1`` profile is exactly this
 serial order.
 
 A *fragment source* is anything with a ``.manifest`` (``params``, ``mesh``,
 ``save_mode``), ``.writing_ranks(name, kind)`` and
-``.read_fragment(rank, name, kind)`` — here, a
+``.read_fragment(rank, name, kind, device=)`` — here, a
 :class:`~repro_torch.core.dist_ckpt.DistCheckpoint`.
+
+An engine made for a CUDA ``device`` asks for coded fragments decoded there
+(the dequantize kernel), and the region reads that use them assemble on the
+card; raw fragments stay host numpy
+(:func:`~repro_torch.core.tensor_io.staging_like` is that rule).
 """
 
 from __future__ import annotations
@@ -22,8 +27,7 @@ import bisect
 from typing import Any, Callable, Sequence
 
 import numpy as np
-
-from .tensor_io import resolve_dtype
+import torch
 
 __all__ = ["CheckpointEngine", "FragmentIndex", "source_cache_key"]
 
@@ -112,15 +116,17 @@ class CheckpointEngine:
     the engine, and a consolidated atom is held until the engine is dropped.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, device=None) -> None:
+        device = torch.device(device) if device is not None else None
+        # Coded fragments decode on the card only; a CPU engine decodes with numpy.
+        self.decode_device = device if device is not None and device.type == "cuda" else None
         self._indexes: dict[tuple[str, str, str], FragmentIndex] = {}
-        self._atoms: dict[str, np.ndarray] = {}
-
-    def alloc(self, shape, dtype, *, zero: bool = True) -> np.ndarray:
-        """Staging buffer; ``zero=False`` when the caller overwrites it all."""
-        dt = resolve_dtype(dtype) if isinstance(dtype, str) else np.dtype(dtype)
-        shape = tuple(int(s) for s in shape)
-        return np.zeros(shape, dt) if zero else np.empty(shape, dt)
+        self._atoms: dict[str, np.ndarray | torch.Tensor] = {}
+        # Fragments decoded on the card for the (source, param, kind) being
+        # read: each coded file is decoded once however many Target regions
+        # straddle it.  Reset when the next (param, kind) starts.
+        self._decoded_for: tuple | None = None
+        self._decoded: dict[int, torch.Tensor] = {}
 
     def index_for(self, source, name: str, kind) -> FragmentIndex:
         """The (cached) fragment index of one ``(source, param, kind)``."""
@@ -130,17 +136,24 @@ class CheckpointEngine:
             idx = self._indexes[key] = FragmentIndex(source, name, kind)
         return idx
 
-    def read_fragment(self, source, rank: int, name: str, kind) -> np.ndarray:
-        """One available fragment of a fragment source."""
-        return source.read_fragment(rank, name, kind)
+    def read_fragment(self, source, rank: int, name: str, kind):
+        """One available fragment of a fragment source (coded ones decoded on
+        the engine's card, if it has one, once per param and kind)."""
+        key = (source_cache_key(source), name, getattr(kind, "value", kind))
+        if key != self._decoded_for:
+            self._decoded_for, self._decoded = key, {}
+        frag = self._decoded.get(rank)
+        if frag is None:
+            frag = source.read_fragment(rank, name, kind, device=self.decode_device)
+            if isinstance(frag, torch.Tensor) and frag.is_cuda:
+                self._decoded[rank] = frag
+        return frag
 
-    def consolidated(
-        self, source, name: str, kind, builder: Callable[[], np.ndarray]
-    ) -> np.ndarray:
+    def consolidated(self, source, name: str, kind, make: Callable[[], Any]):
         """Memoized in-memory consolidated atom of one ``(source, param, kind)``:
         built once, then it serves every Target region of the parameter."""
         key = f"{source_cache_key(source)}::atom::{name}@{getattr(kind, 'value', kind)}"
         atom = self._atoms.get(key)
         if atom is None:
-            atom = self._atoms[key] = builder()
+            atom = self._atoms[key] = make()
         return atom

@@ -42,6 +42,7 @@ import math
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "MeshSpec",
@@ -407,9 +408,15 @@ def compute_layout(
 # ---------------------------------------------------------------------------
 
 
-def slice_shard(global_arr: np.ndarray, layout: ShardLayout, rank: int) -> np.ndarray:
-    """Materialize rank's local shard (with zero padding) from a global array."""
-    local = np.zeros(layout.local_shape, dtype=global_arr.dtype)
+def slice_shard(global_arr, layout: ShardLayout, rank: int):
+    """Materialize rank's local shard (with zero padding) from a global array.
+
+    ``global_arr`` is a numpy array or a torch tensor; a tensor's shard is
+    allocated on its device, through the same ``entries[rank]`` index maps."""
+    if isinstance(global_arr, torch.Tensor):
+        local = torch.zeros(layout.local_shape, dtype=global_arr.dtype, device=global_arr.device)
+    else:
+        local = np.zeros(layout.local_shape, dtype=global_arr.dtype)
     for e in layout.entries[rank]:
         local[e.shard_index()] = global_arr[e.atom_index()]
     return local

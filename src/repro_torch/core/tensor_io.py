@@ -28,8 +28,11 @@ __all__ = [
     "EXTENDED_DTYPES",
     "IntegrityError",
     "content_digest",
+    "dtype_name",
     "resolve_dtype",
     "torch_dtype",
+    "staging_like",
+    "to_staging",
     "save_tensor",
     "load_tensor",
     "open_memmap",
@@ -98,11 +101,41 @@ def resolve_dtype(name: str) -> np.dtype:
     return np.dtype(name)
 
 
+def dtype_name(dtype) -> str:
+    """Checkpoint name of a numpy or torch dtype (``float32``, ``bfloat16``…)."""
+    if isinstance(dtype, torch.dtype):
+        if dtype in _BY_TORCH:
+            return _BY_TORCH[dtype][0]
+        return np.dtype(torch.empty(0, dtype=dtype).numpy().dtype).name
+    return np.dtype(dtype).name
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """torch dtype of a checkpoint dtype name (extended names included)."""
     if name in EXTENDED_DTYPES:
         return EXTENDED_DTYPES[name][0]
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
+
+
+def staging_like(pieces, shape, dtype, *, zero: bool):
+    """A staging buffer for ``pieces``: a torch tensor on their device when
+    any of them is a tensor (coded moments decoded on the card), else a
+    numpy array."""
+    dev = next((p.device for p in pieces if isinstance(p, torch.Tensor)), None)
+    shape = tuple(int(s) for s in shape)
+    if dev is None:
+        dt = resolve_dtype(dtype) if isinstance(dtype, str) else np.dtype(dtype)
+        return np.zeros(shape, dt) if zero else np.empty(shape, dt)
+    tdt = torch_dtype(dtype if isinstance(dtype, str) else dtype_name(dtype))
+    alloc = torch.zeros if zero else torch.empty
+    return alloc(shape, dtype=tdt, device=dev)
+
+
+def to_staging(out, piece):
+    """``piece`` in the kind of ``out`` (a host array goes to ``out``'s device)."""
+    if isinstance(out, torch.Tensor) and not isinstance(piece, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(piece)).to(out.device)
+    return piece
 
 
 def save_tensor(path: str | os.PathLike, arr, *, fsync: bool = True) -> None:

@@ -1,12 +1,11 @@
-"""Build, bind and launch the Hopper flash-attention kernel
+"""Bind and launch the Hopper flash-attention kernel
 (``csrc/flash_attention.cu``; the counterpart of the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``).
 
-The CUDA source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, under ``build/repro_torch/`` of
-the checkout, named by a hash of the source and flags so a changed source
-rebuilds; it is loaded with ``ctypes``.  Nothing is compiled or loaded when
-this module is imported.
+The CUDA source is compiled at first use by
+:func:`repro_torch.kernels.nvcc.compile_and_load` (``nvcc``, ``sm_90a``, a
+plain C entry point loaded with ``ctypes``).  Nothing is compiled or loaded
+when this module is imported.
 
 The launch takes tensors in the model layout ``[B, S, H, D]`` with their
 strides (the head dim must be contiguous), runs on PyTorch's current
@@ -16,22 +15,15 @@ stream, allocates nothing but the output, and raises on any launch error.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["build", "flash_attention_fwd", "HEAD_DIMS", "NVCC_FLAGS"]
+from repro_torch.kernels.nvcc import compile_and_load, launch_error
+
+__all__ = ["build", "flash_attention_fwd", "HEAD_DIMS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,50 +32,14 @@ _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
 
 
-def _build_dir() -> Path:
-    # src/repro_torch/kernels/flash_attention/kernel.py -> the checkout root
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
 def build() -> tuple[ctypes.CDLL, dict]:
-    """Compile (once per source hash) and load the kernel library.
-
-    Returns the library and a report: the library path, whether it was
-    compiled by this process, the compile seconds, and ``nvcc``'s
-    ``ptxas -v`` output (registers, shared memory and spills per
-    instantiation).  After the first call both come from memory.
-    """
+    """Compile (once per source hash) and load the kernel library; returns
+    it with the build report (see ``compile_and_load``).  After the first
+    call both come from memory."""
     global _LIB, _REPORT
     if _LIB is not None:
         return _LIB, _REPORT
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _build_dir() / f"flash_attention_{tag}.so"
-    report = {"library": str(out), "compiled": False, "seconds": 0.0, "ptxas": ""}
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr[-4000:]}")
-        os.replace(tmp, out)
-        report.update(compiled=True, seconds=time.perf_counter() - t0, ptxas=res.stderr)
-    lib = ctypes.CDLL(str(out))
+    lib, report = compile_and_load(SOURCE, "flash_attention")
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 4
@@ -92,8 +48,6 @@ def build() -> tuple[ctypes.CDLL, dict]:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _LIB, _REPORT = lib, report
     return lib, report
 
@@ -152,9 +106,5 @@ def flash_attention_fwd(
             float(scale), int(causal), int(window), stream,
         )
     if err != 0:
-        what = (
-            lib.repro_cuda_error_string(err).decode() if err > 0
-            else "unsupported dtype or head dim"
-        )
-        raise RuntimeError(f"flash_attention_fwd launch failed ({err}: {what})")
+        raise launch_error(lib, err, "flash_attention_fwd", "unsupported dtype or head dim")
     return o

@@ -4,7 +4,10 @@
 ``flash_attention(q, k, v)`` takes ``[B, S, H, D]`` tensors:
 
 * on CUDA tensors it launches the Hopper kernel (``kernel.py``) or raises —
-  there is no fallback and no switch;
+  there is no fallback and no switch.  The kernel has no backward (the JAX
+  package has none either), so it refuses inputs for which autograd would
+  record a gradient (:func:`records_grad`) instead of returning a detached
+  output; the model takes its differentiable plain attention then;
 * on CPU tensors it computes the plain version (``ref.attention_ref``),
   which is how the tests on a machine without a card reach the same math.
 
@@ -22,7 +25,22 @@ import torch
 from . import kernel
 from .ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "records_grad", "refuse_grad"]
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a gradient through ``tensors`` here."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise when the kernel's output would silently cut the gradient."""
+    if records_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward and its output "
+            "would carry no gradient; call it under torch.no_grad() or "
+            "inference_mode, or use models.attention.full_attention for training"
+        )
 
 
 def flash_attention(
@@ -43,6 +61,7 @@ def flash_attention(
         )
         return o.transpose(1, 2)
     if devices == {"cuda"}:
+        refuse_grad(q, k, v)
         o = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
         flash_attention.launches += 1
         return o

@@ -6,9 +6,18 @@ same names and layer-stacked shapes (``layers.blk.wqkv`` is
 lets one checkpoint serve both packages.  The reference ``lax.scan``s over
 the stacked ``[L, ...]`` params; the port loops over ``l`` and indexes them.
 
-Attention on a CUDA tensor goes through the hand-written flash-attention
-kernel for every prefill, whatever the sequence length; on a CPU tensor it
-is :func:`~repro_torch.models.attention.full_attention`.
+Attention on a CUDA tensor with no gradient recorded (serving's prefill)
+goes through the hand-written flash-attention kernel, whatever the sequence
+length.  Otherwise — training, or any CPU tensor — it is what the reference
+executes: :func:`~repro_torch.models.attention.full_attention` up to 2048
+tokens and :func:`~repro_torch.models.attention.chunked_attention` above,
+with the reference's block choice (``repro/models/lm.py:396-410``).  The
+kernel has no backward; the JAX package trains through the same plain
+functions.
+
+``remat="full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the reference's per-layer ``jax.checkpoint``);
+``"none"`` keeps activations.
 
 Only the dense family is ported.  MoE, MLA, SSM, cross-attention and
 encoder configs raise ``NotImplementedError`` (ROADMAP queue 1, item 6:
@@ -18,14 +27,16 @@ other model families).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, records_grad
 
-from .attention import full_attention
+from .attention import chunked_attention, full_attention
 from .common import ParamDef, ParamRegistry, apply_rope, rms_norm, rotary_embedding, swiglu
 
 __all__ = ["LayerDef", "StageDef", "LM", "build_lm", "plan_stages", "build_param_defs"]
@@ -165,15 +176,23 @@ class LM:
     registry: ParamRegistry
     stages: list[StageDef]
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"  # "full" | "none"
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Fresh fp32 weights from ``generator`` (on its device by default)."""
         return self.registry.init(generator, device=device)
 
     def _attention(self, q, k, v, *, causal: bool, window: int):
-        if q.is_cuda:
+        if q.is_cuda and not records_grad(q, k, v):
             return flash_attention(q, k, v, causal=causal, window=window)
-        return full_attention(q, k, v, causal=causal, window=window)
+        sq, skv = q.shape[1], k.shape[1]
+        if max(sq, skv) <= 2048:
+            return full_attention(q, k, v, causal=causal, window=window)
+        kv_block = max(b for b in (1024, 512, 500, 400, 256, 128, 100, 64, 32, 16, 8, 4, 2, 1)
+                       if skv % b == 0)
+        q_block = max(b for b in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if sq % b == 0)
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 q_block=q_block, kv_block=kv_block)
 
     def _self_attn(self, p, x, *, window: int, positions, causal: bool = True):
         """Pre-norm self-attention block on one layer's params; returns the
@@ -203,6 +222,59 @@ class LM:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
         return x + out
 
+    def _layer(self, keys, window, causal, positions, x, *values):
+        """One pre-norm attention + MLP layer on its params (as positional
+        tensors, so ``torch.utils.checkpoint`` sees them)."""
+        p = dict(zip(keys, values))
+        x, _ = self._self_attn(p, x, window=window, positions=positions, causal=causal)
+        return self._mlp(p, x)
+
+    def _stage_forward(self, stage: StageDef, params, x, *, positions):
+        # unbind once: the backward of a per-layer view is then one stack,
+        # not a full-size zero tensor per layer
+        per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
+               for ld in stage.body}
+        for layer in range(stage.count):
+            for ld in stage.body:
+                keys = tuple(per[ld.name])
+                values = [per[ld.name][k][layer] for k in keys]
+                fn = functools.partial(
+                    self._layer, keys, stage.window(ld, layer), ld.causal, positions
+                )
+                if self.remat == "full":
+                    x = checkpoint(fn, x, *values, use_reentrant=False)
+                else:
+                    x = fn(x, *values)
+        return x
+
+    def forward(self, params, tokens: torch.Tensor, *, positions=None):
+        """tokens [B,S] → (fp32 logits [B,S,vocab_padded], aux loss scalar).
+
+        The logits are the bf16 activations times the bf16-rounded unembed,
+        accumulated and returned in fp32 (the reference's einsum with
+        ``preferred_element_type=float32``): both operands are upcast
+        exactly and multiplied in fp32."""
+        cfg = self.cfg
+        x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for stage in self.stages:
+            x = self._stage_forward(stage, params[stage.name], x, positions=positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = x.float() @ self.unembed(params).float()
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def loss_fn(self, params, batch):
+        """Next-token cross-entropy over the logical vocabulary."""
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits, aux = self.forward(params, inputs)
+        logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        loss = nll.mean()
+        return loss, {"loss": loss, "aux": aux}
+
     def unembed(self, params) -> torch.Tensor:
         """The [d, vocab_padded] output projection in the compute dtype."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
@@ -214,10 +286,16 @@ def build_lm(
     *,
     vocab_multiple: int = 1,
     compute_dtype: torch.dtype = torch.bfloat16,
+    remat: str = "full",
 ) -> LM:
     """Construct the model for a (dense) config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
     the padding is runtime-only, UCP atoms store the logical vocab."""
+    if remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={remat!r}: only 'full' and 'none' are ported; 'dots' (save the "
+            "matmul outputs) is a ROADMAP performance note"
+        )
     vp = -(-cfg.vocab_size // vocab_multiple) * vocab_multiple
     return LM(
         cfg=cfg,
@@ -225,4 +303,5 @@ def build_lm(
         registry=build_param_defs(cfg, vp),
         stages=plan_stages(cfg),
         compute_dtype=compute_dtype,
+        remat=remat,
     )

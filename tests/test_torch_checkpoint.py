@@ -34,7 +34,7 @@ import repro_torch.core as T  # noqa: E402
 import repro_torch.core.tensor_io as TIO  # noqa: E402
 import repro_torch.dist.sharding as TS  # noqa: E402
 from repro_torch.ckpt.restore import params_from_source, target_regions  # noqa: E402
-from repro_torch.ckpt.saver import snapshot, write_distributed as port_write  # noqa: E402
+from repro_torch.ckpt.saver import snapshot_weights, write_distributed as port_write  # noqa: E402
 from repro_torch.models import build_model as port_build  # noqa: E402
 
 SOURCE = {"data": 2, "model": 2}
@@ -132,11 +132,11 @@ def test_port_checkpoint_opens_in_reference(ref_snapshot, tmp_path):
 
 
 def test_snapshot_writes_zero_moments(tmp_path):
-    """``snapshot`` of weights only lists all three kinds, with the moments at
+    """``snapshot_weights`` lists all three kinds, with the moments at
     AdamW's initial zeros, so the manifest matches a reference checkpoint's."""
     tplan, lm, _ = _port_plan(SOURCE)
     params = lm.init(torch.Generator().manual_seed(0))
-    snap = snapshot(params)
+    snap = snapshot_weights(params)
     port_write(snap, tplan, 1, tmp_path / "ck")
     ck = R.DistCheckpoint.open(tmp_path / "ck")
     assert ck.validate() == []

@@ -9,7 +9,13 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
   the serving slice's head layout, with ragged lengths and windows;
 * reduced smollm prefill and decode on the card (kernel path) against the
-  same weights on the CPU (plain path), in float32.
+  same weights on the CPU (plain path), in float32;
+* the block-quant kernels against their plain version, byte for byte (q,
+  scales and the decoded fp32), for int8, e4m3 and e5m2, and the codec's
+  decode on the card against its numpy decode;
+* one reduced train step on the card against the CPU path (fp32): the loss
+  within 1e-5, the gradients of ``wqkv`` (atol 1e-5, rtol 1e-4), and no
+  flash-attention launch while a gradient is recorded.
 """
 
 import numpy as np
@@ -17,11 +23,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro_torch.configs as TC  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import codec  # noqa: E402
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths  # noqa: E402
+from repro_torch.kernels.block_quant import ref as bq_ref  # noqa: E402
+from repro_torch.kernels.block_quant.ops import block_dequantize, block_quantize  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.train.optimizer import init_state  # noqa: E402
+from repro_torch.train.steps import make_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +116,67 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _bq_input(case):
+    rng = np.random.default_rng(0)
+    if case == "ragged":
+        return rng.standard_normal(1000).astype(np.float32) * 3
+    if case == "zero-block":
+        return np.concatenate([rng.standard_normal(256), np.zeros(256), rng.standard_normal(7)]
+                              ).astype(np.float32)
+    if case == "large":
+        return np.float32([1e30, -1e30, 0.5, 0.0, 3e29, -7.0] * 50)
+    # magnitudes over 1e-13..1e13, one row each: every rounding path
+    rows = rng.standard_normal((4000, 256)) * np.exp(rng.uniform(-30, 30, (4000, 1)))
+    return rows.astype(np.float32).reshape(-1)
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("block", [256, 100])
+@pytest.mark.parametrize("case", ["ragged", "zero-block", "large", "spread"])
+def test_block_quant_kernels_equal_plain_bytes(cuda, case, block, qdtype):
+    x = torch.from_numpy(_bq_input(case))
+    launches = (block_quantize.launches, block_dequantize.launches)
+    q, s = block_quantize(x.to(cuda), block=block, dtype=qdtype)
+    d = block_dequantize(q, s, count=x.numel())
+    torch.cuda.synchronize()
+    assert (block_quantize.launches, block_dequantize.launches) == (launches[0] + 1,
+                                                                   launches[1] + 1)
+    pq, ps = bq_ref.quantize_blocks(bq_ref.blocked(x, block=block), dtype=qdtype)
+    pd = bq_ref.dequantize_blocks(pq, ps, count=x.numel())
+    assert torch.equal(q.cpu().view(torch.uint8), pq.view(torch.uint8))
+    assert torch.equal(s.cpu().view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(d.cpu().view(torch.int32), pd.view(torch.int32))
+
+
+@pytest.mark.parametrize("tag", ["int8:b256", "fp8:e4m3:b256", "fp8:e5m2:b64"])
+def test_codec_on_card_equals_host_codec(cuda, tag):
+    x = torch.from_numpy(_bq_input("spread")[:300_000].reshape(300, 1000))
+    on_card = codec.encode_shard(x.to(cuda), tag)
+    on_host = codec.encode_shard(x.numpy(), tag)
+    assert on_card.payload.tobytes() == on_host.payload.tobytes()
+    assert on_card.decoded.is_cuda
+    assert on_card.decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
+    decoded = codec.decode_payload(on_host.payload, device=cuda)
+    assert decoded.is_cuda and decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    lm = build_model(reduced(get_config("smollm-360m")), compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 256, (4, 33), generator=torch.Generator().manual_seed(1))
+    step = make_train_step(lm, TC.TrainConfig(), TC.ParallelismConfig())
+    launches = flash_attention.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in flatten_with_paths(params).items()}
+        loss, _ = lm.loss_fn(unflatten_from_paths(leaves), {"tokens": toks.to(dev)})
+        (g,) = torch.autograd.grad(loss, [leaves["layers.blk.wqkv"]])
+        state, metrics = step(init_state(_to(params, dev)), {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(loss.detach()), g.cpu(), float(metrics["grad_norm"]))
+    assert flash_attention.launches == launches
+    (l0, g0, n0), (l1, g1, n1) = out["cpu"], out[str(cuda)]
+    assert abs(l0 - l1) <= 1e-5 and abs(n0 - n1) <= 1e-4 * n0
+    assert g1.abs().sum() > 0
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-5, rtol=1e-4)

@@ -37,7 +37,7 @@ from repro.models import decode as RD  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 import repro_torch.dist.sharding as TS  # noqa: E402
-from repro_torch.ckpt.saver import snapshot, write_distributed  # noqa: E402
+from repro_torch.ckpt.saver import snapshot_weights, write_distributed  # noqa: E402
 from repro_torch.models import build_model, params_from_reference  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 
@@ -126,7 +126,7 @@ def test_serve_cli_reshard_stream_equals_direct(tmp_path):
     lm = build_model(cfg, vocab_multiple=TS.vocab_multiple(parallel, mesh))
     plan = TS.make_plan(cfg, lm.registry, parallel, mesh)
     params = lm.init(torch.Generator().manual_seed(3))
-    write_distributed(snapshot(params), plan, 5, tmp_path / "ck" / "step_00000005")
+    write_distributed(snapshot_weights(params), plan, 5, tmp_path / "ck" / "step_00000005")
     stream = _serve(tmp_path / "ck", "data=1,model=1")
     direct = _serve(tmp_path / "ck", "data=2,model=2")
     assert (stream["mode"], stream["step"]) == ("reshard_stream", 5)
