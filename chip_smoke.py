@@ -8,7 +8,7 @@ nothing falls back to the CPU or to a plain version):
 
 1. device  — require CUDA; print the card's name and power limit as
    ``nvidia-smi`` reports them;
-2. build   — compile both kernel sources of this checkout with nvcc
+2. build   — compile the three kernel sources of this checkout with nvcc
    (sm_90a), one process each, started together; print the build seconds
    and ptxas' report;
 3. kernel flash_attention — against its plain PyTorch version at the
@@ -22,14 +22,27 @@ nothing falls back to the CPU or to a plain version):
    data=2,model=2, checked byte for byte (q, scales and the decoded fp32);
    then kernel and plain times and the bound (bytes over 3.35 TB/s; no
    single PyTorch call computes this function, so no library time);
-5. serve, full smollm-360m at all 32 layers: init on the card from a
-   seeded generator; ``write_distributed`` of the weights under
-   data=2,model=2; weights-only restore under data=1,model=1
-   (RESHARD_STREAM) and data=2,model=2 (DIRECT), each bit-equal to the
-   save; prefill 4 × 512 tokens and 16 greedy decode steps from each
-   restore, the flash kernel's launches counted around each run; both give
-   the same tokens; the card's fp32 logits agree with the port's CPU path;
-6. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
+5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
+   chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
+   slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
+   dt = softplus(N(0,1) + dt_bias) with dt_bias from the ``ssm_dt`` init,
+   A = -(1..24)), a G=2 case with 4 heads and chunk 64, an fp32 case and a
+   case reading strided views as the model hands them, max abs error beside
+   the tolerances of ``tests/test_kernels.py``; then kernel and plain times
+   and the bound (no single PyTorch call computes this function, so no
+   library time);
+6. serve, full smollm-360m (32 layers) and then full mamba2-130m (24
+   layers), each: init on the card from a seeded generator;
+   ``write_distributed`` of the weights under data=2,model=2; weights-only
+   restore under data=1,model=1 (RESHARD_STREAM, fused QKV or the five-part
+   ``in_proj`` consolidated) and data=2,model=2 (DIRECT), each bit-equal to
+   the save; prefill 4 × 512 tokens and 16 greedy decode steps from each
+   restore, every kernel's launches counted around each run (smollm: 32
+   flash-attention and 0 SSD-scan launches per prefill; mamba2: 24 and 0
+   the other way); both give the same tokens; the card's fp32 logits agree
+   with the port's CPU path (mamba2 over 512 tokens: two chunks, so the
+   carried state is compared);
+7. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
    from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
    6 uninterrupted steps (the baseline); separately 3 steps under a
    ``CheckpointManager`` with ``CheckpointPolicy(codec="int8:b256",
@@ -43,7 +56,7 @@ nothing falls back to the CPU or to a plain version):
    shards read per resume, flash-attention 0); step time, tokens/s, save
    GB/s, coded/raw bytes, restore seconds and one profiled step's device
    busy share;
-7. the kernels line (JSON), the card line, then the result line (JSON, last).
+8. the kernels line (JSON), the card line, then the result line (JSON, last).
 """
 
 from __future__ import annotations
@@ -66,6 +79,11 @@ BQ_REPLACES = {
     "quantize_blocks": "src/repro/kernels/block_quant/kernel.py:56",
     "dequantize_blocks": "src/repro/kernels/block_quant/kernel.py:86",
 }
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:78"
+# (atol, rtol) of y by dtype, and of h_final: tests/test_kernels.py:107-112
+SSD_TOL = {"bfloat16": (5e-2, 5e-2), "float32": (5e-4, 1e-4)}
+SSD_H_TOL = (5e-3, 5e-3)
 QDTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
@@ -229,8 +247,117 @@ def kernel_phase(torch, F, kernel, ref):
     return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
-def serve_phase(torch, ops):
-    """Save, restore two ways, and serve full smollm-360m on the card."""
+def ssd_bound(x, bm, y, h_final, dt, a, chunk: int, *, flops_peak: float):
+    """Least time for the work: x, dt, a, B and C read once, y and h_final
+    written once, at the memory rate; against the products of each chunk at
+    the peak rate of the inputs' type — C·Bᵀ and its product with dt·x over
+    the causal triangle (j <= i) only, the inter-chunk term and the state
+    update in full."""
+    bsz, s, h, p = x.shape
+    n = bm.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, bm, y, h_final))
+    tri = chunk * (chunk + 1) // 2
+    flops = (2 * tri * n + 2 * tri * p + 4 * chunk * n * p) * bsz * h * (s // chunk)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / flops_peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def ssd_phase(torch, F, ssd_ops, ssd_ref):
+    """The SSD kernel against its plain versions on the card, then its time
+    at the SSM serving slice's shapes."""
+    from repro_torch.models.common import ParamDef, ParamRegistry
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(b, s, h, p, groups, n, dtype):
+        dt_bias = ParamRegistry([ParamDef("dt_bias", (h,), ("ssm_heads",), init="ssm_dt")]
+                                ).init(g)["dt_bias"]
+        x = torch.randn(b, s, h, p, generator=g, device=dev).to(dtype)
+        dt = F.softplus(torch.randn(b, s, h, generator=g, device=dev) + dt_bias)
+        a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+        bm, cm = (torch.randn(b, s, groups, n, generator=g, device=dev).to(dtype) for _ in "bc")
+        return x, dt, a, bm, cm
+
+    def within(got, want, atol, rtol):
+        diff = (got.float() - want.float()).abs()
+        return diff.max().item(), bool((diff <= atol + rtol * want.float().abs()).all())
+
+    cases = [
+        ("bf16 B=4 S=512 H=24 P=64 G=1 N=128 chunk 256", (4, 512, 24, 64, 1, 128), torch.bfloat16, 256),
+        ("bf16 B=2 S=256 H=4 P=64 G=2 N=128 chunk 64", (2, 256, 4, 64, 2, 128), torch.bfloat16, 64),
+        ("fp32 B=1 S=512 H=24 P=64 G=1 N=128 chunk 256", (1, 512, 24, 64, 1, 128), torch.float32, 256),
+    ]
+    worst, main = 0.0, None
+    for label, shape, dtype, chunk in cases:
+        x, dt, a, bm, cm = inputs(*shape, dtype)
+        y, hT = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        rep = shape[2] // shape[4]
+        plains = {
+            "ssd_chunked": ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+            "ssd_ref": tuple(
+                t.transpose(1, 2) if i == 0 else t for i, t in enumerate(ssd_ref.ssd_ref(
+                    x.transpose(1, 2), dt.transpose(1, 2), a,
+                    bm.repeat_interleave(rep, 2).transpose(1, 2),
+                    cm.repeat_interleave(rep, 2).transpose(1, 2)))),
+        }
+        torch.cuda.synchronize()
+        check(y.dtype == dtype and hT.dtype == torch.float32, f"{label}: output dtypes")
+        check(bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all()),
+              f"{label}: non-finite output")
+        atol, rtol = SSD_TOL[str(dtype).split(".")[1]]
+        for name, (py, ph) in plains.items():
+            ey, oky = within(y, py, atol, rtol)
+            eh, okh = within(hT, ph, *SSD_H_TOL)
+            print(f"kernel ssd_scan {label} vs {name}: y max_abs_err {ey:.3e} (atol {atol} "
+                  f"rtol {rtol}), h_final max_abs_err {eh:.3e} (atol/rtol {SSD_H_TOL[0]}) "
+                  f"{'ok' if oky and okh else 'FAIL'}")
+            check(oky and okh, f"{label}: kernel disagrees with {name}")
+            if dtype == torch.bfloat16 and name == "ssd_chunked":
+                worst = max(worst, ey)
+        if main is None:
+            main = (x, dt, a, bm, cm, y, hT, chunk)
+
+    # the model's views: x, B and C split from one conv output, dt a column slice
+    b, s, h, p, groups, n = 4, 512, 24, 64, 1, 128
+    xbc = torch.randn(b, s, h * p + 2 * groups * n, generator=g, device=dev).to(torch.bfloat16)
+    xv, bv, cv = torch.split(xbc, [h * p, groups * n, groups * n], dim=-1)
+    xv, bv, cv = xv.reshape(b, s, h, p), bv.reshape(b, s, groups, n), cv.reshape(b, s, groups, n)
+    dtv = F.softplus(torch.randn(b, s, 2 * h, generator=g, device=dev))[..., :h]
+    a = main[2]
+    check(not (xv.is_contiguous() or bv.is_contiguous() or dtv.is_contiguous()), "views are contiguous")
+    yv, hv = ssd_ops.ssd_scan(xv, dtv, a, bv, cv, chunk=256)
+    yc, hc = ssd_ops.ssd_scan(*(t.contiguous() for t in (xv, dtv, a, bv, cv)), chunk=256)
+    torch.cuda.synchronize()
+    same = torch.equal(yv, yc) and torch.equal(hv, hc)
+    print(f"kernel ssd_scan strided views (split xbc, sliced dt): equal to contiguous copies: {same}")
+    check(same, "ssd_scan: strided views give another result")
+
+    x, dt, a, bm, cm, y, hT, chunk = main
+    runs = {
+        "kernel": lambda: ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk),
+        "plain": lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+    }
+    times: dict[str, list[float]] = {n: [] for n in runs}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        times[name].append(cuda_ms(torch, runs[name], iters=20))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    bound_ms, bound_by, nbytes, flops = ssd_bound(x, bm, y, hT, dt, a, chunk,
+                                                  flops_peak=PEAK_BF16_FLOPS)
+    print(f"kernel ssd_scan bf16 B=4 S=512 H=24 P=64 G=1 N=128 chunk 256: kernel_ms "
+          f"{ms['kernel']:.4f} plain_ms {ms['plain']:.4f} (ssd_chunked) bound_ms {bound_ms:.5f} "
+          f"({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP in the causal triangle) "
+          f"fp32-core floor {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; library_ms None "
+          f"(no single PyTorch call)")
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+
+
+def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int):
+    """Save, restore two ways, and serve one full-size config on the card.
+    ``counters`` maps each kernel to its wrapper (whose ``launches`` count);
+    ``per_prefill`` gives the launches one prefill of this config must make;
+    ``cpu_len`` is the prompt of the card-vs-CPU fp32 logits check."""
     from repro_torch.ckpt.saver import snapshot_weights, write_distributed
     from repro_torch.configs import get_config
     from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
@@ -241,10 +368,9 @@ def serve_phase(torch, ops):
     )
     from repro_torch.models import build_model
     from repro_torch.models import decode as D
-    from repro_torch.models.common import cast_tree
 
     dev = torch.device("cuda")
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
 
     def plan_for(mesh_str, dtype=torch.bfloat16):
         mesh = mesh_spec_from_string(mesh_str)
@@ -252,15 +378,22 @@ def serve_phase(torch, ops):
         lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
         return lm, make_plan(cfg, lm.registry, parallel, mesh)
 
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
     lm, src_plan = plan_for("data=2,model=2")
     t0 = time.perf_counter()
     params = lm.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = lm.registry.num_params()
-    print(f"main init: smollm-360m {cfg.num_layers} layers, {n_params} params on the card "
+    print(f"serve {arch} init: {cfg.num_layers} layers, {n_params} params on the card "
           f"in {time.perf_counter() - t0:.2f} s")
 
-    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    ckpt_root = ROOT / "build" / f"chip_smoke_ckpt_{arch}"
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
@@ -269,7 +402,7 @@ def serve_phase(torch, ops):
         res = write_distributed(snap, src_plan, 1, ckpt_root / "step_00000001",
                                 config_fingerprint=cfg.fingerprint())
         del snap
-        print(f"main save: data=2,model=2 {res.bytes_written / 1e9:.3f} GB in "
+        print(f"serve {arch} save: data=2,model=2 {res.bytes_written / 1e9:.3f} GB in "
               f"{res.shards_written} shards, {res.wall_time_s:.2f} s "
               f"({res.bytes_written / 1e9 / res.wall_time_s:.3f} GB/s; "
               f"device→host snapshot {snap_s:.2f} s)")
@@ -292,23 +425,26 @@ def serve_phase(torch, ops):
             check(set(flat) == set(saved), f"{mesh_str}: restored parameter set differs")
             for name, t in flat.items():
                 check(torch.equal(t, saved[name]), f"{mesh_str}: {name} differs from the save")
-            print(f"main restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
+            print(f"serve {arch} restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
                   f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
-            params_c = cast_tree(unflatten_from_paths(flat), torch.bfloat16)
+            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
             del flat
+            kept = {n for n, t in flatten_with_paths(params_c).items() if t.dtype == torch.float32}
+            check(kept == {d.path for d in tlm.registry if d.keep_fp32},
+                  f"{mesh_str}: {sorted(kept)} left in float32")
             # Warm-up at the timed shapes: lazily loaded CUDA modules, cuBLAS
             # handles and heuristics would otherwise land in the timed run.
             generate(tlm, params_c, prompts, 17)
-            ops.flash_attention.launches = 0
+            reset()
             seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
-            launches = ops.flash_attention.launches
-            check(launches == cfg.num_layers,
-                  f"{mesh_str}: {launches} kernel launches in one prefill, want {cfg.num_layers}")
+            launches = counts()
+            check(launches == per_prefill,
+                  f"{mesh_str}: kernel launches {launches} in one prefill, want {per_prefill}")
             check(tuple(seq.shape) == (4, 17), f"{mesh_str}: tokens {tuple(seq.shape)}")
             check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()), "token out of vocab")
-            print(f"main serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, "
+            print(f"serve {arch} {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, "
                   f"decode {decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), "
-                  f"flash_attention launches {launches}")
+                  f"kernel launches {launches} (float32 leaves: {len(kept)})")
             runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
                                   decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
                                   launches=launches)
@@ -317,22 +453,25 @@ def serve_phase(torch, ops):
             del params_c
         a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
         check(torch.equal(a, b), "RESHARD_STREAM and DIRECT restores serve different tokens")
-        print(f"main tokens identical across restores; sample {a[0, :8].tolist()}")
+        print(f"serve {arch} tokens identical across restores; sample {a[0, :8].tolist()}")
 
-        # Right by the repo's own means: the card's fp32 path (kernel) against
-        # the port's CPU path (plain attention) on the same weights, short prompt.
+        # Right by the repo's own means: the card's fp32 path (kernels) against
+        # the port's CPU path (plain versions) on the same weights.
         flm, _ = plan_for("data=2,model=2", torch.float32)
-        toks = prompts[:1, :48]
+        toks = prompts[:1, :cpu_len]
         with torch.inference_mode():
-            lg_gpu, _ = D.prefill(flm, params, D.init_cache(flm, 1, 48, device=dev), toks)
+            reset()
+            lg_gpu, _ = D.prefill(flm, params, D.init_cache(flm, 1, cpu_len, device=dev), toks)
+            launches = counts()
             cpu_params = {n: t.cpu() for n, t in saved.items()}
             lg_cpu, _ = D.prefill(flm, unflatten_from_paths(cpu_params),
-                                  D.init_cache(flm, 1, 48), toks.cpu())
+                                  D.init_cache(flm, 1, cpu_len), toks.cpu())
+        check(launches == per_prefill, f"fp32 card prefill launches {launches}, want {per_prefill}")
         check(tuple(lg_gpu.shape) == (1, cfg.vocab_size), f"logits {tuple(lg_gpu.shape)}")
         check(bool(torch.isfinite(lg_gpu).all()), "non-finite logits")
         err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
-        print(f"main check fp32 logits card vs CPU (48 tokens): max_abs_err {err:.3e} "
-              f"(tolerance 1e-3)")
+        print(f"serve {arch} check fp32 logits card vs CPU ({cpu_len} tokens): max_abs_err "
+              f"{err:.3e} (tolerance 1e-3)")
         check(err <= 1e-3, "card and CPU logits disagree")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -583,6 +722,9 @@ def main() -> int:
     from repro_torch.kernels.block_quant import ops as bq_ops
     from repro_torch.kernels.block_quant import ref as bq_ref
     from repro_torch.kernels.flash_attention import kernel, ops, ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -590,10 +732,15 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    build_all({"flash_attention": kernel, "block_quant": bq_kernel})
+    build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
     k = kernel_phase(torch, F, kernel, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
-    runs = serve_phase(torch, ops)
+    ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
+    counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
+    runs = serve_phase(torch, "smollm-360m", counters,
+                       {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48)
+    ssm_runs = serve_phase(torch, "mamba2-130m", counters,
+                           {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
     train = train_phase(torch, ops, bq_ops)
 
     rows = [{
@@ -601,7 +748,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": runs["data=1,model=1"]["launches"],
+        "launches": runs["data=1,model=1"]["launches"]["flash_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"]["kernel"],
         "plain_ms": k["ms"]["plain"],
@@ -624,6 +771,19 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    rows.append({
+        "name": "ssd_scan_fwd",
+        "route": "cuda",
+        "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "launches": ssm_runs["data=1,model=1"]["launches"]["ssd_scan"],
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd["ms"]["kernel"],
+        "plain_ms": ssd["ms"]["plain"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

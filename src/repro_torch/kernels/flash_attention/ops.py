@@ -6,8 +6,9 @@
 * on CUDA tensors it launches the Hopper kernel (``kernel.py``) or raises —
   there is no fallback and no switch.  The kernel has no backward (the JAX
   package has none either), so it refuses inputs for which autograd would
-  record a gradient (:func:`records_grad`) instead of returning a detached
-  output; the model takes its differentiable plain attention then;
+  record a gradient (:func:`repro_torch.kernels.records_grad`) instead of
+  returning a detached output; the model takes its differentiable plain
+  attention then;
 * on CPU tensors it computes the plain version (``ref.attention_ref``),
   which is how the tests on a machine without a card reach the same math.
 
@@ -22,15 +23,12 @@ import math
 
 import torch
 
+from repro_torch.kernels import records_grad
+
 from . import kernel
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "records_grad", "refuse_grad"]
-
-
-def records_grad(*tensors: torch.Tensor) -> bool:
-    """Whether autograd would record a gradient through ``tensors`` here."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+__all__ = ["flash_attention", "refuse_grad"]
 
 
 def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -38,7 +38,6 @@ from repro_torch.dist.sharding import ShardingPlan, make_plan, vocab_multiple
 from repro_torch.launch.mesh import mesh_spec_from_string
 from repro_torch.models import build_model
 from repro_torch.models import decode as D
-from repro_torch.models.common import cast_tree
 from repro_torch.models.lm import LM
 
 __all__ = [
@@ -104,7 +103,8 @@ def _sync(device: torch.device) -> None:
 def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len: int = 0):
     """Greedy decoding: prefill the prompts, then ``gen - 1`` decode steps.
 
-    ``params`` are nested, in the compute dtype.  Returns the generated
+    ``params`` are nested, in the compute dtype (``ParamRegistry.cast``:
+    the leaves the reference reads in float32 stay float32).  Returns the generated
     tokens ``[B, gen]``, the prefill seconds and the decode seconds (each
     ended by a device synchronise).
     """
@@ -172,7 +172,7 @@ def main(argv=None) -> int:
         generator=torch.Generator().manual_seed(args.seed),
     ).to(device)
     seq, prefill_s, decode_s = generate(
-        lm, cast_tree(params, lm.compute_dtype), prompts, args.gen,
+        lm, lm.registry.cast(params, lm.compute_dtype), prompts, args.gen,
         cache_len=args.cache_len,
     )
     steps = max(args.gen - 1, 1)

@@ -20,10 +20,11 @@ import dataclasses
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.pytree import unflatten_from_paths
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 
 __all__ = [
     "ParamDef",
@@ -32,7 +33,6 @@ __all__ = [
     "rotary_embedding",
     "apply_rope",
     "swiglu",
-    "cast_tree",
 ]
 
 
@@ -45,8 +45,11 @@ class ParamDef:
                    qkv_fused | mlp | ...); the sharding rule table maps these
                    to mesh axes
     ``parts``      named sub-fragment sizes along ``parts_dim`` (fused dims)
-    ``init``       normal | zeros | ones
+    ``init``       normal | zeros | ones | ssm_dt | ssm_alog
     ``fan_in_dim`` dimension whose size scales normal init (1/sqrt(fan_in))
+    ``keep_fp32``  the model reads it in float32 whatever the compute dtype
+                   (Mamba's ``a_log``/``dt_bias``: a bf16 copy would round
+                   A = -exp(a_log) by up to ~0.4% and dt by ~1%)
     """
 
     path: str
@@ -58,6 +61,7 @@ class ParamDef:
     parts_dim: int | None = None
     kind: str = "dense"
     stacked: bool = False
+    keep_fp32: bool = False
 
     def __post_init__(self) -> None:
         if len(self.shape) != len(self.axes):
@@ -107,17 +111,34 @@ class ParamRegistry:
             {d.path: _init_leaf(generator, d, dtype, device) for d in self.defs.values()}
         )
 
+    def cast(self, tree: dict, dtype) -> dict:
+        """The once-per-load cast of fp32 master weights (nested) to the
+        compute dtype; the leaves declared ``keep_fp32`` stay float32."""
+        return unflatten_from_paths({
+            n: t if self.defs[n].keep_fp32 else t.to(dtype)
+            for n, t in flatten_with_paths(tree).items()
+        })
+
 
 def _init_leaf(g: torch.Generator, d: ParamDef, dtype, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "ssm_dt":
+        # dt bias such that softplus(dt) spans ~[1e-3, 1e-1] (Mamba init)
+        u = torch.rand(d.shape, generator=g, dtype=torch.float32, device=device)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)  # inverse softplus
+    if d.init == "ssm_alog":
+        # log(1..H) in float32 through numpy, whose log gives XLA's bits for
+        # the head counts of the ported configs (8 reduced, 24 full); torch's
+        # CPU log differs in the last bit at log(7).  Neither matches XLA's
+        # (not correctly rounded) log for every H: 5 of 1..256 differ.
+        a = torch.from_numpy(np.log(np.arange(1, d.shape[-1] + 1, dtype=np.float32)))
+        return a.expand(d.shape).to(device=device, dtype=dtype)
     if d.init != "normal":
-        raise NotImplementedError(
-            f"{d.path}: init {d.init!r} belongs to the SSM family "
-            "(ROADMAP queue 1, item 6: other model families)"
-        )
+        raise ValueError(f"{d.path}: unknown init {d.init!r}")
     fan_in = d.shape[d.fan_in_dim] if d.fan_in_dim is not None else d.shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     x = torch.randn(d.shape, generator=g, dtype=torch.float32, device=device)
@@ -165,11 +186,3 @@ def swiglu(x, w_gate, w_up, w_down):
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
     return (F.silu(g) * u) @ w_down.to(x.dtype)
-
-
-def cast_tree(tree, dtype):
-    """Cast every tensor leaf of a nested dict (the once-per-load cast of
-    fp32 master weights to the compute dtype)."""
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)

@@ -1,25 +1,32 @@
 """Serving path: cache construction, prefill, single-token decode
-(port of the dense GQA path of ``repro.models.decode``).
+(port of the dense GQA and the Mamba-2 paths of ``repro.models.decode``).
 
-The cache is the reference's: per stage and body position, ring-buffered
-K/V ``[count, B, C, Hkv, hd]`` in the compute dtype with ``slot_pos
-[count, B, C]`` holding each slot's absolute token position (-1 = empty),
-``C = min(window, cache_len)`` for static sliding-window layers and
-``cache_len`` otherwise; ``pos [B]`` is the next position.  Masking is by
-position, so ring overwrite needs no special case.
+The cache is the reference's, per stage and body position; ``pos [B]`` is
+the next position:
 
-Unlike the reference, which returns a new cache, the port writes the K/V
-and ``slot_pos`` buffers in place (it saves a full copy of the cache per
-step) and returns the same dict with ``pos`` advanced.
+* GQA attention — ring-buffered K/V ``[count, B, C, Hkv, hd]`` in the
+  compute dtype with ``slot_pos [count, B, C]`` holding each slot's absolute
+  token position (-1 = empty), ``C = min(window, cache_len)`` for static
+  sliding-window layers and ``cache_len`` otherwise.  Masking is by
+  position, so ring overwrite needs no special case.
+* Mamba-2 — constant size: the SSM state ``h [count, B, H, P, N]`` in
+  float32 and the conv window ``conv [count, B, K-1, conv_dim]`` (the last
+  K-1 pre-conv ``xbc`` rows) in the compute dtype.
+
+Unlike the reference, which returns a new cache, the port writes the
+buffers in place (it saves a full copy of the cache per step) and returns
+the same dict with ``pos`` advanced.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .attention import decode_attention
 from .common import apply_rope, rms_norm, rotary_embedding
 from .lm import LM, LayerDef
+from .ssm import conv_decode_step, ssm_decode_step
 
 __all__ = ["init_cache", "prefill", "decode_step"]
 
@@ -39,20 +46,36 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     for stage in lm.stages:
         st: dict = {}
         for ld in stage.body:
-            c = _cache_len_for(ld, cache_len)
             n = stage.count
-            st[ld.name] = {
-                "k": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
-                "v": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
-                "slot_pos": torch.full((n, batch, c), -1, dtype=torch.int32, device=device),
-            }
+            if ld.kind == "mamba":
+                s = cfg.ssm
+                di = s.d_inner(cfg.d_model)
+                st[ld.name] = {
+                    "h": torch.zeros(
+                        (n, batch, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
+                        dtype=torch.float32, device=device,
+                    ),
+                    "conv": torch.zeros(
+                        (n, batch, s.d_conv - 1, di + 2 * s.n_groups * s.d_state),
+                        dtype=dt, device=device,
+                    ),
+                }
+            else:
+                c = _cache_len_for(ld, cache_len)
+                st[ld.name] = {
+                    "k": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
+                    "v": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
+                    "slot_pos": torch.full((n, batch, c), -1, dtype=torch.int32,
+                                           device=device),
+                }
         cache[stage.name] = st
     return cache
 
 
-def _layer(params: dict, l: int) -> dict:
-    """One layer's params: index every stacked ``[L, ...]`` tensor at ``l``."""
-    return {k: v[l] for k, v in params.items()}
+def _layer(stacked: dict, l: int) -> dict:
+    """One layer's params or cache entry: index every stacked ``[L, ...]``
+    tensor at ``l`` (views, so cache writes land in the stack)."""
+    return {k: v[l] for k, v in stacked.items()}
 
 
 def _write_ring(cache_arr: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -81,35 +104,71 @@ def _logits(lm: LM, params, x: torch.Tensor) -> torch.Tensor:
     return logits[..., : lm.cfg.vocab_size]
 
 
+def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tensor:
+    """One GQA layer of a decode step; writes this token's K/V in place."""
+    cfg = lm.cfg
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    qkv = h @ p["wqkv"].to(h.dtype)
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q = apply_rope(q.reshape(b, 1, hq, hd), sin, cos)
+    k = apply_rope(k.reshape(b, 1, hkv, hd), sin, cos)
+    _write_ring(entry["k"], k[:, 0], pos)
+    _write_ring(entry["v"], v.reshape(b, hkv, hd), pos)
+    _write_ring(entry["slot_pos"], pos, pos)
+    o = decode_attention(
+        q, entry["k"], entry["v"], cache_positions=entry["slot_pos"], cur_pos=pos,
+        window=window,
+    )
+    return x + o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
+
+
+def _mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
+    """One Mamba-2 layer of a decode step; updates ``h`` and ``conv`` in place."""
+    cfg, s = lm.cfg, lm.cfg.ssm
+    b = x.shape[0]
+    di = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    g, n = s.n_groups, s.d_state
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = (h @ p["in_proj"].to(h.dtype))[:, 0]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
+    conv_new, xbc = conv_decode_step(
+        entry["conv"], xbc, p["conv_w"].to(h.dtype), p["conv_b"].to(h.dtype)
+    )
+    xin, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    xin = xin.reshape(b, nh, s.head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"].float())
+    h_new, y = ssm_decode_step(entry["h"], xin, dt, a, bmat.reshape(b, g, n),
+                               cmat.reshape(b, g, n))
+    entry["h"].copy_(h_new)
+    entry["conv"].copy_(conv_new)
+    y = y + xin * p["d_skip"].to(y.dtype)[None, :, None]
+    y = y.reshape(b, di) * F.silu(z)
+    y = rms_norm(y, p["ssm_norm"], cfg.norm_eps)
+    return x + (y @ p["out_proj"].to(y.dtype))[:, None]
+
+
 def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens [B,1] → (logits [B,1,V] float32, cache)."""
     cfg = lm.cfg
     pos = cache["pos"]
     x = params["embed"].to(lm.compute_dtype)[tokens]
-    b = x.shape[0]
-    hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    sin, cos = rotary_embedding(pos[:, None], hd, cfg.rope_theta)
+    sin, cos = rotary_embedding(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
                 p = _layer(params[stage.name][ld.name], l)
-                entry = cache[stage.name][ld.name]
-                k_c, v_c, slot_pos = entry["k"][l], entry["v"][l], entry["slot_pos"][l]
-                h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-                qkv = h @ p["wqkv"].to(h.dtype)
-                q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-                q = apply_rope(q.reshape(b, 1, hq, hd), sin, cos)
-                k = apply_rope(k.reshape(b, 1, hkv, hd), sin, cos)
-                _write_ring(k_c, k[:, 0], pos)
-                _write_ring(v_c, v.reshape(b, hkv, hd), pos)
-                _write_ring(slot_pos, pos, pos)
-                o = decode_attention(
-                    q, k_c, v_c, cache_positions=slot_pos, cur_pos=pos,
-                    window=stage.window(ld, l),
-                )
-                x = x + o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
-                x = lm._mlp(p, x)
+                entry = _layer(cache[stage.name][ld.name], l)
+                if ld.kind == "mamba":
+                    x = _mamba_decode(lm, p, entry, x)
+                else:
+                    x = _attn_decode(lm, p, entry, x, pos, sin, cos, stage.window(ld, l))
+                if ld.with_mlp:
+                    x = lm._mlp(p, x)
     cache["pos"] = pos + 1
     return _logits(lm, params, x), cache
 
@@ -118,8 +177,10 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
     """Run the forward pass over a prompt and populate the cache.
 
     tokens [B,S] → (logits of the last position [B,V] float32, cache).  Each
-    layer's roped K/V go into its ring buffer (the trailing ``min(C, S)``
-    tokens).  On CUDA every layer's attention is one flash-attention launch.
+    attention layer's roped K/V go into its ring buffer (the trailing
+    ``min(C, S)`` tokens); each Mamba-2 layer leaves its final SSM state and
+    its last K-1 pre-conv rows.  On CUDA every attention layer is one
+    flash-attention launch, every Mamba-2 layer one SSD-scan launch.
     """
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)
@@ -129,17 +190,24 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
             for ld in stage.body:
                 p = _layer(params[stage.name][ld.name], l)
                 entry = cache[stage.name][ld.name]
-                x, (k, v) = lm._self_attn(
-                    p, x, window=stage.window(ld, l), positions=positions,
-                    causal=ld.causal,
-                )
-                _fill_ring(entry["k"][l], k, s)
-                _fill_ring(entry["v"][l], v, s)
-                _fill_ring(
-                    entry["slot_pos"][l],
-                    positions.to(torch.int32).expand(b, s),
-                    s,
-                )
-                x = lm._mlp(p, x)
+                if ld.kind == "mamba":
+                    x, (h_final, conv_tail) = lm._mamba(p, x, return_state=True)
+                    entry["h"][l].copy_(h_final)
+                    conv = entry["conv"][l]  # a prompt shorter than K-1 fills the tail
+                    conv[:, conv.shape[1] - conv_tail.shape[1]:] = conv_tail
+                else:
+                    x, (k, v) = lm._self_attn(
+                        p, x, window=stage.window(ld, l), positions=positions,
+                        causal=ld.causal,
+                    )
+                    _fill_ring(entry["k"][l], k, s)
+                    _fill_ring(entry["v"][l], v, s)
+                    _fill_ring(
+                        entry["slot_pos"][l],
+                        positions.to(torch.int32).expand(b, s),
+                        s,
+                    )
+                if ld.with_mlp:
+                    x = lm._mlp(p, x)
     cache["pos"] = cache["pos"] + s
     return _logits(lm, params, x[:, -1]), cache

@@ -1,10 +1,12 @@
-"""The dense decoder (port of the dense path of ``repro.models.lm``).
+"""The decoder (port of the dense and SSM paths of ``repro.models.lm``).
 
 Parameters are the reference's: the same :class:`ParamDef` tables, so the
 same names and layer-stacked shapes (``layers.blk.wqkv`` is
-``[L, d, (hq+2·hkv)·hd]``, ``embed`` is ``[vocab_padded, d]``), which is what
-lets one checkpoint serve both packages.  The reference ``lax.scan``s over
-the stacked ``[L, ...]`` params; the port loops over ``l`` and indexes them.
+``[L, d, (hq+2·hkv)·hd]``, Mamba's fused ``layers.blk.in_proj`` is
+``[L, d, 2·di + 2·G·N + H]`` with parts z/x/B/C/dt, ``embed`` is
+``[vocab_padded, d]``), which is what lets one checkpoint serve both
+packages.  The reference ``lax.scan``s over the stacked ``[L, ...]`` params;
+the port loops over ``l`` and indexes them.
 
 Attention on a CUDA tensor with no gradient recorded (serving's prefill)
 goes through the hand-written flash-attention kernel, whatever the sequence
@@ -12,16 +14,18 @@ length.  Otherwise — training, or any CPU tensor — it is what the reference
 executes: :func:`~repro_torch.models.attention.full_attention` up to 2048
 tokens and :func:`~repro_torch.models.attention.chunked_attention` above,
 with the reference's block choice (``repro/models/lm.py:396-410``).  The
-kernel has no backward; the JAX package trains through the same plain
+Mamba-2 scan likewise goes through the hand-written SSD kernel on CUDA
+tensors with no gradient recorded, and through the reference's :func:`~repro_torch.models.ssm.ssd_chunked` otherwise.  Neither
+kernel has a backward; the JAX package trains through the same plain
 functions.
 
 ``remat="full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, the reference's per-layer ``jax.checkpoint``);
 ``"none"`` keeps activations.
 
-Only the dense family is ported.  MoE, MLA, SSM, cross-attention and
-encoder configs raise ``NotImplementedError`` (ROADMAP queue 1, item 6:
-other model families).
+The dense and the SSM (Mamba-2) families are ported.  Hybrid, MoE, MLA,
+cross-attention and encoder configs raise ``NotImplementedError`` (ROADMAP
+queue 1, item 6: other model families).
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention, records_grad
+from repro_torch.kernels import records_grad
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 from .attention import chunked_attention, full_attention
 from .common import ParamDef, ParamRegistry, apply_rope, rms_norm, rotary_embedding, swiglu
+from .ssm import causal_conv1d, ssd_chunked
 
 __all__ = ["LayerDef", "StageDef", "LM", "build_lm", "plan_stages", "build_param_defs"]
 
@@ -45,8 +52,9 @@ __all__ = ["LayerDef", "StageDef", "LM", "build_lm", "plan_stages", "build_param
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
     name: str               # body-position name (param subtree key)
-    kind: str               # "attn"
+    kind: str               # "attn" | "mamba"
     window: int = 0         # 0=full; -1=per-layer metadata in StageDef.windows
+    with_mlp: bool = True
     causal: bool = True
 
 
@@ -61,21 +69,24 @@ class StageDef:
         return self.windows[layer] if ld.window == -1 else ld.window
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     other = [
         f for f in ("moe", "mla", "ssm", "cross_attn", "encoder") if getattr(cfg, f)
     ]
-    if cfg.family != "dense" or other:
+    if not ((cfg.family == "dense" and not other) or (cfg.family == "ssm" and other == ["ssm"])):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; "
-            "only the dense decoder is (ROADMAP queue 1, item 6: other model families)"
+            f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; only the "
+            "dense decoder and Mamba-2 are (ROADMAP queue 1, item 6: other model families)"
         )
 
 
 def plan_stages(cfg: ModelConfig) -> list[StageDef]:
-    """The dense schedule: one homogeneous stack; per-layer sliding windows
-    ride along as metadata when they vary (Gemma-3's local:global)."""
-    _require_dense(cfg)
+    """One homogeneous stack: Mamba-2 blocks with no MLP for the SSM family;
+    for the dense family attention + MLP, per-layer sliding windows riding
+    along as metadata when they vary (Gemma-3's local:global)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return [StageDef("layers", cfg.num_layers, (LayerDef("blk", "mamba", with_mlp=False),))]
     windows = tuple(cfg.window_for_layer(i) for i in range(cfg.num_layers))
     uniform = len(set(windows)) == 1
     return [
@@ -143,6 +154,34 @@ def _mlp_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[Par
     return defs
 
 
+def _mamba_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[ParamDef]:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.n_heads(d)
+    g, n = s.n_groups, s.d_state
+    defs, P = _stacked_def(prefix, stack)
+    P("norm", (d,), ("embed",), init="ones")
+    P(
+        "in_proj",
+        (d, 2 * di + 2 * g * n + nh),
+        ("embed", "ssm_fused"),
+        parts=(("z", di), ("x", di), ("B", g * n), ("C", g * n), ("dt", nh)),
+        parts_dim=len(stack) + 1,
+        kind="fused_qkv",
+        fan_in_dim=len(stack),
+    )
+    P("conv_w", (di + 2 * g * n, s.d_conv), ("ssm_conv", "conv"))
+    P("conv_b", (di + 2 * g * n,), ("ssm_conv",), init="zeros")
+    # the reference reads a_log and dt_bias in float32 (repro/models/lm.py:531-532)
+    P("a_log", (nh,), ("ssm_heads",), init="ssm_alog", keep_fp32=True)
+    P("d_skip", (nh,), ("ssm_heads",), init="ones")
+    P("dt_bias", (nh,), ("ssm_heads",), init="ssm_dt", keep_fp32=True)
+    P("ssm_norm", (di,), ("ssm_inner",), init="ones")
+    P("out_proj", (di, d), ("ssm_inner", "embed"), fan_in_dim=len(stack))
+    return defs
+
+
 def build_param_defs(cfg: ModelConfig, vocab_padded: int) -> ParamRegistry:
     defs: list[ParamDef] = [
         ParamDef("embed", (vocab_padded, cfg.d_model), ("vocab", "embed"), fan_in_dim=1),
@@ -157,8 +196,9 @@ def build_param_defs(cfg: ModelConfig, vocab_padded: int) -> ParamRegistry:
         stack = (stage.count,)
         for ld in stage.body:
             prefix = f"{stage.name}.{ld.name}"
-            defs += _attn_defs(cfg, prefix, stack)
-            defs += _mlp_defs(cfg, prefix, stack)
+            defs += (_mamba_defs if ld.kind == "mamba" else _attn_defs)(cfg, prefix, stack)
+            if ld.with_mlp:
+                defs += _mlp_defs(cfg, prefix, stack)
     return ParamRegistry(defs)
 
 
@@ -222,12 +262,51 @@ class LM:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
         return x + out
 
-    def _layer(self, keys, window, causal, positions, x, *values):
-        """One pre-norm attention + MLP layer on its params (as positional
-        tensors, so ``torch.utils.checkpoint`` sees them)."""
+    def _mamba(self, p, x, *, return_state: bool = False):
+        """Pre-norm Mamba-2 block on one layer's params; returns the residual
+        sum and, with ``return_state``, (h_final [B,H,P,N] float32, the last
+        K-1 pre-conv ``xbc`` rows) for the decode cache."""
+        cfg, s = self.cfg, self.cfg.ssm
+        b, sl, d = x.shape
+        di = s.d_inner(d)
+        nh = s.n_heads(d)
+        g, n = s.n_groups, s.d_state
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        zxbcdt = h @ p["in_proj"].to(h.dtype)
+        z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
+        conv_tail = xbc[:, -(s.d_conv - 1):, :] if return_state else None
+        cw = p["conv_w"].to(h.dtype)
+        cb = p["conv_b"].to(h.dtype)
+        xbc = causal_conv1d(xbc, cw, cb)
+        xin, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
+        xin = xin.reshape(b, sl, nh, s.head_dim)
+        bmat = bmat.reshape(b, sl, g, n)
+        cmat = cmat.reshape(b, sl, g, n)
+        dt = F.softplus(dt.float() + p["dt_bias"])
+        a = -torch.exp(p["a_log"].float())
+        chunk = min(s.chunk, sl)
+        while sl % chunk:
+            chunk //= 2
+        if xin.is_cuda and not records_grad(xin, dt, a, bmat, cmat):
+            y, h_final = ssd_scan(xin, dt, a, bmat, cmat, chunk=chunk)
+        else:
+            y, h_final = ssd_chunked(xin, dt, a, bmat, cmat, chunk=chunk)
+        y = y + xin * p["d_skip"].to(y.dtype)[None, None, :, None]
+        y = y.reshape(b, sl, di) * F.silu(z)
+        y = rms_norm(y, p["ssm_norm"], cfg.norm_eps)
+        out = y @ p["out_proj"].to(y.dtype)
+        return x + out, ((h_final, conv_tail) if return_state else None)
+
+    def _layer(self, ld: LayerDef, window, positions, keys, x, *values):
+        """One pre-norm layer (attention or Mamba-2, then the MLP if it has
+        one) on its params, given as positional tensors so that
+        ``torch.utils.checkpoint`` sees them."""
         p = dict(zip(keys, values))
-        x, _ = self._self_attn(p, x, window=window, positions=positions, causal=causal)
-        return self._mlp(p, x)
+        if ld.kind == "mamba":
+            x, _ = self._mamba(p, x)
+        else:
+            x, _ = self._self_attn(p, x, window=window, positions=positions, causal=ld.causal)
+        return self._mlp(p, x) if ld.with_mlp else x
 
     def _stage_forward(self, stage: StageDef, params, x, *, positions):
         # unbind once: the backward of a per-layer view is then one stack,
@@ -239,7 +318,7 @@ class LM:
                 keys = tuple(per[ld.name])
                 values = [per[ld.name][k][layer] for k in keys]
                 fn = functools.partial(
-                    self._layer, keys, stage.window(ld, layer), ld.causal, positions
+                    self._layer, ld, stage.window(ld, layer), positions, keys
                 )
                 if self.remat == "full":
                     x = checkpoint(fn, x, *values, use_reentrant=False)
@@ -288,7 +367,7 @@ def build_lm(
     compute_dtype: torch.dtype = torch.bfloat16,
     remat: str = "full",
 ) -> LM:
-    """Construct the model for a (dense) config.  ``vocab_multiple`` pads the
+    """Construct the model for a (dense or SSM) config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
     the padding is runtime-only, UCP atoms store the logical vocab."""
     if remat not in ("full", "none"):

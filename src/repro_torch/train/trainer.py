@@ -8,6 +8,10 @@ On start-up the trainer asks the :class:`CheckpointManager` for the newest
 committed checkpoint: DIRECT when the layout is unchanged, RESHARD_STREAM
 when it changed; training continues at the checkpointed step with the same
 global data order (the stateless pipeline of :mod:`.data`).
+
+Only the dense family trains; any other family raises before a run starts
+(the SSM family serves, but no test holds its training against the
+reference yet).
 """
 
 from __future__ import annotations
@@ -71,6 +75,11 @@ class Trainer:
         policy: CheckpointPolicy | None = None,
         device: str | torch.device = "cuda",
     ) -> "Trainer":
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family!r} family is not ported yet; only the "
+                "dense decoder trains (ROADMAP queue 1, item 6: other model families)"
+            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")

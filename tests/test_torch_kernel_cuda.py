@@ -15,7 +15,14 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   decode on the card against its numpy decode;
 * one reduced train step on the card against the CPU path (fp32): the loss
   within 1e-5, the gradients of ``wqkv`` (atol 1e-5, rtol 1e-4), and no
-  flash-attention launch while a gradient is recorded.
+  flash-attention launch while a gradient is recorded;
+* the SSD chunk-scan kernel against its plain versions (``ssd_ref`` and
+  ``ssd_chunked``) on the sweep of ``tests/test_kernels.py`` and at the
+  serving shapes, bf16 (y 5e-2) and fp32 (y 5e-4/1e-4), h_final 5e-3 as
+  there; strided views; chunks that are not powers of two (40) and the
+  model's halving down to 4 (S = 500); reduced mamba2 on the card (one
+  kernel launch per layer) against the CPU path in float32; and the
+  wrapper's refusal of a recorded gradient.
 """
 
 import numpy as np
@@ -31,8 +38,11 @@ from repro_torch.kernels.block_quant import ref as bq_ref  # noqa: E402
 from repro_torch.kernels.block_quant.ops import block_dequantize, block_quantize  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref_mod  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.train.optimizer import init_state  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 
@@ -180,3 +190,102 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
     assert abs(l0 - l1) <= 1e-5 and abs(n0 - n1) <= 1e-4 * n0
     assert g1.abs().sum() > 0
     np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device=device))
+    a = -torch.exp(torch.randn(h, generator=gen, device=device))
+    bm = torch.randn(b, s, g, n, generator=gen, device=device).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=device).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def _ssd_close(got, want, dtype):
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else dict(atol=5e-4, rtol=1e-4)
+    np.testing.assert_allclose(got[0].float().cpu().numpy(), want[0].float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 32, 2, 8, 1, 16, 8),
+    (2, 64, 4, 16, 2, 8, 16),
+    (1, 64, 6, 8, 3, 32, 32),
+    (1, 128, 2, 32, 1, 8, 64),
+    (2, 512, 24, 64, 1, 128, 256),
+    (2, 256, 4, 64, 2, 128, 64),
+    (1, 120, 3, 64, 1, 100, 40),
+    (1, 500, 4, 16, 1, 16, 4),
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
+    x, dt, a, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=s + n)
+    launches = ssd_scan.launches
+    y, hT = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == launches + 1
+    assert y.dtype == dtype and y.shape == x.shape and hT.shape == (b, h, p, n)
+    _ssd_close((y, hT), ssd_chunked(x, dt, a, bm, cm, chunk=chunk), dtype)
+    rep = h // g
+    yr, hr = ssd_ref_mod.ssd_ref(
+        x.transpose(1, 2), dt.transpose(1, 2), a,
+        bm.repeat_interleave(rep, 2).transpose(1, 2), cm.repeat_interleave(rep, 2).transpose(1, 2),
+    )
+    _ssd_close((y, hT), (yr.transpose(1, 2), hr), dtype)
+
+
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, B and C as split views of one conv output, dt a column slice, as
+    the model hands them: bit-equal to contiguous copies."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, s, h, p, g, n = 2, 128, 8, 64, 2, 64
+    xbc = torch.randn(b, s, h * p + 2 * g * n, generator=gen, device=cuda, dtype=torch.bfloat16)
+    x, bm, cm = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    x, bm, cm = x.reshape(b, s, h, p), bm.reshape(b, s, g, n), cm.reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, 2 * h, generator=gen, device=cuda))[..., :h]
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda)
+    assert not (x.is_contiguous() or bm.is_contiguous() or dt.is_contiguous())
+    got = ssd_scan(x, dt, a, bm, cm, chunk=64)
+    want = ssd_scan(*(t.contiguous() for t in (x, dt, a, bm, cm)), chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_kernel_refuses_a_recorded_gradient(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(cuda, 1, 16, 2, 8, 1, 8, torch.float32)
+    launches = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=8)
+    with torch.no_grad():
+        ssd_scan(x, dt, a, bm, cm, chunk=8)
+    assert ssd_scan.launches == launches + 1
+
+
+@pytest.mark.parametrize("s", [40, 500])
+def test_reduced_mamba2_on_card_matches_cpu(cuda, s):
+    """Prefill (40 tokens: chunk 8 of the config's 16; 500: halved to 4) and
+    3 decode steps; the kernel runs once per layer in the card's prefill."""
+    lm = build_model(reduced(get_config("mamba2-130m")), compute_dtype=torch.float32)
+    params_cpu = lm.init(torch.Generator().manual_seed(0))
+    params_gpu = _to(params_cpu, cuda)
+    toks = torch.randint(0, 256, (2, s), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for params, dev in ((params_cpu, "cpu"), (params_gpu, cuda)):
+        launches = ssd_scan.launches
+        with torch.inference_mode():
+            cache = D.init_cache(lm, 2, s + 4, device=dev)
+            logits, cache = D.prefill(lm, params, cache, toks.to(dev))
+            made = ssd_scan.launches - launches
+            steps = [logits.cpu()]
+            cur = logits.argmax(-1)[:, None]
+            for _ in range(3):
+                lg, cache = D.decode_step(lm, params, cache, cur)
+                steps.append(lg.cpu())
+                cur = lg[:, -1].argmax(-1)[:, None]
+        assert made == (lm.cfg.num_layers if dev == cuda else 0)
+        outs.append((steps, cache["layers"]["blk"]["h"].cpu()))
+    (cpu_steps, cpu_h), (gpu_steps, gpu_h) = outs
+    for a, b in zip(cpu_steps, gpu_steps):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(gpu_h.numpy(), cpu_h.numpy(), atol=1e-4, rtol=1e-4)

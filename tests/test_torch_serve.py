@@ -107,11 +107,11 @@ def test_cache_matches_reference_after_prefill():
         )
 
 
-def _serve(ckpt_dir, mesh):
+def _serve(ckpt_dir, mesh, arch="smollm-360m"):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--arch", "smollm-360m", "--reduced", "--ckpt-dir", str(ckpt_dir),
+         "--arch", arch, "--reduced", "--ckpt-dir", str(ckpt_dir),
          "--mesh", mesh, "--batch", "2", "--prompt-len", "8", "--gen", "6"],
         capture_output=True, text=True, env=env, timeout=300, check=False,
     )
@@ -132,5 +132,24 @@ def test_serve_cli_reshard_stream_equals_direct(tmp_path):
     assert (stream["mode"], stream["step"]) == ("reshard_stream", 5)
     assert (direct["mode"], direct["step"]) == ("direct", 5)
     assert stream["device"] == direct["device"] == "cpu"
+    assert np.asarray(stream["tokens"]).shape == (2, 6)
+    assert stream["tokens"] == direct["tokens"]
+
+
+def test_serve_cli_mamba2_reshard_stream_equals_direct(tmp_path):
+    """The SSM slice through the launcher: a reduced mamba2 checkpoint saved
+    under data=2,model=2 (the five-part in_proj split over the model axis)
+    serves the same greedy tokens restored RESHARD_STREAM and DIRECT."""
+    cfg = TC.reduced(TC.get_config("mamba2-130m"))
+    mesh = T.MeshSpec.from_dict({"data": 2, "model": 2})
+    parallel = TC.ParallelismConfig()
+    lm = build_model(cfg, vocab_multiple=TS.vocab_multiple(parallel, mesh))
+    plan = TS.make_plan(cfg, lm.registry, parallel, mesh)
+    params = lm.init(torch.Generator().manual_seed(3))
+    write_distributed(snapshot_weights(params), plan, 7, tmp_path / "ck" / "step_00000007")
+    stream = _serve(tmp_path / "ck", "data=1,model=1", arch="mamba2-130m")
+    direct = _serve(tmp_path / "ck", "data=2,model=2", arch="mamba2-130m")
+    assert (stream["mode"], stream["step"]) == ("reshard_stream", 7)
+    assert (direct["mode"], direct["step"]) == ("direct", 7)
     assert np.asarray(stream["tokens"]).shape == (2, 6)
     assert stream["tokens"] == direct["tokens"]
