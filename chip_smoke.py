@@ -14,8 +14,11 @@ nothing falls back to the CPU or to a plain version):
 3. kernel flash_attention — against its plain PyTorch version at the
    serving slice's shapes (B=4, S=512 and a ragged 500, 15:5 heads, D=64,
    bf16, causal; a window=128 case; an fp32 case), max abs error beside the
-   tolerance; then kernel, plain and library
-   (``scaled_dot_product_attention``, timed as a yardstick only) times;
+   tolerance; the library (``scaled_dot_product_attention``, a yardstick
+   only) against the kernel; then the bf16 (tensor-core) kernel's and the
+   library's device time per call (the profiler, over 20 warm calls, in
+   turns), their CUDA-event times, the fp32 (CUDA-core) kernel's device
+   time at the same shapes, and the plain version's event time;
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30 and one moment shard of ``layers.blk.w_up`` under
@@ -28,9 +31,11 @@ nothing falls back to the CPU or to a plain version):
    dt = softplus(N(0,1) + dt_bias) with dt_bias from the ``ssm_dt`` init,
    A = -(1..24)), a G=2 case with 4 heads and chunk 64, an fp32 case and a
    case reading strided views as the model hands them, max abs error beside
-   the tolerances of ``tests/test_kernels.py``; then kernel and plain times
-   and the bound (no single PyTorch call computes this function, so no
-   library time);
+   the tolerances of ``tests/test_kernels.py``; then the bf16
+   (tensor-core) kernel's device time per call (the profiler, over 20 warm
+   calls) and event time, the fp32 (CUDA-core) kernel's device time and
+   the plain version's event time, and the bound (no single PyTorch call
+   computes this function, so no library time);
 6. serve, full smollm-360m (32 layers) and then full mamba2-130m (24
    layers), each: init on the card from a seeded generator;
    ``write_distributed`` of the weights under data=2,model=2; weights-only
@@ -39,9 +44,11 @@ nothing falls back to the CPU or to a plain version):
    the save; prefill 4 × 512 tokens and 16 greedy decode steps from each
    restore, every kernel's launches counted around each run (smollm: 32
    flash-attention and 0 SSD-scan launches per prefill; mamba2: 24 and 0
-   the other way); both give the same tokens; the card's fp32 logits agree
-   with the port's CPU path (mamba2 over 512 tokens: two chunks, so the
-   carried state is compared);
+   the other way), all of them bf16 (the tensor-core kernels); both give
+   the same tokens; the card's fp32 logits agree with the port's CPU path
+   (mamba2 over 512 tokens: two chunks, so the carried state is compared),
+   every launch there fp32 (the CUDA-core kernels); the profiled prefill's
+   device time and the kernel's share of it;
 7. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
    from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
    6 uninterrupted steps (the baseline); separately 3 steps under a
@@ -56,7 +63,10 @@ nothing falls back to the CPU or to a plain version):
    shards read per resume, flash-attention 0); step time, tokens/s, save
    GB/s, coded/raw bytes, restore seconds and one profiled step's device
    busy share;
-8. the kernels line (JSON), the card line, then the result line (JSON, last).
+8. the kernels line (JSON: each row names its variant; ``ms`` is the
+   profiler's device time per launch for rows 1 and 4, events for rows 2-3,
+   with ``event_ms`` beside it), the card line, then the result line (JSON,
+   last).
 """
 
 from __future__ import annotations
@@ -89,6 +99,16 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
+# The tensor-core (bf16) kernel of each source, as the profiler names it.
+TC_SYMBOL = {"flash_attention": "fwd_kernel_tc", "ssd_scan": "ssd_kernel_tc"}
+VARIANT = {
+    "flash_attention_fwd": "bf16: fwd_kernel_tc, mma.sync m16n8k16 tensor cores, cp.async "
+                           "double-buffered K/V; fp32: fwd_kernel, CUDA cores",
+    "ssd_scan_fwd": "bf16: ssd_kernel_tc, mma.sync m16n8k16 tensor cores, bf16 hi+lo splits "
+                    "of the fp32 operands; fp32: ssd_kernel, CUDA cores",
+    "quantize_blocks": "fp32 in, int8/fp8 out: quantize_kernel, CUDA cores",
+    "dequantize_blocks": "int8/fp8 in, fp32 out: dequantize_kernel, CUDA cores",
+}
 
 
 class SmokeError(RuntimeError):
@@ -124,6 +144,17 @@ def cuda_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, calls: int = 20):
+    """Device milliseconds per call of ``fn``: the profiler's device time of
+    every kernel and copy that ``calls`` warm calls launched, over
+    ``calls`` (so the host's enqueue time is not in it); with the top rows
+    as (name, ms, count)."""
+    for _ in range(3):
+        fn()
+    _, busy, top = device_profile(torch, lambda: [fn() for _ in range(calls)], top=4)
+    return busy / calls, top
+
+
 def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float):
     """Least time for the work: each input read once and the output written
     once at the memory rate, against the score and P·V products this run's
@@ -142,8 +173,8 @@ def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float)
 
 def device_profile(torch, fn, top: int = 6):
     """Run ``fn`` once under the profiler: (wall ms with the profiler on,
-    device busy ms = the sum of kernel and copy times, top rows by device
-    time as (name, ms, count)).  Only device-side events are summed: the
+    device busy ms = the sum of kernel and copy times, the ``top`` rows by
+    device time as (name, ms, count); all of them for ``top=None``).  Only device-side events are summed: the
     host ops that launched them carry the same time as their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -159,13 +190,13 @@ def device_profile(torch, fn, top: int = 6):
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             rows.append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(r[1] for r in rows), rows[:top]
+    return wall_ms, sum(r[1] for r in rows), rows[:top] if top is not None else rows
 
 
 def profile_serving(torch, D, lm, params, prompts):
     """Where the serving time goes on the device: one prefill and 16 decode
     steps, each under the profiler (which slows the host, so the idle
-    shares are upper bounds)."""
+    shares are upper bounds).  Returns {phase: (wall ms, busy ms, top rows)}."""
     b, s = prompts.shape
     with torch.inference_mode():
         cache = D.init_cache(lm, b, s + 17, device=prompts.device)
@@ -174,12 +205,15 @@ def profile_serving(torch, D, lm, params, prompts):
             "prefill": lambda: D.prefill(lm, params, cache, prompts),
             "decode x16": lambda: [D.decode_step(lm, params, cache, cur) for _ in range(16)],
         }
+        out = {}
         for name, fn in phases.items():
-            wall, busy, top = device_profile(torch, fn)
+            wall, busy, rows = device_profile(torch, fn, top=None)
             print(f"profile {name}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
                   f"idle share {max(0.0, 1 - busy / wall):.3f}")
-            for key, ms, count in top:
+            for key, ms, count in rows[:6]:
                 print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+            out[name] = (wall, busy, rows)
+    return out
 
 
 def kernel_phase(torch, F, kernel, ref):
@@ -216,38 +250,48 @@ def kernel_phase(torch, F, kernel, ref):
             main = (q, k, v, out)
     q, k, v, out = main
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
     runs = {
         "kernel": lambda: kernel.flash_attention_fwd(q, k, v, causal=True, window=0, scale=0.125),
+        "fp32": lambda: kernel.flash_attention_fwd(q32, k32, v32, causal=True, window=0, scale=0.125),
         "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=0.125),
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=0.125, enable_gqa=True),
     }
-    try:
-        lib_err = (runs["library"]().transpose(1, 2).float() - out.float()).abs().max().item()
-        print(f"library yardstick agrees with the kernel to {lib_err:.3e}")
-    except TypeError as e:  # a torch without enable_gqa: no library time
-        print(f"library yardstick unavailable: {e}")
-        del runs["library"]
-    times: dict[str, list[float]] = {n: [] for n in runs}
+    lib = runs["library"]().transpose(1, 2).float()
+    diff = (lib - out.float()).abs()
+    lib_err = diff.max().item()
+    atol, rtol = TOL["bfloat16"]
+    lib_ok = bool((diff <= atol + rtol * lib.abs()).all())
+    print(f"library yardstick agrees with the kernel to {lib_err:.3e} (tolerance atol {atol} "
+          f"rtol {rtol}) {'ok' if lib_ok else 'FAIL'}")
+    check(lib_ok, "the kernel and scaled_dot_product_attention disagree")
+    events: dict[str, list[float]] = {"plain": [], "kernel": [], "library": []}
     for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
-        if name in runs:
-            times[name].append(cuda_ms(torch, runs[name]))
-    ms = {n: sum(t) / len(t) for n, t in times.items()}
-    ms.setdefault("library", None)
-    _, busy, top = device_profile(torch, lambda: [runs["kernel"]() for _ in range(20)], top=1)
-    print(f"kernel device time (profiler): {top[0][1] / top[0][2]:.4f} ms per launch "
-          f"over {top[0][2]} launches ({top[0][0][:60]})")
+        events[name].append(cuda_ms(torch, runs[name]))
+    event_ms = {n: sum(t) / len(t) for n, t in events.items()}
+    device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
+    for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
+        per_call, top = device_ms(torch, runs[name])
+        device[name].append(per_call)
+        if name != "library":
+            check(top[0][2] == 20, f"flash {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+        print(f"kernel flash_attention {name} device time (profiler): {per_call:.5f} ms per call; "
+              + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
+    ms = {n: sum(t) / len(t) for n, t in device.items()}
     bound_ms, bound_by, nbytes, flops = attention_bound(
         q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS)
     fp32_floor_ms = flops / PEAK_FP32_FLOPS * 1e3
-    print(f"kernel bf16 B=4 S=512 Hq=15 Hkv=5 D=64 causal: kernel_ms {ms['kernel']:.4f} "
-          f"plain_ms {ms['plain']:.4f} library_ms {ms['library']} "
-          f"bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) "
-          f"fp32-core floor {fp32_floor_ms:.4f} ms")
-    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    print(f"kernel bf16 B=4 S=512 Hq=15 Hkv=5 D=64 causal: device ms {ms['kernel']:.5f} "
+          f"(event {event_ms['kernel']:.5f}) library device ms {ms['library']:.5f} "
+          f"(event {event_ms['library']:.5f}) fp32 kernel device ms {ms['fp32']:.5f} plain_ms "
+          f"{event_ms['plain']:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP) fp32-core floor {fp32_floor_ms:.4f} ms; "
+          f"{bound_ms / ms['kernel']:.3f} of the bound")
+    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
-def ssd_bound(x, bm, y, h_final, dt, a, chunk: int, *, flops_peak: float):
+def ssd_bound(x, bm, cm, y, h_final, dt, a, chunk: int, *, flops_peak: float):
     """Least time for the work: x, dt, a, B and C read once, y and h_final
     written once, at the memory rate; against the products of each chunk at
     the peak rate of the inputs' type — C·Bᵀ and its product with dt·x over
@@ -255,7 +299,7 @@ def ssd_bound(x, bm, y, h_final, dt, a, chunk: int, *, flops_peak: float):
     update in full."""
     bsz, s, h, p = x.shape
     n = bm.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, bm, y, h_final))
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, cm, y, h_final))
     tri = chunk * (chunk + 1) // 2
     flops = (2 * tri * n + 2 * tri * p + 4 * chunk * n * p) * bsz * h * (s // chunk)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / flops_peak
@@ -335,22 +379,33 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
     check(same, "ssd_scan: strided views give another result")
 
     x, dt, a, bm, cm, y, hT, chunk = main
+    x32, b32, c32 = (t.float() for t in (x, bm, cm))
     runs = {
         "kernel": lambda: ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk),
+        "fp32": lambda: ssd_ops.ssd_scan(x32, dt, a, b32, c32, chunk=chunk),
         "plain": lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
     }
-    times: dict[str, list[float]] = {n: [] for n in runs}
+    events: dict[str, list[float]] = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(cuda_ms(torch, runs[name], iters=20))
-    ms = {n: sum(t) / len(t) for n, t in times.items()}
-    bound_ms, bound_by, nbytes, flops = ssd_bound(x, bm, y, hT, dt, a, chunk,
+        events[name].append(cuda_ms(torch, runs[name], iters=20))
+    event_ms = {n: sum(t) / len(t) for n, t in events.items()}
+    device: dict[str, list[float]] = {"kernel": [], "fp32": []}
+    for name in ("kernel", "fp32", "fp32", "kernel"):
+        per_call, top = device_ms(torch, runs[name])
+        device[name].append(per_call)
+        check(top[0][2] == 20, f"ssd {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+        print(f"kernel ssd_scan {name} device time (profiler): {per_call:.5f} ms per call; "
+              + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
+    ms = {n: sum(t) / len(t) for n, t in device.items()}
+    bound_ms, bound_by, nbytes, flops = ssd_bound(x, bm, cm, y, hT, dt, a, chunk,
                                                   flops_peak=PEAK_BF16_FLOPS)
-    print(f"kernel ssd_scan bf16 B=4 S=512 H=24 P=64 G=1 N=128 chunk 256: kernel_ms "
-          f"{ms['kernel']:.4f} plain_ms {ms['plain']:.4f} (ssd_chunked) bound_ms {bound_ms:.5f} "
-          f"({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP in the causal triangle) "
-          f"fp32-core floor {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; library_ms None "
-          f"(no single PyTorch call)")
-    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    print(f"kernel ssd_scan bf16 B=4 S=512 H=24 P=64 G=1 N=128 chunk 256: device ms "
+          f"{ms['kernel']:.5f} (event {event_ms['kernel']:.5f}) fp32 kernel device ms "
+          f"{ms['fp32']:.5f} plain_ms {event_ms['plain']:.4f} (ssd_chunked) bound_ms "
+          f"{bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP in the "
+          f"causal triangle) fp32-core floor {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; "
+          f"{bound_ms / ms['kernel']:.3f} of the bound; library_ms None (no single PyTorch call)")
+    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
 def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int):
@@ -381,9 +436,17 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
     def reset():
         for fn in counters.values():
             fn.launches = 0
+            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def by_dtype(dtype):
+        """Each kernel's launches must all be of ``dtype``: the variant it picks."""
+        got = {name: dict(fn.launches_by_dtype) for name, fn in counters.items()}
+        want = {name: {"bfloat16": 0, "float32": 0} | {dtype: n} for name, n in per_prefill.items()}
+        check(got == want, f"launches by dtype {got}, want {want}")
+        return got
 
     lm, src_plan = plan_for("data=2,model=2")
     t0 = time.perf_counter()
@@ -440,16 +503,25 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
             launches = counts()
             check(launches == per_prefill,
                   f"{mesh_str}: kernel launches {launches} in one prefill, want {per_prefill}")
+            dtypes = by_dtype("bfloat16")
             check(tuple(seq.shape) == (4, 17), f"{mesh_str}: tokens {tuple(seq.shape)}")
             check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()), "token out of vocab")
             print(f"serve {arch} {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, "
                   f"decode {decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), "
-                  f"kernel launches {launches} (float32 leaves: {len(kept)})")
+                  f"kernel launches {launches}, by dtype {dtypes} (float32 leaves: {len(kept)})")
             runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
                                   decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
                                   launches=launches)
             if expect == "direct":
-                profile_serving(torch, D, tlm, params_c, prompts)
+                _, busy, rows = profile_serving(torch, D, tlm, params_c, prompts)["prefill"]
+                ((name, want),) = ((n, w) for n, w in per_prefill.items() if w)
+                mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL[name] in key]
+                check(len(mine) == 1 and mine[0][2] == want,
+                      f"profiled prefill: {mine} for {TC_SYMBOL[name]}, want {want} launches")
+                ((key, ms, n),) = mine
+                print(f"serve {arch} prefill device time {busy:.3f} ms; {key[:48]} {ms:.3f} ms "
+                      f"over {n} launches ({ms / busy:.3f} of it)")
+                runs[mesh_str].update(prefill_device_ms=busy, prefill_kernel_ms=ms)
             del params_c
         a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
         check(torch.equal(a, b), "RESHARD_STREAM and DIRECT restores serve different tokens")
@@ -467,11 +539,12 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
             lg_cpu, _ = D.prefill(flm, unflatten_from_paths(cpu_params),
                                   D.init_cache(flm, 1, cpu_len), toks.cpu())
         check(launches == per_prefill, f"fp32 card prefill launches {launches}, want {per_prefill}")
+        dtypes = by_dtype("float32")
         check(tuple(lg_gpu.shape) == (1, cfg.vocab_size), f"logits {tuple(lg_gpu.shape)}")
         check(bool(torch.isfinite(lg_gpu).all()), "non-finite logits")
         err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
         print(f"serve {arch} check fp32 logits card vs CPU ({cpu_len} tokens): max_abs_err "
-              f"{err:.3e} (tolerance 1e-3)")
+              f"{err:.3e} (tolerance 1e-3); launches by dtype {dtypes}")
         check(err <= 1e-3, "card and CPU logits disagree")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -748,13 +821,20 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
+        "variant": VARIANT["flash_attention_fwd"],
         "launches": runs["data=1,model=1"]["launches"]["flash_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"]["kernel"],
-        "plain_ms": k["ms"]["plain"],
+        "ms_by": "profiler device time per launch",
+        "event_ms": k["event_ms"]["kernel"],
+        "fp32_ms": k["ms"]["fp32"],
+        "plain_ms": k["event_ms"]["plain"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["ms"]["library"],
+        "library_event_ms": k["event_ms"]["library"],
+        "prefill_device_ms": runs["data=2,model=2"]["prefill_device_ms"],
+        "prefill_kernel_ms": runs["data=2,model=2"]["prefill_kernel_ms"],
     }]
     for name, count in (("quantize_blocks", train["quantize"]),
                         ("dequantize_blocks", train["dequantize"])):
@@ -763,9 +843,12 @@ def main() -> int:
             "route": "cuda",
             "source": BQ_SOURCE,
             "replaces": BQ_REPLACES[name],
+            "variant": VARIANT[name],
             "launches": count,
             "max_abs_err": bq[name]["max_abs_err"],
             "ms": bq[name]["ms"]["kernel"],
+            "ms_by": "CUDA events over 50 launches",
+            "event_ms": bq[name]["ms"]["kernel"],
             "plain_ms": bq[name]["ms"]["plain"],
             "bound_ms": bq[name]["bound_ms"],
             "bound_by": "bytes",
@@ -776,13 +859,19 @@ def main() -> int:
         "route": "cuda",
         "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
+        "variant": VARIANT["ssd_scan_fwd"],
         "launches": ssm_runs["data=1,model=1"]["launches"]["ssd_scan"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["ms"]["kernel"],
-        "plain_ms": ssd["ms"]["plain"],
+        "ms_by": "profiler device time per launch",
+        "event_ms": ssd["event_ms"]["kernel"],
+        "fp32_ms": ssd["ms"]["fp32"],
+        "plain_ms": ssd["event_ms"]["plain"],
         "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"],
         "library_ms": None,
+        "prefill_device_ms": ssm_runs["data=2,model=2"]["prefill_device_ms"],
+        "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
     })
     print(json.dumps({"kernels": rows}))
     print(card)

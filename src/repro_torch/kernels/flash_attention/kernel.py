@@ -10,6 +10,11 @@ when this module is imported.
 The launch takes tensors in the model layout ``[B, S, H, D]`` with their
 strides (the head dim must be contiguous), runs on PyTorch's current
 stream, allocates nothing but the output, and raises on any launch error.
+The source holds two kernels and the dtype picks one: bfloat16 goes to the
+tensor-core kernel, float32 to the CUDA-core kernel.  The tensor-core
+kernel copies rows with 16-byte ``cp.async``, so a bfloat16 input whose row
+bases are not 16-byte aligned is refused
+(:func:`repro_torch.kernels.row_alignment`).
 """
 
 from __future__ import annotations
@@ -19,13 +24,20 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import row_alignment
 from repro_torch.kernels.nvcc import compile_and_load, launch_error
 
-__all__ = ["build", "flash_attention_fwd", "HEAD_DIMS"]
+__all__ = ["build", "flash_attention_fwd", "HEAD_DIMS", "ROW_ALIGN"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (8, 16, 32, 64, 128)
+ROW_ALIGN = 16  # bytes: the bfloat16 kernel's cp.async copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_REFUSALS = {
+    -1: "unsupported dtype",
+    -2: "unsupported head dim",
+    -3: "a bfloat16 row base is not 16-byte aligned",
+}
 
 # The loaded library and its build report, or None until the first launch.
 _LIB: ctypes.CDLL | None = None
@@ -93,6 +105,11 @@ def flash_attention_fwd(
 ) -> torch.Tensor:
     """Launch the kernel once: q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → o [B,Sq,Hq,D]."""
     _check(q, k, v)
+    if q.dtype == torch.bfloat16 and (got := row_alignment(q, k, v)) < ROW_ALIGN:
+        raise ValueError(
+            f"flash_attention_fwd: the bfloat16 kernel copies {ROW_ALIGN}-byte rows; the rows "
+            f"of q, k, v are only {got}-byte aligned (data pointer or strides)"
+        )
     lib, _ = build()
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -106,5 +123,5 @@ def flash_attention_fwd(
             float(scale), int(causal), int(window), stream,
         )
     if err != 0:
-        raise launch_error(lib, err, "flash_attention_fwd", "unsupported dtype or head dim")
+        raise launch_error(lib, err, "flash_attention_fwd", _REFUSALS.get(err, "refused"))
     return o

@@ -14,7 +14,9 @@
 
 ``flash_attention.launches`` counts kernel launches (a plain integer; the
 plain version does not count), so a run can show that its path went
-through the kernel.
+through the kernel; ``flash_attention.launches_by_dtype`` splits the same
+count by the inputs' dtype, which picks the kernel (bfloat16: tensor
+cores; float32: CUDA cores).
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ def flash_attention(
         refuse_grad(q, k, v)
         o = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
         flash_attention.launches += 1
+        flash_attention.launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
         return o
     raise ValueError(f"flash_attention: tensors on {sorted(devices)}; takes all-CPU or all-CUDA")
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dtype = {"bfloat16": 0, "float32": 0}

@@ -7,6 +7,12 @@ The CUDA source is compiled at first use by
 loaded when this module is imported.  The launch reads the model layout
 through strides (the last dim of x, B and C contiguous), runs on PyTorch's
 current stream, allocates only its outputs, and raises on any launch error.
+The source holds two kernels and the dtype of x, B and C picks one:
+bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core kernel.
+The tensor-core kernel copies rows with ``cp.async`` of 16, 8 or 4 bytes,
+the widest every row allows (:func:`repro_torch.kernels.row_alignment`; the
+kernel works out the same); a bfloat16 input whose rows are not even
+4-byte aligned is refused.
 """
 
 from __future__ import annotations
@@ -16,17 +22,20 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import row_alignment
 from repro_torch.kernels.nvcc import compile_and_load, launch_error
 
-__all__ = ["build", "ssd_scan_fwd", "MAX_STATE"]
+__all__ = ["build", "ssd_scan_fwd", "MAX_STATE", "ROW_ALIGN"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_STATE = 128
+ROW_ALIGN = 4  # bytes: the narrowest cp.async copy of the bfloat16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REFUSALS = {
     -1: "unsupported dtype",
     -2: "bad shape (state > 128, chunk not dividing seq, groups not dividing heads)",
     -3: "the chunk needs more shared memory than a block has",
+    -4: "a bfloat16 row of x, B or C is not 4-byte aligned",
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -91,6 +100,12 @@ def ssd_scan_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel once → (y [B,S,H,P] in x's dtype, h_final [B,H,P,N] fp32)."""
     _check(x, dt, a, b, c, chunk)
+    if x.dtype == torch.bfloat16 and (got := row_alignment(x, b, c)) < ROW_ALIGN:
+        raise ValueError(
+            f"ssd_scan_fwd: the bfloat16 kernel copies rows at least {ROW_ALIGN} bytes at a "
+            f"time; the rows of x, b, c are only {got}-byte aligned (data pointer, strides or "
+            "last dim)"
+        )
     lib, _ = build()
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]

@@ -15,7 +15,9 @@ reference's wrapper:
   (the card's check in ``chip_smoke.py`` holds the kernel against it too).
 
 ``ssd_scan.launches`` counts kernel launches (a plain integer; the plain
-version does not count).
+version does not count); ``ssd_scan.launches_by_dtype`` splits the same
+count by x's dtype, which picks the kernel (bfloat16: tensor cores;
+float32: CUDA cores).
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ def ssd_scan(
         refuse_grad(x, dt, a, b, c)
         out = kernel.ssd_scan_fwd(x, dt, a, b, c, chunk=chunk)
         ssd_scan.launches += 1
+        ssd_scan.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
         return out
     raise ValueError(f"ssd_scan: tensors on {sorted(devices)}; takes all-CPU or all-CUDA")
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_dtype = {"bfloat16": 0, "float32": 0}

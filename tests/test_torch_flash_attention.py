@@ -102,3 +102,72 @@ def test_plain_version_takes_kernel_layout():
     rq, rk, rv = (x.transpose(0, 2, 1, 3) for x in js)
     want = ref_oracle(rq, rk, rv, causal=True, window=8)
     np.testing.assert_allclose(_np(out), _np(want), atol=2e-5, rtol=1e-5)
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, causal, window, scale, tile=64):
+    """The bf16 tensor-core kernel's arithmetic in plain torch, on [B,S,H,D]
+    bf16 tensors: fp32 scores of the bf16 inputs, an online softmax over
+    64-column tiles in base 2 (scores times scale·log2(e), exp2), each tile's
+    P rounded to bf16 before P·V while l sums the fp32 P, and
+    O = acc / max(l, 1e-37) rounded once to bf16.  Tiles the kernel skips
+    are wholly masked here and change nothing."""
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
+    sq, skv = qf.shape[2], kf.shape[2]
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    m = torch.full(qf.shape[:3], -torch.inf)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros(qf.shape[:3] + (vf.shape[-1],))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, tile):
+        cols = torch.arange(k0, min(k0 + tile, skv))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale_log2
+        ok = torch.ones((sq, cols.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= rows - cols >= 0
+        if window > 0:
+            ok &= rows - cols < window
+        s = torch.where(ok, s, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        base = torch.where(mx == -torch.inf, 0.0, mx)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        m = mx
+    return (acc / l.clamp_min(1e-37)[..., None]).to(torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("s", [512, 500])
+@pytest.mark.parametrize("window", [0, 128])
+def test_tensor_core_rounding_within_reference_tolerance(s, window):
+    """The error budget of the bf16 kernel, proved before it runs on a card:
+    its rounding (P to bf16 before P·V, base-2 softmax) emulated in plain
+    torch at the serving slice's head layout (15:5 heads, D = 64), held
+    against the reference oracle within the bf16 tolerance of
+    tests/test_kernels.py (atol = rtol = 2e-2)."""
+    js, ts = _inputs(1, s, 15, 5, 64, "bfloat16", seed=4)
+    got = _emulate_tensor_core_kernel(*ts, causal=True, window=window, scale=0.125)
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
+    want = ref_oracle(q, k, v, causal=True, window=window, scale=0.125).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+
+
+def test_alignment_check_takes_the_models_views_and_refuses_an_offset_one():
+    """The bf16 kernel copies rows 16 bytes at a time.  smollm's fused-QKV
+    split (byte offsets 1920 and 2560, rows of 3200 bytes) passes the pure
+    Python check; a view one element off, or rows of an odd stride, fail it."""
+    from repro_torch.kernels import row_alignment
+    from repro_torch.kernels.flash_attention import kernel
+
+    qkv = torch.zeros(4, 512, (15 + 5 + 5) * 64, dtype=torch.bfloat16)
+    assert qkv.data_ptr() % 16 == 0
+    q, k, v = (t.reshape(4, 512, -1, 64) for t in torch.split(qkv, [960, 320, 320], dim=-1))
+    assert (k.data_ptr() - qkv.data_ptr(), v.data_ptr() - qkv.data_ptr()) == (1920, 2560)
+    assert row_alignment(q, k, v) == kernel.ROW_ALIGN == 16
+    off = qkv[..., 1:961].reshape(4, 512, 15, 64)
+    assert row_alignment(off, k, v) == 2
+    odd_rows = torch.zeros(4, 512, 15 * 64 + 1, dtype=torch.bfloat16)[..., :960].reshape(4, 512, 15, 64)
+    assert row_alignment(odd_rows, k, v) == 2

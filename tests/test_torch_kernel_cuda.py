@@ -7,7 +7,8 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 
 * the flash-attention kernel against its plain version on the same inputs
   (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
-  the serving slice's head layout, with ragged lengths and windows;
+  the serving slice's head layout, with ragged lengths and windows, every
+  head dim (8-128) in bf16, non-causal, GQA and MQA;
 * reduced smollm prefill and decode on the card (kernel path) against the
   same weights on the CPU (plain path), in float32;
 * the block-quant kernels against their plain version, byte for byte (q,
@@ -19,10 +20,14 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 * the SSD chunk-scan kernel against its plain versions (``ssd_ref`` and
   ``ssd_chunked``) on the sweep of ``tests/test_kernels.py`` and at the
   serving shapes, bf16 (y 5e-2) and fp32 (y 5e-4/1e-4), h_final 5e-3 as
-  there; strided views; chunks that are not powers of two (40) and the
-  model's halving down to 4 (S = 500); reduced mamba2 on the card (one
+  there; strided views; chunks that are not powers of two (40, 96) and the
+  model's halving down to 4 (S = 500); P = 128 (two column tiles), G = 2
+  and 3, N = 100 (8-byte row copies); reduced mamba2 on the card (one
   kernel launch per layer) against the CPU path in float32; and the
-  wrapper's refusal of a recorded gradient.
+  wrapper's refusal of a recorded gradient;
+* each kernel's launches counted by dtype (bf16: the tensor-core kernel;
+  fp32: the CUDA-core kernel), and the bf16 kernels' refusal of a view one
+  element off its row start.
 """
 
 import numpy as np
@@ -70,6 +75,15 @@ def _tol(dtype):
     (torch.float32, 2, 130, 6, 3, 16, 32, True),
     (torch.float32, 1, 256, 8, 8, 8, 128, True),
     (torch.bfloat16, 1, 200, 4, 1, 128, 0, True),
+    # the tensor-core kernel: every head dim, ragged S, windows, non-causal, GQA and MQA
+    (torch.bfloat16, 1, 77, 4, 2, 8, 0, False),
+    (torch.bfloat16, 1, 256, 8, 8, 8, 128, True),
+    (torch.bfloat16, 2, 130, 6, 3, 16, 32, True),
+    (torch.bfloat16, 1, 77, 4, 2, 32, 0, False),
+    (torch.bfloat16, 2, 300, 8, 1, 64, 0, False),
+    (torch.bfloat16, 2, 190, 4, 2, 128, 64, True),
+    (torch.bfloat16, 1, 33, 3, 3, 64, 0, True),
+    (torch.float32, 1, 190, 4, 2, 128, 64, True),
 ])
 def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -77,9 +91,13 @@ def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal):
     k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
     launches = flash_attention.launches
+    by_dtype = dict(flash_attention.launches_by_dtype)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
+    name = str(dtype).removeprefix("torch.")
+    by_dtype[name] += 1
+    assert flash_attention.launches_by_dtype == by_dtype
     want = ref.attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
     ).transpose(1, 2)
@@ -98,6 +116,21 @@ def test_kernel_reads_strided_views(cuda):
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+def test_kernel_refuses_a_misaligned_bf16_view(cuda):
+    """The tensor-core kernel copies 16-byte rows: a view one element off
+    raises with the reason (no fallback); the fp32 kernel takes it."""
+    base = torch.randn(1, 64, 4 * 64 + 1, device=cuda)
+    q = base.to(torch.bfloat16)[..., 1:].reshape(1, 64, 4, 64)
+    k = v = torch.randn(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="only 2-byte aligned"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == launches
+    out = flash_attention(base[..., 1:].reshape(1, 64, 4, 64), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and flash_attention.launches == launches + 1
 
 
 def test_reduced_smollm_on_card_matches_cpu(cuda):
@@ -218,13 +251,18 @@ def _ssd_close(got, want, dtype):
     (2, 256, 4, 64, 2, 128, 64),
     (1, 120, 3, 64, 1, 100, 40),
     (1, 500, 4, 16, 1, 16, 4),
+    (1, 256, 2, 128, 1, 64, 64),
+    (2, 192, 6, 32, 3, 64, 96),
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
     x, dt, a, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=s + n)
     launches = ssd_scan.launches
+    by_dtype = dict(ssd_scan.launches_by_dtype)
     y, hT = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_scan.launches == launches + 1
+    by_dtype[str(dtype).removeprefix("torch.")] += 1
+    assert ssd_scan.launches_by_dtype == by_dtype
     assert y.dtype == dtype and y.shape == x.shape and hT.shape == (b, h, p, n)
     _ssd_close((y, hT), ssd_chunked(x, dt, a, bm, cm, chunk=chunk), dtype)
     rep = h // g
@@ -250,6 +288,19 @@ def test_ssd_kernel_reads_strided_views(cuda):
     want = ssd_scan(*(t.contiguous() for t in (x, dt, a, bm, cm)), chunk=64)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_kernel_refuses_a_misaligned_bf16_view(cuda):
+    """The tensor-core kernel stages rows with 4-, 8- or 16-byte copies: x
+    one element off its row start raises with the reason (no fallback)."""
+    x, dt, a, bm, cm = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, torch.bfloat16)
+    wide = torch.zeros(1, 64, 2 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    off = wide[..., 1:].reshape(1, 64, 2, 16)
+    off.copy_(x)
+    launches = ssd_scan.launches
+    with pytest.raises(ValueError, match="only 2-byte aligned"):
+        ssd_scan(off, dt, a, bm, cm, chunk=32)
+    assert ssd_scan.launches == launches
 
 
 def test_ssd_kernel_refuses_a_recorded_gradient(cuda):

@@ -129,3 +129,89 @@ def test_ssd_scan_refuses_mixed_devices():
     _, port = _inputs(1, 8, 2, 4, 1, 4, "float32")
     with pytest.raises(ValueError, match="all-CPU or all-CUDA"):
         ssd_scan(port[0].to("meta"), *port[1:], chunk=8)
+
+
+def _emulate_tensor_core_kernel(x, dt, a, b, c, *, chunk, single=False):
+    """The bf16 tensor-core kernel's arithmetic in plain torch (model layout,
+    bf16 x/B/C): per chunk, C·Bᵀ of the bf16 inputs in fp32, then
+    (C·Bᵀ ⊙ exp(cum_i - cum_j) ⊙ dt_j) split into bf16 hi + lo and each
+    multiplied by x; the inter term C·h_prevᵀ with h_prev split into bf16
+    hi + lo, times exp(cum_i); the update h·exp(total) + (w ⊙ x)ᵀ·B with
+    w = dt·exp(total - cum) and w ⊙ x split into bf16 hi + lo.  y is rounded
+    once to bf16; h stays fp32.  With ``single=True`` the first operand is
+    rounded to bf16 once instead of split."""
+    bsz, s, h, p = x.shape
+    rep = h // b.shape[2]
+    bf = b.float().repeat_interleave(rep, 2)
+    cf = c.float().repeat_interleave(rep, 2)
+    xf = x.float()
+    state = torch.zeros(bsz, h, p, b.shape[3])
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+
+    def split(t):
+        hi = t.bfloat16().float()
+        return hi, (t - hi).bfloat16().float()
+
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        dtc = dt[:, sl]                                    # [B,Q,H]
+        cum = torch.cumsum(dtc * a, dim=1)
+        total = cum[:, -1]                                 # [B,H]
+        cc, bc, xc = cf[:, sl], bf[:, sl], xf[:, sl]
+        cum_h = cum.transpose(1, 2)                        # [B,H,Q]
+        seg = cum_h[..., :, None] - cum_h[..., None, :]
+        lmat = torch.where(tri, torch.exp(seg), 0.0)
+        cb = torch.einsum("bihn,bjhn->bhij", cc, bc)
+        op = cb * lmat * dtc.transpose(1, 2)[..., None, :]
+        parts = (op.bfloat16().float(),) if single else split(op)
+        y = sum(torch.einsum("bhij,bjhp->bihp", part, xc) for part in parts)
+        hi, lo = split(state)
+        inter = torch.einsum("bihn,bhpn->bihp", cc, hi) + torch.einsum("bihn,bhpn->bihp", cc, lo)
+        ys.append(inter * torch.exp(cum)[..., None] + y)
+        w = dtc * torch.exp(total[:, None] - cum)
+        whi, wlo = split(xc * w[..., None])
+        state = (state * torch.exp(total)[..., None, None]
+                 + torch.einsum("bqhp,bqhn->bhpn", whi, bc) + torch.einsum("bqhp,bqhn->bhpn", wlo, bc))
+    return torch.cat(ys, 1).to(x.dtype), state
+
+
+def test_tensor_core_rounding_within_reference_tolerance():
+    """The error budget of the bf16 kernel, proved before it runs on a card:
+    its rounding (C·Bᵀ ⊙ L ⊙ dt, h_prev and w ⊙ x each as bf16 hi + lo)
+    emulated in plain torch at the serving shapes of one sequence (H = 24,
+    P = 64, N = 128, S = 512, chunk 256, two chunks, so the carried state
+    is exercised), held against the reference oracle ``ssd_ref`` within the
+    tolerances of tests/test_kernels.py: y atol = rtol = 5e-2, h_final
+    atol = rtol = 5e-3.  Rounding C·Bᵀ ⊙ L ⊙ dt to bf16 once instead, as a
+    plain bf16 operand would, misses y's tolerance on the same inputs."""
+    ref, port = _inputs(1, 512, 24, 64, 1, 128, "bfloat16", seed=6)
+    x, dt, a, bm, cm = ref
+    oy, oh = ref_ssd_ref(
+        x.transpose(0, 2, 1, 3), dt.transpose(0, 2, 1), a,
+        jnp.repeat(bm, 24, 2).transpose(0, 2, 1, 3), jnp.repeat(cm, 24, 2).transpose(0, 2, 1, 3),
+    )
+    want_y = np.asarray(oy.transpose(0, 2, 1, 3), np.float32)
+    y, hT = _emulate_tensor_core_kernel(*port, chunk=256)
+    np.testing.assert_allclose(y.float().numpy(), want_y, atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(oh), atol=5e-3, rtol=5e-3)
+    y1, _ = _emulate_tensor_core_kernel(*port, chunk=256, single=True)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(y1.float().numpy(), want_y, atol=5e-2, rtol=5e-2)
+
+
+def test_alignment_check_takes_the_models_views_and_refuses_an_offset_one():
+    """mamba2's conv output split into x, B and C (byte offsets 3072 and
+    3328, rows of 3584 bytes) allows 16-byte copies; N = 100 (200-byte rows)
+    allows 8; a view one element off allows 2, under the bf16 kernel's 4."""
+    from repro_torch.kernels import row_alignment
+    from repro_torch.kernels.ssd_scan import kernel
+
+    xbc = torch.zeros(4, 512, 1536 + 2 * 128, dtype=torch.bfloat16)
+    x, bm, cm = torch.split(xbc, [1536, 128, 128], dim=-1)
+    x, bm, cm = x.reshape(4, 512, 24, 64), bm.reshape(4, 512, 1, 128), cm.reshape(4, 512, 1, 128)
+    assert (bm.data_ptr() - xbc.data_ptr(), cm.data_ptr() - xbc.data_ptr()) == (3072, 3328)
+    assert row_alignment(x, bm, cm) == 16
+    assert row_alignment(torch.zeros(1, 8, 1, 100, dtype=torch.bfloat16)) == 8
+    off = xbc[..., 1:1537].reshape(4, 512, 24, 64)
+    assert row_alignment(off, bm, cm) == 2 < kernel.ROW_ALIGN
