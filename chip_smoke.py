@@ -21,10 +21,16 @@ nothing falls back to the CPU or to a plain version):
    time at the same shapes, and the plain version's event time;
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
-   to 1e30 and one moment shard of ``layers.blk.w_up`` under
-   data=2,model=2, checked byte for byte (q, scales and the decoded fp32);
-   then kernel and plain times and the bound (bytes over 3.35 TB/s; no
-   single PyTorch call computes this function, so no library time);
+   to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
+   moment shard of ``layers.blk.w_up`` under data=2,model=2, the last also
+   as a view one element off (the general kernels); checked byte for byte
+   (q, scales and the decoded fp32), the non-finite case by NaN class (NaN
+   at the same places, every other byte equal), and each launch's variant;
+   then at the shard's shape the vector kernel's and the general kernel's
+   device time per call (the profiler, 20 warm calls, in turns; the 98.6 MB
+   shard exceeds the 50 MB L2), the vector kernel's and the plain version's
+   event times, and the bound (bytes over 3.35 TB/s; no single PyTorch
+   call computes this function, so no library time);
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -60,13 +66,15 @@ nothing falls back to the CPU or to a plain version):
    the manifest's served digest) and step 3; steps 4-6 from each resume
    (finite losses, printed beside the baseline's); the launch counts
    (quantize == coded shards written, dequantize >= that plus the coded
-   shards read per resume, flash-attention 0); step time, tokens/s, save
+   shards read per resume, every block-quant launch the vector variant,
+   flash-attention 0); step time, tokens/s, save
    GB/s, coded/raw bytes, restore seconds and one profiled step's device
    busy share;
-8. the kernels line (JSON: each row names its variant; ``ms`` is the
-   profiler's device time per launch for rows 1 and 4, events for rows 2-3,
-   with ``event_ms`` beside it), the card line, then the result line (JSON,
-   last).
+8. the kernels line (JSON: each row names its variants; ``ms`` is the
+   profiler's device time per launch, with ``event_ms`` beside it; rows 2-3
+   add the general kernel's device time ``general_ms`` and the train
+   phase's ``launches_by_variant``), the card line, then the result line
+   (JSON, last).
 """
 
 from __future__ import annotations
@@ -106,8 +114,12 @@ VARIANT = {
                            "double-buffered K/V; fp32: fwd_kernel, CUDA cores",
     "ssd_scan_fwd": "bf16: ssd_kernel_tc, mma.sync m16n8k16 tensor cores, bf16 hi+lo splits "
                     "of the fp32 operands; fp32: ssd_kernel, CUDA cores",
-    "quantize_blocks": "fp32 in, int8/fp8 out: quantize_kernel, CUDA cores",
-    "dequantize_blocks": "int8/fp8 in, fp32 out: dequantize_kernel, CUDA cores",
+    "quantize_blocks": "n % 8 == 0 <= 1024, 16-byte aligned: quantize_vec_kernel, a row in "
+                       "registers, float4 loads, 4-byte code stores, grid-stride with the next "
+                       "row prefetched; otherwise: quantize_kernel, one block a row",
+    "dequantize_blocks": "n % 8 == 0 <= 1024, 16-byte aligned: dequantize_vec_kernel, 4-byte "
+                         "code loads, paired fp8 conversion, float4 streaming stores, "
+                         "grid-stride; otherwise: dequantize_kernel, one block a row",
 }
 
 
@@ -551,15 +563,35 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
     return runs
 
 
+def ptxas_usage(text: str) -> list[str]:
+    """One line per kernel from ``ptxas -v``: its name (demangled where
+    ``c++filt`` exists), registers and spills."""
+    names, rows, spill = [], {}, {}
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            names.append(ln.split("'")[1])
+        elif "spill" in ln and names:
+            spill[names[-1]] = ln.strip()
+        elif "Used" in ln and names:
+            rows[names[-1]] = ln.split(":", 1)[1].strip()
+    shown = names
+    if names and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                             timeout=60, check=False)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            shown = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                     for n in res.stdout.splitlines()]
+    return [f"{s}: {rows.get(n, '?')}; {spill.get(n, '?')}" for n, s in zip(names, shown)]
+
+
 def build_all(kernels):
     """Build every kernel source at once (one nvcc each, in parallel)."""
     with ThreadPoolExecutor(len(kernels)) as pool:
         reports = dict(zip(kernels, pool.map(lambda k: k.build()[1], kernels.values())))
     for name, report in reports.items():
-        usage = [ln.strip() for ln in report["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
         print(f"build {name}: {'compiled' if report['compiled'] else 'cached'} in "
               f"{report['seconds']:.2f} s -> {Path(report['library']).relative_to(ROOT)}")
-        for ln in usage:
+        for ln in ptxas_usage(report["ptxas"]):
             print(f"  ptxas: {ln}")
 
 
@@ -583,49 +615,91 @@ def w_up_moment_shard_numel() -> int:
     return n
 
 
+def same_by_nan_class(torch, got, want) -> bool:
+    """NaN (an fp8 NaN code) at the same places as ``want``, and every other
+    byte equal: byte for byte where ``want`` holds no NaN."""
+    nan = torch.isnan(want.float())
+    if not torch.equal(torch.isnan(got.float()), nan):
+        return False
+    ints = {1: torch.uint8, 4: torch.int32}[want.element_size()]
+    return torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+def off_by_one(torch, t):
+    """An equal tensor whose storage starts one element past a 16-byte
+    boundary: the general kernels' input at the same shape."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def block_quant_phase(torch, bq_ops, bq_ref):
-    """The block-quant kernels against their plain version, byte for byte,
-    then their times at the w_up moment shard's shape (int8:b256)."""
+    """The block-quant kernels against their plain version, byte for byte
+    (by NaN class on the non-finite case), then their times at the w_up
+    moment shard's shape (int8:b256): the vector kernels, the general ones
+    on a view one element off, the plain version."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     shard_n = w_up_moment_shard_numel()
     spread = torch.exp(torch.empty(shard_n // 256, 1, device=dev).uniform_(-20, 5, generator=g))
-    cases = {
-        "ragged count 1000": torch.randn(1000, generator=g, device=dev) * 3,
-        "all-zero block": torch.cat([torch.randn(256, generator=g, device=dev),
-                                     torch.zeros(256, device=dev),
-                                     torch.randn(77, generator=g, device=dev)]),
-        "values up to 1e30": torch.tensor([1e30, -1e30, 0.5, 0.0, 3e29, -7.0] * 100, device=dev),
-        f"w_up moment shard ({shard_n})":
-            (torch.randn(shard_n // 256, 256, generator=g, device=dev) * spread).reshape(-1),
+    nonfinite = torch.randn(2000, generator=g, device=dev)
+    nonfinite[[3, 50, 300, 420]] = torch.tensor([math.nan, -math.nan, math.inf, -math.inf],
+                                                device=dev)
+    nonfinite[1024:1280] = math.nan
+    shard = (torch.randn(shard_n // 256, 256, generator=g, device=dev) * spread).reshape(-1)
+    cases = {  # label: (input, the variant its launches take)
+        "ragged count 1000": (torch.randn(1000, generator=g, device=dev) * 3, "vector"),
+        "all-zero block": (torch.cat([torch.randn(256, generator=g, device=dev),
+                                      torch.zeros(256, device=dev),
+                                      torch.randn(77, generator=g, device=dev)]), "vector"),
+        "values up to 1e30": (torch.tensor([1e30, -1e30, 0.5, 0.0, 3e29, -7.0] * 100,
+                                           device=dev), "vector"),
+        "non-finite (NaN, ±inf)": (nonfinite, "vector"),
+        f"w_up moment shard ({shard_n})": (shard, "vector"),
+        f"w_up moment shard ({shard_n}), one element off": (off_by_one(torch, shard), "general"),
     }
+    counters = (bq_ops.block_quantize, bq_ops.block_dequantize)
     worst = 0.0
-    for label, x in cases.items():
+    for label, (x, want) in cases.items():
         for qd in QDTYPES:
+            for fn in counters:
+                fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
             q, s = bq_ops.block_quantize(x, block=256, dtype=qd)
-            d = bq_ops.block_dequantize(q, s, count=x.numel())
+            d = bq_ops.block_dequantize(off_by_one(torch, q) if want == "general" else q, s,
+                                        count=x.numel())
             pq, ps = bq_ref.quantize_blocks(bq_ref.blocked(x, block=256), dtype=qd)
             pd = bq_ref.dequantize_blocks(pq, ps, count=x.numel())
             torch.cuda.synchronize()
-            same = (torch.equal(q.view(torch.uint8), pq.view(torch.uint8))
-                    and torch.equal(s.view(torch.int32), ps.view(torch.int32))
-                    and torch.equal(d.view(torch.int32), pd.view(torch.int32)))
-            err = (d - pd).abs().max().item()
-            worst = max(worst, err)
-            print(f"kernel block_quant {label} {qd}: q, scales and decoded byte-equal to the "
-                  f"plain version: {same} (max_abs_err {err:.1e})")
-            check(same and bool(torch.isfinite(d).all()),
+            took = [fn.launches_by_variant for fn in counters]
+            check(took == [{"vector": int(want == "vector"), "general": int(want == "general")}] * 2,
+                  f"block_quant {label} {qd}: launches by variant {took}, want {want}")
+            nan = bool(torch.isnan(pd).any())
+            check(nan == label.startswith("non-finite"), f"block_quant {label}: NaN in the plain decode")
+            same = (same_by_nan_class(torch, q, pq) and same_by_nan_class(torch, s, ps)
+                    and same_by_nan_class(torch, d, pd))
+            finite = ~torch.isnan(pd)
+            err = (d[finite] - pd[finite]).abs().max().item()
+            if not nan:
+                worst = max(worst, err)
+            how = "by NaN class" if nan else "byte for byte"
+            print(f"kernel block_quant {label} {qd} ({want}): q, scales and decoded equal to the "
+                  f"plain version {how}: {same} (max_abs_err {err:.1e} off NaN)")
+            check(same and (nan or bool(torch.isfinite(d).all())),
                   f"block_quant {label} {qd}: kernel disagrees with its plain version")
-    x = cases[f"w_up moment shard ({shard_n})"]
+    x = shard
     blocks = bq_ref.blocked(x, block=256)
     q, s = bq_ops.block_quantize(x, block=256, dtype="int8")
+    x_off, q_off = off_by_one(torch, x), off_by_one(torch, q)
     runs = {
         "quantize_blocks": {
             "kernel": lambda: bq_ops.block_quantize(x, block=256, dtype="int8"),
+            "general": lambda: bq_ops.block_quantize(x_off, block=256, dtype="int8"),
             "plain": lambda: bq_ref.quantize_blocks(blocks, dtype="int8"),
         },
         "dequantize_blocks": {
             "kernel": lambda: bq_ops.block_dequantize(q, s, count=shard_n),
+            "general": lambda: bq_ops.block_dequantize(q_off, s, count=shard_n),
             "plain": lambda: bq_ref.dequantize_blocks(q, s, count=shard_n),
         },
     }
@@ -636,15 +710,25 @@ def block_quant_phase(torch, bq_ops, bq_ref):
     }
     out = {}
     for name, fns in runs.items():
-        times: dict[str, list[float]] = {"kernel": [], "plain": []}
+        events: dict[str, list[float]] = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            times[which].append(cuda_ms(torch, fns[which]))
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
+            events[which].append(cuda_ms(torch, fns[which]))
+        device: dict[str, list[float]] = {"kernel": [], "general": []}
+        for which in ("kernel", "general", "general", "kernel"):
+            per_call, top = device_ms(torch, fns[which])
+            device[which].append(per_call)
+            check(top[0][2] == 20, f"{name} {which}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+            print(f"kernel {name} {which} device time (profiler): {per_call:.5f} ms per call; "
+                  + "; ".join(f"{key[:60]} x{count} {t:.3f} ms" for key, t, count in top))
+        ms = {k: sum(v) / len(v) for k, v in device.items()}
+        event_ms = {k: sum(v) / len(v) for k, v in events.items()}
         bound_ms = moved[name] / PEAK_BYTES_PER_S * 1e3
-        print(f"kernel {name} int8:b256 on {shard_n} elements: kernel_ms {ms['kernel']:.4f} "
-              f"plain_ms {ms['plain']:.4f} bound_ms {bound_ms:.5f} (bytes: "
-              f"{moved[name] / 1e6:.2f} MB) library_ms None (no single PyTorch call)")
-        out[name] = dict(ms=ms, bound_ms=bound_ms, max_abs_err=worst)
+        print(f"kernel {name} int8:b256 on {shard_n} elements: device ms {ms['kernel']:.5f} "
+              f"(event {event_ms['kernel']:.5f}) general kernel device ms {ms['general']:.5f} "
+              f"plain_ms {event_ms['plain']:.4f} bound_ms {bound_ms:.5f} (bytes: "
+              f"{moved[name] / 1e6:.2f} MB, beyond the 50 MB L2) {bound_ms / ms['kernel']:.3f} of "
+              f"the bound; library_ms None (no single PyTorch call)")
+        out[name] = dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, max_abs_err=worst)
     return out
 
 
@@ -700,7 +784,9 @@ def train_phase(torch, ops, bq_ops):
     out = {}
     try:
         ops.flash_attention.launches = 0
-        bq_ops.block_quantize.launches = bq_ops.block_dequantize.launches = 0
+        for fn in (bq_ops.block_quantize, bq_ops.block_dequantize):
+            fn.launches = 0
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
         base = trainer("data=2,model=2")
         state, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
@@ -772,10 +858,16 @@ def train_phase(torch, ops, bq_ops):
             torch.cuda.empty_cache()
         flash = ops.flash_attention.launches
         check(flash == 0, f"{flash} flash-attention launches during training")
-        out = dict(quantize=quant, dequantize=bq_ops.block_dequantize.launches, step_s=step_s,
+        dequant = bq_ops.block_dequantize.launches
+        by_variant = {"quantize": dict(bq_ops.block_quantize.launches_by_variant),
+                      "dequantize": dict(bq_ops.block_dequantize.launches_by_variant)}
+        check(by_variant == {"quantize": {"vector": quant, "general": 0},
+                             "dequantize": {"vector": dequant, "general": 0}},
+              f"train: block-quant launches by variant {by_variant}, want all vector")
+        out = dict(quantize=quant, dequantize=dequant, by_variant=by_variant, step_s=step_s,
                    restore_s=restore_s)
-        print(f"train launches: quantize {quant}, dequantize {out['dequantize']}, "
-              f"flash_attention {flash}")
+        print(f"train launches: quantize {quant}, dequantize {dequant}, "
+              f"flash_attention {flash}; block quant by variant {by_variant}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -836,20 +928,21 @@ def main() -> int:
         "prefill_device_ms": runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": runs["data=2,model=2"]["prefill_kernel_ms"],
     }]
-    for name, count in (("quantize_blocks", train["quantize"]),
-                        ("dequantize_blocks", train["dequantize"])):
+    for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
             "name": name,
             "route": "cuda",
             "source": BQ_SOURCE,
             "replaces": BQ_REPLACES[name],
             "variant": VARIANT[name],
-            "launches": count,
+            "launches": train[which],
+            "launches_by_variant": train["by_variant"][which],
             "max_abs_err": bq[name]["max_abs_err"],
             "ms": bq[name]["ms"]["kernel"],
-            "ms_by": "CUDA events over 50 launches",
-            "event_ms": bq[name]["ms"]["kernel"],
-            "plain_ms": bq[name]["ms"]["plain"],
+            "ms_by": "profiler device time per launch",
+            "event_ms": bq[name]["event_ms"]["kernel"],
+            "general_ms": bq[name]["ms"]["general"],
+            "plain_ms": bq[name]["event_ms"]["plain"],
             "bound_ms": bq[name]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,

@@ -7,6 +7,12 @@ The CUDA source is compiled at first use by
 :func:`repro_torch.kernels.nvcc.compile_and_load`.  Nothing is compiled or
 loaded when this module is imported.  Each launch runs on PyTorch's current
 stream, allocates only its outputs, and raises on any launch error.
+
+The source holds two variants of each kernel, and :func:`variant` picks one
+from the row width and the pointers alone (no switch, no environment):
+``"vector"`` (a row in registers, 16-byte loads, several rows a block) and
+``"general"`` (one block a row, any width and alignment).  Each launch
+returns the variant it took.
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ from repro_torch.kernels.nvcc import compile_and_load, launch_error
 
 from .ref import FMAX, QDTYPES, qdtype_name, reciprocal
 
-__all__ = ["build", "quantize_blocks", "dequantize_blocks"]
+__all__ = ["VECTOR_MAX_N", "build", "dequantize_blocks", "quantize_blocks", "variant"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "block_quant.cu"
 _QKIND = {"int8": 0, "float8_e4m3fn": 1, "float8_e5m2": 2}
+
+VECTOR_MAX_N = 1024  # the widest row the vector kernels hold in registers
 
 _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
@@ -36,18 +44,30 @@ def build() -> tuple[ctypes.CDLL, dict]:
     if _LIB is not None:
         return _LIB, _REPORT
     lib, report = compile_and_load(SOURCE, "block_quant")
-    lib.repro_block_quantize.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.repro_block_quantize.restype = ctypes.c_int
-    lib.repro_block_dequantize.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.repro_block_dequantize.restype = ctypes.c_int
+    for fn in (lib.repro_block_quantize, lib.repro_block_quantize_vec):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    for fn in (lib.repro_block_dequantize, lib.repro_block_dequantize_vec):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     _LIB, _REPORT = lib, report
     return lib, report
+
+
+def variant(n: int, *pointers: int) -> str:
+    """The kernel a launch takes for rows of ``n`` elements: ``"vector"``
+    when ``n`` is a multiple of 8 up to :data:`VECTOR_MAX_N` and every
+    pointer the kernel moves 16 bytes at a time through (the fp32 side and
+    the codes) is 16-byte aligned, else ``"general"``."""
+    if 0 < n <= VECTOR_MAX_N and n % 8 == 0 and all(p % 16 == 0 for p in pointers):
+        return "vector"
+    return "general"
 
 
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int) -> None:
@@ -64,25 +84,29 @@ def _stream(t: torch.Tensor) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
-def quantize_blocks(blocks: torch.Tensor, *, dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch: fp32 ``[nblocks, n]`` → ``(q [nblocks, n], scales [nblocks])``."""
+def quantize_blocks(blocks: torch.Tensor, *, dtype) -> tuple[torch.Tensor, torch.Tensor, str]:
+    """One launch: fp32 ``[nblocks, n]`` → ``(q [nblocks, n], scales [nblocks],
+    variant)``."""
     name = qdtype_name(dtype)
     _require(blocks, "quantize_blocks: blocks", torch.float32, 2)
     lib, _ = build()
     nblocks, n = blocks.shape
     q = torch.empty((nblocks, n), dtype=QDTYPES[name], device=blocks.device)
     scales = torch.empty((nblocks,), dtype=torch.float32, device=blocks.device)
-    err = lib.repro_block_quantize(
+    which = variant(n, blocks.data_ptr(), q.data_ptr())
+    fn = lib.repro_block_quantize_vec if which == "vector" else lib.repro_block_quantize
+    err = fn(
         blocks.data_ptr(), q.data_ptr(), scales.data_ptr(), nblocks, n, _QKIND[name],
         FMAX[name], reciprocal(name), _stream(blocks),
     )
     if err != 0:
-        raise launch_error(lib, err, "quantize_blocks", "bad format or shape")
-    return q, scales
+        raise launch_error(lib, err, f"quantize_blocks ({which})", "bad format, shape or alignment")
+    return q, scales, which
 
 
-def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """One launch: ``(q [nblocks, n], scales [nblocks])`` → fp32 ``[nblocks, n]``."""
+def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor) -> tuple[torch.Tensor, str]:
+    """One launch: ``(q [nblocks, n], scales [nblocks])`` → (fp32 ``[nblocks, n]``,
+    variant)."""
     name = qdtype_name(q.dtype)
     _require(q, "dequantize_blocks: q", q.dtype, 2)
     _require(scales, "dequantize_blocks: scales", torch.float32, 1)
@@ -94,9 +118,9 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     lib, _ = build()
     nblocks, n = q.shape
     out = torch.empty((nblocks, n), dtype=torch.float32, device=q.device)
-    err = lib.repro_block_dequantize(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(), nblocks, n, _QKIND[name], _stream(q),
-    )
+    which = variant(n, q.data_ptr(), out.data_ptr())
+    fn = lib.repro_block_dequantize_vec if which == "vector" else lib.repro_block_dequantize
+    err = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), nblocks, n, _QKIND[name], _stream(q))
     if err != 0:
-        raise launch_error(lib, err, "dequantize_blocks", "bad format or shape")
-    return out
+        raise launch_error(lib, err, f"dequantize_blocks ({which})", "bad format, shape or alignment")
+    return out, which

@@ -10,7 +10,8 @@ On CUDA tensors they launch the Hopper kernels (``kernel.py``) or raise —
 there is no fallback and no switch; on CPU tensors they compute the plain
 version (``ref.py``).  ``block_quantize.launches`` and
 ``block_dequantize.launches`` count kernel launches (the plain version does
-not count).
+not count); ``launches_by_variant`` on each splits the same count by the
+kernel that the row width and pointers picked (``kernel.variant``).
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ def block_quantize(
     if x.device.type == "cpu":
         return quantize_blocks(blocks, dtype=name)
     if x.device.type == "cuda":
-        out = kernel.quantize_blocks(blocks.contiguous(), dtype=name)
+        q, scales, which = kernel.quantize_blocks(blocks.contiguous(), dtype=name)
         block_quantize.launches += 1
-        return out
+        block_quantize.launches_by_variant[which] += 1
+        return q, scales
     raise ValueError(f"block_quantize: tensor on {x.device}; takes CPU or CUDA")
 
 
@@ -44,11 +46,14 @@ def block_dequantize(q: torch.Tensor, scales: torch.Tensor, *, count: int) -> to
     if q.device.type == "cpu" and scales.device.type == "cpu":
         return dequantize_blocks(q, scales, count=count)
     if q.device.type == "cuda":
-        out = kernel.dequantize_blocks(q.contiguous(), scales.contiguous())
+        out, which = kernel.dequantize_blocks(q.contiguous(), scales.contiguous())
         block_dequantize.launches += 1
+        block_dequantize.launches_by_variant[which] += 1
         return out.reshape(-1)[:count]
     raise ValueError(f"block_dequantize: q on {q.device}, scales on {scales.device}")
 
 
 block_quantize.launches = 0
+block_quantize.launches_by_variant = {"vector": 0, "general": 0}
 block_dequantize.launches = 0
+block_dequantize.launches_by_variant = {"vector": 0, "general": 0}

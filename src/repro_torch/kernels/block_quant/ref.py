@@ -14,6 +14,12 @@ The format, identical for int8 and per-block-scaled fp8:
 * ``q = round(clip(block / safe, ±fmax))`` with ``safe = scale or 1``,
   rounding half to even for int8 and in the cast for fp8;
 * dequantize is ``q·scale``, sliced to the explicit element ``count``.
+
+NaN and inf follow the reference: a NaN makes its block's absmax and scale
+NaN (``safe`` is then 1) and passes the clip, so it is stored as int8 0 or
+an fp8 NaN code (e4m3 ``0x7f | sign``, e5m2 ``0x7e | sign``, the
+reference's bytes); an inf makes the scale inf, so ``x / inf`` is ±0 and
+``inf / inf`` NaN.  Either way the whole block decodes to NaN.
 """
 
 from __future__ import annotations
@@ -77,8 +83,16 @@ def quantize_blocks(blocks: torch.Tensor, *, dtype="int8") -> tuple[torch.Tensor
     safe = torch.where(scales > 0, scales, torch.ones_like(scales))
     y = (blocks / safe[:, None]).clamp(-fmax, fmax)
     if name == "int8":
-        y = torch.round(y)  # half to even, as jnp.round
-    return y.to(QDTYPES[name]), scales
+        # half to even, as jnp.round; a NaN is stored as 0, as the
+        # reference's cast does (a cast of NaN to int8 is the device's own)
+        y = torch.round(y).nan_to_num(nan=0.0)
+    q = y.to(QDTYPES[name])
+    if name == "float8_e5m2":
+        # The reference writes fp16's quiet NaN's high byte, 0x7e | sign;
+        # PyTorch's cast writes 0x7f | sign.  Only the NaN codes change.
+        b = q.view(torch.uint8)
+        q = torch.where(torch.isnan(y), (b & 0x80) | 0x7E, b).view(q.dtype)
+    return q, scales
 
 
 def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, *, count: int) -> torch.Tensor:

@@ -12,6 +12,12 @@ The reference's jitted scale is ``absmax · fl32(1/fmax)`` — XLA folds the
 division by the constant — and an eager call of its ``ref.quantize_blocks``
 divides instead; the test that pins the port to the jitted form also shows
 the two differ.
+
+NaN and inf (``NONFINITE``) are held apart from the sweep: q and scales
+equal the reference byte for byte (e5m2 stores its NaN as ``0x7e | sign``),
+but the decoded fp32 NaNs carry payloads that differ even between the
+reference's own paths, so decoded values are compared by NaN class: NaN at
+the same places, every other byte equal.
 """
 
 import numpy as np
@@ -59,6 +65,27 @@ CASES = {
 }
 
 
+def _nonfinite():
+    """±NaN and ±inf among normals, and 512:768 all NaN: a whole block at
+    each tested block size (64, 100, 128, 256)."""
+    x = _rand(800, seed=11)
+    x[3], x[50], x[300], x[420] = np.nan, -np.nan, np.inf, -np.inf
+    x[512:768] = np.nan
+    return x
+
+
+NONFINITE = _nonfinite()
+
+
+def _same_by_nan_class(got: np.ndarray, want: np.ndarray):
+    """NaN at the same places, every other element byte-equal."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert got[~nan].tobytes() == want[~nan].tobytes()
+
+
 def _bytes(t):
     return t.contiguous().view(torch.uint8).numpy().tobytes()
 
@@ -82,6 +109,19 @@ def test_plain_equals_reference_codec_core(case, block, qdtype):
 
 
 @pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("block", [64, 100, 128, 256])
+def test_plain_equals_reference_on_nonfinite(block, qdtype):
+    x = NONFINITE
+    q, s, d = _port(x, block, qdtype)
+    rq, rs = ref_quantize(x, block=block, dtype=qdtype)
+    rd = np.asarray(ref_dequantize(rq, rs, count=x.size))
+    assert _bytes(q) == np.asarray(rq).view(np.uint8).tobytes()
+    assert s.numpy().tobytes() == np.asarray(rs).tobytes()
+    _same_by_nan_class(d.numpy(), rd)
+    assert np.isnan(d.numpy()[512:768]).all()  # the all-NaN block decodes to NaN
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
 @pytest.mark.parametrize("n", [1, 7, 256, 1000])
 def test_plain_equals_pallas_kernels_interpreted(qdtype, n):
     x = np.concatenate([_rand(n, seed=n), _spread(4, 128, seed=n)])
@@ -92,6 +132,18 @@ def test_plain_equals_pallas_kernels_interpreted(qdtype, n):
     assert _bytes(q) == np.asarray(kq).view(np.uint8).tobytes()
     assert s.numpy().tobytes() == np.asarray(ks).tobytes()
     assert d.numpy().tobytes() == kd.tobytes()
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+def test_plain_equals_pallas_kernels_interpreted_on_nonfinite(qdtype):
+    x = NONFINITE
+    blocks = np.asarray(jref.blocked(jnp.asarray(x), block=128))
+    kq, ks = quantize_blocks_pallas(jnp.asarray(blocks), dtype=jnp.dtype(qdtype), interpret=True)
+    kd = np.asarray(dequantize_blocks_pallas(kq, ks, interpret=True)).reshape(-1)[: x.size]
+    q, s, d = _port(x, 128, qdtype)
+    assert _bytes(q) == np.asarray(kq).view(np.uint8).tobytes()
+    assert s.numpy().tobytes() == np.asarray(ks).tobytes()
+    _same_by_nan_class(d.numpy(), kd)
 
 
 @pytest.mark.parametrize("qdtype", QDTYPES)
@@ -139,6 +191,20 @@ def test_kernel_refuses_cpu_tensors():
         kernel.quantize_blocks(torch.zeros(2, 256), dtype="int8")
     with pytest.raises(ValueError, match="not CUDA"):
         kernel.dequantize_blocks(torch.zeros(2, 256, dtype=torch.int8), torch.zeros(2))
+
+
+def test_variant_is_picked_by_width_and_alignment():
+    """The vector kernels take rows of 8k <= 1024 elements with 16-byte
+    aligned pointers; every other launch takes the general kernels."""
+    v = kernel.variant
+    assert v(256, 0x7F0000000000, 0x7F0000000200) == "vector"
+    assert v(64, 0x1000, 0x2010) == "vector"
+    assert v(128, 0x1000) == v(1024, 0x1000) == v(8, 0x1000) == "vector"
+    assert v(100, 0x1000, 0x2000) == "general"
+    assert v(256, 0x1004, 0x2000) == "general"  # a view one fp32 element off
+    assert v(256, 0x1000, 0x2001) == "general"  # codes one byte off
+    assert v(kernel.VECTOR_MAX_N + 8, 0x1000, 0x2000) == "general"
+    assert v(2048, 0x1000, 0x2000) == "general"
 
 
 def test_unknown_format_is_refused():

@@ -73,6 +73,21 @@ def test_each_package_decodes_the_others_payload(tag):
     assert isinstance(by_port, np.ndarray) and by_port.tobytes() == mine.decoded.tobytes()
 
 
+@pytest.mark.parametrize("tag", ["int8:b256", "fp8:e4m3:b256", "fp8:e5m2:b256"])
+def test_payload_bytes_equal_reference_on_nonfinite(tag):
+    """±NaN, ±inf and an all-NaN block: the same payload bytes (e5m2's NaN
+    code included); the decoded views NaN at the same places (a NaN's
+    payload differs between the reference's own paths), all else equal."""
+    x = _rand((1000,), seed=5)
+    x[3], x[50], x[300], x[420] = np.nan, -np.nan, np.inf, -np.inf
+    x[512:768] = np.nan
+    mine, theirs = TCO.encode_shard(x, tag), RCO.encode_shard(x, tag)
+    assert mine.payload.tobytes() == theirs.payload.tobytes()
+    nan = np.isnan(theirs.decoded)
+    assert np.array_equal(np.isnan(mine.decoded), nan) and nan[:768].all()
+    assert mine.decoded[~nan].tobytes() == theirs.decoded[~nan].tobytes()
+
+
 def test_int8ef_bf16_falls_back_or_is_exact_as_in_the_reference():
     x = _rand((300,), seed=8)
     theirs = RCO.encode_shard(x.astype(ml_dtypes.bfloat16), "int8ef:b64")

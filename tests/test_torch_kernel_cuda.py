@@ -12,8 +12,11 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 * reduced smollm prefill and decode on the card (kernel path) against the
   same weights on the CPU (plain path), in float32;
 * the block-quant kernels against their plain version, byte for byte (q,
-  scales and the decoded fp32), for int8, e4m3 and e5m2, and the codec's
-  decode on the card against its numpy decode;
+  scales and the decoded fp32), for int8, e4m3 and e5m2, at blocks 64-512
+  and 100, through the vector kernels and the general ones (n = 100, a
+  view one element off), each launch's variant asserted; on a NaN/inf
+  input by NaN class (NaN at the same places, every other byte equal); and
+  the codec on the card against the host's codec;
 * one reduced train step on the card against the CPU path (fp32): the loss
   within 1e-5, the gradients of ``wqkv`` (atol 1e-5, rtol 1e-4), and no
   flash-attention launch while a gradient is recorded;
@@ -29,6 +32,9 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   fp32: the CUDA-core kernel), and the bf16 kernels' refusal of a view one
   element off its row start.
 """
+
+import json
+import struct
 
 import numpy as np
 import pytest
@@ -170,39 +176,110 @@ def _bq_input(case):
                               ).astype(np.float32)
     if case == "large":
         return np.float32([1e30, -1e30, 0.5, 0.0, 3e29, -7.0] * 50)
+    if case == "nonfinite":
+        # ±NaN and ±inf among normals, and a block that is all NaN at every block size
+        x = rng.standard_normal(3000).astype(np.float32)
+        x[3], x[50], x[300], x[420] = np.nan, -np.nan, np.inf, -np.inf
+        x[1024:2048] = np.nan
+        return x
     # magnitudes over 1e-13..1e13, one row each: every rounding path
     rows = rng.standard_normal((4000, 256)) * np.exp(rng.uniform(-30, 30, (4000, 1)))
-    return rows.astype(np.float32).reshape(-1)
+    x = rows.astype(np.float32).reshape(-1)
+    # "unaligned": a count every block divides, so the view reaches the kernel
+    return x[:25600] if case == "unaligned" else x
+
+
+def _off_by_one(t):
+    """An equal tensor whose storage starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _same_by_nan_class(got, want):
+    """NaN (a NaN code, for fp8) at the same places as the plain version, and
+    every other byte equal: byte for byte where the plain version has no NaN.
+    A NaN's sign and payload are the card's arithmetic's."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    ints = {1: torch.uint8, 4: torch.int32}[want.element_size()]
+    assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
 
 
 @pytest.mark.parametrize("qdtype", ["int8", "float8_e4m3fn", "float8_e5m2"])
-@pytest.mark.parametrize("block", [256, 100])
-@pytest.mark.parametrize("case", ["ragged", "zero-block", "large", "spread"])
+@pytest.mark.parametrize("block", [64, 100, 128, 256, 512])
+@pytest.mark.parametrize("case", ["ragged", "zero-block", "large", "spread", "unaligned",
+                                  "nonfinite"])
 def test_block_quant_kernels_equal_plain_bytes(cuda, case, block, qdtype):
+    """Both variants against the plain version: byte for byte on finite
+    inputs, by NaN class on the NaN/inf input; each launch took the variant
+    its width and alignment pick (a view one element off takes the general
+    kernels)."""
     x = torch.from_numpy(_bq_input(case))
+    xc = x.to(cuda)
+    if case == "unaligned":
+        xc = _off_by_one(xc)
+        assert xc.data_ptr() % 16 == 4
+    want = "vector" if block % 8 == 0 and case != "unaligned" else "general"
     launches = (block_quantize.launches, block_dequantize.launches)
-    q, s = block_quantize(x.to(cuda), block=block, dtype=qdtype)
-    d = block_dequantize(q, s, count=x.numel())
+    by_variant = (dict(block_quantize.launches_by_variant),
+                  dict(block_dequantize.launches_by_variant))
+    q, s = block_quantize(xc, block=block, dtype=qdtype)
+    qc = _off_by_one(q) if case == "unaligned" else q
+    d = block_dequantize(qc, s, count=x.numel())
     torch.cuda.synchronize()
     assert (block_quantize.launches, block_dequantize.launches) == (launches[0] + 1,
                                                                    launches[1] + 1)
+    for counter, before in zip((block_quantize, block_dequantize), by_variant):
+        before[want] += 1
+        assert counter.launches_by_variant == before
     pq, ps = bq_ref.quantize_blocks(bq_ref.blocked(x, block=block), dtype=qdtype)
     pd = bq_ref.dequantize_blocks(pq, ps, count=x.numel())
-    assert torch.equal(q.cpu().view(torch.uint8), pq.view(torch.uint8))
-    assert torch.equal(s.cpu().view(torch.int32), ps.view(torch.int32))
-    assert torch.equal(d.cpu().view(torch.int32), pd.view(torch.int32))
+    if case != "nonfinite":
+        assert not torch.isnan(pd).any()
+    _same_by_nan_class(q, pq)
+    _same_by_nan_class(s, ps)
+    _same_by_nan_class(d, pd)
 
 
+def _sections(payload):
+    """An RQS1 payload cut into its header bytes and named sections."""
+    raw = payload.tobytes()
+    (hlen,) = struct.unpack("<I", raw[4:8])
+    out, off = {"header": raw[: 8 + hlen]}, 8 + hlen
+    for name, nbytes in json.loads(raw[8 : 8 + hlen])["sections"]:
+        out[name], off = raw[off : off + nbytes], off + nbytes
+    return out
+
+
+@pytest.mark.parametrize("case", ["spread", "nonfinite"])
 @pytest.mark.parametrize("tag", ["int8:b256", "fp8:e4m3:b256", "fp8:e5m2:b64"])
-def test_codec_on_card_equals_host_codec(cuda, tag):
-    x = torch.from_numpy(_bq_input("spread")[:300_000].reshape(300, 1000))
+def test_codec_on_card_equals_host_codec(cuda, tag, case):
+    """The payload on the card equals the host's: byte for byte, and for the
+    NaN/inf input by NaN class (codes and scales), as the decoded views."""
+    x = torch.from_numpy(_bq_input(case)[:300_000].reshape(-1, 1000))
     on_card = codec.encode_shard(x.to(cuda), tag)
     on_host = codec.encode_shard(x.numpy(), tag)
-    assert on_card.payload.tobytes() == on_host.payload.tobytes()
     assert on_card.decoded.is_cuda
-    assert on_card.decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
     decoded = codec.decode_payload(on_host.payload, device=cuda)
-    assert decoded.is_cuda and decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
+    assert decoded.is_cuda
+    host_decoded = torch.from_numpy(on_host.decoded)
+    if case != "nonfinite":
+        assert on_card.payload.tobytes() == on_host.payload.tobytes()
+        assert on_card.decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
+        assert decoded.cpu().numpy().tobytes() == on_host.decoded.tobytes()
+        return
+    card, host = _sections(on_card.payload), _sections(on_host.payload)
+    assert card["header"] == host["header"]
+    qdt = bq_ref.QDTYPES[codec.parse_codec(tag).qdtype]
+    _same_by_nan_class(torch.frombuffer(bytearray(card["q"]), dtype=torch.uint8).view(qdt),
+                       torch.frombuffer(bytearray(host["q"]), dtype=torch.uint8).view(qdt))
+    _same_by_nan_class(torch.frombuffer(bytearray(card["scales"]), dtype=torch.float32),
+                       torch.frombuffer(bytearray(host["scales"]), dtype=torch.float32))
+    _same_by_nan_class(on_card.decoded, host_decoded)
+    _same_by_nan_class(decoded, host_decoded)
 
 
 def test_reduced_train_step_on_card_matches_cpu(cuda):
