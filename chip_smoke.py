@@ -10,7 +10,8 @@ nothing falls back to the CPU or to a plain version):
    ``nvidia-smi`` reports them;
 2. build   — compile the three kernel sources of this checkout with nvcc
    (sm_90a), one process each, started together; print the build seconds
-   and ptxas' report;
+   and ptxas' report, and fail if the head-dim-256 flash instances
+   (``fwd_kernel_tc<256>``, ``fwd_kernel<float, 256>``) spill;
 3. kernel flash_attention — against its plain PyTorch version at the
    serving slice's shapes (B=4, S=512 and a ragged 500, 15:5 heads, D=64,
    bf16, causal; a window=128 case; an fp32 case), max abs error beside the
@@ -18,7 +19,11 @@ nothing falls back to the CPU or to a plain version):
    only) against the kernel; then the bf16 (tensor-core) kernel's and the
    library's device time per call (the profiler, over 20 warm calls, in
    turns), their CUDA-event times, the fp32 (CUDA-core) kernel's device
-   time at the same shapes, and the plain version's event time;
+   time at the same shapes, and the plain version's event time; then
+   gemma3-12b's head layout (16:8 heads of 256) in bf16 and fp32, causal at
+   B=4, S=512 and with the local layers' window 1024 at S=2048, and there
+   the bf16 kernel's device time beside the library's, the fp32 kernel's
+   device time, the plain version's event time and the bound;
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -35,9 +40,11 @@ nothing falls back to the CPU or to a plain version):
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
    dt = softplus(N(0,1) + dt_bias) with dt_bias from the ``ssm_dt`` init,
-   A = -(1..24)), a G=2 case with 4 heads and chunk 64, an fp32 case and a
-   case reading strided views as the model hands them, max abs error beside
-   the tolerances of ``tests/test_kernels.py``; then the bf16
+   A = -(1..24)), a G=2 case with 4 heads and chunk 64, an fp32 case at
+   B=1 and a case reading strided views as the model hands them, max abs
+   error beside the tolerances of ``tests/test_kernels.py``; the fp32
+   kernel's and ``ssd_chunked``'s errors against ``ssd_ref`` in float64 at
+   B=1 (the kernel's must be no larger); then the bf16
    (tensor-core) kernel's device time per call (the profiler, over 20 warm
    calls) and event time, the fp32 (CUDA-core) kernel's device time and
    the plain version's event time, and the bound (no single PyTorch call
@@ -51,30 +58,48 @@ nothing falls back to the CPU or to a plain version):
    restore, every kernel's launches counted around each run (smollm: 32
    flash-attention and 0 SSD-scan launches per prefill; mamba2: 24 and 0
    the other way), all of them bf16 (the tensor-core kernels); both give
-   the same tokens; the card's fp32 logits agree with the port's CPU path
-   (mamba2 over 512 tokens: two chunks, so the carried state is compared),
-   every launch there fp32 (the CUDA-core kernels); the profiled prefill's
-   device time and the kernel's share of it;
-7. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
+   the same tokens; smollm then exports the step as UCP atoms
+   (``export_ucp``: atoms, GB, seconds, ``validate() == []``) and restores
+   weights-only from them (VIA_UCP, forced) under data=1,model=1,
+   bit-equal to the save and serving the same tokens; the card's fp32
+   logits agree with the port's CPU path (mamba2 over 512 tokens: two
+   chunks, so the carried state is compared), every launch there fp32 (the
+   CUDA-core kernels); the profiled prefill's device time and the kernel's
+   share of it;
+7. gemma3-12b at full width (d 3840, 16:8 heads of 256, d_ff 15360, vocab
+   262144, tied embeddings, window 1024), its depth cut from 48 to 6
+   layers (one local:global period): init on the card from a seeded
+   generator; a bf16 prefill of 4 × 512 tokens with 6 flash launches, all
+   bf16 (head dim 256), its wall and profiled device time; the card's fp32
+   logits against the port's CPU path within 1e-3 over 32 tokens, every
+   launch there fp32;
+8. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
    from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
    6 uninterrupted steps (the baseline); separately 3 steps under a
    ``CheckpointManager`` with ``CheckpointPolicy(codec="int8:b256",
-   save_interval=3, async_save=True)`` and plan data=2,model=2; resume
-   under data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), each
-   with params bit-equal to the save, both moments equal to the codec's
-   served view (every coded shard re-cut from the restored state hashes to
-   the manifest's served digest) and step 3; steps 4-6 from each resume
-   (finite losses, printed beside the baseline's); the launch counts
-   (quantize == coded shards written, dequantize >= that plus the coded
-   shards read per resume, every block-quant launch the vector variant,
-   flash-attention 0); step time, tokens/s, save
-   GB/s, coded/raw bytes, restore seconds and one profiled step's device
-   busy share;
-8. the kernels line (JSON: each row names its variants; ``ms`` is the
+   save_interval=3, async_save=True)`` and plan data=2,model=2; then
+   ``export_ucp`` of step 3 on the card (every coded moment shard decoded
+   once by the vector dequantize kernel: 60 launches; atoms, GB written,
+   seconds, GB/s; ``validate() == []``); resume under data=1,model=1
+   (RESHARD_STREAM) and data=2,model=2 (DIRECT), and forced VIA_UCP under
+   both from the exported atoms, each with params bit-equal to the save,
+   both moments equal to the codec's served view (every coded shard re-cut
+   from the restored state hashes to the manifest's served digest) and step
+   3, the VIA_UCP states bit-equal to the RESHARD_STREAM resume; steps 4-6
+   from each resume (finite losses, printed beside the baseline's, or the
+   RESHARD_STREAM resume's); a second export reuses the committed atoms
+   (``ConvertStats`` None); the launch counts (quantize == coded shards
+   written, dequantize >= that plus the coded shards read per resume,
+   every block-quant launch the vector variant, flash-attention 0); step
+   time, tokens/s, save GB/s, coded/raw bytes, restore seconds and one
+   profiled step's device busy share;
+9. the kernels line (JSON: each row names its variants; ``ms`` is the
    profiler's device time per launch, with ``event_ms`` beside it; rows 2-3
    add the general kernel's device time ``general_ms`` and the train
-   phase's ``launches_by_variant``), the card line, then the result line
-   (JSON, last).
+   phase's ``launches_by_variant``; the flash row adds the head-dim-256
+   times, bound and gemma3 launches (``d256_*``), the dequantize row the
+   export's launches ``convert_launches``), the card line, then the result
+   line (JSON, last).
 """
 
 from __future__ import annotations
@@ -300,7 +325,77 @@ def kernel_phase(torch, F, kernel, ref):
           f"{event_ms['plain']:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP) fp32-core floor {fp32_floor_ms:.4f} ms; "
           f"{bound_ms / ms['kernel']:.3f} of the bound")
-    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    d256 = head_dim_256(torch, F, kernel, ref)
+    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
+                d256=d256)
+
+
+def head_dim_256(torch, F, kernel, ref):
+    """gemma3-12b's attention shapes (16:8 heads of 256): both kernels
+    against the plain version, causal at S=512 and the local layers' window
+    1024 at S=2048; then the bf16 kernel's device time beside the library's
+    and the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(256)
+    scale = 256 ** -0.5
+    cases = [(dtype, b, s, window) for dtype in (torch.bfloat16, torch.float32)
+             for b, s, window in ((4, 512, 0), (1, 2048, 1024))]
+    worst, main = 0.0, None
+    for dtype, b, s, window in cases:
+        label = f"D=256 {str(dtype).split('.')[1]} B={b} S={s} 16:8 causal window={window}"
+        q, k, v = (torch.randn(b, s, h, 256, generator=g, device=dev).to(dtype) for h in (16, 8, 8))
+        out = kernel.flash_attention_fwd(q, k, v, causal=True, window=window, scale=scale)
+        plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=True, window=window, scale=scale).transpose(1, 2)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[str(dtype).split(".")[1]]
+        diff = (out.float() - plain.float()).abs()
+        err = diff.max().item()
+        ok = bool(torch.isfinite(out.float()).all()) and bool((diff <= atol + rtol * plain.float().abs()).all())
+        print(f"kernel {label}: max_abs_err {err:.3e} (tolerance atol {atol} rtol {rtol}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: kernel disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+            if main is None:
+                main = (q, k, v, out)
+    q, k, v, out = main
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    runs = {
+        "kernel": lambda: kernel.flash_attention_fwd(q, k, v, causal=True, window=0, scale=scale),
+        "fp32": lambda: kernel.flash_attention_fwd(q32, k32, v32, causal=True, window=0, scale=scale),
+        "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=scale),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
+    }
+    plain_ms = sum(cuda_ms(torch, runs["plain"], iters=20) for _ in range(2)) / 2
+    device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
+    for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
+        per_call, top = device_ms(torch, runs[name])
+        device[name].append(per_call)
+        print(f"kernel flash_attention D=256 {name} device time (profiler): {per_call:.5f} ms per "
+              "call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
+    ms = {n: sum(t) / len(t) for n, t in device.items()}
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS)
+    print(f"kernel bf16 B=4 S=512 Hq=16 Hkv=8 D=256 causal: device ms {ms['kernel']:.5f} library "
+          f"device ms {ms['library']:.5f} fp32 kernel device ms {ms['fp32']:.5f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} "
+          f"MB is {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {flops / 1e9:.3f} GFLOP is "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of the bound")
+    return dict(ms=ms["kernel"], library_ms=ms["library"], fp32_ms=ms["fp32"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+
+
+def check_no_spills(usage: list[str], names: tuple[str, ...]) -> None:
+    """ptxas must report 0 spill bytes for each kernel instance named."""
+    for name in names:
+        rows = [ln for ln in usage if ln.startswith(name + ":")]
+        check(len(rows) == 1, f"ptxas: no single line for {name}")
+        ok = "0 bytes spill stores, 0 bytes spill loads" in rows[0]
+        print(f"ptxas {rows[0]} -> {'no spills' if ok else 'SPILLS'}")
+        check(ok, f"{name} spills registers")
 
 
 def ssd_bound(x, bm, cm, y, h_final, dt, a, chunk: int, *, flops_peak: float):
@@ -374,6 +469,25 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
                 worst = max(worst, ey)
         if main is None:
             main = (x, dt, a, bm, cm, y, hT, chunk)
+        if dtype == torch.float32:
+            fp32_case = (label, x, dt, a, bm, cm, y, plains["ssd_chunked"][0])
+
+    # The fp32 kernel at the B = 1 serving shape against the recurrence in
+    # float64, beside ssd_chunked's own error there.  With an fp32 cumsum the
+    # kernel was 2.4x ssd_chunked's error; its float64 cumsum puts it below.
+    label, x, dt, a, bm, cm, y, y_chunked = fp32_case
+    rep = bm.shape[2]
+    y64, _ = ssd_ref.ssd_ref(*(t.double().transpose(1, 2) for t in (x, dt)), a.double(),
+                             *(t.double().repeat_interleave(x.shape[2] // rep, 2).transpose(1, 2)
+                               for t in (bm, cm)))
+    y64 = y64.transpose(1, 2)
+    e_kernel = (y.double() - y64).abs().max().item()
+    e_chunked = (y_chunked.double() - y64).abs().max().item()
+    ratio = e_kernel / e_chunked
+    print(f"kernel ssd_scan {label} vs ssd_ref in float64: kernel y max_abs_err {e_kernel:.3e}, "
+          f"ssd_chunked {e_chunked:.3e} (|y| up to {y64.abs().max().item():.1f}); ratio "
+          f"{ratio:.3f} (must be <= 1) {'ok' if ratio <= 1 else 'FAIL'}")
+    check(ratio <= 1, f"{label}: the fp32 kernel is {ratio:.2f}x ssd_chunked's error against float64")
 
     # the model's views: x, B and C split from one conv output, dt a column slice
     b, s, h, p, groups, n = 4, 512, 24, 64, 1, 128
@@ -417,14 +531,18 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
           f"{bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP in the "
           f"causal triangle) fp32-core floor {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; "
           f"{bound_ms / ms['kernel']:.3f} of the bound; library_ms None (no single PyTorch call)")
-    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
+                fp64=dict(kernel=e_kernel, ssd_chunked=e_chunked))
 
 
-def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int):
+def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int,
+                via_ucp: bool = False):
     """Save, restore two ways, and serve one full-size config on the card.
     ``counters`` maps each kernel to its wrapper (whose ``launches`` count);
     ``per_prefill`` gives the launches one prefill of this config must make;
-    ``cpu_len`` is the prompt of the card-vs-CPU fp32 logits check."""
+    ``cpu_len`` is the prompt of the card-vs-CPU fp32 logits check;
+    ``via_ucp`` adds the export of the step as UCP atoms and a third restore
+    from them."""
     from repro_torch.ckpt.saver import snapshot_weights, write_distributed
     from repro_torch.configs import get_config
     from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
@@ -538,6 +656,11 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
         a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
         check(torch.equal(a, b), "RESHARD_STREAM and DIRECT restores serve different tokens")
         print(f"serve {arch} tokens identical across restores; sample {a[0, :8].tolist()}")
+        if via_ucp:
+            runs["via_ucp"] = serve_via_ucp(torch, arch, step_dir, src_plan, plan_for, saved,
+                                            prompts, counts, reset, per_prefill, by_dtype)
+            check(torch.equal(runs["via_ucp"]["seq"], a), "the VIA_UCP restore serves other tokens")
+            print(f"serve {arch} VIA_UCP tokens identical to the other restores'")
 
         # Right by the repo's own means: the card's fp32 path (kernels) against
         # the port's CPU path (plain versions) on the same weights.
@@ -563,6 +686,141 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
     return runs
 
 
+def serve_via_ucp(torch, arch, step_dir, src_plan, plan_for, saved, prompts, counts, reset,
+                  per_prefill, by_dtype):
+    """Export the weights-only step as UCP atoms, restore weights-only from
+    them (VIA_UCP, forced) under data=1,model=1, serve."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core.plan import ResumeMode
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.launch.serve import generate, restore_params
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ucp, cstats = CheckpointManager(step_dir.parent, src_plan).export_ucp(device=dev)
+    export_s = time.perf_counter() - t0
+    check(cstats is not None, "export_ucp converted nothing")
+    t0 = time.perf_counter()
+    problems = ucp.validate()
+    validate_s = time.perf_counter() - t0
+    print(f"serve {arch} export_ucp: {cstats.params} params, {cstats.atoms_written} atoms, "
+          f"{cstats.bytes_written / 1e9:.3f} GB in {export_s:.2f} s "
+          f"({cstats.bytes_written / 1e9 / export_s:.3f} GB/s); validate() == [] "
+          f"{problems == []} ({validate_s:.2f} s)")
+    check(problems == [], f"export_ucp: {problems[:3]}")
+    tlm, tplan = plan_for("data=1,model=1")
+    t0 = time.perf_counter()
+    flat, rp = restore_params(step_dir, tplan, dev, force_mode=ResumeMode.VIA_UCP)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(rp.mode is ResumeMode.VIA_UCP, f"restore mode {rp.mode}")
+    check(set(flat) == set(saved), "VIA_UCP: restored parameter set differs")
+    for name, t in flat.items():
+        check(torch.equal(t, saved[name]), f"VIA_UCP: {name} differs from the save")
+    params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+    del flat
+    generate(tlm, params_c, prompts, 17)
+    reset()
+    seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
+    launches = counts()
+    check(launches == per_prefill, f"VIA_UCP: kernel launches {launches}, want {per_prefill}")
+    dtypes = by_dtype("bfloat16")
+    print(f"serve {arch} restore data=1,model=1 via_ucp (forced) from the atoms in "
+          f"{restore_s:.2f} s; bit-equal to the save; prefill 4x512 {prefill_s * 1e3:.2f} ms, "
+          f"decode {decode_s * 1e3 / 16:.3f} ms/token, kernel launches {launches}, by dtype {dtypes}")
+    return dict(seq=seq.cpu(), export_s=export_s, export_gb=cstats.bytes_written / 1e9,
+                restore_s=restore_s, atoms=cstats.atoms_written)
+
+
+def gemma_phase(torch, counters: dict, layers: int = 6, cpu_len: int = 32):
+    """gemma3-12b at full width, depth cut to one local:global period, on
+    the card: a bf16 prefill of 4 x 512 tokens (one flash launch a layer,
+    head dim 256, all bf16), then the card's fp32 logits against the port's
+    CPU path.  Returns the measurements."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+
+    dev = torch.device("cuda")
+    full = get_config("gemma3-12b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    check(cfg.num_layers == len(cfg.layer_pattern), "the cut is not one local:global period")
+    lm = build_model(cfg, compute_dtype=torch.bfloat16)
+    flash = counters["flash_attention"]
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = lm.registry.num_params()
+    print(f"gemma3-12b: d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, window {cfg.sliding_window}, pattern {cfg.layer_pattern}; depth cut "
+          f"from {full.num_layers} to {cfg.num_layers} layers (one local:global period); "
+          f"{n_params} params initialised on the card in {time.perf_counter() - t0:.2f} s")
+    params_c = lm.registry.cast(params, torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def prefill():
+        with torch.inference_mode():
+            return D.prefill(lm, params_c, D.init_cache(lm, 4, 512, device=dev), prompts)[0]
+
+    prefill()  # warm-up at the timed shapes
+    flash.launches = 0
+    flash.launches_by_dtype = dict.fromkeys(flash.launches_by_dtype, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches, by_dtype = flash.launches, dict(flash.launches_by_dtype)
+    check(launches == layers and by_dtype == {"bfloat16": layers, "float32": 0},
+          f"gemma3 prefill: flash launches {launches} {by_dtype}, want {layers} bf16")
+    check(tuple(logits.shape) == (4, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"gemma3 prefill logits {tuple(logits.shape)} or non-finite")
+    wall, busy, rows = device_profile(torch, prefill, top=None)
+    mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL["flash_attention"] in key]
+    check(len(mine) == 1 and mine[0][2] == layers, f"profiled gemma3 prefill: {mine}")
+    print(f"gemma3 prefill 4x512 bf16: {prefill_ms:.2f} ms of wall, flash launches {launches} "
+          f"{by_dtype}; profiled: device busy {busy:.3f} ms (wall {wall:.2f} ms with the profiler "
+          f"on), {mine[0][0][:40]} {mine[0][1]:.3f} ms over {mine[0][2]} launches")
+    for key, ms, count in rows[:6]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    del params_c, logits
+
+    # Right by the repo's own means: the card's fp32 path against the CPU's.
+    flm = build_model(cfg, compute_dtype=torch.float32)
+    toks = prompts[:1, :cpu_len]
+    with torch.inference_mode():
+        flash.launches = 0
+        flash.launches_by_dtype = dict.fromkeys(flash.launches_by_dtype, 0)
+        lg_gpu, _ = D.prefill(flm, params, D.init_cache(flm, 1, cpu_len, device=dev), toks)
+        launches, by_dtype = flash.launches, dict(flash.launches_by_dtype)
+        cpu_params = _to_cpu(params)
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lg_cpu, _ = D.prefill(flm, cpu_params, D.init_cache(flm, 1, cpu_len), toks.cpu())
+        cpu_s = time.perf_counter() - t0
+    check(launches == layers and by_dtype == {"bfloat16": 0, "float32": layers},
+          f"gemma3 fp32 prefill: flash launches {launches} {by_dtype}, want {layers} fp32")
+    check(bool(torch.isfinite(lg_gpu).all()), "gemma3 fp32 logits not finite")
+    err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    print(f"gemma3 check fp32 logits card vs CPU ({cpu_len} tokens, CPU prefill {cpu_s:.1f} s): "
+          f"max_abs_err {err:.3e} (tolerance 1e-3; |logit| up to {lg_cpu.abs().max().item():.2f}); "
+          f"flash launches by dtype {by_dtype}")
+    check(err <= 1e-3, "gemma3: card and CPU logits disagree")
+    return dict(launches=layers, prefill_ms=prefill_ms, prefill_device_ms=busy,
+                prefill_kernel_ms=mine[0][1], logits_err=err)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def ptxas_usage(text: str) -> list[str]:
     """One line per kernel from ``ptxas -v``: its name (demangled where
     ``c++filt`` exists), registers and spills."""
@@ -584,15 +842,19 @@ def ptxas_usage(text: str) -> list[str]:
     return [f"{s}: {rows.get(n, '?')}; {spill.get(n, '?')}" for n, s in zip(names, shown)]
 
 
-def build_all(kernels):
-    """Build every kernel source at once (one nvcc each, in parallel)."""
+def build_all(kernels) -> dict[str, list[str]]:
+    """Build every kernel source at once (one nvcc each, in parallel);
+    returns ptxas' line per kernel, by source."""
     with ThreadPoolExecutor(len(kernels)) as pool:
         reports = dict(zip(kernels, pool.map(lambda k: k.build()[1], kernels.values())))
+    usage = {}
     for name, report in reports.items():
         print(f"build {name}: {'compiled' if report['compiled'] else 'cached'} in "
               f"{report['seconds']:.2f} s -> {Path(report['library']).relative_to(ROOT)}")
-        for ln in ptxas_usage(report["ptxas"]):
+        usage[name] = ptxas_usage(report["ptxas"])
+        for ln in usage[name]:
             print(f"  ptxas: {ln}")
+    return usage
 
 
 def w_up_moment_shard_numel() -> int:
@@ -760,12 +1022,65 @@ def served_view_matches(torch, state, src_plan, manifest) -> int:
     return checked
 
 
+def train_export_ucp(torch, bq_ops, manager, n_coded: int) -> dict:
+    """Export the coded step as UCP atoms on the card: every coded moment
+    shard decoded once by the (vector) dequantize kernel; the atoms
+    validate."""
+    dev = torch.device("cuda")
+    fn = bq_ops.block_dequantize
+    before, by_before = fn.launches, dict(fn.launches_by_variant)
+    t0 = time.perf_counter()
+    ucp, stats = manager.export_ucp(3, device=dev)
+    export_s = time.perf_counter() - t0
+    launches = fn.launches - before
+    by_variant = {k: fn.launches_by_variant[k] - by_before[k] for k in by_before}
+    check(stats is not None, "export_ucp converted nothing")
+    t0 = time.perf_counter()
+    problems = ucp.validate()
+    validate_s = time.perf_counter() - t0
+    gb = stats.bytes_written / 1e9
+    print(f"train export_ucp step 3: {stats.params} params, {stats.atoms_written} atoms, {gb:.3f} "
+          f"GB written in {export_s:.2f} s ({gb / export_s:.3f} GB/s); dequantize launches "
+          f"{launches} (coded shards read {n_coded}) by variant {by_variant}; validate() == [] "
+          f"{problems == []} ({validate_s:.2f} s)")
+    check(launches == n_coded and by_variant == {"vector": n_coded, "general": 0},
+          f"export_ucp: dequantize launches {launches} {by_variant}, want {n_coded} vector")
+    check(problems == [], f"export_ucp: {problems[:3]}")
+    return dict(launches=launches, atoms=stats.atoms_written, gb=gb, seconds=export_s)
+
+
+def clone_state(torch, state):
+    """A copy of a TrainState's three trees (flat, on their device)."""
+    from repro_torch.core.pytree import flatten_with_paths
+
+    return [{n: t.clone() for n, t in flatten_with_paths(tree).items()}
+            for tree in (state.params, state.exp_avg, state.exp_avg_sq)]
+
+
+def same_state(torch, state, flats) -> bool:
+    """Params and both moments bit-equal, over each parameter's logical
+    region (runtime padding differs between layouts)."""
+    from repro_torch.core.pytree import flatten_with_paths
+
+    for tree, want in zip((state.params, state.exp_avg, state.exp_avg_sq), flats):
+        got = flatten_with_paths(tree)
+        if got.keys() != want.keys():
+            return False
+        for name, t in got.items():
+            region = tuple(slice(0, min(a, b)) for a, b in zip(t.shape, want[name].shape))
+            if t.dtype != want[name].dtype or not torch.equal(t[region], want[name][region]):
+                return False
+    return True
+
+
 def train_phase(torch, ops, bq_ops):
     """Train full smollm-360m; save coded under data=2,model=2; resume under
     two layouts; continue.  Returns the launch counts and measurements."""
+    from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.ckpt.policy import CheckpointPolicy
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
     from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.plan import ResumeMode
     from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.launch.mesh import mesh_spec_from_string
     from repro_torch.train.trainer import Trainer
@@ -828,14 +1143,22 @@ def train_phase(torch, ops, bq_ops):
         check(n_coded > 0 and quant == n_coded, f"quantize launches {quant} != {n_coded} coded shards")
         check(dequant_save >= n_coded, f"dequantize launches {dequant_save} < {n_coded}")
         saved_params = flatten_with_paths(saved.params)
+        export = train_export_ucp(torch, bq_ops, src.manager, n_coded)
         del src
 
-        restore_s = {}
-        for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
+        restore_s, stream = {}, {}
+        for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct"),
+                             ("data=1,model=1", "via_ucp"), ("data=2,model=2", "via_ucp")):
             before = bq_ops.block_dequantize.launches
             tgt = trainer(mesh, ckpt_dir=str(root), policy=CheckpointPolicy(async_save=False,
                                                                             save_interval=1000))
-            state, info = tgt.init_or_restore()
+            if expect == "via_ucp":
+                state, info = tgt.manager.restore(dev, force_mode=ResumeMode.VIA_UCP)
+                check(info.convert_stats is None, f"{mesh}: VIA_UCP converted again")
+                check(same_state(torch, state, stream["state"]),
+                      f"{mesh}: the VIA_UCP resume differs from the RESHARD_STREAM resume")
+            else:
+                state, info = tgt.init_or_restore()
             read = bq_ops.block_dequantize.launches - before
             check(info is not None and info.mode.value == expect,
                   f"{mesh}: planned {info and info.mode.value}, want {expect}")
@@ -845,17 +1168,31 @@ def train_phase(torch, ops, bq_ops):
                 check(torch.equal(t[logical], saved_params[name]), f"{mesh}: {name} differs")
             n_checked = served_view_matches(torch, state, src_plan, manifest)
             check(n_checked == n_coded, f"{mesh}: {n_checked} served digests checked")
-            check(read >= n_coded, f"{mesh}: {read} dequantize launches < {n_coded} coded shards")
-            restore_s[expect] = info.wall_time_s
+            want_read = 0 if expect == "via_ucp" else n_coded  # atoms are raw
+            check(read >= want_read, f"{mesh}: {read} dequantize launches < {want_read}")
+            restore_s[f"{expect} {mesh}"] = info.wall_time_s
+            if expect == "reshard_stream":
+                stream["state"] = clone_state(torch, state)
             _, hist = tgt.run(state, 3, 3)
             resumed = [h["loss"] for h in hist]
             check(all(map(math.isfinite, resumed)), f"{mesh}: resumed loss not finite")
+            if expect == "reshard_stream":
+                stream["losses"] = resumed
+            beside = (stream["losses"], "RESHARD_STREAM") if expect == "via_ucp" else \
+                (baseline[3:], "baseline")
             print(f"train resume {mesh}: {info.mode.value} in {info.wall_time_s:.2f} s, params "
-                  f"bit-equal, {n_checked} moment shards equal to the served view, step 3, "
+                  f"bit-equal to the save{', all three kinds bit-equal to the RESHARD_STREAM resume' if expect == 'via_ucp' else ''}, "
+                  f"{n_checked} moment shards equal to the served view, step 3, "
                   f"{read} dequantize launches; steps 4-6 losses "
-                  + ", ".join(f"{a:.4f} (baseline {b:.4f})" for a, b in zip(resumed, baseline[3:])))
+                  + ", ".join(f"{a:.4f} ({beside[1]} {b:.4f})" for a, b in zip(resumed, beside[0])))
             del state, tgt
             torch.cuda.empty_cache()
+        del stream
+        t0 = time.perf_counter()
+        _, again = CheckpointManager(root, src_plan).export_ucp(3, device=dev)
+        print(f"train second export_ucp: ConvertStats {again} in {time.perf_counter() - t0:.3f} s "
+              "(the committed cache)")
+        check(again is None, "the second export converted again")
         flash = ops.flash_attention.launches
         check(flash == 0, f"{flash} flash-attention launches during training")
         dequant = bq_ops.block_dequantize.launches
@@ -865,7 +1202,7 @@ def train_phase(torch, ops, bq_ops):
                              "dequantize": {"vector": dequant, "general": 0}},
               f"train: block-quant launches by variant {by_variant}, want all vector")
         out = dict(quantize=quant, dequantize=dequant, by_variant=by_variant, step_s=step_s,
-                   restore_s=restore_s)
+                   restore_s=restore_s, export=export)
         print(f"train launches: quantize {quant}, dequantize {dequant}, "
               f"flash_attention {flash}; block quant by variant {by_variant}")
     finally:
@@ -897,15 +1234,17 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
+    usage = build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
+    check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256>", "fwd_kernel<float, 256>"))
     k = kernel_phase(torch, F, kernel, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     runs = serve_phase(torch, "smollm-360m", counters,
-                       {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48)
+                       {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48, via_ucp=True)
     ssm_runs = serve_phase(torch, "mamba2-130m", counters,
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
+    gemma = gemma_phase(torch, counters)
     train = train_phase(torch, ops, bq_ops)
 
     rows = [{
@@ -927,6 +1266,17 @@ def main() -> int:
         "library_event_ms": k["event_ms"]["library"],
         "prefill_device_ms": runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": runs["data=2,model=2"]["prefill_kernel_ms"],
+        "d256_ms": k["d256"]["ms"],
+        "d256_library_ms": k["d256"]["library_ms"],
+        "d256_fp32_ms": k["d256"]["fp32_ms"],
+        "d256_plain_ms": k["d256"]["plain_ms"],
+        "d256_bound_ms": k["d256"]["bound_ms"],
+        "d256_bound_by": k["d256"]["bound_by"],
+        "d256_max_abs_err": k["d256"]["max_abs_err"],
+        "d256_launches": gemma["launches"],
+        "d256_shape": "bf16 B=4 S=512 16:8 heads of 256, causal (gemma3-12b)",
+        "gemma3_prefill_device_ms": gemma["prefill_device_ms"],
+        "gemma3_prefill_kernel_ms": gemma["prefill_kernel_ms"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -947,6 +1297,8 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+        if name == "dequantize_blocks":
+            rows[-1]["convert_launches"] = train["export"]["launches"]
     rows.append({
         "name": "ssd_scan_fwd",
         "route": "cuda",

@@ -7,12 +7,16 @@
 * resume from disk: DIRECT per-rank reads when the Target layout equals the
   Source's, RESHARD_STREAM otherwise (fragments streamed straight into the
   Target layout, consolidating the few params that need it in memory, with
-  zero intermediate bytes on disk).
+  zero intermediate bytes on disk), VIA_UCP when the parameter set changed
+  (convert once into ``<step dir>.ucp``, then Load from the atoms);
+* a stream that fails after planning (a shard lost or corrupt: ``OSError``,
+  ``KeyError``, ``IntegrityError``) falls back to VIA_UCP, with the failure
+  in ``RestoreInfo.reason``, unless the mode was forced;
+* :meth:`CheckpointManager.export_ucp`: the explicit export of one step as
+  a UCP atom checkpoint, reusing a committed ``.ucp`` cache.
 
-Not ported: VIA_UCP raises (ROADMAP queue 1, item 3).  Where the reference
-falls back from a failed stream to VIA_UCP, the port re-raises the stream's
-error — a resume never degrades silently.  The hot tier, delta saves and
-fan-out publishing are refused by :class:`CheckpointPolicy`.
+The hot tier, delta saves and fan-out publishing are refused by
+:class:`CheckpointPolicy`.
 """
 
 from __future__ import annotations
@@ -25,17 +29,33 @@ from typing import Any, Mapping
 
 import torch
 
+from repro_torch.core.atoms import UcpCheckpoint
+from repro_torch.core.convert import ConvertStats, convert_to_ucp
 from repro_torch.core.dist_ckpt import DistCheckpoint
 from repro_torch.core.engine import CheckpointEngine
 from repro_torch.core.plan import ResumeMode, TargetSpec, plan_resume, stream_transforms
+from repro_torch.core.tensor_io import IntegrityError
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState
 
 from .policy import CheckpointPolicy
-from .restore import state_from_source, state_from_stream
+from .restore import state_from_source, state_from_stream, state_from_ucp
 from .saver import AsyncSaver, SaveResult, snapshot_state, write_distributed
 
-__all__ = ["CheckpointManager", "RestoreInfo"]
+__all__ = ["CheckpointManager", "RestoreInfo", "cached_ucp"]
+
+
+def cached_ucp(
+    ckpt: DistCheckpoint, engine: CheckpointEngine
+) -> tuple[UcpCheckpoint, ConvertStats | None]:
+    """A step's UCP atom checkpoint in ``<step dir>.ucp``: reuse the
+    committed cache, else remove a partial one and convert once (the
+    hub-format property).  ``ConvertStats`` is None on a reuse."""
+    ucp_dir = Path(str(ckpt.root) + ".ucp")
+    if (ucp_dir / "COMMIT").exists():
+        return UcpCheckpoint.open(ucp_dir), None
+    shutil.rmtree(ucp_dir, ignore_errors=True)  # a partial convert
+    return convert_to_ucp(ckpt, str(ucp_dir), engine=engine)
 
 
 @dataclasses.dataclass
@@ -45,6 +65,7 @@ class RestoreInfo:
     reason: str
     scalars: dict[str, Any]
     wall_time_s: float
+    convert_stats: ConvertStats | None = None  # set when VIA_UCP converted this time
 
 
 class CheckpointManager:
@@ -163,12 +184,14 @@ class CheckpointManager:
         self, device: str | torch.device, *, force_mode: ResumeMode | None = None
     ) -> tuple[TrainState, RestoreInfo] | None:
         """Resume the newest committed step onto ``device`` under this
-        manager's plan, from disk: DIRECT when the layouts are equal, else
-        RESHARD_STREAM.
+        manager's plan: DIRECT when the layouts are equal, RESHARD_STREAM
+        when they differ, VIA_UCP when the parameter set changed.  A stream
+        that fails with ``OSError``, ``KeyError`` or ``IntegrityError``
+        falls back to VIA_UCP; other errors propagate.
 
-        ``force_mode`` pins RESHARD_STREAM (or DIRECT, only when the layouts
-        are equal).  Returns None when no committed checkpoint exists (a
-        fresh start)."""
+        ``force_mode`` pins RESHARD_STREAM or VIA_UCP (no fallback when
+        forced), or DIRECT only when the layouts are equal.  Returns None
+        when no committed checkpoint exists (a fresh start)."""
         plan = self.plan
         step = self.latest_step()
         if step is None:
@@ -186,26 +209,60 @@ class CheckpointManager:
             if force not in (ResumeMode.DIRECT, ResumeMode.RESHARD_STREAM, ResumeMode.VIA_UCP):
                 raise ValueError(f"cannot force disk resume mode {force}")
             mode, reason = force, f"forced {force.value}; planner said {rp.mode.value}"
-        engine = CheckpointEngine(device)
+        state, cstats = None, None
         if mode is ResumeMode.DIRECT:
-            state = state_from_source(ckpt, plan, device, engine=engine)
+            state = state_from_source(ckpt, plan, device, engine=CheckpointEngine(device))
         elif mode is ResumeMode.RESHARD_STREAM:
-            # A stream failure (a shard lost or corrupt after planning)
-            # propagates: the reference's VIA_UCP fallback is not ported.
             transforms = rp.transforms or stream_transforms(ckpt.manifest, target)
-            state = state_from_stream(ckpt, plan, device, transforms, engine=engine)
-        else:
-            raise NotImplementedError(
-                f"resume needs VIA_UCP ({reason}); the UCP export path is not ported "
-                "yet (ROADMAP queue 1, item 3: the rest of the checkpoint path)"
-            )
+            try:
+                state = state_from_stream(
+                    ckpt, plan, device, transforms, engine=CheckpointEngine(device)
+                )
+            except (OSError, KeyError, IntegrityError) as e:
+                # Expected stream-time failures: a shard lost or corrupt after
+                # planning, a manifest entry gone.  Programming errors
+                # propagate.  The conversion below reads through a fresh
+                # engine, so nothing cached from the failed stream is reused.
+                if force_mode is not None:
+                    raise
+                mode = ResumeMode.VIA_UCP
+                reason = (
+                    f"{reason}; stream failed ({type(e).__name__}: {e}), "
+                    "falling back to via_ucp"
+                )
+        if mode is ResumeMode.VIA_UCP:
+            engine = CheckpointEngine(device)
+            ucp, cstats = cached_ucp(ckpt, engine)
+            state = state_from_ucp(ucp, plan, device, engine=engine)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         info = RestoreInfo(
             step=step, mode=mode, reason=reason,
             scalars=dict(ckpt.manifest.scalars), wall_time_s=time.perf_counter() - t0,
+            convert_stats=cstats,
         )
         return state, info
+
+    def export_ucp(
+        self, step: int | None = None, *, device: str | torch.device = "cuda"
+    ) -> tuple[UcpCheckpoint, ConvertStats | None]:
+        """Export one step (the newest by default) as a UCP atom checkpoint
+        in ``<step dir>.ucp``: the portable hub format, for publishing a
+        checkpoint or feeding another framework.  Coded moment shards are
+        decoded on ``device`` (the dequantize kernel on a card; pass "cpu"
+        to decode on the host).  Reuses a committed cache (``ConvertStats``
+        is then None)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise ValueError(f"no committed checkpoint under {self.root} to export")
+        ckpt = DistCheckpoint.open(self.step_dir(step))
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")
+        ucp, cstats = cached_ucp(ckpt, CheckpointEngine(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return ucp, cstats
 
     def restore_latest(self, device: str | torch.device) -> tuple[TrainState, RestoreInfo] | None:
         """Tiered resume over the disk tiers (the hot tier is not ported):

@@ -27,6 +27,12 @@ Regions are served as in the reference:
   :func:`~repro_torch.core.convert.assemble_atom` and served from the atom.
 
 Either way the bytes are the reference's (``repro/ckpt/restore.py:259-310``).
+
+VIA_UCP (:func:`state_from_ucp`, :func:`params_from_ucp`) serves the same
+Target regions from a UCP atom checkpoint instead: each atom is opened once
+(``CheckpointEngine.read_atom``) and every region is cut from it by
+:func:`~repro_torch.core.ops.read_runtime_region`, padding zero-filled and
+averaged atoms broadcast, as the reference's ``state_from_ucp``.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch
 from repro_torch.core.convert import assemble_atom
 from repro_torch.core.engine import CheckpointEngine
 from repro_torch.core.layout import DimSpec, MeshSpec, compute_layout
-from repro_torch.core.ops import clip_region_to_logical, read_runtime_region
+from repro_torch.core.ops import clip_region_to_logical, gen_ucp_metadata, read_runtime_region
 from repro_torch.core.patterns import ParamSpec, ParamTransform, StateKind, TransformClass
 from repro_torch.core.pytree import unflatten_from_paths
 from repro_torch.core.tensor_io import staging_like, to_staging, torch_dtype
@@ -49,9 +55,11 @@ from repro_torch.train.optimizer import TrainState
 
 __all__ = [
     "params_from_source",
+    "params_from_ucp",
     "read_region_from_source",
     "state_from_source",
     "state_from_stream",
+    "state_from_ucp",
     "target_regions",
 ]
 
@@ -204,10 +212,7 @@ def params_from_source(
                        StateKind.FP32, torch.device(device))
 
 
-def _build_state(source, plan, device, transforms, engine) -> TrainState:
-    device = torch.device(device)
-    engine = engine or CheckpointEngine(device)
-    reader = _reader_for(source, plan, transforms, engine)
+def _build_state(reader, plan, device, step: int) -> TrainState:
     trees = {
         kind: unflatten_from_paths(_build_flat(reader, plan, kind, device))
         for kind in (StateKind.FP32, StateKind.EXP_AVG, StateKind.EXP_AVG_SQ)
@@ -216,8 +221,19 @@ def _build_state(source, plan, device, transforms, engine) -> TrainState:
         params=trees[StateKind.FP32],
         exp_avg=trees[StateKind.EXP_AVG],
         exp_avg_sq=trees[StateKind.EXP_AVG_SQ],
-        step=int(source.manifest.step),
+        step=step,
     )
+
+
+def _ucp_reader(ucp, plan: ShardingPlan, engine: CheckpointEngine):
+    # every Target param has an atom of its logical shape, or this raises
+    gen_ucp_metadata(plan.param_specs, plan.mesh, ucp.manifest.atoms)
+
+    def reader(name, kind, region, dtype):
+        atom = engine.read_atom(ucp, name, kind)
+        return read_runtime_region(atom, plan.param_specs[name], region, dtype)
+
+    return reader
 
 
 def state_from_source(
@@ -229,7 +245,9 @@ def state_from_source(
 ) -> TrainState:
     """DIRECT: the full TrainState (params, both moments, step) on
     ``device``, from straight fragment unions."""
-    return _build_state(source, plan, device, None, engine)
+    device = torch.device(device)
+    reader = _reader_for(source, plan, None, engine or CheckpointEngine(device))
+    return _build_state(reader, plan, device, int(source.manifest.step))
 
 
 def state_from_stream(
@@ -245,4 +263,36 @@ def state_from_stream(
     params stream Source fragments (clipped to the logical shape, padding
     zero-filled) and ``CONSOLIDATE`` params are assembled in memory — on
     the card for coded kinds — and served from the atom."""
-    return _build_state(source, plan, device, transforms, engine)
+    device = torch.device(device)
+    reader = _reader_for(source, plan, transforms, engine or CheckpointEngine(device))
+    return _build_state(reader, plan, device, int(source.manifest.step))
+
+
+def state_from_ucp(
+    ucp,
+    plan: ShardingPlan,
+    device: str | torch.device,
+    *,
+    engine: CheckpointEngine | None = None,
+) -> TrainState:
+    """VIA_UCP: the full TrainState on ``device`` from a UCP atom checkpoint
+    (any Source layout; the Target plan's logical shapes must match the
+    atoms')."""
+    device = torch.device(device)
+    reader = _ucp_reader(ucp, plan, engine or CheckpointEngine(device))
+    return _build_state(reader, plan, device, int(ucp.manifest.step))
+
+
+def params_from_ucp(
+    ucp,
+    plan: ShardingPlan,
+    device: str | torch.device,
+    *,
+    engine: CheckpointEngine | None = None,
+) -> dict[str, torch.Tensor]:
+    """Weights-only VIA_UCP restore: flat ``{name: tensor}`` of runtime-shaped
+    fp32 weights on ``device``, read from the ``fp32`` atoms alone — the
+    ``.params`` of :func:`state_from_ucp`."""
+    device = torch.device(device)
+    reader = _ucp_reader(ucp, plan, engine or CheckpointEngine(device))
+    return _build_flat(reader, plan, StateKind.FP32, device)

@@ -1,21 +1,43 @@
-"""Consolidation of one parameter state (port of ``repro.core.convert``).
+"""Distributed checkpoint → UCP conversion (paper Algorithm 1), port of
+``repro.core.convert``.
 
-:func:`assemble_atom` is the per-parameter transform kernel of paper
-Algorithm 1, shared in the reference by the UCP export and by the
-in-memory consolidation of the streaming reshard.  The port uses it for the
-latter; the ``convert_to_ucp`` export waits for ROADMAP queue 1, item 3.
+:func:`convert_to_ucp` is the explicit export tool
+(``CheckpointManager.export_ucp``) and the resume fallback of last resort:
+the resume hot path streams Source fragments straight into the Target
+layout (RESHARD_STREAM) and never writes atoms.  The per-parameter
+transform kernel is shared: :func:`assemble_atom` consolidates one
+parameter state from any fragment source, and both the export here and the
+in-memory consolidation of the stream restore
+(``repro_torch.ckpt.restore.state_from_stream``) call it, so the two paths
+give the same bytes by construction.
+
+The engine is serial: the reference's ``workers=1`` profile.  Its parallel
+pool waits for ROADMAP queue 1, item 3 (the parallel I/O engine).
+``streaming=True`` unions a parameter that needs no strip or average
+straight into a memory-mapped atom file (constant working memory).  Coded
+moment shards read through an engine made for a CUDA device are decoded on
+the card (the dequantize kernel) and their atom comes to the host to be
+written.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+import time
+from pathlib import Path
+from typing import Sequence
 
+import numpy as np
+import torch
+
+from .atoms import AtomInfo, UcpCheckpoint, UcpManifest
+from .dist_ckpt import DistCheckpoint
 from .engine import CheckpointEngine
 from .ops import strip_padding
-from .patterns import ParamSpec, StateKind
-from .tensor_io import staging_like, to_staging
+from .patterns import STATE_KINDS, ParamSpec, StateKind
+from .tensor_io import EXTENDED_DTYPES, content_digest, staging_like, to_staging, torch_dtype
 
-__all__ = ["assemble_atom"]
+__all__ = ["ConvertStats", "assemble_atom", "convert_to_ucp"]
 
 
 def assemble_atom(
@@ -35,7 +57,7 @@ def assemble_atom(
     ``params_to_average``).  ``out``: optional destination of logical
     shape; when no strip or average is needed, fragments go straight in.
     Fragments decoded on a card (coded shards read through a CUDA engine)
-    make the atom a tensor on that card.
+    make the atom a tensor on that card, unless ``out`` is a host array.
     """
     mesh = source.manifest.mesh
     layout = spec.layout_for(kind, mesh)
@@ -58,6 +80,135 @@ def assemble_atom(
 
     atom = target if direct else strip_padding(target, spec)
     if out is not None and not direct:
-        out[...] = atom
+        out[...] = to_staging(out, atom)
         atom = out
     return atom
+
+
+@dataclasses.dataclass
+class ConvertStats:
+    params: int = 0
+    atoms_written: int = 0
+    bytes_read: int = 0
+    bytes_written: int = 0
+    wall_time_s: float = 0.0
+
+    def throughput_mb_s(self) -> float:
+        if self.wall_time_s == 0:
+            return float("inf")
+        return (self.bytes_written / 1e6) / self.wall_time_s
+
+
+def _convert_one(
+    ckpt: DistCheckpoint,
+    ucp: UcpCheckpoint,
+    spec: ParamSpec,
+    streaming: bool,
+    engine: CheckpointEngine,
+) -> tuple[int, int, int, dict[StateKind, str]]:
+    """Union + StripPadding + Save for one parameter (all state kinds).
+
+    Returns ``(bytes_read, bytes_written, atoms_written, digests)`` — one
+    atom file per state kind the parameter carries; ``digests`` records each
+    atom's content digest for the manifest."""
+    read = written = atoms = 0
+    digests: dict[StateKind, str] = {}
+    for kind in STATE_KINDS:
+        if kind not in spec.states:
+            continue
+        dtype = spec.states[kind].dtype
+        can_stream = (
+            streaming
+            and dtype not in EXTENDED_DTYPES  # a memmap holds numpy dtypes only
+            and not spec.average
+            and tuple(spec.runtime_shape) == tuple(spec.logical_shape)
+        )
+        if can_stream:
+            out = ucp.create_atom_memmap(spec.name, kind, tuple(spec.logical_shape), dtype)
+            atom = assemble_atom(ckpt, spec, kind, out=out, engine=engine)
+            out.flush()
+        else:
+            atom = assemble_atom(ckpt, spec, kind, engine=engine)
+            if isinstance(atom, torch.Tensor):
+                atom = atom.contiguous().cpu()  # off the card once, then hashed and written
+            else:
+                atom = np.ascontiguousarray(atom)
+            ucp.write_atom(spec.name, kind, atom)
+        digests[kind] = content_digest(atom)
+        item = torch.empty(0, dtype=torch_dtype(dtype)).element_size()
+        read += int(np.prod(spec.runtime_shape)) * item
+        written += atom.nbytes
+        atoms += 1
+    return read, written, atoms, digests
+
+
+def convert_to_ucp(
+    ckpt: DistCheckpoint | str,
+    out_dir: str,
+    *,
+    names: Sequence[str] | None = None,
+    workers: int | None = None,
+    streaming: bool = True,
+    engine: CheckpointEngine | None = None,
+) -> tuple[UcpCheckpoint, ConvertStats]:
+    """Convert a committed distributed checkpoint into a UCP atom checkpoint.
+
+    Algorithm 1: per parameter, pattern-match → Union → StripPadding →
+    Save.  ``engine`` decodes coded shards (on its card, if it has one);
+    the default engine decodes on the host.  ``workers`` is None or 1: the
+    serial engine is the reference's ``workers=1`` profile.  The atoms'
+    content digests land in the manifest before COMMIT.
+    """
+    if workers is not None and workers != 1:
+        raise NotImplementedError(
+            f"convert_to_ucp(workers={workers}): the parallel engine is not ported yet "
+            "(ROADMAP queue 1, item 3: the parallel I/O engine); the serial engine is workers=1"
+        )
+    if isinstance(ckpt, (str, Path)):
+        ckpt = DistCheckpoint.open(ckpt)
+    if not ckpt.is_committed:
+        raise ValueError(f"refusing to convert uncommitted checkpoint {ckpt.root}")
+
+    manifest = ckpt.manifest
+    wanted = set(names) if names is not None else None
+    todo = {n: s for n, s in manifest.params.items() if wanted is None or n in wanted}
+    atoms = {
+        n: AtomInfo(
+            name=n,
+            logical_shape=tuple(s.logical_shape),
+            dtypes={k: st.dtype for k, st in s.states.items()},
+            stacked_dim=s.stacked_dim,
+            kind=s.kind,
+        )
+        for n, s in todo.items()
+    }
+    ucp = UcpCheckpoint.create(
+        out_dir,
+        UcpManifest(
+            step=manifest.step,
+            atoms=atoms,
+            scalars=dict(manifest.scalars),
+            provenance={
+                "source_checkpoint": str(ckpt.root),
+                "source_mesh": manifest.mesh.to_json(),
+                "source_config": manifest.config_fingerprint,
+                "source_save_mode": manifest.save_mode,
+            },
+        ),
+    )
+
+    t0 = time.perf_counter()
+    engine = engine if engine is not None else CheckpointEngine()
+    stats = ConvertStats(params=len(todo))
+    for spec in todo.values():
+        r, w, a, digests = _convert_one(ckpt, ucp, spec, streaming, engine)
+        stats.bytes_read += r
+        stats.bytes_written += w
+        stats.atoms_written += a
+        ucp.manifest.atoms[spec.name] = dataclasses.replace(
+            ucp.manifest.atoms[spec.name], digests=digests
+        )
+    ucp._write_manifest()  # digests land before COMMIT
+    ucp.commit()
+    stats.wall_time_s = time.perf_counter() - t0
+    return ucp, stats

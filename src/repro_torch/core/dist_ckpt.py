@@ -242,6 +242,14 @@ class DistCheckpoint:
         """FragmentSource read: one persisted shard file."""
         return self.read_shard(rank, name, kind, device=device)
 
+    def iter_param_fragments(self, name: str, kind: StateKind, *, device=None):
+        """Yield ``(rank, layout, shard)`` for every persisted fragment owner:
+        the read side of the paper's Extract, one owning rank at a time,
+        materializing nothing (mmap; coded shards decode as they are read)."""
+        layout = self.manifest.params[name].layout_for(kind, self.manifest.mesh)
+        for rank in self.writing_ranks(name, kind):
+            yield rank, layout, self.read_shard(rank, name, kind, device=device)
+
     def validate(self) -> list[str]:
         """Integrity check: every expected shard file exists and its served
         content matches the digest recorded at save time (a coded shard is

@@ -5,10 +5,10 @@ and a worker pool.  This port keeps what the restore path needs to give the
 same bytes: :class:`FragmentIndex` (which fragments overlap a region) and a
 serial :class:`CheckpointEngine` with cached indexes, fragment reads,
 staging allocation (plain numpy or, on a device, torch: with no arena
-there is nothing to recycle) and memoized consolidated atoms.  The thread pool, the
-handle cache and the arena wait for the parallel-I/O item of the ROADMAP
-(queue 1, item 3); the reference's ``workers=1`` profile is exactly this
-serial order.
+there is nothing to recycle), memoized consolidated atoms and memoized UCP
+atom reads.  The thread pool, the handle cache and the arena wait for the
+parallel-I/O item of the ROADMAP (queue 1, item 3); the reference's
+``workers=1`` profile is exactly this serial order.
 
 A *fragment source* is anything with a ``.manifest`` (``params``, ``mesh``,
 ``save_mode``), ``.writing_ranks(name, kind)`` and
@@ -122,6 +122,7 @@ class CheckpointEngine:
         self.decode_device = device if device is not None and device.type == "cuda" else None
         self._indexes: dict[tuple[str, str, str], FragmentIndex] = {}
         self._atoms: dict[str, np.ndarray | torch.Tensor] = {}
+        self._ucp_atoms: dict[tuple[str, str, str], np.ndarray | torch.Tensor] = {}
         # Fragments decoded on the card for the (source, param, kind) being
         # read: each coded file is decoded once however many Target regions
         # straddle it.  Reset when the next (param, kind) starts.
@@ -156,4 +157,14 @@ class CheckpointEngine:
         atom = self._atoms.get(key)
         if atom is None:
             atom = self._atoms[key] = make()
+        return atom
+
+    def read_atom(self, ucp, name: str, kind):
+        """Memoized read of one UCP atom (``UcpCheckpoint.read_atom``): a
+        restore that serves R regions of a parameter opens its atom once.
+        A coded atom decodes on the engine's card, if it has one."""
+        key = (str(ucp.root), name, getattr(kind, "value", str(kind)))
+        atom = self._ucp_atoms.get(key)
+        if atom is None:
+            atom = self._ucp_atoms[key] = ucp.read_atom(name, kind, device=self.decode_device)
         return atom

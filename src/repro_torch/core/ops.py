@@ -1,31 +1,44 @@
-"""The UCP transformation operators used on the restore path
-(port of part of ``repro.core.ops``).
+"""The UCP transformation operators (paper §3.2, Table 2), port of
+``repro.core.ops``.
 
-``strip_padding``           remove alignment padding (runtime → logical shape)
-                            and collapse the replica dim of ``params_to_average``
-``clip_region_to_logical``  the canonical-padding rule of every load path
-``read_runtime_region``     serve a runtime-coordinate region from an atom
-``gen_ucp_metadata``        the Target-side fragment geometry (``LoadPlan``)
+=========================== ==================================================
+``extract``                  enumerate the parameter states of a distributed
+                             checkpoint, per owning rank (lazy / mmap)
+``union``                    consolidate one parameter's fragments into its
+                             atom (Algorithm 1)
+``strip_padding``            remove alignment padding (runtime → logical) and
+                             collapse the replica dim of ``params_to_average``
+``gen_ucp_metadata``         the Target-side fragment geometry (``LoadPlan``)
+``load_param_shard``         one Target rank's local shard from atoms, reading
+                             only the regions it owns (mmap slices)
+``clip_region_to_logical``   the canonical-padding rule of every load path
+``read_runtime_region``      serve a runtime-coordinate region from an atom
+=========================== ==================================================
 
 Numpy, as in the reference; an atom that is a torch tensor (coded moments
-decoded on the card) stays a tensor on its device.  ``extract``, ``union`` and
-``load_param_shard`` wait for the UCP export path (ROADMAP queue 1, item 3:
-the rest of the checkpoint path).
+decoded on the card, or a bf16/fp8 state, which numpy cannot hold) stays a
+tensor on its device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+import math
+from typing import Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from .layout import MeshSpec, ShardLayout
-from .patterns import ParamSpec, StateKind
-from .tensor_io import staging_like
+from .atoms import AtomInfo, UcpCheckpoint
+from .layout import IndexEntry, MeshSpec, ShardLayout
+from .patterns import STATE_KINDS, ParamSpec, StateKind
+from .tensor_io import staging_like, to_staging, torch_dtype
 
 __all__ = [
+    "extract",
+    "union",
+    "load_param_shard",
+    "Fragment",
     "strip_padding",
     "clip_region_to_logical",
     "read_runtime_region",
@@ -33,6 +46,44 @@ __all__ = [
     "LoadPlan",
     "ParamLoadPlan",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Fragment:
+    """One rank's persisted piece of one parameter state."""
+
+    name: str
+    kind: StateKind
+    rank: int
+    layout: ShardLayout
+    shard: np.ndarray  # usually an mmap view
+
+
+def extract(
+    ckpt,
+    names: Sequence[str] | None = None,
+    kinds: Sequence[StateKind] = STATE_KINDS,
+) -> Iterator[Fragment]:
+    """Enumerate persisted fragments of a distributed checkpoint.
+
+    The on-disk format already stores one file per (rank, param, kind), so
+    Extract is an enumeration rather than a physical split."""
+    manifest = ckpt.manifest
+    for name in names if names is not None else sorted(manifest.params):
+        for kind in kinds:
+            if kind not in manifest.params[name].states:
+                continue
+            for rank, layout, shard in ckpt.iter_param_fragments(name, kind):
+                yield Fragment(name, kind, rank, layout, shard)
+
+
+def union(ckpt, spec: ParamSpec, kind: StateKind, *, out=None, engine=None):
+    """Consolidate one parameter state into its (logical) atom: delegates
+    to :func:`repro_torch.core.convert.assemble_atom`, the kernel the UCP
+    export and the stream restore share."""
+    from .convert import assemble_atom  # deferred: convert imports this module
+
+    return assemble_atom(ckpt, spec, kind, out=out, engine=engine)
 
 
 def strip_padding(runtime_atom: np.ndarray, spec: ParamSpec) -> np.ndarray:
@@ -52,7 +103,10 @@ def strip_padding(runtime_atom: np.ndarray, spec: ParamSpec) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class ParamLoadPlan:
-    """Target-side geometry of one parameter state (paper: GenUcpMetadata)."""
+    """Target-side geometry of one parameter state (paper: GenUcpMetadata).
+
+    ``read_bytes(rank)`` is the exact I/O the rank performs: UCP Load is
+    proportional to the Target partition, not the model."""
 
     name: str
     kind: StateKind
@@ -60,19 +114,43 @@ class ParamLoadPlan:
     layout: ShardLayout
     target_dtype: str
 
+    def read_bytes(self, rank: int) -> int:
+        item = torch.empty(0, dtype=torch_dtype(self.target_dtype)).element_size()
+        total = 0
+        for e in self.layout.entries[rank]:
+            region = _clip_to_logical(e, self.spec)
+            if region is not None:
+                total += math.prod(b - a for a, b in region[0]) * item
+        return total
+
 
 @dataclasses.dataclass(frozen=True)
 class LoadPlan:
     mesh: MeshSpec
     params: dict[str, dict[StateKind, ParamLoadPlan]]
 
+    def total_read_bytes(self, rank: int) -> int:
+        return sum(p.read_bytes(rank) for kinds in self.params.values() for p in kinds.values())
+
 
 def gen_ucp_metadata(
-    target_params: Mapping[str, ParamSpec], target_mesh: MeshSpec
+    target_params: Mapping[str, ParamSpec],
+    target_mesh: MeshSpec,
+    atoms: Mapping[str, AtomInfo] | None = None,
 ) -> LoadPlan:
-    """Partition metadata for every (param, kind) on the Target.  (The
-    reference's optional validation against a UCP atom index comes with the
-    VIA_UCP path.)"""
+    """Partition metadata for every (param, kind) on the Target.
+
+    With ``atoms`` (a UCP manifest's index) the Target specs are validated
+    against it: the logical shapes must agree — mesh, padding, fusion and
+    precision may all differ."""
+    for name, spec in target_params.items() if atoms is not None else ():
+        if name not in atoms:
+            raise KeyError(f"target parameter {name!r} has no atom in checkpoint")
+        if tuple(atoms[name].logical_shape) != tuple(spec.logical_shape):
+            raise ValueError(
+                f"{name}: atom logical shape {atoms[name].logical_shape} != "
+                f"target logical shape {spec.logical_shape}"
+            )
     return LoadPlan(
         mesh=target_mesh,
         params={
@@ -89,6 +167,31 @@ def gen_ucp_metadata(
             for name, spec in target_params.items()
         },
     )
+
+
+def _clip_to_logical(
+    entry: IndexEntry, spec: ParamSpec
+) -> tuple[tuple[tuple[int, int], ...], tuple[tuple[int, int], ...]] | None:
+    """Clip a runtime-coordinate entry to the atom's logical region.
+
+    Returns ``(atom_region, shard_region)`` — the logical-tensor region to
+    read and where it lands in the local shard — or None when the entry lies
+    entirely in padding.  For average params the leading replica dim is
+    dropped on the atom side (broadcast on load)."""
+    atom_sl = entry.atom_slice[1:] if spec.average else entry.atom_slice
+    body_shard = entry.shard_slice[1:] if spec.average else entry.shard_slice
+    a_out: list[tuple[int, int]] = []
+    s_out: list[tuple[int, int]] = []
+    for (a0, a1), (s0, _), lim in zip(atom_sl, body_shard, spec.logical_shape):
+        c1 = min(a1, lim)
+        if c1 <= a0:
+            return None
+        a_out.append((a0, c1))
+        s_out.append((s0, s0 + (c1 - a0)))
+    if spec.average:
+        # every replica row of the shard receives the same logical data
+        s_out.insert(0, entry.shard_slice[0])
+    return tuple(a_out), tuple(s_out)
 
 
 def clip_region_to_logical(
@@ -129,9 +232,42 @@ def read_runtime_region(atom, spec: ParamSpec, region: tuple[slice, ...], dtype)
         return staging_like([atom], shape, dtype, zero=True)
     reads, dests, full = clipped
     out = staging_like([atom], shape, dtype, zero=not full)
-    piece = atom[reads]
+    piece = to_staging(out, atom[reads])
     if spec.average:
         out[(slice(None), *dests)] = piece[None]
     else:
         out[dests] = piece
     return out
+
+
+def load_param_shard(
+    ucp: UcpCheckpoint, plan: ParamLoadPlan, rank: int, *, atom=None, device=None
+):
+    """Materialize one Target rank's local shard of one parameter state.
+
+    Reads only the atom regions the rank owns; fills alignment padding with
+    zeros; broadcasts averaged atoms across the Target's replica dim; casts
+    to the Target precision policy (fp32 atoms → a bf16 Target, etc.).  A
+    numpy array for numpy dtypes, else a tensor (on ``device``, or the
+    atom's)."""
+    spec = plan.spec
+    if atom is None:
+        atom = ucp.read_atom(plan.name, plan.kind, device=device)
+    local = staging_like([atom], plan.layout.local_shape, plan.target_dtype, zero=True)
+    for e in plan.layout.entries[rank]:
+        clipped = _clip_to_logical(e, spec)
+        if clipped is None:
+            continue
+        atom_region, shard_region = clipped
+        piece = atom[tuple(slice(a, b) for a, b in atom_region)]
+        dst = tuple(slice(a, b) for a, b in shard_region)
+        if isinstance(local, torch.Tensor):
+            piece = piece if isinstance(piece, torch.Tensor) else torch.from_numpy(np.array(piece))
+            local[dst] = piece.to(local.device, local.dtype).expand(local[dst].shape)
+        elif spec.average:
+            local[dst] = np.broadcast_to(
+                piece.astype(local.dtype), tuple(b - a for a, b in shard_region)
+            )
+        else:
+            local[dst] = piece.astype(local.dtype)
+    return local

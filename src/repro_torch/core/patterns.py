@@ -31,6 +31,8 @@ from typing import Mapping, Sequence
 from .layout import DimSpec, MeshSpec, ShardLayout, compute_layout
 
 __all__ = [
+    "Pattern",
+    "derive_pattern",
     "StateKind",
     "STATE_KINDS",
     "StateLayoutSpec",
@@ -40,6 +42,13 @@ __all__ = [
     "classify_transform",
     "uniform_param_spec",
 ]
+
+
+class Pattern(str, enum.Enum):
+    UNIQUE = "unique_params"
+    REPLICATED = "replicated_params"
+    FRAGMENT = "fragment_params"
+    AVERAGE = "params_to_average"
 
 
 class StateKind(str, enum.Enum):
@@ -85,6 +94,21 @@ class StateLayoutSpec:
         return cls(
             tuple(DimSpec.from_json(x) for x in d["dims"]), str(d.get("dtype", "float32"))
         )
+
+
+def derive_pattern(
+    layout: ShardLayout, *, average: bool = False, owner_ranks: Sequence[int] | None = None
+) -> Pattern:
+    """Classify a layout into the paper's pattern taxonomy: ``average`` (the
+    update rule diverges per replica) → params_to_average; one owner rank →
+    unique; one fragment → replicated; else fragment."""
+    if average:
+        return Pattern.AVERAGE
+    if owner_ranks is not None and len(owner_ranks) == 1:
+        return Pattern.UNIQUE
+    if len(set(layout.fragment_id)) == 1:
+        return Pattern.REPLICATED
+    return Pattern.FRAGMENT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +178,9 @@ class ParamSpec:
             layout = self.states[kind].layout(self.runtime_shape, mesh)
             cache[key] = layout
         return layout
+
+    def pattern_for(self, kind: StateKind, mesh: MeshSpec) -> Pattern:
+        return derive_pattern(self.layout_for(kind, mesh), average=self.average)
 
     def to_json(self) -> dict:
         return {

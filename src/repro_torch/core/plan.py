@@ -10,9 +10,7 @@
 
 Layout equality is structural — mesh axes/sizes, per-state dims, runtime
 shapes, dtypes — so a checkpoint written by the JAX package under the same
-layout plans DIRECT here too.  The port's restore serves DIRECT and
-RESHARD_STREAM; it raises on VIA_UCP (ROADMAP queue 1, item 3: the rest of
-the checkpoint path).
+layout plans DIRECT here too.
 """
 
 from __future__ import annotations

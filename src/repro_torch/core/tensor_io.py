@@ -120,21 +120,26 @@ def torch_dtype(name: str) -> torch.dtype:
 def staging_like(pieces, shape, dtype, *, zero: bool):
     """A staging buffer for ``pieces``: a torch tensor on their device when
     any of them is a tensor (coded moments decoded on the card), else a
-    numpy array."""
+    numpy array — or a CPU tensor for a dtype numpy cannot hold."""
     dev = next((p.device for p in pieces if isinstance(p, torch.Tensor)), None)
     shape = tuple(int(s) for s in shape)
-    if dev is None:
-        dt = resolve_dtype(dtype) if isinstance(dtype, str) else np.dtype(dtype)
+    name = dtype if isinstance(dtype, str) else dtype_name(dtype)
+    if dev is None and name not in EXTENDED_DTYPES:
+        dt = np.dtype(name)
         return np.zeros(shape, dt) if zero else np.empty(shape, dt)
-    tdt = torch_dtype(dtype if isinstance(dtype, str) else dtype_name(dtype))
+    tdt = torch_dtype(name)
+    dev = dev if dev is not None else torch.device("cpu")
     alloc = torch.zeros if zero else torch.empty
     return alloc(shape, dtype=tdt, device=dev)
 
 
 def to_staging(out, piece):
-    """``piece`` in the kind of ``out`` (a host array goes to ``out``'s device)."""
+    """``piece`` in the kind of ``out``: a host array goes to ``out``'s
+    device, a tensor into a numpy ``out`` comes to the host."""
     if isinstance(out, torch.Tensor) and not isinstance(piece, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(piece)).to(out.device)
+    if isinstance(piece, torch.Tensor) and not isinstance(out, torch.Tensor):
+        return piece.cpu().numpy()
     return piece
 
 

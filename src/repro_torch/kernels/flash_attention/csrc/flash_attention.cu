@@ -29,13 +29,20 @@
 // of P·V (no shared-memory round trip).  l sums the fp32 probabilities.  K/V
 // tiles are double-buffered with 16-byte cp.async, so the next tile's load
 // overlaps this tile's math; rows are padded by 16 bytes so ldmatrix hits
-// distinct banks.  Head dims 8..128 (8 is zero-padded to the MMA's k of 16).
+// distinct banks.  Head dims 8..256 (8 is zero-padded to the MMA's k of 16).
 // Every row base must be 16-byte aligned (the wrapper refuses others).
+// Up to D = 128 a warp keeps its Q fragments in registers for the whole KV
+// loop.  At D = 256 (gemma3) the O accumulator alone is 16 x 256 fp32 a
+// warp, 128 registers a lane, and Q's fragments would add 64 more: there Q
+// stays in shared memory and each k-step of Q·Kᵀ reloads its fragment with
+// ldmatrix (FlashAttention-2's layout for this head dim), so ptxas fits the
+// kernel in 255 registers without spilling.  One 169 KB block an SM.
 //
 // float32 — CUDA cores (fwd_kernel, the first, scalar design, kept exact for the fp32
 // card-vs-CPU checks: TF32 or bf16 operands would break their tolerance).
 // One block of 256 threads per 64-row q-tile, products in fp32 from shared
-// memory, P through shared memory.
+// memory, P through shared memory.  Its shared memory grows with D: 213,760
+// bytes at D = 256, under the 232,448 a block may opt in to.
 //
 // q-tiles are scheduled latest first, so the causally heaviest blocks start
 // in the first wave: the bf16 kernel's grid puts the q-tile on its slowest
@@ -264,6 +271,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int 
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     default: return -2;  // unsupported head dim
   }
 }
@@ -335,6 +343,7 @@ struct TcShape {
   static constexpr int LD = DK + 8;           // row stride: an odd number of 16-byte units
   static constexpr int KSTEPS = DK / 16;      // k-steps of Q·Kᵀ
   static constexpr int NO = D / 8;            // 8-column blocks of O
+  static constexpr bool Q_IN_REGS = D <= 128;  // else Q fragments reload from smem
   static constexpr int SMEM = (TC_BQ + 4 * TC_BK) * LD * static_cast<int>(sizeof(bf16));
 };
 
@@ -408,10 +417,12 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 
   cp_async_wait<1>();  // Q has landed (K/V tile 0 may still be in flight)
   __syncthreads();
-  uint32_t qf[Sh::KSTEPS][4];
+  const bf16* qrow = sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[Sh::Q_IN_REGS ? Sh::KSTEPS : 1][4];
+  if (Sh::Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < Sh::KSTEPS; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) ldmatrix_x4(qf[Sh::Q_IN_REGS ? kk : 0], qrow + kk * 16);
+  }
 
   const int wr_lo = q0 + warp * 16, wr_hi = wr_lo + 15;  // this warp's rows
   for (int t = 0; t < ntiles; ++t) {
@@ -436,15 +447,18 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < Sh::KSTEPS; ++kk)
+    for (int kk = 0; kk < Sh::KSTEPS; ++kk) {
+      uint32_t(&qa)[4] = qf[Sh::Q_IN_REGS ? kk : 0];
+      if (!Sh::Q_IN_REGS) ldmatrix_x4(qa, qrow + kk * 16);
 #pragma unroll
       for (int n2 = 0; n2 < 4; ++n2) {
         uint32_t bk[4];
         ldmatrix_x4(bk, cK + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * n2], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qa, bk[2], bk[3]);
       }
+    }
 
     // Mask (only where this warp's rows meet a tile edge), scale to log2 units.
     const bool need_mask = k0 + TC_BK > Skv || (causal && k0 + TC_BK - 1 > wr_lo) ||
@@ -576,6 +590,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o, int
     case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    case 256: return launch_tc<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
     default: return -2;  // unsupported head dim
   }
 }

@@ -30,7 +30,7 @@ from repro_torch.kernels.nvcc import compile_and_load, launch_error
 __all__ = ["build", "flash_attention_fwd", "HEAD_DIMS", "ROW_ALIGN"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 ROW_ALIGN = 16  # bytes: the bfloat16 kernel's cp.async copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REFUSALS = {

@@ -58,7 +58,14 @@
 // card-vs-CPU checks: bf16 or TF32 operands would break their tolerance).
 // One block of 256 threads per (b, h, 32 columns of P) carries its slice of
 // h in shared memory; 64-row sub-blocks, 4×4 outputs a thread, the chunk's
-// cumsum one warp's scan, all arithmetic fp32.
+// cumsum one warp's scan.  The products and sums are fp32; the cumsum of
+// dt·A and the differences taken from it (cum_i - cum_j, total - cum_j) are
+// float64.  Over a 256-row chunk |cum| reaches ~100, where one fp32 ulp is
+// ~8e-6: a difference of two fp32 cumsums carries that absolute error into
+// every exp(cum_i - cum_j).  With the fp32 scan the kernel was 2.4x
+// ssd_chunked's error against a float64 recurrence at the B = 1 serving
+// shape (chip_smoke.py); with the float64 cumsum both of its differences
+// are exact to fp32 rounding.
 //
 // What bounds it on an H100.  At the serving shapes (B=4, S=512, H=24, P=64,
 // G=1, N=128, Q=256, bf16 x/B/C) the function moves ~17 MB (x, y, B, C, dt
@@ -105,7 +112,8 @@ __host__ __device__ constexpr int padded(int n) { return n | 1; }  // odd row st
 
 int smem_bytes(int N, int Q) {
   const int NP = padded(N);
-  return (2 * BLK * NP + BLK * (BLK + 1) + BLK * TP + TP * NP + 2 * Q) * static_cast<int>(sizeof(float));
+  return Q * static_cast<int>(sizeof(double)) +
+         (2 * BLK * NP + BLK * (BLK + 1) + BLK * TP + TP * NP + Q) * static_cast<int>(sizeof(float));
 }
 
 // Rows [r0, r0 + BLK) of the chunk starting at t0 into dst [BLK][NP] as fp32;
@@ -127,15 +135,15 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
            const T* __restrict__ bm, const T* __restrict__ cm, T* __restrict__ y,
            float* __restrict__ hout, int S, int H, int G, int P, int N, int Q, Strides xs,
            Strides dts, Strides bs, Strides cs, Strides ys) {
-  extern __shared__ float smem[];
+  extern __shared__ double smem64[];
+  double* sCum = smem64;                // [Q]  inclusive cumsum of dt·A, float64
+  float* sC = reinterpret_cast<float*>(sCum + Q);  // [BLK][NP]
   const int NP = padded(N);
-  float* sC = smem;                     // [BLK][NP]
   float* sB = sC + BLK * NP;            // [BLK][NP]
   float* sS = sB + BLK * NP;            // [BLK][BLK + 1]
   float* sX = sS + BLK * (BLK + 1);     // [BLK][TP]
   float* sH = sX + BLK * TP;            // [TP][NP]   h_prev of this column tile
-  float* sCum = sH + TP * NP;           // [Q]
-  float* sDt = sCum + Q;                // [Q]
+  float* sDt = sH + TP * NP;            // [Q]
   constexpr int SP = BLK + 1;
   constexpr int NC = NMAX / 16;
 
@@ -157,22 +165,22 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
     if (tid < 32) {
       const int per = (Q + 31) / 32;
       const int lo = tid * per, hi = min(lo + per, Q);
-      float run = 0.f;
+      double run = 0.0;
       for (int i = lo; i < hi; ++i) {
-        run += sDt[i] * A;
+        run += static_cast<double>(sDt[i]) * A;
         sCum[i] = run;
       }
-      float incl = run;
+      double incl = run;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, off);
+        const double v = __shfl_up_sync(0xffffffffu, incl, off);
         if (tid >= off) incl += v;
       }
-      const float before = incl - run;
+      const double before = incl - run;
       for (int i = lo; i < hi; ++i) sCum[i] += before;
     }
     __syncthreads();
-    const float total = sCum[Q - 1];
+    const double total = sCum[Q - 1];
 
     // ---- y, one 64-row block of the chunk at a time --------------------
     for (int I = 0; I < nblk; ++I) {
@@ -191,7 +199,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
 #pragma unroll
           for (int c = 0; c < 2; ++c) dot[c] = fmaf(cv, sH[(tx + 16 * c) * NP + n], dot[c]);
         }
-        const float dec = r0 + row < Q ? expf(sCum[r0 + row]) : 0.f;
+        const float dec = r0 + row < Q ? static_cast<float>(exp(sCum[r0 + row])) : 0.f;
 #pragma unroll
         for (int c = 0; c < 2; ++c) acc[r][c] = dec * dot[c];
       }
@@ -227,7 +235,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int gj = j0 + tx + 16 * c;
-            const float l = gi < Q && gj <= gi ? expf(sCum[gi] - sCum[gj]) : 0.f;
+            const float l = gi < Q && gj <= gi ? expf(static_cast<float>(sCum[gi] - sCum[gj])) : 0.f;
             sS[(ty + 16 * r) * SP + tx + 16 * c] = s[r][c] * l;
           }
         }
@@ -270,7 +278,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
         const int t = j0 + row, p = p0 + col;
         sX[idx] = t < Q && p < P
                       ? to_f(x[b * xs.b + static_cast<long long>(t0 + t) * xs.s + h * xs.h + p]) *
-                            sDt[t] * expf(total - sCum[t])
+                            sDt[t] * static_cast<float>(exp(total - sCum[t]))
                       : 0.f;
       }
       __syncthreads();
@@ -287,7 +295,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
       }
       __syncthreads();
     }
-    const float keep = expf(total);
+    const float keep = static_cast<float>(exp(total));
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -660,7 +668,7 @@ ssd_kernel_tc(const bf16* __restrict__ x, const float* __restrict__ dt, const fl
 
     // ---- state update: h = h_prev exp(total) + (w ⊙ x)ᵀ·B, w ⊙ x = hi + lo ---
     if (h_active) {
-      const float keep = expf(total);
+      const float keep = static_cast<float>(exp(total));
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll

@@ -11,8 +11,10 @@ The restore is weights-only, as the reference's docstring says (the
 reference restores a full ``TrainState``): open the newest committed
 ``step_XXXXXXXX``, plan the resume against this run's layout, and read the
 fp32 weights only — DIRECT when the layouts are equal, RESHARD_STREAM with
-the per-param plan table when they differ.  The bytes are the ``.params``
-of a full restore.
+the per-param plan table when they differ, VIA_UCP when the planner says so
+(the step is converted once into ``<step dir>.ucp``, or that committed
+cache is reused, and the weights are read from its ``fp32`` atoms).  The
+bytes are the ``.params`` of a full restore.
 
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises.  The last line of output is a JSON record of the run.
@@ -21,6 +23,7 @@ raises.  The last line of output is a JSON record of the run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -28,11 +31,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.ckpt.restore import params_from_source
+from repro_torch.ckpt.manager import cached_ucp
+from repro_torch.ckpt.restore import params_from_source, params_from_ucp
 from repro_torch.configs import ParallelismConfig, get_config, reduced
 from repro_torch.core.dist_ckpt import DistCheckpoint
+from repro_torch.core.engine import CheckpointEngine
 from repro_torch.core.layout import MeshSpec
-from repro_torch.core.plan import ResumeMode, ResumePlan, TargetSpec, plan_resume
+from repro_torch.core.plan import (
+    ResumeMode, ResumePlan, TargetSpec, plan_resume, stream_transforms,
+)
 from repro_torch.core.pytree import unflatten_from_paths
 from repro_torch.dist.sharding import ShardingPlan, make_plan, vocab_multiple
 from repro_torch.launch.mesh import mesh_spec_from_string
@@ -79,17 +86,28 @@ def latest_step_dir(root: str | Path) -> Path | None:
 
 
 def restore_params(
-    step_dir: str | Path, plan: ShardingPlan, device
+    step_dir: str | Path, plan: ShardingPlan, device, *, force_mode: ResumeMode | None = None
 ) -> tuple[dict[str, torch.Tensor], ResumePlan]:
     """Weights-only restore of one committed step onto ``device`` under the
-    Target ``plan``: flat fp32 params and the resume plan that served them."""
+    Target ``plan``: flat fp32 params and the resume plan that served them.
+    ``force_mode`` pins VIA_UCP (or RESHARD_STREAM, or DIRECT when the
+    layouts are equal); the returned plan then carries that mode."""
     ckpt = DistCheckpoint.open(step_dir)
     rp = plan_resume(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
+    if force_mode is not None:
+        force = ResumeMode(force_mode)
+        if force is ResumeMode.DIRECT and rp.mode is not ResumeMode.DIRECT:
+            raise ValueError(f"cannot force DIRECT restore: layouts differ ({rp.reason})")
+        transforms = rp.transforms
+        if force is ResumeMode.RESHARD_STREAM and transforms is None:
+            transforms = stream_transforms(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
+        rp = dataclasses.replace(rp, mode=force, transforms=transforms,
+                                 reason=f"forced {force.value}; planner said {rp.mode.value}")
+    device = torch.device(device)
     if rp.mode is ResumeMode.VIA_UCP:
-        raise NotImplementedError(
-            f"resume needs VIA_UCP ({rp.reason}); the UCP export path is not "
-            "ported yet (ROADMAP queue 1, item 3: the rest of the checkpoint path)"
-        )
+        engine = CheckpointEngine(device)
+        ucp, _ = cached_ucp(ckpt, engine)
+        return params_from_ucp(ucp, plan, device, engine=engine), rp
     transforms = rp.transforms if rp.mode is ResumeMode.RESHARD_STREAM else None
     return params_from_source(ckpt, plan, device, transforms=transforms), rp
 
@@ -136,6 +154,9 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default="data=1,model=1",
                    help="the layout this run plans its restore under")
     p.add_argument("--ckpt-dir", default=None, help="resume weights from here")
+    p.add_argument("--force-mode", default=None, choices=[m.value for m in ResumeMode],
+                   help="pin the restore mode (via_ucp: convert the step into "
+                   "<step dir>.ucp once and read its atoms)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--gen", type=int, default=32)
@@ -157,7 +178,7 @@ def main(argv=None) -> int:
     if step_dir is not None:
         plan = make_plan(cfg, lm.registry, parallel, mesh)
         t0 = time.perf_counter()
-        flat, rp = restore_params(step_dir, plan, device)
+        flat, rp = restore_params(step_dir, plan, device, force_mode=args.force_mode)
         _sync(device)
         params = unflatten_from_paths(flat)
         mode, step = rp.mode.value, rp.source_step

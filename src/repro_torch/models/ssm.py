@@ -33,14 +33,15 @@ def ssd_recurrent(x, dt, a, bmat, cmat, *, h0=None):
     bmat = _broadcast_groups(bmat, h)
     cmat = _broadcast_groups(cmat, h)
     da = dt * a[None, None, :]
-    hs = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)  # float64 inputs stay float64
+    hs = (torch.zeros((bsz, h, p, n), dtype=acc, device=x.device)
           if h0 is None else h0)
     ys = []
     for t in range(s):
         decay = torch.exp(da[:, t])[..., None, None]
         upd = (dt[:, t, :, None, None] * x[:, t, :, :, None]) * bmat[:, t, :, None, :]
-        hs = hs * decay + upd.float()
-        ys.append(torch.einsum("bhpn,bhn->bhp", hs, cmat[:, t].float()))
+        hs = hs * decay + upd.to(acc)
+        ys.append(torch.einsum("bhpn,bhn->bhp", hs, cmat[:, t].to(acc)))
     return torch.stack(ys, 1).to(x.dtype), hs
 
 

@@ -8,9 +8,11 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 * the flash-attention kernel against its plain version on the same inputs
   (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
   the serving slice's head layout, with ragged lengths and windows, every
-  head dim (8-128) in bf16, non-causal, GQA and MQA;
+  head dim (8-256) in bf16, non-causal, GQA and MQA, and gemma3-12b's
+  head layout (16:8 heads of 256, window 1024) in both dtypes;
 * reduced smollm prefill and decode on the card (kernel path) against the
-  same weights on the CPU (plain path), in float32;
+  same weights on the CPU (plain path), in float32, and reduced gemma3 at
+  its head dim 256 the same way;
 * the block-quant kernels against their plain version, byte for byte (q,
   scales and the decoded fp32), for int8, e4m3 and e5m2, at blocks 64-512
   and 100, through the vector kernels and the general ones (n = 100, a
@@ -26,13 +28,16 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   there; strided views; chunks that are not powers of two (40, 96) and the
   model's halving down to 4 (S = 500); P = 128 (two column tiles), G = 2
   and 3, N = 100 (8-byte row copies); reduced mamba2 on the card (one
-  kernel launch per layer) against the CPU path in float32; and the
-  wrapper's refusal of a recorded gradient;
+  kernel launch per layer) against the CPU path in float32; the fp32
+  kernel against a float64 recurrence at the B = 1 serving shape, no
+  further from it than ``ssd_chunked``; and the wrapper's refusal of a
+  recorded gradient;
 * each kernel's launches counted by dtype (bf16: the tensor-core kernel;
   fp32: the CUDA-core kernel), and the bf16 kernels' refusal of a view one
   element off its row start.
 """
 
+import dataclasses
 import json
 import struct
 
@@ -90,6 +95,13 @@ def _tol(dtype):
     (torch.bfloat16, 2, 190, 4, 2, 128, 64, True),
     (torch.bfloat16, 1, 33, 3, 3, 64, 0, True),
     (torch.float32, 1, 190, 4, 2, 128, 64, True),
+    # head dim 256 (gemma3-12b: 16:8 heads, local layers' window 1024), both kernels
+    (torch.bfloat16, 4, 512, 16, 8, 256, 0, True),
+    (torch.float32, 4, 512, 16, 8, 256, 0, True),
+    (torch.bfloat16, 1, 2048, 16, 8, 256, 1024, True),
+    (torch.float32, 1, 2048, 16, 8, 256, 1024, True),
+    (torch.bfloat16, 2, 300, 4, 2, 256, 100, True),
+    (torch.bfloat16, 1, 77, 4, 4, 256, 0, False),
 ])
 def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -140,7 +152,19 @@ def test_kernel_refuses_a_misaligned_bf16_view(cuda):
 
 
 def test_reduced_smollm_on_card_matches_cpu(cuda):
-    lm = build_model(reduced(get_config("smollm-360m")), compute_dtype=torch.float32)
+    _card_matches_cpu(cuda, reduced(get_config("smollm-360m")))
+
+
+def test_reduced_gemma3_head_dim_256_on_card_matches_cpu(cuda):
+    """Reduced gemma3 at its real head dim 256: the fp32 flash kernel at
+    D = 256 in local (window) and global layers."""
+    cfg = dataclasses.replace(reduced(get_config("gemma3-12b")), head_dim=256)
+    assert set(cfg.layer_pattern) == {"local", "global"}
+    _card_matches_cpu(cuda, cfg)
+
+
+def _card_matches_cpu(cuda, cfg):
+    lm = build_model(cfg, compute_dtype=torch.float32)
     params_cpu = lm.init(torch.Generator().manual_seed(0))
     params_gpu = _to(params_cpu, cuda)
     toks = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1))
@@ -350,6 +374,34 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
     _ssd_close((y, hT), (yr.transpose(1, 2), hr), dtype)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fp32_ssd_kernel_against_float64_recurrence(cuda, seed):
+    """At the B = 1 serving shape (H=24, P=64, N=128, chunk 256; dt from the
+    ``ssm_dt`` bias, A = -(1..24), so |cum| reaches ~100 in a chunk) the
+    fp32 kernel's y is no further from ``ssd_ref`` in float64 than
+    ``ssd_chunked``'s.  With an fp32 cumsum it was 2.4x further."""
+    from repro_torch.models.common import ParamDef, ParamRegistry
+
+    b, s, h, p, n = 1, 512, 24, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt_bias = ParamRegistry([ParamDef("dt_bias", (h,), ("ssm_heads",), init="ssm_dt")]
+                            ).init(gen)["dt_bias"]
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device=cuda) + dt_bias)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda)
+    bm, cm = (torch.randn(b, s, 1, n, generator=gen, device=cuda) for _ in "bc")
+    y, _ = ssd_scan(x, dt, a, bm, cm, chunk=256)
+    yc, _ = ssd_chunked(x, dt, a, bm, cm, chunk=256)
+    y64, _ = ssd_ref_mod.ssd_ref(
+        *(t.double().transpose(1, 2) for t in (x, dt)), a.double(),
+        *(t.double().repeat_interleave(h, 2).transpose(1, 2) for t in (bm, cm)),
+    )
+    y64 = y64.transpose(1, 2)
+    e_kernel = (y.double() - y64).abs().max().item()
+    e_chunked = (yc.double() - y64).abs().max().item()
+    assert e_kernel <= e_chunked, (e_kernel, e_chunked)
+
+
 def test_ssd_kernel_reads_strided_views(cuda):
     """x, B and C as split views of one conv output, dt a column slice, as
     the model hands them: bit-equal to contiguous copies."""
@@ -417,3 +469,34 @@ def test_reduced_mamba2_on_card_matches_cpu(cuda, s):
     for a, b in zip(cpu_steps, gpu_steps):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=0)
     np.testing.assert_allclose(gpu_h.numpy(), cpu_h.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_export_ucp_on_card_equals_host_convert(cuda, tmp_path):
+    """A reduced checkpoint with int8:b256 moments exported on the card
+    (every coded shard decoded once by the dequantize kernel) has the atom
+    digests of the host's conversion of the same checkpoint."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.core import DistCheckpoint, MeshSpec, convert_to_ucp
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+
+    cfg = reduced(get_config("smollm-360m"))
+    mesh, par = MeshSpec.from_dict({"data": 2, "model": 2}), TC.ParallelismConfig()
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    plan = make_plan(cfg, lm.registry, par, mesh)
+    state = init_state(lm.init(torch.Generator(device=cuda).manual_seed(0)))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for tree in (state.exp_avg, state.exp_avg_sq):
+        for t in flatten_with_paths(tree).values():
+            t.copy_(torch.rand(t.shape, generator=g, device=cuda))
+    policy = codec.CodecPolicy.moments("int8:b256")
+    write_distributed(snapshot_state(state, policy), plan, 2, tmp_path / "ck" / "step_00000002",
+                      codec=policy)
+    ck = DistCheckpoint.open(tmp_path / "ck" / "step_00000002")
+    host, _ = convert_to_ucp(ck, str(tmp_path / "host.ucp"))
+    before = block_dequantize.launches
+    card, stats = CheckpointManager(tmp_path / "ck", plan).export_ucp(device=cuda)
+    assert stats is not None and block_dequantize.launches - before == len(ck.manifest.shard_codecs)
+    assert card.validate() == []
+    assert {n: a.digests for n, a in card.manifest.atoms.items()} == \
+        {n: a.digests for n, a in host.manifest.atoms.items()}

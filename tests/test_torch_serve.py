@@ -17,6 +17,7 @@ RESHARD_STREAM under data=1,model=1 and DIRECT under data=2,model=2, and the
 two give the same greedy tokens.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,16 +45,18 @@ from repro_torch.models import decode as D  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _pair(arch, jdt, tdt, seed=0):
-    rlm = ref_build(RC.reduced(RC.get_config(arch)), compute_dtype=jdt, remat="none")
-    tlm = build_model(TC.reduced(TC.get_config(arch)), compute_dtype=tdt)
+def _pair(arch, jdt, tdt, seed=0, **overrides):
+    rcfg = dataclasses.replace(RC.reduced(RC.get_config(arch)), **overrides)
+    tcfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), **overrides)
+    rlm = ref_build(rcfg, compute_dtype=jdt, remat="none")
+    tlm = build_model(tcfg, compute_dtype=tdt)
     rparams = rlm.init(jax.random.PRNGKey(seed))
     flat = {k: np.asarray(v) for k, v in flatten_with_paths(rparams).items()}
     return rlm, rparams, tlm, params_from_reference(flat, tlm, "cpu")
 
 
-def _run_both(arch, jdt, tdt, steps=4, b=2, s=12):
-    rlm, rp, tlm, tp = _pair(arch, jdt, tdt)
+def _run_both(arch, jdt, tdt, steps=4, b=2, s=12, **overrides):
+    rlm, rp, tlm, tp = _pair(arch, jdt, tdt, **overrides)
     toks = np.random.default_rng(0).integers(0, tlm.cfg.vocab_size, (b, s))
     rc = RD.init_cache(rlm, b, s + steps + 1)
     tc = D.init_cache(tlm, b, s + steps + 1)
@@ -82,6 +85,17 @@ def test_prefill_decode_float32_match_reference(arch):
     pairs, tokens = _run_both(arch, jnp.float32, torch.float32)
     for ref, port in pairs:
         assert port.dtype == np.float32 and port.shape == ref.shape
+        np.testing.assert_allclose(port, ref, atol=1e-4, rtol=0)
+    for ref, port in tokens:
+        np.testing.assert_array_equal(port, ref)
+
+
+def test_gemma3_head_dim_256_matches_reference():
+    """gemma3 at its real head dim 256 (the flash kernel's D = 256 path on a
+    card; its plain version here), 20 tokens across the reduced window of 8."""
+    pairs, tokens = _run_both("gemma3-12b", jnp.float32, torch.float32, s=20, head_dim=256)
+    assert pairs[0][1].shape[-1] == 256  # the reduced vocab
+    for ref, port in pairs:
         np.testing.assert_allclose(port, ref, atol=1e-4, rtol=0)
     for ref, port in tokens:
         np.testing.assert_array_equal(port, ref)
