@@ -61,7 +61,17 @@ nothing falls back to the CPU or to a plain version):
    the same tokens; smollm then exports the step as UCP atoms
    (``export_ucp``: atoms, GB, seconds, ``validate() == []``) and restores
    weights-only from them (VIA_UCP, forced) under data=1,model=1,
-   bit-equal to the save and serving the same tokens; the card's fp32
+   bit-equal to the save and serving the same tokens.  smollm also holds
+   the I/O engine's two profiles against each other: the snapshot saved
+   with ``workers=1`` and with the default width (every shard file
+   byte-equal, manifests equal but ``created_at``; both walls beside the
+   disk floor: the same files' bytes written and fsync'd from 1 and from
+   that many threads, and one core's sha256 rate), each restore repeated
+   through a serial engine (bit-equal, both walls), the export repeated
+   serially (the same atoms, files and digests, ``validate() == []``); then
+   a delta save at step 2 with ``final_norm`` changed (shards written and
+   inherited, bytes, wall), whose tip restores DIRECT, RESHARD_STREAM and
+   VIA_UCP (forced) bit-equal to a full save of the same weights; the card's fp32
    logits agree with the port's CPU path (mamba2 over 512 tokens: two
    chunks, so the carried state is compared), every launch there fp32 (the
    CUDA-core kernels); the profiled prefill's device time and the kernel's
@@ -92,23 +102,43 @@ nothing falls back to the CPU or to a plain version):
    written, dequantize >= that plus the coded shards read per resume,
    every block-quant launch the vector variant, flash-attention 0); step
    time, tokens/s, save GB/s, coded/raw bytes, restore seconds and one
-   profiled step's device busy share;
-9. the kernels line (JSON: each row names its variants; ``ms`` is the
-   profiler's device time per launch, with ``event_ms`` beside it; rows 2-3
-   add the general kernel's device time ``general_ms`` and the train
-   phase's ``launches_by_variant``; the flash row adds the head-dim-256
-   times, bound and gemma3 launches (``d256_*``), the dequantize row the
-   export's launches ``convert_launches``), the card line, then the result
-   line (JSON, last).
+   profiled step's device busy share.  The I/O engine's checks: the step-3
+   snapshot saved again serially (byte-equal files and manifests, both
+   walls, the disk floor), the export repeated serially (the same atoms),
+   the RESHARD_STREAM and DIRECT resumes repeated through a serial engine
+   (all three kinds bit-equal; every resume decodes each coded file once:
+   60 dequantize launches); a coded resume under data=4,model=1, where
+   every coded file feeds two regions, through a parallel and a serial
+   engine (60 dequantize launches each, the two states bit-equal, the
+   engines' caches empty after it, card memory retained beyond the state at
+   most 64 MiB, its peak printed); then the coded policy with
+   ``save_mode="delta"`` through saves at steps 2 and 3 (AdamW changes
+   every shard: the delta inherits nothing), its tip resumed under
+   data=1,model=1 with steps 4-6 within 2e-2 of the full-save resume's; and
+   GC under a pin: an async ``keep_last=1`` delta manager whose delta at 30
+   stalls after resolving base 10 while a rebase at 40 commits — base 10
+   survives that GC, 30 commits and restores, the next GC leaves [40];
+9. the I/O line (JSON: the walls above), the kernels line (JSON: each row
+   names its variants; ``ms`` is the profiler's device time per launch,
+   with ``event_ms`` beside it; rows 2-3 add the general kernel's device
+   time ``general_ms`` and the train phase's ``launches_by_variant`` and
+   ``launches_by_phase``; the flash row adds the head-dim-256 times, bound
+   and gemma3 launches (``d256_*``), the dequantize row the export's
+   launches ``convert_launches``), the card line, then the result line
+   (JSON, last).
 """
 
 from __future__ import annotations
 
+import filecmp
+import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -181,14 +211,32 @@ def cuda_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, calls: int = 20):
+def device_ms(torch, fn, calls: int = 20, launches=None):
     """Device milliseconds per call of ``fn``: the profiler's device time of
     every kernel and copy that ``calls`` warm calls launched, over
     ``calls`` (so the host's enqueue time is not in it); with the top rows
-    as (name, ms, count)."""
+    as (name, ms, count).
+
+    A trace that recorded no device work at all was lost (every ``fn`` here
+    launches work) and is taken once more; two empty traces fail.
+    ``launches``, where given, reads the launch counter of the wrapper that
+    ``fn`` calls.  When the trace shows fewer than ``calls`` launches of its
+    top kernel, the counter tells a lost profiler record from a skipped
+    launch: a counter short of ``calls`` fails here, and a full one takes
+    the trace once more (the callers fail on a second short trace)."""
     for _ in range(3):
         fn()
-    _, busy, top = device_profile(torch, lambda: [fn() for _ in range(calls)], top=4)
+    for attempt in range(2):
+        before = launches() if launches is not None else 0
+        _, busy, top = device_profile(torch, lambda: [fn() for _ in range(calls)], top=4)
+        if (top and (launches is None or top[0][2] == calls)) or attempt == 1:
+            break
+        if launches is not None:
+            counted = launches() - before
+            check(counted == calls, f"the wrapper launched {counted} times in {calls} calls")
+        print(f"profiler recorded {top[0][2] if top else 0} launches of "
+              f"{top[0][0][:48] if top else 'nothing'} in {calls} calls; profiling again")
+    check(bool(top), f"the profiler recorded no device work in two traces of {calls} calls")
     return busy / calls, top
 
 
@@ -253,8 +301,79 @@ def profile_serving(torch, D, lm, params, prompts):
     return out
 
 
-def kernel_phase(torch, F, kernel, ref):
-    """Kernel vs plain on the card; returns the main-shape measurements."""
+def same_files(a_root: Path, b_root: Path, pattern: str) -> int:
+    """Every file matching ``pattern`` under two roots exists in both and is
+    byte-equal; returns how many there are."""
+    a = sorted(str(p.relative_to(a_root)) for p in a_root.glob(pattern))
+    b = sorted(str(p.relative_to(b_root)) for p in b_root.glob(pattern))
+    check(a == b and bool(a), f"{a_root} and {b_root} hold different {pattern} files")
+    with ThreadPoolExecutor(8) as pool:
+        same = list(pool.map(lambda rel: filecmp.cmp(a_root / rel, b_root / rel, shallow=False), a))
+    bad = [rel for rel, ok in zip(a, same) if not ok]
+    check(not bad, f"{len(bad)} files differ between {a_root} and {b_root}: {bad[:3]}")
+    return len(a)
+
+
+def same_manifests(a_root: Path, b_root: Path) -> None:
+    """MANIFEST.json of two checkpoints equal apart from ``created_at``."""
+    ja, jb = (json.loads((r / "MANIFEST.json").read_text()) for r in (a_root, b_root))
+    ja.pop("created_at"), jb.pop("created_at")
+    check(ja == jb, f"manifests of {a_root} and {b_root} differ beyond created_at")
+
+
+def disk_floor(sizes: list[int], threads: int, where: Path) -> float:
+    """Seconds to write and fsync files of ``sizes`` bytes from ``threads``
+    threads, with no slicing and no hashing: the floor a save of those files
+    stands on (one buffer of random bytes, written through the page cache as
+    the saver's are)."""
+    buf = memoryview(os.urandom(max(sizes)))
+    where.mkdir(parents=True, exist_ok=True)
+
+    def write(i: int) -> None:
+        with open(where / f"f{i:05d}", "wb") as f:
+            f.write(buf[: sizes[i]])
+            f.flush()
+            os.fsync(f.fileno())
+
+    t0 = time.perf_counter()
+    if threads == 1:
+        for i in range(len(sizes)):
+            write(i)
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(write, range(len(sizes))))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(where, ignore_errors=True)
+    return wall
+
+
+def sha256_gb_s(nbytes: int = 1 << 28) -> float:
+    """One core's sha256 rate (GB/s) over ``nbytes`` of random bytes."""
+    buf = os.urandom(nbytes)
+    t0 = time.perf_counter()
+    hashlib.sha256(buf).hexdigest()
+    return nbytes / 1e9 / (time.perf_counter() - t0)
+
+
+def io_floor(label: str, step_dir: Path, workers: int, scratch: Path) -> dict:
+    """The disk floor of a save that wrote ``step_dir``: the same files'
+    bytes written and fsync'd from 1 and from ``workers`` threads, and one
+    core's sha256 rate."""
+    sizes = [p.stat().st_size for p in sorted(step_dir.glob("ranks/**/*.npy"))]
+    total = sum(sizes)
+    one = disk_floor(sizes, 1, scratch)
+    wide = disk_floor(sizes, workers, scratch)
+    sha = sha256_gb_s()
+    print(f"{label} disk floor: {total / 1e9:.3f} GB in {len(sizes)} files written and fsync'd "
+          f"in {one:.2f} s from 1 thread ({total / 1e9 / one:.3f} GB/s), {wide:.2f} s from "
+          f"{workers} threads ({total / 1e9 / wide:.3f} GB/s); sha256 on one core {sha:.3f} GB/s")
+    return dict(gb=total / 1e9, files=len(sizes), floor_1_s=one, floor_w_s=wide, sha256_gb_s=sha)
+
+
+def kernel_phase(torch, F, kernel, ops, ref):
+    """Kernel vs plain on the card; returns the main-shape measurements
+    (timed through the ``ops`` wrapper, whose launch counter ``device_ms``
+    reads)."""
     dev = torch.device("cuda")
     cases = [
         ("bf16 causal S=512", torch.bfloat16, 512, 0, True),
@@ -289,8 +408,8 @@ def kernel_phase(torch, F, kernel, ref):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     q32, k32, v32 = (t.float() for t in (q, k, v))
     runs = {
-        "kernel": lambda: kernel.flash_attention_fwd(q, k, v, causal=True, window=0, scale=0.125),
-        "fp32": lambda: kernel.flash_attention_fwd(q32, k32, v32, causal=True, window=0, scale=0.125),
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=True, window=0, scale=0.125),
+        "fp32": lambda: ops.flash_attention(q32, k32, v32, causal=True, window=0, scale=0.125),
         "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=0.125),
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=0.125, enable_gqa=True),
@@ -309,7 +428,8 @@ def kernel_phase(torch, F, kernel, ref):
     event_ms = {n: sum(t) / len(t) for n, t in events.items()}
     device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
     for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
-        per_call, top = device_ms(torch, runs[name])
+        per_call, top = device_ms(torch, runs[name], launches=None if name == "library"
+                                  else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
         if name != "library":
             check(top[0][2] == 20, f"flash {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
@@ -325,12 +445,12 @@ def kernel_phase(torch, F, kernel, ref):
           f"{event_ms['plain']:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP) fp32-core floor {fp32_floor_ms:.4f} ms; "
           f"{bound_ms / ms['kernel']:.3f} of the bound")
-    d256 = head_dim_256(torch, F, kernel, ref)
+    d256 = head_dim_256(torch, F, kernel, ops, ref)
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
                 d256=d256)
 
 
-def head_dim_256(torch, F, kernel, ref):
+def head_dim_256(torch, F, kernel, ops, ref):
     """gemma3-12b's attention shapes (16:8 heads of 256): both kernels
     against the plain version, causal at S=512 and the local layers' window
     1024 at S=2048; then the bf16 kernel's device time beside the library's
@@ -363,8 +483,8 @@ def head_dim_256(torch, F, kernel, ref):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     q32, k32, v32 = (t.float() for t in (q, k, v))
     runs = {
-        "kernel": lambda: kernel.flash_attention_fwd(q, k, v, causal=True, window=0, scale=scale),
-        "fp32": lambda: kernel.flash_attention_fwd(q32, k32, v32, causal=True, window=0, scale=scale),
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=True, window=0, scale=scale),
+        "fp32": lambda: ops.flash_attention(q32, k32, v32, causal=True, window=0, scale=scale),
         "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=scale),
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
@@ -372,8 +492,11 @@ def head_dim_256(torch, F, kernel, ref):
     plain_ms = sum(cuda_ms(torch, runs["plain"], iters=20) for _ in range(2)) / 2
     device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
     for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
-        per_call, top = device_ms(torch, runs[name])
+        per_call, top = device_ms(torch, runs[name], launches=None if name == "library"
+                                  else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
+        if name != "library":
+            check(top[0][2] == 20, f"flash D=256 {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
         print(f"kernel flash_attention D=256 {name} device time (profiler): {per_call:.5f} ms per "
               "call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
     ms = {n: sum(t) / len(t) for n, t in device.items()}
@@ -517,7 +640,7 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
     event_ms = {n: sum(t) / len(t) for n, t in events.items()}
     device: dict[str, list[float]] = {"kernel": [], "fp32": []}
     for name in ("kernel", "fp32", "fp32", "kernel"):
-        per_call, top = device_ms(torch, runs[name])
+        per_call, top = device_ms(torch, runs[name], launches=lambda: ssd_ops.ssd_scan.launches)
         device[name].append(per_call)
         check(top[0][2] == 20, f"ssd {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
         print(f"kernel ssd_scan {name} device time (profiler): {per_call:.5f} ms per call; "
@@ -542,8 +665,13 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
     ``per_prefill`` gives the launches one prefill of this config must make;
     ``cpu_len`` is the prompt of the card-vs-CPU fp32 logits check;
     ``via_ucp`` adds the export of the step as UCP atoms and a third restore
-    from them."""
+    from them, and the I/O engine's checks: the save, the restores and the
+    export each serial and parallel (byte- and bit-equal, walls, the disk
+    floor), then a delta save and its restores."""
+    from repro_torch.ckpt.restore import params_from_source
     from repro_torch.ckpt.saver import snapshot_weights, write_distributed
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import CheckpointEngine, default_engine, default_workers
     from repro_torch.configs import get_config
     from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
@@ -588,18 +716,37 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
 
     ckpt_root = ROOT / "build" / f"chip_smoke_ckpt_{arch}"
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    width = default_workers()
+    io: dict = {}
     try:
         t0 = time.perf_counter()
         snap = snapshot_weights(params)
         snap_s = time.perf_counter() - t0
-        res = write_distributed(snap, src_plan, 1, ckpt_root / "step_00000001",
+        if via_ucp:  # the serial writer first, on the same snapshot
+            ser = write_distributed(snap, src_plan, 1, ckpt_root / "serial" / "step_00000001",
+                                    workers=1, config_fingerprint=cfg.fingerprint())
+        res = write_distributed(snap, src_plan, 1, ckpt_root / "step_00000001", workers=width,
                                 config_fingerprint=cfg.fingerprint())
         del snap
         print(f"serve {arch} save: data=2,model=2 {res.bytes_written / 1e9:.3f} GB in "
-              f"{res.shards_written} shards, {res.wall_time_s:.2f} s "
-              f"({res.bytes_written / 1e9 / res.wall_time_s:.3f} GB/s; "
-              f"device→host snapshot {snap_s:.2f} s)")
+              f"{res.shards_written} shards, {res.wall_time_s:.2f} s with {width} workers "
+              f"(os.cpu_count() {os.cpu_count()}; {res.bytes_written / 1e9 / res.wall_time_s:.3f} "
+              f"GB/s; device→host snapshot {snap_s:.2f} s)")
         check(res.bytes_written >= 3 * 4 * n_params, "checkpoint smaller than 3 fp32 kinds")
+        if via_ucp:
+            ser_dir, par_dir = ckpt_root / "serial" / "step_00000001", ckpt_root / "step_00000001"
+            n = same_files(ser_dir, par_dir, "ranks/**/*.npy")
+            same_manifests(ser_dir, par_dir)
+            check((ser.bytes_written, ser.shards_written) == (res.bytes_written, res.shards_written),
+                  "serial and parallel saves counted different bytes")
+            print(f"serve {arch} save serial (workers=1): {ser.wall_time_s:.2f} s "
+                  f"({ser.bytes_written / 1e9 / ser.wall_time_s:.3f} GB/s) against parallel "
+                  f"({width} workers) {res.wall_time_s:.2f} s "
+                  f"({res.wall_time_s / ser.wall_time_s:.3f} of it); {n} shard files byte-equal, "
+                  "digests and manifests equal but created_at")
+            floor = io_floor(f"serve {arch} save", par_dir, width, ckpt_root / "floor")
+            io["save"] = dict(serial_s=ser.wall_time_s, parallel_s=res.wall_time_s, workers=width,
+                              cpus=os.cpu_count(), **floor)
 
         saved = flatten_with_paths(params)
         prompts = torch.randint(0, cfg.vocab_size, (4, 512),
@@ -614,12 +761,32 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
             flat, rp = restore_params(step_dir, tplan, dev)
             torch.cuda.synchronize()
             restore_s = time.perf_counter() - t0
+            engine = default_engine(dev)
+            check(len(engine.handles) == 0 and len(engine.atoms) == 0,
+                  f"{mesh_str}: the restore left {len(engine.handles)} handles and "
+                  f"{len(engine.atoms)} atoms in the default engine")
             check(rp.mode.value == expect, f"{mesh_str}: planned {rp.mode.value}, want {expect}")
             check(set(flat) == set(saved), f"{mesh_str}: restored parameter set differs")
             for name, t in flat.items():
                 check(torch.equal(t, saved[name]), f"{mesh_str}: {name} differs from the save")
             print(f"serve {arch} restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
-                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
+                  f"({default_engine(dev).workers} workers; consolidated in memory: "
+                  f"{rp.consolidate_params}); bit-equal to the save")
+            if via_ucp:
+                transforms = rp.transforms if expect == "reshard_stream" else None
+                with CheckpointEngine(dev, workers=1) as serial:
+                    t0 = time.perf_counter()
+                    ser_flat = params_from_source(DistCheckpoint.open(step_dir), tplan, dev,
+                                                  transforms=transforms, engine=serial)
+                    torch.cuda.synchronize()
+                    ser_s = time.perf_counter() - t0
+                check(all(torch.equal(ser_flat[n], t) for n, t in flat.items()),
+                      f"{mesh_str}: serial and parallel restores differ")
+                del ser_flat
+                print(f"serve {arch} restore {mesh_str} serial (workers=1): {ser_s:.2f} s; "
+                      f"bit-equal to the default engine's restore (raw shards: both read "
+                      "inline from mmap'd files)")
+                io[f"restore {expect}"] = dict(serial_s=ser_s, parallel_s=restore_s)
             params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
             del flat
             kept = {n for n, t in flatten_with_paths(params_c).items() if t.dtype == torch.float32}
@@ -661,6 +828,10 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
                                             prompts, counts, reset, per_prefill, by_dtype)
             check(torch.equal(runs["via_ucp"]["seq"], a), "the VIA_UCP restore serves other tokens")
             print(f"serve {arch} VIA_UCP tokens identical to the other restores'")
+            io["export"] = serial_export(torch, arch, step_dir, ckpt_root / "serial_export.ucp",
+                                         runs["via_ucp"])
+            io["delta"] = serve_delta(torch, arch, cfg, saved, src_plan, plan_for, step_dir, width)
+            runs["io"] = io
 
         # Right by the repo's own means: the card's fp32 path (kernels) against
         # the port's CPU path (plain versions) on the same weights.
@@ -729,7 +900,91 @@ def serve_via_ucp(torch, arch, step_dir, src_plan, plan_for, saved, prompts, cou
           f"{restore_s:.2f} s; bit-equal to the save; prefill 4x512 {prefill_s * 1e3:.2f} ms, "
           f"decode {decode_s * 1e3 / 16:.3f} ms/token, kernel launches {launches}, by dtype {dtypes}")
     return dict(seq=seq.cpu(), export_s=export_s, export_gb=cstats.bytes_written / 1e9,
-                restore_s=restore_s, atoms=cstats.atoms_written)
+                restore_s=restore_s, atoms=cstats.atoms_written, ucp=ucp)
+
+
+def serial_export(torch, label, step_dir, out_dir, parallel: dict) -> dict:
+    """``convert_to_ucp`` of a step through a serial engine (workers=1),
+    against the parallel export already made: the same atoms, digests and
+    files, ``validate() == []``, both walls."""
+    from repro_torch.core.convert import convert_to_ucp
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import CheckpointEngine
+
+    dev = torch.device("cuda")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with CheckpointEngine(dev, workers=1) as serial:
+        t0 = time.perf_counter()
+        ucp, stats = convert_to_ucp(DistCheckpoint.open(step_dir), str(out_dir), engine=serial)
+        torch.cuda.synchronize()
+        ser_s = time.perf_counter() - t0
+    par = parallel["ucp"]
+    check(ucp.manifest.atoms == par.manifest.atoms, f"{label}: serial and parallel atoms differ")
+    n = same_files(out_dir, par.root, "atoms/**/*.npy")
+    problems = ucp.validate()
+    check(problems == [], f"{label} serial export: {problems[:3]}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"{label} export serial (workers=1): {stats.bytes_written / 1e9:.3f} GB in {ser_s:.2f} s "
+          f"({stats.bytes_written / 1e9 / ser_s:.3f} GB/s) against parallel "
+          f"{parallel['export_s']:.2f} s; {n} atom files byte-equal, digests equal, validate() == []")
+    return dict(serial_s=ser_s, parallel_s=parallel["export_s"], gb=stats.bytes_written / 1e9)
+
+
+def serve_delta(torch, arch, cfg, saved, src_plan, plan_for, step_dir, width) -> dict:
+    """A delta save at step 2 of the step-1 weights with ``final_norm``
+    changed: shards written and inherited, bytes, wall; its tip restored
+    DIRECT, RESHARD_STREAM and VIA_UCP (forced), each bit-equal to a full
+    save of the same weights."""
+    from repro_torch.ckpt.restore import params_from_source
+    from repro_torch.ckpt.saver import snapshot_weights, write_distributed
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.plan import ResumeMode
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.launch.serve import restore_params
+
+    dev = torch.device("cuda")
+    weights = dict(saved)
+    weights["final_norm"] = saved["final_norm"] + 1.0
+    snap = snapshot_weights(unflatten_from_paths(weights))
+    root = step_dir.parent
+    res = write_distributed(snap, src_plan, 2, root / "step_00000002", workers=width,
+                            save_mode="delta", base=DistCheckpoint.open(step_dir),
+                            config_fingerprint=cfg.fingerprint())
+    full = write_distributed(snap, src_plan, 2, root / "full" / "step_00000002", workers=width,
+                             config_fingerprint=cfg.fingerprint())
+    del snap
+    tip = DistCheckpoint.open(root / "step_00000002")
+    own = set(tip.manifest.shard_digests) - set(tip.manifest.shard_sources)
+    check(res.mode == "delta" and tip.manifest.base_step == 1, f"delta save: {res.mode}")
+    check(own and all(k.endswith("final_norm@fp32") for k in own),
+          f"the delta wrote {sorted(own)[:4]}, not final_norm's fp32 shards alone")
+    check(res.shards_written == len(own) and res.shards_inherited == full.shards_written - len(own),
+          f"delta counts {res.shards_written} written, {res.shards_inherited} inherited")
+    print(f"serve {arch} delta save step 2 (final_norm changed): {res.shards_written} shards "
+          f"written, {res.shards_inherited} inherited, {res.bytes_written} bytes in "
+          f"{res.wall_time_s:.3f} s; a full save of the same weights {full.bytes_written / 1e9:.3f} "
+          f"GB in {full.wall_time_s:.2f} s")
+    want = params_from_source(DistCheckpoint.open(root / "full" / "step_00000002"), src_plan, dev)
+    check(torch.equal(want["final_norm"], weights["final_norm"]), "the full save lost final_norm")
+    walls = {}
+    for mesh_str, force, expect in (("data=2,model=2", None, "direct"),
+                                    ("data=1,model=1", None, "reshard_stream"),
+                                    ("data=1,model=1", ResumeMode.VIA_UCP, "via_ucp")):
+        _, tplan = plan_for(mesh_str)
+        t0 = time.perf_counter()
+        flat, rp = restore_params(root / "step_00000002", tplan, dev, force_mode=force)
+        torch.cuda.synchronize()
+        walls[expect] = time.perf_counter() - t0
+        check(rp.mode.value == expect, f"delta tip {mesh_str}: {rp.mode.value}, want {expect}")
+        check(flat.keys() == want.keys() and all(torch.equal(flat[n], t) for n, t in want.items()),
+              f"delta tip {expect}: not bit-equal to the full save")
+        del flat
+        print(f"serve {arch} delta tip restore {mesh_str} {expect}: {walls[expect]:.2f} s, "
+              "bit-equal to the full save of the same weights")
+    del want
+    return dict(written=res.shards_written, inherited=res.shards_inherited,
+                bytes=res.bytes_written, delta_s=res.wall_time_s, full_s=full.wall_time_s,
+                restore_s=walls)
 
 
 def gemma_phase(torch, counters: dict, layers: int = 6, cpu_len: int = 32):
@@ -976,8 +1231,9 @@ def block_quant_phase(torch, bq_ops, bq_ref):
         for which in ("plain", "kernel", "kernel", "plain"):
             events[which].append(cuda_ms(torch, fns[which]))
         device: dict[str, list[float]] = {"kernel": [], "general": []}
+        wrapper = bq_ops.block_quantize if name == "quantize_blocks" else bq_ops.block_dequantize
         for which in ("kernel", "general", "general", "kernel"):
-            per_call, top = device_ms(torch, fns[which])
+            per_call, top = device_ms(torch, fns[which], launches=lambda: wrapper.launches)
             device[which].append(per_call)
             check(top[0][2] == 20, f"{name} {which}: {top[0][2]} launches of {top[0][0]} in 20 calls")
             print(f"kernel {name} {which} device time (profiler): {per_call:.5f} ms per call; "
@@ -1046,7 +1302,24 @@ def train_export_ucp(torch, bq_ops, manager, n_coded: int) -> dict:
     check(launches == n_coded and by_variant == {"vector": n_coded, "general": 0},
           f"export_ucp: dequantize launches {launches} {by_variant}, want {n_coded} vector")
     check(problems == [], f"export_ucp: {problems[:3]}")
-    return dict(launches=launches, atoms=stats.atoms_written, gb=gb, seconds=export_s)
+    return dict(launches=launches, atoms=stats.atoms_written, gb=gb, seconds=export_s,
+                export_s=export_s, ucp=ucp)
+
+
+class PhaseLaunches:
+    """Block-quant launches of the train phase, counted by sub-phase."""
+
+    def __init__(self, bq_ops):
+        self.fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+        self.by_phase: dict[str, dict[str, int]] = {}
+
+    def mark(self) -> dict[str, int]:
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+    def since(self, label: str, mark: dict[str, int]) -> tuple[int, int]:
+        got = {k: fn.launches - mark[k] for k, fn in self.fns.items()}
+        self.by_phase[label] = got
+        return got["quantize"], got["dequantize"]
 
 
 def clone_state(torch, state):
@@ -1074,12 +1347,17 @@ def same_state(torch, state, flats) -> bool:
 
 
 def train_phase(torch, ops, bq_ops):
-    """Train full smollm-360m; save coded under data=2,model=2; resume under
-    two layouts; continue.  Returns the launch counts and measurements."""
+    """Train full smollm-360m; save coded under data=2,model=2, serial and
+    parallel; export serial and parallel; resume under two layouts through
+    serial and parallel engines; continue; then delta saves and their resume,
+    and GC under an in-flight delta's pin.  Returns the launch counts and
+    measurements."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
     from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import default_workers
     from repro_torch.core.plan import ResumeMode
     from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.launch.mesh import mesh_spec_from_string
@@ -1090,18 +1368,25 @@ def train_phase(torch, ops, bq_ops):
     check(parallel.compute_dtype == "bfloat16" and parallel.moment_dtype == "float32",
           "train: not bf16 compute with fp32 moments")
     root = ROOT / "build" / "chip_smoke_train_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
+    extra = ROOT / "build" / "chip_smoke_train_io"
+    for d in (root, extra):
+        shutil.rmtree(d, ignore_errors=True)
+    width = default_workers()
 
     def trainer(mesh, **kw):
         return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(mesh),
                               batch_size=8, seq_len=512, device=dev, **kw)
 
-    out = {}
+    def restore_policy(workers):
+        return CheckpointPolicy(async_save=False, save_interval=1000, io_workers=workers)
+
+    out, io = {}, {}
     try:
         ops.flash_attention.launches = 0
         for fn in (bq_ops.block_quantize, bq_ops.block_dequantize):
             fn.launches = 0
             fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+        phases = PhaseLaunches(bq_ops)
         base = trainer("data=2,model=2")
         state, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
@@ -1119,6 +1404,7 @@ def train_phase(torch, ops, bq_ops):
         del state, base
         torch.cuda.empty_cache()
 
+        mark = phases.mark()
         policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
         src = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
         saved, hist = src.run(src.init_state(), 0, 3)
@@ -1128,13 +1414,14 @@ def train_phase(torch, ops, bq_ops):
         check(drift <= 2e-2, "the coded run left the baseline before saving")
         (res,) = src.save_results
         src_plan = src.plan
-        manifest = DistCheckpoint.open(src.manager.step_dir(3)).manifest
+        step3 = src.manager.step_dir(3)
+        manifest = DistCheckpoint.open(step3).manifest
         n_coded = len(manifest.shard_codecs)
-        quant = bq_ops.block_quantize.launches
-        dequant_save = bq_ops.block_dequantize.launches
-        print(f"train save step 3 (data=2,model=2, int8:b256 moments, async): "
-              f"{res.bytes_written / 1e9:.3f} GB in {res.shards_written} shards, "
-              f"{res.wall_time_s:.2f} s ({res.bytes_written / 1e9 / res.wall_time_s:.3f} GB/s); "
+        quant, dequant_save = phases.since("coded save (parallel, async)", mark)
+        print(f"train save step 3 (data=2,model=2, int8:b256 moments, async, {width} workers, "
+              f"os.cpu_count() {os.cpu_count()}): {res.bytes_written / 1e9:.3f} GB in "
+              f"{res.shards_written} shards, {res.wall_time_s:.2f} s "
+              f"({res.bytes_written / 1e9 / res.wall_time_s:.3f} GB/s); "
               f"coded {res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB "
               f"(ratio {res.coded_bytes / res.coded_raw_bytes:.4f}); device->host "
               f"{res.device_to_host_bytes / 1e9:.3f} GB for the coded shards; "
@@ -1142,16 +1429,41 @@ def train_phase(torch, ops, bq_ops):
               f"{dequant_save}")
         check(n_coded > 0 and quant == n_coded, f"quantize launches {quant} != {n_coded} coded shards")
         check(dequant_save >= n_coded, f"dequantize launches {dequant_save} < {n_coded}")
+
+        # The same snapshot through the serial writer: the same files.
+        mark = phases.mark()
+        snap = snapshot_state(saved, policy.codec)
+        torch.cuda.synchronize()
+        ser = write_distributed(snap, src_plan, 3, extra / "serial" / "step_00000003", workers=1,
+                                codec=policy.codec, config_fingerprint=src.manager.config_fingerprint)
+        del snap
+        q, d = phases.since("coded save (serial)", mark)
+        check(q == n_coded and d == n_coded, f"serial save: {q} quantize, {d} dequantize launches")
+        n = same_files(extra / "serial" / "step_00000003", step3, "ranks/**/*.npy")
+        same_manifests(extra / "serial" / "step_00000003", step3)
+        print(f"train save serial (workers=1): {ser.wall_time_s:.2f} s "
+              f"({ser.bytes_written / 1e9 / ser.wall_time_s:.3f} GB/s) against parallel "
+              f"{res.wall_time_s:.2f} s ({res.wall_time_s / ser.wall_time_s:.3f} of it); {n} shard "
+              "files byte-equal, digests and manifests equal but created_at")
+        io["save"] = dict(serial_s=ser.wall_time_s, parallel_s=res.wall_time_s, workers=width,
+                          cpus=os.cpu_count(), **io_floor("train save", step3, width, extra / "floor"))
+        shutil.rmtree(extra / "serial", ignore_errors=True)
+
         saved_params = flatten_with_paths(saved.params)
+        mark = phases.mark()
         export = train_export_ucp(torch, bq_ops, src.manager, n_coded)
+        phases.since("export (parallel)", mark)
+        mark = phases.mark()
+        io["export"] = serial_export(torch, "train", step3, extra / "serial_export.ucp", export)
+        _, d = phases.since("export (serial)", mark)
+        check(d == n_coded, f"serial export: {d} dequantize launches, want {n_coded}")
         del src
 
         restore_s, stream = {}, {}
         for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct"),
                              ("data=1,model=1", "via_ucp"), ("data=2,model=2", "via_ucp")):
-            before = bq_ops.block_dequantize.launches
-            tgt = trainer(mesh, ckpt_dir=str(root), policy=CheckpointPolicy(async_save=False,
-                                                                            save_interval=1000))
+            mark = phases.mark()
+            tgt = trainer(mesh, ckpt_dir=str(root), policy=restore_policy(width))
             if expect == "via_ucp":
                 state, info = tgt.manager.restore(dev, force_mode=ResumeMode.VIA_UCP)
                 check(info.convert_stats is None, f"{mesh}: VIA_UCP converted again")
@@ -1159,7 +1471,7 @@ def train_phase(torch, ops, bq_ops):
                       f"{mesh}: the VIA_UCP resume differs from the RESHARD_STREAM resume")
             else:
                 state, info = tgt.init_or_restore()
-            read = bq_ops.block_dequantize.launches - before
+            _, read = phases.since(f"resume {expect} {mesh} (parallel)", mark)
             check(info is not None and info.mode.value == expect,
                   f"{mesh}: planned {info and info.mode.value}, want {expect}")
             check(state.step == 3, f"{mesh}: restored step {state.step}")
@@ -1169,8 +1481,27 @@ def train_phase(torch, ops, bq_ops):
             n_checked = served_view_matches(torch, state, src_plan, manifest)
             check(n_checked == n_coded, f"{mesh}: {n_checked} served digests checked")
             want_read = 0 if expect == "via_ucp" else n_coded  # atoms are raw
-            check(read >= want_read, f"{mesh}: {read} dequantize launches < {want_read}")
+            engine = tgt.manager.engine_for(dev)
+            check(read == want_read, f"{mesh}: {read} dequantize launches, want {want_read} (each "
+                  f"coded file decoded once; {engine.handles.evictions} handle evictions)")
             restore_s[f"{expect} {mesh}"] = info.wall_time_s
+            if expect != "via_ucp":  # the same restore through a serial engine
+                mark = phases.mark()
+                smgr = CheckpointManager(root, tgt.plan, policy=restore_policy(1))
+                sstate, sinfo = smgr.restore(dev)
+                _, sread = phases.since(f"resume {expect} {mesh} (serial)", mark)
+                check(sinfo.mode.value == expect and sread == n_coded,
+                      f"{mesh} serial: {sinfo.mode.value}, {sread} dequantize launches")
+                check(same_state(torch, sstate, clone_state(torch, state)),
+                      f"{mesh}: serial and parallel restores differ")
+                print(f"train resume {mesh} {expect}: serial engine {sinfo.wall_time_s:.2f} s, "
+                      f"parallel ({width} workers) {info.wall_time_s:.2f} s; all three kinds "
+                      f"bit-equal; {n_coded} dequantize launches each (every coded file decoded "
+                      f"once; parallel handle evictions {engine.handles.evictions})")
+                io[f"restore {expect}"] = dict(serial_s=sinfo.wall_time_s,
+                                               parallel_s=info.wall_time_s)
+                smgr.close()
+                del sstate
             if expect == "reshard_stream":
                 stream["state"] = clone_state(torch, state)
             _, hist = tgt.run(state, 3, 3)
@@ -1185,29 +1516,251 @@ def train_phase(torch, ops, bq_ops):
                   f"{n_checked} moment shards equal to the served view, step 3, "
                   f"{read} dequantize launches; steps 4-6 losses "
                   + ", ".join(f"{a:.4f} ({beside[1]} {b:.4f})" for a, b in zip(resumed, beside[0])))
+            tgt.manager.close()
             del state, tgt
             torch.cuda.empty_cache()
+        stream_losses = stream.pop("losses")
         del stream
+        io["restore split"] = split_resume(torch, phases, trainer, restore_policy, step3, n_coded,
+                                           saved_params, width)
         t0 = time.perf_counter()
         _, again = CheckpointManager(root, src_plan).export_ucp(3, device=dev)
         print(f"train second export_ucp: ConvertStats {again} in {time.perf_counter() - t0:.3f} s "
               "(the committed cache)")
         check(again is None, "the second export converted again")
+
+        delta = train_delta(torch, phases, trainer, restore_policy, extra / "delta", n_coded,
+                            stream_losses, width)
+        gc = gc_under_pin(torch, phases, delta.pop("state"), src_plan, extra / "gc")
+
         flash = ops.flash_attention.launches
         check(flash == 0, f"{flash} flash-attention launches during training")
-        dequant = bq_ops.block_dequantize.launches
+        total_q, total_d = bq_ops.block_quantize.launches, bq_ops.block_dequantize.launches
         by_variant = {"quantize": dict(bq_ops.block_quantize.launches_by_variant),
                       "dequantize": dict(bq_ops.block_dequantize.launches_by_variant)}
-        check(by_variant == {"quantize": {"vector": quant, "general": 0},
-                             "dequantize": {"vector": dequant, "general": 0}},
+        check(by_variant == {"quantize": {"vector": total_q, "general": 0},
+                             "dequantize": {"vector": total_d, "general": 0}},
               f"train: block-quant launches by variant {by_variant}, want all vector")
-        out = dict(quantize=quant, dequantize=dequant, by_variant=by_variant, step_s=step_s,
-                   restore_s=restore_s, export=export)
-        print(f"train launches: quantize {quant}, dequantize {dequant}, "
-              f"flash_attention {flash}; block quant by variant {by_variant}")
+        check(sum(p["quantize"] for p in phases.by_phase.values()) == total_q
+              and sum(p["dequantize"] for p in phases.by_phase.values()) == total_d,
+              "block-quant launches outside the counted sub-phases")
+        out = dict(quantize=total_q, dequantize=total_d, by_variant=by_variant, step_s=step_s,
+                   restore_s=restore_s, export=export, by_phase=phases.by_phase, io=io,
+                   delta=delta, gc=gc)
+        print(f"train launches: quantize {total_q}, dequantize {total_d}, "
+              f"flash_attention {flash}; block quant by variant {by_variant}; by sub-phase "
+              f"{json.dumps(phases.by_phase)}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for d in (root, extra):
+            shutil.rmtree(d, ignore_errors=True)
     return out
+
+
+def split_resume(torch, phases, trainer, restore_policy, step_dir, n_coded, saved, width):
+    """A coded resume under data=4,model=1, whose regions split the coded
+    shards of the data=2,model=2 save (the ZeRO-1 moments are cut over four
+    data ranks, so a shard feeds two regions): each coded file must still be
+    decoded once, through the parallel and the serial engine, the two
+    states bit-equal; and the restore must leave no decoded shard on the
+    card (its peak and retained card memory beside the state's bytes)."""
+    import collections
+    import gc
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.restore import target_regions
+    from repro_torch.core.dist_ckpt import DistCheckpoint, shard_digest_key
+    from repro_torch.core.engine import CheckpointEngine
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+
+    dev = torch.device("cuda")
+    mesh = "data=4,model=1"
+    plan = trainer(mesh).plan
+    ckpt = DistCheckpoint.open(step_dir)
+    uses = collections.Counter()
+    with CheckpointEngine(workers=1) as eng:
+        for name, spec in plan.param_specs.items():
+            for kind in (StateKind.EXP_AVG, StateKind.EXP_AVG_SQ):
+                idx = eng.index_for(ckpt, name, kind)
+                for region in target_regions(spec, plan.mesh, kind):
+                    for rank, _, _ in idx.overlapping(region):
+                        if ckpt.manifest.codec_tag(shard_digest_key(rank, name, kind)) != "raw":
+                            uses[(rank, name, kind)] += 1
+    split = sum(n > 1 for n in uses.values())
+    check(len(uses) == n_coded and split > 0,
+          f"{mesh}: {split} of {len(uses)} coded files feed more than one region")
+    out, first = {"split_files": split}, None
+    for label, workers in (("parallel", width), ("serial", 1)):
+        mgr = CheckpointManager(step_dir.parent, plan, policy=restore_policy(workers))
+        gc.collect()  # what earlier phases left in reference cycles is not the restore's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        mark = phases.mark()
+        state, info = mgr.restore(dev)
+        _, read = phases.since(f"resume reshard_stream {mesh} ({label})", mark)
+        leaves = [t for tree in (state.params, state.exp_avg, state.exp_avg_sq)
+                  for t in flatten_with_paths(tree).values()]
+        state_b = sum(t.numel() * t.element_size() for t in leaves)
+        retained = torch.cuda.memory_allocated() - before - state_b
+        peak = torch.cuda.max_memory_allocated() - before
+        engine = mgr.engine_for(dev)
+        check(info.mode.value == "reshard_stream" and state.step == 3,
+              f"{mesh} {label}: {info.mode.value} step {state.step}")
+        check(read == n_coded, f"{mesh} {label}: {read} dequantize launches, want {n_coded} (each "
+              f"coded file decoded once; {engine.handles.evictions} handle evictions)")
+        check(len(engine.handles) == 0 and len(engine.atoms) == 0,
+              f"{mesh} {label}: the restore left {len(engine.handles)} handles cached")
+        check(retained <= 64 << 20, f"{mesh} {label}: {retained} bytes retained beyond the state")
+        for name, t in flatten_with_paths(state.params).items():
+            logical = tuple(slice(0, n) for n in saved[name].shape)
+            check(torch.equal(t[logical], saved[name]), f"{mesh} {label}: {name} differs")
+        if first is None:
+            first = clone_state(torch, state)
+        else:
+            check(same_state(torch, state, first), f"{mesh}: serial and parallel restores differ")
+        print(f"train resume {mesh} reshard_stream ({label} engine, {workers} workers): "
+              f"{info.wall_time_s:.2f} s; {split} of {n_coded} coded files feed two or more "
+              f"regions, {read} dequantize launches (each decoded once; handle evictions "
+              f"{engine.handles.evictions}); card memory: state {state_b / 1e9:.3f} GB, peak "
+              f"{peak / 1e9:.3f} GB above it before the restore, retained beyond the state "
+              f"{retained} bytes, engine caches empty"
+              + ("; all three kinds bit-equal to the parallel restore" if label == "serial" else ""))
+        out[label] = dict(seconds=info.wall_time_s, peak_gb=peak / 1e9, retained_b=retained,
+                          state_gb=state_b / 1e9)
+        mgr.close()
+        del state, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_delta(torch, phases, trainer, restore_policy, root, n_coded, stream_losses, width):
+    """The coded policy with ``save_mode="delta"`` through two saves (steps 2
+    and 3): AdamW changes every shard, so the second save is a delta that
+    inherits nothing.  Then resume the tip under data=1,model=1 and hold
+    steps 4-6 against the full-save resume's losses."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.pytree import flatten_with_paths
+
+    mark = phases.mark()
+    policy = CheckpointPolicy(codec="int8:b256", save_interval=1000, async_save=True,
+                              save_mode="delta")
+    d = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
+    s2, _ = d.run(d.init_state(), 0, 2)
+    d.manager.save(s2, 2)
+    s3, _ = d.run(s2, 2, 1)
+    d.manager.save(s3, 3)
+    d.save_results += d.manager.wait()
+    d.manager.close()
+    r2, r3 = d.save_results
+    m3 = DistCheckpoint.open(d.manager.step_dir(3)).manifest
+    q, dq = phases.since("delta run: full save + delta save", mark)
+    check((r2.mode, r3.mode, m3.save_mode, m3.base_step) == ("full", "delta", "delta", 2),
+          f"delta run: {r2.mode}, {r3.mode}, base {m3.base_step}")
+    check(r3.shards_inherited == 0 and r3.shards_written == r2.shards_written,
+          f"delta after a train step: {r3.shards_written} written, {r3.shards_inherited} inherited")
+    check(q == 2 * n_coded, f"delta run: {q} quantize launches, want {2 * n_coded}")
+    print(f"train delta saves: step 2 full {r2.bytes_written / 1e9:.3f} GB in {r2.wall_time_s:.2f} s; "
+          f"step 3 delta (base 2) {r3.shards_written} shards written, {r3.shards_inherited} "
+          f"inherited ({r3.bytes_written / 1e9:.3f} GB in {r3.wall_time_s:.2f} s): AdamW changed "
+          "every shard, so the delta inherits nothing")
+    mark = phases.mark()
+    tgt = trainer("data=1,model=1", ckpt_dir=str(root), policy=restore_policy(width))
+    state, info = tgt.init_or_restore()
+    _, read = phases.since("delta tip resume reshard_stream (parallel)", mark)
+    check(info.mode.value == "reshard_stream" and info.step == 3 and state.step == 3,
+          f"delta tip resume: {info.mode.value} step {info.step}")
+    check(read == n_coded, f"delta tip resume: {read} dequantize launches, want {n_coded}")
+    want = flatten_with_paths(s3.params)
+    for name, t in flatten_with_paths(state.params).items():
+        logical = tuple(slice(0, n) for n in want[name].shape)
+        check(torch.equal(t[logical], want[name]), f"delta tip resume: {name} differs")
+    _, hist = tgt.run(state, 3, 3)
+    losses = [h["loss"] for h in hist]
+    gap = max(abs(a - b) for a, b in zip(losses, stream_losses))
+    print(f"train delta tip resume data=1,model=1 reshard_stream in {info.wall_time_s:.2f} s, params "
+          f"bit-equal to the delta run's; steps 4-6 losses "
+          + ", ".join(f"{a:.4f} (full-save resume {b:.4f})" for a, b in zip(losses, stream_losses))
+          + f"; max gap {gap:.2e} (tolerance 2e-2)")
+    check(all(map(math.isfinite, losses)) and gap <= 2e-2,
+          "the delta tip's resume left the full-save resume's curve")
+    tgt.manager.close()
+    del tgt, state, s2
+    torch.cuda.empty_cache()
+    return dict(full_s=r2.wall_time_s, delta_s=r3.wall_time_s, written=r3.shards_written,
+                inherited=r3.shards_inherited, resume_s=info.wall_time_s, loss_gap=gap, state=s3)
+
+
+def gc_under_pin(torch, phases, state, plan, root):
+    """An async manager with ``keep_last=1`` and ``save_mode="delta"``: a
+    full save at 10; a delta at 30 that stalls after resolving its base; a
+    full rebase at 40 whose GC must keep step 10 (the pinned base); the delta
+    commits and restores; the next GC collects the dead chain."""
+    import repro_torch.ckpt.saver as saver_mod
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.train.optimizer import TrainState
+
+    dev = torch.device("cuda")
+    mark = phases.mark()
+    policy = CheckpointPolicy(codec="int8:b256", async_save=True, save_mode="delta",
+                              full_interval=2, keep_last=1)
+    mgr = CheckpointManager(root, plan, policy=policy)
+    flat = flatten_with_paths(state.params)
+    flat["final_norm"] = flat["final_norm"] + 1.0
+    bumped = TrainState(unflatten_from_paths(flat), state.exp_avg, state.exp_avg_sq, state.step)
+    real = saver_mod.write_distributed
+    started, gate = threading.Event(), threading.Event()
+
+    def stalled(snap, plan_, step, root_, **kw):
+        if step == 30:  # resolve (and pin) the base as the writer does, then stall
+            kw["base"] = kw["base"]()
+            started.set()
+            gate.wait(600)
+        return real(snap, plan_, step, root_, **kw)
+
+    saver_mod.write_distributed = stalled
+    try:
+        t0 = time.perf_counter()
+        mgr.save(state, 10, block=True)  # seq 0: full, the future base
+        mgr.save(bumped, 30)  # seq 1: a delta, queued; it stalls after resolving 10
+        check(started.wait(600), "the delta never resolved its base")
+        mgr.save(bumped, 40, block=True)  # seq 2: a full rebase; its GC keeps {40} + pins
+        survived = mgr.step_dir(10).exists()
+    finally:
+        gate.set()
+        saver_mod.write_distributed = real
+    check(survived, "gc collected the base of an in-flight delta")
+    deadline = time.perf_counter() + 600
+    while 30 not in mgr.steps() and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    if 30 not in mgr.steps():
+        mgr.wait()  # surfaces the writer's error
+    check(mgr.steps() == [10, 30, 40], f"steps {mgr.steps()}, want [10, 30, 40]")
+    m30 = DistCheckpoint.open(mgr.step_dir(30)).manifest
+    own = set(m30.shard_digests) - set(m30.shard_sources)
+    check(m30.base_step == 10 and own and all(k.endswith("final_norm@fp32") for k in own),
+          f"the delta at 30 wrote {sorted(own)[:4]}")
+    restored, info = mgr.restore(dev, step=30)
+    want = flatten_with_paths(bumped.params)
+    check(all(torch.equal(t, want[n]) for n, t in flatten_with_paths(restored.params).items()),
+          "the delta at 30 does not restore its params")
+    del restored
+    results = mgr.wait()  # GC: the pin died with the save
+    check(mgr.steps() == [40] and not mgr.step_dir(10).exists() and not mgr.step_dir(30).exists(),
+          f"after the rebase GC left {mgr.steps()}")
+    mgr.close()
+    (r30,) = results
+    phases.since("gc under pin: full, delta, full saves and a restore", mark)
+    wall = time.perf_counter() - t0
+    print(f"train GC under a pin: base 10 survived the GC of rebase 40 while the delta at 30 was "
+          f"in flight; 30 committed ({r30.shards_written} shards written, {r30.shards_inherited} "
+          f"inherited, coded moments inherited from 10), restored {info.mode.value} bit-equal, "
+          f"then GC left {mgr.steps()} ({wall:.2f} s)")
+    return dict(written=r30.shards_written, inherited=r30.shards_inherited, seconds=wall)
 
 
 def main() -> int:
@@ -1236,7 +1789,7 @@ def main() -> int:
 
     usage = build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
     check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256>", "fwd_kernel<float, 256>"))
-    k = kernel_phase(torch, F, kernel, ref)
+    k = kernel_phase(torch, F, kernel, ops, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
@@ -1287,6 +1840,7 @@ def main() -> int:
             "variant": VARIANT[name],
             "launches": train[which],
             "launches_by_variant": train["by_variant"][which],
+            "launches_by_phase": {k: v[which] for k, v in train["by_phase"].items()},
             "max_abs_err": bq[name]["max_abs_err"],
             "ms": bq[name]["ms"]["kernel"],
             "ms_by": "profiler device time per launch",
@@ -1318,6 +1872,8 @@ def main() -> int:
         "prefill_device_ms": ssm_runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
     })
+    print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
+                             "train delta": train["delta"], "train gc under pin": train["gc"]}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,15 @@
 (port of the disk path of ``repro.ckpt.manager``).
 
 * periodic saves, synchronous or asynchronous (:class:`AsyncSaver`), atomic
-  commit, keep-last-k GC (in-flight save directories are never wreckage);
+  commit, keep-last-k GC — delta-aware (a base that a kept or in-flight
+  delta references is never collected) and in-flight-aware (directories an
+  async save is still writing are never wreckage);
+* incremental saves (``save_mode="delta"``): a steady-state save writes
+  only the shards whose content changed since the previous commit, and
+  every ``full_interval``-th save is a full rebase that bounds the chain;
+* one I/O engine per device, ``policy.io_workers`` wide (the process
+  default engines when None): saves write through it, restores and exports
+  read through it and drop what it cached of their checkpoint at the end;
 * discovery that skips uncommitted (crashed) checkpoint directories;
 * resume from disk: DIRECT per-rank reads when the Target layout equals the
   Source's, RESHARD_STREAM otherwise (fragments streamed straight into the
@@ -15,7 +23,7 @@
 * :meth:`CheckpointManager.export_ucp`: the explicit export of one step as
   a UCP atom checkpoint, reusing a committed ``.ucp`` cache.
 
-The hot tier, delta saves and fan-out publishing are refused by
+The hot tier and fan-out publishing are refused by
 :class:`CheckpointPolicy`.
 """
 
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Mapping
@@ -32,7 +41,7 @@ import torch
 from repro_torch.core.atoms import UcpCheckpoint
 from repro_torch.core.convert import ConvertStats, convert_to_ucp
 from repro_torch.core.dist_ckpt import DistCheckpoint
-from repro_torch.core.engine import CheckpointEngine
+from repro_torch.core.engine import CheckpointEngine, default_engine, device_key
 from repro_torch.core.plan import ResumeMode, TargetSpec, plan_resume, stream_transforms
 from repro_torch.core.tensor_io import IntegrityError
 from repro_torch.dist.sharding import ShardingPlan
@@ -46,16 +55,17 @@ __all__ = ["CheckpointManager", "RestoreInfo", "cached_ucp"]
 
 
 def cached_ucp(
-    ckpt: DistCheckpoint, engine: CheckpointEngine
+    ckpt: DistCheckpoint, engine: CheckpointEngine, *, convert_workers: int | None = None
 ) -> tuple[UcpCheckpoint, ConvertStats | None]:
     """A step's UCP atom checkpoint in ``<step dir>.ucp``: reuse the
     committed cache, else remove a partial one and convert once (the
-    hub-format property).  ``ConvertStats`` is None on a reuse."""
+    hub-format property).  ``ConvertStats`` is None on a reuse; an explicit
+    ``convert_workers`` wins over the engine's width."""
     ucp_dir = Path(str(ckpt.root) + ".ucp")
     if (ucp_dir / "COMMIT").exists():
         return UcpCheckpoint.open(ucp_dir), None
     shutil.rmtree(ucp_dir, ignore_errors=True)  # a partial convert
-    return convert_to_ucp(ckpt, str(ucp_dir), engine=engine)
+    return convert_to_ucp(ckpt, str(ucp_dir), workers=convert_workers, engine=engine)
 
 
 @dataclasses.dataclass
@@ -80,7 +90,13 @@ class CheckpointManager:
         """All checkpointing knobs live on one validated
         :class:`~repro_torch.ckpt.policy.CheckpointPolicy`;
         ``config_fingerprint`` is this run's identity, recorded into every
-        manifest."""
+        manifest.
+
+        Delta policy: with ``save_mode="delta"`` the steady-state save
+        writes only the shards whose content digest changed since the
+        previous committed step, the rest being manifest references into
+        the chain; every ``full_interval``-th save is full (a rebase),
+        which bounds the chain and lets GC collect old ones."""
         self.policy = policy if policy is not None else CheckpointPolicy()
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
@@ -88,13 +104,39 @@ class CheckpointManager:
         self.keep_last = self.policy.keep_last
         self.save_interval = self.policy.save_interval
         self.save_mode = self.policy.save_mode
+        self.full_interval = self.policy.full_interval
         self.codec = self.policy.codec
         self.config_fingerprint = dict(config_fingerprint or {})
+        self._disk_save_seq = 0  # the save counter behind the rebase cadence
+        # Chain pins: save root -> the chain directories its in-flight delta
+        # resolved as base (registered by the base loader on the writer
+        # thread, pruned by gc() once the save leaves the pending set).
+        self._pin_lock = threading.Lock()
+        self._pinned_chains: dict[Path, set[Path]] = {}  #: guarded by self._pin_lock
+        # Committed manifests are immutable: memoize referenced_steps per step.
+        self._refs_cache: dict[int, set[int]] = {}
+        # One engine per device key; private ones when io_workers is set.
+        self._engines: dict[str, CheckpointEngine] = {}
+        self.engine = self.engine_for(None)  # the engine saves write through
         self._async = (
             AsyncSaver(max_pending=self.policy.max_pending_saves)
             if self.policy.async_save
             else None
         )
+
+    def engine_for(self, device) -> CheckpointEngine:
+        """This manager's I/O engine of ``device`` (None: the host): a
+        private ``io_workers``-wide engine, or the process default one."""
+        key = device_key(device)
+        eng = self._engines.get(key)
+        if eng is None:
+            dev = None if key == "cpu" else key
+            eng = self._engines[key] = (
+                CheckpointEngine(dev, workers=self.policy.io_workers)
+                if self.policy.io_workers is not None
+                else default_engine(dev)
+            )
+        return eng
 
     # ------------------------------------------------------------------ save
     def step_dir(self, step: int) -> Path:
@@ -103,16 +145,61 @@ class CheckpointManager:
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.save_interval == 0
 
+    def _base_loader(self, step: int):
+        """A callable resolving the delta base of a save of ``step``, run on
+        the writing thread, so a queued delta diffs against the newest step
+        that actually committed before it runs.
+
+        The resolved base's chain is pinned before the loader returns, and
+        ``gc()`` collects no pinned directory until the save leaves the
+        in-flight set.  Resolution runs under ``_pin_lock``, the lock gc()
+        holds around each deletion, so the loader either pins the base
+        before gc can consider it or sees it deleted and rebases (the
+        saver's pre-commit chain check is the last resort)."""
+        save_root = self.step_dir(step)
+
+        def load() -> DistCheckpoint | None:
+            with self._pin_lock:
+                older = [s for s in self.steps() if s < step]
+                if not older:
+                    return None
+                try:
+                    base = DistCheckpoint.open(self.step_dir(older[-1]))
+                except (OSError, ValueError, KeyError):
+                    return None  # an unreadable base: rebase to a full save
+                self._pinned_chains[save_root] = set(base.chain_roots())
+            return base
+
+        return load
+
+    def _next_save_kw(self, step: int) -> dict[str, Any]:
+        """Per-save delta policy: the ``save_mode``/``base`` of the next
+        save, advancing the rebase cadence (every ``full_interval``-th save
+        is full)."""
+        if self.save_mode != "delta":
+            return {"save_mode": self.save_mode}
+        seq = self._disk_save_seq
+        self._disk_save_seq += 1
+        if seq % self.full_interval == 0:
+            return {"save_mode": "dedup"}  # forced rebase: a plain full save
+        return {"save_mode": "delta", "base": self._base_loader(step)}
+
     def save(
-        self, state: TrainState, step: int, *, scalars: Mapping[str, Any] | None = None
+        self, state: TrainState, step: int, *, scalars: Mapping[str, Any] | None = None,
+        block: bool = False,
     ) -> None:
+        """Save ``state`` as ``step``: queued on the async writer unless the
+        policy is synchronous or ``block`` asks to wait; then GC."""
+        # a re-save into an existing step replaces its manifest
+        self._refs_cache.pop(step, None)
         kw = dict(
             scalars=dict(scalars or {}),
             config_fingerprint=self.config_fingerprint,
-            save_mode=self.save_mode,
+            engine=self.engine,
             codec=self.codec,
         )
-        if self._async is not None:
+        kw.update(self._next_save_kw(step))
+        if self._async is not None and not block:
             self._async.submit(state, self.plan, step, self.step_dir(step), **kw)
         else:
             snap = snapshot_state(state, self.codec)
@@ -130,8 +217,15 @@ class CheckpointManager:
         return res
 
     def close(self) -> None:
-        if self._async is not None:
-            self._async.close()
+        """Drain the async writer (surfacing its errors), then close the
+        private engines (their pools and caches; a later use reopens)."""
+        try:
+            if self._async is not None:
+                self._async.close()
+        finally:
+            if self.policy.io_workers is not None:
+                for eng in self._engines.values():
+                    eng.close()
 
     # ----------------------------------------------------------------- lookup
     def steps(self) -> list[int]:
@@ -152,21 +246,59 @@ class CheckpointManager:
         return self._async.pending_roots() if self._async is not None else set()
 
     def gc(self) -> None:
-        """Keep the newest ``keep_last`` committed checkpoints; remove
-        uncommitted wreckage older than the newest commit.  Directories an
-        async save is still writing are never wreckage.  (The port writes no
-        delta chains, so no kept step pins an ancestor.)"""
+        """Keep the newest ``keep_last`` committed checkpoints (and their UCP
+        caches); remove uncommitted wreckage older than the newest commit.
+
+        Delta-aware: a kept delta's whole ancestor chain stays (a base is
+        collectable once no surviving manifest references it; a rebase is
+        what frees an old chain), and chains pinned by an in-flight delta's
+        base resolution stay until that save completes.  In-flight-aware:
+        directories an async save is still writing are never wreckage.
+        Deletes newest-first (references only point backwards, so a GC cut
+        short leaves no committed manifest naming a deleted ancestor) and
+        drops the engines' handles of what it deletes."""
         # Read order matters: in-flight BEFORE committed.  A background save
         # commits and *then* leaves the pending set, so any save gone from
         # `inflight` is already visible in `steps`.
         inflight = self._inflight_roots()
         steps = self.steps()
-        for s in steps[: -self.keep_last]:
+        keep: set[int] = set(steps[-self.keep_last:])
+        # every step a kept chain references, to a fixpoint
+        frontier = list(keep)
+        while frontier:
+            s = frontier.pop()
+            refs = self._refs_cache.get(s)
+            if refs is None:
+                try:
+                    refs = DistCheckpoint.open(self.step_dir(s)).referenced_steps()
+                except (OSError, ValueError, KeyError):
+                    continue  # an unreadable manifest pins nothing
+                if self.step_dir(s) not in inflight:
+                    # only settled steps: an in-flight re-save may replace it
+                    self._refs_cache[s] = refs
+            for r in refs:
+                if r not in keep:
+                    keep.add(r)
+                    frontier.append(r)
+        with self._pin_lock:
+            # pins die with their save
+            self._pinned_chains = {r: c for r, c in self._pinned_chains.items() if r in inflight}
+        for s in sorted(steps, reverse=True):
             step_dir = self.step_dir(s)
-            if step_dir in inflight:
+            if s in keep or step_dir in inflight:
                 continue
-            shutil.rmtree(step_dir, ignore_errors=True)
-            shutil.rmtree(Path(str(step_dir) + ".ucp"), ignore_errors=True)
+            # One critical section per deletion, shared with the base loader:
+            # a base resolved concurrently is either pinned already (skip) or
+            # resolves after the deletion (the loader rebases).
+            with self._pin_lock:
+                if step_dir in set().union(*self._pinned_chains.values()):
+                    continue
+                self._refs_cache.pop(s, None)
+                shutil.rmtree(step_dir, ignore_errors=True)
+                shutil.rmtree(Path(str(step_dir) + ".ucp"), ignore_errors=True)
+            for eng in self._engines.values():
+                eng.invalidate(step_dir)
+                eng.invalidate(str(step_dir) + ".ucp")
         if steps:
             newest = self.step_dir(steps[-1])
             for p in self.root.glob("step_*"):
@@ -181,19 +313,21 @@ class CheckpointManager:
 
     # ---------------------------------------------------------------- restore
     def restore(
-        self, device: str | torch.device, *, force_mode: ResumeMode | None = None
+        self, device: str | torch.device, *, step: int | None = None,
+        force_mode: ResumeMode | None = None,
     ) -> tuple[TrainState, RestoreInfo] | None:
-        """Resume the newest committed step onto ``device`` under this
-        manager's plan: DIRECT when the layouts are equal, RESHARD_STREAM
-        when they differ, VIA_UCP when the parameter set changed.  A stream
-        that fails with ``OSError``, ``KeyError`` or ``IntegrityError``
-        falls back to VIA_UCP; other errors propagate.
+        """Resume ``step`` (the newest committed one by default) onto
+        ``device`` under this manager's plan: DIRECT when the layouts are
+        equal, RESHARD_STREAM when they differ, VIA_UCP when the parameter
+        set changed.  A stream that fails with ``OSError``, ``KeyError`` or
+        ``IntegrityError`` falls back to VIA_UCP; other errors propagate.
+        Reads go through this manager's engine of ``device``.
 
         ``force_mode`` pins RESHARD_STREAM or VIA_UCP (no fallback when
         forced), or DIRECT only when the layouts are equal.  Returns None
         when no committed checkpoint exists (a fresh start)."""
         plan = self.plan
-        step = self.latest_step()
+        step = step if step is not None else self.latest_step()
         if step is None:
             return None
         t0 = time.perf_counter()
@@ -210,30 +344,33 @@ class CheckpointManager:
                 raise ValueError(f"cannot force disk resume mode {force}")
             mode, reason = force, f"forced {force.value}; planner said {rp.mode.value}"
         state, cstats = None, None
-        if mode is ResumeMode.DIRECT:
-            state = state_from_source(ckpt, plan, device, engine=CheckpointEngine(device))
-        elif mode is ResumeMode.RESHARD_STREAM:
-            transforms = rp.transforms or stream_transforms(ckpt.manifest, target)
-            try:
-                state = state_from_stream(
-                    ckpt, plan, device, transforms, engine=CheckpointEngine(device)
-                )
-            except (OSError, KeyError, IntegrityError) as e:
-                # Expected stream-time failures: a shard lost or corrupt after
-                # planning, a manifest entry gone.  Programming errors
-                # propagate.  The conversion below reads through a fresh
-                # engine, so nothing cached from the failed stream is reused.
-                if force_mode is not None:
-                    raise
-                mode = ResumeMode.VIA_UCP
-                reason = (
-                    f"{reason}; stream failed ({type(e).__name__}: {e}), "
-                    "falling back to via_ucp"
-                )
-        if mode is ResumeMode.VIA_UCP:
-            engine = CheckpointEngine(device)
-            ucp, cstats = cached_ucp(ckpt, engine)
-            state = state_from_ucp(ucp, plan, device, engine=engine)
+        engine = self.engine_for(device)
+        try:
+            if mode is ResumeMode.DIRECT:
+                state = state_from_source(ckpt, plan, device, engine=engine)
+            elif mode is ResumeMode.RESHARD_STREAM:
+                transforms = rp.transforms or stream_transforms(ckpt.manifest, target)
+                try:
+                    state = state_from_stream(ckpt, plan, device, transforms, engine=engine)
+                except (OSError, KeyError, IntegrityError) as e:
+                    # Expected stream-time failures: a shard lost or corrupt after
+                    # planning, a manifest entry gone.  Programming errors
+                    # propagate.
+                    if force_mode is not None:
+                        raise
+                    # drop what the engine cached of the (possibly damaged) source
+                    # — for a delta, of its whole chain — and convert instead
+                    engine.invalidate_chain(ckpt)
+                    mode = ResumeMode.VIA_UCP
+                    reason = (
+                        f"{reason}; stream failed ({type(e).__name__}: {e}), "
+                        "falling back to via_ucp"
+                    )
+            if mode is ResumeMode.VIA_UCP:
+                ucp, cstats = cached_ucp(ckpt, engine)
+                state = state_from_ucp(ucp, plan, device, engine=engine)
+        finally:
+            engine.release(ckpt)  # no decoded shard outlives the restore
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         info = RestoreInfo(
@@ -244,14 +381,16 @@ class CheckpointManager:
         return state, info
 
     def export_ucp(
-        self, step: int | None = None, *, device: str | torch.device = "cuda"
+        self, step: int | None = None, *, device: str | torch.device = "cuda",
+        convert_workers: int | None = None,
     ) -> tuple[UcpCheckpoint, ConvertStats | None]:
         """Export one step (the newest by default) as a UCP atom checkpoint
         in ``<step dir>.ucp``: the portable hub format, for publishing a
         checkpoint or feeding another framework.  Coded moment shards are
         decoded on ``device`` (the dequantize kernel on a card; pass "cpu"
-        to decode on the host).  Reuses a committed cache (``ConvertStats``
-        is then None)."""
+        to decode on the host).  ``convert_workers`` overrides the pool
+        width of this conversion (None: the manager's engine).  Reuses a
+        committed cache (``ConvertStats`` is then None)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise ValueError(f"no committed checkpoint under {self.root} to export")
@@ -259,7 +398,11 @@ class CheckpointManager:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")
-        ucp, cstats = cached_ucp(ckpt, CheckpointEngine(device))
+        engine = self.engine_for(device)
+        try:
+            ucp, cstats = cached_ucp(ckpt, engine, convert_workers=convert_workers)
+        finally:
+            engine.release(ckpt)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return ucp, cstats

@@ -2,11 +2,11 @@
 (port of ``repro.ckpt.policy``).
 
 Every field and default is the reference's, with its validation and the
-``codec=`` tag shorthand.  Knobs whose machinery the port does not have
-yet raise ``NotImplementedError`` naming the ROADMAP item that brings it:
-the hot tier (``hot_interval``), delta saves (``save_mode="delta"``), the
-fan-out registry (``registry``) and the parallel I/O pool (``io_workers``
-above 1).
+``codec=`` tag shorthand; delta saves (``save_mode="delta"`` with
+``full_interval``) and the I/O pool width (``io_workers``) work as there.
+Knobs whose machinery the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP item that brings it: the hot
+tier (``hot_interval``) and the fan-out registry (``registry``).
 """
 
 from __future__ import annotations
@@ -83,10 +83,7 @@ class CheckpointPolicy:
             self.codec = None  # all-raw policy == no policy
         missing = [
             (self.hot_interval is not None, "hot_interval", "item 7: hot tier"),
-            (self.save_mode == "delta", "save_mode='delta'", "item 3: delta saves"),
             (self.registry is not None, "registry", "item 8: fan-out"),
-            (self.io_workers is not None and self.io_workers > 1, "io_workers > 1",
-             "item 3: the parallel I/O engine"),
         ]
         for hit, knob, item in missing:
             if hit:

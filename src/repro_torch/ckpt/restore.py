@@ -7,13 +7,30 @@ global array and serves exactly those bytes.  On one card the logical
 model lives on one device, so the port enumerates the same Target regions
 itself — one per distinct shard of the Target plan's layout of each state
 kind, plain ceil-division chunks over the mesh axes of each dim, as a JAX
-``NamedSharding`` cuts them — serves each one, and writes it into one
-runtime-shaped tensor per parameter and kind on the device.  The plan sets
-the checkpoint geometry.
+``NamedSharding`` cuts them.  Per state kind it enumerates every
+(parameter, region), reads them all, then writes each into one
+runtime-shaped tensor per parameter on the device and recycles its staging
+buffer.  The plan sets the checkpoint geometry.
+
+A kind whose shards are coded is read through the engine's worker pool
+(:meth:`~repro_torch.core.engine.CheckpointEngine.map`, inline in order
+when ``workers=1``): each of its files is read, copied to the card and
+decoded there, and the pool overlaps that work across files.  A raw kind is
+read inline under every profile: a raw region is one copy out of an mmap'd
+file, and the pool made raw restores no faster (PERF.md §5).
+
+All file I/O routes through a
+:class:`~repro_torch.core.engine.CheckpointEngine`: its fragment index
+picks the fragments of a region, its handle cache opens each shard file
+once (and decodes a coded one once, whatever the number of regions and
+threads that ask), and its arena stages host regions.  A restore given no
+engine reads through the device's default engine and drops what it cached
+of the checkpoint when it ends; a caller that passes an engine owns its
+caches.
 
 Coded shards (block-quantized moments) are decoded where the state goes: on
 a card by the dequantize kernel, with their regions assembled there; on the
-CPU by the numpy decode.  Raw shards are served from host mmaps and copied
+CPU by the numpy decode.  Raw shards are served from host arrays and copied
 to the device region by region.
 
 Regions are served as in the reference:
@@ -24,7 +41,8 @@ Regions are served as in the reference:
   stream Source fragments, clipped to the logical shape with alignment
   padding zero-filled; ``CONSOLIDATE`` params (fused QKV under a new TP
   degree, a padding change) are assembled in memory by
-  :func:`~repro_torch.core.convert.assemble_atom` and served from the atom.
+  :func:`~repro_torch.core.convert.assemble_atom` (once, single-flight,
+  into the engine's atom cache) and served from the atom.
 
 Either way the bytes are the reference's (``repro/ckpt/restore.py:259-310``).
 
@@ -37,6 +55,7 @@ averaged atoms broadcast, as the reference's ``state_from_ucp``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Mapping
 
@@ -44,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.convert import assemble_atom
-from repro_torch.core.engine import CheckpointEngine
+from repro_torch.core.engine import CheckpointEngine, default_engine
 from repro_torch.core.layout import DimSpec, MeshSpec, compute_layout
 from repro_torch.core.ops import clip_region_to_logical, gen_ucp_metadata, read_runtime_region
 from repro_torch.core.patterns import ParamSpec, ParamTransform, StateKind, TransformClass
@@ -87,7 +106,7 @@ def read_region_from_source(
     remainder, if any, is alignment padding and stays zero.  The region is
     a numpy array, or a tensor on the card when a fragment was decoded
     there."""
-    engine = engine or CheckpointEngine()
+    engine = engine or default_engine()
     idx = engine.index_for(source, name, kind)
     region = _canon_region(region, idx.spec.runtime_shape)
     shape = tuple(r.stop - r.start for r in region)
@@ -96,7 +115,8 @@ def read_region_from_source(
         for rank, e, ovs in idx.overlapping(region)
     ]
     covered = sum(math.prod(hi - lo for lo, hi in ovs) for _, _, ovs in hits)
-    out = staging_like([h for h, _, _ in hits], shape, dtype, zero=covered < math.prod(shape))
+    out = staging_like([h for h, _, _ in hits], shape, dtype,
+                       zero=covered < math.prod(shape), alloc=engine.alloc)
     for shard, e, ovs in hits:
         src_idx = tuple(
             slice(s0 + (lo - a0), s0 + (hi - a0))
@@ -126,7 +146,7 @@ def _stream_reader(
                 source, name, kind,
                 lambda: _contiguous(assemble_atom(source, src_params[name], kind, engine=engine)),
             )
-            return read_runtime_region(atom, tgt_spec, region, dtype)
+            return read_runtime_region(atom, tgt_spec, region, dtype, alloc=engine.alloc)
         # Stream: Source and Target share one runtime coordinate space.  Clip
         # to the logical shape and zero-fill the rest, so alignment padding
         # comes back as zeros, not as whatever the Source left there.
@@ -134,13 +154,14 @@ def _stream_reader(
         shape = tuple(r.stop - r.start for r in region)
         clipped = clip_region_to_logical(region, tgt_spec.logical_shape)
         if clipped is None:  # region entirely inside padding
-            return staging_like([], shape, dtype, zero=True)
+            return staging_like([], shape, dtype, zero=True, alloc=engine.alloc)
         reads, dests, full = clipped
         inner = read_region_from_source(source, name, kind, reads, dtype, engine=engine)
         if full:
             return inner
-        out = staging_like([inner], shape, dtype, zero=True)
+        out = staging_like([inner], shape, dtype, zero=True, alloc=engine.alloc)
         out[dests] = inner
+        engine.recycle(inner)
         return out
 
     return reader
@@ -177,17 +198,57 @@ def _reader_for(source, plan, transforms, engine):
     return _stream_reader(source, plan, transforms, engine)
 
 
-def _build_flat(reader, plan: ShardingPlan, kind: StateKind, device) -> dict[str, torch.Tensor]:
-    """One runtime-shaped tensor per parameter of ``kind`` on ``device``,
-    written region by region (a host region is copied there once)."""
+@contextlib.contextmanager
+def _engine_for(source, device, engine: CheckpointEngine | None):
+    """The caller's engine (whose caches the caller owns), else the
+    device's default engine, which keeps nothing of ``source`` after the
+    restore."""
+    if engine is not None:
+        yield engine
+        return
+    engine = default_engine(device)
+    try:
+        yield engine
+    finally:
+        engine.release(source)
+
+
+def _coded_kinds(source) -> set[StateKind]:
+    """The state kinds that have a coded shard in ``source``."""
+    return {StateKind(key.rsplit("@", 1)[1])
+            for key, tag in source.manifest.shard_codecs.items() if tag != "raw"}
+
+
+def _build_flat(
+    reader, plan: ShardingPlan, kind: StateKind, device, engine: CheckpointEngine,
+    *, pool: bool,
+) -> dict[str, torch.Tensor]:
+    """One runtime-shaped tensor per parameter of ``kind`` on ``device``.
+
+    Every (parameter, region) of the kind is read up front (through the
+    engine's pool when ``pool``, else inline), then each region is copied
+    into its tensor (a host region goes to the device once) and its staging
+    buffer recycled.  Batching per kind bounds the staging to one copy of
+    that kind."""
+    jobs = [
+        (name, spec.states[kind].dtype, region)
+        for name, spec in plan.param_specs.items()
+        for region in target_regions(spec, plan.mesh, kind)
+    ]
+
+    def read(job):
+        return reader(job[0], kind, job[2], job[1])
+
+    pieces = engine.map(read, jobs) if pool else [read(j) for j in jobs]
     out: dict[str, torch.Tensor] = {}
-    for name, spec in plan.param_specs.items():
-        dtype = spec.states[kind].dtype
-        full = torch.empty(spec.runtime_shape, dtype=torch_dtype(dtype), device=device)
-        for region in target_regions(spec, plan.mesh, kind):
-            piece = reader(name, kind, region, dtype)
-            full[region] = to_staging(full, piece)
-        out[name] = full
+    for i, (name, dtype, region) in enumerate(jobs):
+        full = out.get(name)
+        if full is None:
+            shape = plan.param_specs[name].runtime_shape
+            full = out[name] = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+        full[region] = to_staging(full, pieces[i])
+        engine.recycle(pieces[i])
+        pieces[i] = None
     return out
 
 
@@ -207,14 +268,18 @@ def params_from_source(
     :func:`~repro_torch.core.plan.stream_transforms` streams a layout change
     (RESHARD_STREAM).  The bytes are the ``.params`` of a full restore.
     """
-    engine = engine or CheckpointEngine(device)
-    return _build_flat(_reader_for(source, plan, transforms, engine), plan,
-                       StateKind.FP32, torch.device(device))
+    with _engine_for(source, device, engine) as engine:
+        return _build_flat(_reader_for(source, plan, transforms, engine), plan,
+                           StateKind.FP32, torch.device(device), engine,
+                           pool=StateKind.FP32 in _coded_kinds(source))
 
 
-def _build_state(reader, plan, device, step: int) -> TrainState:
+def _build_state(
+    reader, plan, device, step: int, engine: CheckpointEngine, coded: set[StateKind]
+) -> TrainState:
     trees = {
-        kind: unflatten_from_paths(_build_flat(reader, plan, kind, device))
+        kind: unflatten_from_paths(
+            _build_flat(reader, plan, kind, device, engine, pool=kind in coded))
         for kind in (StateKind.FP32, StateKind.EXP_AVG, StateKind.EXP_AVG_SQ)
     }
     return TrainState(
@@ -231,7 +296,7 @@ def _ucp_reader(ucp, plan: ShardingPlan, engine: CheckpointEngine):
 
     def reader(name, kind, region, dtype):
         atom = engine.read_atom(ucp, name, kind)
-        return read_runtime_region(atom, plan.param_specs[name], region, dtype)
+        return read_runtime_region(atom, plan.param_specs[name], region, dtype, alloc=engine.alloc)
 
     return reader
 
@@ -246,8 +311,10 @@ def state_from_source(
     """DIRECT: the full TrainState (params, both moments, step) on
     ``device``, from straight fragment unions."""
     device = torch.device(device)
-    reader = _reader_for(source, plan, None, engine or CheckpointEngine(device))
-    return _build_state(reader, plan, device, int(source.manifest.step))
+    with _engine_for(source, device, engine) as engine:
+        reader = _reader_for(source, plan, None, engine)
+        return _build_state(reader, plan, device, int(source.manifest.step), engine,
+                            _coded_kinds(source))
 
 
 def state_from_stream(
@@ -264,8 +331,10 @@ def state_from_stream(
     zero-filled) and ``CONSOLIDATE`` params are assembled in memory — on
     the card for coded kinds — and served from the atom."""
     device = torch.device(device)
-    reader = _reader_for(source, plan, transforms, engine or CheckpointEngine(device))
-    return _build_state(reader, plan, device, int(source.manifest.step))
+    with _engine_for(source, device, engine) as engine:
+        reader = _reader_for(source, plan, transforms, engine)
+        return _build_state(reader, plan, device, int(source.manifest.step), engine,
+                            _coded_kinds(source))
 
 
 def state_from_ucp(
@@ -279,8 +348,9 @@ def state_from_ucp(
     (any Source layout; the Target plan's logical shapes must match the
     atoms')."""
     device = torch.device(device)
-    reader = _ucp_reader(ucp, plan, engine or CheckpointEngine(device))
-    return _build_state(reader, plan, device, int(ucp.manifest.step))
+    with _engine_for(ucp, device, engine) as engine:
+        reader = _ucp_reader(ucp, plan, engine)  # atoms are raw: read inline
+        return _build_state(reader, plan, device, int(ucp.manifest.step), engine, set())
 
 
 def params_from_ucp(
@@ -294,5 +364,6 @@ def params_from_ucp(
     fp32 weights on ``device``, read from the ``fp32`` atoms alone — the
     ``.params`` of :func:`state_from_ucp`."""
     device = torch.device(device)
-    reader = _ucp_reader(ucp, plan, engine or CheckpointEngine(device))
-    return _build_flat(reader, plan, StateKind.FP32, device)
+    with _engine_for(ucp, device, engine) as engine:
+        return _build_flat(_ucp_reader(ucp, plan, engine), plan, StateKind.FP32, device, engine,
+                           pool=False)

@@ -3,17 +3,29 @@
 snapshot → per-rank shard files → manifest with content digests → COMMIT.
 Every simulated rank's shard is sliced out of one snapshot through the same
 index maps as the reference, so a checkpoint written here is the one the
-reference's serial path (``workers=1``) writes: same files, same bytes, same
-digests, same manifest apart from ``created_at``.
+reference writes: same files, same bytes, same digests, same manifest apart
+from ``created_at`` — serial or parallel, raw or coded, full or delta.
 
-Ported: ``save_mode="dedup"`` (each fragment written once, by the lowest
-rank of its replica group) and ``"all"`` on the serial path, shard codecs
-(:class:`~repro_torch.core.codec.CodecPolicy`) and :class:`AsyncSaver`.
-The state kinds a codec codes stay on the device in the snapshot: each of
-their shards is sliced, quantized and dequantized there (the block-quant
-kernels), and only q, the scales and the bytes the two digests hash go to
-the host.  Delta saves and the parallel writer wait for ROADMAP queue 1,
-item 3.
+* ``save_mode="dedup"`` writes each fragment once (the lowest rank of its
+  replica group), ``"all"`` every replica's copy, and ``"delta"`` only the
+  shards whose content changed since a committed base (the rest become
+  manifest references into the chain; a missing or incompatible base
+  rebases to a full save, with the reason in ``SaveResult``).
+* The per-shard jobs run on the engine's worker pool
+  (:meth:`~repro_torch.core.engine.CheckpointEngine.map`): ``workers=1``
+  is the serial path (each file fsync'd as it is written); a wider pool
+  stages through the buffer arena, writes contiguous padding-free raw
+  shards straight from the snapshot, and fsyncs each file in the worker
+  that wrote it.  Either way COMMIT lands only after every shard is
+  durable.
+* Shard codecs (:class:`~repro_torch.core.codec.CodecPolicy`): the state
+  kinds a codec codes stay on the device in the snapshot, and each of
+  their shards is sliced, quantized and dequantized there (the
+  block-quant kernels, launched from the worker thread on the device's
+  default stream, where the snapshot's copies were made); only q, the
+  scales and the bytes the two digests hash go to the host.
+* :class:`AsyncSaver` overlaps the writes with training; the delta base it
+  diffs against is resolved on its writer thread.
 """
 
 from __future__ import annotations
@@ -23,18 +35,26 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.codec import CODEC_RAW, CodecPolicy, encode_shard
-from repro_torch.core.dist_ckpt import DistCheckpoint, DistManifest, shard_digest_key
+from repro_torch.core.dist_ckpt import (
+    DistCheckpoint,
+    DistManifest,
+    check_chain_committed,
+    flatten_provenance,
+    resolve_delta_base,
+    shard_digest_key,
+)
+from repro_torch.core.engine import CheckpointEngine, default_engine, default_engines
 from repro_torch.core.layout import slice_shard
 from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths
 from repro_torch.core.tensor_io import (
-    EXTENDED_DTYPES, content_digest, dtype_name, resolve_dtype, torch_dtype,
+    EXTENDED_DTYPES, content_digest, dtype_name, fsync_path, resolve_dtype, torch_dtype,
 )
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState, init_state
@@ -85,9 +105,14 @@ class SaveResult:
     path: Path
     bytes_written: int
     wall_time_s: float
+    # Delta provenance: "full" or "delta"; the shard counts show that a
+    # steady-state save really skipped the unchanged majority.
+    mode: str = "full"
     shards_written: int = 0
-    # Coded shards only: element bytes before encoding, and the bytes each
-    # way between device and host (zero when the shards were on the host).
+    shards_inherited: int = 0
+    fallback_reason: str = ""  # why a requested delta rebased to full
+    # Coded shards written by this save: element bytes before encoding, and
+    # the bytes each way between device and host (zero when on the host).
     coded_raw_bytes: int = 0
     coded_bytes: int = 0
     device_to_host_bytes: int = 0
@@ -95,6 +120,10 @@ class SaveResult:
 
 def _nbytes(a) -> int:
     return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
+
+
+def _is_contiguous(a) -> bool:
+    return a.is_contiguous() if isinstance(a, torch.Tensor) else a.flags.c_contiguous
 
 
 def write_distributed(
@@ -106,29 +135,50 @@ def write_distributed(
     scalars: Mapping[str, Any] | None = None,
     config_fingerprint: Mapping[str, Any] | None = None,
     save_mode: str = "dedup",
+    base: "DistCheckpoint | Callable[[], DistCheckpoint | None] | None" = None,
+    workers: int | None = None,
+    engine: CheckpointEngine | None = None,
     codec: CodecPolicy | None = None,
 ) -> SaveResult:
     """Write one distributed checkpoint (all ranks' shards) and commit.
 
-    Shard by shard: slice the rank's local (zero-padded) shard out of the
-    snapshot, write it with an fsync, record its content digest; then the
-    manifest, then the COMMIT marker, so a crash never leaves a torn
-    checkpoint that discovery would serve.  ``save_mode="all"`` writes
-    every replica's copy, ``"dedup"`` each fragment once.
+    Each shard is one job on the engine's pool: slice the rank's local
+    (zero-padded) shard out of the snapshot, write it, record its content
+    digest; then the manifest, then the COMMIT marker, so a crash never
+    leaves a torn checkpoint that discovery would serve.  ``workers > 1``
+    fans the jobs out (slicing through the buffer arena, contiguous
+    padding-free raw shards written straight from the snapshot, each file
+    fsync'd by its worker); ``workers=1`` is the serial path.  Precedence:
+    explicit ``workers`` > ``engine.workers`` > the process default width.
+
+    ``save_mode="delta"`` diffs every shard's pre-encode digest against
+    ``base`` (a committed :class:`DistCheckpoint`, or a callable resolving
+    one on the writing thread) and writes only the changed ones; the
+    committed manifest carries the full digest table and the flattened
+    provenance of the inherited shards.  An incompatible or missing base
+    degrades to a full save, recorded in ``SaveResult.fallback_reason``.
 
     ``codec`` opts state kinds into block-quantized payloads.  A coded
-    shard records its pre-encode digest, is encoded, and records the
-    served digest of its decoded view; the manifest carries the three
-    tables (served digests, pre-encode digests where they differ, codec
-    tags where not raw).  An all-raw policy is the plain byte path.
+    shard records its pre-encode digest (the delta key), is encoded, and
+    records the served digest of its decoded view; the manifest carries the
+    three tables (served digests, pre-encode digests where they differ,
+    codec tags where not raw).  An all-raw policy is the plain byte path.
     """
     t0 = time.perf_counter()
-    if save_mode not in ("dedup", "all"):
-        raise NotImplementedError(
-            f"save_mode={save_mode!r} is not ported yet (ROADMAP queue 1, item 3: delta saves)"
+    fallback_reason = ""
+    if save_mode == "delta":
+        base, fallback_reason = resolve_delta_base(
+            base, root, plan.mesh, plan.param_specs, save_mode
         )
+        if base is None:
+            save_mode = "dedup"  # rebase: write a full snapshot
+    else:
+        base = None  # a base means something only to a delta
     if codec is not None and codec.is_raw:
         codec = None
+    # The diff runs against the base's pre-encode table: raw new content
+    # against raw old content, whatever codec either save used.
+    base_digests = base.manifest.pre_encode_digests() if base is not None else None
     manifest = DistManifest(
         step=step,
         mesh=plan.mesh,
@@ -138,10 +188,16 @@ def write_distributed(
         save_mode=save_mode,
     )
     ckpt = DistCheckpoint.create(root, manifest)
-    res = SaveResult(step, Path(root), 0, 0.0)
-    served_tbl: dict[str, str] = {}
-    pre_tbl: dict[str, str] = {}
-    codec_tbl: dict[str, str] = {}
+    caller_engine = engine
+    owns_engine = False
+    if workers is not None and (engine is None or engine.workers != workers):
+        engine = CheckpointEngine(workers=workers)
+        owns_engine = True
+    elif engine is None:
+        engine = default_engine()
+    serial = engine.workers == 1
+
+    jobs: list[tuple[int, str, StateKind, Any, Any, str]] = []
     for name, spec in plan.param_specs.items():
         for kind, arr in snap[name].items():
             dt = spec.states[kind].dtype
@@ -154,38 +210,119 @@ def write_distributed(
                 arr = arr.astype(resolve_dtype(dt), copy=False)
             layout = spec.layout_for(kind, plan.mesh)
             for rank in ckpt.writing_ranks(name, kind):
-                key = shard_digest_key(rank, name, kind)
-                shard = slice_shard(arr, layout, rank)
-                pre = content_digest(shard)
-                if tag == CODEC_RAW:
-                    res.bytes_written += ckpt.write_shard(rank, name, kind, shard, fsync=True)
-                    served_tbl[key] = pre
-                    continue
-                enc = encode_shard(shard, tag)
-                on_device = isinstance(shard, torch.Tensor) and shard.device.type != "cpu"
-                if enc.tag == CODEC_RAW:  # int8ef exactness fallback
-                    host = _to_host(shard) if isinstance(shard, torch.Tensor) else shard
-                    written = ckpt.write_shard(rank, name, kind, host, fsync=True)
-                    served = pre
-                else:
-                    written = ckpt.write_shard(rank, name, kind, enc.payload, fsync=True)
-                    served = content_digest(enc.decoded)
-                    codec_tbl[key] = enc.tag
-                    if on_device:  # shard and decoded view hashed, q and scales encoded
-                        res.device_to_host_bytes += 2 * _nbytes(shard)
-                        res.device_to_host_bytes += enc.payload.nbytes
-                    res.coded_raw_bytes += _nbytes(shard)
-                    res.coded_bytes += written
-                res.bytes_written += written
-                served_tbl[key] = served
-                if pre != served:
-                    pre_tbl[key] = pre
-    manifest.shard_digests = served_tbl
-    manifest.shard_pre_digests = pre_tbl
-    manifest.shard_codecs = codec_tbl
-    ckpt.rewrite_manifest()
+                jobs.append((rank, name, kind, arr, layout, tag))
+
+    def durable(rank, name, kind) -> None:
+        # The parallel path's fsync, in the worker that wrote the file, so
+        # flushes overlap the other workers' writes; COMMIT still waits.
+        if not serial:
+            fsync_path(ckpt.own_shard_path(rank, name, kind))
+
+    # A job returns (written, key, served digest, pre digest, tag, inherited,
+    # coded raw bytes, coded bytes, device->host bytes).  An inherited shard
+    # returns Nones: the aggregation copies the base manifest's entries (the
+    # ancestor's file may be coded under another policy).
+    def write_one(job):
+        rank, name, kind, arr, layout, tag = job
+        key = shard_digest_key(rank, name, kind)
+        entries = layout.entries[rank]
+        contiguous_view = None
+        if len(entries) == 1 and entries[0].shard_slice == tuple((0, s) for s in layout.local_shape):
+            view = arr[entries[0].atom_index()]
+            if _is_contiguous(view):
+                contiguous_view = view
+        inherited = (0, key, None, None, None, True, 0, 0, 0)
+        if tag != CODEC_RAW or base_digests is not None:
+            # Digest first (the delta key; zero-copy for a contiguous shard),
+            # then write only what changed since the base.
+            if contiguous_view is not None:
+                shard, data = None, contiguous_view
+            else:
+                shard = data = slice_shard(arr, layout, rank, alloc=engine.alloc)
+            pre = content_digest(data)
+            if base_digests is not None and base_digests.get(key) == pre:
+                engine.recycle(shard)
+                return inherited
+            if tag == CODEC_RAW:
+                written = ckpt.write_shard(rank, name, kind, data, fsync=serial)
+                engine.recycle(shard)
+                durable(rank, name, kind)
+                return written, key, pre, pre, CODEC_RAW, False, 0, 0, 0
+            enc = encode_shard(data, tag)
+            coded = (0, 0, 0)
+            if enc.tag == CODEC_RAW:  # int8ef exactness fallback: the raw array is the payload
+                host = _to_host(data) if isinstance(data, torch.Tensor) else data
+                written = ckpt.write_shard(rank, name, kind, host, fsync=serial)
+                served = pre
+            else:
+                written = ckpt.write_shard(rank, name, kind, enc.payload, fsync=serial)
+                served = content_digest(enc.decoded)
+                on_device = isinstance(data, torch.Tensor) and data.device.type != "cpu"
+                # shard and decoded view hashed, q and scales encoded
+                d2h = 2 * _nbytes(data) + enc.payload.nbytes if on_device else 0
+                coded = (_nbytes(data), written, d2h)
+            engine.recycle(shard)
+            durable(rank, name, kind)
+            return (written, key, served, pre, enc.tag, False, *coded)
+        written = digest = None
+        if not serial and contiguous_view is not None:
+            # zero-copy: the shard is one padding-free contiguous rectangle
+            # of the snapshot, written without a staging copy
+            written = ckpt.write_shard(rank, name, kind, contiguous_view, fsync=False)
+            digest = content_digest(contiguous_view)
+        if written is None:
+            shard = slice_shard(arr, layout, rank, alloc=engine.alloc)
+            written = ckpt.write_shard(rank, name, kind, shard, fsync=serial)
+            digest = content_digest(shard)
+            engine.recycle(shard)  # the bytes are on disk (or in the page cache)
+        durable(rank, name, kind)
+        return written, key, digest, digest, CODEC_RAW, False, 0, 0, 0
+
+    res = SaveResult(step, Path(root), 0, 0.0, fallback_reason=fallback_reason)
+    try:
+        results = engine.map(write_one, jobs)
+        # Digests land in the manifest before COMMIT, for every shard,
+        # written and inherited, so the next delta diffs this manifest alone.
+        served_tbl: dict[str, str] = {}
+        pre_tbl: dict[str, str] = {}
+        codec_tbl: dict[str, str] = {}
+        for written, key, served, pre, tag, inh, raw_b, coded_b, d2h in results:
+            if inh:
+                served = base.manifest.shard_digests[key]
+                pre = base_digests[key]
+                tag = base.manifest.codec_tag(key)
+                res.shards_inherited += 1
+            else:
+                res.shards_written += 1
+            served_tbl[key] = served
+            if pre != served:
+                pre_tbl[key] = pre
+            if tag != CODEC_RAW:
+                codec_tbl[key] = tag
+            res.bytes_written += written
+            res.coded_raw_bytes += raw_b
+            res.coded_bytes += coded_b
+            res.device_to_host_bytes += d2h
+        manifest.shard_digests = served_tbl
+        manifest.shard_pre_digests = pre_tbl
+        manifest.shard_codecs = codec_tbl
+        if base is not None:
+            flatten_provenance(manifest, base, [r[1] for r in results if r[5]])
+        ckpt.rewrite_manifest()
+        # A re-save into an existing directory must not leave readers on
+        # stale handles of the replaced files: invalidate every engine that
+        # could hold them (the one written through, the caller's, and the
+        # process default of every device).
+        for stale in {id(e): e for e in (engine, caller_engine, *default_engines())
+                      if e is not None}.values():
+            stale.invalidate(ckpt.root)
+    finally:
+        if owns_engine:
+            engine.close()
+    if base is not None:
+        check_chain_committed(ckpt)
     ckpt.commit()
-    res.shards_written = len(served_tbl)
+    res.mode = "delta" if base is not None else "full"
     res.wall_time_s = time.perf_counter() - t0
     return res
 
@@ -200,7 +337,8 @@ class AsyncSaver:
     pending job pins a full snapshot, so ``submit`` blocks (backpressure)
     once that many are in flight.  ``pending_roots()`` names the step
     directories still queued or being written, which GC must not treat as
-    wreckage.
+    wreckage.  A delta's ``base`` may be a callable: ``write_distributed``
+    resolves it on the writer thread, when the job runs.
     """
 
     def __init__(self, max_pending: int = 2):

@@ -10,7 +10,7 @@ package reads in the other.
 from .atoms import UCP_FORMAT_VERSION, AtomInfo, UcpCheckpoint, UcpManifest
 from .convert import ConvertStats, assemble_atom, convert_to_ucp
 from .dist_ckpt import DistCheckpoint, DistManifest, shard_digest_key
-from .engine import CheckpointEngine, FragmentIndex
+from .engine import CheckpointEngine, FragmentIndex, HandleCache, default_engine
 from .ops import (
     LoadPlan,
     ParamLoadPlan,
@@ -43,7 +43,7 @@ __all__ = [
     "LoadPlan", "ParamLoadPlan", "extract", "gen_ucp_metadata", "load_param_shard",
     "strip_padding", "union",
     "DistCheckpoint", "DistManifest", "shard_digest_key",
-    "CheckpointEngine", "FragmentIndex",
+    "CheckpointEngine", "FragmentIndex", "HandleCache", "default_engine",
     "DimSpec", "IndexEntry", "MeshSpec", "ShardLayout", "SubFragment", "compute_layout",
     "STATE_KINDS", "Pattern", "derive_pattern", "ParamSpec", "ParamTransform", "StateKind", "StateLayoutSpec",
     "TransformClass", "classify_transform", "uniform_param_spec",

@@ -31,7 +31,7 @@ from typing import Any, Mapping
 
 from . import clock, codec
 from .patterns import STATE_KINDS, StateKind
-from .tensor_io import content_digest, load_tensor, open_memmap, save_tensor
+from .tensor_io import digest_matches, load_tensor, open_memmap, save_tensor
 
 __all__ = ["AtomInfo", "UcpManifest", "UcpCheckpoint", "UCP_FORMAT_VERSION"]
 
@@ -181,16 +181,25 @@ class UcpCheckpoint:
         manifest = UcpManifest.from_json(json.loads((root / "MANIFEST.json").read_text()))
         return cls(root, manifest)
 
-    def read_atom(self, name: str, kind: StateKind, *, mmap: bool = True, device=None):
+    def read_atom(
+        self, name: str, kind: StateKind, *, mmap: bool = True, device=None, cache=None
+    ):
         """Open one atom: a raw numpy atom as a (mmap'd) array, a bf16/fp8 one
         as a CPU tensor; a coded atom decoded at the read point, on
-        ``device`` when that is a CUDA device (the dequantize kernel)."""
+        ``device`` when that is a CUDA device (the dequantize kernel).
+        ``cache``: an optional :class:`~repro_torch.core.engine.HandleCache`
+        — a restore serving R regions of a parameter then opens its atom
+        once."""
         info = self.manifest.atoms[name]
         path = self.atom_path(name, kind)
         tag = info.codecs.get(kind, "raw")
         if tag == "raw":
-            return load_tensor(path, dtype=info.dtypes[kind], mmap=mmap)
-        return codec.decode_file(path, tag, dtype=info.dtypes[kind], device=device)
+            loader = lambda: load_tensor(path, dtype=info.dtypes[kind], mmap=mmap)
+        else:
+            loader = lambda: codec.decode_file(path, tag, dtype=info.dtypes[kind], device=device)
+        if cache is not None:
+            return cache.get(path, loader)
+        return loader()
 
     def validate(self) -> list[str]:
         """Integrity check: every indexed atom file exists with the right
@@ -212,17 +221,9 @@ class UcpCheckpoint:
                     )
                     continue
                 want = info.digests.get(kind)
-                if want is not None and not _digest_matches(arr, want):
+                if want is not None and not digest_matches(arr, want):
                     problems.append(
                         f"{name}@{kind.value}: content digest mismatch (recorded {want})"
                     )
         return problems
 
-
-def _digest_matches(arr, recorded: str) -> bool:
-    """Whether an array's content matches a recorded digest, by the
-    algorithm the digest names; a malformed digest is a mismatch."""
-    try:
-        return content_digest(arr, recorded.split(":", 1)[0]) == recorded
-    except ValueError:
-        return False

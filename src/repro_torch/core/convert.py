@@ -11,13 +11,15 @@ in-memory consolidation of the stream restore
 (``repro_torch.ckpt.restore.state_from_stream``) call it, so the two paths
 give the same bytes by construction.
 
-The engine is serial: the reference's ``workers=1`` profile.  Its parallel
-pool waits for ROADMAP queue 1, item 3 (the parallel I/O engine).
-``streaming=True`` unions a parameter that needs no strip or average
-straight into a memory-mapped atom file (constant working memory).  Coded
-moment shards read through an engine made for a CUDA device are decoded on
-the card (the dequantize kernel) and their atom comes to the host to be
-written.
+Parallelism: Union is independent per parameter (paper: "can execute in
+parallel at individual parameter level"), so ``convert_to_ucp`` fans the
+parameters out over the engine's worker pool; ``workers=1`` is the
+reference's serial profile.  ``streaming=True`` unions a parameter that
+needs no strip or average straight into a memory-mapped atom file
+(constant working memory).  Coded moment shards read through an engine made
+for a CUDA device are decoded on the card (the dequantize kernel, launched
+from the worker that converts the parameter) and their atom comes to the
+host to be written.
 """
 
 from __future__ import annotations
@@ -154,16 +156,14 @@ def convert_to_ucp(
     """Convert a committed distributed checkpoint into a UCP atom checkpoint.
 
     Algorithm 1: per parameter, pattern-match → Union → StripPadding →
-    Save.  ``engine`` decodes coded shards (on its card, if it has one);
-    the default engine decodes on the host.  ``workers`` is None or 1: the
-    serial engine is the reference's ``workers=1`` profile.  The atoms'
-    content digests land in the manifest before COMMIT.
+    Save, parallel at parameter granularity.  ``engine`` supplies the
+    worker pool and the handle cache, and decodes coded shards (on its
+    card, if it has one).  An explicit ``workers`` that disagrees with the
+    engine's width wins (a private pool on the engine's device serves this
+    call), as in ``write_distributed``; with neither, a private host pool
+    of width 4.  The atoms' content digests land in the manifest before
+    COMMIT.
     """
-    if workers is not None and workers != 1:
-        raise NotImplementedError(
-            f"convert_to_ucp(workers={workers}): the parallel engine is not ported yet "
-            "(ROADMAP queue 1, item 3: the parallel I/O engine); the serial engine is workers=1"
-        )
     if isinstance(ckpt, (str, Path)):
         ckpt = DistCheckpoint.open(ckpt)
     if not ckpt.is_committed:
@@ -198,10 +198,22 @@ def convert_to_ucp(
     )
 
     t0 = time.perf_counter()
-    engine = engine if engine is not None else CheckpointEngine()
+    owns_engine = False
+    if workers is not None and (engine is None or engine.workers != workers):
+        device = engine.device if engine is not None else None
+        engine = CheckpointEngine(device, workers=max(1, workers))
+        owns_engine = True
+    elif engine is None:
+        engine = CheckpointEngine(workers=4)
+        owns_engine = True
     stats = ConvertStats(params=len(todo))
-    for spec in todo.values():
-        r, w, a, digests = _convert_one(ckpt, ucp, spec, streaming, engine)
+    specs = list(todo.values())
+    try:
+        results = engine.map(lambda s: _convert_one(ckpt, ucp, s, streaming, engine), specs)
+    finally:
+        if owns_engine:
+            engine.close()
+    for spec, (r, w, a, digests) in zip(specs, results):
         stats.bytes_read += r
         stats.bytes_written += w
         stats.atoms_written += a

@@ -1,41 +1,305 @@
-"""The checkpoint I/O engine, serial (port of ``repro.core.engine``).
+"""The shared checkpoint I/O engine: index, handle cache, worker pool
+(port of ``repro.core.engine``).
 
-The reference engine owns a fragment index, a handle cache, a buffer arena
-and a worker pool.  This port keeps what the restore path needs to give the
-same bytes: :class:`FragmentIndex` (which fragments overlap a region) and a
-serial :class:`CheckpointEngine` with cached indexes, fragment reads,
-staging allocation (plain numpy or, on a device, torch: with no arena
-there is nothing to recycle), memoized consolidated atoms and memoized UCP
-atom reads.  The thread pool, the handle cache and the arena wait for the
-parallel-I/O item of the ROADMAP (queue 1, item 3); the reference's
-``workers=1`` profile is exactly this serial order.
+Every save, convert and restore path of the port routes its file I/O
+through a :class:`CheckpointEngine`, which owns:
+
+* :class:`FragmentIndex` — a sorted interval index over the fragment
+  atom-slices of one ``(checkpoint, param, kind)``, built once and cached:
+  a region read touches only the fragments that overlap it;
+* :class:`HandleCache` — a bounded, thread-safe LRU of open shard and atom
+  handles keyed by file path, weighed by bytes: a restore of N parameters
+  × R regions opens (and, for a coded shard, decodes) each file once.  Raw
+  files are mmap'd under every profile, so their handles weigh nothing;
+  a restore or export through the manager drops its checkpoint's handles
+  when it ends;
+* a bounded worker pool (:meth:`CheckpointEngine.map`) — shard writes,
+  coded region reads and per-parameter conversion release the GIL
+  (memcpy, sha256, file writes, fsync, CUDA launches), so they fan out
+  over threads.  ``workers=1`` runs inline in the serial order: the
+  reference's serial profile, kept so the parallel paths stay
+  benchmarkable against it;
+* :class:`BufferArena` — recycled host staging buffers for shard slicing
+  and region assembly (warm pages, no first-touch faults).
 
 A *fragment source* is anything with a ``.manifest`` (``params``, ``mesh``,
 ``save_mode``), ``.writing_ranks(name, kind)`` and
-``.read_fragment(rank, name, kind, device=)`` — here, a
+``.read_fragment(rank, name, kind, engine=)`` — here, a
 :class:`~repro_torch.core.dist_ckpt.DistCheckpoint`.
 
-An engine made for a CUDA ``device`` asks for coded fragments decoded there
-(the dequantize kernel), and the region reads that use them assemble on the
-card; raw fragments stay host numpy
-(:func:`~repro_torch.core.tensor_io.staging_like` is that rule).
+An engine made for a CUDA ``device`` decodes coded fragments and atoms
+there (the dequantize kernel), and the region reads that use them assemble
+on the card; raw fragments stay host numpy
+(:func:`~repro_torch.core.tensor_io.staging_like` is that rule).  Its
+handle cache weighs a decoded card tensor by its bytes, so the byte bound
+holds on the card too.  :func:`default_engine` keeps one engine per
+device, so a CPU caller and a card caller never share decoded tensors.
+
+Worker threads launch their CUDA work on the calling thread's current
+stream, which in a plain thread is the device's default stream: the stream
+the snapshot's copies and the restore's assembly run on, so every launch is
+ordered after the data it reads.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Any, Callable, Sequence
+import math
+import os
+import sys
+import threading
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["CheckpointEngine", "FragmentIndex", "source_cache_key"]
+from .tensor_io import resolve_dtype
+
+__all__ = [
+    "BufferArena",
+    "CheckpointEngine",
+    "FragmentIndex",
+    "HandleCache",
+    "default_engine",
+    "default_engines",
+    "default_workers",
+    "device_key",
+    "source_cache_key",
+]
+
+
+def default_workers() -> int:
+    """Pool width when the caller does not choose: enough threads to overlap
+    fsync latency even on small hosts, bounded so huge hosts don't thrash."""
+    return min(16, max(4, (os.cpu_count() or 2) * 2))
 
 
 def source_cache_key(source) -> str:
     """Index-cache identity of a source (``cache_key``, else the root path)."""
     key = getattr(source, "cache_key", None)
     return key if key is not None else str(source.root)
+
+
+def _key_under_root(key: str, root: str) -> bool:
+    """Whether a cache key belongs to ``root``: the root itself, a delta
+    variant (``root@delta:N``), a derived key (``root::atom::...``), or a
+    file under it (``root/...``) — never a sibling that merely shares
+    ``root`` as a string prefix (``root10`` vs ``root1``)."""
+    if not key.startswith(root):
+        return False
+    rest = key[len(root):]
+    return rest == "" or rest[0] in (os.sep, "@", ":")
+
+
+def _np_dtype(dtype) -> np.dtype:
+    return resolve_dtype(dtype) if isinstance(dtype, str) else np.dtype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Buffer arena
+# ---------------------------------------------------------------------------
+
+
+class _ArenaBuffer(np.ndarray):
+    """Marker subclass: storage owned by a :class:`BufferArena`.  ``recycle``
+    only reclaims storage whose ``.base`` chain bottoms out in one."""
+
+
+class BufferArena:
+    """Reusable host staging buffers for shard slicing and region assembly.
+
+    Retired buffers (warm, already-faulted pages) wait on size-keyed free
+    lists, so steady-state staging copies run at memcpy speed and
+    parallelize.  **Reclamation is refcount-gated**: ``recycle`` parks a
+    buffer on a pending list, and its storage re-enters the free lists only
+    once the view chain ``alloc`` built has no outside referents — a
+    ``torch.from_numpy`` tensor of it keeps it alive, so storage is never
+    reused under a live alias.
+
+    ``alloc(..., zero=False)`` skips clearing when the caller overwrites
+    every element; a recycled buffer's contents are otherwise arbitrary.
+    """
+
+    def __init__(self, max_bytes: int = 1 << 30):
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._free: dict[int, list[np.ndarray]] = {}  #: guarded by self._lock
+        self._pending: list[np.ndarray] = []  #: guarded by self._lock
+        self._pooled_ids: set[int] = set()  #: guarded by self._lock
+        self._retained = 0  #: guarded by self._lock
+        self.allocs = 0
+        self.reuses = 0
+
+    @staticmethod
+    def _bucket(nbytes: int) -> int:
+        """Round up to a power of two (min one page) so near-miss sizes
+        reuse each other's storage; waste is bounded at 2x."""
+        size = 4096
+        while size < nbytes:
+            size <<= 1
+        return size
+
+    def _reap_locked(self) -> None:
+        """Move pending buffers whose view chains died onto the free lists."""
+        still: list[np.ndarray] = []
+        for raw in self._pending:
+            # References when the chain is dead: the _pending list, the loop
+            # variable and getrefcount's argument == 3; a live view adds one.
+            if sys.getrefcount(raw) <= 3:
+                if self._retained + raw.nbytes <= self.max_bytes:
+                    self._free.setdefault(raw.nbytes, []).append(raw)
+                    self._retained += raw.nbytes
+                else:
+                    self._pooled_ids.discard(id(raw))  # over budget: drop
+            else:
+                still.append(raw)
+        self._pending = still
+
+    def alloc(self, shape, dtype, *, zero: bool = True) -> np.ndarray:
+        dt = _np_dtype(dtype)
+        shape = tuple(int(s) for s in shape)
+        nbytes = math.prod(shape) * dt.itemsize if shape else dt.itemsize
+        bucket = self._bucket(max(nbytes, 1))
+        raw = None
+        with self._lock:
+            self._reap_locked()
+            stack = self._free.get(bucket)
+            if stack:
+                raw = stack.pop()
+                self._retained -= raw.nbytes
+                self._pooled_ids.discard(id(raw))
+                self.reuses += 1
+            else:
+                self.allocs += 1
+        if raw is None:
+            raw = np.empty(bucket, np.uint8).view(_ArenaBuffer)
+        # a plain-ndarray view (np.save and torch never see the marker
+        # subclass); its .base chain still reaches the _ArenaBuffer.
+        out = raw[:nbytes].view(dt).reshape(shape).view(np.ndarray)
+        if zero:
+            out[...] = np.zeros((), dt)
+        return out
+
+    def recycle(self, arr) -> None:
+        """Offer an arena-backed array's storage back for reuse, once every
+        view of it is gone; anything else passes through."""
+        if not isinstance(arr, np.ndarray):
+            return
+        # the DEEPEST marker view is the bucket-sized buffer alloc() made
+        node, base = arr, None
+        while node is not None:
+            if isinstance(node, _ArenaBuffer):
+                base = node
+            node = getattr(node, "base", None)
+        if base is None:
+            return
+        with self._lock:
+            if id(base) in self._pooled_ids:  # double-recycle guard
+                return
+            self._pooled_ids.add(id(base))
+            self._pending.append(base)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+            self._pending.clear()
+            self._pooled_ids.clear()
+            self._retained = 0
+
+
+# ---------------------------------------------------------------------------
+# Handle cache
+# ---------------------------------------------------------------------------
+
+
+class HandleCache:
+    """Bounded LRU of open array handles, keyed by file path.
+
+    Values are whatever the loader returns: an ``np.load(mmap_mode)`` view,
+    a materialized array, or a tensor (a coded shard decoded on the card, a
+    bf16 state).  Bounded by entry count and by bytes: materialized arrays
+    and tensors carry their weight, mmap views are nearly free.  Eviction
+    drops the reference only, so an evicted handle stays safe to use.
+    """
+
+    def __init__(self, capacity: int = 128, max_bytes: int = 1 << 30):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._entries: OrderedDict[str, Any] = OrderedDict()  #: guarded by self._lock
+        self._bytes = 0  #: guarded by self._lock
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @staticmethod
+    def _weight(value: Any) -> int:
+        if isinstance(value, torch.Tensor):
+            return value.numel() * value.element_size()
+        # mmap views cost address space, not residency: count them light
+        if isinstance(value, np.memmap) or (
+            isinstance(value, np.ndarray) and isinstance(value.base, np.memmap)
+        ):
+            return 0
+        return int(getattr(value, "nbytes", 0))
+
+    def get(self, path: str | os.PathLike, loader: Callable[[], Any]) -> Any:
+        key = str(path)
+        with self._lock:
+            if key in self._entries:
+                self.hits += 1
+                self._entries.move_to_end(key)
+                return self._entries[key]
+            self.misses += 1
+        value = loader()  # outside the lock: loads fault pages, read, decode
+        with self._lock:
+            if key not in self._entries:
+                self._entries[key] = value
+                self._bytes += self._weight(value)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity or (
+                self._bytes > self.max_bytes and len(self._entries) > 1
+            ):
+                _, old = self._entries.popitem(last=False)
+                self._bytes -= self._weight(old)
+                self.evictions += 1
+        return value
+
+    def invalidate(self, path: str | os.PathLike | None = None) -> None:
+        """Drop one handle (or all): a file was rewritten."""
+        with self._lock:
+            if path is None:
+                self._entries.clear()
+                self._bytes = 0
+            else:
+                old = self._entries.pop(str(path), None)
+                if old is not None:
+                    self._bytes -= self._weight(old)
+
+    def invalidate_prefix(self, prefix: str | os.PathLike) -> None:
+        """Drop every handle under a directory (checkpoint rewritten or
+        collected); never a sibling that shares the prefix as a string."""
+        prefix = str(prefix)
+        with self._lock:
+            for key in [k for k in self._entries if _key_under_root(k, prefix)]:
+                self._bytes -= self._weight(self._entries.pop(key))
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __contains__(self, path: str | os.PathLike) -> bool:
+        with self._lock:
+            return str(path) in self._entries
+
+
+# ---------------------------------------------------------------------------
+# Fragment index
+# ---------------------------------------------------------------------------
 
 
 class FragmentIndex:
@@ -109,62 +373,225 @@ class FragmentIndex:
         return out
 
 
-class CheckpointEngine:
-    """Serial I/O engine: cached fragment indexes and consolidated atoms.
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
 
-    One engine per restore is the normal use: its caches live as long as
-    the engine, and a consolidated atom is held until the engine is dropped.
+
+class CheckpointEngine:
+    """Shared I/O engine: fragment indexes + handle cache + worker pool.
+
+    One engine per device (:func:`default_engine`) is normally enough: the
+    caches are keyed by checkpoint root, so several checkpoints share it.
+    Benchmarks build private engines to compare ``workers=1`` with a wider
+    pool under otherwise identical caching.
     """
 
-    def __init__(self, device=None) -> None:
-        device = torch.device(device) if device is not None else None
-        # Coded fragments decode on the card only; a CPU engine decodes with numpy.
-        self.decode_device = device if device is not None and device.type == "cuda" else None
-        self._indexes: dict[tuple[str, str, str], FragmentIndex] = {}
-        self._atoms: dict[str, np.ndarray | torch.Tensor] = {}
-        self._ucp_atoms: dict[tuple[str, str, str], np.ndarray | torch.Tensor] = {}
-        # Fragments decoded on the card for the (source, param, kind) being
-        # read: each coded file is decoded once however many Target regions
-        # straddle it.  Reset when the next (param, kind) starts.
-        self._decoded_for: tuple | None = None
-        self._decoded: dict[int, torch.Tensor] = {}
+    def __init__(self, device=None, *, workers: int | None = None) -> None:
+        """``device``: where coded shards and atoms decode (a CUDA device:
+        the dequantize kernel; anything else: numpy on the host).
 
+        ``workers=1`` is the reference's serial profile: fresh ``np.zeros``
+        staging, jobs run inline in order.  ``workers>1`` runs jobs on a
+        pool and recycles staging buffers through the arena.  Raw shard and
+        atom files are mmap'd under both profiles: a handle costs address
+        space, not memory; decoded tensors and arrays are bounded at 1 GiB."""
+        device = torch.device(device) if device is not None else None
+        self.device = device
+        # Coded state decodes on the card only; a CPU engine decodes with numpy.
+        self.decode_device = device if device is not None and device.type == "cuda" else None
+        self.workers = default_workers() if workers is None else int(workers)
+        if self.workers < 1:
+            raise ValueError(f"workers must be >= 1, got {workers}")
+        self.use_arena = self.workers > 1
+        self.handles = HandleCache(1024, 1 << 30)
+        # Consolidated atoms of the stream restore: a byte-bounded LRU, so a
+        # restore's peak memory for them is capped.
+        self.atoms = HandleCache(256, 1 << 30)
+        self.arena = BufferArena(1 << 30)
+        self._indexes: dict[tuple[str, str, str], FragmentIndex] = {}  #: guarded by self._index_lock
+        self._index_lock = threading.Lock()
+        self._flight_locks: dict[str, threading.Lock] = {}  #: guarded by self._flight_locks_lock
+        self._flight_locks_lock = threading.Lock()
+        self._pool: ThreadPoolExecutor | None = None  #: guarded by self._pool_lock
+        self._pool_lock = threading.Lock()
+
+    # ----------------------------------------------------------------- arena
+    def alloc(self, shape, dtype, *, zero: bool = True) -> np.ndarray:
+        """Host staging buffer: arena-backed, or a plain fresh ``np.zeros``
+        under the serial profile."""
+        if not self.use_arena:
+            return np.zeros(tuple(int(s) for s in shape), _np_dtype(dtype))
+        return self.arena.alloc(shape, dtype, zero=zero)
+
+    def recycle(self, arr) -> None:
+        if self.use_arena:
+            self.arena.recycle(arr)
+
+    # ------------------------------------------------------------------ pool
+    def _get_pool(self) -> ThreadPoolExecutor:
+        with self._pool_lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.workers, thread_name_prefix="ckpt-io"
+                )
+            return self._pool
+
+    def map(self, fn: Callable[[Any], Any], items: Iterable[Any]) -> list[Any]:
+        """Run ``fn`` over ``items``; results in order.
+
+        ``workers == 1`` runs inline in iteration order — the serial path
+        itself, not a one-thread pool.  A job running in this engine's pool
+        must never call ``map`` on the same engine (it would wait on the
+        pool it occupies)."""
+        items = list(items)
+        if self.workers == 1 or len(items) <= 1:
+            return [fn(x) for x in items]
+        return list(self._get_pool().map(fn, items))
+
+    def close(self) -> None:
+        with self._pool_lock:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+        self.handles.invalidate()
+        self.atoms.invalidate()
+        self.arena.clear()
+        with self._flight_locks_lock:
+            self._flight_locks.clear()
+        with self._index_lock:
+            self._indexes.clear()
+
+    def __enter__(self) -> "CheckpointEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ----------------------------------------------------------------- index
     def index_for(self, source, name: str, kind) -> FragmentIndex:
         """The (cached) fragment index of one ``(source, param, kind)``."""
         key = (source_cache_key(source), name, getattr(kind, "value", str(kind)))
+        # Unlocked peek: dict.get is atomic and an index is immutable once
+        # inserted, so a stale miss falls through to the locked setdefault.
         idx = self._indexes.get(key)
-        if idx is None:
-            idx = self._indexes[key] = FragmentIndex(source, name, kind)
-        return idx
+        if idx is not None:
+            return idx
+        idx = FragmentIndex(source, name, kind)
+        with self._index_lock:
+            return self._indexes.setdefault(key, idx)
+
+    # ----------------------------------------------------------------- reads
+    def read_shard(self, ckpt, rank: int, name: str, kind):
+        """Handle-cached read of one distributed shard file; a coded one is
+        decoded (on the engine's card, if it has one) once, however many
+        regions and threads ask for it."""
+        path = ckpt.shard_path(rank, name, kind)
+        return self._single_flight(
+            str(path),
+            lambda: ckpt.read_shard(rank, name, kind, device=self.decode_device),
+            self.handles,
+        )
 
     def read_fragment(self, source, rank: int, name: str, kind):
-        """One available fragment of a fragment source (coded ones decoded on
-        the engine's card, if it has one, once per param and kind)."""
-        key = (source_cache_key(source), name, getattr(kind, "value", kind))
-        if key != self._decoded_for:
-            self._decoded_for, self._decoded = key, {}
-        frag = self._decoded.get(rank)
-        if frag is None:
-            frag = source.read_fragment(rank, name, kind, device=self.decode_device)
-            if isinstance(frag, torch.Tensor) and frag.is_cuda:
-                self._decoded[rank] = frag
-        return frag
-
-    def consolidated(self, source, name: str, kind, make: Callable[[], Any]):
-        """Memoized in-memory consolidated atom of one ``(source, param, kind)``:
-        built once, then it serves every Target region of the parameter."""
-        key = f"{source_cache_key(source)}::atom::{name}@{getattr(kind, 'value', kind)}"
-        atom = self._atoms.get(key)
-        if atom is None:
-            atom = self._atoms[key] = make()
-        return atom
+        """One available fragment of a fragment source, through the handle
+        cache when the source reads with an engine."""
+        read = getattr(source, "read_fragment", None)
+        if read is not None:
+            return read(rank, name, kind, engine=self)
+        return self.read_shard(source, rank, name, kind)
 
     def read_atom(self, ucp, name: str, kind):
-        """Memoized read of one UCP atom (``UcpCheckpoint.read_atom``): a
-        restore that serves R regions of a parameter opens its atom once.
-        A coded atom decodes on the engine's card, if it has one."""
-        key = (str(ucp.root), name, getattr(kind, "value", str(kind)))
-        atom = self._ucp_atoms.get(key)
-        if atom is None:
-            atom = self._ucp_atoms[key] = ucp.read_atom(name, kind, device=self.decode_device)
-        return atom
+        """Handle-cached read of one UCP atom file: a restore serving R
+        regions of a parameter opens (or decodes) its atom once."""
+        path = ucp.atom_path(name, kind)
+        return self._single_flight(
+            str(path),
+            lambda: ucp.read_atom(name, kind, device=self.decode_device),
+            self.handles,
+        )
+
+    def consolidated(self, source, name: str, kind, builder: Callable[[], Any]):
+        """Memoized in-memory consolidated atom of one ``(source, param,
+        kind)``: built once, then it serves every Target region of the
+        parameter.  Single-flight per key, so concurrent region reads of
+        one parameter never assemble it twice."""
+        key = f"{source_cache_key(source)}::atom::{name}@{getattr(kind, 'value', kind)}"
+        return self._single_flight(key, builder)
+
+    def _single_flight(self, key: str, builder: Callable[[], Any],
+                       cache: HandleCache | None = None) -> Any:
+        with self._flight_locks_lock:
+            lock = self._flight_locks.setdefault(key, threading.Lock())
+        with lock:
+            return (self.atoms if cache is None else cache).get(key, builder)
+
+    def invalidate(self, root: str | os.PathLike | None = None) -> None:
+        """Forget cached state: all of it, or one checkpoint root's (its
+        handles, atoms, indexes, delta-variant keys).  Call after rewriting
+        files in place."""
+        if root is None:
+            self.handles.invalidate()
+            self.atoms.invalidate()
+            with self._flight_locks_lock:
+                self._flight_locks.clear()
+            with self._index_lock:
+                self._indexes.clear()
+            return
+        root = str(root)
+        self.handles.invalidate_prefix(root)
+        self.atoms.invalidate_prefix(root)
+        with self._flight_locks_lock:
+            for key in [k for k in self._flight_locks if _key_under_root(k, root)]:
+                del self._flight_locks[key]
+        with self._index_lock:
+            for key in [k for k in self._indexes if _key_under_root(k[0], root)]:
+                del self._indexes[key]
+
+    def invalidate_chain(self, ckpt) -> None:
+        """Invalidate a checkpoint root and every ancestor directory its
+        delta chain references: a reader that failed mid-chain may hold
+        stale handles of any link."""
+        roots = getattr(ckpt, "chain_roots", None)
+        for root in roots() if roots is not None else [ckpt.root]:
+            self.invalidate(root)
+
+
+    def release(self, source) -> None:
+        """Drop what this engine cached of one checkpoint, its delta chain
+        and its UCP atoms (``<root>.ucp``): the end of a restore or an
+        export, so that no decoded shard outlives the read that needed it."""
+        self.invalidate_chain(source)
+        self.invalidate(str(source.root) + ".ucp")
+
+
+_default_engines: dict[str, CheckpointEngine] = {}  #: guarded by _default_lock
+_default_lock = threading.Lock()
+
+
+def device_key(device) -> str:
+    """The key of one engine per device: "cpu", or "cuda:N" with N filled in."""
+    if device is None:
+        return "cpu"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def default_engine(device=None) -> CheckpointEngine:
+    """The process-wide shared engine of ``device`` (lazily created; None
+    and ``"cpu"`` are the host engine).  One per device, so decoded card
+    tensors and host arrays never share a cache."""
+    key = device_key(device)
+    with _default_lock:
+        eng = _default_engines.get(key)
+        if eng is None:
+            eng = _default_engines[key] = CheckpointEngine(None if key == "cpu" else key)
+        return eng
+
+
+def default_engines() -> list[CheckpointEngine]:
+    """Every default engine created so far (a re-save invalidates them all)."""
+    with _default_lock:
+        return list(_default_engines.values())

@@ -313,6 +313,16 @@ class ShardLayout:
             seen.setdefault(f, r)
         return [seen[f] for f in sorted(seen)]
 
+    def covered_fraction(self, rank: int) -> float:
+        """Fraction of the local shard that is real data (1 - padding)."""
+        local = math.prod(self.local_shape)
+        if local == 0:
+            return 1.0
+        covered = sum(
+            math.prod(b - a for a, b in e.shard_slice) for e in self.entries[rank]
+        )
+        return covered / local
+
 
 def compute_layout(
     global_shape: Sequence[int],
@@ -408,13 +418,18 @@ def compute_layout(
 # ---------------------------------------------------------------------------
 
 
-def slice_shard(global_arr, layout: ShardLayout, rank: int):
+def slice_shard(global_arr, layout: ShardLayout, rank: int, *, alloc=None):
     """Materialize rank's local shard (with zero padding) from a global array.
 
     ``global_arr`` is a numpy array or a torch tensor; a tensor's shard is
-    allocated on its device, through the same ``entries[rank]`` index maps."""
+    allocated on its device, through the same ``entries[rank]`` index maps.
+    ``alloc``: optional ``(shape, dtype, zero=...) -> ndarray`` allocator of
+    a numpy shard (the engine's buffer arena); zeroing is skipped when the
+    rank's entries cover the whole local shard (no padding to blank)."""
     if isinstance(global_arr, torch.Tensor):
         local = torch.zeros(layout.local_shape, dtype=global_arr.dtype, device=global_arr.device)
+    elif alloc is not None:
+        local = alloc(layout.local_shape, global_arr.dtype, zero=layout.covered_fraction(rank) < 1.0)
     else:
         local = np.zeros(layout.local_shape, dtype=global_arr.dtype)
     for e in layout.entries[rank]:

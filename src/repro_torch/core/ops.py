@@ -218,20 +218,24 @@ def clip_region_to_logical(
     return tuple(reads), tuple(dests), full
 
 
-def read_runtime_region(atom, spec: ParamSpec, region: tuple[slice, ...], dtype):
+def read_runtime_region(atom, spec: ParamSpec, region: tuple[slice, ...], dtype, *, alloc=None):
     """Read a runtime-coordinate region from a logical atom (numpy, or a
     tensor whose device the region stays on), zero-filling alignment
     padding and broadcasting the replica dim of ``params_to_average``
-    parameters."""
+    parameters.
+
+    ``alloc``: optional ``(shape, dtype, zero=...) -> ndarray`` allocator
+    of a host region (the engine's buffer arena); ``zero=False`` is asked
+    for when the atom covers the whole region."""
     rt = spec.runtime_shape
     region = tuple(slice(*r.indices(s)) for r, s in zip(region, rt))
     shape = tuple(r.stop - r.start for r in region)
     body = region[1:] if spec.average else region
     clipped = clip_region_to_logical(body, spec.logical_shape)
     if clipped is None:  # region entirely inside padding
-        return staging_like([atom], shape, dtype, zero=True)
+        return staging_like([atom], shape, dtype, zero=True, alloc=alloc)
     reads, dests, full = clipped
-    out = staging_like([atom], shape, dtype, zero=not full)
+    out = staging_like([atom], shape, dtype, zero=not full, alloc=alloc)
     piece = to_staging(out, atom[reads])
     if spec.average:
         out[(slice(None), *dests)] = piece[None]

@@ -29,17 +29,20 @@ def validate_name(key: str) -> None:
 def flatten_with_paths(tree: Any, prefix: str = "") -> dict[str, Any]:
     """Flatten a nested dict into ``{dotted.path: leaf}`` (sorted keys)."""
     out: dict[str, Any] = {}
-
-    def rec(node: Any, path: str) -> None:
-        if isinstance(node, Mapping):
-            for k in sorted(node):
-                validate_name(str(k))
-                rec(node[k], f"{path}{_SEP}{k}" if path else str(k))
-        else:
-            out[path] = node
-
-    rec(tree, prefix)
+    _flatten_into(out, tree, prefix)
     return out
+
+
+def _flatten_into(out: dict[str, Any], node: Any, path: str) -> None:
+    # A module-level function, not a closure: a recursive closure is a
+    # reference cycle that would keep ``out`` (and every card tensor in it)
+    # alive until the garbage collector runs.
+    if isinstance(node, Mapping):
+        for k in sorted(node):
+            validate_name(str(k))
+            _flatten_into(out, node[k], f"{path}{_SEP}{k}" if path else str(k))
+    else:
+        out[path] = node
 
 
 def unflatten_from_paths(flat: Mapping[str, Any]) -> dict:

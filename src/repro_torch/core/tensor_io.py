@@ -28,12 +28,14 @@ __all__ = [
     "EXTENDED_DTYPES",
     "IntegrityError",
     "content_digest",
+    "digest_matches",
     "dtype_name",
     "resolve_dtype",
     "torch_dtype",
     "staging_like",
     "to_staging",
     "save_tensor",
+    "fsync_path",
     "load_tensor",
     "open_memmap",
 ]
@@ -86,6 +88,17 @@ def content_digest(arr, algo: str = "sha256") -> str:
     raise ValueError(f"unknown digest algorithm {algo!r}")
 
 
+def digest_matches(arr, recorded: str) -> bool:
+    """Whether an array's content matches a recorded digest, by the
+    algorithm the digest names (old manifests carry crc32).  A malformed or
+    unrecognized recorded digest matches nothing: it is a mismatch, never
+    an exception (validation turns corruption into findings)."""
+    try:
+        return content_digest(arr, recorded.split(":", 1)[0]) == recorded
+    except ValueError:
+        return False
+
+
 def resolve_dtype(name: str) -> np.dtype:
     """numpy dtype of a checkpoint dtype name.
 
@@ -117,15 +130,21 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
 
 
-def staging_like(pieces, shape, dtype, *, zero: bool):
+def staging_like(pieces, shape, dtype, *, zero: bool, alloc=None):
     """A staging buffer for ``pieces``: a torch tensor on their device when
     any of them is a tensor (coded moments decoded on the card), else a
-    numpy array — or a CPU tensor for a dtype numpy cannot hold."""
+    numpy array — or a CPU tensor for a dtype numpy cannot hold.
+
+    ``alloc``: optional ``(shape, dtype, zero=...) -> ndarray`` allocator
+    of the numpy buffers (the engine's :class:`~repro_torch.core.engine.BufferArena`);
+    tensors come from PyTorch's own caching allocator."""
     dev = next((p.device for p in pieces if isinstance(p, torch.Tensor)), None)
     shape = tuple(int(s) for s in shape)
     name = dtype if isinstance(dtype, str) else dtype_name(dtype)
     if dev is None and name not in EXTENDED_DTYPES:
         dt = np.dtype(name)
+        if alloc is not None:
+            return alloc(shape, dt, zero=zero)
         return np.zeros(shape, dt) if zero else np.empty(shape, dt)
     tdt = torch_dtype(name)
     dev = dev if dev is not None else torch.device("cpu")
@@ -149,7 +168,7 @@ def save_tensor(path: str | os.PathLike, arr, *, fsync: bool = True) -> None:
     ``arr`` is a numpy array or a torch tensor; a tensor of an extended
     dtype is written as an anonymous void of its width, as the reference
     writes its ``ml_dtypes`` arrays.  ``fsync=False`` defers durability to
-    the caller.
+    the caller (:func:`fsync_path` before the checkpoint's COMMIT).
     """
     if isinstance(arr, torch.Tensor):
         raw = _raw_bytes_view(arr)
@@ -164,6 +183,16 @@ def save_tensor(path: str | os.PathLike, arr, *, fsync: bool = True) -> None:
         if fsync:
             os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def fsync_path(path: str | os.PathLike) -> None:
+    """Flush one already-written file to stable storage (the parallel
+    saver's per-file fsync, run in the worker that wrote it)."""
+    fd = os.open(str(path), os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def load_tensor(path: str | os.PathLike, dtype: str | None = None, *, mmap: bool = True):

@@ -18,6 +18,7 @@ returns the variant it took.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -35,6 +36,7 @@ VECTOR_MAX_N = 1024  # the widest row the vector kernels hold in registers
 
 _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
+_BUILD_LOCK = threading.Lock()
 
 
 def build() -> tuple[ctypes.CDLL, dict]:
@@ -43,21 +45,24 @@ def build() -> tuple[ctypes.CDLL, dict]:
     global _LIB, _REPORT
     if _LIB is not None:
         return _LIB, _REPORT
-    lib, report = compile_and_load(SOURCE, "block_quant")
-    for fn in (lib.repro_block_quantize, lib.repro_block_quantize_vec):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    for fn in (lib.repro_block_dequantize, lib.repro_block_dequantize_vec):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    _LIB, _REPORT = lib, report
-    return lib, report
+    with _BUILD_LOCK:  # worker threads may launch the first kernel together
+        if _LIB is not None:
+            return _LIB, _REPORT
+        lib, report = compile_and_load(SOURCE, "block_quant")
+        for fn in (lib.repro_block_quantize, lib.repro_block_quantize_vec):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        for fn in (lib.repro_block_dequantize, lib.repro_block_dequantize_vec):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        _LIB, _REPORT = lib, report
+        return lib, report
 
 
 def variant(n: int, *pointers: int) -> str:

@@ -20,6 +20,7 @@ bases are not 16-byte aligned is refused
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -42,6 +43,7 @@ _REFUSALS = {
 # The loaded library and its build report, or None until the first launch.
 _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
+_BUILD_LOCK = threading.Lock()
 
 
 def build() -> tuple[ctypes.CDLL, dict]:
@@ -51,17 +53,20 @@ def build() -> tuple[ctypes.CDLL, dict]:
     global _LIB, _REPORT
     if _LIB is not None:
         return _LIB, _REPORT
-    lib, report = compile_and_load(SOURCE, "flash_attention")
-    fn = lib.repro_flash_attention_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    _LIB, _REPORT = lib, report
-    return lib, report
+    with _BUILD_LOCK:  # worker threads may launch the first kernel together
+        if _LIB is not None:
+            return _LIB, _REPORT
+        lib, report = compile_and_load(SOURCE, "flash_attention")
+        fn = lib.repro_flash_attention_fwd
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _LIB, _REPORT = lib, report
+        return lib, report
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -5,8 +5,12 @@ under its package's ``csrc/``.  :func:`compile_and_load` compiles it with
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` of the checkout, named by
 a hash of the source and flags (a changed source rebuilds), and loads it
 with ``ctypes``.  Nothing is compiled when a module is imported: each kernel
-module calls this at its first launch.  Builds of different sources may run
-in parallel threads (each is one ``nvcc`` process).
+module calls this at its first launch, under its own lock (the parallel
+checkpoint engine launches kernels from several worker threads at once).
+Builds of different sources may run in parallel threads (each is one
+``nvcc`` process); every build writes a temporary file of its own name and
+renames it into place, so no build ever loads another's half-written
+library.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+import uuid
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "compile_and_load", "launch_error"]
@@ -54,7 +59,7 @@ def compile_and_load(source: Path, stem: str) -> tuple[ctypes.CDLL, dict]:
     report = {"library": str(out), "compiled": False, "seconds": 0.0, "ptxas": ""}
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.{uuid.uuid4().hex}.tmp.so")
         t0 = time.perf_counter()
         res = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],

@@ -18,6 +18,7 @@ kernel works out the same); a bfloat16 input whose rows are not even
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -40,6 +41,7 @@ _REFUSALS = {
 
 _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
+_BUILD_LOCK = threading.Lock()
 
 
 def build() -> tuple[ctypes.CDLL, dict]:
@@ -48,14 +50,17 @@ def build() -> tuple[ctypes.CDLL, dict]:
     global _LIB, _REPORT
     if _LIB is not None:
         return _LIB, _REPORT
-    lib, report = compile_and_load(SOURCE, "ssd_scan")
-    fn = lib.repro_ssd_scan_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    _LIB, _REPORT = lib, report
-    return lib, report
+    with _BUILD_LOCK:  # worker threads may launch the first kernel together
+        if _LIB is not None:
+            return _LIB, _REPORT
+        lib, report = compile_and_load(SOURCE, "ssd_scan")
+        fn = lib.repro_ssd_scan_fwd
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _LIB, _REPORT = lib, report
+        return lib, report
 
 
 def _check(x, dt, a, b, c, chunk: int) -> None:

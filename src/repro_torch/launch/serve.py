@@ -35,7 +35,7 @@ from repro_torch.ckpt.manager import cached_ucp
 from repro_torch.ckpt.restore import params_from_source, params_from_ucp
 from repro_torch.configs import ParallelismConfig, get_config, reduced
 from repro_torch.core.dist_ckpt import DistCheckpoint
-from repro_torch.core.engine import CheckpointEngine
+from repro_torch.core.engine import default_engine
 from repro_torch.core.layout import MeshSpec
 from repro_torch.core.plan import (
     ResumeMode, ResumePlan, TargetSpec, plan_resume, stream_transforms,
@@ -104,12 +104,15 @@ def restore_params(
         rp = dataclasses.replace(rp, mode=force, transforms=transforms,
                                  reason=f"forced {force.value}; planner said {rp.mode.value}")
     device = torch.device(device)
-    if rp.mode is ResumeMode.VIA_UCP:
-        engine = CheckpointEngine(device)
-        ucp, _ = cached_ucp(ckpt, engine)
-        return params_from_ucp(ucp, plan, device, engine=engine), rp
-    transforms = rp.transforms if rp.mode is ResumeMode.RESHARD_STREAM else None
-    return params_from_source(ckpt, plan, device, transforms=transforms), rp
+    engine = default_engine(device)
+    try:
+        if rp.mode is ResumeMode.VIA_UCP:
+            ucp, _ = cached_ucp(ckpt, engine)
+            return params_from_ucp(ucp, plan, device, engine=engine), rp
+        transforms = rp.transforms if rp.mode is ResumeMode.RESHARD_STREAM else None
+        return params_from_source(ckpt, plan, device, transforms=transforms, engine=engine), rp
+    finally:
+        engine.release(ckpt)
 
 
 def _sync(device: torch.device) -> None:

@@ -11,11 +11,17 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \\
         --mesh data=1,model=1 --steps 30 --batch 8 --seq 64 --ckpt-dir /tmp/run1
 
+    # incremental saves: each save writes only the shards that changed since
+    # the previous commit, every 4th save a full rebase
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
+        --mesh data=2,model=2 --steps 20 --ckpt-dir /tmp/run2 --save-mode delta \
+        --full-interval 4
+
 The flags are the reference's.  The model trains on one device
 (``--device``, default ``cuda``; CUDA that is not there raises), and
 ``--mesh`` sets the checkpoint geometry.  Flags whose machinery is not
 ported raise: ``--host-devices`` above 0 (one device trains here),
-``--pipe-axis``, ``--hot-interval``, ``--save-mode delta`` and ``--trace``.
+``--pipe-axis``, ``--hot-interval`` and ``--trace``.
 ``--log-json`` prints one JSON object per step (and one ``restored`` event).
 """
 
@@ -42,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the in-memory hot tier (not ported)")
     p.add_argument("--hot-replication", type=int, default=1)
     p.add_argument("--save-mode", default="dedup", choices=("dedup", "all", "delta"))
-    p.add_argument("--full-interval", type=int, default=8)
+    p.add_argument("--full-interval", type=int, default=8,
+                   help="with --save-mode delta: every Nth save is a full rebase")
     p.add_argument("--keep-last", type=int, default=10)
     p.add_argument("--codec", default=None, metavar="TAG",
                    help="code optimizer-moment shards with this block-quant tag "
@@ -76,7 +83,6 @@ def _refuse_unported(args) -> None:
         (args.host_devices > 0, "--host-devices", "one device trains here (item 11: multi-rank)"),
         (args.pipe_axis is not None, "--pipe-axis", "item 11: multi-rank runtime"),
         (args.hot_interval is not None, "--hot-interval", "item 7: hot tier"),
-        (args.save_mode == "delta", "--save-mode delta", "item 3: delta saves"),
         (args.trace is not None, "--trace", "item 9: observability"),
     ]
     for hit, flag, item in refused:

@@ -11,9 +11,11 @@ CPU):
   ``tests/test_reconfig_e2e.py``); with ``int8:b256`` they leave it, and
   the restored state and each continued step are held in fp32 against the
   JAX package continuing from the same coded checkpoint (see that test);
-* policy knobs and CLI flags whose machinery is not ported raise;
+* policy knobs and CLI flags whose machinery is not ported raise; delta
+  saves through a 4-wide engine (``save_mode="delta"``, ``io_workers=4``)
+  work, from the policy and from the CLI;
 * ``python -m repro_torch.launch.train --device cpu`` trains, then resumes
-  under another mesh.
+  under another mesh (with full and with delta saves).
 """
 
 import json
@@ -254,7 +256,7 @@ def test_int8_coded_resume_is_finite_and_mode_independent(tmp_path, mesh, mode):
 
 
 @pytest.mark.parametrize("kw", [
-    {"hot_interval": 2}, {"save_mode": "delta"}, {"registry": object()}, {"io_workers": 4},
+    {"hot_interval": 2}, {"registry": object()},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_policy_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -274,7 +276,7 @@ def test_policy_validation_matches_reference(kw, err):
 
 @pytest.mark.parametrize("flags", [
     ["--host-devices", "4"], ["--pipe-axis", "pipe"], ["--hot-interval", "2"],
-    ["--save-mode", "delta"], ["--trace", "t.json"],
+    ["--trace", "t.json"],
 ], ids=lambda f: f[0])
 def test_unported_cli_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -333,3 +335,63 @@ def test_train_cli_requires_the_card_it_asks_for():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         train_cli.main(["--arch", "smollm-360m", "--reduced", "--steps", "1"])
+
+
+def test_delta_policy_saves_deltas_through_a_wide_engine(tmp_path):
+    """``CheckpointPolicy(save_mode="delta", io_workers=4)``: the manager
+    writes through a private 4-wide engine; the first save is full, the
+    next ones are deltas against the previous commit (AdamW changes every
+    shard, so a re-save of the same state is what inherits), and the tip
+    restores DIRECT and RESHARD_STREAM bit-equal to the state saved."""
+    policy = CheckpointPolicy(save_mode="delta", io_workers=4, save_interval=1,
+                              async_save=False, full_interval=100, keep_last=10,
+                              codec="int8:b256")
+    tr = _trainer({"data": 2, "model": 2}, tmp_path / "ck", policy)
+    assert tr.manager.engine.workers == 4 and tr.manager.engine_for("cpu") is tr.manager.engine
+    state, _ = tr.run(tr.init_state(), 0, 2)
+    tr.manager.save(state, 3)
+    m = [DistCheckpoint.open(tr.manager.step_dir(s)).manifest for s in (1, 2, 3)]
+    assert [x.save_mode for x in m] == ["dedup", "delta", "delta"]
+    assert (m[0].base_step, m[1].base_step, m[2].base_step) == (None, 1, 2)
+    assert m[1].shard_sources == {}  # every shard changed in a train step
+    assert set(m[2].shard_sources) == set(m[2].shard_digests)  # nothing changed
+    assert set(m[2].shard_sources.values()) == {2}
+    assert m[2].shard_codecs == m[1].shard_codecs != {}
+    assert not list(tr.manager.step_dir(3).rglob("*.npy"))
+    assert DistCheckpoint.open(tr.manager.step_dir(3)).validate() == []
+    direct, info = tr.manager.restore("cpu")
+    assert (info.step, info.mode) == (3, ResumeMode.DIRECT)
+    tgt = _trainer({"data": 1, "model": 1}, tmp_path / "ck",
+                   CheckpointPolicy(async_save=False, io_workers=4))
+    stream, info2 = tgt.manager.restore("cpu")
+    assert (info2.step, info2.mode) == (3, ResumeMode.RESHARD_STREAM)
+    want = flatten_with_paths(state.params)
+    for restored in (direct, stream):
+        for name, t in flatten_with_paths(restored.params).items():
+            logical = t[tuple(slice(0, s) for s in want[name].shape)]
+            assert torch.equal(logical, want[name]), name
+    for kind in ("exp_avg", "exp_avg_sq"):  # the served view, the same both ways
+        a, b = flatten_with_paths(getattr(direct, kind)), flatten_with_paths(getattr(stream, kind))
+        for name, t in a.items():
+            assert torch.equal(b[name][tuple(slice(0, s) for s in t.shape)],
+                               t[tuple(slice(0, s) for s in b[name].shape)]), (kind, name)
+    tr.manager.close()
+    tgt.manager.close()
+
+
+def test_train_cli_delta_saves_then_resumes_under_another_mesh(tmp_path):
+    ck = str(tmp_path / "ck")
+    first = _cli("--mesh", "data=2,model=2", "--steps", "4", "--ckpt-dir", ck,
+                 "--save-interval", "1", "--save-mode", "delta", "--full-interval", "2")
+    assert [r["step"] for r in first] == [1, 2, 3, 4]
+    modes = {s: DistCheckpoint.open(tmp_path / "ck" / f"step_{s:08d}").manifest
+             for s in (1, 2, 3, 4)}
+    # every 2nd save is a rebase: full, delta, full, delta
+    assert [modes[s].save_mode for s in (1, 2, 3, 4)] == ["dedup", "delta", "dedup", "delta"]
+    assert (modes[2].base_step, modes[4].base_step) == (1, 3)
+    second = _cli("--mesh", "data=1,model=1", "--steps", "6", "--ckpt-dir", ck,
+                  "--save-interval", "100")
+    assert second[0]["event"] == "restored"
+    assert (second[0]["mode"], second[0]["step"]) == ("reshard_stream", 4)
+    assert [r["step"] for r in second[1:]] == [5, 6]
+    assert all(np.isfinite(r["loss"]) for r in second[1:])

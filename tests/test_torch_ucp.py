@@ -193,8 +193,9 @@ def test_params_to_average_consolidation(tmp_path):
 
 
 def test_zero1_moments_shard_differently_than_weights(tmp_path):
-    """ZeRO-1: replicated weights + data-sharded moments round-trip; the
-    serial engine is the only one (workers > 1 raises, citing the ROADMAP)."""
+    """ZeRO-1: replicated weights + data-sharded moments round-trip; a
+    parallel conversion (workers=2) writes the serial one's atoms byte for
+    byte."""
     mesh = T.MeshSpec.from_dict({"data": 2, "model": 2})
     spec = T.ParamSpec(
         name="w", logical_shape=(8, 4),
@@ -210,9 +211,11 @@ def test_zero1_moments_shard_differently_than_weights(tmp_path):
     ck = _save(tmp_path / "d", mesh, {"w": spec}, state)
     assert len(ck.writing_ranks("w", T.StateKind.FP32)) == 2
     assert len(ck.writing_ranks("w", T.StateKind.EXP_AVG)) == 4
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        T.convert_to_ucp(ck, str(tmp_path / "u2"), workers=2)
-    ucp, stats = T.convert_to_ucp(ck, str(tmp_path / "u"))
+    par, _ = T.convert_to_ucp(ck, str(tmp_path / "u2"), workers=2)
+    ucp, stats = T.convert_to_ucp(ck, str(tmp_path / "u"), workers=1)
+    assert par.manifest.atoms == ucp.manifest.atoms
+    for k in T.STATE_KINDS:
+        assert par.atom_path("w", k).read_bytes() == ucp.atom_path("w", k).read_bytes()
     assert (stats.params, stats.atoms_written, stats.bytes_written) == (1, 3, 3 * 8 * 4 * 4)
     for k in T.STATE_KINDS:
         np.testing.assert_array_equal(ucp.read_atom("w", k), state["w"][k])
