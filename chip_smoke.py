@@ -23,7 +23,9 @@ nothing falls back to the CPU or to a plain version):
    gemma3-12b's head layout (16:8 heads of 256) in bf16 and fp32, causal at
    B=4, S=512 and with the local layers' window 1024 at S=2048, and there
    the bf16 kernel's device time beside the library's, the fp32 kernel's
-   device time, the plain version's event time and the bound;
+   device time, the plain version's event time and the bound; then the
+   same for mixtral-8x22b's head layout (48:8 heads of 128; its window 4096
+   at S=8192);
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -118,19 +120,57 @@ nothing falls back to the CPU or to a plain version):
    GC under a pin: an async ``keep_last=1`` delta manager whose delta at 30
    stalls after resolving base 10 while a rebase at 40 commits — base 10
    survives that GC, 30 commits and restores, the next GC leaves [40];
-9. the I/O line (JSON: the walls above), the kernels line (JSON: each row
+9. mixtral-8x22b (the MoE family) at full width: d 6144, 48:8 heads of
+   128, 8 experts top-2 of d_ff 16384, vocab 32768, window 4096.
+   serve-moe, depth cut from 56 to 2 layers (5,410,781,184 params): init
+   on the card; a save under data=2,model=2 (expert parallelism) of the
+   fp32 weights and bf16 zero moments coded ``int8:b256`` on the card
+   (one quantize launch a coded shard; 32.5 GB), beside the disk floor
+   measured on its largest files; weights-only restores under data=1,model=1
+   (RESHARD_STREAM) and data=2,model=2 (DIRECT), each bit-equal to the
+   save, then a read floor of the same fp32 files; from each, a bf16
+   prefill of 4 x 512 (2 flash launches at D = 128, counted) and 16
+   greedy decode steps, equal tokens, the share of routed slots dropped
+   by capacity (none in decode); the profiled prefill and decode; one MoE
+   layer's routing, dispatch, expert matmuls and combine timed apart; a 1
+   x 8192 prefill and 16 decode steps past it (the 4096-slot ring holds
+   the last window, then wraps).  In fp32 on the card: the flash path
+   against the plain attention, compared by the experts each token is
+   routed to (flips and their top-2 margins reported; the logits of the
+   tokens no flip reaches within 1e-3), and the ring against a full cache
+   over 8192 + 8 tokens (logits within 1e-3, equal tokens).
+   train-moe, depth cut to 1 layer (2,906,720,256 params), bf16 compute
+   and bf16 Adam moments, remat full, 8 x 512: 6 baseline steps under
+   data=1,model=4 (EP; step ms, tokens/s, peak card memory, dropped
+   share, one profiled step), whose bf16 first-moment shard of
+   ``we_gate`` (1 x 2 x 6144 x 16384, the save's largest) is coded
+   ``int8:b256`` by the kernels and by their plain version, byte-equal;
+   3 steps saved with ``int8:b256`` under EP
+   (quantize launches = coded shards, beside the disk floor); resumed
+   under data=2,model=2 with ``expert_parallel=False`` (expert-TP):
+   RESHARD_STREAM, step 3, one dequantize launch a coded shard, every
+   shard digest of the save equal to the restored state re-cut under the
+   Source plan (params bit-equal, moments the codec's served view), then
+   3 more steps with finite losses beside the baseline's;
+10. the I/O line (JSON: the walls above), the kernels line (JSON: each row
    names its variants; ``ms`` is the profiler's device time per launch,
    with ``event_ms`` beside it; rows 2-3 add the general kernel's device
    time ``general_ms`` and the train phase's ``launches_by_variant`` and
    ``launches_by_phase``; the flash row adds the head-dim-256 times, bound
-   and gemma3 launches (``d256_*``), the dequantize row the export's
-   launches ``convert_launches``), the card line, then the result line
-   (JSON, last).
+   and gemma3 launches (``d256_*``) and mixtral's D = 128 shape
+   (``d128_*``, ``mixtral_*``), every row its launches in the mixtral
+   phases (``mixtral_launches``) and the block-quant rows the mixtral
+   shard check (``mixtral_shard_*``), the dequantize row the export's
+   launches ``convert_launches``; a prefill's device and kernel times are
+   null where every profiler trace of it lost a record), the mixtral line (JSON), the card line,
+   then the result line (JSON, last).
 """
 
 from __future__ import annotations
 
 import filecmp
+import functools
+import gc
 import hashlib
 import json
 import math
@@ -161,6 +201,9 @@ QDTYPES = ("int8", "float8_e4m3fn", "float8_e5m2")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+# Traces a device time may take: the profiler loses records now and then
+# (at D = 128 an empty 20-call trace was followed by one with 3 launches).
+TRACES = 3
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
 # The tensor-core (bf16) kernel of each source, as the profiler names it.
 TC_SYMBOL = {"flash_attention": "fwd_kernel_tc", "ssd_scan": "ssd_kernel_tc"}
@@ -196,6 +239,20 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def reset_launches(counters: dict) -> None:
+    """Set every kernel wrapper's launch counts (total, and by dtype or by
+    variant) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for by in ("launches_by_dtype", "launches_by_variant"):
+            if hasattr(fn, by):
+                setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))
+
+
+def launch_counts(counters: dict) -> dict[str, int]:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
 def cuda_ms(torch, fn, iters: int = 50) -> float:
     """Mean device milliseconds of ``fn`` over ``iters`` launches (CUDA events,
     after a warm-up)."""
@@ -218,25 +275,25 @@ def device_ms(torch, fn, calls: int = 20, launches=None):
     as (name, ms, count).
 
     A trace that recorded no device work at all was lost (every ``fn`` here
-    launches work) and is taken once more; two empty traces fail.
+    launches work) and is taken again, up to ``TRACES`` traces.
     ``launches``, where given, reads the launch counter of the wrapper that
     ``fn`` calls.  When the trace shows fewer than ``calls`` launches of its
     top kernel, the counter tells a lost profiler record from a skipped
     launch: a counter short of ``calls`` fails here, and a full one takes
-    the trace once more (the callers fail on a second short trace)."""
+    the trace again, up to ``TRACES`` traces (the callers fail on the last short one)."""
     for _ in range(3):
         fn()
-    for attempt in range(2):
+    for attempt in range(TRACES):
         before = launches() if launches is not None else 0
         _, busy, top = device_profile(torch, lambda: [fn() for _ in range(calls)], top=4)
-        if (top and (launches is None or top[0][2] == calls)) or attempt == 1:
+        if (top and (launches is None or top[0][2] == calls)) or attempt == TRACES - 1:
             break
         if launches is not None:
             counted = launches() - before
             check(counted == calls, f"the wrapper launched {counted} times in {calls} calls")
         print(f"profiler recorded {top[0][2] if top else 0} launches of "
               f"{top[0][0][:48] if top else 'nothing'} in {calls} calls; profiling again")
-    check(bool(top), f"the profiler recorded no device work in two traces of {calls} calls")
+    check(bool(top), f"the profiler recorded no device work in {TRACES} traces of {calls} calls")
     return busy / calls, top
 
 
@@ -262,43 +319,87 @@ def device_profile(torch, fn, top: int = 6):
     device time as (name, ms, count); all of them for ``top=None``).  Only device-side events are summed: the
     host ops that launched them carry the same time as their own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # One warm-up step, whose records are dropped: a trace that starts cold
+    # loses the first device records of ``fn`` now and then (a prefill's
+    # first flash launch, its first GEMM).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     rows = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        # the schedule's step annotation spans the step on the device too
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("ProfilerStep")):
             rows.append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     return wall_ms, sum(r[1] for r in rows), rows[:top] if top is not None else rows
 
 
-def profile_serving(torch, D, lm, params, prompts):
-    """Where the serving time goes on the device: one prefill and 16 decode
-    steps, each under the profiler (which slows the host, so the idle
-    shares are upper bounds).  Returns {phase: (wall ms, busy ms, top rows)}."""
+def profile_counted(torch, fn, counters: dict, kernel: str, want: int):
+    """``device_profile(fn)`` whose trace should show ``want`` launches of
+    ``kernel``'s tensor-core symbol, and whose wrapper must count ``want``
+    (a wrapper short of it fails: a launch was skipped).  The profiler loses
+    a record now and then — late in a long run, one record of the mixtral
+    prefill's trace in most traces, while a fresh process records them all —
+    so a short trace is taken again, up to ``TRACES`` traces.  If the last
+    one is still short, the kernel's time and the device busy time were not
+    measured: both are None.  Returns (wall ms, busy ms, all rows, the
+    kernel's (key, ms, count))."""
+    for _ in range(TRACES):
+        reset_launches(counters)
+        wall, busy, rows = device_profile(torch, fn, top=None)
+        counted = counters[kernel].launches
+        check(counted == want, f"{kernel}: the wrapper launched {counted} times, want {want}")
+        mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL[kernel] in key]
+        if len(mine) == 1 and mine[0][2] == want:
+            return wall, busy, rows, mine[0]
+        print(f"profiler recorded {[(k[:40], n) for k, _, n in mine]} of {TC_SYMBOL[kernel]}, "
+              f"the wrapper {counted} launches; profiling again")
+    check(len(mine) <= 1 and sum(n for _, _, n in mine) < want,
+          f"profiled {kernel}: {mine}, want {want} launches of one kernel")
+    print(f"profiler: {TC_SYMBOL[kernel]} records short of {want} in each of {TRACES} traces; "
+          f"its device time and the device busy time are not measured")
+    return wall, None, rows, (TC_SYMBOL[kernel], None, want)
+
+
+def fmt_ms(ms, spec: str = ".3f") -> str:
+    """A device time for print: "not measured" where the trace was short."""
+    return "not measured" if ms is None else f"{ms:{spec}} ms"
+
+
+def profile_serving(torch, D, lm, params, prompts, counters: dict, kernel: str, want: int):
+    """Where the serving time goes on the device: one prefill (whose trace
+    must show ``want`` launches of ``kernel``: :func:`profile_counted`) and
+    16 decode steps, each under the profiler (which slows the host, so the
+    idle shares are upper bounds).  Returns {phase: (wall ms, busy ms, top
+    rows)} and the prefill's kernel row (key, ms, count)."""
     b, s = prompts.shape
     with torch.inference_mode():
         cache = D.init_cache(lm, b, s + 17, device=prompts.device)
         cur = prompts[:, -1:].clone()
-        phases = {
-            "prefill": lambda: D.prefill(lm, params, cache, prompts),
-            "decode x16": lambda: [D.decode_step(lm, params, cache, cur) for _ in range(16)],
-        }
         out = {}
-        for name, fn in phases.items():
-            wall, busy, rows = device_profile(torch, fn, top=None)
-            print(f"profile {name}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
-                  f"idle share {max(0.0, 1 - busy / wall):.3f}")
+        wall, busy, rows, mine = profile_counted(
+            torch, lambda: D.prefill(lm, params, cache, prompts), counters, kernel, want)
+        out["prefill"] = (wall, busy, rows)
+        out["decode x16"] = device_profile(
+            torch, lambda: [D.decode_step(lm, params, cache, cur) for _ in range(16)], top=None)
+        for name, (wall, busy, rows) in out.items():
+            idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
+            print(f"profile {name}: wall {wall:.2f} ms (profiler on), device busy "
+                  f"{fmt_ms(busy, '.2f')}, idle share {idle}")
             for key, ms, count in rows[:6]:
                 print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-            out[name] = (wall, busy, rows)
-    return out
+    return out, mine
 
 
 def same_files(a_root: Path, b_root: Path, pattern: str) -> int:
@@ -445,25 +546,31 @@ def kernel_phase(torch, F, kernel, ops, ref):
           f"{event_ms['plain']:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP) fp32-core floor {fp32_floor_ms:.4f} ms; "
           f"{bound_ms / ms['kernel']:.3f} of the bound")
-    d256 = head_dim_256(torch, F, kernel, ops, ref)
+    d256 = head_layout(torch, F, kernel, ops, ref, hq=16, hkv=8, d=256, long=(1, 2048, 1024),
+                       label="gemma3-12b")
+    d128 = head_layout(torch, F, kernel, ops, ref, hq=48, hkv=8, d=128, long=(1, 8192, 4096),
+                       label="mixtral-8x22b")
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
-                d256=d256)
+                d256=d256, d128=d128)
 
 
-def head_dim_256(torch, F, kernel, ops, ref):
-    """gemma3-12b's attention shapes (16:8 heads of 256): both kernels
-    against the plain version, causal at S=512 and the local layers' window
-    1024 at S=2048; then the bf16 kernel's device time beside the library's
-    and the bound."""
+def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: tuple,
+                label: str):
+    """One model's attention shapes (``hq``:``hkv`` heads of ``d``): both
+    kernels against the plain version, causal at B=4, S=512 and at ``long``
+    = (B, S, window) with the model's sliding window; then the bf16
+    kernel's device time at B=4, S=512 beside the library's and the
+    bound.  gemma3-12b: 16:8 heads of 256, window 1024 at S=2048;
+    mixtral-8x22b: 48:8 heads of 128, window 4096 at S=8192."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(256)
-    scale = 256 ** -0.5
+    g = torch.Generator(device=dev).manual_seed(d)
+    scale = d ** -0.5
     cases = [(dtype, b, s, window) for dtype in (torch.bfloat16, torch.float32)
-             for b, s, window in ((4, 512, 0), (1, 2048, 1024))]
+             for b, s, window in ((4, 512, 0), long)]
     worst, main = 0.0, None
     for dtype, b, s, window in cases:
-        label = f"D=256 {str(dtype).split('.')[1]} B={b} S={s} 16:8 causal window={window}"
-        q, k, v = (torch.randn(b, s, h, 256, generator=g, device=dev).to(dtype) for h in (16, 8, 8))
+        tag = f"D={d} {str(dtype).split('.')[1]} B={b} S={s} {hq}:{hkv} causal window={window}"
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv))
         out = kernel.flash_attention_fwd(q, k, v, causal=True, window=window, scale=scale)
         plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=True, window=window, scale=scale).transpose(1, 2)
@@ -472,9 +579,10 @@ def head_dim_256(torch, F, kernel, ops, ref):
         diff = (out.float() - plain.float()).abs()
         err = diff.max().item()
         ok = bool(torch.isfinite(out.float()).all()) and bool((diff <= atol + rtol * plain.float().abs()).all())
-        print(f"kernel {label}: max_abs_err {err:.3e} (tolerance atol {atol} rtol {rtol}) "
+        print(f"kernel {tag}: max_abs_err {err:.3e} (tolerance atol {atol} rtol {rtol}) "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"{label}: kernel disagrees with its plain version")
+        check(ok, f"{tag}: kernel disagrees with its plain version")
+        del plain, diff
         if dtype == torch.bfloat16:
             worst = max(worst, err)
             if main is None:
@@ -496,17 +604,18 @@ def head_dim_256(torch, F, kernel, ops, ref):
                                   else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
         if name != "library":
-            check(top[0][2] == 20, f"flash D=256 {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
-        print(f"kernel flash_attention D=256 {name} device time (profiler): {per_call:.5f} ms per "
+            check(top[0][2] == 20, f"flash D={d} {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+        print(f"kernel flash_attention D={d} {name} device time (profiler): {per_call:.5f} ms per "
               "call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
     ms = {n: sum(t) / len(t) for n, t in device.items()}
     bound_ms, bound_by, nbytes, flops = attention_bound(
         q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS)
-    print(f"kernel bf16 B=4 S=512 Hq=16 Hkv=8 D=256 causal: device ms {ms['kernel']:.5f} library "
-          f"device ms {ms['library']:.5f} fp32 kernel device ms {ms['fp32']:.5f} plain_ms "
-          f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} "
-          f"MB is {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {flops / 1e9:.3f} GFLOP is "
-          f"{flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of the bound")
+    print(f"kernel bf16 B=4 S=512 Hq={hq} Hkv={hkv} D={d} causal ({label}): device ms "
+          f"{ms['kernel']:.5f} library device ms {ms['library']:.5f} fp32 kernel device ms "
+          f"{ms['fp32']:.5f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB is {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {flops / 1e9:.3f} "
+          f"GFLOP is {flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of "
+          "the bound")
     return dict(ms=ms["kernel"], library_ms=ms["library"], fp32_ms=ms["fp32"], plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
@@ -691,13 +800,8 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
         lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
         return lm, make_plan(cfg, lm.registry, parallel, mesh)
 
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
-
-    def counts():
-        return {name: fn.launches for name, fn in counters.items()}
+    reset = functools.partial(reset_launches, counters)
+    counts = functools.partial(launch_counts, counters)
 
     def by_dtype(dtype):
         """Each kernel's launches must all be of ``dtype``: the variant it picks."""
@@ -810,14 +914,13 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
                                   decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
                                   launches=launches)
             if expect == "direct":
-                _, busy, rows = profile_serving(torch, D, tlm, params_c, prompts)["prefill"]
                 ((name, want),) = ((n, w) for n, w in per_prefill.items() if w)
-                mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL[name] in key]
-                check(len(mine) == 1 and mine[0][2] == want,
-                      f"profiled prefill: {mine} for {TC_SYMBOL[name]}, want {want} launches")
-                ((key, ms, n),) = mine
-                print(f"serve {arch} prefill device time {busy:.3f} ms; {key[:48]} {ms:.3f} ms "
-                      f"over {n} launches ({ms / busy:.3f} of it)")
+                prof, (key, ms, n) = profile_serving(torch, D, tlm, params_c, prompts,
+                                                     counters, name, want)
+                busy = prof["prefill"][1]
+                share = "" if ms is None else f" ({ms / busy:.3f} of it)"
+                print(f"serve {arch} prefill device time {fmt_ms(busy)}; {key[:48]} "
+                      f"{fmt_ms(ms)} over {n} launches{share}")
                 runs[mesh_str].update(prefill_device_ms=busy, prefill_kernel_ms=ms)
             del params_c
         a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
@@ -1022,8 +1125,7 @@ def gemma_phase(torch, counters: dict, layers: int = 6, cpu_len: int = 32):
             return D.prefill(lm, params_c, D.init_cache(lm, 4, 512, device=dev), prompts)[0]
 
     prefill()  # warm-up at the timed shapes
-    flash.launches = 0
-    flash.launches_by_dtype = dict.fromkeys(flash.launches_by_dtype, 0)
+    reset_launches({"flash_attention": flash})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill()
@@ -1034,12 +1136,12 @@ def gemma_phase(torch, counters: dict, layers: int = 6, cpu_len: int = 32):
           f"gemma3 prefill: flash launches {launches} {by_dtype}, want {layers} bf16")
     check(tuple(logits.shape) == (4, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"gemma3 prefill logits {tuple(logits.shape)} or non-finite")
-    wall, busy, rows = device_profile(torch, prefill, top=None)
-    mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL["flash_attention"] in key]
-    check(len(mine) == 1 and mine[0][2] == layers, f"profiled gemma3 prefill: {mine}")
+    wall, busy, rows, row = profile_counted(torch, prefill, {"flash_attention": flash},
+                                            "flash_attention", layers)
+    mine = [row]
     print(f"gemma3 prefill 4x512 bf16: {prefill_ms:.2f} ms of wall, flash launches {launches} "
-          f"{by_dtype}; profiled: device busy {busy:.3f} ms (wall {wall:.2f} ms with the profiler "
-          f"on), {mine[0][0][:40]} {mine[0][1]:.3f} ms over {mine[0][2]} launches")
+          f"{by_dtype}; profiled: device busy {fmt_ms(busy)} (wall {wall:.2f} ms with the "
+          f"profiler on), {mine[0][0][:40]} {fmt_ms(mine[0][1])} over {mine[0][2]} launches")
     for key, ms, count in rows[:6]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     del params_c, logits
@@ -1048,8 +1150,7 @@ def gemma_phase(torch, counters: dict, layers: int = 6, cpu_len: int = 32):
     flm = build_model(cfg, compute_dtype=torch.float32)
     toks = prompts[:1, :cpu_len]
     with torch.inference_mode():
-        flash.launches = 0
-        flash.launches_by_dtype = dict.fromkeys(flash.launches_by_dtype, 0)
+        reset_launches({"flash_attention": flash})
         lg_gpu, _ = D.prefill(flm, params, D.init_cache(flm, 1, cpu_len, device=dev), toks)
         launches, by_dtype = flash.launches, dict(flash.launches_by_dtype)
         cpu_params = _to_cpu(params)
@@ -1250,34 +1351,6 @@ def block_quant_phase(torch, bq_ops, bq_ref):
     return out
 
 
-def served_view_matches(torch, state, src_plan, manifest) -> int:
-    """Re-cut every coded shard from the restored moments under the Source
-    plan and hash it: each must equal the manifest's served digest.
-    Returns the number of shards checked."""
-    from repro_torch.core.dist_ckpt import shard_digest_key
-    from repro_torch.core.layout import slice_shard
-    from repro_torch.core.patterns import StateKind
-    from repro_torch.core.pytree import flatten_with_paths
-    from repro_torch.core.tensor_io import content_digest
-
-    checked = 0
-    for kind, tree in ((StateKind.EXP_AVG, state.exp_avg), (StateKind.EXP_AVG_SQ, state.exp_avg_sq)):
-        for name, t in flatten_with_paths(tree).items():
-            spec = src_plan.param_specs[name]
-            logical = tuple(slice(0, n) for n in spec.logical_shape)
-            full = torch.zeros(spec.runtime_shape, dtype=t.dtype, device=t.device)
-            full[logical] = t[logical]
-            layout = spec.layout_for(kind, src_plan.mesh)
-            for rank in range(len(layout.entries)):
-                key = shard_digest_key(rank, name, kind)
-                if key not in manifest.shard_digests:
-                    continue
-                got = content_digest(slice_shard(full, layout, rank))
-                check(got == manifest.shard_digests[key], f"{key}: not the served view")
-                checked += 1
-    return checked
-
-
 def train_export_ucp(torch, bq_ops, manager, n_coded: int) -> dict:
     """Export the coded step as UCP atoms on the card: every coded moment
     shard decoded once by the (vector) dequantize kernel; the atoms
@@ -1358,6 +1431,7 @@ def train_phase(torch, ops, bq_ops):
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
     from repro_torch.core.dist_ckpt import DistCheckpoint
     from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
     from repro_torch.core.plan import ResumeMode
     from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.launch.mesh import mesh_spec_from_string
@@ -1478,7 +1552,9 @@ def train_phase(torch, ops, bq_ops):
             for name, t in flatten_with_paths(state.params).items():
                 logical = tuple(slice(0, n) for n in saved_params[name].shape)
                 check(torch.equal(t[logical], saved_params[name]), f"{mesh}: {name} differs")
-            n_checked = served_view_matches(torch, state, src_plan, manifest)
+            n_checked = digests_match(torch, {StateKind.EXP_AVG: state.exp_avg,
+                                              StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                      src_plan, manifest, width)
             check(n_checked == n_coded, f"{mesh}: {n_checked} served digests checked")
             want_read = 0 if expect == "via_ucp" else n_coded  # atoms are raw
             engine = tgt.manager.engine_for(dev)
@@ -1564,7 +1640,6 @@ def split_resume(torch, phases, trainer, restore_policy, step_dir, n_coded, save
     states bit-equal; and the restore must leave no decoded shard on the
     card (its peak and retained card memory beside the state's bytes)."""
     import collections
-    import gc
 
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.ckpt.restore import target_regions
@@ -1763,6 +1838,698 @@ def gc_under_pin(torch, phases, state, plan, root):
     return dict(written=r30.shards_written, inherited=r30.shards_inherited, seconds=wall)
 
 
+# ---------------------------------------------------------------------------
+# mixtral-8x22b (the MoE slice)
+# ---------------------------------------------------------------------------
+
+MIXTRAL_PARAMS = {2: 5_410_781_184, 1: 2_906_720_256}  # at full width, by depth
+
+
+def mixtral(layers: int):
+    """mixtral-8x22b at full width with its depth cut to ``layers`` (every
+    layer is alike: sliding window 4096 and 8 experts top-2)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("mixtral-8x22b")
+    return full, dataclasses.replace(full, num_layers=layers)
+
+
+class MoeLog:
+    """Records every MoE routing while it is open: the experts chosen, the
+    top-k margin (k-th minus (k+1)-th probability) and the kept slots."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe = torch, moe
+        self.routes: list[tuple] = []
+        self.keeps: list = []
+
+    def __enter__(self):
+        torch, moe = self.torch, self.moe
+        route, assign = moe.route, moe.assign_slots
+        self._saved = route, assign
+
+        def recording_route(xg, router_w, k):
+            probs, gate_k, idx_k = route(xg, router_w, k)
+            # detached: a record holding the autograd graph would keep a
+            # training step's activations alive
+            top = torch.topk(probs.detach(), k + 1, dim=-1).values
+            self.routes.append((idx_k.cpu(), (top[..., k - 1] - top[..., k]).cpu()))
+            return probs, gate_k, idx_k
+
+        def recording_assign(idx_k, e, c):
+            slot, keep, oh = assign(idx_k, e, c)
+            self.keeps.append(keep.cpu())
+            return slot, keep, oh
+
+        moe.route, moe.assign_slots = recording_route, recording_assign
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.assign_slots = self._saved
+
+    def dropped_share(self) -> float:
+        kept = sum(int(k.sum()) for k in self.keeps)
+        total = sum(k.numel() for k in self.keeps)
+        return 1.0 - kept / total if total else 0.0
+
+
+def disk_used_gb() -> float:
+    """GB in use on the disk that holds the checkpoints."""
+    return shutil.disk_usage(ROOT).used / 1e9
+
+
+def write_floor_rate(step_dir: Path, workers: int, scratch: Path, budget: float = 2e9) -> float:
+    """GB/s of writing and fsyncing files of the sizes a save wrote, from
+    ``workers`` threads, measured on its largest files up to ``budget``
+    bytes (a 20-30 GB save is not written again, to keep the disk writes
+    of a phase under ~40 GB)."""
+    sizes = sorted((p.stat().st_size for p in step_dir.glob("ranks/**/*.npy")), reverse=True)
+    take, total = [], 0
+    for n in sizes:
+        if total >= budget:
+            break
+        take.append(n)
+        total += n
+    return total / 1e9 / disk_floor(take, workers, scratch)
+
+
+def read_floor_s(paths: list[Path], workers: int) -> float:
+    """Seconds to read ``paths`` whole from ``workers`` threads (page cache
+    or disk, as the restore finds them): the floor of a restore that reads
+    those bytes."""
+    def read(p: Path) -> int:
+        with open(p, "rb", buffering=0) as f:
+            buf = bytearray(1 << 24)
+            n = 0
+            while True:
+                got = f.readinto(buf)
+                if not got:
+                    return n
+                n += got
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(read, paths))
+    return time.perf_counter() - t0
+
+
+def digests_match(torch, trees: dict, plan, manifest, workers: int) -> int:
+    """Re-cut every saved shard of ``trees`` ({kind: nested tensors}) under
+    the Source ``plan`` and hash it on ``workers`` threads: each must equal
+    the manifest's digest (raw kinds: the bytes saved, so bit-equal; coded
+    kinds: the codec's served view).  Returns the shards checked."""
+    from repro_torch.core.dist_ckpt import shard_digest_key
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.core.tensor_io import content_digest
+
+    jobs = []
+    for kind, tree in trees.items():
+        for name, t in flatten_with_paths(tree).items():
+            spec = plan.param_specs[name]
+            layout = spec.layout_for(kind, plan.mesh)
+            keys = [(r, shard_digest_key(r, name, kind)) for r in range(len(layout.entries))]
+            keys = [(r, key) for r, key in keys if key in manifest.shard_digests]
+            jobs.append((t, spec, layout, keys))
+
+    def one(job) -> int:
+        t, spec, layout, keys = job
+        if tuple(t.shape) != tuple(spec.runtime_shape):
+            full = torch.zeros(spec.runtime_shape, dtype=t.dtype, device=t.device)
+            logical = tuple(slice(0, n) for n in spec.logical_shape)
+            full[logical] = t[logical]
+        else:
+            full = t
+        for rank, key in keys:
+            got = content_digest(slice_shard(full, layout, rank))
+            check(got == manifest.shard_digests[key], f"{key}: not the saved bytes")
+        return len(keys)
+
+    with ThreadPoolExecutor(workers) as pool:
+        return sum(pool.map(one, jobs))
+
+
+def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str) -> dict:
+    """The block-quant kernels at a mixtral save's shape: rank 0's shard of
+    ``name`` in ``tree`` (a bf16 moment) under ``plan``, coded int8:b256
+    through the kernels and through their plain version on the same card
+    tensor.  Codes, scales and decoded values must be equal byte for byte,
+    and the decode within half a block scale of the input (int8's rounding
+    step, with fp32 rounding on top)."""
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+
+    spec = plan.param_specs[name]
+    t = flatten_with_paths(tree)[name]
+    check(tuple(t.shape) == tuple(spec.runtime_shape), f"{name}: {tuple(t.shape)} unpadded")
+    shard = slice_shard(t, spec.layout_for(StateKind.EXP_AVG, plan.mesh), 0)
+    check(shard.dtype == torch.bfloat16, f"{name}: moment shard {shard.dtype}, want bfloat16")
+    fns = (bq_ops.block_quantize, bq_ops.block_dequantize)
+    reset_launches(dict(enumerate(fns)))
+    q, sc = bq_ops.block_quantize(shard, block=256, dtype="int8")
+    d = bq_ops.block_dequantize(q, sc, count=shard.numel())
+    took = [fn.launches_by_variant for fn in fns]
+    check(took == [{"vector": 1, "general": 0}] * 2, f"{name} shard: launches by variant {took}")
+    blocks = bq_ref.blocked(shard, block=256)
+    pq, ps = bq_ref.quantize_blocks(blocks, dtype="int8")
+    pd = bq_ref.dequantize_blocks(pq, ps, count=shard.numel())
+    same = torch.equal(q, pq) and same_by_nan_class(torch, sc, ps) and same_by_nan_class(torch, d, pd)
+    err = (d - pd).abs().max().item()
+    step = (d - blocks.reshape(-1)[:shard.numel()]).abs().reshape(-1, 256) / sc[:, None]
+    worst = step.nan_to_num(0.0).max().item()  # an all-zero block has scale 0 and error 0
+    print(f"kernel block_quant mixtral {name} moment shard {tuple(shard.shape)} "
+          f"({shard.numel()} bf16 elements, int8:b256): q, scales and decoded equal to the plain "
+          f"version byte for byte: {same} (max_abs_err {err:.1e}); decode off the input by up "
+          f"to {worst:.6f} of its block's scale (bound 0.5 + 2^-15)")
+    check(same and bool(torch.isfinite(d).all()), f"block_quant {name} shard: kernel disagrees "
+          "with its plain version")
+    check(worst <= 0.5 + 2 ** -15, f"block_quant {name} shard: decode off by {worst} scales")
+    del q, sc, d, pq, ps, pd, blocks, step
+    return dict(name=name, shape=list(shard.shape), numel=shard.numel(), max_abs_err=err,
+                worst_scale_step=worst)
+
+
+def moe_breakdown(torch, lm, params_c, prompts) -> dict:
+    """Time of one MoE layer's steps at the serving prefill's shapes (layer
+    0's input, captured in a prefill), by CUDA events: routing and slot
+    assignment, dispatch (the gather), the expert matmuls, and combine."""
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import decode as D
+    from repro_torch.models import moe
+
+    captured = []
+    block = lm_mod.moe_block
+
+    def capture(h, *args, **kw):
+        if not captured:
+            captured.append((h, args, kw))
+        return block(h, *args, **kw)
+
+    lm_mod.moe_block = capture
+    try:
+        with torch.inference_mode():
+            D.prefill(lm, params_c, D.init_cache(lm, *prompts.shape, device=prompts.device),
+                      prompts)
+    finally:
+        lm_mod.moe_block = block
+    (h, (router, wg, wu, wd, cfg), kw), = captured
+    b, s, d = h.shape
+    e, k = cfg.num_experts, cfg.top_k
+    c = moe.capacity_per_group(s, cfg)
+    with torch.inference_mode():
+        xg = h.reshape(b, s, d)
+        _, gate_k, idx = moe.route(xg, router, k)
+        slot, keep, _ = moe.assign_slots(idx, e, c)
+        buf = moe.dispatch(xg, slot, e, c)
+        y = moe.experts(buf, wg, wu, wd)
+        steps = {
+            "route and slots": lambda: moe.assign_slots(moe.route(xg, router, k)[2], e, c),
+            "dispatch": lambda: moe.dispatch(xg, slot, e, c),
+            "experts (3 bmm + silu)": lambda: moe.experts(buf, wg, wu, wd),
+            "combine": lambda: moe.combine(y, slot, gate_k * keep),
+            "moe_block": lambda: moe.moe_block(h, router, wg, wu, wd, cfg, **kw),
+        }
+        # CUDA events over 20 back-to-back calls: each step is 0.1-5 ms of
+        # device work, and a profiler trace that lost a record would read low
+        ms = {name: cuda_ms(torch, fn, iters=20) for name, fn in steps.items()}
+    flops = 3 * 2 * b * e * c * d * wg.shape[-1]
+    floor = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"mixtral MoE layer at B={b} S={s} (groups {b}, capacity {c} slots an expert a group), "
+          "CUDA-event ms a call: " + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+          + f"; the expert matmuls are {flops / 1e12:.2f} TFLOP ({floor:.3f} ms at the bf16 peak)")
+    check(ms["experts (3 bmm + silu)"] >= floor, "the expert matmuls timed below their bound")
+    return ms
+
+
+def moe_serve_phase(torch, counters: dict, bq_ops, layers: int = 2):
+    """mixtral-8x22b at full width, depth cut to ``layers``: save under
+    data=2,model=2 (EP; fp32 weights, bf16 zero moments coded int8:b256 on
+    the card), weights-only restores under data=1,model=1
+    (RESHARD_STREAM) and data=2,model=2 (DIRECT) bit-equal to the save, bf16
+    prefill 4 x 512 and 16 greedy decode steps from each (one flash launch a
+    layer, D = 128), a 1 x 8192 prefill and decode past the 4096 window;
+    then, in fp32 on the card, the routing of the kernel path against the
+    plain path and the ring against a full cache."""
+    import dataclasses
+
+    from repro_torch.ckpt.saver import write_distributed
+    from repro_torch.core.codec import CodecPolicy
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import (
+        generate, latest_step_dir, restore_params, serving_parallelism,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.attention import full_attention
+
+    dev = torch.device("cuda")
+    full, cfg = mixtral(layers)
+    per_prefill = {"flash_attention": layers, "ssd_scan": 0}
+
+    def plan_for(mesh_str, dtype=torch.bfloat16):
+        mesh = mesh_spec_from_string(mesh_str)
+        parallel = dataclasses.replace(serving_parallelism(mesh), moment_dtype="bfloat16")
+        lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
+        return lm, make_plan(cfg, lm.registry, parallel, mesh)
+
+    reset = functools.partial(reset_launches, counters)
+    counts = functools.partial(launch_counts, counters)
+
+    def dtypes():
+        return {name: dict(fn.launches_by_dtype) for name, fn in counters.items()}
+
+    lm, src_plan = plan_for("data=2,model=2")
+    n_params = lm.registry.num_params()
+    check(src_plan.moe_mode == "ep", f"data=2,model=2 plans moe_mode {src_plan.moe_mode}")
+    check(n_params == MIXTRAL_PARAMS[layers], f"{n_params} params at {layers} layers")
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"mixtral-8x22b: d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}, window {cfg.sliding_window}; depth cut "
+          f"from {full.num_layers} to {layers} layers; {n_params} params ({4 * n_params / 1e9:.1f} "
+          f"GB fp32) initialised on the card in {time.perf_counter() - t0:.2f} s")
+    root = ROOT / "build" / "chip_smoke_ckpt_mixtral"
+    shutil.rmtree(root, ignore_errors=True)
+    width = default_workers()
+    out: dict = {}
+    try:
+        # Save: the fp32 weights off the card; the zero moments of a run
+        # before its first step, bf16 on the card and coded int8:b256 there
+        # (the quantize kernel), as a training checkpoint's are; raw bf16
+        # moments would make the checkpoint 43.3 GB instead of 32.5 GB, and
+        # the smoke keeps each phase's disk writes under ~40 GB.
+        t0 = time.perf_counter()
+        saved = flatten_with_paths(params)
+        zeros = {n: torch.zeros(tuple(t.shape), dtype=torch.bfloat16, device=dev)
+                 for n, t in saved.items()}
+        snap = {n: {StateKind.FP32: t.cpu().numpy(), StateKind.EXP_AVG: zeros[n],
+                    StateKind.EXP_AVG_SQ: zeros[n]} for n, t in saved.items()}
+        snap_s = time.perf_counter() - t0
+        reset_launches({"quantize": bq_ops.block_quantize})
+        res = write_distributed(snap, src_plan, 1, root / "step_00000001", workers=width,
+                                codec=CodecPolicy.moments("int8:b256"),
+                                config_fingerprint=cfg.fingerprint())
+        quant = bq_ops.block_quantize.launches
+        del snap, zeros
+        torch.cuda.empty_cache()
+        step_dir = latest_step_dir(root)
+        check(step_dir is not None, "mixtral: no committed step")
+        manifest = DistCheckpoint.open(step_dir).manifest
+        n_coded = len(manifest.shard_codecs)
+        check(manifest.params["layers.blk.we_gate"].states[StateKind.EXP_AVG].dtype == "bfloat16",
+              "mixtral: moments not saved in bf16")
+        check(n_coded > 0 and quant == n_coded, f"mixtral save: {quant} quantize launches for "
+              f"{n_coded} coded shards")
+        check(res.bytes_written >= 6 * n_params, "mixtral checkpoint smaller than fp32 + 2 int8")
+        rate = write_floor_rate(step_dir, width, root / "floor")
+        gb = res.bytes_written / 1e9
+        print(f"mixtral save data=2,model=2 (moe_mode ep): {gb:.3f} GB (fp32 weights; bf16 zero "
+              f"moments coded int8:b256 on the card, {n_coded} shards, {quant} quantize launches) "
+              f"in {res.shards_written} shards, {res.wall_time_s:.2f} s with {width} workers "
+              f"({gb / res.wall_time_s:.3f} GB/s; device→host snapshot of the weights "
+              f"{snap_s:.2f} s); disk floor {gb / rate:.2f} s ({rate:.3f} GB/s from {width} "
+              f"threads, on its largest files up to 2 GB); disk {disk_used_gb():.1f} GB used")
+        out["save"] = dict(gb=gb, seconds=res.wall_time_s, snapshot_s=snap_s,
+                           floor_s=gb / rate, floor_gb_s=rate, workers=width, quantize=quant)
+
+        prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                                generator=torch.Generator().manual_seed(3)).to(dev)
+        runs = {}
+        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
+                                 ("data=2,model=2", "direct")):
+            tlm, tplan = plan_for(mesh_str)
+            t0 = time.perf_counter()
+            flat, rp = restore_params(step_dir, tplan, dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(rp.mode.value == expect, f"mixtral {mesh_str}: {rp.mode.value}, want {expect}")
+            check(set(flat) == set(saved), f"mixtral {mesh_str}: restored parameter set differs")
+            for name, t in flat.items():
+                check(torch.equal(t, saved[name]), f"mixtral {mesh_str}: {name} differs")
+            print(f"mixtral restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
+                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
+            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+            del flat
+            torch.cuda.empty_cache()
+            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
+            reset()
+            with MoeLog(torch) as log:
+                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
+            launches = counts()
+            check(launches == per_prefill, f"mixtral {mesh_str}: launches {launches}")
+            want = {"flash_attention": {"bfloat16": layers, "float32": 0},
+                    "ssd_scan": {"bfloat16": 0, "float32": 0}}
+            check(dtypes() == want, f"mixtral {mesh_str}: launches by dtype {dtypes()}")
+            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+                  f"mixtral {mesh_str}: tokens {tuple(seq.shape)}")
+            prefill_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[:layers]) / \
+                sum(k.numel() for k in log.keeps[:layers])
+            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[layers:]) / \
+                sum(k.numel() for k in log.keeps[layers:])
+            print(f"mixtral serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
+                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches} "
+                  f"(bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, decode "
+                  f"{decode_drop:.4f}")
+            check(decode_drop == 0.0, "a decode step dropped a token (capacity 1, top-2)")
+            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
+                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
+                                  launches=launches, prefill_drop=prefill_drop)
+            if expect == "direct":
+                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
+                                             "flash_attention", layers)
+                out["prefill_device_ms"], out["decode_device_ms"] = (
+                    prof["prefill"][1], prof["decode x16"][1] / 16)
+                out["prefill_kernel_ms"] = mine[1]
+                out["moe_ms"] = moe_breakdown(torch, tlm, params_c, prompts)
+                out.update(long_prefill(torch, cfg, tlm, params_c, reset, counts, per_prefill))
+            del params_c
+            torch.cuda.empty_cache()
+        # The read floor after the restores: the bytes they read, as warm in
+        # the page cache as the second restore found them.
+        ck = DistCheckpoint.open(step_dir)
+        fp32_files = sorted({ck.shard_path(r, n, StateKind.FP32) for n in manifest.params
+                             for r in ck.writing_ranks(n, StateKind.FP32)})
+        read_gb = sum(p.stat().st_size for p in fp32_files) / 1e9
+        read_s = read_floor_s(fp32_files, width)
+        print(f"mixtral restore read floor: the {len(fp32_files)} fp32 shard files, {read_gb:.3f} "
+              f"GB, read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), "
+              f"after the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, "
+              f"DIRECT {runs['data=2,model=2']['restore_s']:.2f} s")
+        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
+        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
+        check(torch.equal(a, b), "mixtral: RESHARD_STREAM and DIRECT restores serve other tokens")
+        print(f"mixtral tokens identical across restores; sample {a[0, :8].tolist()}")
+        out["runs"] = {m: {k: v for k, v in r.items() if k != "seq"} for m, r in runs.items()}
+        out["launches"] = runs["data=1,model=1"]["launches"]["flash_attention"]
+
+        # Right by the repo's own means, in fp32 on the card: the kernel path
+        # against the plain path (routing compared by the experts chosen),
+        # and the 4096-slot ring against a full cache past the window.
+        flm = build_model(cfg, compute_dtype=torch.float32)
+        out["routing"] = routing_check(torch, flm, params, prompts, reset, counts, lm_mod,
+                                       full_attention, layers)
+        full_stage = [dataclasses.replace(st, body=tuple(dataclasses.replace(ld, window=-1)
+                                                         for ld in st.body),
+                                          windows=(cfg.sliding_window,) * st.count)
+                      for st in flm.stages]
+        out["ring"] = ring_check(torch, cfg, flm, dataclasses.replace(flm, stages=full_stage),
+                                 params)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def ring_holds(torch, slot_pos, n: int) -> bool:
+    """Whether every ring slot j of ``slot_pos`` [L, B, C] holds the one of
+    the last C positions before ``n`` that is j modulo C."""
+    c = slot_pos.shape[-1]
+    want = torch.arange(n - c, n, device=slot_pos.device, dtype=slot_pos.dtype)
+    want = want[torch.argsort(want % c)]
+    return bool((slot_pos == want).all())
+
+
+def long_prefill(torch, cfg, lm, params_c, reset, counts, per_prefill) -> dict:
+    """A 1 x 8192 bf16 prefill and 16 decode steps past it: the 4096-slot
+    ring holds the last window and wraps; one flash launch a layer."""
+    from repro_torch.models import decode as D
+
+    dev = params_c["embed"].device
+    s, gen, c = 8192, 16, cfg.sliding_window
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        for _ in range(2):  # the first run warms the shapes up; the second is timed
+            cache = D.init_cache(lm, 1, s + gen, device=dev)
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with MoeLog(torch) as log:
+                logits, cache = D.prefill(lm, params_c, cache, toks)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = counts()
+            slot_pos = cache["layers"]["blk"]["slot_pos"]
+            check(tuple(slot_pos.shape) == (cfg.num_layers, 1, c), f"ring {tuple(slot_pos.shape)}")
+            check(ring_holds(torch, slot_pos, s), "the ring does not hold the last window")
+            cur = logits.argmax(-1)[:, None]
+            t0 = time.perf_counter()
+            for _ in range(gen):
+                lg, cache = D.decode_step(lm, params_c, cache, cur)
+                cur = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+    check(launches == per_prefill, f"mixtral 8192 prefill launches {launches}")
+    check(ring_holds(torch, slot_pos, s + gen), "the decode steps did not wrap the ring")
+    check(bool(torch.isfinite(lg).all()), "mixtral 8192: non-finite logits")
+    drop = log.dropped_share()
+    print(f"mixtral prefill 1x{s} bf16: {prefill_s * 1e3:.2f} ms, flash launches {launches}; "
+          f"decode {decode_s * 1e3 / gen:.3f} ms/token past it, the {c}-slot ring wrapped "
+          f"(it holds positions {s + gen - c}-{s + gen - 1}); dropped by capacity "
+          f"{drop:.4f} of the prefill's slots")
+    return dict(long_prefill_ms=prefill_s * 1e3, long_decode_ms=decode_s * 1e3 / gen,
+                long_prefill_drop=drop)
+
+
+def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_attention,
+                  layers: int) -> dict:
+    """fp32 logits of the 4 x 512 prompts on the card through the flash
+    kernel and through the plain attention: the experts chosen compared
+    token by token (a flip is a routing that differs), the logits of every
+    token the flips cannot reach within 1e-3."""
+    with torch.inference_mode():
+        reset()
+        with MoeLog(torch) as klog:
+            k_logits, _ = flm.forward(params, prompts)
+        launches = counts()["flash_attention"]
+        kernel = lm_mod.flash_attention
+        lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
+            q, k, v, causal=causal, window=window)
+        try:
+            with MoeLog(torch) as plog:
+                p_logits, _ = flm.forward(params, prompts)
+        finally:
+            lm_mod.flash_attention = kernel
+    check(launches == layers, f"fp32 kernel forward: {launches} flash launches")
+    check(counts()["flash_attention"] == layers, "the plain forward launched the kernel")
+    b, s = prompts.shape
+    reach = torch.zeros(b, s, dtype=torch.bool)  # tokens a flip can have moved
+    flipped, margins = 0, []
+    for layer, ((ki, km), (pi, _)) in enumerate(zip(klog.routes, plog.routes)):
+        differ = (ki != pi).any(-1)  # [b, s]
+        flipped += int(differ.sum())
+        margins += km[differ].tolist()
+        reach |= differ
+        if layer < layers - 1:  # a later layer's attention carries it to later positions
+            first = torch.where(differ.any(1), differ.float().argmax(1), torch.full((b,), s))
+            reach |= torch.arange(s)[None, :] >= first[:, None]
+    kept = ~reach
+    err = (k_logits.cpu() - p_logits.cpu()).abs()[kept].max().item() if bool(kept.any()) else 0.0
+    share = flipped / (b * s * layers)
+    print(f"mixtral fp32 routing, kernel path vs plain path on the card ({b}x{s} tokens, "
+          f"{layers} layers): {flipped} flipped routings ({share:.5f} of them), smallest top-2 "
+          f"margin among them {min(margins) if margins else float('nan'):.3e}; logits of the "
+          f"{int(kept.sum())} tokens no flip reaches: max_abs_err {err:.3e} (tolerance 1e-3)")
+    check(bool(torch.isfinite(k_logits).all()), "mixtral fp32 logits not finite")
+    check(err <= 1e-3, "mixtral: kernel and plain logits disagree")
+    check(all(m <= 1e-4 for m in margins), "mixtral: a routing flipped above fp32 rounding")
+    return dict(flipped=flipped, share=share, min_margin=min(margins) if margins else None,
+                max_abs_err=err, compared=int(kept.sum()))
+
+
+def ring_check(torch, cfg, ring_lm, full_lm, params, steps: int = 8) -> dict:
+    """fp32, 1 x 8192 then ``steps`` decode steps: the model with its
+    4096-slot ring against the same model reading a full cache (the window
+    applied by position): the same logits within 1e-3 and greedy tokens."""
+    from repro_torch.models import decode as D
+
+    dev = params["embed"].device
+    s = 8192
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=torch.Generator().manual_seed(5)).to(dev)
+    outs, slots = [], []
+    with torch.inference_mode():
+        for lm in (ring_lm, full_lm):
+            cache = D.init_cache(lm, 1, s + steps, device=dev)
+            slots.append(cache["layers"]["blk"]["k"].shape[2])
+            logits, cache = D.prefill(lm, params, cache, toks)
+            seq, lgs = [logits.argmax(-1)], [logits.cpu()]
+            for _ in range(steps):
+                lg, cache = D.decode_step(lm, params, cache, seq[-1][:, None])
+                seq.append(lg[:, -1].argmax(-1))
+                lgs.append(lg[:, -1].cpu())
+            outs.append((torch.stack(seq, 1).cpu(), torch.stack(lgs)))
+            del cache
+    check(slots == [cfg.sliding_window, s + steps], f"cache slots {slots}")
+    err = (outs[0][1] - outs[1][1]).abs().max().item()
+    same = torch.equal(outs[0][0], outs[1][0])
+    print(f"mixtral fp32 ring check: 1x{s} prefill and {steps} decode steps, the {slots[0]}-slot "
+          f"ring against a full {slots[1]}-slot cache: max_abs_err {err:.3e} (tolerance 1e-3), "
+          f"greedy tokens equal {same}")
+    check(err <= 1e-3 and same, "mixtral: the ring and the full cache disagree")
+    return dict(max_abs_err=err, slots=slots[0])
+
+
+def moe_train_phase(torch, bq_ops, bq_ref, counters: dict, layers: int = 1):
+    """mixtral-8x22b at full width, depth cut to ``layers``, bf16 compute
+    and bf16 Adam moments: 6 baseline steps under data=1,model=4 (EP), whose
+    first-moment shard of ``we_gate`` holds the block-quant kernels against
+    their plain version at the save's largest shape; then 3 steps saved with
+    ``int8:b256`` under EP, resumed under data=2,model=2 with expert-TP
+    (RESHARD_STREAM), every shard's digest checked against the restored
+    state, and 3 more steps."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    import dataclasses
+
+    dev = torch.device("cuda")
+    _, cfg = mixtral(layers)
+    tcfg = TrainConfig(seed=0)
+    ep = ParallelismConfig(moment_dtype="bfloat16")
+    tp = dataclasses.replace(ep, expert_parallel=False)
+    root = ROOT / "build" / "chip_smoke_train_mixtral"
+    shutil.rmtree(root, ignore_errors=True)
+    width = default_workers()
+    b, s = 8, 512
+
+    def trainer(parallel, mesh, **kw):
+        return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(mesh), batch_size=b,
+                              seq_len=s, device=dev, **kw)
+
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+
+    out: dict = {}
+    try:
+        counters["flash_attention"].launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated() / 1e9
+        check(before < 1.0, f"{before:.2f} GB of the card in use before the mixtral train phase")
+        base = trainer(ep, "data=1,model=4")
+        n_params = base.lm.registry.num_params()
+        check(base.plan.moe_mode == "ep", f"data=1,model=4 plans {base.plan.moe_mode}")
+        check(n_params == MIXTRAL_PARAMS[layers], f"{n_params} params at {layers} layers")
+        torch.cuda.reset_peak_memory_stats()
+        with MoeLog(torch) as log:  # no reference here to the initial state: run() drops it
+            state, hist = base.run(base.init_state(), 0, 6)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        baseline = [h["loss"] for h in hist]
+        step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
+        drop = log.dropped_share()
+        print(f"mixtral train baseline: {layers} layer at full width, {n_params} params (fp32 "
+              f"master {4 * n_params / 1e9:.1f} GB, bf16 moments {4 * n_params / 1e9:.1f} GB "
+              f"together), {b}x{s} tokens, bf16 compute, remat full, data=1,model=4 (ep); 6 steps: "
+              f"losses {[round(v, 4) for v in baseline]}, aux {[round(h['aux'], 4) for h in hist]}; "
+              f"median step {step_s * 1e3:.1f} ms ({b * s / step_s:.0f} tokens/s); peak card "
+              f"memory {peak:.2f} GB; dropped by capacity {drop:.4f} of the routed slots")
+        check(all(map(math.isfinite, baseline)), "mixtral baseline loss not finite")
+        batch = base.batch(6)
+        wall, busy, top = device_profile(torch, lambda: base.step_fn(state, batch))
+        print(f"profile mixtral train step: wall {wall:.2f} ms (profiler on), device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+        for key, ms, count in top:
+            print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        out.update(step_ms=step_s * 1e3, tokens_s=b * s / step_s, peak_gb=peak, dropped=drop,
+                   step_device_ms=busy)
+        out["shard_check"] = coded_shard_check(torch, bq_ops, bq_ref, base.plan,
+                                               state.exp_avg, "layers.blk.we_gate")
+        del state, base
+        torch.cuda.empty_cache()
+
+        reset_launches(fns)
+        policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
+        src = trainer(ep, "data=1,model=4", ckpt_dir=str(root), policy=policy)
+        hist = src.run(src.init_state(), 0, 3)[1]  # the final state is dropped here
+        src.manager.close()
+        quant = fns["quantize"].launches
+        drift = max(abs(h["loss"] - x) for h, x in zip(hist, baseline))
+        check(drift <= 2e-2, f"the saving run left the baseline ({drift:.2e}) before its save")
+        (res,) = src.save_results
+        step3 = src.manager.step_dir(3)
+        manifest = DistCheckpoint.open(step3).manifest
+        src_plan = src.plan
+        n_coded = len(manifest.shard_codecs)
+        check(n_coded > 0 and quant == n_coded, f"quantize launches {quant}, coded shards {n_coded}")
+        check(manifest.params["layers.blk.we_up"].states[StateKind.EXP_AVG].dtype == "bfloat16",
+              "moments not bf16 in the manifest")
+        del src
+        torch.cuda.empty_cache()
+        gb = res.bytes_written / 1e9
+        rate = write_floor_rate(step3, width, root / "floor")
+        print(f"mixtral train save step 3 (data=1,model=4 ep, int8:b256 bf16 moments, async, "
+              f"{width} workers): {gb:.3f} GB in {res.shards_written} shards, {res.wall_time_s:.2f} "
+              f"s ({gb / res.wall_time_s:.3f} GB/s; disk floor {gb / rate:.2f} s at {rate:.3f} "
+              f"GB/s; disk {disk_used_gb():.1f} GB used); coded {res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB; "
+              f"device->host {res.device_to_host_bytes / 1e9:.3f} GB; {n_coded} coded shards, "
+              f"quantize launches {quant}")
+
+        torch.cuda.reset_peak_memory_stats()
+        tgt = trainer(tp, "data=2,model=2", ckpt_dir=str(root),
+                      policy=CheckpointPolicy(async_save=False, save_interval=1000))
+        check(tgt.plan.moe_mode == "tp", f"--no-ep data=2,model=2 plans {tgt.plan.moe_mode}")
+        reset_launches(fns)
+        state, info = tgt.init_or_restore()
+        restored_gb = torch.cuda.memory_allocated() / 1e9
+        dequant = fns["dequantize"].launches
+        check(info is not None and info.mode.value == "reshard_stream",
+              f"mixtral resume: {info and info.mode.value}, want reshard_stream")
+        check(state.step == 3 and dequant == n_coded,
+              f"mixtral resume: step {state.step}, {dequant} dequantize launches for {n_coded}")
+        t0 = time.perf_counter()
+        n_checked = digests_match(torch, {StateKind.FP32: state.params,
+                                          StateKind.EXP_AVG: state.exp_avg,
+                                          StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                  src_plan, manifest, width)
+        digest_s = time.perf_counter() - t0
+        check(n_checked == len(manifest.shard_digests),
+              f"{n_checked} of {len(manifest.shard_digests)} shard digests checked")
+        # run() must hold the only reference to the restored state: it drops
+        # each state once the next exists (the card holds two, not three)
+        box = [state]
+        del state
+        checked_gb = torch.cuda.memory_allocated() / 1e9
+        hist = tgt.run(box.pop(), 3, 3, log=lambda rec: print(
+            f"  resumed step {rec['step']}: loss {rec['loss']:.4f}, card memory in use "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True))[1]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        resumed = [h["loss"] for h in hist]
+        check(all(map(math.isfinite, resumed)), "mixtral resumed loss not finite")
+        print(f"mixtral train resume data=2,model=2 --no-ep (moe_mode tp): {info.mode.value} in "
+              f"{info.wall_time_s:.2f} s (write floor of those bytes {gb / rate:.2f} s), step 3, "
+              f"{dequant} dequantize launches; all {n_checked} shard digests of the save equal "
+              f"the restored state re-cut under the Source plan (params bit-equal, moments the "
+              f"codec's served view; {digest_s:.2f} s); steps 4-6 losses "
+              + ", ".join(f"{x:.4f} (baseline {y:.4f})" for x, y in zip(resumed, baseline[3:]))
+              + f"; card memory in use after the restore {restored_gb:.2f} GB, after the digest "
+              f"check {checked_gb:.2f} GB, peak {peak:.2f} GB")
+        tgt.manager.close()
+        del tgt
+        torch.cuda.empty_cache()
+        check(counters["flash_attention"].launches == 0, "flash launched during training")
+        out.update(save_s=res.wall_time_s, save_gb=gb, floor_s=gb / rate, resume_s=info.wall_time_s,
+                   quantize=quant, dequantize=dequant, coded=n_coded, resumed=resumed,
+                   baseline=baseline, resume_peak_gb=peak)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1799,6 +2566,8 @@ def main() -> int:
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
     gemma = gemma_phase(torch, counters)
     train = train_phase(torch, ops, bq_ops)
+    moe_serve = moe_serve_phase(torch, counters, bq_ops)
+    moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
 
     rows = [{
         "name": "flash_attention_fwd",
@@ -1830,6 +2599,17 @@ def main() -> int:
         "d256_shape": "bf16 B=4 S=512 16:8 heads of 256, causal (gemma3-12b)",
         "gemma3_prefill_device_ms": gemma["prefill_device_ms"],
         "gemma3_prefill_kernel_ms": gemma["prefill_kernel_ms"],
+        "d128_ms": k["d128"]["ms"],
+        "d128_library_ms": k["d128"]["library_ms"],
+        "d128_fp32_ms": k["d128"]["fp32_ms"],
+        "d128_plain_ms": k["d128"]["plain_ms"],
+        "d128_bound_ms": k["d128"]["bound_ms"],
+        "d128_bound_by": k["d128"]["bound_by"],
+        "d128_max_abs_err": k["d128"]["max_abs_err"],
+        "d128_shape": "bf16 B=4 S=512 48:8 heads of 128, causal (mixtral-8x22b)",
+        "mixtral_launches": moe_serve["launches"],
+        "mixtral_prefill_device_ms": moe_serve["prefill_device_ms"],
+        "mixtral_prefill_kernel_ms": moe_serve["prefill_kernel_ms"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -1851,6 +2631,10 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+        rows[-1]["mixtral_launches"] = moe_train[which] + (
+            moe_serve["save"]["quantize"] if which == "quantize" else 0)
+        rows[-1]["mixtral_shard_numel"] = moe_train["shard_check"]["numel"]
+        rows[-1]["mixtral_shard_max_abs_err"] = moe_train["shard_check"]["max_abs_err"]
         if name == "dequantize_blocks":
             rows[-1]["convert_launches"] = train["export"]["launches"]
     rows.append({
@@ -1871,9 +2655,18 @@ def main() -> int:
         "library_ms": None,
         "prefill_device_ms": ssm_runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
+        "mixtral_launches": moe_serve["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
     })
     print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
-                             "train delta": train["delta"], "train gc under pin": train["gc"]}}))
+                             "train delta": train["delta"], "train gc under pin": train["gc"],
+                             "serve mixtral-8x22b": {"save": moe_serve["save"],
+                                                     "read_floor": moe_serve["read_floor"],
+                                                     "restores": moe_serve["runs"]},
+                             "train mixtral-8x22b": {k: moe_train[k] for k in (
+                                 "save_s", "save_gb", "floor_s", "resume_s")}}}))
+    print(json.dumps({"mixtral": {"serve": {k: v for k, v in moe_serve.items()
+                                            if k not in ("save", "read_floor", "runs")},
+                                  "train": moe_train}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -138,7 +138,7 @@ def _stream_reader(
     """The per-param plan-table region reader of RESHARD_STREAM."""
     src_params = source.manifest.params
 
-    def reader(name, kind, region, dtype):
+    def reader(name, kind, regions, dtype):
         tr = transforms[name]  # strict: a hand-built table must be complete
         tgt_spec = plan.param_specs[name]
         if tr.cls is TransformClass.CONSOLIDATE:
@@ -146,25 +146,37 @@ def _stream_reader(
                 source, name, kind,
                 lambda: _contiguous(assemble_atom(source, src_params[name], kind, engine=engine)),
             )
-            return read_runtime_region(atom, tgt_spec, region, dtype, alloc=engine.alloc)
-        # Stream: Source and Target share one runtime coordinate space.  Clip
-        # to the logical shape and zero-fill the rest, so alignment padding
-        # comes back as zeros, not as whatever the Source left there.
-        region = _canon_region(region, tgt_spec.runtime_shape)
-        shape = tuple(r.stop - r.start for r in region)
-        clipped = clip_region_to_logical(region, tgt_spec.logical_shape)
-        if clipped is None:  # region entirely inside padding
-            return staging_like([], shape, dtype, zero=True, alloc=engine.alloc)
-        reads, dests, full = clipped
-        inner = read_region_from_source(source, name, kind, reads, dtype, engine=engine)
-        if full:
-            return inner
-        out = staging_like([inner], shape, dtype, zero=True, alloc=engine.alloc)
-        out[dests] = inner
-        engine.recycle(inner)
-        return out
+            return [read_runtime_region(atom, tgt_spec, region, dtype, alloc=engine.alloc)
+                    for region in regions]
+        return [_stream_region(source, name, kind, tgt_spec, region, dtype, engine)
+                for region in regions]
 
     return reader
+
+
+def _stream_region(source, name, kind, tgt_spec, region, dtype, engine):
+    # Stream: Source and Target share one runtime coordinate space.  Clip
+    # to the logical shape and zero-fill the rest, so alignment padding
+    # comes back as zeros, not as whatever the Source left there.
+    region = _canon_region(region, tgt_spec.runtime_shape)
+    shape = tuple(r.stop - r.start for r in region)
+    clipped = clip_region_to_logical(region, tgt_spec.logical_shape)
+    if clipped is None:  # region entirely inside padding
+        return staging_like([], shape, dtype, zero=True, alloc=engine.alloc)
+    reads, dests, full = clipped
+    inner = read_region_from_source(source, name, kind, reads, dtype, engine=engine)
+    if full:
+        return inner
+    out = staging_like([inner], shape, dtype, zero=True, alloc=engine.alloc)
+    out[dests] = inner
+    engine.recycle(inner)
+    return out
+
+
+def _consolidated(transforms: Mapping[str, ParamTransform] | None) -> frozenset[str]:
+    """The params a plan table assembles in memory (none for DIRECT)."""
+    return frozenset(name for name, tr in (transforms or {}).items()
+                     if tr.cls is TransformClass.CONSOLIDATE)
 
 
 def _contiguous(a):
@@ -191,8 +203,9 @@ def target_regions(
 
 def _reader_for(source, plan, transforms, engine):
     if transforms is None:
-        def reader(name, kind, region, dtype):
-            return read_region_from_source(source, name, kind, region, dtype, engine=engine)
+        def reader(name, kind, regions, dtype):
+            return [read_region_from_source(source, name, kind, region, dtype, engine=engine)
+                    for region in regions]
 
         return reader
     return _stream_reader(source, plan, transforms, engine)
@@ -221,33 +234,38 @@ def _coded_kinds(source) -> set[StateKind]:
 
 def _build_flat(
     reader, plan: ShardingPlan, kind: StateKind, device, engine: CheckpointEngine,
-    *, pool: bool,
+    *, pool: bool, whole: frozenset[str] = frozenset(),
 ) -> dict[str, torch.Tensor]:
     """One runtime-shaped tensor per parameter of ``kind`` on ``device``.
 
     Every (parameter, region) of the kind is read up front (through the
-    engine's pool when ``pool``, else inline), then each region is copied
-    into its tensor (a host region goes to the device once) and its staging
-    buffer recycled.  Batching per kind bounds the staging to one copy of
-    that kind."""
-    jobs = [
-        (name, spec.states[kind].dtype, region)
-        for name, spec in plan.param_specs.items()
-        for region in target_regions(spec, plan.mesh, kind)
-    ]
+    engine's pool when ``pool``, else inline): one job a region, but one job
+    for all the regions of a parameter in ``whole``, whose consolidated atom
+    is then built once and cut for each (an atom larger than the engine's
+    cache — mixtral-8x22b's expert tensors, 1.6-3.2 GB — would otherwise be
+    evicted between concurrent region jobs and assembled, its coded shards
+    decoded, again).  Then each region is copied into its tensor (a host
+    region goes to the device once) and its staging buffer recycled.
+    Batching per kind bounds the staging to one copy of that kind."""
+    jobs = []
+    for name, spec in plan.param_specs.items():
+        regions = target_regions(spec, plan.mesh, kind)
+        groups = [regions] if name in whole else [[region] for region in regions]
+        jobs += [(name, spec.states[kind].dtype, group) for group in groups]
 
     def read(job):
         return reader(job[0], kind, job[2], job[1])
 
     pieces = engine.map(read, jobs) if pool else [read(j) for j in jobs]
     out: dict[str, torch.Tensor] = {}
-    for i, (name, dtype, region) in enumerate(jobs):
+    for i, (name, dtype, regions) in enumerate(jobs):
         full = out.get(name)
         if full is None:
             shape = plan.param_specs[name].runtime_shape
             full = out[name] = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
-        full[region] = to_staging(full, pieces[i])
-        engine.recycle(pieces[i])
+        for region, piece in zip(regions, pieces[i]):
+            full[region] = to_staging(full, piece)
+            engine.recycle(piece)
         pieces[i] = None
     return out
 
@@ -271,15 +289,17 @@ def params_from_source(
     with _engine_for(source, device, engine) as engine:
         return _build_flat(_reader_for(source, plan, transforms, engine), plan,
                            StateKind.FP32, torch.device(device), engine,
-                           pool=StateKind.FP32 in _coded_kinds(source))
+                           pool=StateKind.FP32 in _coded_kinds(source),
+                           whole=_consolidated(transforms))
 
 
 def _build_state(
-    reader, plan, device, step: int, engine: CheckpointEngine, coded: set[StateKind]
+    reader, plan, device, step: int, engine: CheckpointEngine, coded: set[StateKind],
+    whole: frozenset[str] = frozenset(),
 ) -> TrainState:
     trees = {
         kind: unflatten_from_paths(
-            _build_flat(reader, plan, kind, device, engine, pool=kind in coded))
+            _build_flat(reader, plan, kind, device, engine, pool=kind in coded, whole=whole))
         for kind in (StateKind.FP32, StateKind.EXP_AVG, StateKind.EXP_AVG_SQ)
     }
     return TrainState(
@@ -294,9 +314,10 @@ def _ucp_reader(ucp, plan: ShardingPlan, engine: CheckpointEngine):
     # every Target param has an atom of its logical shape, or this raises
     gen_ucp_metadata(plan.param_specs, plan.mesh, ucp.manifest.atoms)
 
-    def reader(name, kind, region, dtype):
+    def reader(name, kind, regions, dtype):
         atom = engine.read_atom(ucp, name, kind)
-        return read_runtime_region(atom, plan.param_specs[name], region, dtype, alloc=engine.alloc)
+        return [read_runtime_region(atom, plan.param_specs[name], region, dtype,
+                                    alloc=engine.alloc) for region in regions]
 
     return reader
 
@@ -334,7 +355,7 @@ def state_from_stream(
     with _engine_for(source, device, engine) as engine:
         reader = _reader_for(source, plan, transforms, engine)
         return _build_state(reader, plan, device, int(source.manifest.step), engine,
-                            _coded_kinds(source))
+                            _coded_kinds(source), _consolidated(transforms))
 
 
 def state_from_ucp(

@@ -54,7 +54,8 @@ from repro_torch.core.layout import slice_shard
 from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths
 from repro_torch.core.tensor_io import (
-    EXTENDED_DTYPES, content_digest, dtype_name, fsync_path, resolve_dtype, torch_dtype,
+    EXTENDED_DTYPES, content_digest, dtype_name, fsync_path, resolve_dtype, to_extended,
+    torch_dtype,
 )
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState, init_state
@@ -202,6 +203,8 @@ def write_distributed(
         for kind, arr in snap[name].items():
             dt = spec.states[kind].dtype
             tag = codec.tag_for(kind) if codec is not None else CODEC_RAW
+            if not isinstance(arr, torch.Tensor) and dt in EXTENDED_DTYPES:
+                arr = to_extended(arr, dt)  # numbers cast through torch, never viewed
             if isinstance(arr, torch.Tensor):
                 arr = arr.to(torch_dtype(dt))
                 if tag == CODEC_RAW:

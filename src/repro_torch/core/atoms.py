@@ -162,7 +162,8 @@ class UcpCheckpoint:
 
     def create_atom_memmap(self, name: str, kind: StateKind, shape: tuple[int, ...], dtype: str):
         """Open a writable atom for streaming Union (constant working memory;
-        numpy dtypes only)."""
+        an extended dtype's atom is the void of its width, under the
+        reference's ``.npy`` header)."""
         self.atom_dir(name).mkdir(parents=True, exist_ok=True)
         return open_memmap(self.atom_path(name, kind), shape, dtype)
 

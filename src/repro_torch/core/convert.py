@@ -37,7 +37,7 @@ from .dist_ckpt import DistCheckpoint
 from .engine import CheckpointEngine
 from .ops import strip_padding
 from .patterns import STATE_KINDS, ParamSpec, StateKind
-from .tensor_io import EXTENDED_DTYPES, content_digest, staging_like, to_staging, torch_dtype
+from .tensor_io import content_digest, staging_like, to_staging, torch_dtype
 
 __all__ = ["ConvertStats", "assemble_atom", "convert_to_ucp"]
 
@@ -121,7 +121,6 @@ def _convert_one(
         dtype = spec.states[kind].dtype
         can_stream = (
             streaming
-            and dtype not in EXTENDED_DTYPES  # a memmap holds numpy dtypes only
             and not spec.average
             and tuple(spec.runtime_shape) == tuple(spec.logical_shape)
         )

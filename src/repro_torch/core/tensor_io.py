@@ -6,12 +6,16 @@ so a shard written by either package verifies and reads in the other.
 
 NumPy has no ``bfloat16`` or fp8 types, and this package does not use
 ``ml_dtypes``.  Those dtypes are carried by torch instead: on disk they are
-an anonymous 2- or 1-byte void (what ``np.save`` writes for an ``ml_dtypes``
-array), and :func:`load_tensor` returns them as a torch tensor viewed as
-the torch dtype of the same name.  They are never handed out as ``uint16``
-or ``uint8`` numbers.  The numpy checkpoint path (saver, engine, restore)
-takes float32 and the other numpy dtypes; :func:`resolve_dtype` refuses the
-extended names so that path cannot silently mistype them.
+a 2- or 1-byte void with the header the reference's ``ml_dtypes`` arrays
+get from ``np.save`` (``<V2`` for bfloat16, ``<V1`` for float8_e4m3fn; for
+float8_e5m2, whose ``<f1`` header the reference's own ``np.load`` refuses,
+an anonymous ``|V1``), and :func:`load_tensor` returns them as a torch
+tensor viewed as the torch dtype of the same name.  They are never handed
+out as ``uint16`` or ``uint8`` numbers.  On the numpy checkpoint path
+(saver, engine, atom memmaps) :func:`resolve_dtype` gives them as that
+void: a buffer of element bytes that numpy copies, slices and writes but
+cannot compute with; values are cast to them through torch (round to
+nearest even, as ``ml_dtypes`` casts in the reference).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ __all__ = [
     "digest_matches",
     "dtype_name",
     "resolve_dtype",
+    "to_extended",
     "torch_dtype",
     "staging_like",
     "to_staging",
@@ -47,6 +52,10 @@ EXTENDED_DTYPES: dict[str, tuple[torch.dtype, type]] = {
     "float8_e5m2": (torch.float8_e5m2, np.uint8),
 }
 _BY_TORCH = {t: (name, bits) for name, (t, bits) in EXTENDED_DTYPES.items()}
+# ``.npy`` header descr of each extended dtype: the reference's, except
+# float8_e5m2's '<f1', which np.load refuses (the reference's own files of
+# it do not load); that one is written as the anonymous void.
+_DESCR = {"bfloat16": "<V2", "float8_e4m3fn": "<V1", "float8_e5m2": "|V1"}
 
 
 class IntegrityError(ValueError):
@@ -102,16 +111,26 @@ def digest_matches(arr, recorded: str) -> bool:
 def resolve_dtype(name: str) -> np.dtype:
     """numpy dtype of a checkpoint dtype name.
 
-    Raises for ``bfloat16`` and fp8: numpy cannot hold them, and the numpy
-    checkpoint path of this port does not take them yet (ROADMAP queue 1,
-    item 3).  Read such files with :func:`load_tensor`."""
+    ``bfloat16`` and fp8 resolve to the void of their width: numpy holds
+    and moves their element bytes, never reads them as numbers.  Cast
+    values to them with :func:`to_extended`; read files of them as torch
+    tensors with :func:`load_tensor`."""
     if name in EXTENDED_DTYPES:
-        raise NotImplementedError(
-            f"{name} state on the numpy checkpoint path is not ported yet "
-            "(ROADMAP queue 1, item 3: the rest of the checkpoint path); "
-            "load_tensor reads it as a torch tensor"
-        )
+        return np.dtype((np.void, np.dtype(EXTENDED_DTYPES[name][1]).itemsize))
     return np.dtype(name)
+
+
+def to_extended(arr, name: str) -> torch.Tensor:
+    """A host array as a CPU tensor of the extended dtype ``name``: numbers
+    are cast through torch (round to nearest even, as ``ml_dtypes`` casts),
+    a void array of the dtype's width is taken as its element bytes."""
+    tdt, bits = EXTENDED_DTYPES[name]
+    a = np.ascontiguousarray(arr)
+    if a.dtype.kind == "V":
+        if a.dtype.itemsize != np.dtype(bits).itemsize:
+            raise ValueError(f"a {a.dtype} array cannot hold {name}")
+        return torch.from_numpy(a.view(bits)).view(tdt)
+    return torch.from_numpy(a).to(tdt)
 
 
 def dtype_name(dtype) -> str:
@@ -154,10 +173,13 @@ def staging_like(pieces, shape, dtype, *, zero: bool, alloc=None):
 
 def to_staging(out, piece):
     """``piece`` in the kind of ``out``: a host array goes to ``out``'s
-    device, a tensor into a numpy ``out`` comes to the host."""
+    device, a tensor into a numpy ``out`` comes to the host (its element
+    bytes when ``out`` is the void of an extended dtype)."""
     if isinstance(out, torch.Tensor) and not isinstance(piece, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(piece)).to(out.device)
     if isinstance(piece, torch.Tensor) and not isinstance(out, torch.Tensor):
+        if piece.dtype in _BY_TORCH:
+            return _raw_bytes_view(piece).view(out.dtype)
         return piece.cpu().numpy()
     return piece
 
@@ -166,19 +188,25 @@ def save_tensor(path: str | os.PathLike, arr, *, fsync: bool = True) -> None:
     """Atomically write an array (tmp + rename) so readers never see torn files.
 
     ``arr`` is a numpy array or a torch tensor; a tensor of an extended
-    dtype is written as an anonymous void of its width, as the reference
-    writes its ``ml_dtypes`` arrays.  ``fsync=False`` defers durability to
-    the caller (:func:`fsync_path` before the checkpoint's COMMIT).
+    dtype is written as a void of its width under the reference's header
+    (the bytes the reference's ``np.save`` of an ``ml_dtypes`` array
+    writes; float8_e5m2 aside, see the module notes).  ``fsync=False``
+    defers durability to the caller (:func:`fsync_path` before the
+    checkpoint's COMMIT).
     """
+    descr = None
     if isinstance(arr, torch.Tensor):
-        raw = _raw_bytes_view(arr)
         if arr.dtype in _BY_TORCH:
-            raw = raw.view(np.dtype((np.void, raw.dtype.itemsize)))
-        arr = raw
+            descr = _DESCR[_BY_TORCH[arr.dtype][0]]
+        arr = _raw_bytes_view(arr)
     path = Path(path)
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
-        np.save(f, arr)
+        if descr is None:
+            np.save(f, arr)
+        else:
+            _write_header(f, descr, arr.shape)
+            arr.tofile(f)
         f.flush()
         if fsync:
             os.fsync(f.fileno())
@@ -224,8 +252,25 @@ def load_tensor(path: str | os.PathLike, dtype: str | None = None, *, mmap: bool
     return arr
 
 
-def open_memmap(path: str | os.PathLike, shape: tuple[int, ...], dtype: str) -> np.memmap:
-    """Writable ``.npy`` memmap of a numpy dtype (constant-memory assembly)."""
-    return np.lib.format.open_memmap(
-        str(path), mode="w+", dtype=resolve_dtype(dtype), shape=shape
+def _write_header(f, descr: str, shape) -> None:
+    """The ``.npy`` header ``np.save`` writes for a C-order array of
+    ``descr`` and ``shape``."""
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": descr, "fortran_order": False, "shape": tuple(int(s) for s in shape)}
     )
+
+
+def open_memmap(path: str | os.PathLike, shape: tuple[int, ...], dtype: str) -> np.memmap:
+    """Writable ``.npy`` memmap (constant-memory assembly).  An extended
+    dtype's file gets the reference's header, and the memmap is the void
+    of its width (element bytes; :func:`to_staging` fills it from tensors)."""
+    if dtype not in EXTENDED_DTYPES:
+        return np.lib.format.open_memmap(
+            str(path), mode="w+", dtype=resolve_dtype(dtype), shape=shape
+        )
+    shape = tuple(int(s) for s in shape)
+    with open(path, "wb") as f:
+        _write_header(f, _DESCR[dtype], shape)
+        offset = f.tell()
+        f.truncate(offset + int(np.prod(shape)) * resolve_dtype(dtype).itemsize)
+    return np.memmap(path, dtype=resolve_dtype(dtype), mode="r+", offset=offset, shape=shape)

@@ -1,5 +1,8 @@
 """Serving path: cache construction, prefill, single-token decode
-(port of the dense GQA and the Mamba-2 paths of ``repro.models.decode``).
+(port of the dense and MoE GQA and the Mamba-2 paths of
+``repro.models.decode``).  A MoE layer routes each sequence as one group,
+as the reference's serving does, so a decode step routes one token a group
+with capacity 1 and drops nothing; its aux loss is dropped.
 
 The cache is the reference's, per stage and body position; ``pos [B]`` is
 the next position:
@@ -168,7 +171,7 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
                 else:
                     x = _attn_decode(lm, p, entry, x, pos, sin, cos, stage.window(ld, l))
                 if ld.with_mlp:
-                    x = lm._mlp(p, x)
+                    x, _ = lm._mlp(p, x, moe=ld.moe)
     cache["pos"] = pos + 1
     return _logits(lm, params, x), cache
 
@@ -208,6 +211,6 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
                         s,
                     )
                 if ld.with_mlp:
-                    x = lm._mlp(p, x)
+                    x, _ = lm._mlp(p, x, moe=ld.moe)
     cache["pos"] = cache["pos"] + s
     return _logits(lm, params, x[:, -1]), cache

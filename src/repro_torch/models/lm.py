@@ -1,4 +1,4 @@
-"""The decoder (port of the dense and SSM paths of ``repro.models.lm``).
+"""The decoder (port of the dense, MoE and SSM paths of ``repro.models.lm``).
 
 Parameters are the reference's: the same :class:`ParamDef` tables, so the
 same names and layer-stacked shapes (``layers.blk.wqkv`` is
@@ -23,9 +23,14 @@ functions.
 (``torch.utils.checkpoint``, the reference's per-layer ``jax.checkpoint``);
 ``"none"`` keeps activations.
 
-The dense and the SSM (Mamba-2) families are ported.  Hybrid, MoE, MLA,
-cross-attention and encoder configs raise ``NotImplementedError`` (ROADMAP
-queue 1, item 6: other model families).
+The dense, the MoE (:mod:`.moe`: mixtral; DeepSeek-style shared experts
+and leading dense layers) and the SSM (Mamba-2) families are ported.
+Hybrid, MLA, cross-attention and encoder configs raise
+``NotImplementedError`` (ROADMAP queue 1, item 6: other model families).
+A MoE layer's load-balancing loss is summed over the layers and returned
+by :meth:`LM.forward`; :meth:`LM.loss_fn` adds ``router_aux_weight`` of it
+to the loss it differentiates and reports the bare cross-entropy as
+``loss``, as the reference does.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 from .attention import chunked_attention, full_attention
 from .common import ParamDef, ParamRegistry, apply_rope, rms_norm, rotary_embedding, swiglu
+from .moe import moe_block
 from .ssm import causal_conv1d, ssd_chunked
 
 __all__ = ["LayerDef", "StageDef", "LM", "build_lm", "plan_stages", "build_param_defs"]
@@ -54,6 +60,7 @@ class LayerDef:
     name: str               # body-position name (param subtree key)
     kind: str               # "attn" | "mamba"
     window: int = 0         # 0=full; -1=per-layer metadata in StageDef.windows
+    moe: bool = False       # the MLP is a mixture of experts
     with_mlp: bool = True
     causal: bool = True
 
@@ -73,30 +80,48 @@ def _require_ported(cfg: ModelConfig) -> None:
     other = [
         f for f in ("moe", "mla", "ssm", "cross_attn", "encoder") if getattr(cfg, f)
     ]
-    if not ((cfg.family == "dense" and not other) or (cfg.family == "ssm" and other == ["ssm"])):
+    if not (
+        (cfg.family == "dense" and not other)
+        or (cfg.family == "moe" and other == ["moe"])
+        or (cfg.family == "ssm" and other == ["ssm"])
+    ):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; only the "
-            "dense decoder and Mamba-2 are (ROADMAP queue 1, item 6: other model families)"
+            "dense decoder, the MoE decoder without MLA and Mamba-2 are (ROADMAP queue 1, "
+            "item 6: other model families)"
         )
 
 
 def plan_stages(cfg: ModelConfig) -> list[StageDef]:
     """One homogeneous stack: Mamba-2 blocks with no MLP for the SSM family;
-    for the dense family attention + MLP, per-layer sliding windows riding
-    along as metadata when they vary (Gemma-3's local:global)."""
+    for the dense and MoE families attention + MLP (a MoE one when the
+    config's cadence says so), per-layer sliding windows riding along as
+    metadata when they vary (Gemma-3's local:global), after a dense
+    ``head`` stage for DeepSeek-style leading dense layers."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return [StageDef("layers", cfg.num_layers, (LayerDef("blk", "mamba", with_mlp=False),))]
     windows = tuple(cfg.window_for_layer(i) for i in range(cfg.num_layers))
     uniform = len(set(windows)) == 1
-    return [
+    moe_mask = cfg.moe_layer_mask()
+    stages: list[StageDef] = []
+    start = 0
+    if cfg.moe and cfg.moe.first_dense_layers:
+        start = cfg.moe.first_dense_layers
+        stages.append(StageDef("head", start, (LayerDef("blk", "attn", window=windows[0]),)))
+    assert all(moe_mask[start:]) or not any(moe_mask[start:]), (
+        "non-uniform MoE cadence requires the hybrid/period planner"
+    )
+    stages.append(
         StageDef(
             "layers",
-            cfg.num_layers,
-            (LayerDef("blk", "attn", window=windows[0] if uniform else -1),),
-            windows=() if uniform else windows,
+            cfg.num_layers - start,
+            (LayerDef("blk", "attn", window=windows[start] if uniform else -1,
+                      moe=bool(cfg.moe and moe_mask[start])),),
+            windows=() if uniform else windows[start:],
         )
-    ]
+    )
+    return stages
 
 
 # ---------------------------------------------------------------------------
@@ -140,11 +165,27 @@ def _attn_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[Pa
     return defs
 
 
-def _mlp_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[ParamDef]:
+def _mlp_defs(
+    cfg: ModelConfig, prefix: str, stack: tuple[int, ...], *, moe: bool
+) -> list[ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
     defs, P = _stacked_def(prefix, stack)
     P("mlp_norm", (d,), ("embed",), init="ones")
-    if cfg.name.startswith("gpt3"):
+    if moe:
+        e, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        P("router", (d, e), ("embed", "expert_router"), fan_in_dim=len(stack))
+        P("we_gate", (e, d, f), ("expert", "embed", "expert_mlp"),
+          kind="moe_expert", fan_in_dim=len(stack) + 1)
+        P("we_up", (e, d, f), ("expert", "embed", "expert_mlp"),
+          kind="moe_expert", fan_in_dim=len(stack) + 1)
+        P("we_down", (e, f, d), ("expert", "expert_mlp", "embed"),
+          kind="moe_expert", fan_in_dim=len(stack) + 1)
+        if cfg.moe.num_shared:
+            sf = cfg.moe.num_shared * f
+            P("ws_gate", (d, sf), ("embed", "mlp"), fan_in_dim=len(stack))
+            P("ws_up", (d, sf), ("embed", "mlp"), fan_in_dim=len(stack))
+            P("ws_down", (sf, d), ("mlp", "embed"), fan_in_dim=len(stack))
+    elif cfg.name.startswith("gpt3"):
         P("w1", (d, ff), ("embed", "mlp"), fan_in_dim=len(stack))
         P("w2", (ff, d), ("mlp", "embed"), fan_in_dim=len(stack))
     else:
@@ -198,7 +239,7 @@ def build_param_defs(cfg: ModelConfig, vocab_padded: int) -> ParamRegistry:
             prefix = f"{stage.name}.{ld.name}"
             defs += (_mamba_defs if ld.kind == "mamba" else _attn_defs)(cfg, prefix, stack)
             if ld.with_mlp:
-                defs += _mlp_defs(cfg, prefix, stack)
+                defs += _mlp_defs(cfg, prefix, stack, moe=ld.moe)
     return ParamRegistry(defs)
 
 
@@ -254,13 +295,22 @@ class LM:
         out = o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype)
         return x + out, (k, v)
 
-    def _mlp(self, p, x):
-        h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
-        if "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
+    def _mlp(self, p, x, *, moe: bool = False):
+        """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and
+        the layer's aux loss (a float32 zero unless it is a MoE layer)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if moe:
+            # one token group a sequence: no caller of the reference sets moe_groups
+            out, aux = moe_block(h, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg.moe)
+            if cfg.moe.num_shared:
+                out = out + swiglu(h, p["ws_gate"], p["ws_up"], p["ws_down"])
+        elif "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
             out = F.gelu(h @ p["w1"].to(h.dtype), approximate="tanh") @ p["w2"].to(h.dtype)
         else:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        return x + out
+        return x + out, aux
 
     def _mamba(self, p, x, *, return_state: bool = False):
         """Pre-norm Mamba-2 block on one layer's params; returns the residual
@@ -300,19 +350,22 @@ class LM:
     def _layer(self, ld: LayerDef, window, positions, keys, x, *values):
         """One pre-norm layer (attention or Mamba-2, then the MLP if it has
         one) on its params, given as positional tensors so that
-        ``torch.utils.checkpoint`` sees them."""
+        ``torch.utils.checkpoint`` sees them; returns (x, aux)."""
         p = dict(zip(keys, values))
         if ld.kind == "mamba":
             x, _ = self._mamba(p, x)
         else:
             x, _ = self._self_attn(p, x, window=window, positions=positions, causal=ld.causal)
-        return self._mlp(p, x) if ld.with_mlp else x
+        if ld.with_mlp:
+            return self._mlp(p, x, moe=ld.moe)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _stage_forward(self, stage: StageDef, params, x, *, positions):
         # unbind once: the backward of a per-layer view is then one stack,
         # not a full-size zero tensor per layer
         per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
                for ld in stage.body}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(stage.count):
             for ld in stage.body:
                 keys = tuple(per[ld.name])
@@ -321,10 +374,11 @@ class LM:
                     self._layer, ld, stage.window(ld, layer), positions, keys
                 )
                 if self.remat == "full":
-                    x = checkpoint(fn, x, *values, use_reentrant=False)
+                    x, a = checkpoint(fn, x, *values, use_reentrant=False)
                 else:
-                    x = fn(x, *values)
-        return x
+                    x, a = fn(x, *values)
+                aux = aux + a
+        return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *, positions=None):
         """tokens [B,S] → (fp32 logits [B,S,vocab_padded], aux loss scalar).
@@ -337,14 +391,18 @@ class LM:
         x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for stage in self.stages:
-            x = self._stage_forward(stage, params[stage.name], x, positions=positions)
+            x, a = self._stage_forward(stage, params[stage.name], x, positions=positions)
+            aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = x.float() @ self.unembed(params).float()
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, aux
 
     def loss_fn(self, params, batch):
-        """Next-token cross-entropy over the logical vocabulary."""
+        """Next-token cross-entropy over the logical vocabulary, plus
+        ``router_aux_weight`` × the summed aux loss for MoE configs; the
+        metrics carry the bare cross-entropy as ``loss`` and the aux."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(params, inputs)
@@ -352,7 +410,10 @@ class LM:
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
         loss = nll.mean()
-        return loss, {"loss": loss, "aux": aux}
+        total = loss
+        if self.cfg.moe is not None:
+            total = total + self.cfg.moe.router_aux_weight * aux
+        return total, {"loss": loss, "aux": aux}
 
     def unembed(self, params) -> torch.Tensor:
         """The [d, vocab_padded] output projection in the compute dtype."""
@@ -367,7 +428,7 @@ def build_lm(
     compute_dtype: torch.dtype = torch.bfloat16,
     remat: str = "full",
 ) -> LM:
-    """Construct the model for a (dense or SSM) config.  ``vocab_multiple`` pads the
+    """Construct the model for a (dense, MoE or SSM) config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
     the padding is runtime-only, UCP atoms store the logical vocab."""
     if remat not in ("full", "none"):

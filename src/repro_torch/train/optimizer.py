@@ -87,16 +87,23 @@ def adamw_update(state: TrainState, grads: dict, cfg: TrainConfig) -> tuple[Trai
     v_flat = flatten_with_paths(state.exp_avg_sq)
     new_p, new_m, new_v = {}, {}, {}
     for name, p in params.items():
+        # Each temporary is dropped as soon as it is spent: a parameter's fp32
+        # temporaries are GBs at full width, and the previous parameter's
+        # would otherwise live on into the next (without this, a full-width
+        # mixtral-8x22b layer's step ran out of an 80 GB H100's memory).
         m, v = m_flat[name], v_flat[name]
         g = g_flat[name].float() * clip
         mf = m.float() * b1 + (1 - b1) * g
         vf = v.float() * b2 + (1 - b2) * g.square()
+        del g
         u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+        new_m[name] = mf.to(m.dtype)
+        new_v[name] = vf.to(v.dtype)
+        del mf, vf
         if p.dim() >= 2:  # no weight decay on norms/scalars
             u = u + cfg.weight_decay * p.float()
         new_p[name] = (p.float() - lr_d * u).to(p.dtype)
-        new_m[name] = mf.to(m.dtype)
-        new_v[name] = vf.to(v.dtype)
+        del u
     new_state = TrainState(
         unflatten_from_paths(new_p), unflatten_from_paths(new_m),
         unflatten_from_paths(new_v), step,

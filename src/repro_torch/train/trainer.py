@@ -9,9 +9,12 @@ committed checkpoint: DIRECT when the layout is unchanged, RESHARD_STREAM
 when it changed; training continues at the checkpointed step with the same
 global data order (the stateless pipeline of :mod:`.data`).
 
-Only the dense family trains; any other family raises before a run starts
-(the SSM family serves, but no test holds its training against the
-reference yet).
+The dense and the MoE families train (a MoE config's plan shards its
+expert tensors by expert parallelism or by expert-TP, ``moe_mode``); any
+other family raises before a run starts (the SSM family serves, but no
+test holds its training against the reference yet).  Each step's record
+carries the cross-entropy ``loss`` and the MoE ``aux`` loss (0 for a dense
+model).
 """
 
 from __future__ import annotations
@@ -75,10 +78,10 @@ class Trainer:
         policy: CheckpointPolicy | None = None,
         device: str | torch.device = "cuda",
     ) -> "Trainer":
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: training the {cfg.family!r} family is not ported yet; only the "
-                "dense decoder trains (ROADMAP queue 1, item 6: other model families)"
+                "dense and MoE decoders train (ROADMAP queue 1, item 6: other model families)"
             )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -145,6 +148,7 @@ class Trainer:
             rec = {
                 "step": step + 1,
                 "loss": float(metrics["loss"]),
+                "aux": float(metrics["aux"]),
                 "grad_norm": float(metrics["grad_norm"]),
                 "lr": float(metrics["lr"]),
                 "dt": time.perf_counter() - t0,

@@ -10,6 +10,11 @@
   the manifests are equal apart from ``created_at``, every shard digest
   matches, the reference validates it and reads back the same bytes.
 * ``tensor_io``: bf16/fp8 cross the two packages through raw-byte views.
+* The numpy path takes bf16 state: a numpy snapshot whose plan says
+  bfloat16 moments is cast through torch (round to nearest even) and
+  written byte for byte as the reference writes it; the reference reads it
+  back.  An extended dtype resolves to the void of its width there, never
+  to an integer type.
 """
 
 import numpy as np
@@ -183,8 +188,9 @@ def test_port_extended_dtype_loads_in_reference(tmp_path, name):
     assert TIO.content_digest(t) == RIO.content_digest(back)
     again = TIO.load_tensor(tmp_path / "p.npy", dtype=name)
     assert torch.equal(again, t)
-    with pytest.raises(NotImplementedError):
-        TIO.resolve_dtype(name)  # never silently an integer type on the numpy path
+    # never an integer type on the numpy path: the void of the width (bytes)
+    resolved = TIO.resolve_dtype(name)
+    assert resolved.kind == "V" and resolved.itemsize == ref_arr.itemsize
 
 
 def test_content_digest_matches_reference():
@@ -194,3 +200,82 @@ def test_content_digest_matches_reference():
     as_tensor = torch.from_numpy(np.ascontiguousarray(arr))
     assert TIO.content_digest(as_tensor) == RIO.content_digest(arr)
     assert TIO.content_digest(arr, "crc32") == RIO.content_digest(arr, "crc32")
+
+
+def test_bf16_moments_on_the_numpy_path_are_the_reference_bytes(ref_snapshot, tmp_path):
+    """``moment_dtype="bfloat16"`` with a numpy (float32) snapshot: the port
+    casts the moments through torch, the reference through ``ml_dtypes``;
+    every file, header included, and the manifest are equal, the reference
+    validates the port's checkpoint and reads the same bf16 values, and
+    the port restores the reference's bit-equal."""
+    mesh = R.MeshSpec.from_dict(SOURCE)
+    rcfg, tcfg = RC.reduced(RC.get_config("smollm-360m")), TC.reduced(TC.get_config("smollm-360m"))
+    rpar = RC.ParallelismConfig(moment_dtype="bfloat16")
+    tpar = TC.ParallelismConfig(moment_dtype="bfloat16")
+    rlm = ref_build(rcfg, vocab_multiple=RS.vocab_multiple(rpar, mesh))
+    tlm = port_build(tcfg, vocab_multiple=TS.vocab_multiple(tpar, T.MeshSpec.from_dict(SOURCE)))
+    rplan = RS.make_plan(rcfg, rlm.registry, rpar, mesh)
+    tplan = TS.make_plan(tcfg, tlm.registry, tpar, T.MeshSpec.from_dict(SOURCE))
+    snap = {n: {T.StateKind(k.value): a for k, a in kinds.items()}
+            for n, kinds in ref_snapshot.items()}
+    port_write(snap, tplan, 5, tmp_path / "port", config_fingerprint=tcfg.fingerprint())
+    ref_write(ref_snapshot, rplan, 5, tmp_path / "ref", workers=1,
+              config_fingerprint=rcfg.fingerprint())
+    files = sorted(p.relative_to(tmp_path / "ref") for p in (tmp_path / "ref").glob("ranks/**/*.npy"))
+    assert files == sorted(p.relative_to(tmp_path / "port")
+                           for p in (tmp_path / "port").glob("ranks/**/*.npy"))
+    for rel in files:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "ref" / rel).read_bytes(), rel
+    pj, rj = (R.DistCheckpoint.open(tmp_path / d).manifest.to_json() for d in ("port", "ref"))
+    pj.pop("created_at"), rj.pop("created_at")
+    assert pj == rj
+    ck = R.DistCheckpoint.open(tmp_path / "port")
+    assert ck.validate() == []
+    spec = ck.manifest.params["layers.blk.w_up"]
+    for kind in (R.StateKind.EXP_AVG, R.StateKind.EXP_AVG_SQ):
+        atom = R.assemble_atom(ck, spec, kind)
+        want = ref_snapshot["layers.blk.w_up"][kind].astype(ml_dtypes.bfloat16)
+        assert atom.dtype == np.dtype(ml_dtypes.bfloat16) and atom.tobytes() == want.tobytes()
+    # and back: the reference's bf16 checkpoint restores in the port bit-equal
+    from repro_torch.ckpt.manager import CheckpointManager
+
+    (tmp_path / "mgr").mkdir()
+    (tmp_path / "ref").rename(tmp_path / "mgr" / "step_00000005")
+    state, info = CheckpointManager(tmp_path / "mgr", tplan).restore("cpu")
+    assert info.mode.value == "direct"
+    got = T.flatten_with_paths(state.exp_avg_sq)["layers.blk.w_up"]
+    want = ref_snapshot["layers.blk.w_up"][R.StateKind.EXP_AVG_SQ].astype(ml_dtypes.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert got.contiguous().view(torch.uint16).numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("name", sorted(EXTENDED))
+def test_numpy_path_buffers_of_extended_dtypes(tmp_path, name):
+    """The arena and ``open_memmap`` take bf16/fp8: void buffers of the
+    width (bytes, not numbers).  A memmap filled from a tensor is the file
+    the reference's ``np.save`` of the same ``ml_dtypes`` array writes —
+    except float8_e5m2, whose '<f1' header the reference's own ``np.load``
+    refuses, so the port writes it as a '|V1' void the reference loads."""
+    from repro_torch.core.engine import BufferArena
+
+    buf = BufferArena().alloc((3, 4), name)
+    assert buf.dtype.kind == "V" and buf.dtype.itemsize == np.dtype(EXTENDED[name]).itemsize
+    ref_arr = _extended(name)
+    t = torch.from_numpy(ref_arr.astype(np.float32)).to(TIO.torch_dtype(name))
+    mm = TIO.open_memmap(tmp_path / "m.npy", ref_arr.shape, name)
+    mm[...] = TIO.to_staging(mm, t)
+    mm.flush()
+    del mm
+    TIO.save_tensor(tmp_path / "s.npy", t)
+    assert (tmp_path / "m.npy").read_bytes() == (tmp_path / "s.npy").read_bytes()
+    if name != "float8_e5m2":
+        RIO.save_tensor(tmp_path / "r.npy", ref_arr)
+        assert (tmp_path / "m.npy").read_bytes() == (tmp_path / "r.npy").read_bytes()
+    else:
+        RIO.save_tensor(tmp_path / "r.npy", ref_arr)
+        with pytest.raises(ValueError):
+            RIO.load_tensor(tmp_path / "r.npy", dtype=name)  # the reference cannot load its own
+    back = RIO.load_tensor(tmp_path / "m.npy", dtype=name)
+    assert back.tobytes() == ref_arr.tobytes()
+    assert torch.equal(TIO.to_extended(ref_arr.astype(np.float32), name), t)
+    assert torch.equal(TIO.to_extended(np.load(tmp_path / "m.npy"), name), t)

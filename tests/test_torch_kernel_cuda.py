@@ -21,7 +21,13 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   the codec on the card against the host's codec;
 * one reduced train step on the card against the CPU path (fp32): the loss
   within 1e-5, the gradients of ``wqkv`` (atol 1e-5, rtol 1e-4), and no
-  flash-attention launch while a gradient is recorded;
+  flash-attention launch while a gradient is recorded; the same for
+  reduced mixtral (MoE), with its aux loss and the router's and experts'
+  gradients;
+* reduced mixtral served on the card against the CPU path (fp32): the
+  experts each token is routed to are the same wherever the top-k margin
+  is above rounding (the share of flipped tokens is reported), and the
+  logits of every sequence with no flipped token within 1e-4;
 * the SSD chunk-scan kernel against its plain versions (``ssd_ref`` and
   ``ssd_chunked``) on the sweep of ``tests/test_kernels.py`` and at the
   serving shapes, bf16 (y 5e-2) and fp32 (y 5e-4/1e-4), h_final 5e-3 as
@@ -58,6 +64,7 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.train.optimizer import init_state  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
@@ -324,6 +331,78 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
     assert abs(l0 - l1) <= 1e-5 and abs(n0 - n1) <= 1e-4 * n0
     assert g1.abs().sum() > 0
     np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def _record_routes(monkeypatch):
+    """Record (idx_k, top-k margin) of every MoE routing call, on the host."""
+    calls = []
+    route = moe_mod.route
+
+    def recording(xg, router_w, k):
+        probs, gate_k, idx_k = route(xg, router_w, k)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        calls.append((idx_k.cpu(), (top[..., k - 1] - top[..., k]).cpu()))
+        return probs, gate_k, idx_k
+
+    monkeypatch.setattr(moe_mod, "route", recording)
+    return calls
+
+
+def test_reduced_mixtral_on_card_matches_cpu(cuda, monkeypatch):
+    """Routing is discontinuous, so the card is held to the CPU by the
+    experts it picks: equal wherever the top-k margin exceeds 1e-5, and
+    the logits of sequences whose every routing agreed within 1e-4."""
+    lm = build_model(reduced(get_config("mixtral-8x22b")), compute_dtype=torch.float32)
+    params_cpu = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 256, (4, 40), generator=torch.Generator().manual_seed(1))
+    calls = _record_routes(monkeypatch)
+    launches = flash_attention.launches
+    outs, routes, fed = [], [], []
+    for params, dev in ((params_cpu, "cpu"), (_to(params_cpu, cuda), cuda)):
+        start = len(calls)
+        cache = D.init_cache(lm, 4, 48, device=dev)
+        logits, cache = D.prefill(lm, params, cache, toks.to(dev))
+        steps = [logits.cpu()]
+        for i in range(3):  # both decode the CPU's greedy tokens
+            if dev == "cpu":
+                fed.append(steps[-1].argmax(-1)[:, None])
+            lg, cache = D.decode_step(lm, params, cache, fed[i].to(dev))
+            steps.append(lg[:, -1].cpu())
+        outs.append(steps)
+        routes.append(calls[start:])
+    assert flash_attention.launches == launches + lm.cfg.num_layers
+    flipped = torch.zeros(4, dtype=torch.bool)
+    for (i_cpu, margin), (i_gpu, _) in zip(*routes):
+        differ = (i_cpu != i_gpu).any(-1)                      # [g=4, t]
+        assert bool((margin[differ] <= 1e-5).all()), "a flip above rounding"
+        flipped |= differ.any(-1)
+    print(f"sequences with a flipped token: {int(flipped.sum())} of 4")
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b[~flipped].numpy(), a[~flipped].numpy(), atol=1e-4, rtol=0)
+
+
+def test_reduced_moe_train_step_on_card_matches_cpu(cuda):
+    lm = build_model(reduced(get_config("mixtral-8x22b")), compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 256, (4, 17), generator=torch.Generator().manual_seed(1))
+    step = make_train_step(lm, TC.TrainConfig(), TC.ParallelismConfig())
+    names = ["layers.blk.router", "layers.blk.we_gate", "layers.blk.we_down"]
+    launches = flash_attention.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in flatten_with_paths(params).items()}
+        loss, metrics = lm.loss_fn(unflatten_from_paths(leaves), {"tokens": toks.to(dev)})
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        _, m = step(init_state(_to(params, dev)), {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(loss.detach()), float(metrics["aux"].detach()),
+                         [g.cpu() for g in grads], float(m["grad_norm"]))
+    assert flash_attention.launches == launches
+    (l0, a0, g0, n0), (l1, a1, g1, n1) = out["cpu"], out[str(cuda)]
+    assert abs(l0 - l1) <= 1e-5 and abs(a0 - a1) <= 1e-6 and abs(n0 - n1) <= 1e-4 * n0
+    assert a1 > 0
+    for name, a, b in zip(names, g0, g1):
+        assert b.abs().sum() > 0, name
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5, rtol=1e-4, err_msg=name)
 
 
 def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=0):

@@ -14,6 +14,12 @@ own baseline.)
 
 Independent launcher runs go out together, one thread each, so the file
 stays well inside a minute and a half.
+
+``test_moe_arch_reconfig`` is the reference's Fig. 10 case: reduced
+mixtral trained under expert parallelism (data=1,model=4), resumed under
+expert-TP (data=2,model=2, ``--no-ep``) through RESHARD_STREAM, with
+finite losses below 20 (~15 s: the resume reads the Source's save, so the
+two runs go one after the other).
 """
 
 import json
@@ -53,9 +59,20 @@ SOURCES = [
 ]
 
 
-def _start(args):
+# The reference's MoE case (tests/test_reconfig_e2e.py::test_moe_arch_reconfig)
+# without --host-devices: one Source under EP, one Target under expert-TP.
+MOE = [
+    sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+    "--arch", "mixtral-8x22b", "--reduced", "--batch", "4", "--seq", "16",
+    "--sync-save", "--log-json",
+]
+MOE_SOURCE = ["--mesh", "data=1,model=4", "--steps", "4", "--save-interval", "4"]
+MOE_TARGET = ["--mesh", "data=2,model=2", "--steps", "6", "--save-interval", "100", "--no-ep"]
+
+
+def _start(args, base=BASE):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
-    return subprocess.Popen(BASE + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    return subprocess.Popen(base + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env)
 
 
@@ -71,6 +88,26 @@ def _finish(proc):
             elif rec.get("event") == "restored":
                 restored = rec
     return steps, restored
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    """The MoE Source under EP, then its resume under expert-TP."""
+    ck = tmp_path_factory.mktemp("moe")
+    src = _finish(_start(MOE_SOURCE + ["--ckpt-dir", str(ck)], base=MOE))
+    tgt = _finish(_start(MOE_TARGET + ["--ckpt-dir", str(ck)], base=MOE))
+    return src, tgt
+
+
+def test_moe_arch_reconfig(moe_runs):
+    """UCP is arch-agnostic (Fig. 10): MoE with EP → expert-TP reconfig."""
+    (src_steps, _), (steps, restored) = moe_runs
+    assert sorted(src_steps) == [1, 2, 3, 4]
+    assert restored is not None and restored["mode"] == "reshard_stream", restored
+    assert restored["step"] == 4
+    assert sorted(steps) == [5, 6]
+    losses = list(src_steps.values()) + list(steps.values())
+    assert losses and all(loss == loss and loss < 20 for loss in losses)
 
 
 def _all(arg_lists):

@@ -13,7 +13,7 @@
 * The port's own parity: prefill then decode equals the forward pass.
 * The ``ssm_alog`` init equals the reference's; ``ssm_dt`` draws from the
   same range.  Serving reads ``a_log`` and ``dt_bias`` in float32.
-* Training entry points refuse every family but the dense one.
+* Training entry points refuse every family but the dense and MoE ones.
 """
 
 import json
@@ -334,11 +334,11 @@ def test_training_refuses_the_ssm_family(tmp_path):
     from repro_torch.train.trainer import Trainer
 
     cfg = TC.reduced(TC.get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="only the dense decoder trains"):
+    with pytest.raises(NotImplementedError, match="only the dense and MoE decoders train"):
         Trainer.create(cfg, TC.ParallelismConfig(), TC.TrainConfig(),
                        MeshSpec.from_dict({"data": 1, "model": 1}),
                        batch_size=2, seq_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="only the dense decoder trains"):
+    with pytest.raises(NotImplementedError, match="only the dense and MoE decoders train"):
         train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
                         "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "ck")])
     assert not (tmp_path / "ck").exists() or not any((tmp_path / "ck").iterdir())
@@ -347,5 +347,13 @@ def test_training_refuses_the_ssm_family(tmp_path):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b", "deepseek-v2-236b",
                                   "llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_still_refused(arch):
+    """Every family but dense, MoE without MLA and Mamba-2 is refused;
+    mixtral (MoE, the eighth slice) builds, with its expert tensors."""
+    cfg = TC.reduced(TC.get_config(arch))
+    if arch == "mixtral-8x22b":
+        lm = build_model(cfg)
+        assert [s.name for s in lm.stages] == ["layers"] and lm.stages[0].body[0].moe
+        assert lm.registry["layers.blk.we_gate"].kind == "moe_expert"
+        return
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        build_model(TC.reduced(TC.get_config(arch)))
+        build_model(cfg)

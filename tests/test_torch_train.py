@@ -165,6 +165,20 @@ def test_three_train_steps_match_reference_jit():
         np.testing.assert_allclose(tt[name].numpy(), np.asarray(a), atol=3.6e-4, err_msg=name)
 
 
+def test_dense_aux_is_exactly_zero_and_the_loss_unchanged():
+    """A dense model has no MoE layer: its aux is exactly 0, and the loss it
+    differentiates is the bare cross-entropy (the reference's loss), so the
+    smollm train path keeps its numbers."""
+    rlm, rp, tlm, tp = _pair(jnp.float32, torch.float32)
+    toks = _tokens(tlm.cfg.vocab_size)
+    _, aux = tlm.forward(tp, torch.from_numpy(toks[:, :-1]).long())
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
+    total, metrics = tlm.loss_fn(tp, {"tokens": torch.from_numpy(toks).long()})
+    assert float(metrics["aux"]) == 0.0 and torch.equal(total, metrics["loss"])
+    rtotal, _ = rlm.loss_fn(rp, {"tokens": jnp.asarray(toks)})
+    assert abs(float(total) - float(rtotal)) <= 1e-5
+
+
 @pytest.mark.parametrize("variant,loss_tol,norm_rtol", [
     # two microbatches of 2 average to the batch of 4 (bf16 sums reassociate)
     ({"grad_accum": 2}, 2e-2, 2e-2),
