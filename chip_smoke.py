@@ -11,7 +11,9 @@ nothing falls back to the CPU or to a plain version):
 2. build   — compile the three kernel sources of this checkout with nvcc
    (sm_90a), one process each, started together; print the build seconds
    and ptxas' report, and fail if the head-dim-256 flash instances
-   (``fwd_kernel_tc<256>``, ``fwd_kernel<float, 256>``) spill;
+   (``fwd_kernel_tc<256, 256>``, ``fwd_kernel<float, 256, 256>``) or the
+   MLA ones (``fwd_kernel_tc<192, 128>``, ``fwd_kernel<float, 192, 128>``)
+   spill;
 3. kernel flash_attention — against its plain PyTorch version at the
    serving slice's shapes (B=4, S=512 and a ragged 500, 15:5 heads, D=64,
    bf16, causal; a window=128 case; an fp32 case), max abs error beside the
@@ -25,7 +27,11 @@ nothing falls back to the CPU or to a plain version):
    the bf16 kernel's device time beside the library's, the fp32 kernel's
    device time, the plain version's event time and the bound; then the
    same for mixtral-8x22b's head layout (48:8 heads of 128; its window 4096
-   at S=8192);
+   at S=8192), and for deepseek-v2's MLA (128:128 heads, q and k of 192, v
+   of 128, no window; there also the bf16 kernel's event time, and the
+   library is the first fused ``scaled_dot_product_attention`` backend
+   that takes a v head dim other than q's, named, checked against the
+   kernel, with the others' reasons for refusing);
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -152,18 +158,38 @@ nothing falls back to the CPU or to a plain version):
    shard digest of the save equal to the restored state re-cut under the
    Source plan (params bit-equal, moments the codec's served view), then
    3 more steps with finite losses beside the baseline's;
-10. the I/O line (JSON: the walls above), the kernels line (JSON: each row
+10. serve-mla: deepseek-v2-236b (MLA) at full width: d 5120, 128 heads,
+   q_lora 1536, kv_lora 512, nope 128, rope 64, v 128, 160 experts top-6
+   of d_ff 1536 and 2 shared, vocab 102400; depth cut from 60 to 2 layers
+   (the dense head layer and one MoE layer; 5,358,679,040 params): init
+   on the card; the fp32 weights alone (21.4 GB) saved under data=2,model=2
+   with expert parallelism, beside the disk floor on its largest files;
+   weights-only restores under data=1,model=1 (RESHARD_STREAM) and
+   data=2,model=2 (DIRECT), each bit-equal to the save, then a read floor
+   of the same files; from each, a bf16 prefill of 4 x 512 (exactly 2
+   flash launches, both bf16 at (D, Dv) = (192, 128), recorded at the
+   kernel's wrapper) and 16 greedy decode steps through the absorbed
+   latent cache, equal tokens; the profiled prefill (the flash share of
+   its device time) and decode.  In fp32 on the card: the flash path
+   against the plain attention by the experts each token is routed to
+   (the logits of the tokens no flip reaches within 1e-3), and 16 decode
+   steps after a kernel prefill against the same steps after a plain one
+   (the logits of every step and row routed alike within 1e-3);
+11. the I/O line (JSON: the walls above), the kernels line (JSON: each row
    names its variants; ``ms`` is the profiler's device time per launch,
    with ``event_ms`` beside it; rows 2-3 add the general kernel's device
    time ``general_ms`` and the train phase's ``launches_by_variant`` and
    ``launches_by_phase``; the flash row adds the head-dim-256 times, bound
    and gemma3 launches (``d256_*``) and mixtral's D = 128 shape
-   (``d128_*``, ``mixtral_*``), every row its launches in the mixtral
-   phases (``mixtral_launches``) and the block-quant rows the mixtral
-   shard check (``mixtral_shard_*``), the dequantize row the export's
-   launches ``convert_launches``; a prefill's device and kernel times are
-   null where every profiler trace of it lost a record), the mixtral line (JSON), the card line,
-   then the result line (JSON, last).
+   (``d128_*``, ``mixtral_*``) and deepseek-v2's (192, 128) shape
+   (``d192_*``, ``deepseek_*``), every row its launches in the mixtral
+   phases (``mixtral_launches``) and in serve-mla (``deepseek_launches``)
+   and the block-quant rows the mixtral shard check
+   (``mixtral_shard_*``), the dequantize row the export's launches
+   ``convert_launches``; a prefill's device and kernel times are null
+   where every profiler trace of it lost a record), the mixtral line
+   (JSON), the deepseek line (JSON), the card line, then the result line
+   (JSON, last).
 """
 
 from __future__ import annotations
@@ -300,15 +326,17 @@ def device_ms(torch, fn, calls: int = 20, launches=None):
 def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float):
     """Least time for the work: each input read once and the output written
     once at the memory rate, against the score and P·V products this run's
-    mask allows at the peak rate of the inputs' type."""
+    mask allows at the peak rate of the inputs' type: 2·D FLOPs a pair for
+    Q·Kᵀ and 2·Dv for P·V."""
     b, s, hq, d = q.shape
+    dv = v.shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
     pairs = 0
     for i in range(s):
         lo = max(0, i - window + 1) if window > 0 else 0
         hi = i + 1 if causal else k.shape[1]
         pairs += hi - lo
-    flops = 4.0 * d * pairs * b * hq
+    flops = 2.0 * (d + dv) * pairs * b * hq
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / flops_peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
@@ -550,27 +578,65 @@ def kernel_phase(torch, F, kernel, ops, ref):
                        label="gemma3-12b")
     d128 = head_layout(torch, F, kernel, ops, ref, hq=48, hkv=8, d=128, long=(1, 8192, 4096),
                        label="mixtral-8x22b")
+    d192 = head_layout(torch, F, kernel, ops, ref, hq=128, hkv=128, d=192, dv=128, long=None,
+                       label="deepseek-v2-236b MLA")
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
-                d256=d256, d128=d128)
+                d256=d256, d128=d128, d192=d192)
 
 
-def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: tuple,
-                label: str):
-    """One model's attention shapes (``hq``:``hkv`` heads of ``d``): both
-    kernels against the plain version, causal at B=4, S=512 and at ``long``
-    = (B, S, window) with the model's sliding window; then the bf16
-    kernel's device time at B=4, S=512 beside the library's and the
-    bound.  gemma3-12b: 16:8 heads of 256, window 1024 at S=2048;
-    mixtral-8x22b: 48:8 heads of 128, window 4096 at S=8192."""
+def sdpa_backend(torch, F, qt, kt, vt, scale: float):
+    """The first fused ``scaled_dot_product_attention`` backend (cuDNN,
+    flash, memory-efficient) that takes these inputs, as (name, a call
+    pinned to it), and each backend's reason where it refused them (PyTorch
+    warns why, then raises).  A yardstick only: the port never calls it."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    reasons = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            try:
+                call()
+                torch.cuda.synchronize()
+                return backend.name, call, reasons
+            except RuntimeError as e:
+                why = [str(w.message).splitlines()[0] for w in seen] or [str(e).splitlines()[0]]
+                reasons[backend.name] = "; ".join(why)[:300]
+    return None, None, reasons
+
+
+def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: tuple | None,
+                label: str, dv: int | None = None):
+    """One model's attention shapes (``hq``:``hkv`` heads, q and k of ``d``,
+    v of ``dv``, default ``d``): both kernels against the plain version,
+    causal at B=4, S=512 and at ``long`` = (B, S, window) with the model's
+    sliding window, where it has one; then the bf16 kernel's device time at
+    B=4, S=512 beside the library's and the bound.  gemma3-12b: 16:8 heads
+    of 256, window 1024 at S=2048; mixtral-8x22b: 48:8 heads of 128, window
+    4096 at S=8192; deepseek-v2: 128:128 heads, D = 192 and Dv = 128, no
+    window.  Where Dv != D, the library is the first fused backend of
+    ``scaled_dot_product_attention`` that takes the inputs
+    (:func:`sdpa_backend`), checked against the kernel; None, with
+    PyTorch's reasons, where none does."""
+    dv = dv or d
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(d)
+    g = torch.Generator(device=dev).manual_seed(d + dv)
     scale = d ** -0.5
     cases = [(dtype, b, s, window) for dtype in (torch.bfloat16, torch.float32)
-             for b, s, window in ((4, 512, 0), long)]
+             for b, s, window in ((4, 512, 0),) + ((long,) if long else ())]
     worst, main = 0.0, None
     for dtype, b, s, window in cases:
-        tag = f"D={d} {str(dtype).split('.')[1]} B={b} S={s} {hq}:{hkv} causal window={window}"
-        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv))
+        tag = (f"D={d} Dv={dv} {str(dtype).split('.')[1]} B={b} S={s} {hq}:{hkv} causal "
+               f"window={window}")
+        q, k, v = (torch.randn(b, s, h, w, generator=g, device=dev).to(dtype)
+                   for h, w in ((hq, d), (hkv, d), (hkv, dv)))
         out = kernel.flash_attention_fwd(q, k, v, causal=True, window=window, scale=scale)
         plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=True, window=window, scale=scale).transpose(1, 2)
@@ -597,9 +663,26 @@ def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: 
         "library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
     }
+    backend, reasons = "default dispatch", {}
+    if dv != d:
+        backend, runs["library"], reasons = sdpa_backend(torch, F, qt, kt, vt, scale)
+        print(f"library for D={d} Dv={dv}: {backend or 'none'}; refused: {reasons}")
+        if backend is None:
+            del runs["library"]
+        else:
+            lib = runs["library"]().transpose(1, 2).float()
+            atol, rtol = TOL["bfloat16"]
+            lib_err = (lib - out.float()).abs().max().item()
+            check(bool(((lib - out.float()).abs() <= atol + rtol * lib.abs()).all()),
+                  f"D={d} Dv={dv}: the kernel and {backend} disagree ({lib_err:.3e})")
+            print(f"library {backend} agrees with the kernel to {lib_err:.3e} (tolerance atol "
+                  f"{atol} rtol {rtol})")
+            del lib
     plain_ms = sum(cuda_ms(torch, runs["plain"], iters=20) for _ in range(2)) / 2
+    event_ms = cuda_ms(torch, runs["kernel"], iters=20)
     device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
-    for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
+    order = ("kernel", "library", "fp32", "fp32", "library", "kernel")
+    for name in (n for n in order if n in runs):
         per_call, top = device_ms(torch, runs[name], launches=None if name == "library"
                                   else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
@@ -607,17 +690,18 @@ def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: 
             check(top[0][2] == 20, f"flash D={d} {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
         print(f"kernel flash_attention D={d} {name} device time (profiler): {per_call:.5f} ms per "
               "call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
-    ms = {n: sum(t) / len(t) for n, t in device.items()}
+    ms = {n: sum(t) / len(t) if t else None for n, t in device.items()}
     bound_ms, bound_by, nbytes, flops = attention_bound(
         q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS)
-    print(f"kernel bf16 B=4 S=512 Hq={hq} Hkv={hkv} D={d} causal ({label}): device ms "
-          f"{ms['kernel']:.5f} library device ms {ms['library']:.5f} fp32 kernel device ms "
-          f"{ms['fp32']:.5f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; "
-          f"{nbytes / 1e6:.2f} MB is {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {flops / 1e9:.3f} "
-          f"GFLOP is {flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of "
-          "the bound")
-    return dict(ms=ms["kernel"], library_ms=ms["library"], fp32_ms=ms["fp32"], plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+    print(f"kernel bf16 B=4 S=512 Hq={hq} Hkv={hkv} D={d} Dv={dv} causal ({label}): device ms "
+          f"{ms['kernel']:.5f} (event {event_ms:.5f}) library ({backend}) device ms "
+          f"{fmt_ms(ms['library'], '.5f')} fp32 kernel device ms {ms['fp32']:.5f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB is "
+          f"{nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {flops / 1e9:.3f} GFLOP is "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of the bound")
+    return dict(ms=ms["kernel"], event_ms=event_ms, library_ms=ms["library"],
+                library_backend=backend, library_refused=reasons, fp32_ms=ms["fp32"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
 def check_no_spills(usage: list[str], names: tuple[str, ...]) -> None:
@@ -1917,6 +2001,19 @@ def write_floor_rate(step_dir: Path, workers: int, scratch: Path, budget: float 
     return total / 1e9 / disk_floor(take, workers, scratch)
 
 
+def fp32_read_floor(step_dir: Path, workers: int) -> tuple[int, float, float]:
+    """The fp32 shard files of a checkpoint (what a weights-only restore
+    reads) read whole from ``workers`` threads: (files, GB, seconds)."""
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.patterns import StateKind
+
+    ck = DistCheckpoint.open(step_dir)
+    files = sorted({ck.shard_path(r, n, StateKind.FP32) for n in ck.manifest.params
+                    for r in ck.writing_ranks(n, StateKind.FP32)})
+    gb = sum(p.stat().st_size for p in files) / 1e9
+    return len(files), gb, read_floor_s(files, workers)
+
+
 def read_floor_s(paths: list[Path], workers: int) -> float:
     """Seconds to read ``paths`` whole from ``workers`` threads (page cache
     or disk, as the restore finds them): the floor of a restore that reads
@@ -2219,12 +2316,8 @@ def moe_serve_phase(torch, counters: dict, bq_ops, layers: int = 2):
             torch.cuda.empty_cache()
         # The read floor after the restores: the bytes they read, as warm in
         # the page cache as the second restore found them.
-        ck = DistCheckpoint.open(step_dir)
-        fp32_files = sorted({ck.shard_path(r, n, StateKind.FP32) for n in manifest.params
-                             for r in ck.writing_ranks(n, StateKind.FP32)})
-        read_gb = sum(p.stat().st_size for p in fp32_files) / 1e9
-        read_s = read_floor_s(fp32_files, width)
-        print(f"mixtral restore read floor: the {len(fp32_files)} fp32 shard files, {read_gb:.3f} "
+        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
+        print(f"mixtral restore read floor: the {n_files} fp32 shard files, {read_gb:.3f} "
               f"GB, read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), "
               f"after the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, "
               f"DIRECT {runs['data=2,model=2']['restore_s']:.2f} s")
@@ -2303,11 +2396,13 @@ def long_prefill(torch, cfg, lm, params_c, reset, counts, per_prefill) -> dict:
 
 
 def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_attention,
-                  layers: int) -> dict:
+                  layers: int, label: str = "mixtral") -> dict:
     """fp32 logits of the 4 x 512 prompts on the card through the flash
     kernel and through the plain attention: the experts chosen compared
     token by token (a flip is a routing that differs), the logits of every
-    token the flips cannot reach within 1e-3."""
+    token the flips cannot reach within 1e-3.  The MoE layers are the last
+    ones (deepseek-v2's dense head layer comes first), so a flip reaches
+    later positions only through a later MoE layer's attention."""
     with torch.inference_mode():
         reset()
         with MoeLog(torch) as klog:
@@ -2331,19 +2426,19 @@ def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_atten
         flipped += int(differ.sum())
         margins += km[differ].tolist()
         reach |= differ
-        if layer < layers - 1:  # a later layer's attention carries it to later positions
+        if layer < len(klog.routes) - 1:  # a later layer's attention carries it on
             first = torch.where(differ.any(1), differ.float().argmax(1), torch.full((b,), s))
             reach |= torch.arange(s)[None, :] >= first[:, None]
     kept = ~reach
     err = (k_logits.cpu() - p_logits.cpu()).abs()[kept].max().item() if bool(kept.any()) else 0.0
-    share = flipped / (b * s * layers)
-    print(f"mixtral fp32 routing, kernel path vs plain path on the card ({b}x{s} tokens, "
-          f"{layers} layers): {flipped} flipped routings ({share:.5f} of them), smallest top-2 "
+    share = flipped / (b * s * len(klog.routes))
+    print(f"{label} fp32 routing, kernel path vs plain path on the card ({b}x{s} tokens, "
+          f"{layers} layers): {flipped} flipped routings ({share:.5f} of them), smallest top-k "
           f"margin among them {min(margins) if margins else float('nan'):.3e}; logits of the "
           f"{int(kept.sum())} tokens no flip reaches: max_abs_err {err:.3e} (tolerance 1e-3)")
-    check(bool(torch.isfinite(k_logits).all()), "mixtral fp32 logits not finite")
-    check(err <= 1e-3, "mixtral: kernel and plain logits disagree")
-    check(all(m <= 1e-4 for m in margins), "mixtral: a routing flipped above fp32 rounding")
+    check(bool(torch.isfinite(k_logits).all()), f"{label} fp32 logits not finite")
+    check(err <= 1e-3, f"{label}: kernel and plain logits disagree")
+    check(all(m <= 1e-4 for m in margins), f"{label}: a routing flipped above fp32 rounding")
     return dict(flipped=flipped, share=share, min_margin=min(margins) if margins else None,
                 max_abs_err=err, compared=int(kept.sum()))
 
@@ -2530,6 +2625,242 @@ def moe_train_phase(torch, bq_ops, bq_ref, counters: dict, layers: int = 1):
     return out
 
 
+DEEPSEEK_PARAMS = {2: 5_358_679_040}  # at full width, by depth
+
+
+class FlashShapes:
+    """Records the (dtype, D, Dv) of every flash kernel launch while it is
+    open (a shim around the wrapper's ``kernel.flash_attention_fwd``)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.shapes = kernel, []
+
+    def __enter__(self):
+        launch = self._saved = self.kernel.flash_attention_fwd
+
+        def recording(q, k, v, **kw):
+            self.shapes.append((str(q.dtype).removeprefix("torch."), q.shape[-1], v.shape[-1]))
+            return launch(q, k, v, **kw)
+
+        self.kernel.flash_attention_fwd = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.flash_attention_fwd = self._saved
+
+
+def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
+    """deepseek-v2-236b (MLA) at full width, depth cut to ``layers`` (the
+    dense head layer and one MoE layer): the fp32 weights saved under
+    data=2,model=2 with expert parallelism; weights-only restores under
+    data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), bit-equal
+    to the save, beside a read floor of the same files; from each, a bf16
+    prefill of 4 x 512 (one flash launch a layer at D = 192, Dv = 128) and
+    16 greedy decode steps through the absorbed latent cache, the same
+    tokens; the profiled prefill and decode.  Then in fp32 on the card: the
+    kernel path against the plain attention, by routing (``routing_check``),
+    and 16 decode steps after a kernel prefill against the same steps after
+    a plain prefill."""
+    import dataclasses
+
+    from repro_torch.ckpt.saver import write_distributed
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import (
+        generate, latest_step_dir, restore_params, serving_parallelism,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.attention import full_attention
+
+    dev = torch.device("cuda")
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    m = cfg.mla
+    pair = (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+    per_prefill = {"flash_attention": layers, "ssd_scan": 0}
+    reset = functools.partial(reset_launches, counters)
+    counts = functools.partial(launch_counts, counters)
+
+    def plan_for(mesh_str, dtype=torch.bfloat16):
+        mesh = mesh_spec_from_string(mesh_str)
+        parallel = serving_parallelism(mesh)
+        lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
+        return lm, make_plan(cfg, lm.registry, parallel, mesh)
+
+    lm, src_plan = plan_for("data=2,model=2")
+    n_params = lm.registry.num_params()
+    check(src_plan.moe_mode == "ep", f"data=2,model=2 plans moe_mode {src_plan.moe_mode}")
+    check(n_params == DEEPSEEK_PARAMS[layers], f"{n_params} params at {layers} layers")
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"deepseek-v2-236b: d {cfg.d_model}, {cfg.num_heads} heads, MLA q_lora {m.q_lora_rank} "
+          f"kv_lora {m.kv_lora_rank} nope {m.qk_nope_head_dim} rope {m.qk_rope_head_dim} v "
+          f"{m.v_head_dim}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert} and {cfg.moe.num_shared} shared, dense d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; depth cut from {full.num_layers} to {layers} layers; {n_params} "
+          f"params ({4 * n_params / 1e9:.2f} GB fp32) initialised on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    root = ROOT / "build" / "chip_smoke_ckpt_deepseek"
+    shutil.rmtree(root, ignore_errors=True)
+    width = default_workers()
+    out: dict = {}
+    try:
+        # Save the fp32 weights alone (a serving checkpoint: 21.4 GB).
+        t0 = time.perf_counter()
+        saved = flatten_with_paths(params)
+        snap = {n: {StateKind.FP32: t.cpu().numpy()} for n, t in saved.items()}
+        snap_s = time.perf_counter() - t0
+        res = write_distributed(snap, src_plan, 1, root / "step_00000001", workers=width,
+                                config_fingerprint=cfg.fingerprint())
+        del snap
+        step_dir = latest_step_dir(root)
+        check(step_dir is not None, "deepseek: no committed step")
+        check(res.bytes_written == 4 * n_params, f"deepseek save wrote {res.bytes_written} bytes")
+        rate = write_floor_rate(step_dir, width, root / "floor")
+        gb = res.bytes_written / 1e9
+        print(f"deepseek save data=2,model=2 (moe_mode ep): {gb:.3f} GB of fp32 weights in "
+              f"{res.shards_written} shards, {res.wall_time_s:.2f} s with {width} workers "
+              f"({gb / res.wall_time_s:.3f} GB/s; device→host snapshot {snap_s:.2f} s); disk "
+              f"floor {gb / rate:.2f} s ({rate:.3f} GB/s from {width} threads, on its largest "
+              f"files up to 2 GB); disk {disk_used_gb():.1f} GB used")
+        out["save"] = dict(gb=gb, seconds=res.wall_time_s, snapshot_s=snap_s, floor_s=gb / rate,
+                           floor_gb_s=rate, workers=width)
+
+        prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                                generator=torch.Generator().manual_seed(6)).to(dev)
+        runs = {}
+        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
+                                 ("data=2,model=2", "direct")):
+            tlm, tplan = plan_for(mesh_str)
+            t0 = time.perf_counter()
+            flat, rp = restore_params(step_dir, tplan, dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(rp.mode.value == expect, f"deepseek {mesh_str}: {rp.mode.value}, want {expect}")
+            check(set(flat) == set(saved), f"deepseek {mesh_str}: restored parameter set differs")
+            for name, t in flat.items():
+                check(torch.equal(t, saved[name]), f"deepseek {mesh_str}: {name} differs")
+            print(f"deepseek restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
+                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
+            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+            del flat
+            torch.cuda.empty_cache()
+            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
+            reset()
+            with FlashShapes(kernel) as shapes, MoeLog(torch) as log:
+                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
+            launches = counts()
+            check(launches == per_prefill, f"deepseek {mesh_str}: launches {launches}")
+            check(shapes.shapes == [("bfloat16", *pair)] * layers,
+                  f"deepseek {mesh_str}: flash launches (dtype, D, Dv) {shapes.shapes}")
+            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+                  f"deepseek {mesh_str}: tokens {tuple(seq.shape)}")
+            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[1:]) / \
+                sum(k.numel() for k in log.keeps[1:])
+            print(f"deepseek serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
+                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches}, "
+                  f"flash (dtype, D, Dv) {shapes.shapes}; dropped by capacity: prefill "
+                  f"{1.0 - float(log.keeps[0].float().mean()):.4f} of the slots, decode "
+                  f"{decode_drop:.4f}")
+            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
+                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
+                                  launches=launches)
+            if expect == "direct":
+                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
+                                             "flash_attention", layers)
+                busy = prof["prefill"][1]
+                out["prefill_device_ms"], out["decode_device_ms"] = (
+                    busy, prof["decode x16"][1] / 16)
+                out["prefill_kernel_ms"] = mine[1]
+                share = (f"{mine[1] / busy:.4f}" if busy is not None and mine[1] is not None
+                         else "not measured")
+                print(f"deepseek prefill 4x512 profiled: device busy {fmt_ms(busy)}, flash "
+                      f"{fmt_ms(mine[1])} over {mine[2]} launches, a share of {share}")
+            del params_c
+            torch.cuda.empty_cache()
+        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
+        print(f"deepseek restore read floor: the {n_files} fp32 shard files, "
+              f"{read_gb:.3f} GB, read in {read_s:.2f} s from {width} threads "
+              f"({read_gb / read_s:.3f} GB/s), after the restores: RESHARD_STREAM "
+              f"{runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
+              f"{runs['data=2,model=2']['restore_s']:.2f} s")
+        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
+        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
+        check(torch.equal(a, b), "deepseek: RESHARD_STREAM and DIRECT restores serve other tokens")
+        print(f"deepseek tokens identical across restores; sample {a[0, :8].tolist()}")
+        out["runs"] = {k: {n: v for n, v in r.items() if n != "seq"} for k, r in runs.items()}
+        out["launches"] = runs["data=1,model=1"]["launches"]["flash_attention"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Right by the repo's own means, in fp32 on the card: the kernel path
+    # against the plain path, by the experts chosen, then through decode.
+    flm = build_model(cfg, compute_dtype=torch.float32)
+    with FlashShapes(kernel) as shapes:
+        out["routing"] = routing_check(torch, flm, params, prompts, reset, counts, lm_mod,
+                                       full_attention, layers, label="deepseek")
+    check(shapes.shapes == [("float32", *pair)] * layers, f"deepseek fp32 flash {shapes.shapes}")
+    out["decode_check"] = mla_decode_check(torch, flm, params, prompts, reset, counts, lm_mod,
+                                           full_attention, layers)
+    return out
+
+
+def mla_decode_check(torch, flm, params, prompts, reset, counts, lm_mod, full_attention,
+                     layers: int, steps: int = 16) -> dict:
+    """fp32 on the card: prefill the 4 x 512 prompts through the flash
+    kernel, then ``steps`` decode steps through the latent cache, against
+    the same prefill through the plain attention and the same steps (both
+    fed the kernel path's greedy tokens).  The cache never depends on a
+    routing (the MoE layer is the last, and its attention reads the dense
+    layer's output), so a flip moves only its own token's logits: every
+    step's logits of the rows routed alike are compared, within 1e-3."""
+    from repro_torch.models import decode as D
+
+    b, s = prompts.shape
+    outs = []
+    fed: list = []
+    with torch.inference_mode():
+        for plain in (False, True):
+            kernel_fn = lm_mod.flash_attention
+            if plain:
+                lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
+                    q, k, v, causal=causal, window=window)
+            try:
+                reset()
+                cache = D.init_cache(flm, b, s + steps, device=prompts.device)
+                with MoeLog(torch) as log:
+                    logits, cache = D.prefill(flm, params, cache, prompts)
+                    lgs = [logits.cpu()]
+                    for i in range(steps):
+                        if not plain:
+                            fed.append(lgs[-1].argmax(-1)[:, None])
+                        lg, cache = D.decode_step(flm, params, cache, fed[i].to(prompts.device))
+                        lgs.append(lg[:, -1].cpu())
+                launches = counts()["flash_attention"]
+            finally:
+                lm_mod.flash_attention = kernel_fn
+            check(launches == (0 if plain else layers), f"fp32 decode check: {launches} launches")
+            # the last routing of the prefill, then one a step: [b] rows each
+            routes = [log.routes[0][0][:, -1]] + [r[0][:, -1] for r in log.routes[1:]]
+            outs.append((torch.stack(lgs), torch.stack(routes)))
+    (k_lg, k_rt), (p_lg, p_rt) = outs
+    same = (k_rt == p_rt).all(-1)  # [steps + 1, b]
+    err = (k_lg - p_lg).abs()[same].max().item()
+    check(bool(torch.isfinite(k_lg).all()), "deepseek fp32 decode logits not finite")
+    print(f"deepseek fp32 decode check: prefill 4x{s} through the kernel vs the plain attention, "
+          f"then {steps} latent-cache decode steps each: {int(same.sum())} of {same.numel()} "
+          f"(step, row) pairs routed alike, their logits max_abs_err {err:.3e} (tolerance 1e-3)")
+    check(err <= 1e-3, "deepseek: decode after the kernel prefill and after the plain disagree")
+    return dict(max_abs_err=err, compared=int(same.sum()), of=same.numel())
+
+
 def main() -> int:
     import torch
 
@@ -2555,7 +2886,8 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
     usage = build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
-    check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256>", "fwd_kernel<float, 256>"))
+    check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256, 256>", "fwd_kernel<float, 256, 256>",
+                                               "fwd_kernel_tc<192, 128>", "fwd_kernel<float, 192, 128>"))
     k = kernel_phase(torch, F, kernel, ops, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
@@ -2568,6 +2900,10 @@ def main() -> int:
     train = train_phase(torch, ops, bq_ops)
     moe_serve = moe_serve_phase(torch, counters, bq_ops)
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
+    bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    reset_launches(bq_counters)
+    mla = mla_serve_phase(torch, counters, kernel)
+    mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
 
     rows = [{
         "name": "flash_attention_fwd",
@@ -2589,6 +2925,7 @@ def main() -> int:
         "prefill_device_ms": runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": runs["data=2,model=2"]["prefill_kernel_ms"],
         "d256_ms": k["d256"]["ms"],
+        "d256_event_ms": k["d256"]["event_ms"],
         "d256_library_ms": k["d256"]["library_ms"],
         "d256_fp32_ms": k["d256"]["fp32_ms"],
         "d256_plain_ms": k["d256"]["plain_ms"],
@@ -2600,6 +2937,7 @@ def main() -> int:
         "gemma3_prefill_device_ms": gemma["prefill_device_ms"],
         "gemma3_prefill_kernel_ms": gemma["prefill_kernel_ms"],
         "d128_ms": k["d128"]["ms"],
+        "d128_event_ms": k["d128"]["event_ms"],
         "d128_library_ms": k["d128"]["library_ms"],
         "d128_fp32_ms": k["d128"]["fp32_ms"],
         "d128_plain_ms": k["d128"]["plain_ms"],
@@ -2610,6 +2948,21 @@ def main() -> int:
         "mixtral_launches": moe_serve["launches"],
         "mixtral_prefill_device_ms": moe_serve["prefill_device_ms"],
         "mixtral_prefill_kernel_ms": moe_serve["prefill_kernel_ms"],
+        "d192_ms": k["d192"]["ms"],
+        "d192_event_ms": k["d192"]["event_ms"],
+        "d192_library_ms": k["d192"]["library_ms"],
+        "d192_library_backend": k["d192"]["library_backend"],
+        "d192_library_refused": k["d192"]["library_refused"],
+        "d192_fp32_ms": k["d192"]["fp32_ms"],
+        "d192_plain_ms": k["d192"]["plain_ms"],
+        "d192_bound_ms": k["d192"]["bound_ms"],
+        "d192_bound_by": k["d192"]["bound_by"],
+        "d192_max_abs_err": k["d192"]["max_abs_err"],
+        "d192_shape": "bf16 B=4 S=512 128:128 heads, q and k of 192, v of 128, causal "
+                      "(deepseek-v2-236b MLA)",
+        "deepseek_launches": mla["launches"],
+        "deepseek_prefill_device_ms": mla["prefill_device_ms"],
+        "deepseek_prefill_kernel_ms": mla["prefill_kernel_ms"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -2635,6 +2988,7 @@ def main() -> int:
             moe_serve["save"]["quantize"] if which == "quantize" else 0)
         rows[-1]["mixtral_shard_numel"] = moe_train["shard_check"]["numel"]
         rows[-1]["mixtral_shard_max_abs_err"] = moe_train["shard_check"]["max_abs_err"]
+        rows[-1]["deepseek_launches"] = mla_bq[which]
         if name == "dequantize_blocks":
             rows[-1]["convert_launches"] = train["export"]["launches"]
     rows.append({
@@ -2656,6 +3010,7 @@ def main() -> int:
         "prefill_device_ms": ssm_runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
         "mixtral_launches": moe_serve["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
+        "deepseek_launches": mla["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
     })
     print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
                              "train delta": train["delta"], "train gc under pin": train["gc"],
@@ -2663,10 +3018,15 @@ def main() -> int:
                                                      "read_floor": moe_serve["read_floor"],
                                                      "restores": moe_serve["runs"]},
                              "train mixtral-8x22b": {k: moe_train[k] for k in (
-                                 "save_s", "save_gb", "floor_s", "resume_s")}}}))
+                                 "save_s", "save_gb", "floor_s", "resume_s")},
+                             "serve deepseek-v2-236b": {"save": mla["save"],
+                                                        "read_floor": mla["read_floor"],
+                                                        "restores": mla["runs"]}}}))
     print(json.dumps({"mixtral": {"serve": {k: v for k, v in moe_serve.items()
                                             if k not in ("save", "read_floor", "runs")},
                                   "train": moe_train}}))
+    print(json.dumps({"deepseek": {k: v for k, v in mla.items()
+                                   if k not in ("save", "read_floor", "runs")}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

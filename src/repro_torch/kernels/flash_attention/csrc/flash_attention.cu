@@ -31,18 +31,29 @@
 // overlaps this tile's math; rows are padded by 16 bytes so ldmatrix hits
 // distinct banks.  Head dims 8..256 (8 is zero-padded to the MMA's k of 16).
 // Every row base must be 16-byte aligned (the wrapper refuses others).
+//
+// The value head dim DV may differ from the key's D, as in the reference
+// (v [B, Hkv, Skv, Dv], kernel.py:96-110): Q·Kᵀ runs over D, the V tile, the
+// O accumulator and the output row over DV.  Both kernels are templated on
+// the pair (D, DV) and the source instantiates (d, d) for d in 8..256 and
+// (192, 128), DeepSeek-V2's MLA prefill (q and k of nope 128 + rope 64, v of
+// 128; the v the model hands over is the strided [nope | v] view of one
+// up-projection, 256 bytes past its row start).  Any other pair is refused.
 // Up to D = 128 a warp keeps its Q fragments in registers for the whole KV
 // loop.  At D = 256 (gemma3) the O accumulator alone is 16 x 256 fp32 a
 // warp, 128 registers a lane, and Q's fragments would add 64 more: there Q
 // stays in shared memory and each k-step of Q·Kᵀ reloads its fragment with
 // ldmatrix (FlashAttention-2's layout for this head dim), so ptxas fits the
-// kernel in 255 registers without spilling.  One 169 KB block an SM.
+// kernel in 255 registers without spilling.  One 169 KB block an SM.  At
+// (192, 128) Q reloads the same way (12 k-steps); V's rows are DV + 8 wide,
+// so a block takes 111,616 bytes of shared memory.
 //
 // float32 — CUDA cores (fwd_kernel, the first, scalar design, kept exact for the fp32
 // card-vs-CPU checks: TF32 or bf16 operands would break their tolerance).
 // One block of 256 threads per 64-row q-tile, products in fp32 from shared
-// memory, P through shared memory.  Its shared memory grows with D: 213,760
-// bytes at D = 256, under the 232,448 a block may opt in to.
+// memory, P through shared memory.  Its shared memory grows with D and DV:
+// 213,760 bytes at D = 256, 148,224 at (192, 128), under the 232,448 a block
+// may opt in to.
 //
 // q-tiles are scheduled latest first, so the causally heaviest blocks start
 // in the first wave: the bf16 kernel's grid puts the q-tile on its slowest
@@ -93,12 +104,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+  return BQ * (D + 1) + BK * (D + 1) + BK * DV + BQ * (BK + 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, int Sq, int Skv, int groups, Strides qs, Strides ks,
@@ -106,11 +117,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   extern __shared__ float smem[];
   constexpr int DP = D + 1;   // padded rows: column walks hit distinct banks
   constexpr int PP = BK + 1;
-  constexpr int CJ = (D + 15) / 16;  // accumulator columns per thread
+  constexpr int CJ = (DV + 15) / 16;  // accumulator columns per thread
   float* sQ = smem;           // [BQ][DP]
   float* sK = sQ + BQ * DP;   // [BK][DP]
-  float* sV = sK + BK * DP;   // [BK][D]
-  float* sP = sV + BK * D;    // [BQ][PP]
+  float* sV = sK + BK * DP;   // [BK][DV]
+  float* sP = sV + BK * DV;   // [BQ][PP]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
@@ -151,7 +162,14 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const int kr = k0 + r;
       const bool in = kr < Skv;
       sK[r * DP + c] = in ? to_f(kb[kr * ks.s + c]) : 0.f;
-      sV[r * D + c] = in ? to_f(vb[kr * vs.s + c]) : 0.f;
+      if constexpr (DV == D) sV[r * D + c] = in ? to_f(vb[kr * vs.s + c]) : 0.f;
+    }
+    if constexpr (DV != D) {
+      for (int i = tid; i < BK * DV; i += THREADS) {
+        const int r = i / DV, c = i % DV;
+        const int kr = k0 + r;
+        sV[r * DV + c] = kr < Skv ? to_f(vb[kr * vs.s + c]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -216,7 +234,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
         const int col = tx + 16 * c;
-        const float vv = col < D ? sV[kk * D + col] : 0.f;
+        const float vv = col < DV ? sV[kk * DV + col] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -232,16 +250,16 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) ob[qr * os.s + col] = from_f<T>(acc[i][c] / denom);
+      if (col < DV) ob[qr * os.s + col] = from_f<T>(acc[i][c] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
            int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
            int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * sizeof(float);
+  constexpr int bytes = smem_floats<D, DV>() * sizeof(float);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per
   // instantiation and device (not per launch: it is a driver call).
   static bool opted_in[64] = {};
@@ -250,30 +268,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(fwd_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+  fwd_kernel<T, D, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The (D, DV) pairs both kernels are instantiated for; any other returns -2.
+#define REPRO_FLASH_PAIRS(X) \
+  X(8, 8) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Sq,
-               int Skv, int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
+int dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Skv, int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
                float scale, int causal, int window, cudaStream_t st) {
-  switch (D) {
-    case 8: return launch<T, 8>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    default: return -2;  // unsupported head dim
-  }
+#define REPRO_CASE(d, dv)                                                                   \
+  if (D == d && DV == dv)                                                                   \
+    return launch<T, d, dv>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, \
+                            window, st);
+  REPRO_FLASH_PAIRS(REPRO_CASE)
+#undef REPRO_CASE
+  return -2;  // unsupported (D, DV) pair
 }
 
 // ---------------------------------------------------------------------------
@@ -337,40 +357,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, int DV>
 struct TcShape {
   static constexpr int DK = D < 16 ? 16 : D;  // head dim padded to the MMA's k
-  static constexpr int LD = DK + 8;           // row stride: an odd number of 16-byte units
+  static constexpr int LD = DK + 8;           // Q and K row stride: an odd number of 16-byte units
+  static constexpr int LDV = (DV < 16 ? 16 : DV) + 8;  // V row stride, likewise
   static constexpr int KSTEPS = DK / 16;      // k-steps of Q·Kᵀ
-  static constexpr int NO = D / 8;            // 8-column blocks of O
+  static constexpr int NO = DV / 8;           // 8-column blocks of O
   static constexpr bool Q_IN_REGS = D <= 128;  // else Q fragments reload from smem
-  static constexpr int SMEM = (TC_BQ + 4 * TC_BK) * LD * static_cast<int>(sizeof(bf16));
+  static constexpr int SMEM =
+      ((TC_BQ + 2 * TC_BK) * LD + 2 * TC_BK * LDV) * static_cast<int>(sizeof(bf16));
 };
 
-// Rows [r0, r0 + 64) of one head into dst [64][LD] with 16-byte cp.async;
-// rows at or past `rows` are zero-filled.
-template <int D>
+// Rows [r0, r0 + 64) of one head, COLS wide, into dst [64][LDS] with
+// 16-byte cp.async; rows at or past `rows` are zero-filled.
+template <int COLS, int LDS>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long row_stride, int r0,
                                            int rows) {
-  constexpr int CPR = D / 8;  // 16-byte copies a row
+  constexpr int CPR = COLS / 8;  // 16-byte copies a row
   for (int i = threadIdx.x; i < 64 * CPR; i += TC_THREADS) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const bool ok = r0 + r < rows;
-    cp_async16(dst + r * TcShape<D>::LD + c, ok ? src + (r0 + r) * row_stride + c : src, ok);
+    cp_async16(dst + r * LDS + c, ok ? src + (r0 + r) * row_stride + c : src, ok);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               bf16* __restrict__ o, int Sq, int Skv, int groups, Strides qs, Strides ks,
               Strides vs, Strides os, float scale_log2, int causal, int window) {
-  using Sh = TcShape<D>;
-  constexpr int LD = Sh::LD;
+  using Sh = TcShape<D, DV>;
+  constexpr int LD = Sh::LD, LDV = Sh::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
   bf16* sK = sQ + TC_BQ * LD;                     // [2][BK][LD]
-  bf16* sV = sK + 2 * TC_BK * LD;                 // [2][BK][LD]
+  bf16* sV = sK + 2 * TC_BK * LD;                 // [2][BK][LDV]
 
   // Blocks start in launch order, x fastest: every head and batch of the
   // latest (causally heaviest) q-tile first.
@@ -385,8 +407,8 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
 
-  if (Sh::DK != D) {  // D = 8: the MMA's k is 16; columns D..15 stay zero
-    for (int r = tid; r < TC_BQ + 4 * TC_BK; r += TC_THREADS)
+  if (Sh::DK != D) {  // D = 8: the MMA's k is 16; columns D..15 of Q and K stay zero
+    for (int r = tid; r < TC_BQ + 2 * TC_BK; r += TC_THREADS)
 #pragma unroll
       for (int c = D; c < Sh::DK; ++c) sQ[r * LD + c] = __float2bfloat16_rn(0.f);
   }
@@ -397,11 +419,11 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   const int kv_begin = window > 0 ? (max(0, q0 - window + 1) / TC_BK) * TC_BK : 0;
   const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + TC_BK - 1) / TC_BK : 0;
 
-  stage_tile<D>(sQ, qb, qs.s, q0, Sq);
+  stage_tile<D, LD>(sQ, qb, qs.s, q0, Sq);
   cp_async_commit();
   if (ntiles > 0) {
-    stage_tile<D>(sK, kb, ks.s, kv_begin, Skv);
-    stage_tile<D>(sV, vb, vs.s, kv_begin, Skv);
+    stage_tile<D, LD>(sK, kb, ks.s, kv_begin, Skv);
+    stage_tile<DV, LDV>(sV, vb, vs.s, kv_begin, Skv);
   }
   cp_async_commit();
 
@@ -429,8 +451,8 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     const int k0 = kv_begin + t * TC_BK;
     const int buf = t & 1;
     if (t + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      stage_tile<D>(sK + (buf ^ 1) * TC_BK * LD, kb, ks.s, k0 + TC_BK, Skv);
-      stage_tile<D>(sV + (buf ^ 1) * TC_BK * LD, vb, vs.s, k0 + TC_BK, Skv);
+      stage_tile<D, LD>(sK + (buf ^ 1) * TC_BK * LD, kb, ks.s, k0 + TC_BK, Skv);
+      stage_tile<DV, LDV>(sV + (buf ^ 1) * TC_BK * LDV, vb, vs.s, k0 + TC_BK, Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -438,7 +460,7 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     }
     __syncthreads();
     const bf16* cK = sK + buf * TC_BK * LD;
-    const bf16* cV = sV + buf * TC_BK * LD;
+    const bf16* cV = sV + buf * TC_BK * LDV;
 
     // S = Q·Kᵀ for the warp's 16 rows and the tile's 64 columns.
     float s[8][4];
@@ -514,7 +536,7 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     // O += P·V
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const bf16* vrow = cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD;
+      const bf16* vrow = cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV;
 #pragma unroll
       for (int n2 = 0; n2 < Sh::NO / 2; ++n2) {
         uint32_t bv[4];
@@ -556,43 +578,41 @@ bool aligned16(const void* p, const Strides& st, int nb, int ns, int nh) {
          (ns == 1 || st.s * e % 16 == 0) && (nh == 1 || st.h * e % 16 == 0);
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int Hq,
               int Hkv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
               int window, cudaStream_t stream) {
   if (!aligned16(q, qs, B, Sq, Hq) || !aligned16(k, ks, B, Skv, Hkv) ||
       !aligned16(v, vs, B, Skv, Hkv) || !aligned16(o, os, B, Sq, Hq))
     return -3;
-  constexpr int bytes = TcShape<D>::SMEM;
+  constexpr int bytes = TcShape<D, DV>::SMEM;
   static bool opted_in[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(fwd_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(fwd_kernel_tc<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
   }
   dim3 grid(Hq, B, (Sq + TC_BQ - 1) / TC_BQ);
-  fwd_kernel_tc<D><<<grid, TC_THREADS, bytes, stream>>>(
+  fwd_kernel_tc<D, DV><<<grid, TC_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale * LOG2E, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                int causal, int window, cudaStream_t st) {
-  switch (D) {
-    case 8: return launch_tc<8>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 16: return launch_tc<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 32: return launch_tc<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 64: return launch_tc<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    case 256: return launch_tc<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
-    default: return -2;  // unsupported head dim
-  }
+int dispatch_tc(int D, int DV, const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Skv, int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
+                float scale, int causal, int window, cudaStream_t st) {
+#define REPRO_CASE(d, dv)                                                                   \
+  if (D == d && DV == dv)                                                                   \
+    return launch_tc<d, dv>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, \
+                            window, st);
+  REPRO_FLASH_PAIRS(REPRO_CASE)
+#undef REPRO_CASE
+  return -2;  // unsupported (D, DV) pair
 }
 
 }  // namespace
@@ -600,11 +620,11 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o, int
 extern "C" {
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
-// Strides in elements, [B, S, H] order.  Returns 0, a cudaError_t from the
-// launch, -1 (dtype), -2 (head dim) or -3 (a bf16 row base not 16-byte
-// aligned).
+// D is q's and k's head dim, Dv v's and o's.  Strides in elements, [B, S, H]
+// order.  Returns 0, a cudaError_t from the launch, -1 (dtype), -2 (a (D, Dv)
+// pair not instantiated) or -3 (a bf16 row base not 16-byte aligned).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                              int B, int Sq, int Skv, int Hq, int Hkv, int D, long long qsb,
+                              int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv, long long qsb,
                               long long qss, long long qsh, long long ksb, long long kss,
                               long long ksh, long long vsb, long long vss, long long vsh,
                               long long osb, long long oss, long long osh, float scale,
@@ -612,9 +632,9 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
   if (dtype == 1)
-    return dispatch_tc(D, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    return dispatch_tc(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
   return -1;
 }
 

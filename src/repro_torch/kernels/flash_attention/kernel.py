@@ -8,8 +8,12 @@ plain C entry point loaded with ``ctypes``).  Nothing is compiled or loaded
 when this module is imported.
 
 The launch takes tensors in the model layout ``[B, S, H, D]`` with their
-strides (the head dim must be contiguous), runs on PyTorch's current
-stream, allocates nothing but the output, and raises on any launch error.
+strides (the head dim must be contiguous); v's head dim ``Dv`` may differ
+from q's and k's ``D`` for the pairs the source instantiates
+(:data:`HEAD_DIMS`: ``(d, d)`` for d in 8..256, and DeepSeek-V2's MLA
+``(192, 128)``), and the output is ``[B, Sq, Hq, Dv]``.  It runs on
+PyTorch's current stream, allocates nothing but the output, and raises on
+any launch error.
 The source holds two kernels and the dtype picks one: bfloat16 goes to the
 tensor-core kernel, float32 to the CUDA-core kernel.  The tensor-core
 kernel copies rows with 16-byte ``cp.async``, so a bfloat16 input whose row
@@ -31,12 +35,14 @@ from repro_torch.kernels.nvcc import compile_and_load, launch_error
 __all__ = ["build", "flash_attention_fwd", "HEAD_DIMS", "ROW_ALIGN"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# The (D, Dv) pairs both kernels are instantiated for (REPRO_FLASH_PAIRS in
+# the source); the kernel returns -2 for any other.
+HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 ROW_ALIGN = 16  # bytes: the bfloat16 kernel's cp.async copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REFUSALS = {
     -1: "unsupported dtype",
-    -2: "unsupported head dim",
+    -2: "unsupported (D, Dv) head dim pair",
     -3: "a bfloat16 row base is not 16-byte aligned",
 }
 
@@ -60,7 +66,7 @@ def build() -> tuple[ctypes.CDLL, dict]:
         fn = lib.repro_flash_attention_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
@@ -88,15 +94,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention_fwd: q, k, v dtypes differ")
     b, _, hq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
         raise ValueError(
             f"flash_attention_fwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} (k and v must equal [B, Skv, Hkv, D])"
+            f"v {tuple(v.shape)} (k must be [B, Skv, Hkv, D] and v [B, Skv, Hkv, Dv])"
         )
     if hq % k.shape[2]:
         raise ValueError(f"flash_attention_fwd: {hq} q heads over {k.shape[2]} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} not in {HEAD_DIMS}")
+    if (d, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_fwd: head dims (D, Dv) = {(d, v.shape[3])}: the kernels are "
+            f"instantiated for {HEAD_DIMS} only"
+        )
 
 
 def flash_attention_fwd(
@@ -108,7 +117,8 @@ def flash_attention_fwd(
     window: int,
     scale: float,
 ) -> torch.Tensor:
-    """Launch the kernel once: q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → o [B,Sq,Hq,D]."""
+    """Launch the kernel once: q [B,Sq,Hq,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv]
+    → o [B,Sq,Hq,Dv]."""
     _check(q, k, v)
     if q.dtype == torch.bfloat16 and (got := row_alignment(q, k, v)) < ROW_ALIGN:
         raise ValueError(
@@ -117,13 +127,13 @@ def flash_attention_fwd(
         )
     lib, _ = build()
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    o = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-            b, sq, skv, hq, hkv, d,
+            b, sq, skv, hq, hkv, d, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             float(scale), int(causal), int(window), stream,
         )

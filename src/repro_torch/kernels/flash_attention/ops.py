@@ -1,7 +1,10 @@
 """Public wrapper of the flash-attention kernel, in model layout
 (port of ``repro/kernels/flash_attention/ops.py``).
 
-``flash_attention(q, k, v)`` takes ``[B, S, H, D]`` tensors:
+``flash_attention(q, k, v)`` takes ``[B, S, H, D]`` tensors, v with its own
+head dim ``Dv`` (MLA's 128 beside q's and k's 192), and returns
+``[B, Sq, Hq, Dv]``; the default scale is ``1/sqrt(D)``, q's head dim, as
+the reference's ``full_attention``:
 
 * on CUDA tensors it launches the Hopper kernel (``kernel.py``) or raises —
   there is no fallback and no switch.  The kernel has no backward (the JAX
@@ -46,7 +49,7 @@ def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, Hq, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
-    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, Dv]
     *,
     causal: bool = True,
     window: int = 0,

@@ -7,6 +7,10 @@ and decode greedily (port of ``repro.launch.serve``).
         --ckpt-dir /path/to/run --mesh data=1,model=1 --batch 4 \\
         --prompt-len 512 --gen 16
 
+Any ported config serves, from a checkpoint of any layout: dense, Mamba-2,
+mixtral, and deepseek-v2 (``--arch deepseek-v2-236b``: MLA, whose decode
+attends through the absorbed latent cache).
+
 The restore is weights-only, as the reference's docstring says (the
 reference restores a full ``TrainState``): open the newest committed
 ``step_XXXXXXXX``, plan the resume against this run's layout, and read the

@@ -113,7 +113,11 @@ class ParamRegistry:
 
     def cast(self, tree: dict, dtype) -> dict:
         """The once-per-load cast of fp32 master weights (nested) to the
-        compute dtype; the leaves declared ``keep_fp32`` stay float32."""
+        compute dtype; the leaves declared ``keep_fp32`` stay float32.  The
+        reference reads every other leaf in the compute dtype (weights
+        through ``.astype(h.dtype)``, norm scales through ``rms_norm``'s
+        cast; MLA's ``q_norm``/``kv_norm`` and projections included), so
+        casting them once gives its numbers."""
         return unflatten_from_paths({
             n: t if self.defs[n].keep_fp32 else t.to(dtype)
             for n, t in flatten_with_paths(tree).items()

@@ -1,5 +1,5 @@
 """Serving path: cache construction, prefill, single-token decode
-(port of the dense and MoE GQA and the Mamba-2 paths of
+(port of the dense and MoE GQA, the MLA and the Mamba-2 paths of
 ``repro.models.decode``).  A MoE layer routes each sequence as one group,
 as the reference's serving does, so a decode step routes one token a group
 with capacity 1 and drops nothing; its aux loss is dropped.
@@ -12,6 +12,11 @@ the next position:
   token position (-1 = empty), ``C = min(window, cache_len)`` for static
   sliding-window layers and ``cache_len`` otherwise.  Masking is by
   position, so ring overwrite needs no special case.
+* MLA (DeepSeek-V2) — the compressed latent ``c_kv [count, B, C, kv_lora]``
+  and the one shared roped key head ``k_rope [count, B, C, rope]``, with
+  ``slot_pos``; decode attends in the latent space (the absorbed form: no
+  per-head K or V is ever built), in plain PyTorch as the reference, which
+  has no kernel for it.
 * Mamba-2 — constant size: the SSM state ``h [count, B, H, P, N]`` in
   float32 and the conv window ``conv [count, B, K-1, conv_dim]`` (the last
   K-1 pre-conv ``xbc`` rows) in the compute dtype.
@@ -22,6 +27,8 @@ the same dict with ``pos`` advanced.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -65,12 +72,22 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
                 }
             else:
                 c = _cache_len_for(ld, cache_len)
-                st[ld.name] = {
-                    "k": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
-                    "v": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
-                    "slot_pos": torch.full((n, batch, c), -1, dtype=torch.int32,
-                                           device=device),
-                }
+                if cfg.mla is not None:
+                    m = cfg.mla
+                    entry = {
+                        "c_kv": torch.zeros((n, batch, c, m.kv_lora_rank), dtype=dt,
+                                            device=device),
+                        "k_rope": torch.zeros((n, batch, c, m.qk_rope_head_dim), dtype=dt,
+                                              device=device),
+                    }
+                else:
+                    entry = {
+                        "k": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
+                        "v": torch.zeros((n, batch, c, hkv, hd), dtype=dt, device=device),
+                    }
+                entry["slot_pos"] = torch.full((n, batch, c), -1, dtype=torch.int32,
+                                               device=device)
+                st[ld.name] = entry
         cache[stage.name] = st
     return cache
 
@@ -108,8 +125,11 @@ def _logits(lm: LM, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tensor:
-    """One GQA layer of a decode step; writes this token's K/V in place."""
+    """One attention layer of a decode step (MLA's go to :func:`_mla_decode`);
+    writes this token's K/V in place."""
     cfg = lm.cfg
+    if cfg.mla is not None:
+        return _mla_decode(lm, p, entry, x, pos, sin, cos)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -126,6 +146,43 @@ def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tenso
         window=window,
     )
     return x + o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
+
+
+def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
+    """One MLA layer of a decode step in the absorbed form
+    (``repro/models/decode.py:140-177``): this token's latent and roped key
+    head go into the cache in place; q's nope part is absorbed into kv_b's
+    key half (q_abs = q_nope · w_k), the latent and rope scores are added in
+    the compute dtype, cast to fp32 and scaled by 1/sqrt(nope + rope),
+    masked by ``slot_pos``, softmaxed in fp32 and cast back; the context in
+    latent space goes through kv_b's value half, then wo."""
+    cfg, m = lm.cfg, lm.cfg.mla
+    b = x.shape[0]
+    hq = cfg.num_heads
+    nope, rope, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    qa = rms_norm(h @ p["wq_a"].to(h.dtype), p["q_norm"], cfg.norm_eps)
+    q = (qa @ p["wq_b"].to(h.dtype)).reshape(b, 1, hq, nope + rope)
+    kva = h @ p["wkv_a"].to(h.dtype)
+    c_kv = rms_norm(kva[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    q_rope = apply_rope(q[..., nope:], sin, cos)
+    k_rope = apply_rope(kva[..., m.kv_lora_rank:][:, :, None, :], sin, cos)[:, :, 0, :]
+    _write_ring(entry["c_kv"], c_kv[:, 0], pos)
+    _write_ring(entry["k_rope"], k_rope[:, 0], pos)
+    _write_ring(entry["slot_pos"], pos, pos)
+    wkv_b = p["wkv_b"].to(h.dtype).reshape(m.kv_lora_rank, hq, nope + vhd)
+    w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_abs = torch.einsum("bshn,rhn->bshr", q[..., :nope], w_k)  # absorbed q
+    s_lat = torch.einsum("bshr,bcr->bshc", q_abs, entry["c_kv"])
+    s_rope = torch.einsum("bshr,bcr->bshc", q_rope, entry["k_rope"])
+    scores = (s_lat + s_rope).float() * (1.0 / math.sqrt(nope + rope))
+    slot_pos = entry["slot_pos"]
+    ok = (slot_pos >= 0) & (pos[:, None] - slot_pos >= 0)
+    scores = torch.where(ok[:, None, None, :], scores, -2.0e38)
+    probs = torch.softmax(scores, dim=-1).to(h.dtype)
+    ctx = torch.einsum("bshc,bcr->bshr", probs, entry["c_kv"])
+    o = torch.einsum("bshr,rhn->bshn", ctx, w_v)  # [b, 1, hq, vhd]
+    return x + o.reshape(b, 1, hq * vhd) @ p["wo"].to(h.dtype)
 
 
 def _mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
@@ -160,7 +217,10 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
     cfg = lm.cfg
     pos = cache["pos"]
     x = params["embed"].to(lm.compute_dtype)[tokens]
-    sin, cos = rotary_embedding(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    # the width each attention layer ropes: MLA ropes only the rope part of
+    # a head (64 of deepseek-v2's 192), every other layer the whole head
+    width = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+    sin, cos = rotary_embedding(pos[:, None], width, cfg.rope_theta)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
@@ -180,9 +240,9 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
     """Run the forward pass over a prompt and populate the cache.
 
     tokens [B,S] → (logits of the last position [B,V] float32, cache).  Each
-    attention layer's roped K/V go into its ring buffer (the trailing
-    ``min(C, S)`` tokens); each Mamba-2 layer leaves its final SSM state and
-    its last K-1 pre-conv rows.  On CUDA every attention layer is one
+    attention layer's roped K/V (MLA: its latent and roped key head) go into
+    its ring buffer (the trailing ``min(C, S)`` tokens); each Mamba-2 layer
+    leaves its final SSM state and its last K-1 pre-conv rows.  On CUDA every attention layer is one
     flash-attention launch, every Mamba-2 layer one SSD-scan launch.
     """
     b, s = tokens.shape
@@ -199,12 +259,12 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
                     conv = entry["conv"][l]  # a prompt shorter than K-1 fills the tail
                     conv[:, conv.shape[1] - conv_tail.shape[1]:] = conv_tail
                 else:
-                    x, (k, v) = lm._self_attn(
+                    x, kv = lm._self_attn(
                         p, x, window=stage.window(ld, l), positions=positions,
                         causal=ld.causal,
                     )
-                    _fill_ring(entry["k"][l], k, s)
-                    _fill_ring(entry["v"][l], v, s)
+                    for name, t in zip(("c_kv", "k_rope") if lm.cfg.mla else ("k", "v"), kv):
+                        _fill_ring(entry[name][l], t, s)
                     _fill_ring(
                         entry["slot_pos"][l],
                         positions.to(torch.int32).expand(b, s),

@@ -24,9 +24,10 @@ functions.
 ``"none"`` keeps activations.
 
 The dense, the MoE (:mod:`.moe`: mixtral; DeepSeek-style shared experts
-and leading dense layers) and the SSM (Mamba-2) families are ported.
-Hybrid, MLA, cross-attention and encoder configs raise
-``NotImplementedError`` (ROADMAP queue 1, item 6: other model families).
+and leading dense layers, with DeepSeek-V2's Multi-head Latent Attention,
+:meth:`LM._mla_attn`) and the SSM (Mamba-2) families are ported.  Hybrid,
+cross-attention and encoder configs raise ``NotImplementedError`` (ROADMAP
+queue 1, item 6: other model families).
 A MoE layer's load-balancing loss is summed over the layers and returned
 by :meth:`LM.forward`; :meth:`LM.loss_fn` adds ``router_aux_weight`` of it
 to the loss it differentiates and reports the bare cross-entropy as
@@ -82,13 +83,13 @@ def _require_ported(cfg: ModelConfig) -> None:
     ]
     if not (
         (cfg.family == "dense" and not other)
-        or (cfg.family == "moe" and other == ["moe"])
+        or (cfg.family == "moe" and other in (["moe"], ["moe", "mla"]))
         or (cfg.family == "ssm" and other == ["ssm"])
     ):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; only the "
-            "dense decoder, the MoE decoder without MLA and Mamba-2 are (ROADMAP queue 1, "
-            "item 6: other model families)"
+            "dense decoder, the MoE decoder (with or without MLA) and Mamba-2 are (ROADMAP "
+            "queue 1, item 6: other model families)"
         )
 
 
@@ -152,6 +153,19 @@ def _attn_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[Pa
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     defs, P = _stacked_def(prefix, stack)
     P("attn_norm", (d,), ("embed",), init="ones")
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        P("wq_a", (d, m.q_lora_rank), ("embed", "lora"), fan_in_dim=len(stack))
+        P("q_norm", (m.q_lora_rank,), ("lora",), init="ones")
+        P("wq_b", (m.q_lora_rank, hq * qk), ("lora", "heads"), fan_in_dim=len(stack))
+        P("wkv_a", (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "lora"),
+          fan_in_dim=len(stack))
+        P("kv_norm", (m.kv_lora_rank,), ("lora",), init="ones")
+        P("wkv_b", (m.kv_lora_rank, hq * (m.qk_nope_head_dim + m.v_head_dim)),
+          ("lora", "heads"), fan_in_dim=len(stack))
+        P("wo", (hq * m.v_head_dim, d), ("heads", "embed"), fan_in_dim=len(stack))
+        return defs
     P(
         "wqkv",
         (d, (hq + 2 * hkv) * hd),
@@ -277,10 +291,14 @@ class LM:
 
     def _self_attn(self, p, x, *, window: int, positions, causal: bool = True):
         """Pre-norm self-attention block on one layer's params; returns the
-        residual sum and this layer's roped (k, v) for the cache."""
+        residual sum and what the cache keeps of this layer: its roped
+        (k, v), or MLA's (c_kv, k_rope)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        if cfg.mla is not None:
+            out, kv = self._mla_attn(p, h, positions=positions, window=window)
+            return x + out, kv
         hd = cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         qkv = h @ p["wqkv"].to(h.dtype)
@@ -294,6 +312,34 @@ class LM:
         o = self._attention(q, k, v, causal=causal, window=window)
         out = o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype)
         return x + out, (k, v)
+
+    def _mla_attn(self, p, h, *, positions, window: int):
+        """DeepSeek-V2's Multi-head Latent Attention on the normed input
+        (``repro/models/lm.py:440-469``): q through its low-rank pair
+        (q_a, rms_norm, q_b); one latent ``c_kv`` (rms_norm) and one shared
+        roped key head ``k_rope`` from kv_a; kv_b lifts ``c_kv`` to each
+        head's [k_nope | v].  Attention runs with q and k of nope + rope
+        (192) and v of ``v_head_dim`` (128), always causal, the scale
+        1/sqrt(nope + rope); v is the strided view of kv_b's output.
+        Returns the block's output and (c_kv, k_rope) for the latent cache."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = h.shape
+        hq = cfg.num_heads
+        nope, rope, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        qa = rms_norm(h @ p["wq_a"].to(h.dtype), p["q_norm"], cfg.norm_eps)
+        q = (qa @ p["wq_b"].to(h.dtype)).reshape(b, s, hq, nope + rope)
+        kva = h @ p["wkv_a"].to(h.dtype)
+        c_kv, k_rope = kva[..., : m.kv_lora_rank], kva[..., m.kv_lora_rank:]
+        c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+        kvb = (c_kv @ p["wkv_b"].to(h.dtype)).reshape(b, s, hq, nope + vhd)
+        k_nope, v = kvb[..., :nope], kvb[..., nope:]
+        sin, cos = rotary_embedding(positions, rope, cfg.rope_theta)
+        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], sin, cos)], dim=-1)
+        k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)  # 1 shared head
+        k = torch.cat([k_nope, k_rope.expand(b, s, hq, rope)], dim=-1)
+        o = self._attention(q, k, v, causal=True, window=window)
+        out = o.reshape(b, s, hq * vhd) @ p["wo"].to(h.dtype)
+        return out, (c_kv, k_rope[:, :, 0, :])
 
     def _mlp(self, p, x, *, moe: bool = False):
         """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and

@@ -3,8 +3,9 @@
 On CPU tensors ``repro_torch.kernels.flash_attention.ops.flash_attention``
 computes its plain version; it must match the reference Pallas kernel run
 in interpret mode and the reference oracle ``attention_ref`` over the whole
-sweep of ``tests/test_kernels.py``, at that file's tolerances (fp32 atol
-2e-5 / rtol 1e-5; bf16 2e-2).  Inputs are drawn by numpy from a seed and
+sweep of ``tests/test_kernels.py``, and with a value head dim other than
+the key's (deepseek-v2's MLA: D = 192, Dv = 128), at that file's
+tolerances (fp32 atol 2e-5 / rtol 1e-5; bf16 2e-2).  Inputs are drawn by numpy from a seed and
 handed to both packages.  The CUDA kernel itself is checked on the card
 (``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``)."""
 
@@ -35,14 +36,15 @@ def _tol(name):
     return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" else dict(atol=2e-5, rtol=1e-5)
 
 
-def _inputs(b, sq, hq, hkv, d, dtype_name, seed=0, skv=None):
-    """q/k/v in model layout [B,S,H,D], rounded to the dtype once, as
-    (jax arrays, torch tensors) holding identical values."""
+def _inputs(b, sq, hq, hkv, d, dtype_name, seed=0, skv=None, dv=None):
+    """q/k/v in model layout [B,S,H,D] (v's head dim ``dv``, default D),
+    rounded to the dtype once, as (jax arrays, torch tensors) holding
+    identical values."""
     rng = np.random.default_rng(seed)
     skv = skv or sq
     arrs = [
-        rng.standard_normal((b, s, h, d)).astype(np.float32)
-        for s, h in ((sq, hq), (skv, hkv), (skv, hkv))
+        rng.standard_normal((b, s, h, w)).astype(np.float32)
+        for s, h, w in ((sq, hq, d), (skv, hkv, d), (skv, hkv, dv or d))
     ]
     jdt, tdt = DTYPES[dtype_name]
     js = [jnp.asarray(a).astype(jdt) for a in arrs]
@@ -91,6 +93,25 @@ def test_gqa_15_to_5_head_dim_64(dtype):
     pallas = ref_flash(*js, causal=True, block_q=32, block_k=32, interpret=True)
     np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
     np.testing.assert_allclose(_np(out), _np(_oracle(js, True, 0)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv,window", [
+    (1, 128, 4, 4, 192, 128, 0),   # deepseek-v2's MLA prefill (nope 128 + rope 64, v 128)
+    (2, 64, 2, 2, 24, 16, 0),      # reduced deepseek-v2 (nope 16 + rope 8, v 16)
+    (1, 128, 4, 2, 192, 128, 32),  # GQA and a window, with Dv != D
+])
+def test_value_head_dim_other_than_the_keys(b, s, hq, hkv, d, dv, window, dtype):
+    """v [B, Skv, Hkv, Dv] with Dv != D gives o [B, Sq, Hq, Dv], scaled by
+    1/sqrt(D): the plain version against the reference Pallas kernel in
+    interpret mode (which takes Dv, kernel.py:96-110) and its oracle."""
+    js, ts = _inputs(b, s, hq, hkv, d, dtype, seed=5, dv=dv)
+    out = flash_attention(*ts, causal=True, window=window)
+    assert out.shape == (b, s, hq, dv) and out.dtype == ts[0].dtype
+    pallas = ref_flash(*js, causal=True, window=window, block_q=32, block_k=32, interpret=True)
+    assert pallas.shape == out.shape
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(_oracle(js, True, window)), **_tol(dtype))
 
 
 def test_plain_version_takes_kernel_layout():
@@ -155,6 +176,18 @@ def test_tensor_core_rounding_within_reference_tolerance(s, window):
     np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
 
 
+def test_tensor_core_rounding_at_the_mla_head_dims():
+    """The same error budget at deepseek-v2's MLA prefill: 8:8 heads (of
+    its 128), q and k of 192, v of 128, scale 1/sqrt(192)."""
+    js, ts = _inputs(1, 512, 8, 8, 192, "bfloat16", seed=6, dv=128)
+    scale = 192 ** -0.5
+    got = _emulate_tensor_core_kernel(*ts, causal=True, window=0, scale=scale)
+    assert got.shape == (1, 512, 8, 128)
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
+    want = ref_oracle(q, k, v, causal=True, scale=scale).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+
+
 def test_alignment_check_takes_the_models_views_and_refuses_an_offset_one():
     """The bf16 kernel copies rows 16 bytes at a time.  smollm's fused-QKV
     split (byte offsets 1920 and 2560, rows of 3200 bytes) passes the pure
@@ -171,3 +204,17 @@ def test_alignment_check_takes_the_models_views_and_refuses_an_offset_one():
     assert row_alignment(off, k, v) == 2
     odd_rows = torch.zeros(4, 512, 15 * 64 + 1, dtype=torch.bfloat16)[..., :960].reshape(4, 512, 15, 64)
     assert row_alignment(odd_rows, k, v) == 2
+
+
+def test_alignment_check_takes_the_mla_value_view():
+    """MLA's v is the [nope | v] view of kv_b's output, 256 bytes past each
+    head's row start: 16-byte aligned rows, so the bf16 kernel takes it."""
+    from repro_torch.kernels import row_alignment
+    from repro_torch.kernels.flash_attention import kernel
+
+    kvb = torch.zeros(4, 512, 128, 128 + 128, dtype=torch.bfloat16)
+    v = kvb[..., 128:]
+    assert v.data_ptr() - kvb.data_ptr() == 256 and not v.is_contiguous()
+    q = k = torch.zeros(4, 512, 128, 192, dtype=torch.bfloat16)
+    assert row_alignment(q, k, v) == kernel.ROW_ALIGN
+    assert (192, 128) in kernel.HEAD_DIMS and (24, 16) not in kernel.HEAD_DIMS

@@ -8,8 +8,11 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 * the flash-attention kernel against its plain version on the same inputs
   (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
   the serving slice's head layout, with ragged lengths and windows, every
-  head dim (8-256) in bf16, non-causal, GQA and MQA, and gemma3-12b's
-  head layout (16:8 heads of 256, window 1024) in both dtypes;
+  head dim (8-256) in bf16, non-causal, GQA and MQA, gemma3-12b's head
+  layout (16:8 heads of 256, window 1024) and deepseek-v2's MLA (128:128
+  heads, D = 192 and Dv = 128, also as the strided view the model hands
+  over) in both dtypes; an uninstantiated (D, Dv) pair and a v whose Skv
+  or Hkv is not k's refused with the reason;
 * reduced smollm prefill and decode on the card (kernel path) against the
   same weights on the CPU (plain path), in float32, and reduced gemma3 at
   its head dim 256 the same way;
@@ -24,7 +27,8 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   flash-attention launch while a gradient is recorded; the same for
   reduced mixtral (MoE), with its aux loss and the router's and experts'
   gradients;
-* reduced mixtral served on the card against the CPU path (fp32): the
+* reduced mixtral, and reduced deepseek-v2 at MLA's real head dims (the
+  (192, 128) instance), served on the card against the CPU path (fp32): the
   experts each token is routed to are the same wherever the top-k margin
   is above rounding (the share of flipped tokens is reported), and the
   logits of every sequence with no flipped token within 1e-4;
@@ -84,7 +88,8 @@ def _tol(dtype):
     return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype,b,s,hq,hkv,d,window,causal", [
+@pytest.mark.parametrize("dtype,b,s,hq,hkv,d,window,causal,dv", [
+    (*case, None) if len(case) == 8 else case for case in [
     (torch.bfloat16, 4, 512, 15, 5, 64, 0, True),
     (torch.bfloat16, 4, 500, 15, 5, 64, 0, True),
     (torch.bfloat16, 4, 500, 15, 5, 64, 128, True),
@@ -109,12 +114,21 @@ def _tol(dtype):
     (torch.float32, 1, 2048, 16, 8, 256, 1024, True),
     (torch.bfloat16, 2, 300, 4, 2, 256, 100, True),
     (torch.bfloat16, 1, 77, 4, 4, 256, 0, False),
-])
-def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal):
+    # a value head dim other than the key's: deepseek-v2's MLA (D = 192, Dv = 128,
+    # 128:128 heads), a window, a ragged S and GQA, both kernels
+    (torch.bfloat16, 4, 512, 128, 128, 192, 0, True, 128),
+    (torch.float32, 4, 512, 128, 128, 192, 0, True, 128),
+    (torch.bfloat16, 2, 300, 8, 8, 192, 100, True, 128),
+    (torch.float32, 2, 300, 8, 8, 192, 100, True, 128),
+    (torch.bfloat16, 1, 77, 8, 2, 192, 0, True, 128),
+    (torch.float32, 1, 77, 8, 2, 192, 0, False, 128),
+]])
+def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv):
+    dv = dv or d
     g = torch.Generator(device=cuda).manual_seed(s + d)
     q = torch.randn(b, s, hq, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
-    v = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, s, hkv, dv, generator=g, device=cuda).to(dtype)
     launches = flash_attention.launches
     by_dtype = dict(flash_attention.launches_by_dtype)
     out = flash_attention(q, k, v, causal=causal, window=window)
@@ -126,8 +140,41 @@ def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal):
     want = ref.attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
     ).transpose(1, 2)
-    assert out.dtype == dtype and out.shape == q.shape
+    assert out.dtype == dtype and out.shape == (b, s, hq, dv)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **_tol(dtype))
+
+
+def test_kernel_takes_the_mla_value_view(cuda):
+    """MLA's v as the model hands it: the [nope | v] view of kv_b's output
+    (256 bytes past each head's row start), equal to a contiguous copy."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kvb = torch.randn(2, 100, 16, 256, generator=g, device=cuda, dtype=torch.bfloat16)
+    q = torch.randn(2, 100, 16, 192, generator=g, device=cuda, dtype=torch.bfloat16)
+    k = torch.cat([kvb[..., :128], q[..., 128:]], dim=-1)
+    v = kvb[..., 128:]
+    assert not v.is_contiguous()
+    out = flash_attention(q, k, v)
+    want = flash_attention(q, k, v.contiguous())
+    torch.cuda.synchronize()
+    assert out.shape == (2, 100, 16, 128) and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_refuses_an_uninstantiated_pair_and_mismatched_kv(cuda, dtype):
+    """No fallback: a (D, Dv) pair the source does not instantiate (reduced
+    deepseek-v2's (24, 16)) and a v whose Skv or Hkv is not k's raise with
+    the reason, and nothing is launched."""
+    def t(*shape):
+        return torch.randn(*shape, device=cuda).to(dtype)
+
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match=r"\(24, 16\).*instantiated"):
+        flash_attention(t(1, 64, 2, 24), t(1, 64, 2, 24), t(1, 64, 2, 16))
+    with pytest.raises(ValueError, match=r"v \[B, Skv, Hkv, Dv\]"):
+        flash_attention(t(1, 64, 4, 192), t(1, 64, 4, 192), t(1, 63, 4, 128))
+    with pytest.raises(ValueError, match=r"v \[B, Skv, Hkv, Dv\]"):
+        flash_attention(t(1, 64, 4, 192), t(1, 64, 4, 192), t(1, 64, 2, 128))
+    assert flash_attention.launches == launches
 
 
 def test_kernel_reads_strided_views(cuda):
@@ -333,6 +380,17 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=1e-5, rtol=1e-4)
 
 
+def test_reduced_deepseek_mla_on_card_matches_cpu(cuda, monkeypatch):
+    """Reduced deepseek-v2 with MLA's real head dims (nope 128, rope 64,
+    v 128: the kernel's (192, 128) instance runs) and narrow widths
+    otherwise, served on the card in fp32 against the CPU path, held by the
+    experts each token is routed to as reduced mixtral."""
+    base = reduced(get_config("deepseek-v2-236b"))
+    cfg = dataclasses.replace(base, mla=dataclasses.replace(
+        base.mla, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128))
+    _moe_card_matches_cpu(cuda, monkeypatch, cfg)
+
+
 def _record_routes(monkeypatch):
     """Record (idx_k, top-k margin) of every MoE routing call, on the host."""
     calls = []
@@ -352,7 +410,11 @@ def test_reduced_mixtral_on_card_matches_cpu(cuda, monkeypatch):
     """Routing is discontinuous, so the card is held to the CPU by the
     experts it picks: equal wherever the top-k margin exceeds 1e-5, and
     the logits of sequences whose every routing agreed within 1e-4."""
-    lm = build_model(reduced(get_config("mixtral-8x22b")), compute_dtype=torch.float32)
+    _moe_card_matches_cpu(cuda, monkeypatch, reduced(get_config("mixtral-8x22b")))
+
+
+def _moe_card_matches_cpu(cuda, monkeypatch, cfg):
+    lm = build_model(cfg, compute_dtype=torch.float32)
     params_cpu = lm.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, 256, (4, 40), generator=torch.Generator().manual_seed(1))
     calls = _record_routes(monkeypatch)

@@ -12,10 +12,12 @@ the same weights (the reference's ``lm.init``, loaded with
   experts equal the reference's ``jax.lax.top_k``, index for index, and on
   ties the lower index comes first.  The shared experts (``num_shared``)
   go through ``LM._mlp`` of both packages.
-* The parameter tables of reduced mixtral and reduced deepseek-v2 (without
-  MLA: the dense ``head`` stage and the shared experts) equal the
-  reference's field for field; the sharding plans equal it under expert
-  parallelism (data=1,model=4) and expert-TP (data=2,model=2, no EP).
+* The parameter tables of reduced mixtral and reduced deepseek-v2 (with
+  and without MLA: the dense ``head`` stage and the shared experts) equal
+  the reference's field for field; the sharding plans of both equal it
+  under expert parallelism (data=1,model=4) and expert-TP (data=2,model=2,
+  no EP).  The MLA slice itself is ``tests/test_torch_mla.py``; the hybrid
+  family (jamba) is still refused.
 * ``forward`` and ``loss_fn`` (aux included) in float32 within 1e-5, and
   three ``make_train_step`` steps against the reference's jitted step on
   one device: float32 losses within 1e-5, bf16 ones within the 2e-2 of
@@ -185,8 +187,9 @@ def _fields(d):
             d.kind, d.stacked)
 
 
-@pytest.mark.parametrize("arch,overrides", [(ARCH, {}), ("deepseek-v2-236b", {"mla": None})],
-                         ids=["mixtral", "deepseek-v2-no-mla"])
+@pytest.mark.parametrize("arch,overrides", [(ARCH, {}), ("deepseek-v2-236b", {"mla": None}),
+                                           ("deepseek-v2-236b", {})],
+                         ids=["mixtral", "deepseek-v2-no-mla", "deepseek-v2"])
 def test_param_defs_equal_reference(arch, overrides):
     rcfg, tcfg = _cfgs(arch, **overrides)
     assert tcfg.fingerprint() == rcfg.fingerprint()
@@ -205,13 +208,15 @@ def test_param_defs_equal_reference(arch, overrides):
         assert {"head.blk.w_gate", "layers.blk.ws_gate", "layers.blk.ws_down"} <= names
 
 
-def test_deepseek_with_mla_still_refused():
+def test_jamba_hybrid_still_refused():
+    """deepseek-v2's MLA is ported (tests/test_torch_mla.py); the hybrid
+    family (jamba: Mamba-2 and attention layers, MoE) is still refused."""
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        build_model(TC.reduced(TC.get_config("deepseek-v2-236b")))
+        build_model(TC.reduced(TC.get_config("jamba-1.5-large-398b")))
 
 
-def _plans(mesh_d, kw):
-    rcfg, tcfg = _cfgs(ARCH)
+def _plans(mesh_d, kw, arch=ARCH):
+    rcfg, tcfg = _cfgs(arch)
     rmesh, tmesh = R.MeshSpec.from_dict(mesh_d), T.MeshSpec.from_dict(mesh_d)
     rpar, tpar = RC.ParallelismConfig(**kw), TC.ParallelismConfig(**kw)
     rlm = ref_build(rcfg, vocab_multiple=RS.vocab_multiple(rpar, rmesh))
@@ -220,10 +225,12 @@ def _plans(mesh_d, kw):
             TS.make_plan(tcfg, tlm.registry, tpar, tmesh))
 
 
-@pytest.mark.parametrize("layout,mode,axis", [(EP, "ep", "expert"), (TP, "tp", "expert_mlp")],
-                         ids=["ep", "tp"])
-def test_plan_equals_reference(layout, mode, axis):
-    rplan, tplan = _plans(*layout)
+@pytest.mark.parametrize("arch,layout,mode,axis", [
+    (ARCH, EP, "ep", "expert"), (ARCH, TP, "tp", "expert_mlp"),
+    ("deepseek-v2-236b", EP, "ep", "expert"), ("deepseek-v2-236b", TP, "tp", "expert_mlp"),
+], ids=["ep", "tp", "deepseek-v2-ep", "deepseek-v2-tp"])
+def test_plan_equals_reference(arch, layout, mode, axis):
+    rplan, tplan = _plans(*layout, arch=arch)
     assert tplan.moe_mode == rplan.moe_mode == mode
     assert {n: s.to_json() for n, s in tplan.param_specs.items()} == \
         {n: s.to_json() for n, s in rplan.param_specs.items()}

@@ -347,13 +347,19 @@ def test_training_refuses_the_ssm_family(tmp_path):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b", "deepseek-v2-236b",
                                   "llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_still_refused(arch):
-    """Every family but dense, MoE without MLA and Mamba-2 is refused;
-    mixtral (MoE, the eighth slice) builds, with its expert tensors."""
+    """Every family but dense, MoE (with or without MLA) and Mamba-2 is
+    refused; mixtral (MoE, the eighth slice) builds, with its expert
+    tensors, and deepseek-v2 (MLA, the ninth) with its latent projections."""
     cfg = TC.reduced(TC.get_config(arch))
     if arch == "mixtral-8x22b":
         lm = build_model(cfg)
         assert [s.name for s in lm.stages] == ["layers"] and lm.stages[0].body[0].moe
         assert lm.registry["layers.blk.we_gate"].kind == "moe_expert"
+        return
+    if arch == "deepseek-v2-236b":
+        lm = build_model(cfg)
+        assert [s.name for s in lm.stages] == ["head", "layers"]
+        assert lm.registry["layers.blk.wkv_b"].axes == ("layers", "lora", "heads")
         return
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         build_model(cfg)
