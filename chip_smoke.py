@@ -31,7 +31,8 @@ nothing falls back to the CPU or to a plain version):
    of 128, no window; there also the bf16 kernel's event time, and the
    library is the first fused ``scaled_dot_product_attention`` backend
    that takes a v head dim other than q's, named, checked against the
-   kernel, with the others' reasons for refusing);
+   kernel, with the others' reasons for refusing), and for
+   jamba-1.5-large-398b's (64:8 heads of 128, no window);
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -56,7 +57,11 @@ nothing falls back to the CPU or to a plain version):
    (tensor-core) kernel's device time per call (the profiler, over 20 warm
    calls) and event time, the fp32 (CUDA-core) kernel's device time and
    the plain version's event time, and the bound (no single PyTorch call
-   computes this function, so no library time);
+   computes this function, so no library time); then at
+   jamba-1.5-large-398b's shape (B=4, S=512, H=128, P=128, G=1, N=128,
+   chunk 256; fp32 at B=1) both kernels against ``ssd_chunked`` and
+   ``ssd_ref`` in float64, the bf16 kernel's device and event times, the
+   fp32 kernel's device time, the plain version's event time and the bound;
 6. serve, full smollm-360m (32 layers) and then full mamba2-130m (24
    layers), each: init on the card from a seeded generator;
    ``write_distributed`` of the weights under data=2,model=2; weights-only
@@ -175,7 +180,38 @@ nothing falls back to the CPU or to a plain version):
    (the logits of the tokens no flip reaches within 1e-3), and 16 decode
    steps after a kernel prefill against the same steps after a plain one
    (the logits of every step and row routed alike within 1e-3);
-11. the I/O line (JSON: the walls above), the kernels line (JSON: each row
+11. serve-hybrid: jamba-1.5-large-398b at full width: d 8192, 64:8 heads
+   of 128, Mamba-2 with d_inner 16384 in 128 heads of 128, state 128,
+   conv 4, 16 experts top-2 of d_ff 24576, dense d_ff 24576, vocab 65536;
+   depth cut from 72 layers (9 periods of 8) to 2 with the pattern
+   ``("attn", "mamba")``, a real period's layers 4 and 5 (11,898,463,872
+   params): bf16 weights drawn on the card tensor by tensor; saved under
+   data=2,model=2 with expert parallelism and ``param_dtype="bfloat16"``
+   (23.8 GB), beside the disk floor; weights-only restores under
+   data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), each
+   bit-equal to the save, then a read floor; from each, a bf16 prefill of
+   4 x 512 (exactly 1 flash and 1 SSD launch, both bf16) and 16 greedy
+   decode steps through the mixed cache, equal tokens, the share of slots
+   dropped; the profiled prefill (flash and SSD times), its MoE block and
+   Mamba-2 projections by CUDA events, the profiled decode.  Then, the
+   bf16 trees freed, in fp32 on the card: the kernel path against the
+   plain attention and ``ssd_chunked`` by the experts chosen (the logits
+   of the tokens no flip reaches within 1e-3); the phase's peak memory;
+12. train-ssm: mamba2-130m at full width and depth (128,983,488 params),
+   8 x 512 from ``train/data.py``, bf16 compute, fp32 master and moments,
+   remat full: the first step's gradients through ``ssd_chunked`` (every
+   one finite) and through the reference's unmasked form (kept here; its
+   non-finite ``a_log``/``dt_bias`` gradients printed, informative); 6
+   baseline steps under data=2,model=2 (finite losses and gradient norms,
+   step ms, one profiled step); 3 steps saved ``int8:b256`` (quantize
+   launches == coded shards, and one dequantize each for the served
+   digest); resumed under data=1,model=1 (RESHARD_STREAM, the fused
+   ``in_proj`` of the weights and both moments consolidated) and
+   data=2,model=2 (DIRECT), each with one dequantize launch a coded shard
+   and every shard digest checked, then 3 more steps; then the kernels
+   against their plain version byte for byte on an ``in_proj`` moment
+   shard, and their times there;
+13. the I/O line (JSON: the walls above), the kernels line (JSON: each row
    names its variants; ``ms`` is the profiler's device time per launch,
    with ``event_ms`` beside it; rows 2-3 add the general kernel's device
    time ``general_ms`` and the train phase's ``launches_by_variant`` and
@@ -186,10 +222,14 @@ nothing falls back to the CPU or to a plain version):
    phases (``mixtral_launches``) and in serve-mla (``deepseek_launches``)
    and the block-quant rows the mixtral shard check
    (``mixtral_shard_*``), the dequantize row the export's launches
-   ``convert_launches``; a prefill's device and kernel times are null
-   where every profiler trace of it lost a record), the mixtral line
-   (JSON), the deepseek line (JSON), the card line, then the result line
-   (JSON, last).
+   ``convert_launches``; the flash and SSD rows jamba's shapes
+   (``jamba_*``), every row its launches in serve-hybrid
+   (``jamba_launches``) and train-ssm (``train_ssm_launches``), the
+   block-quant rows the train-ssm shard's times (``train_ssm_shard_*``); a
+   prefill's device and kernel times are null where every profiler trace
+   of it lost a record), the mixtral line (JSON), the deepseek line
+   (JSON), the jamba line (JSON), the train_ssm line (JSON), the card
+   line, then the result line (JSON, last).
 """
 
 from __future__ import annotations
@@ -229,7 +269,9 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 # Traces a device time may take: the profiler loses records now and then
 # (at D = 128 an empty 20-call trace was followed by one with 3 launches).
-TRACES = 3
+TRACES = 5
+# What device_ms timed by CUDA events because every trace lost records.
+EVENT_TIMED: list[str] = []
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
 # The tensor-core (bf16) kernel of each source, as the profiler names it.
 TC_SYMBOL = {"flash_attention": "fwd_kernel_tc", "ssd_scan": "ssd_kernel_tc"}
@@ -294,33 +336,46 @@ def cuda_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, calls: int = 20, launches=None):
+def device_ms(torch, fn, what: str, calls: int = 20, launches=None):
     """Device milliseconds per call of ``fn``: the profiler's device time of
     every kernel and copy that ``calls`` warm calls launched, over
     ``calls`` (so the host's enqueue time is not in it); with the top rows
     as (name, ms, count).
 
-    A trace that recorded no device work at all was lost (every ``fn`` here
-    launches work) and is taken again, up to ``TRACES`` traces.
     ``launches``, where given, reads the launch counter of the wrapper that
-    ``fn`` calls.  When the trace shows fewer than ``calls`` launches of its
-    top kernel, the counter tells a lost profiler record from a skipped
-    launch: a counter short of ``calls`` fails here, and a full one takes
-    the trace again, up to ``TRACES`` traces (the callers fail on the last short one)."""
+    ``fn`` calls: a counter short of ``calls`` in a trace fails here (a
+    launch was skipped).  The profiler loses records now and then, more
+    often late in a long run: a trace with no device work, or with fewer
+    than ``calls`` launches of its top kernel while the counter has them
+    all, is taken again, up to ``TRACES`` traces.  If every trace lost
+    records, the calls are timed with CUDA events instead (which also holds
+    the gaps between launches), ``what`` is noted in ``EVENT_TIMED`` and
+    the one row is ("CUDA events", ms, calls)."""
     for _ in range(3):
         fn()
-    for attempt in range(TRACES):
+    for _ in range(TRACES):
         before = launches() if launches is not None else 0
         _, busy, top = device_profile(torch, lambda: [fn() for _ in range(calls)], top=4)
-        if (top and (launches is None or top[0][2] == calls)) or attempt == TRACES - 1:
-            break
         if launches is not None:
             counted = launches() - before
-            check(counted == calls, f"the wrapper launched {counted} times in {calls} calls")
+            check(counted == calls, f"{what}: the wrapper launched {counted} times in {calls} calls")
+        if top and (launches is None or top[0][2] == calls):
+            return busy / calls, top
         print(f"profiler recorded {top[0][2] if top else 0} launches of "
-              f"{top[0][0][:48] if top else 'nothing'} in {calls} calls; profiling again")
-    check(bool(top), f"the profiler recorded no device work in {TRACES} traces of {calls} calls")
-    return busy / calls, top
+              f"{top[0][0][:48] if top else 'nothing'} in {calls} calls of {what}; profiling again")
+    ms = cuda_ms(torch, fn, iters=calls)
+    EVENT_TIMED.append(what)
+    print(f"profiler lost records of {what} in each of {TRACES} traces: timed by CUDA events "
+          f"instead, {ms:.5f} ms per call")
+    return ms, [("CUDA events", ms * calls, calls)]
+
+
+def ms_by(kernel: str) -> str:
+    """How a kernel row's device times were taken: by the profiler, save
+    those that :func:`device_ms` had to take by CUDA events."""
+    lost = [w for w in EVENT_TIMED if w.startswith(kernel)]
+    return "profiler device time per launch" + (
+        f"; by CUDA events, the profiler having lost its records: {lost}" if lost else "")
 
 
 def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float):
@@ -557,7 +612,8 @@ def kernel_phase(torch, F, kernel, ops, ref):
     event_ms = {n: sum(t) / len(t) for n, t in events.items()}
     device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
     for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
-        per_call, top = device_ms(torch, runs[name], launches=None if name == "library"
+        per_call, top = device_ms(torch, runs[name], f"flash_attention_fwd {name}",
+                                  launches=None if name == "library"
                                   else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
         if name != "library":
@@ -580,8 +636,10 @@ def kernel_phase(torch, F, kernel, ops, ref):
                        label="mixtral-8x22b")
     d192 = head_layout(torch, F, kernel, ops, ref, hq=128, hkv=128, d=192, dv=128, long=None,
                        label="deepseek-v2-236b MLA")
+    jamba = head_layout(torch, F, kernel, ops, ref, hq=64, hkv=8, d=128, long=None,
+                        label="jamba-1.5-large-398b")
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
-                d256=d256, d128=d128, d192=d192)
+                d256=d256, d128=d128, d192=d192, jamba=jamba)
 
 
 def sdpa_backend(torch, F, qt, kt, vt, scale: float):
@@ -683,7 +741,8 @@ def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: 
     device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
     order = ("kernel", "library", "fp32", "fp32", "library", "kernel")
     for name in (n for n in order if n in runs):
-        per_call, top = device_ms(torch, runs[name], launches=None if name == "library"
+        per_call, top = device_ms(torch, runs[name], f"flash_attention_fwd D={d} {label} {name}",
+                                  launches=None if name == "library"
                                   else lambda: ops.flash_attention.launches)
         device[name].append(per_call)
         if name != "library":
@@ -833,7 +892,8 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
     event_ms = {n: sum(t) / len(t) for n, t in events.items()}
     device: dict[str, list[float]] = {"kernel": [], "fp32": []}
     for name in ("kernel", "fp32", "fp32", "kernel"):
-        per_call, top = device_ms(torch, runs[name], launches=lambda: ssd_ops.ssd_scan.launches)
+        per_call, top = device_ms(torch, runs[name], f"ssd_scan_fwd {name}",
+                                  launches=lambda: ssd_ops.ssd_scan.launches)
         device[name].append(per_call)
         check(top[0][2] == 20, f"ssd {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
         print(f"kernel ssd_scan {name} device time (profiler): {per_call:.5f} ms per call; "
@@ -849,6 +909,85 @@ def ssd_phase(torch, F, ssd_ops, ssd_ref):
           f"{bound_ms / ms['kernel']:.3f} of the bound; library_ms None (no single PyTorch call)")
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
                 fp64=dict(kernel=e_kernel, ssd_chunked=e_chunked))
+
+
+def ssd_layout(torch, F, ssd_ops, ssd_ref, shape: tuple, chunk: int, label: str):
+    """One model's SSD shapes (``shape`` = (B, S, H, P, G, N)): both
+    kernels against ``ssd_chunked`` and against ``ssd_ref`` in float64 (bf16
+    at B, fp32 at B = 1), each within the tolerances of
+    ``tests/test_kernels.py``; then the bf16 kernel's device and event
+    times at B beside the fp32 kernel's device time, ``ssd_chunked``'s event
+    time and the bound.  jamba-1.5-large-398b: H = 128, P = 128 (two column
+    tiles a head), N = 128, G = 1, chunk 256."""
+    from repro_torch.models.common import ParamDef, ParamRegistry
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    b, s, h, p, groups, n = shape
+    dt_bias = ParamRegistry([ParamDef("dt_bias", (h,), ("ssm_heads",), init="ssm_dt")]).init(g)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)  # the ssm_alog init: A = -(1..H)
+    worst, main = 0.0, None
+    for dtype, bsz in ((torch.bfloat16, b), (torch.float32, 1)):
+        x = torch.randn(bsz, s, h, p, generator=g, device=dev).to(dtype)
+        dt = F.softplus(torch.randn(bsz, s, h, generator=g, device=dev) + dt_bias["dt_bias"])
+        bm, cm = (torch.randn(bsz, s, groups, n, generator=g, device=dev).to(dtype) for _ in "bc")
+        y, hT = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        rep = h // groups
+        y64, h64 = ssd_ref.ssd_ref(
+            *(t.double().transpose(1, 2) for t in (x, dt)), a.double(),
+            *(t.double().repeat_interleave(rep, 2).transpose(1, 2) for t in (bm, cm)))
+        plains = {"ssd_chunked": ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+                  "ssd_ref float64": (y64.transpose(1, 2), h64)}
+        torch.cuda.synchronize()
+        tag = f"{str(dtype).removeprefix('torch.')} B={bsz} S={s} H={h} P={p} G={groups} N={n} chunk {chunk}"
+        check(bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all()),
+              f"ssd {tag}: non-finite output")
+        atol, rtol = SSD_TOL[str(dtype).removeprefix("torch.")]
+        for name, (py, ph) in plains.items():
+            dy = (y.double() - py.double()).abs()
+            dh = (hT.double() - ph.double()).abs()
+            ey, eh = dy.max().item(), dh.max().item()
+            ok = (bool((dy <= atol + rtol * py.double().abs()).all())
+                  and bool((dh <= SSD_H_TOL[0] + SSD_H_TOL[1] * ph.double().abs()).all()))
+            print(f"kernel ssd_scan {tag} ({label}) vs {name}: y max_abs_err {ey:.3e} (atol "
+                  f"{atol} rtol {rtol}), h_final max_abs_err {eh:.3e} (atol/rtol {SSD_H_TOL[0]}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"ssd {tag}: kernel disagrees with {name}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, ey)
+        del plains, y64, h64
+        if main is None:
+            main = (x, dt, bm, cm, y, hT)
+    x, dt, bm, cm, y, hT = main
+    x32, b32, c32 = (t.float() for t in (x, bm, cm))
+    runs = {
+        "kernel": lambda: ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk),
+        "fp32": lambda: ssd_ops.ssd_scan(x32, dt, a, b32, c32, chunk=chunk),
+        "plain": lambda: ssd_chunked(x, dt, a, bm, cm, chunk=chunk),
+    }
+    plain_ms = sum(cuda_ms(torch, runs["plain"], iters=10) for _ in range(2)) / 2
+    event_ms = cuda_ms(torch, runs["kernel"], iters=20)
+    device: dict[str, list[float]] = {"kernel": [], "fp32": []}
+    for name in ("kernel", "fp32", "fp32", "kernel"):
+        per_call, top = device_ms(torch, runs[name], f"ssd_scan_fwd {label} {name}",
+                                  launches=lambda: ssd_ops.ssd_scan.launches)
+        device[name].append(per_call)
+        check(top[0][2] == 20, f"ssd {label} {name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+        print(f"kernel ssd_scan {label} {name} device time (profiler): {per_call:.5f} ms per call; "
+              + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
+    ms = {k: sum(v) / len(v) for k, v in device.items()}
+    bound_ms, bound_by, nbytes, flops = ssd_bound(x, bm, cm, y, hT, dt, a, chunk,
+                                                  flops_peak=PEAK_BF16_FLOPS)
+    print(f"kernel ssd_scan bf16 B={b} S={s} H={h} P={p} G={groups} N={n} chunk {chunk} ({label}): "
+          f"device ms {ms['kernel']:.5f} (event {event_ms:.5f}) fp32 kernel device ms "
+          f"{ms['fp32']:.5f} plain_ms {plain_ms:.4f} (ssd_chunked) bound_ms {bound_ms:.5f} "
+          f"({bound_by}; {nbytes / 1e6:.2f} MB is {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, "
+          f"{flops / 1e9:.3f} GFLOP in the causal triangle is "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.5f} ms); {bound_ms / ms['kernel']:.3f} of the bound; "
+          "library_ms None (no single PyTorch call)")
+    return dict(ms=ms["kernel"], event_ms=event_ms, fp32_ms=ms["fp32"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
 def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int,
@@ -1418,7 +1557,8 @@ def block_quant_phase(torch, bq_ops, bq_ref):
         device: dict[str, list[float]] = {"kernel": [], "general": []}
         wrapper = bq_ops.block_quantize if name == "quantize_blocks" else bq_ops.block_dequantize
         for which in ("kernel", "general", "general", "kernel"):
-            per_call, top = device_ms(torch, fns[which], launches=lambda: wrapper.launches)
+            per_call, top = device_ms(torch, fns[which], f"{name} {which}",
+                                      launches=lambda: wrapper.launches)
             device[which].append(per_call)
             check(top[0][2] == 20, f"{name} {which}: {top[0][2]} launches of {top[0][0]} in 20 calls")
             print(f"kernel {name} {which} device time (profiler): {per_call:.5f} ms per call; "
@@ -2070,13 +2210,15 @@ def digests_match(torch, trees: dict, plan, manifest, workers: int) -> int:
         return sum(pool.map(one, jobs))
 
 
-def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str) -> dict:
-    """The block-quant kernels at a mixtral save's shape: rank 0's shard of
-    ``name`` in ``tree`` (a bf16 moment) under ``plan``, coded int8:b256
-    through the kernels and through their plain version on the same card
-    tensor.  Codes, scales and decoded values must be equal byte for byte,
-    and the decode within half a block scale of the input (int8's rounding
-    step, with fp32 rounding on top)."""
+def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str, *, label: str = "mixtral",
+                      dtype=None) -> dict:
+    """The block-quant kernels at a save's shape: rank 0's shard of
+    ``name`` in ``tree`` (a moment of ``dtype``, default bf16) under
+    ``plan``, coded int8:b256 through the kernels and through their plain
+    version on the same card tensor.  Codes, scales and decoded values must
+    be equal byte for byte, and the decode within half a block scale of the
+    input (int8's rounding step, with fp32 rounding on top)."""
+    dtype = dtype or torch.bfloat16
     from repro_torch.core.layout import slice_shard
     from repro_torch.core.patterns import StateKind
     from repro_torch.core.pytree import flatten_with_paths
@@ -2085,7 +2227,7 @@ def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str) -> dict:
     t = flatten_with_paths(tree)[name]
     check(tuple(t.shape) == tuple(spec.runtime_shape), f"{name}: {tuple(t.shape)} unpadded")
     shard = slice_shard(t, spec.layout_for(StateKind.EXP_AVG, plan.mesh), 0)
-    check(shard.dtype == torch.bfloat16, f"{name}: moment shard {shard.dtype}, want bfloat16")
+    check(shard.dtype == dtype, f"{name}: moment shard {shard.dtype}, want {dtype}")
     fns = (bq_ops.block_quantize, bq_ops.block_dequantize)
     reset_launches(dict(enumerate(fns)))
     q, sc = bq_ops.block_quantize(shard, block=256, dtype="int8")
@@ -2099,8 +2241,9 @@ def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str) -> dict:
     err = (d - pd).abs().max().item()
     step = (d - blocks.reshape(-1)[:shard.numel()]).abs().reshape(-1, 256) / sc[:, None]
     worst = step.nan_to_num(0.0).max().item()  # an all-zero block has scale 0 and error 0
-    print(f"kernel block_quant mixtral {name} moment shard {tuple(shard.shape)} "
-          f"({shard.numel()} bf16 elements, int8:b256): q, scales and decoded equal to the plain "
+    print(f"kernel block_quant {label} {name} moment shard {tuple(shard.shape)} "
+          f"({shard.numel()} {str(dtype).removeprefix('torch.')} elements, int8:b256): q, "
+          "scales and decoded equal to the plain "
           f"version byte for byte: {same} (max_abs_err {err:.1e}); decode off the input by up "
           f"to {worst:.6f} of its block's scale (bound 0.5 + 2^-15)")
     check(same and bool(torch.isfinite(d).all()), f"block_quant {name} shard: kernel disagrees "
@@ -2111,7 +2254,7 @@ def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str) -> dict:
                 worst_scale_step=worst)
 
 
-def moe_breakdown(torch, lm, params_c, prompts) -> dict:
+def moe_breakdown(torch, lm, params_c, prompts, label: str = "mixtral") -> dict:
     """Time of one MoE layer's steps at the serving prefill's shapes (layer
     0's input, captured in a prefill), by CUDA events: routing and slot
     assignment, dispatch (the gather), the expert matmuls, and combine."""
@@ -2156,7 +2299,7 @@ def moe_breakdown(torch, lm, params_c, prompts) -> dict:
         ms = {name: cuda_ms(torch, fn, iters=20) for name, fn in steps.items()}
     flops = 3 * 2 * b * e * c * d * wg.shape[-1]
     floor = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"mixtral MoE layer at B={b} S={s} (groups {b}, capacity {c} slots an expert a group), "
+    print(f"{label} MoE layer at B={b} S={s} (groups {b}, capacity {c} slots an expert a group), "
           "CUDA-event ms a call: " + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
           + f"; the expert matmuls are {flops / 1e12:.2f} TFLOP ({floor:.3f} ms at the bf16 peak)")
     check(ms["experts (3 bmm + silu)"] >= floor, "the expert matmuls timed below their bound")
@@ -2396,28 +2539,40 @@ def long_prefill(torch, cfg, lm, params_c, reset, counts, per_prefill) -> dict:
 
 
 def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_attention,
-                  layers: int, label: str = "mixtral") -> dict:
-    """fp32 logits of the 4 x 512 prompts on the card through the flash
-    kernel and through the plain attention: the experts chosen compared
+                  layers: int, label: str = "mixtral", ssd_chunked=None,
+                  want: dict | None = None, mixes_after: bool = False) -> dict:
+    """fp32 logits of the 4 x 512 prompts on the card through the kernels
+    and through their plain versions (the plain attention; with
+    ``ssd_chunked``, also the plain SSD scan): the experts chosen compared
     token by token (a flip is a routing that differs), the logits of every
-    token the flips cannot reach within 1e-3.  The MoE layers are the last
-    ones (deepseek-v2's dense head layer comes first), so a flip reaches
-    later positions only through a later MoE layer's attention."""
+    token the flips cannot reach within 1e-3.  ``want`` is the kernel path's
+    launches (default: ``layers`` flash launches).  The MoE layers are the
+    last ones (deepseek-v2's dense head layer comes first), so a flip
+    reaches later positions only through a later MoE layer's attention;
+    ``mixes_after`` says a sequence mixer follows the last MoE layer too
+    (jamba's Mamba-2 layer), so every flip reaches the later positions."""
+    want = want or {"flash_attention": layers}
+    plain = {"flash_attention": lambda q, k, v, *, causal, window: full_attention(
+        q, k, v, causal=causal, window=window)}
+    if ssd_chunked is not None:
+        plain["ssd_scan"] = ssd_chunked
     with torch.inference_mode():
         reset()
         with MoeLog(torch) as klog:
             k_logits, _ = flm.forward(params, prompts)
-        launches = counts()["flash_attention"]
-        kernel = lm_mod.flash_attention
-        lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
-            q, k, v, causal=causal, window=window)
+        launches = counts()
+        kernels = {name: getattr(lm_mod, name) for name in plain}
+        for name, fn in plain.items():
+            setattr(lm_mod, name, fn)
         try:
             with MoeLog(torch) as plog:
                 p_logits, _ = flm.forward(params, prompts)
         finally:
-            lm_mod.flash_attention = kernel
-    check(launches == layers, f"fp32 kernel forward: {launches} flash launches")
-    check(counts()["flash_attention"] == layers, "the plain forward launched the kernel")
+            for name, fn in kernels.items():
+                setattr(lm_mod, name, fn)
+    check(all(launches[n] == w for n, w in want.items()),
+          f"fp32 kernel forward: launches {launches}, want {want}")
+    check(counts() == launches, "the plain forward launched a kernel")
     b, s = prompts.shape
     reach = torch.zeros(b, s, dtype=torch.bool)  # tokens a flip can have moved
     flipped, margins = 0, []
@@ -2426,7 +2581,7 @@ def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_atten
         flipped += int(differ.sum())
         margins += km[differ].tolist()
         reach |= differ
-        if layer < len(klog.routes) - 1:  # a later layer's attention carries it on
+        if mixes_after or layer < len(klog.routes) - 1:  # a later mixer carries it on
             first = torch.where(differ.any(1), differ.float().argmax(1), torch.full((b,), s))
             reach |= torch.arange(s)[None, :] >= first[:, None]
     kept = ~reach
@@ -2861,6 +3016,493 @@ def mla_decode_check(torch, flm, params, prompts, reset, counts, lm_mod, full_at
     return dict(max_abs_err=err, compared=int(same.sum()), of=same.numel())
 
 
+JAMBA_PARAMS = 11_898_463_872  # at full width, cut to a period's layers 4 and 5
+
+
+def init_bf16(torch, registry, seed: int, dev) -> dict:
+    """Weights drawn on the card in fp32 tensor by tensor, in registry
+    order from one seeded generator, each cast to bf16 at once (a whole
+    fp32 tree beside its bf16 copy would not fit)."""
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.models.common import ParamRegistry
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for d in registry:
+        (leaf,) = flatten_with_paths(ParamRegistry([d]).init(g)).values()
+        out[d.path] = leaf.to(torch.bfloat16)
+        del leaf
+    return out
+
+
+def mamba_gemm_ms(torch, cfg, params_c, tokens: int) -> dict:
+    """CUDA-event ms of the Mamba-2 layer's two projections at a prefill of
+    ``tokens`` rows: in_proj [tokens, d] x [d, 2 di + 2 G N + H] and
+    out_proj [tokens, di] x [di, d], bf16, on random rows."""
+    p = params_c["periods"]["p1_mamba"]
+    w_in, w_out = p["in_proj"][0], p["out_proj"][0]
+    g = torch.Generator(device=w_in.device).manual_seed(7)
+    h = torch.randn(tokens, w_in.shape[0], generator=g, device=w_in.device).to(torch.bfloat16)
+    y = torch.randn(tokens, w_out.shape[0], generator=g, device=w_in.device).to(torch.bfloat16)
+    with torch.inference_mode():
+        return {"in_proj": cuda_ms(torch, lambda: h @ w_in, iters=20),
+                "out_proj": cuda_ms(torch, lambda: y @ w_out, iters=20)}
+
+
+def hybrid_serve_phase(torch, counters: dict):
+    """jamba-1.5-large-398b (the hybrid family) at full width, depth cut to
+    a period's layers 4 and 5: bf16 weights initialised on the card tensor
+    by tensor, saved under data=2,model=2 with expert parallelism and
+    ``param_dtype="bfloat16"`` (a serving checkpoint); weights-only
+    restores under data=1,model=1 (RESHARD_STREAM: the experts and the
+    fused ``in_proj`` resliced or consolidated) and data=2,model=2
+    (DIRECT), bit-equal to the save, beside the disk floor and a read floor
+    of the same files; from each, a bf16 prefill of 4 x 512 (exactly 1
+    flash and 1 SSD launch) and 16 greedy decode steps through the mixed
+    cache, the same tokens; the profiled prefill and its breakdown.  Then
+    in fp32 on the card (the bf16 trees freed): the kernel path against the
+    plain attention and ``ssd_chunked`` by the experts chosen and by the
+    logits no routing flip reaches; the peak card memory."""
+    import dataclasses
+
+    from repro_torch.ckpt.saver import write_distributed
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import (
+        generate, latest_step_dir, restore_params, serving_parallelism,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.attention import full_attention
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device("cuda")
+    full = get_config("jamba-1.5-large-398b")
+    # a real period's layers 4 and 5: attention with the 16-expert MoE,
+    # then Mamba-2 with the dense MLP
+    cfg = dataclasses.replace(full, num_layers=2, hybrid_pattern=("attn", "mamba"))
+    s_cfg = cfg.ssm
+    per_prefill = {"flash_attention": 1, "ssd_scan": 1}
+    reset = functools.partial(reset_launches, counters)
+    counts = functools.partial(launch_counts, counters)
+
+    def plan_for(mesh_str, dtype=torch.bfloat16):
+        mesh = mesh_spec_from_string(mesh_str)
+        parallel = dataclasses.replace(serving_parallelism(mesh), param_dtype="bfloat16")
+        lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
+        return lm, make_plan(cfg, lm.registry, parallel, mesh)
+
+    def by_dtype():
+        got = {name: dict(fn.launches_by_dtype) for name, fn in counters.items()}
+        want = {name: {"bfloat16": n, "float32": 0} for name, n in per_prefill.items()}
+        check(got == want, f"jamba launches by dtype {got}, want {want}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, src_plan = plan_for("data=2,model=2")
+    n_params = lm.registry.num_params()
+    check(src_plan.moe_mode == "ep", f"data=2,model=2 plans moe_mode {src_plan.moe_mode}")
+    check(n_params == JAMBA_PARAMS, f"{n_params} params at 2 layers")
+    check([(ld.name, ld.moe) for ld in lm.stages[0].body] == [("p0_attn", True),
+                                                              ("p1_mamba", False)],
+          f"jamba cut: stages {lm.stages}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    saved = init_bf16(torch, lm.registry, 0, dev)
+    torch.cuda.synchronize()
+    print(f"jamba-1.5-large-398b: d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, Mamba-2 d_inner {s_cfg.d_inner(cfg.d_model)} in "
+          f"{s_cfg.n_heads(cfg.d_model)} heads of {s_cfg.head_dim}, state {s_cfg.d_state}, conv "
+          f"{s_cfg.d_conv}; {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert}, dense d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; depth cut from "
+          f"{full.num_layers} layers in periods of {len(full.hybrid_pattern)} to 2 (pattern "
+          f"{cfg.hybrid_pattern}); {n_params} params ({2 * n_params / 1e9:.2f} GB bf16) "
+          f"initialised on the card in {time.perf_counter() - t0:.2f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    root = ROOT / "build" / "chip_smoke_ckpt_jamba"
+    shutil.rmtree(root, ignore_errors=True)
+    width = default_workers()
+    out: dict = {}
+    try:
+        # Save the bf16 weights alone (a serving checkpoint: 23.8 GB).
+        res = write_distributed({n: {StateKind.FP32: t} for n, t in saved.items()}, src_plan, 1,
+                                root / "step_00000001", workers=width,
+                                config_fingerprint=cfg.fingerprint())
+        step_dir = latest_step_dir(root)
+        check(step_dir is not None, "jamba: no committed step")
+        check(res.bytes_written == 2 * n_params, f"jamba save wrote {res.bytes_written} bytes")
+        rate = write_floor_rate(step_dir, width, root / "floor")
+        gb = res.bytes_written / 1e9
+        print(f"jamba save data=2,model=2 (moe_mode ep, param_dtype bfloat16): {gb:.3f} GB of "
+              f"bf16 weights in {res.shards_written} shards, {res.wall_time_s:.2f} s with {width} "
+              f"workers ({gb / res.wall_time_s:.3f} GB/s, device→host included); disk floor "
+              f"{gb / rate:.2f} s ({rate:.3f} GB/s from {width} threads, on its largest files up "
+              f"to 2 GB); disk {disk_used_gb():.1f} GB used")
+        out["save"] = dict(gb=gb, seconds=res.wall_time_s, floor_s=gb / rate, floor_gb_s=rate,
+                           workers=width)
+
+        prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                                generator=torch.Generator().manual_seed(8)).to(dev)
+        runs = {}
+        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
+                                 ("data=2,model=2", "direct")):
+            tlm, tplan = plan_for(mesh_str)
+            t0 = time.perf_counter()
+            flat, rp = restore_params(step_dir, tplan, dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(rp.mode.value == expect, f"jamba {mesh_str}: {rp.mode.value}, want {expect}")
+            check(set(flat) == set(saved), f"jamba {mesh_str}: restored parameter set differs")
+            for name, t in flat.items():
+                check(torch.equal(t, saved[name]), f"jamba {mesh_str}: {name} differs")
+            print(f"jamba restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
+                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
+            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+            del flat
+            torch.cuda.empty_cache()
+            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
+            reset()
+            with MoeLog(torch) as log:
+                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
+            launches = counts()
+            check(launches == per_prefill, f"jamba {mesh_str}: launches {launches}")
+            by_dtype()
+            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+                  f"jamba {mesh_str}: tokens {tuple(seq.shape)}")
+            prefill_drop = 1.0 - float(log.keeps[0].float().mean())
+            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[1:]) / \
+                sum(k.numel() for k in log.keeps[1:])
+            print(f"jamba serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
+                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches} "
+                  f"(bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, decode "
+                  f"{decode_drop:.4f}")
+            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
+                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
+                                  launches=launches, prefill_dropped=prefill_drop,
+                                  decode_dropped=decode_drop)
+            if expect == "direct":
+                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
+                                             "flash_attention", 1)
+                busy, rows = prof["prefill"][1], prof["prefill"][2]
+                ssd_rows = [r for r in rows if TC_SYMBOL["ssd_scan"] in r[0]]
+                ssd_ms = ssd_rows[0][1] if len(ssd_rows) == 1 and ssd_rows[0][2] == 1 else None
+                moe_ms = moe_breakdown(torch, tlm, params_c, prompts, label="jamba")
+                gemm_ms = mamba_gemm_ms(torch, cfg, params_c, 4 * 512)
+                out.update(prefill_device_ms=busy, decode_device_ms=prof["decode x16"][1] / 16,
+                           prefill_kernel_ms=mine[1], prefill_ssd_ms=ssd_ms, moe_ms=moe_ms,
+                           mamba_gemm_ms=gemm_ms)
+                print(f"jamba prefill 4x512 profiled: device busy {fmt_ms(busy)}; flash "
+                      f"{fmt_ms(mine[1])} (1 launch), SSD scan {fmt_ms(ssd_ms)} (1 launch); by "
+                      f"CUDA events: the MoE block {moe_ms['moe_block']:.3f} ms (experts "
+                      f"{moe_ms['experts (3 bmm + silu)']:.3f}), the Mamba-2 GEMMs in_proj "
+                      f"{gemm_ms['in_proj']:.3f} and out_proj {gemm_ms['out_proj']:.3f} ms")
+            del params_c
+            torch.cuda.empty_cache()
+        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
+        print(f"jamba restore read floor: the {n_files} weight shard files, {read_gb:.3f} GB, "
+              f"read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), after "
+              f"the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
+              f"{runs['data=2,model=2']['restore_s']:.2f} s")
+        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
+        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
+        check(torch.equal(a, b), "jamba: RESHARD_STREAM and DIRECT restores serve other tokens")
+        print(f"jamba tokens identical across restores; sample {a[0, :8].tolist()}")
+        out["runs"] = {k: {n: v for n, v in r.items() if n != "seq"} for k, r in runs.items()}
+        out["launches"] = runs["data=1,model=1"]["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Right by the repo's own means, in fp32 on the card (the bf16 trees
+    # freed first): the kernel path against the plain attention and
+    # ssd_chunked, by the experts chosen and the logits no flip reaches.
+    params = unflatten_from_paths({n: saved.pop(n).float() for n in list(saved)})
+    torch.cuda.empty_cache()
+    flm = build_model(cfg, compute_dtype=torch.float32)
+    out["routing"] = routing_check(torch, flm, params, prompts, reset, counts, lm_mod,
+                                   full_attention, 1, label="jamba", ssd_chunked=ssd_chunked,
+                                   want=per_prefill, mixes_after=True)
+    check({n: fn.launches_by_dtype["float32"] for n, fn in counters.items()} == per_prefill,
+          "jamba fp32 check: the kernel path's launches were not fp32")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"jamba peak card memory over the phase: {out['peak_gb']:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+MAMBA2_PARAMS = 128_983_488  # mamba2-130m at full width and depth
+
+
+def unmasked_ssd_chunked(torch, x, dt, a, bmat, cmat, *, chunk: int, h0=None):
+    """``ssd_chunked`` in the reference's form (``repro/models/ssm.py``),
+    kept here to show the repair at full width: the intra-chunk decay is
+    ``where(tri, exp(seg), 0)``, exp taken of every entry and masked after,
+    so where seg overflows above the diagonal the backward multiplies a
+    zero gradient by inf.  The package masks seg before the exp."""
+    from repro_torch.models.ssm import _broadcast_groups
+
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc = s // chunk
+    bq = _broadcast_groups(bmat, h).reshape(bsz, nc, chunk, h, n).float()
+    cq = _broadcast_groups(cmat, h).reshape(bsz, nc, chunk, h, n).float()
+    xq = x.reshape(bsz, nc, chunk, h, p)
+    dtq = dt.reshape(bsz, nc, chunk, h)
+    cum = torch.cumsum((dtq * a[None, None, None, :]).float(), dim=2)
+    total = cum[:, :, -1, :]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    l_mask = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    xdt = xq.float() * dtq[..., None]
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp",
+                           torch.einsum("bcqhn,bckhn->bcqkh", cq, bq) * l_mask, xdt)
+    decay_to_end = torch.exp(total[:, :, None, :] - cum)
+    s_chunk = torch.einsum("bcqhp,bcqhn->bchpn", xdt * decay_to_end[..., None], bq)
+    hprev = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device) if h0 is None else h0
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hprev)
+        hprev = hprev * torch.exp(total[:, c])[:, :, None, None] + s_chunk[:, c]
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", cq * torch.exp(cum)[..., None],
+                           torch.stack(h_prevs, 1))
+    return (y_intra + y_inter).reshape(bsz, s, h, p).to(x.dtype), hprev
+
+
+def first_step_grads(torch, lm, params, batch, lm_mod, ssd_form=None) -> dict:
+    """The gradients of the first step's loss (``lm.loss_fn``) with respect
+    to every parameter; ``ssd_form`` stands in for ``ssd_chunked``."""
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+
+    leaves = {n: t.detach().requires_grad_(True) for n, t in flatten_with_paths(params).items()}
+    real = lm_mod.ssd_chunked
+    if ssd_form is not None:
+        lm_mod.ssd_chunked = ssd_form
+    try:
+        loss, _ = lm.loss_fn(unflatten_from_paths(leaves), batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        lm_mod.ssd_chunked = real
+    return dict(zip(leaves, grads))
+
+
+def shard_kernel_times(torch, bq_ops, bq_ref, shard) -> dict:
+    """The block-quant kernels (int8:b256) on one moment shard: each
+    kernel's device time per call (the profiler, 20 warm calls) and event
+    time, the plain version's event time, and the bound (each input read
+    once, each output written once, at the memory rate)."""
+    x = shard.reshape(-1)
+    n = x.numel()
+    blocks = bq_ref.blocked(x, block=256)
+    q, s = bq_ops.block_quantize(x, block=256, dtype="int8")
+    runs = {
+        "quantize_blocks": (bq_ops.block_quantize,
+                            lambda: bq_ops.block_quantize(x, block=256, dtype="int8"),
+                            lambda: bq_ref.quantize_blocks(blocks, dtype="int8")),
+        "dequantize_blocks": (bq_ops.block_dequantize,
+                              lambda: bq_ops.block_dequantize(q, s, count=n),
+                              lambda: bq_ref.dequantize_blocks(q, s, count=n)),
+    }
+    nbytes = x.element_size() * n + n + 4 * blocks.shape[0]  # fp32 in or out, codes, scales
+    out = {}
+    for name, (wrapper, kernel_fn, plain_fn) in runs.items():
+        per_call, top = device_ms(torch, kernel_fn, f"{name} mamba2 moment shard",
+                                  launches=lambda: wrapper.launches)
+        check(top[0][2] == 20, f"{name}: {top[0][2]} launches of {top[0][0]} in 20 calls")
+        out[name] = dict(ms=per_call, event_ms=cuda_ms(torch, kernel_fn, iters=20),
+                         plain_ms=cuda_ms(torch, plain_fn, iters=20),
+                         bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, numel=n)
+        print(f"kernel {name} int8:b256 on a {tuple(shard.shape)} moment shard ({n} elements): "
+              f"device ms {per_call:.5f} (event {out[name]['event_ms']:.5f}), plain_ms "
+              f"{out[name]['plain_ms']:.4f}, bound_ms {out[name]['bound_ms']:.5f} (bytes: "
+              f"{nbytes / 1e6:.2f} MB); {top[0][0][:48]}")
+    return out
+
+
+def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
+    """mamba2-130m at full width and depth, 8 x 512 from ``train/data.py``,
+    bf16 compute, fp32 master and moments, remat full.  The first step's
+    gradients through ``ssd_chunked`` (all finite) and through the
+    reference's unmasked form (its non-finite ``a_log``/``dt_bias``
+    gradients counted); 6 baseline steps under data=2,model=2; 3 steps
+    saved with ``int8:b256``; resumed under data=1,model=1
+    (RESHARD_STREAM: the fused ``in_proj`` of the weights and both coded
+    moments consolidated through the dequantize kernel) and data=2,model=2
+    (DIRECT), every shard digest checked, 3 more steps each.  Every loss
+    and gradient norm finite; quantize launches equal the coded shards
+    written, dequantize launches those read by each resume."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.plan import TargetSpec, plan_resume
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2-130m")
+    tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
+    root = ROOT / "build" / "chip_smoke_train_mamba2"
+    shutil.rmtree(root, ignore_errors=True)
+    width = default_workers()
+    b, s = 8, 512
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+
+    def trainer(mesh, **kw):
+        return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(mesh), batch_size=b,
+                              seq_len=s, device=dev, **kw)
+
+    def finite(hist, what):
+        bad = [h for h in hist if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
+        check(not bad, f"mamba2 {what}: a loss or gradient norm is not finite: {bad[:1]}")
+
+    out: dict = {"launches_by_variant": {}}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = trainer("data=2,model=2")
+        n_params = base.lm.registry.num_params()
+        check(n_params == MAMBA2_PARAMS, f"mamba2-130m: {n_params} params")
+        state0 = base.init_state()
+        batch = base.batch(0)
+        grads = first_step_grads(torch, base.lm, state0.params, batch, lm_mod)
+        bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+        ssm_names = [n for n in grads if n.endswith((".a_log", ".dt_bias"))]
+        old = first_step_grads(torch, base.lm, state0.params, batch, lm_mod,
+                               functools.partial(unmasked_ssd_chunked, torch))
+        old_bad = {n: int((~torch.isfinite(old[n])).sum()) for n in ssm_names}
+        dt_max = float(torch.nn.functional.softplus(state0.params["layers"]["blk"]["dt_bias"]).max())
+        print(f"mamba2 first step's gradients ({n_params} params, {b}x{s} tokens, bf16, remat "
+              f"full): through ssd_chunked {sum(g.numel() for g in grads.values())} values, "
+              f"non-finite in {len(bad)} parameters; through the reference's unmasked form "
+              f"(informative): non-finite a_log/dt_bias gradients {old_bad} of "
+              f"{sum(old[n].numel() for n in ssm_names)} (A up to {cfg.ssm.n_heads(cfg.d_model)}, "
+              f"softplus(dt_bias) up to {dt_max:.4f})")
+        check(not bad, f"mamba2: non-finite gradients through ssd_chunked in {bad[:4]}")
+        out["grad_check"] = dict(nonfinite_params=len(bad), unmasked_nonfinite=old_bad)
+        del grads, old
+
+        counters["flash_attention"].launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = base.run(state0, 0, 6)
+        del state0
+        finite(hist, "baseline")
+        baseline = [h["loss"] for h in hist]
+        step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"mamba2 train baseline data=2,model=2: 6 steps, losses "
+              f"{[round(v, 4) for v in baseline]}, grad norms "
+              f"{[round(h['grad_norm'], 4) for h in hist]}; median step {step_s * 1e3:.1f} ms "
+              f"({b * s / step_s:.0f} tokens/s); peak card memory {peak:.2f} GB")
+        wall, busy, top = device_profile(torch, lambda: base.step_fn(state, base.batch(6)))
+        print(f"profile mamba2 train step: wall {wall:.2f} ms (profiler on), device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+        for key, ms, count in top:
+            print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        out.update(step_ms=step_s * 1e3, tokens_s=b * s / step_s, peak_gb=peak,
+                   step_device_ms=busy, baseline=baseline)
+        del state, base
+        torch.cuda.empty_cache()
+
+        # The main path: the counts set to 0 here and read at the end.
+        reset_launches(fns)
+        policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
+        src = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
+        state, hist = src.run(src.init_state(), 0, 3)
+        src.manager.close()
+        finite(hist, "saving run")
+        drift = max(abs(h["loss"] - x) for h, x in zip(hist, baseline))
+        check(drift <= 2e-2, f"mamba2: the saving run left the baseline ({drift:.2e})")
+        quant, save_dequant = fns["quantize"].launches, fns["dequantize"].launches
+        (res,) = src.save_results
+        step3 = src.manager.step_dir(3)
+        manifest = DistCheckpoint.open(step3).manifest
+        n_coded = len(manifest.shard_codecs)
+        # the save decodes each coded shard once too: the served digest's view
+        check(n_coded > 0 and quant == save_dequant == n_coded, f"mamba2: quantize launches "
+              f"{quant}, dequantize {save_dequant}, coded shards {n_coded}")
+        gb = res.bytes_written / 1e9
+        rate = write_floor_rate(step3, width, root / "floor")
+        print(f"mamba2 train save step 3 (data=2,model=2, int8:b256 fp32 moments, async, {width} "
+              f"workers): {gb:.3f} GB in {res.shards_written} shards, {res.wall_time_s:.2f} s "
+              f"(disk floor {gb / rate:.2f} s at {rate:.3f} GB/s); coded "
+              f"{res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB; "
+              f"{n_coded} coded shards, quantize launches {quant} by variant "
+              f"{fns['quantize'].launches_by_variant}")
+        src_plan = src.plan
+        del state, src
+        torch.cuda.empty_cache()
+
+        resumed = {}
+        for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
+            tgt = trainer(mesh, ckpt_dir=str(root),
+                          policy=CheckpointPolicy(async_save=False, save_interval=1000))
+            before = fns["dequantize"].launches
+            state, info = tgt.init_or_restore()
+            dequant = fns["dequantize"].launches - before
+            check(info is not None and info.mode.value == expect,
+                  f"mamba2 resume {mesh}: {info and info.mode.value}, want {expect}")
+            check(state.step == 3 and dequant == n_coded,
+                  f"mamba2 resume {mesh}: step {state.step}, {dequant} dequantize launches for "
+                  f"{n_coded} coded shards")
+            n_checked = digests_match(torch, {StateKind.FP32: state.params,
+                                              StateKind.EXP_AVG: state.exp_avg,
+                                              StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                      src_plan, manifest, width)
+            check(n_checked == len(manifest.shard_digests),
+                  f"mamba2 {mesh}: {n_checked} of {len(manifest.shard_digests)} digests checked")
+            consolidated = plan_resume(manifest, TargetSpec(tgt.plan.mesh, tgt.plan.param_specs)
+                                       ).consolidate_params
+            state, hist = tgt.run(state, 3, 3)
+            tgt.manager.close()
+            finite(hist, f"resume {mesh}")
+            resumed[expect] = [h["loss"] for h in hist]
+            print(f"mamba2 train resume {mesh}: {info.mode.value} in {info.wall_time_s:.2f} s "
+                  f"(consolidated in memory: {sorted(consolidated)}), "
+                  f"step 3, {dequant} dequantize launches; all {n_checked} shard digests of the "
+                  f"save equal the restored state re-cut under the Source plan; steps 4-6 losses "
+                  + ", ".join(f"{x:.4f} (baseline {y:.4f})" for x, y in zip(resumed[expect],
+                                                                         baseline[3:]))
+                  + ", grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist))
+            out[f"resume_{expect}_s"] = info.wall_time_s
+            del tgt
+            torch.cuda.empty_cache()
+        check(counters["flash_attention"].launches == 0, "flash launched during training")
+        out.update(save_s=res.wall_time_s, save_gb=gb, floor_s=gb / rate, coded=n_coded,
+                   resumed=resumed)
+        for name, fn in fns.items():
+            out[name] = fn.launches
+            out["launches_by_variant"][name] = dict(fn.launches_by_variant)
+        print(f"mamba2 train launches (the saving run and both resumes): quantize "
+              f"{out['quantize']}, dequantize {out['dequantize']} (coded shards {n_coded}: "
+              f"decoded once by the save, once by each resume); by variant "
+              f"{out['launches_by_variant']}")
+        check(out["dequantize"] == 3 * n_coded, f"mamba2: {out['dequantize']} dequantize launches")
+
+        # Outside the main path's counts: the kernels against their plain
+        # version, then their times, on the largest moment shard (in_proj's).
+        name = "layers.blk.in_proj"
+        out["shard_check"] = coded_shard_check(torch, bq_ops, bq_ref, src_plan, state.exp_avg,
+                                               name, label="mamba2", dtype=torch.float32)
+        spec = src_plan.param_specs[name]
+        shard = slice_shard(flatten_with_paths(state.exp_avg)[name],
+                            spec.layout_for(StateKind.EXP_AVG, src_plan.mesh), 0)
+        out["shard_times"] = shard_kernel_times(torch, bq_ops, bq_ref, shard)
+        del state, shard
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2891,6 +3533,8 @@ def main() -> int:
     k = kernel_phase(torch, F, kernel, ops, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
+    ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
+                           "jamba-1.5-large-398b")
     counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     runs = serve_phase(torch, "smollm-360m", counters,
                        {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48, via_ucp=True)
@@ -2904,6 +3548,12 @@ def main() -> int:
     reset_launches(bq_counters)
     mla = mla_serve_phase(torch, counters, kernel)
     mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
+    reset_launches(bq_counters)
+    hybrid = hybrid_serve_phase(torch, counters)
+    hybrid_bq = launch_counts(bq_counters)  # bf16 weights saved uncoded: none
+    reset_launches(counters)
+    train_ssm = ssm_train_phase(torch, bq_ops, bq_ref, counters)
+    train_ssm_kernels = launch_counts(counters)  # training goes through the plain versions
 
     rows = [{
         "name": "flash_attention_fwd",
@@ -2914,7 +3564,7 @@ def main() -> int:
         "launches": runs["data=1,model=1"]["launches"]["flash_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"]["kernel"],
-        "ms_by": "profiler device time per launch",
+        "ms_by": ms_by("flash_attention_fwd"),
         "event_ms": k["event_ms"]["kernel"],
         "fp32_ms": k["ms"]["fp32"],
         "plain_ms": k["event_ms"]["plain"],
@@ -2963,6 +3613,14 @@ def main() -> int:
         "deepseek_launches": mla["launches"],
         "deepseek_prefill_device_ms": mla["prefill_device_ms"],
         "deepseek_prefill_kernel_ms": mla["prefill_kernel_ms"],
+        **{f"jamba_{key}": k["jamba"][key] for key in (
+            "ms", "event_ms", "library_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+        "jamba_shape": "bf16 B=4 S=512 64:8 heads of 128, causal (jamba-1.5-large-398b)",
+        "jamba_launches": hybrid["launches"]["flash_attention"],
+        "jamba_prefill_device_ms": hybrid["prefill_device_ms"],
+        "jamba_prefill_kernel_ms": hybrid["prefill_kernel_ms"],
+        "train_ssm_launches": train_ssm_kernels["flash_attention"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -2976,7 +3634,7 @@ def main() -> int:
             "launches_by_phase": {k: v[which] for k, v in train["by_phase"].items()},
             "max_abs_err": bq[name]["max_abs_err"],
             "ms": bq[name]["ms"]["kernel"],
-            "ms_by": "profiler device time per launch",
+            "ms_by": ms_by(name),
             "event_ms": bq[name]["event_ms"]["kernel"],
             "general_ms": bq[name]["ms"]["general"],
             "plain_ms": bq[name]["event_ms"]["plain"],
@@ -2989,6 +3647,13 @@ def main() -> int:
         rows[-1]["mixtral_shard_numel"] = moe_train["shard_check"]["numel"]
         rows[-1]["mixtral_shard_max_abs_err"] = moe_train["shard_check"]["max_abs_err"]
         rows[-1]["deepseek_launches"] = mla_bq[which]
+        rows[-1]["jamba_launches"] = hybrid_bq[which]
+        rows[-1]["train_ssm_launches"] = train_ssm[which]
+        rows[-1]["train_ssm_launches_by_variant"] = train_ssm["launches_by_variant"][which]
+        rows[-1]["train_ssm_shard_numel"] = train_ssm["shard_times"][name]["numel"]
+        rows[-1]["train_ssm_shard_max_abs_err"] = train_ssm["shard_check"]["max_abs_err"]
+        for key in ("ms", "event_ms", "plain_ms", "bound_ms"):
+            rows[-1][f"train_ssm_shard_{key}"] = train_ssm["shard_times"][name][key]
         if name == "dequantize_blocks":
             rows[-1]["convert_launches"] = train["export"]["launches"]
     rows.append({
@@ -3000,7 +3665,7 @@ def main() -> int:
         "launches": ssm_runs["data=1,model=1"]["launches"]["ssd_scan"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["ms"]["kernel"],
-        "ms_by": "profiler device time per launch",
+        "ms_by": ms_by("ssd_scan_fwd"),
         "event_ms": ssd["event_ms"]["kernel"],
         "fp32_ms": ssd["ms"]["fp32"],
         "plain_ms": ssd["event_ms"]["plain"],
@@ -3011,6 +3676,12 @@ def main() -> int:
         "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
         "mixtral_launches": moe_serve["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
         "deepseek_launches": mla["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
+        **{f"jamba_{key}": ssd_jamba[key] for key in (
+            "ms", "event_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "jamba_shape": "bf16 B=4 S=512 H=128 P=128 G=1 N=128 chunk 256 (jamba-1.5-large-398b)",
+        "jamba_launches": hybrid["launches"]["ssd_scan"],
+        "jamba_prefill_kernel_ms": hybrid["prefill_ssd_ms"],
+        "train_ssm_launches": train_ssm_kernels["ssd_scan"],
     })
     print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
                              "train delta": train["delta"], "train gc under pin": train["gc"],
@@ -3021,12 +3692,21 @@ def main() -> int:
                                  "save_s", "save_gb", "floor_s", "resume_s")},
                              "serve deepseek-v2-236b": {"save": mla["save"],
                                                         "read_floor": mla["read_floor"],
-                                                        "restores": mla["runs"]}}}))
+                                                        "restores": mla["runs"]},
+                             "serve jamba-1.5-large-398b": {"save": hybrid["save"],
+                                                            "read_floor": hybrid["read_floor"],
+                                                            "restores": hybrid["runs"]},
+                             "train mamba2-130m": {k: train_ssm[k] for k in (
+                                 "save_s", "save_gb", "floor_s", "resume_reshard_stream_s",
+                                 "resume_direct_s")}}}))
     print(json.dumps({"mixtral": {"serve": {k: v for k, v in moe_serve.items()
                                             if k not in ("save", "read_floor", "runs")},
                                   "train": moe_train}}))
     print(json.dumps({"deepseek": {k: v for k, v in mla.items()
                                    if k not in ("save", "read_floor", "runs")}}))
+    print(json.dumps({"jamba": {k: v for k, v in hybrid.items()
+                                if k not in ("save", "read_floor", "runs")}}))
+    print(json.dumps({"train_ssm": train_ssm}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

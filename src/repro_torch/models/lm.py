@@ -1,4 +1,4 @@
-"""The decoder (port of the dense, MoE and SSM paths of ``repro.models.lm``).
+"""The decoder (port of the dense, MoE, SSM and hybrid paths of ``repro.models.lm``).
 
 Parameters are the reference's: the same :class:`ParamDef` tables, so the
 same names and layer-stacked shapes (``layers.blk.wqkv`` is
@@ -25,9 +25,11 @@ functions.
 
 The dense, the MoE (:mod:`.moe`: mixtral; DeepSeek-style shared experts
 and leading dense layers, with DeepSeek-V2's Multi-head Latent Attention,
-:meth:`LM._mla_attn`) and the SSM (Mamba-2) families are ported.  Hybrid,
-cross-attention and encoder configs raise ``NotImplementedError`` (ROADMAP
-queue 1, item 6: other model families).
+:meth:`LM._mla_attn`), the SSM (Mamba-2) and the hybrid (jamba: a
+``periods`` stage whose body is the config's ``hybrid_pattern`` of Mamba-2
+and attention layers, each with its dense or MoE MLP) families are
+ported.  Cross-attention and encoder configs raise ``NotImplementedError``
+(ROADMAP queue 1, item 6: other model families).
 A MoE layer's load-balancing loss is summed over the layers and returned
 by :meth:`LM.forward`; :meth:`LM.loss_fn` adds ``router_aux_weight`` of it
 to the loss it differentiates and reports the bare cross-entropy as
@@ -85,23 +87,31 @@ def _require_ported(cfg: ModelConfig) -> None:
         (cfg.family == "dense" and not other)
         or (cfg.family == "moe" and other in (["moe"], ["moe", "mla"]))
         or (cfg.family == "ssm" and other == ["ssm"])
+        or (cfg.family == "hybrid" and other == ["moe", "ssm"])
     ):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; only the "
-            "dense decoder, the MoE decoder (with or without MLA) and Mamba-2 are (ROADMAP "
-            "queue 1, item 6: other model families)"
+            "dense decoder, the MoE decoder (with or without MLA), Mamba-2 and the "
+            "Mamba-2/attention/MoE hybrid are (ROADMAP queue 1, item 6: other model families)"
         )
 
 
 def plan_stages(cfg: ModelConfig) -> list[StageDef]:
     """One homogeneous stack: Mamba-2 blocks with no MLP for the SSM family;
-    for the dense and MoE families attention + MLP (a MoE one when the
-    config's cadence says so), per-layer sliding windows riding along as
-    metadata when they vary (Gemma-3's local:global), after a dense
-    ``head`` stage for DeepSeek-style leading dense layers."""
+    for the hybrid family one ``periods`` stage repeating the config's
+    ``hybrid_pattern`` (body ``p{i}_{kind}``, each layer with its MLP, a MoE
+    one where the config's cadence says so); for the dense and MoE families
+    attention + MLP, per-layer sliding windows riding along as metadata
+    when they vary (Gemma-3's local:global), after a dense ``head`` stage
+    for DeepSeek-style leading dense layers."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return [StageDef("layers", cfg.num_layers, (LayerDef("blk", "mamba", with_mlp=False),))]
+    if cfg.family == "hybrid":
+        moe_mask = cfg.moe_layer_mask()
+        body = tuple(LayerDef(f"p{i}_{k}", k, moe=moe_mask[i])
+                     for i, k in enumerate(cfg.hybrid_pattern))
+        return [StageDef("periods", cfg.num_layers // len(body), body)]
     windows = tuple(cfg.window_for_layer(i) for i in range(cfg.num_layers))
     uniform = len(set(windows)) == 1
     moe_mask = cfg.moe_layer_mask()
@@ -474,7 +484,7 @@ def build_lm(
     compute_dtype: torch.dtype = torch.bfloat16,
     remat: str = "full",
 ) -> LM:
-    """Construct the model for a (dense, MoE or SSM) config.  ``vocab_multiple`` pads the
+    """Construct the model for a (dense, MoE, SSM or hybrid) config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
     the padding is runtime-only, UCP atoms store the logical vocab."""
     if remat not in ("full", "none"):

@@ -47,7 +47,12 @@ def ssd_recurrent(x, dt, a, bmat, cmat, *, h0=None):
 
 def ssd_chunked(x, dt, a, bmat, cmat, *, chunk: int, h0=None):
     """Chunked SSD: intra-chunk masked products + inter-chunk state scan.
-    Returns (y [B,S,H,P] in x's dtype, h_final [B,H,P,N] float32)."""
+    Returns (y [B,S,H,P] in x's dtype, h_final [B,H,P,N] float32).
+
+    The forward is the reference's bit for bit.  Its gradient differs where
+    the reference's is NaN: the intra-chunk decay is masked before its
+    ``exp`` (the reference masks after, so an overflow above the diagonal
+    reaches the backward as 0 · inf); everywhere else the two agree."""
     bsz, s, h, p = x.shape
     n = bmat.shape[-1]
     if s % chunk:
@@ -65,12 +70,16 @@ def ssd_chunked(x, dt, a, bmat, cmat, *, chunk: int, h0=None):
     cum = torch.cumsum(da, dim=2)                           # inclusive
     total = cum[:, :, -1, :]                                # [B,nc,H]
 
-    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j, else 0.  exp is
-    # evaluated everywhere and then masked, as the reference does (above the
-    # diagonal it overflows to inf and is dropped by the where).
+    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j, else 0.  The
+    # reference takes exp of every entry and masks after; above the diagonal
+    # seg is positive, exp overflows to inf there, and the backward of the
+    # where multiplies its zero gradient by that inf: NaN.  The port masks
+    # seg to -inf first, so exp is evaluated only where it is kept; kept
+    # entries compute the same exp and masked ones are exactly 0 either way,
+    # so the forward is bit-identical to the reference's form.
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,nc,Q,Q,H]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    l_mask = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    l_mask = torch.exp(torch.where(tri[None, None, :, :, None], seg, -torch.inf))
     cb = torch.einsum("bcqhn,bckhn->bcqkh", cq, bq)
     xdt = xq.float() * dtq[..., None]
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", cb * l_mask, xdt)

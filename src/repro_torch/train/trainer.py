@@ -9,12 +9,12 @@ committed checkpoint: DIRECT when the layout is unchanged, RESHARD_STREAM
 when it changed; training continues at the checkpointed step with the same
 global data order (the stateless pipeline of :mod:`.data`).
 
-The dense and the MoE families train (a MoE config's plan shards its
-expert tensors by expert parallelism or by expert-TP, ``moe_mode``); any
-other family raises before a run starts (the SSM family serves, but no
-test holds its training against the reference yet).  Each step's record
-carries the cross-entropy ``loss`` and the MoE ``aux`` loss (0 for a dense
-model).
+Every family the model builds trains: dense, MoE (a MoE config's plan
+shards its expert tensors by expert parallelism or by expert-TP,
+``moe_mode``), Mamba-2 and the Mamba-2/attention/MoE hybrid; the rest are
+refused by :func:`~repro_torch.models.build_model` before a run starts.
+Each step's record carries the cross-entropy ``loss`` and the MoE ``aux``
+loss (0 for a model without experts).
 """
 
 from __future__ import annotations
@@ -78,11 +78,6 @@ class Trainer:
         policy: CheckpointPolicy | None = None,
         device: str | torch.device = "cuda",
     ) -> "Trainer":
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family!r} family is not ported yet; only the "
-                "dense and MoE decoders train (ROADMAP queue 1, item 6: other model families)"
-            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")

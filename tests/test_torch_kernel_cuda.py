@@ -9,7 +9,8 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
   the serving slice's head layout, with ragged lengths and windows, every
   head dim (8-256) in bf16, non-causal, GQA and MQA, gemma3-12b's head
-  layout (16:8 heads of 256, window 1024) and deepseek-v2's MLA (128:128
+  layout (16:8 heads of 256, window 1024), jamba's (64:8 heads of 128) and
+  deepseek-v2's MLA (128:128
   heads, D = 192 and Dv = 128, also as the strided view the model hands
   over) in both dtypes; an uninstantiated (D, Dv) pair and a v whose Skv
   or Hkv is not k's refused with the reason;
@@ -26,9 +27,12 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   within 1e-5, the gradients of ``wqkv`` (atol 1e-5, rtol 1e-4), and no
   flash-attention launch while a gradient is recorded; the same for
   reduced mixtral (MoE), with its aux loss and the router's and experts'
-  gradients;
-* reduced mixtral, and reduced deepseek-v2 at MLA's real head dims (the
-  (192, 128) instance), served on the card against the CPU path (fp32): the
+  gradients; and reduced mamba2 (the plain ``ssd_chunked``, no SSD
+  launch), every gradient finite;
+* reduced mixtral, reduced jamba (the hybrid: a flash launch per attention
+  layer, an SSD launch per Mamba-2 layer), and reduced deepseek-v2 at MLA's
+  real head dims (the (192, 128) instance), served on the card against the
+  CPU path (fp32): the
   experts each token is routed to are the same wherever the top-k margin
   is above rounding (the share of flipped tokens is reported), and the
   logits of every sequence with no flipped token within 1e-4;
@@ -36,7 +40,8 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   ``ssd_chunked``) on the sweep of ``tests/test_kernels.py`` and at the
   serving shapes, bf16 (y 5e-2) and fp32 (y 5e-4/1e-4), h_final 5e-3 as
   there; strided views; chunks that are not powers of two (40, 96) and the
-  model's halving down to 4 (S = 500); P = 128 (two column tiles), G = 2
+  model's halving down to 4 (S = 500); P = 128 (two column tiles; also at
+  jamba's N = 128 and chunk 256), G = 2
   and 3, N = 100 (8-byte row copies); reduced mamba2 on the card (one
   kernel launch per layer) against the CPU path in float32; the fp32
   kernel against a float64 recurrence at the B = 1 serving shape, no
@@ -122,6 +127,9 @@ def _tol(dtype):
     (torch.float32, 2, 300, 8, 8, 192, 100, True, 128),
     (torch.bfloat16, 1, 77, 8, 2, 192, 0, True, 128),
     (torch.float32, 1, 77, 8, 2, 192, 0, False, 128),
+    # jamba's attention layer: 64:8 heads of 128 (a GQA group of 8), both kernels
+    (torch.bfloat16, 2, 512, 64, 8, 128, 0, True),
+    (torch.float32, 1, 512, 64, 8, 128, 0, True),
 ]])
 def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv):
     dv = dv or d
@@ -413,12 +421,20 @@ def test_reduced_mixtral_on_card_matches_cpu(cuda, monkeypatch):
     _moe_card_matches_cpu(cuda, monkeypatch, reduced(get_config("mixtral-8x22b")))
 
 
+def test_reduced_jamba_on_card_matches_cpu(cuda, monkeypatch):
+    """The hybrid: 2 periods of 8 layers, each one attention layer (a flash
+    launch a prefill) and seven Mamba-2 layers (an SSD launch each), the
+    MoE on every second layer; held as reduced mixtral."""
+    _moe_card_matches_cpu(cuda, monkeypatch, reduced(get_config("jamba-1.5-large-398b")))
+
+
 def _moe_card_matches_cpu(cuda, monkeypatch, cfg):
     lm = build_model(cfg, compute_dtype=torch.float32)
     params_cpu = lm.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, 256, (4, 40), generator=torch.Generator().manual_seed(1))
     calls = _record_routes(monkeypatch)
-    launches = flash_attention.launches
+    kinds = [ld.kind for st in lm.stages for _ in range(st.count) for ld in st.body]
+    launches, ssd_launches = flash_attention.launches, ssd_scan.launches
     outs, routes, fed = [], [], []
     for params, dev in ((params_cpu, "cpu"), (_to(params_cpu, cuda), cuda)):
         start = len(calls)
@@ -432,7 +448,8 @@ def _moe_card_matches_cpu(cuda, monkeypatch, cfg):
             steps.append(lg[:, -1].cpu())
         outs.append(steps)
         routes.append(calls[start:])
-    assert flash_attention.launches == launches + lm.cfg.num_layers
+    assert flash_attention.launches == launches + kinds.count("attn")
+    assert ssd_scan.launches == ssd_launches + kinds.count("mamba")
     flipped = torch.zeros(4, dtype=torch.bool)
     for (i_cpu, margin), (i_gpu, _) in zip(*routes):
         differ = (i_cpu != i_gpu).any(-1)                      # [g=4, t]
@@ -467,6 +484,34 @@ def test_reduced_moe_train_step_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5, rtol=1e-4, err_msg=name)
 
 
+def test_reduced_mamba2_train_step_on_card_matches_cpu(cuda):
+    """One reduced mamba2 step on the card (the plain ``ssd_chunked``: no
+    SSD launch while a gradient is recorded) beside the CPU's, fp32: the
+    loss within 1e-5, every gradient finite, those of ``in_proj``,
+    ``a_log`` and ``dt_bias`` within 1e-5 (rtol 1e-4)."""
+    lm = build_model(reduced(get_config("mamba2-130m")), compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 256, (4, 33), generator=torch.Generator().manual_seed(1))
+    step = make_train_step(lm, TC.TrainConfig(), TC.ParallelismConfig())
+    names = ["layers.blk.in_proj", "layers.blk.a_log", "layers.blk.dt_bias"]
+    launches = ssd_scan.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in flatten_with_paths(params).items()}
+        loss, _ = lm.loss_fn(unflatten_from_paths(leaves), {"tokens": toks.to(dev)})
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        _, m = step(init_state(_to(params, dev)), {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(loss.detach()), [grads[n].cpu() for n in names],
+                         float(m["grad_norm"]))
+    assert ssd_scan.launches == launches
+    (l0, g0, n0), (l1, g1, n1) = out["cpu"], out[str(cuda)]
+    assert abs(l0 - l1) <= 1e-5 and abs(n0 - n1) <= 1e-4 * n0 and np.isfinite(n1)
+    for name, a, b in zip(names, g0, g1):
+        assert b.abs().sum() > 0, name
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5, rtol=1e-4, err_msg=name)
+
+
 def _ssd_inputs(device, b, s, h, p, g, n, dtype, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(b, s, h, p, generator=gen, device=device).to(dtype)
@@ -495,6 +540,7 @@ def _ssd_close(got, want, dtype):
     (1, 500, 4, 16, 1, 16, 4),
     (1, 256, 2, 128, 1, 64, 64),
     (2, 192, 6, 32, 3, 64, 96),
+    (1, 512, 4, 128, 1, 128, 256),  # jamba's Mamba-2: P = N = 128, chunk 256
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
     x, dt, a, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=s + n)

@@ -16,8 +16,8 @@ the same weights (the reference's ``lm.init``, loaded with
   and without MLA: the dense ``head`` stage and the shared experts) equal
   the reference's field for field; the sharding plans of both equal it
   under expert parallelism (data=1,model=4) and expert-TP (data=2,model=2,
-  no EP).  The MLA slice itself is ``tests/test_torch_mla.py``; the hybrid
-  family (jamba) is still refused.
+  no EP).  The MLA slice itself is ``tests/test_torch_mla.py``, the hybrid
+  family (jamba) ``tests/test_torch_hybrid.py``.
 * ``forward`` and ``loss_fn`` (aux included) in float32 within 1e-5, and
   three ``make_train_step`` steps against the reference's jitted step on
   one device: float32 losses within 1e-5, bf16 ones within the 2e-2 of
@@ -209,10 +209,15 @@ def test_param_defs_equal_reference(arch, overrides):
 
 
 def test_jamba_hybrid_still_refused():
-    """deepseek-v2's MLA is ported (tests/test_torch_mla.py); the hybrid
-    family (jamba: Mamba-2 and attention layers, MoE) is still refused."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        build_model(TC.reduced(TC.get_config("jamba-1.5-large-398b")))
+    """The hybrid family (jamba: Mamba-2 and attention layers, MoE) builds
+    since its slice (the name is the one this test had while it was
+    refused; tests/test_torch_hybrid.py holds it against the reference):
+    one ``periods`` stage of 2 × 8 layers, MoE on every second."""
+    lm = build_model(TC.reduced(TC.get_config("jamba-1.5-large-398b")))
+    (stage,) = lm.stages
+    assert (stage.name, stage.count, len(stage.body)) == ("periods", 2, 8)
+    assert [ld.moe for ld in stage.body] == [True, False] * 4
+    assert lm.registry["periods.p4_attn.we_gate"].kind == "moe_expert"
 
 
 def _plans(mesh_d, kw, arch=ARCH):

@@ -13,7 +13,9 @@
 * The port's own parity: prefill then decode equals the forward pass.
 * The ``ssm_alog`` init equals the reference's; ``ssm_dt`` draws from the
   same range.  Serving reads ``a_log`` and ``dt_bias`` in float32.
-* Training entry points refuse every family but the dense and MoE ones.
+* Training: one mamba2 step trains through the trainer and the train CLI
+  (the reference comparison of SSM training is ``tests/test_torch_ssm_train.py``);
+  the model refuses only the cross-attention and encoder families.
 """
 
 import json
@@ -329,28 +331,40 @@ def test_serve_reads_a_log_and_dt_bias_in_float32(monkeypatch, capsys):
 
 
 def test_training_refuses_the_ssm_family(tmp_path):
+    """The SSM family trains since the hybrid slice (the name is the one
+    this test had while it was refused): one reduced mamba2 step through
+    ``Trainer`` and one through the train CLI, finite loss and gradient
+    norm, a committed checkpoint."""
     from repro_torch.core.layout import MeshSpec
     from repro_torch.launch import train as train_cli
     from repro_torch.train.trainer import Trainer
 
     cfg = TC.reduced(TC.get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="only the dense and MoE decoders train"):
-        Trainer.create(cfg, TC.ParallelismConfig(), TC.TrainConfig(),
-                       MeshSpec.from_dict({"data": 1, "model": 1}),
-                       batch_size=2, seq_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="only the dense and MoE decoders train"):
-        train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
-                        "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "ck")])
-    assert not (tmp_path / "ck").exists() or not any((tmp_path / "ck").iterdir())
+    tr = Trainer.create(cfg, TC.ParallelismConfig(), TC.TrainConfig(),
+                        MeshSpec.from_dict({"data": 1, "model": 1}),
+                        batch_size=2, seq_len=8, device="cpu")
+    state, (rec,) = tr.run(tr.init_state(), 0, 1)
+    assert state.step == 1 and np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])
+    assert rec["aux"] == 0.0
+    assert train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
+                           "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "ck"),
+                           "--save-interval", "1", "--sync-save"]) == 0
+    assert (tmp_path / "ck" / "step_00000001" / "COMMIT").exists()
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b", "deepseek-v2-236b",
                                   "llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_still_refused(arch):
-    """Every family but dense, MoE (with or without MLA) and Mamba-2 is
+    """Cross-attention (llama-vision) and the encoder (whisper) are still
     refused; mixtral (MoE, the eighth slice) builds, with its expert
-    tensors, and deepseek-v2 (MLA, the ninth) with its latent projections."""
+    tensors, deepseek-v2 (MLA, the ninth) with its latent projections, and
+    jamba (the hybrid, the tenth) with its MoE attention layer in a period."""
     cfg = TC.reduced(TC.get_config(arch))
+    if arch == "jamba-1.5-large-398b":
+        lm = build_model(cfg)
+        assert [s.name for s in lm.stages] == ["periods"]
+        assert lm.registry["periods.p4_attn.we_gate"].kind == "moe_expert"
+        return
     if arch == "mixtral-8x22b":
         lm = build_model(cfg)
         assert [s.name for s in lm.stages] == ["layers"] and lm.stages[0].body[0].moe
