@@ -32,7 +32,14 @@ nothing falls back to the CPU or to a plain version):
    library is the first fused ``scaled_dot_product_attention`` backend
    that takes a v head dim other than q's, named, checked against the
    kernel, with the others' reasons for refusing), and for
-   jamba-1.5-large-398b's (64:8 heads of 128, no window);
+   jamba-1.5-large-398b's (64:8 heads of 128, no window); then k and v of
+   their own length, with no mask: llama-3.2-vision-11b's cross layer
+   (B=4, 512 queries against 1600 source rows, 32:8 heads of 128) and its
+   causal self layers (S=512), whisper-tiny's encoder (B=4, 1500 x 1500,
+   6:6 heads of 64: a ragged last tile) and cross layers (432 x 1500), each
+   as the layouts above (the bound counts the pairs each mask allows, a
+   causal row seeing at most Skv keys); and causal launches at 512 x 1600
+   and 1600 x 512 (8:2 heads of 128) against the plain version only;
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -211,7 +218,38 @@ nothing falls back to the CPU or to a plain version):
    and every shard digest checked, then 3 more steps; then the kernels
    against their plain version byte for byte on an ``in_proj`` moment
    shard, and their times there;
-13. the I/O line (JSON: the walls above), the kernels line (JSON: each row
+13. serve-vlm: llama-3.2-vision-11b at full width (d 4096, 32:8 heads of
+   128, d_ff 14336, vocab 128256, a gated cross layer every 5 reading 1600
+   x 4096 source embeds), depth cut from 40 to 5 layers (one period:
+   ``self0..self3`` and ``cross``; 2,141,237,249 params): fp32 weights
+   from a seeded generator on the card, ``cross_gate`` set from the seed
+   to a value in ±[0.5, 1.5) (the init's 0 makes the cross layer add
+   nothing); saved under data=2,model=2 (8.6 GB), beside the disk floor;
+   weights-only restores under data=1,model=1 (RESHARD_STREAM: ``wqkv``
+   and ``cross_wkv`` consolidated) and data=2,model=2 (DIRECT), each
+   bit-equal to the save, then a read floor; from each, a bf16 prefill of
+   4 x 512 with the serve CLI's bf16 source embeds (exactly 5 flash
+   launches, recorded at the wrapper: 4 causal 512 x 512 and 1 non-causal
+   512 x 1600) and 16 greedy decode steps, equal tokens; the profiled
+   prefill and decode.  In fp32 on the card: the kernel path against the
+   plain attention through the prefill and 16 decode steps, logits within
+   1e-3; another source moves the logits;
+14. serve-encdec: whisper-tiny at full width and depth (d 384, 6 heads of
+   64, 4 encoder layers over 1500 frames, 4 decoder layers, vocab 51865
+   padded to 51866 under data=2,model=2; 56,355,840 params), the same way
+   with prompts of 4 x 432 (prompt and 16 steps fill whisper's 448-token
+   text context): 12 flash launches a prefill (4 encoder 1500 x 1500 with
+   no mask, then each decoder layer's causal 432 x 432 and its 432 x 1500
+   cross launch); the RESHARD_STREAM restore strips the vocab padding;
+15. train-encdec: whisper-tiny, 8 x 448 tokens with 1500 frames from
+   ``train/data.py``, bf16 compute, fp32 master and moments, remat full:
+   6 baseline steps under data=2,model=2, 3 saved ``int8:b256`` (both
+   block-quant kernels on whisper's moment shards, counted), resumed under
+   data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT) with every
+   shard digest checked (the vocab-padded ones of the RESHARD_STREAM
+   resume, which lacks the padding rows, against the DIRECT resume), 3
+   steps each, within 2e-2 of the baseline while saving;
+16. the I/O line (JSON: the walls above), the kernels line (JSON: each row
    names its variants; ``ms`` is the profiler's device time per launch,
    with ``event_ms`` beside it; rows 2-3 add the general kernel's device
    time ``general_ms`` and the train phase's ``launches_by_variant`` and
@@ -225,11 +263,16 @@ nothing falls back to the CPU or to a plain version):
    ``convert_launches``; the flash and SSD rows jamba's shapes
    (``jamba_*``), every row its launches in serve-hybrid
    (``jamba_launches``) and train-ssm (``train_ssm_launches``), the
-   block-quant rows the train-ssm shard's times (``train_ssm_shard_*``); a
+   block-quant rows the train-ssm shard's times (``train_ssm_shard_*``);
+   the flash row the cross-attention shapes (``vlm_cross_*``,
+   ``vlm_self_*``, ``encdec_encoder_*``, ``encdec_cross_*``,
+   ``offset_causal_max_abs_err``) and the launches and prefill times of
+   serve-vlm and serve-encdec (``vlm_*``, ``encdec_*``), every row its
+   launches in train-encdec (``train_encdec_launches``); a
    prefill's device and kernel times are null where every profiler trace
    of it lost a record), the mixtral line (JSON), the deepseek line
-   (JSON), the jamba line (JSON), the train_ssm line (JSON), the card
-   line, then the result line (JSON, last).
+   (JSON), the jamba line (JSON), the train_ssm line (JSON), the vlm and
+   encdec lines (JSON), the card line, then the result line (JSON, last).
 """
 
 from __future__ import annotations
@@ -384,13 +427,13 @@ def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float)
     mask allows at the peak rate of the inputs' type: 2·D FLOPs a pair for
     Q·Kᵀ and 2·Dv for P·V."""
     b, s, hq, d = q.shape
-    dv = v.shape[-1]
+    dv, skv = v.shape[-1], k.shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
     pairs = 0
-    for i in range(s):
+    for i in range(s):  # row i sees columns lo..hi-1 (causal: at most i, and none past Skv)
         lo = max(0, i - window + 1) if window > 0 else 0
-        hi = i + 1 if causal else k.shape[1]
-        pairs += hi - lo
+        hi = min(i + 1, skv) if causal else skv
+        pairs += max(0, hi - lo)
     flops = 2.0 * (d + dv) * pairs * b * hq
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / flops_peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -460,7 +503,8 @@ def fmt_ms(ms, spec: str = ".3f") -> str:
     return "not measured" if ms is None else f"{ms:{spec}} ms"
 
 
-def profile_serving(torch, D, lm, params, prompts, counters: dict, kernel: str, want: int):
+def profile_serving(torch, D, lm, params, prompts, counters: dict, kernel: str, want: int,
+                    source_embeds=None):
     """Where the serving time goes on the device: one prefill (whose trace
     must show ``want`` launches of ``kernel``: :func:`profile_counted`) and
     16 decode steps, each under the profiler (which slows the host, so the
@@ -472,7 +516,8 @@ def profile_serving(torch, D, lm, params, prompts, counters: dict, kernel: str, 
         cur = prompts[:, -1:].clone()
         out = {}
         wall, busy, rows, mine = profile_counted(
-            torch, lambda: D.prefill(lm, params, cache, prompts), counters, kernel, want)
+            torch, lambda: D.prefill(lm, params, cache, prompts, source_embeds=source_embeds),
+            counters, kernel, want)
         out["prefill"] = (wall, busy, rows)
         out["decode x16"] = device_profile(
             torch, lambda: [D.decode_step(lm, params, cache, cur) for _ in range(16)], top=None)
@@ -638,8 +683,52 @@ def kernel_phase(torch, F, kernel, ops, ref):
                        label="deepseek-v2-236b MLA")
     jamba = head_layout(torch, F, kernel, ops, ref, hq=64, hkv=8, d=128, long=None,
                         label="jamba-1.5-large-398b")
+    # cross-attention: k and v of their own length, with no mask
+    vlm_cross = head_layout(torch, F, kernel, ops, ref, hq=32, hkv=8, d=128, long=None,
+                            s=512, skv=1600, causal=False, label="llama-3.2-vision-11b cross")
+    vlm_self = head_layout(torch, F, kernel, ops, ref, hq=32, hkv=8, d=128, long=None,
+                           label="llama-3.2-vision-11b self")
+    enc = head_layout(torch, F, kernel, ops, ref, hq=6, hkv=6, d=64, long=None, s=1500,
+                      causal=False, label="whisper-tiny encoder")
+    enc_self = head_layout(torch, F, kernel, ops, ref, hq=6, hkv=6, d=64, long=None, s=432,
+                           label="whisper-tiny self")
+    enc_cross = head_layout(torch, F, kernel, ops, ref, hq=6, hkv=6, d=64, long=None, s=432,
+                            skv=1500, causal=False, label="whisper-tiny cross")
+    offset = offset_causal_rows(torch, kernel, ref)
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
-                d256=d256, d128=d128, d192=d192, jamba=jamba)
+                d256=d256, d128=d128, d192=d192, jamba=jamba, vlm_cross=vlm_cross,
+                vlm_self=vlm_self, encdec_encoder=enc, encdec_self=enc_self,
+                encdec_cross=enc_cross,
+                offset_causal=offset)
+
+
+def offset_causal_rows(torch, kernel, ref) -> dict:
+    """Causal launches at Sq != Skv (row i sees keys 0..i, the reference's
+    mask; rows past Skv see every key), both kernels against the plain
+    version only: 512 queries against 1600 keys and 1600 against 512, 8:2
+    heads of 128, B=2."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for sq, skv in ((512, 1600), (1600, 512)):
+            q, k, v = (torch.randn(2, n, h, 128, generator=g, device=dev).to(dtype)
+                       for n, h in ((sq, 8), (skv, 2), (skv, 2)))
+            out = kernel.flash_attention_fwd(q, k, v, causal=True, window=0, scale=128 ** -0.5)
+            plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=True, scale=128 ** -0.5).transpose(1, 2)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[name]
+            diff = (out.float() - plain.float()).abs()
+            err = diff.max().item()
+            ok = bool(torch.isfinite(out.float()).all()) and bool(
+                (diff <= atol + rtol * plain.float().abs()).all())
+            print(f"kernel {name} B=2 Sq={sq} Skv={skv} 8:2 heads of 128 causal: max_abs_err "
+                  f"{err:.3e} (tolerance atol {atol} rtol {rtol}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} causal Sq={sq} Skv={skv}: kernel disagrees with its plain version")
+            worst[f"{name} {sq}x{skv}"] = err
+    return worst
 
 
 def sdpa_backend(torch, F, qt, kt, vt, scale: float):
@@ -671,33 +760,40 @@ def sdpa_backend(torch, F, qt, kt, vt, scale: float):
 
 
 def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: tuple | None,
-                label: str, dv: int | None = None):
+                label: str, dv: int | None = None, s: int = 512, skv: int | None = None,
+                causal: bool = True):
     """One model's attention shapes (``hq``:``hkv`` heads, q and k of ``d``,
-    v of ``dv``, default ``d``): both kernels against the plain version,
-    causal at B=4, S=512 and at ``long`` = (B, S, window) with the model's
+    v of ``dv``, default ``d``; ``s`` queries against ``skv`` keys, default
+    ``s``; ``causal`` or with no mask): both kernels against the plain
+    version at B=4 and at ``long`` = (B, S, window) with the model's
     sliding window, where it has one; then the bf16 kernel's device time at
-    B=4, S=512 beside the library's and the bound.  gemma3-12b: 16:8 heads
-    of 256, window 1024 at S=2048; mixtral-8x22b: 48:8 heads of 128, window
-    4096 at S=8192; deepseek-v2: 128:128 heads, D = 192 and Dv = 128, no
-    window.  Where Dv != D, the library is the first fused backend of
-    ``scaled_dot_product_attention`` that takes the inputs
-    (:func:`sdpa_backend`), checked against the kernel; None, with
-    PyTorch's reasons, where none does."""
+    B=4 beside the library's and the bound.  gemma3-12b: 16:8 heads of 256,
+    window 1024 at S=2048; mixtral-8x22b: 48:8 heads of 128, window 4096 at
+    S=8192; deepseek-v2: 128:128 heads, D = 192 and Dv = 128, no window;
+    llama-vision's cross layer 512 x 1600 and whisper's encoder 1500 x 1500
+    and cross layers 432 x 1500, with no mask; whisper's decoder 432 x 432,
+    causal.  Where Dv != D, the library
+    is the first fused backend of ``scaled_dot_product_attention`` that
+    takes the inputs (:func:`sdpa_backend`), checked against the kernel;
+    None, with PyTorch's reasons, where none does."""
     dv = dv or d
+    skv = skv or s
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(d + dv)
+    g = torch.Generator(device=dev).manual_seed(d + dv + s + skv)
     scale = d ** -0.5
-    cases = [(dtype, b, s, window) for dtype in (torch.bfloat16, torch.float32)
-             for b, s, window in ((4, 512, 0),) + ((long,) if long else ())]
+    mask = "causal" if causal else "no mask"
+    cases = [(dtype, b, sq, window) for dtype in (torch.bfloat16, torch.float32)
+             for b, sq, window in ((4, s, 0),) + ((long,) if long else ())]
     worst, main = 0.0, None
-    for dtype, b, s, window in cases:
-        tag = (f"D={d} Dv={dv} {str(dtype).split('.')[1]} B={b} S={s} {hq}:{hkv} causal "
-               f"window={window}")
-        q, k, v = (torch.randn(b, s, h, w, generator=g, device=dev).to(dtype)
-                   for h, w in ((hq, d), (hkv, d), (hkv, dv)))
-        out = kernel.flash_attention_fwd(q, k, v, causal=True, window=window, scale=scale)
+    for dtype, b, sq, window in cases:
+        sk = skv if sq == s else sq
+        tag = (f"D={d} Dv={dv} {str(dtype).split('.')[1]} B={b} Sq={sq} Skv={sk} {hq}:{hkv} "
+               f"{mask} window={window}")
+        q, k, v = (torch.randn(b, n, h, w, generator=g, device=dev).to(dtype)
+                   for n, h, w in ((sq, hq, d), (sk, hkv, d), (sk, hkv, dv)))
+        out = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
         plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=True, window=window, scale=scale).transpose(1, 2)
+                                  causal=causal, window=window, scale=scale).transpose(1, 2)
         torch.cuda.synchronize()
         atol, rtol = TOL[str(dtype).split(".")[1]]
         diff = (out.float() - plain.float()).abs()
@@ -715,11 +811,11 @@ def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     q32, k32, v32 = (t.float() for t in (q, k, v))
     runs = {
-        "kernel": lambda: ops.flash_attention(q, k, v, causal=True, window=0, scale=scale),
-        "fp32": lambda: ops.flash_attention(q32, k32, v32, causal=True, window=0, scale=scale),
-        "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=scale),
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=causal, window=0, scale=scale),
+        "fp32": lambda: ops.flash_attention(q32, k32, v32, causal=causal, window=0, scale=scale),
+        "plain": lambda: ref.attention_ref(qt, kt, vt, causal=causal, scale=scale),
         "library": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True),
     }
     backend, reasons = "default dispatch", {}
     if dv != d:
@@ -751,8 +847,8 @@ def head_layout(torch, F, kernel, ops, ref, *, hq: int, hkv: int, d: int, long: 
               "call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
     ms = {n: sum(t) / len(t) if t else None for n, t in device.items()}
     bound_ms, bound_by, nbytes, flops = attention_bound(
-        q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS)
-    print(f"kernel bf16 B=4 S=512 Hq={hq} Hkv={hkv} D={d} Dv={dv} causal ({label}): device ms "
+        q, k, v, out, causal=causal, window=0, flops_peak=PEAK_BF16_FLOPS)
+    print(f"kernel bf16 B=4 Sq={s} Skv={skv} Hq={hq} Hkv={hkv} D={d} Dv={dv} {mask} ({label}): device ms "
           f"{ms['kernel']:.5f} (event {event_ms:.5f}) library ({backend}) device ms "
           f"{fmt_ms(ms['library'], '.5f')} fp32 kernel device ms {ms['fp32']:.5f} plain_ms "
           f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes / 1e6:.2f} MB is "
@@ -1776,9 +1872,9 @@ def train_phase(torch, ops, bq_ops):
             for name, t in flatten_with_paths(state.params).items():
                 logical = tuple(slice(0, n) for n in saved_params[name].shape)
                 check(torch.equal(t[logical], saved_params[name]), f"{mesh}: {name} differs")
-            n_checked = digests_match(torch, {StateKind.EXP_AVG: state.exp_avg,
-                                              StateKind.EXP_AVG_SQ: state.exp_avg_sq},
-                                      src_plan, manifest, width)
+            n_checked, _ = digests_match(torch, {StateKind.EXP_AVG: state.exp_avg,
+                                                 StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                         src_plan, manifest, width)
             check(n_checked == n_coded, f"{mesh}: {n_checked} served digests checked")
             want_read = 0 if expect == "via_ucp" else n_coded  # atoms are raw
             engine = tgt.manager.engine_for(dev)
@@ -2174,40 +2270,40 @@ def read_floor_s(paths: list[Path], workers: int) -> float:
     return time.perf_counter() - t0
 
 
-def digests_match(torch, trees: dict, plan, manifest, workers: int) -> int:
+def digests_match(torch, trees: dict, plan, manifest, workers: int) -> tuple[int, int]:
     """Re-cut every saved shard of ``trees`` ({kind: nested tensors}) under
     the Source ``plan`` and hash it on ``workers`` threads: each must equal
     the manifest's digest (raw kinds: the bytes saved, so bit-equal; coded
-    kinds: the codec's served view).  Returns the shards checked."""
+    kinds: the codec's served view).  A parameter restored without the
+    Source's vocab padding (a model=1 restore strips it) lacks the padding
+    rows the save wrote, which training moves off zero (weight decay): its
+    shards are skipped.  Returns (shards checked, shards skipped)."""
     from repro_torch.core.dist_ckpt import shard_digest_key
     from repro_torch.core.layout import slice_shard
     from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.core.tensor_io import content_digest
 
-    jobs = []
+    jobs, skipped = [], 0
     for kind, tree in trees.items():
         for name, t in flatten_with_paths(tree).items():
             spec = plan.param_specs[name]
             layout = spec.layout_for(kind, plan.mesh)
             keys = [(r, shard_digest_key(r, name, kind)) for r in range(len(layout.entries))]
             keys = [(r, key) for r, key in keys if key in manifest.shard_digests]
-            jobs.append((t, spec, layout, keys))
+            if tuple(t.shape) == tuple(spec.runtime_shape):
+                jobs.append((t, layout, keys))
+            else:
+                skipped += len(keys)
 
     def one(job) -> int:
-        t, spec, layout, keys = job
-        if tuple(t.shape) != tuple(spec.runtime_shape):
-            full = torch.zeros(spec.runtime_shape, dtype=t.dtype, device=t.device)
-            logical = tuple(slice(0, n) for n in spec.logical_shape)
-            full[logical] = t[logical]
-        else:
-            full = t
+        t, layout, keys = job
         for rank, key in keys:
-            got = content_digest(slice_shard(full, layout, rank))
+            got = content_digest(slice_shard(t, layout, rank))
             check(got == manifest.shard_digests[key], f"{key}: not the saved bytes")
         return len(keys)
 
     with ThreadPoolExecutor(workers) as pool:
-        return sum(pool.map(one, jobs))
+        return sum(pool.map(one, jobs)), skipped
 
 
 def coded_shard_check(torch, bq_ops, bq_ref, plan, tree, name: str, *, label: str = "mixtral",
@@ -2306,13 +2402,223 @@ def moe_breakdown(torch, lm, params_c, prompts, label: str = "mixtral") -> dict:
     return ms
 
 
-def moe_serve_phase(torch, counters: dict, bq_ops, layers: int = 2):
+class FlashShapes:
+    """Records the (dtype, D, Dv) of every flash kernel launch while it is
+    open (a shim around the wrapper's ``kernel.flash_attention_fwd``), and
+    in ``calls`` its (dtype, Sq, Skv, causal)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.shapes, self.calls = kernel, [], []
+
+    def __enter__(self):
+        launch = self._saved = self.kernel.flash_attention_fwd
+
+        def recording(q, k, v, **kw):
+            dtype = str(q.dtype).removeprefix("torch.")
+            self.shapes.append((dtype, q.shape[-1], v.shape[-1]))
+            self.calls.append((dtype, q.shape[1], k.shape[1], bool(kw["causal"])))
+            return launch(q, k, v, **kw)
+
+        self.kernel.flash_attention_fwd = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.flash_attention_fwd = self._saved
+
+
+def capacity_drops(log: MoeLog, per_forward: int) -> tuple[float, float]:
+    """The shares of slots dropped by capacity in a logged ``generate``: its
+    prefill (the first ``per_forward`` routings, one a MoE layer) and its
+    decode steps (the rest)."""
+    def dropped(keeps) -> float:
+        return 1.0 - sum(int(k.sum()) for k in keeps) / sum(k.numel() for k in keeps)
+
+    return dropped(log.keeps[:per_forward]), dropped(log.keeps[per_forward:])
+
+
+def save_weights(torch, label: str, cfg, plan, saved: dict, root: Path, width: int) -> tuple:
+    """Save the weights ``saved`` ({path: tensor on the card}) alone under
+    ``plan`` as step 1 under ``root`` (a serving checkpoint): fp32 leaves
+    through a host snapshot timed apart, bf16 ones as they are; the bytes
+    written checked, beside the disk floor.  Returns the step directory and
+    the save's record."""
+    from repro_torch.ckpt.saver import write_distributed
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.launch.serve import latest_step_dir
+
+    fp32 = all(t.dtype == torch.float32 for t in saved.values())
+    t0 = time.perf_counter()
+    snap = {n: {StateKind.FP32: t.cpu().numpy() if fp32 else t} for n, t in saved.items()}
+    snap_s = time.perf_counter() - t0
+    res = write_distributed(snap, plan, 1, root / "step_00000001", workers=width,
+                            config_fingerprint=cfg.fingerprint())
+    del snap
+    step_dir = latest_step_dir(root)
+    check(step_dir is not None, f"{label}: no committed step")
+    nbytes = sum(t.numel() * t.element_size() for t in saved.values())
+    check(res.bytes_written == nbytes, f"{label} save wrote {res.bytes_written} bytes, want {nbytes}")
+    rate = write_floor_rate(step_dir, width, root / "floor")
+    gb = res.bytes_written / 1e9
+    print(f"{label} save data=2,model=2 (moe_mode {plan.moe_mode}): {gb:.3f} GB of "
+          f"{'fp32' if fp32 else 'bf16'} weights in {res.shards_written} shards, "
+          f"{res.wall_time_s:.2f} s with {width} workers ({gb / res.wall_time_s:.3f} GB/s; "
+          + (f"device→host snapshot {snap_s:.2f} s" if fp32 else "device→host included")
+          + f"); disk floor {gb / rate:.2f} s ({rate:.3f} GB/s from {width} threads, on its "
+          f"largest files up to 2 GB); disk {disk_used_gb():.1f} GB used")
+    return step_dir, dict(gb=gb, seconds=res.wall_time_s, floor_s=gb / rate, floor_gb_s=rate,
+                          workers=width, **({"snapshot_s": snap_s} if fp32 else {}))
+
+
+def serve_restores(torch, label: str, cfg, plan_for, step_dir: Path, saved: dict, prompts,
+                   counters: dict, kernel, per_prefill: dict, *, source_embeds=None,
+                   cache_len: int = 0, on_run=None, on_direct=None) -> dict:
+    """The serve path from a checkpoint: weights-only restores of
+    ``step_dir`` under data=1,model=1 (RESHARD_STREAM) and data=2,model=2
+    (DIRECT), planned by ``plan_for(mesh) -> (lm, plan)``, each bit-equal
+    to ``saved`` (a model=1 restore lacks the Source's vocab padding: its
+    region); from each, after a warm-up, a bf16 prefill of ``prompts``
+    (with ``source_embeds``) and 16 greedy decode steps whose launches must
+    be ``per_prefill``; ``on_run(shapes, log)`` checks the flash launches
+    (:class:`FlashShapes`) and routings (:class:`MoeLog`) recorded and
+    returns what the run's record and line add; the same tokens from both
+    restores; the DIRECT run's prefill and decode profiled, and
+    ``on_direct(lm, params, profile)`` adds its own breakdown; the read
+    floor of the weight files.  Returns the record."""
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.launch.serve import generate, restore_params
+    from repro_torch.models import decode as D
+
+    width = default_workers()
+    b, s = prompts.shape
+    gen_kw = dict(cache_len=cache_len, source_embeds=source_embeds)
+    out, runs = {}, {}
+    for mesh_str, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
+        tlm, tplan = plan_for(mesh_str)
+        t0 = time.perf_counter()
+        flat, rp = restore_params(step_dir, tplan, prompts.device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(rp.mode.value == expect, f"{label} {mesh_str}: {rp.mode.value}, want {expect}")
+        check(set(flat) == set(saved), f"{label} {mesh_str}: restored parameter set differs")
+        for name, t in flat.items():
+            region = tuple(slice(0, n) for n in t.shape)
+            check(torch.equal(t, saved[name][region]), f"{label} {mesh_str}: {name} differs")
+        print(f"{label} restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s (consolidated "
+              f"in memory: {rp.consolidate_params}; embed {tuple(flat['embed'].shape)}); "
+              "bit-equal to the save")
+        params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+        del flat
+        torch.cuda.empty_cache()
+        generate(tlm, params_c, prompts, 17, **gen_kw)  # warm-up at the timed shapes
+        reset_launches(counters)
+        with FlashShapes(kernel) as shapes, MoeLog(torch) as log:
+            seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17, **gen_kw)
+        launches = launch_counts(counters)
+        check(launches == per_prefill, f"{label} {mesh_str}: launches {launches}")
+        check(tuple(seq.shape) == (b, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+              f"{label} {mesh_str}: tokens {tuple(seq.shape)}")
+        extra, note = on_run(shapes, log) if on_run else ({}, "")
+        print(f"{label} serve {mesh_str}: prefill {b}x{s} {prefill_s * 1e3:.2f} ms, decode "
+              f"{decode_s * 1e3 / 16:.3f} ms/token (batch {b}, 16 steps), launches {launches}, "
+              f"flash (dtype, Sq, Skv, causal) {shapes.calls}{note}")
+        runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
+                              decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
+                              launches=launches, **extra)
+        if expect == "direct":
+            prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
+                                         "flash_attention", per_prefill["flash_attention"],
+                                         source_embeds=source_embeds)
+            busy = prof["prefill"][1]
+            out.update(prefill_device_ms=busy, decode_device_ms=prof["decode x16"][1] / 16,
+                       prefill_kernel_ms=mine[1])
+            share = (f"{mine[1] / busy:.4f}" if busy is not None and mine[1] is not None
+                     else "not measured")
+            print(f"{label} prefill {b}x{s} profiled: device busy {fmt_ms(busy)}, flash "
+                  f"{fmt_ms(mine[1])} over {mine[2]} launches, a share of {share}")
+            if on_direct:
+                out.update(on_direct(tlm, params_c, prof))
+        del params_c
+        torch.cuda.empty_cache()
+    # the read floor after the restores: the bytes they read, as warm in the
+    # page cache as the second restore found them
+    n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
+    print(f"{label} restore read floor: the {n_files} weight shard files, {read_gb:.3f} GB, "
+          f"read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), after "
+          f"the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
+          f"{runs['data=2,model=2']['restore_s']:.2f} s")
+    out["read_floor"] = dict(gb=read_gb, seconds=read_s)
+    a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
+    check(torch.equal(a, b), f"{label}: RESHARD_STREAM and DIRECT restores serve other tokens")
+    print(f"{label} tokens identical across restores; sample {a[0, :8].tolist()}")
+    out["runs"] = {k: {n: v for n, v in r.items() if n != "seq"} for k, r in runs.items()}
+    out["launches"] = runs["data=1,model=1"]["launches"]
+    return out
+
+
+def decode_check(torch, flm, params, prompts, counters: dict, lm_mod, full_attention,
+                 launches: int, label: str, *, source_embeds=None, routed: bool = False,
+                 steps: int = 16) -> dict:
+    """fp32 on the card: prefill ``prompts`` (with ``source_embeds``)
+    through the flash kernel (``launches`` launches), then ``steps`` decode
+    steps, against the same prefill through the plain attention and the
+    same steps (both fed the kernel path's greedy tokens); every step's
+    logits within 1e-3.  With ``routed`` (one MoE layer, the last, whose
+    attention reads the layers before it), a flip moves only its own
+    token's logits and never the cache, so the (step, row) pairs whose
+    routing differs between the paths are left out."""
+    from repro_torch.models import decode as D
+
+    b, s = prompts.shape
+    outs, fed = [], []
+    with torch.inference_mode():
+        for plain in (False, True):
+            kernel_fn = lm_mod.flash_attention
+            if plain:
+                lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
+                    q, k, v, causal=causal, window=window)
+            try:
+                reset_launches(counters)
+                cache = D.init_cache(flm, b, s + steps, device=prompts.device)
+                with MoeLog(torch) as log:
+                    logits, cache = D.prefill(flm, params, cache, prompts,
+                                              source_embeds=source_embeds)
+                    lgs = [logits.cpu()]
+                    for i in range(steps):
+                        if not plain:
+                            fed.append(lgs[-1].argmax(-1)[:, None])
+                        lg, cache = D.decode_step(flm, params, cache, fed[i].to(prompts.device))
+                        lgs.append(lg[:, -1].cpu())
+                n = counters["flash_attention"].launches
+            finally:
+                lm_mod.flash_attention = kernel_fn
+            check(n == (0 if plain else launches), f"{label} fp32 check: {n} flash launches")
+            # the last routing of the prefill, then one a step: [b] rows each
+            routes = (torch.stack([log.routes[0][0][:, -1]] + [r[0][:, -1] for r in log.routes[1:]])
+                      if routed else None)
+            outs.append((torch.stack(lgs), routes))
+    (k_lg, k_rt), (p_lg, p_rt) = outs
+    same = (k_rt == p_rt).all(-1) if routed else torch.ones(k_lg.shape[:2], dtype=torch.bool)
+    check(bool(torch.isfinite(k_lg).all()), f"{label} fp32 logits not finite")
+    err = (k_lg - p_lg).abs()[same].max().item()
+    print(f"{label} fp32 check: prefill {b}x{s} through the kernel ({launches} fp32 launches) vs "
+          f"the plain attention, then {steps} decode steps each: {int(same.sum())} of "
+          f"{same.numel()} (step, row) pairs compared"
+          + (" (those routed alike)" if routed else "")
+          + f", logits max_abs_err {err:.3e} (tolerance 1e-3; largest logit "
+          f"{p_lg.abs().max().item():.3f})")
+    check(err <= 1e-3, f"{label}: the kernel path and the plain path disagree ({err:.3e})")
+    return dict(max_abs_err=err, steps=steps, compared=int(same.sum()), of=same.numel())
+
+
+def moe_serve_phase(torch, counters: dict, bq_ops, kernel, layers: int = 2):
     """mixtral-8x22b at full width, depth cut to ``layers``: save under
     data=2,model=2 (EP; fp32 weights, bf16 zero moments coded int8:b256 on
-    the card), weights-only restores under data=1,model=1
-    (RESHARD_STREAM) and data=2,model=2 (DIRECT) bit-equal to the save, bf16
-    prefill 4 x 512 and 16 greedy decode steps from each (one flash launch a
-    layer, D = 128), a 1 x 8192 prefill and decode past the 4096 window;
+    the card); the serve path from it (:func:`serve_restores`:
+    RESHARD_STREAM and DIRECT restores bit-equal to the save, a bf16
+    prefill of 4 x 512 with one flash launch a layer at D = 128, 16 greedy
+    decode steps, the same tokens), a 1 x 8192 prefill and decode past the
+    4096 window;
     then, in fp32 on the card, the routing of the kernel path against the
     plain path and the ring against a full cache."""
     import dataclasses
@@ -2322,14 +2628,11 @@ def moe_serve_phase(torch, counters: dict, bq_ops, layers: int = 2):
     from repro_torch.core.dist_ckpt import DistCheckpoint
     from repro_torch.core.engine import default_workers
     from repro_torch.core.patterns import StateKind
-    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
     from repro_torch.launch.mesh import mesh_spec_from_string
-    from repro_torch.launch.serve import (
-        generate, latest_step_dir, restore_params, serving_parallelism,
-    )
+    from repro_torch.launch.serve import latest_step_dir, serving_parallelism
     from repro_torch.models import build_model
-    from repro_torch.models import decode as D
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.attention import full_attention
 
@@ -2407,69 +2710,24 @@ def moe_serve_phase(torch, counters: dict, bq_ops, layers: int = 2):
 
         prompts = torch.randint(0, cfg.vocab_size, (4, 512),
                                 generator=torch.Generator().manual_seed(3)).to(dev)
-        runs = {}
-        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
-                                 ("data=2,model=2", "direct")):
-            tlm, tplan = plan_for(mesh_str)
-            t0 = time.perf_counter()
-            flat, rp = restore_params(step_dir, tplan, dev)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            check(rp.mode.value == expect, f"mixtral {mesh_str}: {rp.mode.value}, want {expect}")
-            check(set(flat) == set(saved), f"mixtral {mesh_str}: restored parameter set differs")
-            for name, t in flat.items():
-                check(torch.equal(t, saved[name]), f"mixtral {mesh_str}: {name} differs")
-            print(f"mixtral restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
-                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
-            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
-            del flat
-            torch.cuda.empty_cache()
-            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
-            reset()
-            with MoeLog(torch) as log:
-                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
-            launches = counts()
-            check(launches == per_prefill, f"mixtral {mesh_str}: launches {launches}")
+
+        def on_run(shapes, log):
             want = {"flash_attention": {"bfloat16": layers, "float32": 0},
                     "ssd_scan": {"bfloat16": 0, "float32": 0}}
-            check(dtypes() == want, f"mixtral {mesh_str}: launches by dtype {dtypes()}")
-            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
-                  f"mixtral {mesh_str}: tokens {tuple(seq.shape)}")
-            prefill_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[:layers]) / \
-                sum(k.numel() for k in log.keeps[:layers])
-            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[layers:]) / \
-                sum(k.numel() for k in log.keeps[layers:])
-            print(f"mixtral serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
-                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches} "
-                  f"(bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, decode "
-                  f"{decode_drop:.4f}")
+            check(dtypes() == want, f"mixtral: launches by dtype {dtypes()}")
+            prefill_drop, decode_drop = capacity_drops(log, layers)
             check(decode_drop == 0.0, "a decode step dropped a token (capacity 1, top-2)")
-            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
-                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
-                                  launches=launches, prefill_drop=prefill_drop)
-            if expect == "direct":
-                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
-                                             "flash_attention", layers)
-                out["prefill_device_ms"], out["decode_device_ms"] = (
-                    prof["prefill"][1], prof["decode x16"][1] / 16)
-                out["prefill_kernel_ms"] = mine[1]
-                out["moe_ms"] = moe_breakdown(torch, tlm, params_c, prompts)
-                out.update(long_prefill(torch, cfg, tlm, params_c, reset, counts, per_prefill))
-            del params_c
-            torch.cuda.empty_cache()
-        # The read floor after the restores: the bytes they read, as warm in
-        # the page cache as the second restore found them.
-        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
-        print(f"mixtral restore read floor: the {n_files} fp32 shard files, {read_gb:.3f} "
-              f"GB, read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), "
-              f"after the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, "
-              f"DIRECT {runs['data=2,model=2']['restore_s']:.2f} s")
-        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
-        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
-        check(torch.equal(a, b), "mixtral: RESHARD_STREAM and DIRECT restores serve other tokens")
-        print(f"mixtral tokens identical across restores; sample {a[0, :8].tolist()}")
-        out["runs"] = {m: {k: v for k, v in r.items() if k != "seq"} for m, r in runs.items()}
-        out["launches"] = runs["data=1,model=1"]["launches"]["flash_attention"]
+            return (dict(prefill_drop=prefill_drop),
+                    f" (bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, "
+                    f"decode {decode_drop:.4f}")
+
+        def on_direct(tlm, params_c, prof):
+            return dict(moe_ms=moe_breakdown(torch, tlm, params_c, prompts),
+                        **long_prefill(torch, cfg, tlm, params_c, reset, counts, per_prefill))
+
+        out.update(serve_restores(torch, "mixtral", cfg, plan_for, step_dir, saved, prompts,
+                                  counters, kernel, per_prefill, on_run=on_run,
+                                  on_direct=on_direct))
 
         # Right by the repo's own means, in fp32 on the card: the kernel path
         # against the plain path (routing compared by the experts chosen),
@@ -2742,10 +3000,10 @@ def moe_train_phase(torch, bq_ops, bq_ref, counters: dict, layers: int = 1):
         check(state.step == 3 and dequant == n_coded,
               f"mixtral resume: step {state.step}, {dequant} dequantize launches for {n_coded}")
         t0 = time.perf_counter()
-        n_checked = digests_match(torch, {StateKind.FP32: state.params,
-                                          StateKind.EXP_AVG: state.exp_avg,
-                                          StateKind.EXP_AVG_SQ: state.exp_avg_sq},
-                                  src_plan, manifest, width)
+        n_checked, _ = digests_match(torch, {StateKind.FP32: state.params,
+                                             StateKind.EXP_AVG: state.exp_avg,
+                                             StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                     src_plan, manifest, width)
         digest_s = time.perf_counter() - t0
         check(n_checked == len(manifest.shard_digests),
               f"{n_checked} of {len(manifest.shard_digests)} shard digests checked")
@@ -2783,53 +3041,26 @@ def moe_train_phase(torch, bq_ops, bq_ref, counters: dict, layers: int = 1):
 DEEPSEEK_PARAMS = {2: 5_358_679_040}  # at full width, by depth
 
 
-class FlashShapes:
-    """Records the (dtype, D, Dv) of every flash kernel launch while it is
-    open (a shim around the wrapper's ``kernel.flash_attention_fwd``)."""
-
-    def __init__(self, kernel):
-        self.kernel, self.shapes = kernel, []
-
-    def __enter__(self):
-        launch = self._saved = self.kernel.flash_attention_fwd
-
-        def recording(q, k, v, **kw):
-            self.shapes.append((str(q.dtype).removeprefix("torch."), q.shape[-1], v.shape[-1]))
-            return launch(q, k, v, **kw)
-
-        self.kernel.flash_attention_fwd = recording
-        return self
-
-    def __exit__(self, *exc):
-        self.kernel.flash_attention_fwd = self._saved
-
-
 def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
     """deepseek-v2-236b (MLA) at full width, depth cut to ``layers`` (the
     dense head layer and one MoE layer): the fp32 weights saved under
-    data=2,model=2 with expert parallelism; weights-only restores under
-    data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT), bit-equal
-    to the save, beside a read floor of the same files; from each, a bf16
-    prefill of 4 x 512 (one flash launch a layer at D = 192, Dv = 128) and
-    16 greedy decode steps through the absorbed latent cache, the same
-    tokens; the profiled prefill and decode.  Then in fp32 on the card: the
-    kernel path against the plain attention, by routing (``routing_check``),
-    and 16 decode steps after a kernel prefill against the same steps after
-    a plain prefill."""
+    data=2,model=2 with expert parallelism; the serve path from it
+    (:func:`serve_restores`: RESHARD_STREAM and DIRECT restores bit-equal
+    to the save, a bf16 prefill of 4 x 512 with one flash launch a layer at
+    D = 192, Dv = 128, 16 greedy decode steps through the absorbed latent
+    cache, the same tokens, the profiled prefill and decode).  Then in fp32
+    on the card: the kernel path against the plain attention, by routing
+    (``routing_check``), and 16 decode steps after a kernel prefill against
+    the same steps after a plain prefill (:func:`decode_check`)."""
     import dataclasses
 
-    from repro_torch.ckpt.saver import write_distributed
     from repro_torch.configs import get_config
     from repro_torch.core.engine import default_workers
-    from repro_torch.core.patterns import StateKind
-    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
     from repro_torch.launch.mesh import mesh_spec_from_string
-    from repro_torch.launch.serve import (
-        generate, latest_step_dir, restore_params, serving_parallelism,
-    )
+    from repro_torch.launch.serve import serving_parallelism
     from repro_torch.models import build_model
-    from repro_torch.models import decode as D
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.attention import full_attention
 
@@ -2848,6 +3079,13 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
         lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
         return lm, make_plan(cfg, lm.registry, parallel, mesh)
 
+    def on_run(shapes, log):
+        check(shapes.shapes == [("bfloat16", *pair)] * layers,
+              f"deepseek: flash launches (dtype, D, Dv) {shapes.shapes}")
+        prefill_drop, decode_drop = capacity_drops(log, 1)
+        return {}, (f", (dtype, D, Dv) {shapes.shapes}; dropped by capacity: prefill "
+                    f"{prefill_drop:.4f} of the slots, decode {decode_drop:.4f}")
+
     lm, src_plan = plan_for("data=2,model=2")
     n_params = lm.registry.num_params()
     check(src_plan.moe_mode == "ep", f"data=2,model=2 plans moe_mode {src_plan.moe_mode}")
@@ -2864,94 +3102,16 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
           f"{time.perf_counter() - t0:.2f} s")
     root = ROOT / "build" / "chip_smoke_ckpt_deepseek"
     shutil.rmtree(root, ignore_errors=True)
-    width = default_workers()
-    out: dict = {}
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                            generator=torch.Generator().manual_seed(6)).to(dev)
+    saved = flatten_with_paths(params)
     try:
-        # Save the fp32 weights alone (a serving checkpoint: 21.4 GB).
-        t0 = time.perf_counter()
-        saved = flatten_with_paths(params)
-        snap = {n: {StateKind.FP32: t.cpu().numpy()} for n, t in saved.items()}
-        snap_s = time.perf_counter() - t0
-        res = write_distributed(snap, src_plan, 1, root / "step_00000001", workers=width,
-                                config_fingerprint=cfg.fingerprint())
-        del snap
-        step_dir = latest_step_dir(root)
-        check(step_dir is not None, "deepseek: no committed step")
-        check(res.bytes_written == 4 * n_params, f"deepseek save wrote {res.bytes_written} bytes")
-        rate = write_floor_rate(step_dir, width, root / "floor")
-        gb = res.bytes_written / 1e9
-        print(f"deepseek save data=2,model=2 (moe_mode ep): {gb:.3f} GB of fp32 weights in "
-              f"{res.shards_written} shards, {res.wall_time_s:.2f} s with {width} workers "
-              f"({gb / res.wall_time_s:.3f} GB/s; device→host snapshot {snap_s:.2f} s); disk "
-              f"floor {gb / rate:.2f} s ({rate:.3f} GB/s from {width} threads, on its largest "
-              f"files up to 2 GB); disk {disk_used_gb():.1f} GB used")
-        out["save"] = dict(gb=gb, seconds=res.wall_time_s, snapshot_s=snap_s, floor_s=gb / rate,
-                           floor_gb_s=rate, workers=width)
-
-        prompts = torch.randint(0, cfg.vocab_size, (4, 512),
-                                generator=torch.Generator().manual_seed(6)).to(dev)
-        runs = {}
-        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
-                                 ("data=2,model=2", "direct")):
-            tlm, tplan = plan_for(mesh_str)
-            t0 = time.perf_counter()
-            flat, rp = restore_params(step_dir, tplan, dev)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            check(rp.mode.value == expect, f"deepseek {mesh_str}: {rp.mode.value}, want {expect}")
-            check(set(flat) == set(saved), f"deepseek {mesh_str}: restored parameter set differs")
-            for name, t in flat.items():
-                check(torch.equal(t, saved[name]), f"deepseek {mesh_str}: {name} differs")
-            print(f"deepseek restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
-                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
-            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
-            del flat
-            torch.cuda.empty_cache()
-            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
-            reset()
-            with FlashShapes(kernel) as shapes, MoeLog(torch) as log:
-                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
-            launches = counts()
-            check(launches == per_prefill, f"deepseek {mesh_str}: launches {launches}")
-            check(shapes.shapes == [("bfloat16", *pair)] * layers,
-                  f"deepseek {mesh_str}: flash launches (dtype, D, Dv) {shapes.shapes}")
-            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
-                  f"deepseek {mesh_str}: tokens {tuple(seq.shape)}")
-            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[1:]) / \
-                sum(k.numel() for k in log.keeps[1:])
-            print(f"deepseek serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
-                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches}, "
-                  f"flash (dtype, D, Dv) {shapes.shapes}; dropped by capacity: prefill "
-                  f"{1.0 - float(log.keeps[0].float().mean()):.4f} of the slots, decode "
-                  f"{decode_drop:.4f}")
-            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
-                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
-                                  launches=launches)
-            if expect == "direct":
-                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
-                                             "flash_attention", layers)
-                busy = prof["prefill"][1]
-                out["prefill_device_ms"], out["decode_device_ms"] = (
-                    busy, prof["decode x16"][1] / 16)
-                out["prefill_kernel_ms"] = mine[1]
-                share = (f"{mine[1] / busy:.4f}" if busy is not None and mine[1] is not None
-                         else "not measured")
-                print(f"deepseek prefill 4x512 profiled: device busy {fmt_ms(busy)}, flash "
-                      f"{fmt_ms(mine[1])} over {mine[2]} launches, a share of {share}")
-            del params_c
-            torch.cuda.empty_cache()
-        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
-        print(f"deepseek restore read floor: the {n_files} fp32 shard files, "
-              f"{read_gb:.3f} GB, read in {read_s:.2f} s from {width} threads "
-              f"({read_gb / read_s:.3f} GB/s), after the restores: RESHARD_STREAM "
-              f"{runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
-              f"{runs['data=2,model=2']['restore_s']:.2f} s")
-        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
-        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
-        check(torch.equal(a, b), "deepseek: RESHARD_STREAM and DIRECT restores serve other tokens")
-        print(f"deepseek tokens identical across restores; sample {a[0, :8].tolist()}")
-        out["runs"] = {k: {n: v for n, v in r.items() if n != "seq"} for k, r in runs.items()}
-        out["launches"] = runs["data=1,model=1"]["launches"]["flash_attention"]
+        # the fp32 weights alone (a serving checkpoint: 21.4 GB)
+        step_dir, save = save_weights(torch, "deepseek", cfg, src_plan, saved, root,
+                                      default_workers())
+        out = serve_restores(torch, "deepseek", cfg, plan_for, step_dir, saved, prompts, counters,
+                             kernel, per_prefill, on_run=on_run)
+        out["save"] = save
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2962,58 +3122,9 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
         out["routing"] = routing_check(torch, flm, params, prompts, reset, counts, lm_mod,
                                        full_attention, layers, label="deepseek")
     check(shapes.shapes == [("float32", *pair)] * layers, f"deepseek fp32 flash {shapes.shapes}")
-    out["decode_check"] = mla_decode_check(torch, flm, params, prompts, reset, counts, lm_mod,
-                                           full_attention, layers)
+    out["decode_check"] = decode_check(torch, flm, params, prompts, counters, lm_mod,
+                                       full_attention, layers, "deepseek", routed=True)
     return out
-
-
-def mla_decode_check(torch, flm, params, prompts, reset, counts, lm_mod, full_attention,
-                     layers: int, steps: int = 16) -> dict:
-    """fp32 on the card: prefill the 4 x 512 prompts through the flash
-    kernel, then ``steps`` decode steps through the latent cache, against
-    the same prefill through the plain attention and the same steps (both
-    fed the kernel path's greedy tokens).  The cache never depends on a
-    routing (the MoE layer is the last, and its attention reads the dense
-    layer's output), so a flip moves only its own token's logits: every
-    step's logits of the rows routed alike are compared, within 1e-3."""
-    from repro_torch.models import decode as D
-
-    b, s = prompts.shape
-    outs = []
-    fed: list = []
-    with torch.inference_mode():
-        for plain in (False, True):
-            kernel_fn = lm_mod.flash_attention
-            if plain:
-                lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
-                    q, k, v, causal=causal, window=window)
-            try:
-                reset()
-                cache = D.init_cache(flm, b, s + steps, device=prompts.device)
-                with MoeLog(torch) as log:
-                    logits, cache = D.prefill(flm, params, cache, prompts)
-                    lgs = [logits.cpu()]
-                    for i in range(steps):
-                        if not plain:
-                            fed.append(lgs[-1].argmax(-1)[:, None])
-                        lg, cache = D.decode_step(flm, params, cache, fed[i].to(prompts.device))
-                        lgs.append(lg[:, -1].cpu())
-                launches = counts()["flash_attention"]
-            finally:
-                lm_mod.flash_attention = kernel_fn
-            check(launches == (0 if plain else layers), f"fp32 decode check: {launches} launches")
-            # the last routing of the prefill, then one a step: [b] rows each
-            routes = [log.routes[0][0][:, -1]] + [r[0][:, -1] for r in log.routes[1:]]
-            outs.append((torch.stack(lgs), torch.stack(routes)))
-    (k_lg, k_rt), (p_lg, p_rt) = outs
-    same = (k_rt == p_rt).all(-1)  # [steps + 1, b]
-    err = (k_lg - p_lg).abs()[same].max().item()
-    check(bool(torch.isfinite(k_lg).all()), "deepseek fp32 decode logits not finite")
-    print(f"deepseek fp32 decode check: prefill 4x{s} through the kernel vs the plain attention, "
-          f"then {steps} latent-cache decode steps each: {int(same.sum())} of {same.numel()} "
-          f"(step, row) pairs routed alike, their logits max_abs_err {err:.3e} (tolerance 1e-3)")
-    check(err <= 1e-3, "deepseek: decode after the kernel prefill and after the plain disagree")
-    return dict(max_abs_err=err, compared=int(same.sum()), of=same.numel())
 
 
 JAMBA_PARAMS = 11_898_463_872  # at full width, cut to a period's layers 4 and 5
@@ -3049,34 +3160,28 @@ def mamba_gemm_ms(torch, cfg, params_c, tokens: int) -> dict:
                 "out_proj": cuda_ms(torch, lambda: y @ w_out, iters=20)}
 
 
-def hybrid_serve_phase(torch, counters: dict):
+def hybrid_serve_phase(torch, counters: dict, kernel):
     """jamba-1.5-large-398b (the hybrid family) at full width, depth cut to
     a period's layers 4 and 5: bf16 weights initialised on the card tensor
     by tensor, saved under data=2,model=2 with expert parallelism and
-    ``param_dtype="bfloat16"`` (a serving checkpoint); weights-only
-    restores under data=1,model=1 (RESHARD_STREAM: the experts and the
-    fused ``in_proj`` resliced or consolidated) and data=2,model=2
-    (DIRECT), bit-equal to the save, beside the disk floor and a read floor
-    of the same files; from each, a bf16 prefill of 4 x 512 (exactly 1
-    flash and 1 SSD launch) and 16 greedy decode steps through the mixed
-    cache, the same tokens; the profiled prefill and its breakdown.  Then
-    in fp32 on the card (the bf16 trees freed): the kernel path against the
-    plain attention and ``ssd_chunked`` by the experts chosen and by the
-    logits no routing flip reaches; the peak card memory."""
+    ``param_dtype="bfloat16"`` (a serving checkpoint); the serve path from
+    it (:func:`serve_restores`: RESHARD_STREAM, with the experts and the
+    fused ``in_proj`` resliced or consolidated, and DIRECT restores
+    bit-equal to the save, a bf16 prefill of 4 x 512 with exactly 1 flash
+    and 1 SSD launch, 16 greedy decode steps through the mixed cache, the
+    same tokens, the profiled prefill and its breakdown).  Then in fp32 on
+    the card (the bf16 trees freed): the kernel path against the plain
+    attention and ``ssd_chunked`` by the experts chosen and by the logits
+    no routing flip reaches; the peak card memory."""
     import dataclasses
 
-    from repro_torch.ckpt.saver import write_distributed
     from repro_torch.configs import get_config
     from repro_torch.core.engine import default_workers
-    from repro_torch.core.patterns import StateKind
     from repro_torch.core.pytree import unflatten_from_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
     from repro_torch.launch.mesh import mesh_spec_from_string
-    from repro_torch.launch.serve import (
-        generate, latest_step_dir, restore_params, serving_parallelism,
-    )
+    from repro_torch.launch.serve import serving_parallelism
     from repro_torch.models import build_model
-    from repro_torch.models import decode as D
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.attention import full_attention
     from repro_torch.models.ssm import ssd_chunked
@@ -3097,10 +3202,26 @@ def hybrid_serve_phase(torch, counters: dict):
         lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
         return lm, make_plan(cfg, lm.registry, parallel, mesh)
 
-    def by_dtype():
+    def on_run(shapes, log):
         got = {name: dict(fn.launches_by_dtype) for name, fn in counters.items()}
         want = {name: {"bfloat16": n, "float32": 0} for name, n in per_prefill.items()}
         check(got == want, f"jamba launches by dtype {got}, want {want}")
+        prefill_drop, decode_drop = capacity_drops(log, 1)
+        return (dict(prefill_dropped=prefill_drop, decode_dropped=decode_drop),
+                f" (bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, decode "
+                f"{decode_drop:.4f}")
+
+    def on_direct(tlm, params_c, prof):
+        rows = prof["prefill"][2]
+        ssd_rows = [r for r in rows if TC_SYMBOL["ssd_scan"] in r[0]]
+        ssd_ms = ssd_rows[0][1] if len(ssd_rows) == 1 and ssd_rows[0][2] == 1 else None
+        moe_ms = moe_breakdown(torch, tlm, params_c, prompts, label="jamba")
+        gemm_ms = mamba_gemm_ms(torch, cfg, params_c, 4 * 512)
+        print(f"jamba prefill 4x512 profiled: SSD scan {fmt_ms(ssd_ms)} (1 launch); by CUDA "
+              f"events: the MoE block {moe_ms['moe_block']:.3f} ms (experts "
+              f"{moe_ms['experts (3 bmm + silu)']:.3f}), the Mamba-2 GEMMs in_proj "
+              f"{gemm_ms['in_proj']:.3f} and out_proj {gemm_ms['out_proj']:.3f} ms")
+        return dict(prefill_ssd_ms=ssd_ms, moe_ms=moe_ms, mamba_gemm_ms=gemm_ms)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3126,94 +3247,15 @@ def hybrid_serve_phase(torch, counters: dict):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     root = ROOT / "build" / "chip_smoke_ckpt_jamba"
     shutil.rmtree(root, ignore_errors=True)
-    width = default_workers()
-    out: dict = {}
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                            generator=torch.Generator().manual_seed(8)).to(dev)
     try:
-        # Save the bf16 weights alone (a serving checkpoint: 23.8 GB).
-        res = write_distributed({n: {StateKind.FP32: t} for n, t in saved.items()}, src_plan, 1,
-                                root / "step_00000001", workers=width,
-                                config_fingerprint=cfg.fingerprint())
-        step_dir = latest_step_dir(root)
-        check(step_dir is not None, "jamba: no committed step")
-        check(res.bytes_written == 2 * n_params, f"jamba save wrote {res.bytes_written} bytes")
-        rate = write_floor_rate(step_dir, width, root / "floor")
-        gb = res.bytes_written / 1e9
-        print(f"jamba save data=2,model=2 (moe_mode ep, param_dtype bfloat16): {gb:.3f} GB of "
-              f"bf16 weights in {res.shards_written} shards, {res.wall_time_s:.2f} s with {width} "
-              f"workers ({gb / res.wall_time_s:.3f} GB/s, device→host included); disk floor "
-              f"{gb / rate:.2f} s ({rate:.3f} GB/s from {width} threads, on its largest files up "
-              f"to 2 GB); disk {disk_used_gb():.1f} GB used")
-        out["save"] = dict(gb=gb, seconds=res.wall_time_s, floor_s=gb / rate, floor_gb_s=rate,
-                           workers=width)
-
-        prompts = torch.randint(0, cfg.vocab_size, (4, 512),
-                                generator=torch.Generator().manual_seed(8)).to(dev)
-        runs = {}
-        for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
-                                 ("data=2,model=2", "direct")):
-            tlm, tplan = plan_for(mesh_str)
-            t0 = time.perf_counter()
-            flat, rp = restore_params(step_dir, tplan, dev)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            check(rp.mode.value == expect, f"jamba {mesh_str}: {rp.mode.value}, want {expect}")
-            check(set(flat) == set(saved), f"jamba {mesh_str}: restored parameter set differs")
-            for name, t in flat.items():
-                check(torch.equal(t, saved[name]), f"jamba {mesh_str}: {name} differs")
-            print(f"jamba restore {mesh_str}: {rp.mode.value} in {restore_s:.2f} s "
-                  f"(consolidated in memory: {rp.consolidate_params}); bit-equal to the save")
-            params_c = tlm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
-            del flat
-            torch.cuda.empty_cache()
-            generate(tlm, params_c, prompts, 17)  # warm-up at the timed shapes
-            reset()
-            with MoeLog(torch) as log:
-                seq, prefill_s, decode_s = generate(tlm, params_c, prompts, 17)
-            launches = counts()
-            check(launches == per_prefill, f"jamba {mesh_str}: launches {launches}")
-            by_dtype()
-            check(tuple(seq.shape) == (4, 17) and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
-                  f"jamba {mesh_str}: tokens {tuple(seq.shape)}")
-            prefill_drop = 1.0 - float(log.keeps[0].float().mean())
-            decode_drop = 1.0 - sum(int(k.sum()) for k in log.keeps[1:]) / \
-                sum(k.numel() for k in log.keeps[1:])
-            print(f"jamba serve {mesh_str}: prefill 4x512 {prefill_s * 1e3:.2f} ms, decode "
-                  f"{decode_s * 1e3 / 16:.3f} ms/token (batch 4, 16 steps), launches {launches} "
-                  f"(bf16); dropped by capacity: prefill {prefill_drop:.4f} of the slots, decode "
-                  f"{decode_drop:.4f}")
-            runs[mesh_str] = dict(seq=seq.cpu(), prefill_ms=prefill_s * 1e3,
-                                  decode_ms=decode_s * 1e3 / 16, restore_s=restore_s,
-                                  launches=launches, prefill_dropped=prefill_drop,
-                                  decode_dropped=decode_drop)
-            if expect == "direct":
-                prof, mine = profile_serving(torch, D, tlm, params_c, prompts, counters,
-                                             "flash_attention", 1)
-                busy, rows = prof["prefill"][1], prof["prefill"][2]
-                ssd_rows = [r for r in rows if TC_SYMBOL["ssd_scan"] in r[0]]
-                ssd_ms = ssd_rows[0][1] if len(ssd_rows) == 1 and ssd_rows[0][2] == 1 else None
-                moe_ms = moe_breakdown(torch, tlm, params_c, prompts, label="jamba")
-                gemm_ms = mamba_gemm_ms(torch, cfg, params_c, 4 * 512)
-                out.update(prefill_device_ms=busy, decode_device_ms=prof["decode x16"][1] / 16,
-                           prefill_kernel_ms=mine[1], prefill_ssd_ms=ssd_ms, moe_ms=moe_ms,
-                           mamba_gemm_ms=gemm_ms)
-                print(f"jamba prefill 4x512 profiled: device busy {fmt_ms(busy)}; flash "
-                      f"{fmt_ms(mine[1])} (1 launch), SSD scan {fmt_ms(ssd_ms)} (1 launch); by "
-                      f"CUDA events: the MoE block {moe_ms['moe_block']:.3f} ms (experts "
-                      f"{moe_ms['experts (3 bmm + silu)']:.3f}), the Mamba-2 GEMMs in_proj "
-                      f"{gemm_ms['in_proj']:.3f} and out_proj {gemm_ms['out_proj']:.3f} ms")
-            del params_c
-            torch.cuda.empty_cache()
-        n_files, read_gb, read_s = fp32_read_floor(step_dir, width)
-        print(f"jamba restore read floor: the {n_files} weight shard files, {read_gb:.3f} GB, "
-              f"read in {read_s:.2f} s from {width} threads ({read_gb / read_s:.3f} GB/s), after "
-              f"the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
-              f"{runs['data=2,model=2']['restore_s']:.2f} s")
-        out["read_floor"] = dict(gb=read_gb, seconds=read_s)
-        a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
-        check(torch.equal(a, b), "jamba: RESHARD_STREAM and DIRECT restores serve other tokens")
-        print(f"jamba tokens identical across restores; sample {a[0, :8].tolist()}")
-        out["runs"] = {k: {n: v for n, v in r.items() if n != "seq"} for k, r in runs.items()}
-        out["launches"] = runs["data=1,model=1"]["launches"]
+        # the bf16 weights alone (a serving checkpoint: 23.8 GB)
+        step_dir, save = save_weights(torch, "jamba", cfg, src_plan, saved, root,
+                                      default_workers())
+        out = serve_restores(torch, "jamba", cfg, plan_for, step_dir, saved, prompts, counters,
+                             kernel, per_prefill, on_run=on_run, on_direct=on_direct)
+        out["save"] = save
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3323,38 +3365,33 @@ def shard_kernel_times(torch, bq_ops, bq_ref, shard) -> dict:
     return out
 
 
-def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
-    """mamba2-130m at full width and depth, 8 x 512 from ``train/data.py``,
-    bf16 compute, fp32 master and moments, remat full.  The first step's
-    gradients through ``ssd_chunked`` (all finite) and through the
-    reference's unmasked form (its non-finite ``a_log``/``dt_bias``
-    gradients counted); 6 baseline steps under data=2,model=2; 3 steps
-    saved with ``int8:b256``; resumed under data=1,model=1
-    (RESHARD_STREAM: the fused ``in_proj`` of the weights and both coded
-    moments consolidated through the dequantize kernel) and data=2,model=2
-    (DIRECT), every shard digest checked, 3 more steps each.  Every loss
-    and gradient norm finite; quantize launches equal the coded shards
-    written, dequantize launches those read by each resume."""
+def coded_train_loop(torch, cfg, label: str, fns: dict, counters: dict, root: Path, *,
+                     b: int, s: int, base=None, state0=None) -> tuple[dict, object, object]:
+    """The train path with its checkpoint loop, at ``b`` x ``s`` tokens from
+    ``train/data.py`` (bf16 compute, fp32 master and moments, remat full):
+    6 baseline steps under data=2,model=2 (``base``, from ``state0``;
+    finite losses and gradient norms, step ms, one profiled step); 3 steps
+    saved with ``int8:b256`` (quantize launches == coded shards, and one
+    dequantize each for the served digest), within 2e-2 of the baseline;
+    resumed under data=1,model=1 (RESHARD_STREAM, fused projections of the
+    weights and both coded moments consolidated) and data=2,model=2
+    (DIRECT), each with one dequantize launch a coded shard and every
+    shard digest checked, then 3 more steps with finite losses.  No flash
+    launch (training takes the plain attention).  Returns the record, the
+    last resumed state and the Source plan."""
     from repro_torch.ckpt.policy import CheckpointPolicy
-    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.configs import ParallelismConfig, TrainConfig
     from repro_torch.core.dist_ckpt import DistCheckpoint
     from repro_torch.core.engine import default_workers
-    from repro_torch.core.layout import slice_shard
     from repro_torch.core.patterns import StateKind
     from repro_torch.core.plan import TargetSpec, plan_resume
     from repro_torch.core.pytree import flatten_with_paths
     from repro_torch.launch.mesh import mesh_spec_from_string
-    from repro_torch.models import lm as lm_mod
     from repro_torch.train.trainer import Trainer
 
     dev = torch.device("cuda")
-    cfg = get_config("mamba2-130m")
     tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
-    root = ROOT / "build" / "chip_smoke_train_mamba2"
-    shutil.rmtree(root, ignore_errors=True)
     width = default_workers()
-    b, s = 8, 512
-    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
 
     def trainer(mesh, **kw):
         return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(mesh), batch_size=b,
@@ -3362,13 +3399,158 @@ def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
 
     def finite(hist, what):
         bad = [h for h in hist if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
-        check(not bad, f"mamba2 {what}: a loss or gradient norm is not finite: {bad[:1]}")
+        check(not bad, f"{label} {what}: a loss or gradient norm is not finite: {bad[:1]}")
 
     out: dict = {"launches_by_variant": {}}
+    base = base or trainer("data=2,model=2")
+    state0 = state0 or base.init_state()
+    counters["flash_attention"].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = base.run(state0, 0, 6)
+    del state0
+    finite(hist, "baseline")
+    baseline = [h["loss"] for h in hist]
+    step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} train baseline data=2,model=2: 6 steps, losses "
+          f"{[round(v, 4) for v in baseline]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; median step {step_s * 1e3:.1f} ms "
+          f"({b * s / step_s:.0f} tokens/s); peak card memory {peak:.2f} GB")
+    wall, busy, top = device_profile(torch, lambda: base.step_fn(state, base.batch(6)))
+    print(f"profile {label} train step: wall {wall:.2f} ms (profiler on), device busy "
+          f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
+    for key, ms, count in top:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    out.update(step_ms=step_s * 1e3, tokens_s=b * s / step_s, peak_gb=peak,
+               step_device_ms=busy, baseline=baseline)
+    del state, base
+    torch.cuda.empty_cache()
+
+    # The main path: the counts set to 0 here and read at the end.
+    reset_launches(fns)
+    policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
+    src = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
+    state, hist = src.run(src.init_state(), 0, 3)
+    src.manager.close()
+    finite(hist, "saving run")
+    drift = max(abs(h["loss"] - x) for h, x in zip(hist, baseline))
+    check(drift <= 2e-2, f"{label}: the saving run left the baseline ({drift:.2e})")
+    quant, save_dequant = fns["quantize"].launches, fns["dequantize"].launches
+    (res,) = src.save_results
+    step3 = src.manager.step_dir(3)
+    manifest = DistCheckpoint.open(step3).manifest
+    n_coded = len(manifest.shard_codecs)
+    # the save decodes each coded shard once too: the served digest's view
+    check(n_coded > 0 and quant == save_dequant == n_coded, f"{label}: quantize launches "
+          f"{quant}, dequantize {save_dequant}, coded shards {n_coded}")
+    gb = res.bytes_written / 1e9
+    rate = write_floor_rate(step3, width, root / "floor")
+    print(f"{label} train save step 3 (data=2,model=2, int8:b256 fp32 moments, async, {width} "
+          f"workers): {gb:.3f} GB in {res.shards_written} shards, {res.wall_time_s:.2f} s "
+          f"(disk floor {gb / rate:.2f} s at {rate:.3f} GB/s); coded "
+          f"{res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB; "
+          f"{n_coded} coded shards, quantize launches {quant} by variant "
+          f"{fns['quantize'].launches_by_variant}")
+    src_plan = src.plan
+    del state, src
+    torch.cuda.empty_cache()
+
+    resumed, stream = {}, {}
+    for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
+        tgt = trainer(mesh, ckpt_dir=str(root),
+                      policy=CheckpointPolicy(async_save=False, save_interval=1000))
+        before = fns["dequantize"].launches
+        state, info = tgt.init_or_restore()
+        dequant = fns["dequantize"].launches - before
+        check(info is not None and info.mode.value == expect,
+              f"{label} resume {mesh}: {info and info.mode.value}, want {expect}")
+        check(state.step == 3 and dequant == n_coded,
+              f"{label} resume {mesh}: step {state.step}, {dequant} dequantize launches for "
+              f"{n_coded} coded shards")
+        trees = {StateKind.FP32: state.params, StateKind.EXP_AVG: state.exp_avg,
+                 StateKind.EXP_AVG_SQ: state.exp_avg_sq}
+        n_checked, n_stripped = digests_match(torch, trees, src_plan, manifest, width)
+        check(n_checked + n_stripped == len(manifest.shard_digests)
+              and (n_stripped == 0 or expect == "reshard_stream"),
+              f"{label} {mesh}: {n_checked} + {n_stripped} of {len(manifest.shard_digests)} "
+              "digests checked")
+        if expect == "reshard_stream":
+            stream = {kind: {n: t.clone() for n, t in flatten_with_paths(tree).items()}
+                      for kind, tree in trees.items()}
+        else:  # every digest checked: each RESHARD_STREAM leaf equals its region
+            for kind, tree in trees.items():
+                for name, got in flatten_with_paths(tree).items():
+                    t = stream[kind][name]
+                    check(torch.equal(t, got[tuple(slice(0, n) for n in t.shape)]),
+                          f"{label}: RESHARD_STREAM {name} {kind.value} differs from DIRECT")
+            del stream
+        consolidated = plan_resume(manifest, TargetSpec(tgt.plan.mesh, tgt.plan.param_specs)
+                                   ).consolidate_params
+        state, hist = tgt.run(state, 3, 3)
+        tgt.manager.close()
+        finite(hist, f"resume {mesh}")
+        resumed[expect] = [h["loss"] for h in hist]
+        gap = max(abs(x - y) for x, y in zip(resumed[expect], baseline[3:]))
+        check(gap <= 2e-2, f"{label} resume {mesh}: steps 4-6 left the baseline ({gap:.2e})")
+        print(f"{label} train resume {mesh}: {info.mode.value} in {info.wall_time_s:.2f} s "
+              f"(consolidated in memory: {sorted(consolidated)}), "
+              f"step 3, {dequant} dequantize launches; {n_checked} shard digests of the "
+              f"save equal the restored state re-cut under the Source plan"
+              + (f" ({n_stripped} more, restored without the vocab padding, held against "
+                 "the DIRECT resume)" if n_stripped else "")
+              + ("; every leaf equals the RESHARD_STREAM resume's in its region"
+                 if expect == "direct" else "")
+              + "; steps 4-6 losses "
+              + ", ".join(f"{x:.4f} (baseline {y:.4f})" for x, y in zip(resumed[expect],
+                                                                     baseline[3:]))
+              + ", grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist))
+        out[f"resume_{expect}_s"] = info.wall_time_s
+        del tgt
+        torch.cuda.empty_cache()
+    check(counters["flash_attention"].launches == 0, "flash launched during training")
+    out.update(save_s=res.wall_time_s, save_gb=gb, floor_s=gb / rate, coded=n_coded,
+               resumed=resumed)
+    for name, fn in fns.items():
+        out[name] = fn.launches
+        out["launches_by_variant"][name] = dict(fn.launches_by_variant)
+    print(f"{label} train launches (the saving run and both resumes): quantize "
+          f"{out['quantize']}, dequantize {out['dequantize']} (coded shards {n_coded}: "
+          f"decoded once by the save, once by each resume); by variant "
+          f"{out['launches_by_variant']}")
+    check(out["dequantize"] == 3 * n_coded, f"{label}: {out['dequantize']} dequantize launches")
+    return out, state, src_plan
+
+
+def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
+    """mamba2-130m at full width and depth, 8 x 512 from ``train/data.py``,
+    bf16 compute, fp32 master and moments, remat full.  The first step's
+    gradients through ``ssd_chunked`` (all finite) and through the
+    reference's unmasked form (its non-finite ``a_log``/``dt_bias``
+    gradients counted); then :func:`coded_train_loop` (the fused
+    ``in_proj`` of the weights and both coded moments consolidated through
+    the dequantize kernel on the RESHARD_STREAM resume); then the kernels
+    against their plain version byte for byte on an ``in_proj`` moment
+    shard, and their times there."""
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2-130m")
+    root = ROOT / "build" / "chip_smoke_train_mamba2"
+    shutil.rmtree(root, ignore_errors=True)
+    b, s = 8, 512
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
     try:
         gc.collect()
         torch.cuda.empty_cache()
-        base = trainer("data=2,model=2")
+        base = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                              mesh_spec_from_string("data=2,model=2"), batch_size=b, seq_len=s,
+                              device=dev)
         n_params = base.lm.registry.num_params()
         check(n_params == MAMBA2_PARAMS, f"mamba2-130m: {n_params} params")
         state0 = base.init_state()
@@ -3387,105 +3569,13 @@ def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
               f"{sum(old[n].numel() for n in ssm_names)} (A up to {cfg.ssm.n_heads(cfg.d_model)}, "
               f"softplus(dt_bias) up to {dt_max:.4f})")
         check(not bad, f"mamba2: non-finite gradients through ssd_chunked in {bad[:4]}")
-        out["grad_check"] = dict(nonfinite_params=len(bad), unmasked_nonfinite=old_bad)
+        grad_check = dict(nonfinite_params=len(bad), unmasked_nonfinite=old_bad)
         del grads, old
 
-        counters["flash_attention"].launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        state, hist = base.run(state0, 0, 6)
-        del state0
-        finite(hist, "baseline")
-        baseline = [h["loss"] for h in hist]
-        step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        print(f"mamba2 train baseline data=2,model=2: 6 steps, losses "
-              f"{[round(v, 4) for v in baseline]}, grad norms "
-              f"{[round(h['grad_norm'], 4) for h in hist]}; median step {step_s * 1e3:.1f} ms "
-              f"({b * s / step_s:.0f} tokens/s); peak card memory {peak:.2f} GB")
-        wall, busy, top = device_profile(torch, lambda: base.step_fn(state, base.batch(6)))
-        print(f"profile mamba2 train step: wall {wall:.2f} ms (profiler on), device busy "
-              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
-        for key, ms, count in top:
-            print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-        out.update(step_ms=step_s * 1e3, tokens_s=b * s / step_s, peak_gb=peak,
-                   step_device_ms=busy, baseline=baseline)
-        del state, base
-        torch.cuda.empty_cache()
-
-        # The main path: the counts set to 0 here and read at the end.
-        reset_launches(fns)
-        policy = CheckpointPolicy(codec="int8:b256", save_interval=3, async_save=True)
-        src = trainer("data=2,model=2", ckpt_dir=str(root), policy=policy)
-        state, hist = src.run(src.init_state(), 0, 3)
-        src.manager.close()
-        finite(hist, "saving run")
-        drift = max(abs(h["loss"] - x) for h, x in zip(hist, baseline))
-        check(drift <= 2e-2, f"mamba2: the saving run left the baseline ({drift:.2e})")
-        quant, save_dequant = fns["quantize"].launches, fns["dequantize"].launches
-        (res,) = src.save_results
-        step3 = src.manager.step_dir(3)
-        manifest = DistCheckpoint.open(step3).manifest
-        n_coded = len(manifest.shard_codecs)
-        # the save decodes each coded shard once too: the served digest's view
-        check(n_coded > 0 and quant == save_dequant == n_coded, f"mamba2: quantize launches "
-              f"{quant}, dequantize {save_dequant}, coded shards {n_coded}")
-        gb = res.bytes_written / 1e9
-        rate = write_floor_rate(step3, width, root / "floor")
-        print(f"mamba2 train save step 3 (data=2,model=2, int8:b256 fp32 moments, async, {width} "
-              f"workers): {gb:.3f} GB in {res.shards_written} shards, {res.wall_time_s:.2f} s "
-              f"(disk floor {gb / rate:.2f} s at {rate:.3f} GB/s); coded "
-              f"{res.coded_bytes / 1e9:.3f} of raw {res.coded_raw_bytes / 1e9:.3f} GB; "
-              f"{n_coded} coded shards, quantize launches {quant} by variant "
-              f"{fns['quantize'].launches_by_variant}")
-        src_plan = src.plan
-        del state, src
-        torch.cuda.empty_cache()
-
-        resumed = {}
-        for mesh, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
-            tgt = trainer(mesh, ckpt_dir=str(root),
-                          policy=CheckpointPolicy(async_save=False, save_interval=1000))
-            before = fns["dequantize"].launches
-            state, info = tgt.init_or_restore()
-            dequant = fns["dequantize"].launches - before
-            check(info is not None and info.mode.value == expect,
-                  f"mamba2 resume {mesh}: {info and info.mode.value}, want {expect}")
-            check(state.step == 3 and dequant == n_coded,
-                  f"mamba2 resume {mesh}: step {state.step}, {dequant} dequantize launches for "
-                  f"{n_coded} coded shards")
-            n_checked = digests_match(torch, {StateKind.FP32: state.params,
-                                              StateKind.EXP_AVG: state.exp_avg,
-                                              StateKind.EXP_AVG_SQ: state.exp_avg_sq},
-                                      src_plan, manifest, width)
-            check(n_checked == len(manifest.shard_digests),
-                  f"mamba2 {mesh}: {n_checked} of {len(manifest.shard_digests)} digests checked")
-            consolidated = plan_resume(manifest, TargetSpec(tgt.plan.mesh, tgt.plan.param_specs)
-                                       ).consolidate_params
-            state, hist = tgt.run(state, 3, 3)
-            tgt.manager.close()
-            finite(hist, f"resume {mesh}")
-            resumed[expect] = [h["loss"] for h in hist]
-            print(f"mamba2 train resume {mesh}: {info.mode.value} in {info.wall_time_s:.2f} s "
-                  f"(consolidated in memory: {sorted(consolidated)}), "
-                  f"step 3, {dequant} dequantize launches; all {n_checked} shard digests of the "
-                  f"save equal the restored state re-cut under the Source plan; steps 4-6 losses "
-                  + ", ".join(f"{x:.4f} (baseline {y:.4f})" for x, y in zip(resumed[expect],
-                                                                         baseline[3:]))
-                  + ", grad norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist))
-            out[f"resume_{expect}_s"] = info.wall_time_s
-            del tgt
-            torch.cuda.empty_cache()
-        check(counters["flash_attention"].launches == 0, "flash launched during training")
-        out.update(save_s=res.wall_time_s, save_gb=gb, floor_s=gb / rate, coded=n_coded,
-                   resumed=resumed)
-        for name, fn in fns.items():
-            out[name] = fn.launches
-            out["launches_by_variant"][name] = dict(fn.launches_by_variant)
-        print(f"mamba2 train launches (the saving run and both resumes): quantize "
-              f"{out['quantize']}, dequantize {out['dequantize']} (coded shards {n_coded}: "
-              f"decoded once by the save, once by each resume); by variant "
-              f"{out['launches_by_variant']}")
-        check(out["dequantize"] == 3 * n_coded, f"mamba2: {out['dequantize']} dequantize launches")
+        out, state, src_plan = coded_train_loop(torch, cfg, "mamba2", fns, counters, root,
+                                                b=b, s=s, base=base, state0=state0)
+        out["grad_check"] = grad_check
+        del base, state0
 
         # Outside the main path's counts: the kernels against their plain
         # version, then their times, on the largest moment shard (in_proj's).
@@ -3497,6 +3587,153 @@ def ssm_train_phase(torch, bq_ops, bq_ref, counters: dict):
                             spec.layout_for(StateKind.EXP_AVG, src_plan.mesh), 0)
         out["shard_times"] = shard_kernel_times(torch, bq_ops, bq_ref, shard)
         del state, shard
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+VLM_PARAMS = 2_141_237_249      # llama-3.2-vision-11b at full width, one period (5 layers)
+WHISPER_PARAMS = 56_355_840     # whisper-tiny as configured (4 + 4 layers, no cut)
+
+
+def cross_serve_phase(torch, counters: dict, kernel, *, arch: str, layers: int | None,
+                      prompt_len: int, n_params: int, want: list, label: str) -> dict:
+    """A cross-attention config (llama-vision: ``vlm``; whisper: ``encdec``)
+    at full width, depth cut to ``layers`` where given: fp32 weights from a
+    seeded generator on the card (llama-vision's ``cross_gate``, whose init
+    is 0 and would make the cross layer add nothing, set to values from
+    [0.5, 1.5) with a random sign from the seed); saved under
+    data=2,model=2; the serve path from it (:func:`serve_restores`:
+    RESHARD_STREAM, with ``wqkv`` and ``cross_wkv`` consolidated and
+    whisper's vocab padding stripped, and DIRECT restores bit-equal to the
+    save; a bf16 prefill of 4 x ``prompt_len`` with the serve CLI's bf16
+    source embeds, its flash launches recorded at the wrapper: ``want``
+    lists each one's (dtype, Sq, Skv, causal); 16 greedy decode steps, the
+    same tokens; the profiled prefill and decode).  Then in fp32 on the
+    card: the kernel path against the plain attention through the prefill
+    and 16 decode steps (:func:`decode_check`); and another source moves
+    the logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import draw_source_embeds, serving_parallelism
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.attention import full_attention
+
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+    per_prefill = {"flash_attention": len(want), "ssd_scan": 0}
+    cache_len = prompt_len + 16
+
+    def plan_for(mesh_str, dtype=torch.bfloat16):
+        mesh = mesh_spec_from_string(mesh_str)
+        parallel = serving_parallelism(mesh)
+        lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh), compute_dtype=dtype)
+        return lm, make_plan(cfg, lm.registry, parallel, mesh)
+
+    def on_run(shapes, log):
+        check(shapes.calls == want, f"{label}: flash launches (dtype, Sq, Skv, causal) "
+              f"{shapes.calls}, want {want}")
+        return {}, ""
+
+    lm, src_plan = plan_for("data=2,model=2")
+    logical = build_model(cfg).registry.num_params()  # without the vocab padding of model=2
+    check(logical == n_params, f"{label}: {logical} params")
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    gates = None
+    if cfg.cross_attn is not None:
+        gate = params["periods"]["cross"]["cross_gate"]
+        g = torch.Generator(device=dev).manual_seed(1)
+        mag = torch.rand(gate.shape, generator=g, device=dev) + 0.5
+        sign = torch.randint(0, 2, gate.shape, generator=g, device=dev) * 2 - 1
+        gate.copy_(mag * sign)
+        gates = gate.flatten().tolist()
+    torch.cuda.synchronize()
+    src_what = (f"{cfg.cross_attn.source_len} x {cfg.cross_attn.source_dim} source embeds, a "
+                f"cross layer every {cfg.cross_attn.every_k_layers}"
+                if cfg.cross_attn else
+                f"an encoder of {cfg.encoder.num_layers} layers over {cfg.encoder.source_len} "
+                "frames")
+    print(f"{arch}: d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded to "
+          f"{lm.vocab_padded} under data=2,model=2), {src_what}; "
+          + (f"depth cut from {full.num_layers} to {cfg.num_layers} layers; " if layers else
+             f"{cfg.num_layers} decoder layers, no cut; ")
+          + f"{n_params} params ({4 * n_params / 1e9:.3f} GB fp32) initialised on the card in "
+          f"{time.perf_counter() - t0:.2f} s" + (f"; cross_gate set to {gates} (the init's 0 "
+                                                 "would hide the cross layer)" if gates else ""))
+    root = ROOT / "build" / f"chip_smoke_ckpt_{label}"
+    shutil.rmtree(root, ignore_errors=True)
+    prompts = torch.randint(0, cfg.vocab_size, (4, prompt_len),
+                            generator=torch.Generator().manual_seed(6)).to(dev)
+    src = draw_source_embeds(cfg, 4, 7, dev)  # the serve CLI's draw: bf16, from the seed
+    saved = flatten_with_paths(params)
+    try:
+        step_dir, save = save_weights(torch, label, cfg, src_plan, saved, root, default_workers())
+        out = {"source_shape": list(src.shape)}
+        out.update(serve_restores(torch, label, cfg, plan_for, step_dir, saved, prompts,
+                                  counters, kernel, per_prefill, source_embeds=src,
+                                  cache_len=cache_len, on_run=on_run))
+        out["save"] = save
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del saved
+    torch.cuda.empty_cache()
+
+    # Right by the repo's own means, in fp32 on the card: the kernel path
+    # against the plain attention, through the prefill and decode.
+    flm = build_model(cfg, vocab_multiple=2, compute_dtype=torch.float32)
+    check(flm.vocab_padded == lm.vocab_padded, f"{label}: fp32 model vocab {flm.vocab_padded}")
+    fp32_want = [("float32", *c[1:]) for c in want]
+    with FlashShapes(kernel) as shapes:
+        out["fp32_check"] = decode_check(torch, flm, params, prompts, counters, lm_mod,
+                                         full_attention, len(want), label, source_embeds=src)
+    check(shapes.calls == fp32_want, f"{label} fp32 flash launches {shapes.calls}")
+    # another source moves the logits (the cross layers read it)
+    other = draw_source_embeds(cfg, 4, 8, dev)
+    with torch.inference_mode():
+        la, _ = D.prefill(flm, params, D.init_cache(flm, 4, cache_len, device=dev), prompts,
+                          source_embeds=src)
+        lb, _ = D.prefill(flm, params, D.init_cache(flm, 4, cache_len, device=dev), prompts,
+                          source_embeds=other)
+    moved = (la - lb).abs().max().item()
+    print(f"{label} fp32: another source moves the last position's logits by up to {moved:.4f}")
+    check(moved > 1e-2, f"{label}: the logits do not depend on the source ({moved:.2e})")
+    out["source_moves_logits"] = moved
+    del params, flm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_train_phase(torch, bq_ops, counters: dict) -> dict:
+    """whisper-tiny at full width and depth (56,355,840 params; vocab
+    51,865 padded to 51,866 under data=2,model=2), 8 x 448 tokens with
+    1500 source frames from ``train/data.py``: :func:`coded_train_loop`
+    (the encoder's and decoder's fused projections and both coded moments
+    consolidated on the RESHARD_STREAM resume, the vocab padding stripped)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-tiny")
+    root = ROOT / "build" / "chip_smoke_train_whisper"
+    shutil.rmtree(root, ignore_errors=True)
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out, state, _ = coded_train_loop(torch, cfg, "whisper", fns, counters, root, b=8, s=448)
+        check(tuple(state.params["embed"].shape) == (51866, 384),
+              f"whisper DIRECT resume embed {tuple(state.params['embed'].shape)}")
+        del state
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3542,18 +3779,39 @@ def main() -> int:
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
     gemma = gemma_phase(torch, counters)
     train = train_phase(torch, ops, bq_ops)
-    moe_serve = moe_serve_phase(torch, counters, bq_ops)
+    moe_serve = moe_serve_phase(torch, counters, bq_ops, kernel)
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
     bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
     reset_launches(bq_counters)
     mla = mla_serve_phase(torch, counters, kernel)
     mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
+    check(mla_bq == {"quantize": 0, "dequantize": 0}, f"serve-mla: block-quant launches {mla_bq}")
     reset_launches(bq_counters)
-    hybrid = hybrid_serve_phase(torch, counters)
+    hybrid = hybrid_serve_phase(torch, counters, kernel)
     hybrid_bq = launch_counts(bq_counters)  # bf16 weights saved uncoded: none
+    check(hybrid_bq == {"quantize": 0, "dequantize": 0},
+          f"serve-hybrid: block-quant launches {hybrid_bq}")
     reset_launches(counters)
     train_ssm = ssm_train_phase(torch, bq_ops, bq_ref, counters)
     train_ssm_kernels = launch_counts(counters)  # training goes through the plain versions
+    # llama-vision: 4 causal self layers, then the gated cross layer at 512 x 1600
+    reset_launches(bq_counters)
+    vlm = cross_serve_phase(torch, counters, kernel, arch="llama-3.2-vision-11b", layers=5,
+                            prompt_len=512, n_params=VLM_PARAMS, label="vlm",
+                            want=[("bfloat16", 512, 512, True)] * 4
+                            + [("bfloat16", 512, 1600, False)])
+    # whisper: 4 encoder layers over 1500 frames, then each decoder layer's
+    # causal self-attention and its cross-attention to the encoder's output
+    encdec = cross_serve_phase(torch, counters, kernel, arch="whisper-tiny", layers=None,
+                               prompt_len=432, n_params=WHISPER_PARAMS, label="encdec",
+                               want=[("bfloat16", 1500, 1500, False)] * 4
+                               + [("bfloat16", 432, 432, True), ("bfloat16", 432, 1500, False)] * 4)
+    cross_bq = launch_counts(bq_counters)  # both serve phases save their weights uncoded: none
+    check(cross_bq == {"quantize": 0, "dequantize": 0},
+          f"serve-vlm and serve-encdec: block-quant launches {cross_bq}")
+    reset_launches(counters)
+    train_encdec = encdec_train_phase(torch, bq_ops, counters)
+    train_encdec_kernels = launch_counts(counters)
 
     rows = [{
         "name": "flash_attention_fwd",
@@ -3595,7 +3853,7 @@ def main() -> int:
         "d128_bound_by": k["d128"]["bound_by"],
         "d128_max_abs_err": k["d128"]["max_abs_err"],
         "d128_shape": "bf16 B=4 S=512 48:8 heads of 128, causal (mixtral-8x22b)",
-        "mixtral_launches": moe_serve["launches"],
+        "mixtral_launches": moe_serve["launches"]["flash_attention"],
         "mixtral_prefill_device_ms": moe_serve["prefill_device_ms"],
         "mixtral_prefill_kernel_ms": moe_serve["prefill_kernel_ms"],
         "d192_ms": k["d192"]["ms"],
@@ -3610,7 +3868,7 @@ def main() -> int:
         "d192_max_abs_err": k["d192"]["max_abs_err"],
         "d192_shape": "bf16 B=4 S=512 128:128 heads, q and k of 192, v of 128, causal "
                       "(deepseek-v2-236b MLA)",
-        "deepseek_launches": mla["launches"],
+        "deepseek_launches": mla["launches"]["flash_attention"],
         "deepseek_prefill_device_ms": mla["prefill_device_ms"],
         "deepseek_prefill_kernel_ms": mla["prefill_kernel_ms"],
         **{f"jamba_{key}": k["jamba"][key] for key in (
@@ -3621,6 +3879,27 @@ def main() -> int:
         "jamba_prefill_device_ms": hybrid["prefill_device_ms"],
         "jamba_prefill_kernel_ms": hybrid["prefill_kernel_ms"],
         "train_ssm_launches": train_ssm_kernels["flash_attention"],
+        **{f"{tag}_{key}": k[tag][key] for tag in ("vlm_cross", "vlm_self", "encdec_encoder",
+                                                   "encdec_self", "encdec_cross") for key in (
+            "ms", "event_ms", "library_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+        "vlm_cross_shape": "bf16 B=4 Sq=512 Skv=1600 32:8 heads of 128, no mask "
+                           "(llama-3.2-vision-11b's cross layer)",
+        "vlm_self_shape": "bf16 B=4 S=512 32:8 heads of 128, causal (llama-3.2-vision-11b)",
+        "encdec_encoder_shape": "bf16 B=4 S=1500 6:6 heads of 64, no mask (whisper-tiny's "
+                                "encoder)",
+        "encdec_self_shape": "bf16 B=4 S=432 6:6 heads of 64, causal (whisper-tiny's decoder "
+                             "self-attention)",
+        "encdec_cross_shape": "bf16 B=4 Sq=432 Skv=1500 6:6 heads of 64, no mask "
+                              "(whisper-tiny's cross layers)",
+        "offset_causal_max_abs_err": k["offset_causal"],
+        "vlm_launches": vlm["launches"]["flash_attention"],
+        "vlm_prefill_device_ms": vlm["prefill_device_ms"],
+        "vlm_prefill_kernel_ms": vlm["prefill_kernel_ms"],
+        "encdec_launches": encdec["launches"]["flash_attention"],
+        "encdec_prefill_device_ms": encdec["prefill_device_ms"],
+        "encdec_prefill_kernel_ms": encdec["prefill_kernel_ms"],
+        "train_encdec_launches": train_encdec_kernels["flash_attention"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -3650,6 +3929,9 @@ def main() -> int:
         rows[-1]["jamba_launches"] = hybrid_bq[which]
         rows[-1]["train_ssm_launches"] = train_ssm[which]
         rows[-1]["train_ssm_launches_by_variant"] = train_ssm["launches_by_variant"][which]
+        rows[-1]["vlm_encdec_serve_launches"] = cross_bq[which]
+        rows[-1]["train_encdec_launches"] = train_encdec[which]
+        rows[-1]["train_encdec_launches_by_variant"] = train_encdec["launches_by_variant"][which]
         rows[-1]["train_ssm_shard_numel"] = train_ssm["shard_times"][name]["numel"]
         rows[-1]["train_ssm_shard_max_abs_err"] = train_ssm["shard_check"]["max_abs_err"]
         for key in ("ms", "event_ms", "plain_ms", "bound_ms"):
@@ -3674,14 +3956,17 @@ def main() -> int:
         "library_ms": None,
         "prefill_device_ms": ssm_runs["data=2,model=2"]["prefill_device_ms"],
         "prefill_kernel_ms": ssm_runs["data=2,model=2"]["prefill_kernel_ms"],
-        "mixtral_launches": moe_serve["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
-        "deepseek_launches": mla["runs"]["data=1,model=1"]["launches"]["ssd_scan"],
+        "mixtral_launches": moe_serve["launches"]["ssd_scan"],
+        "deepseek_launches": mla["launches"]["ssd_scan"],
         **{f"jamba_{key}": ssd_jamba[key] for key in (
             "ms", "event_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
         "jamba_shape": "bf16 B=4 S=512 H=128 P=128 G=1 N=128 chunk 256 (jamba-1.5-large-398b)",
         "jamba_launches": hybrid["launches"]["ssd_scan"],
         "jamba_prefill_kernel_ms": hybrid["prefill_ssd_ms"],
         "train_ssm_launches": train_ssm_kernels["ssd_scan"],
+        "vlm_launches": vlm["launches"]["ssd_scan"],
+        "encdec_launches": encdec["launches"]["ssd_scan"],
+        "train_encdec_launches": train_encdec_kernels["ssd_scan"],
     })
     print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
                              "train delta": train["delta"], "train gc under pin": train["gc"],
@@ -3698,6 +3983,15 @@ def main() -> int:
                                                             "restores": hybrid["runs"]},
                              "train mamba2-130m": {k: train_ssm[k] for k in (
                                  "save_s", "save_gb", "floor_s", "resume_reshard_stream_s",
+                                 "resume_direct_s")},
+                             "serve llama-3.2-vision-11b": {"save": vlm["save"],
+                                                            "read_floor": vlm["read_floor"],
+                                                            "restores": vlm["runs"]},
+                             "serve whisper-tiny": {"save": encdec["save"],
+                                                    "read_floor": encdec["read_floor"],
+                                                    "restores": encdec["runs"]},
+                             "train whisper-tiny": {k: train_encdec[k] for k in (
+                                 "save_s", "save_gb", "floor_s", "resume_reshard_stream_s",
                                  "resume_direct_s")}}}))
     print(json.dumps({"mixtral": {"serve": {k: v for k, v in moe_serve.items()
                                             if k not in ("save", "read_floor", "runs")},
@@ -3707,6 +4001,11 @@ def main() -> int:
     print(json.dumps({"jamba": {k: v for k, v in hybrid.items()
                                 if k not in ("save", "read_floor", "runs")}}))
     print(json.dumps({"train_ssm": train_ssm}))
+    print(json.dumps({"vlm": {k: v for k, v in vlm.items()
+                              if k not in ("save", "read_floor", "runs")}}))
+    print(json.dumps({"encdec": {"serve": {k: v for k, v in encdec.items()
+                                           if k not in ("save", "read_floor", "runs")},
+                                 "train": train_encdec}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,13 @@ and decode greedily (port of ``repro.launch.serve``).
         --ckpt-dir /path/to/run --mesh data=1,model=1 --batch 4 \\
         --prompt-len 512 --gen 16
 
-Any ported config serves, from a checkpoint of any layout: dense, Mamba-2,
-mixtral, and deepseek-v2 (``--arch deepseek-v2-236b``: MLA, whose decode
-attends through the absorbed latent cache).
+Every config serves, from a checkpoint of any layout: dense, Mamba-2,
+mixtral, deepseek-v2 (``--arch deepseek-v2-236b``: MLA, whose decode
+attends through the absorbed latent cache), jamba, llama-vision and
+whisper.  The two cross-attention families read stubbed frontend
+embeddings drawn from ``--seed`` on the device in bfloat16:
+``[batch, cross_attn.source_len, source_dim]`` (llama-vision's patches) or
+``[batch, encoder.source_len, d_model]`` (whisper's frames).
 
 The restore is weights-only, as the reference's docstring says (the
 reference restores a full ``TrainState``): open the newest committed
@@ -55,6 +59,7 @@ __all__ = [
     "latest_step_dir",
     "restore_params",
     "generate",
+    "draw_source_embeds",
     "serving_parallelism",
     "resolve_device",
     "main",
@@ -124,9 +129,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def draw_source_embeds(cfg, batch: int, seed: int, device) -> torch.Tensor | None:
+    """The stubbed frontend's embeddings of a vlm or encdec config (None for
+    the others): standard normal in bfloat16 on ``device``, from ``seed``."""
+    if cfg.encoder is not None:
+        shape = (batch, cfg.encoder.source_len, cfg.d_model)
+    elif cfg.cross_attn is not None:
+        shape = (batch, cfg.cross_attn.source_len, cfg.cross_attn.source_dim)
+    else:
+        return None
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+
 @torch.inference_mode()
-def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len: int = 0):
-    """Greedy decoding: prefill the prompts, then ``gen - 1`` decode steps.
+def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len: int = 0,
+             source_embeds: torch.Tensor | None = None):
+    """Greedy decoding: prefill the prompts (and the source, for vlm and
+    encdec), then ``gen - 1`` decode steps.
 
     ``params`` are nested, in the compute dtype (``ParamRegistry.cast``:
     the leaves the reference reads in float32 stay float32).  Returns the generated
@@ -138,7 +158,7 @@ def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len
     cache = D.init_cache(lm, b, cache_len or (s + gen), device=device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = D.prefill(lm, params, cache, prompts)
+    logits, cache = D.prefill(lm, params, cache, prompts, source_embeds=source_embeds)
     cur = logits.argmax(-1)[:, None]
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -202,6 +222,7 @@ def main(argv=None) -> int:
     seq, prefill_s, decode_s = generate(
         lm, lm.registry.cast(params, lm.compute_dtype), prompts, args.gen,
         cache_len=args.cache_len,
+        source_embeds=draw_source_embeds(cfg, args.batch, args.seed, device),
     )
     steps = max(args.gen - 1, 1)
     print(f"prefill {args.prompt_len} toks × {args.batch} reqs: {prefill_s * 1e3:.1f} ms")

@@ -1,8 +1,7 @@
 """Serving path: cache construction, prefill, single-token decode
-(port of the dense and MoE GQA, the MLA and the Mamba-2 paths of
-``repro.models.decode``).  A MoE layer routes each sequence as one group,
-as the reference's serving does, so a decode step routes one token a group
-with capacity 1 and drops nothing; its aux loss is dropped.
+(port of ``repro.models.decode``).  A MoE layer routes each sequence as
+one group, as the reference's serving does, so a decode step routes one
+token a group with capacity 1 and drops nothing; its aux loss is dropped.
 
 The cache is the reference's, per stage and body position; ``pos [B]`` is
 the next position:
@@ -20,6 +19,11 @@ the next position:
 * Mamba-2 — constant size: the SSM state ``h [count, B, H, P, N]`` in
   float32 and the conv window ``conv [count, B, K-1, conv_dim]`` (the last
   K-1 pre-conv ``xbc`` rows) in the compute dtype.
+* Cross-attention — the source's K/V ``ck``/``cv [count, B, S_src, Hkv, hd]``
+  in the compute dtype, written once by prefill (``cross_attn.source_len``
+  for a vlm ``cross`` layer; ``encoder.source_len`` beside the ring of an
+  encdec layer ``with_cross``).  Decode attends to them with the plain
+  ``full_attention`` at Sq = 1, as the reference.
 
 Unlike the reference, which returns a new cache, the port writes the
 buffers in place (it saves a full copy of the cache per step) and returns
@@ -33,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .attention import decode_attention
+from .attention import decode_attention, full_attention
 from .common import apply_rope, rms_norm, rotary_embedding
 from .lm import LM, LayerDef
 from .ssm import conv_decode_step, ssm_decode_step
@@ -70,6 +74,9 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
                         dtype=dt, device=device,
                     ),
                 }
+            elif ld.kind == "cross":
+                st[ld.name] = _cross_entry(n, batch, cfg.cross_attn.source_len, hkv, hd, dt,
+                                           device)
             else:
                 c = _cache_len_for(ld, cache_len)
                 if cfg.mla is not None:
@@ -87,9 +94,17 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
                     }
                 entry["slot_pos"] = torch.full((n, batch, c), -1, dtype=torch.int32,
                                                device=device)
+                if ld.with_cross:
+                    entry.update(_cross_entry(n, batch, cfg.encoder.source_len, hkv, hd, dt,
+                                              device))
                 st[ld.name] = entry
         cache[stage.name] = st
     return cache
+
+
+def _cross_entry(n: int, batch: int, src: int, hkv: int, hd: int, dt, device) -> dict:
+    return {name: torch.zeros((n, batch, src, hkv, hd), dtype=dt, device=device)
+            for name in ("ck", "cv")}
 
 
 def _layer(stacked: dict, l: int) -> dict:
@@ -113,6 +128,12 @@ def _fill_ring(cache_arr: torch.Tensor, seq_vals: torch.Tensor, s: int) -> None:
     take = min(c, s)
     slots = torch.arange(s - take, s, device=cache_arr.device) % c
     cache_arr[:, slots] = seq_vals[:, s - take:].to(cache_arr.dtype)
+
+
+def _write_source(entry: dict, l: int, kv) -> None:
+    """Layer ``l``'s cross-attention K/V over the source into its cache."""
+    for name, t in zip(("ck", "cv"), kv):
+        entry[name][l].copy_(t)
 
 
 def _logits(lm: LM, params, x: torch.Tensor) -> torch.Tensor:
@@ -185,6 +206,23 @@ def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
     return x + o.reshape(b, 1, hq * vhd) @ p["wo"].to(h.dtype)
 
 
+def _cross_decode(lm: LM, p, entry, x, *, gated: bool) -> torch.Tensor:
+    """One cross-attention layer of a decode step
+    (``repro/models/decode.py:181-196``): q from this token against the
+    source's cached ``ck``/``cv``, the plain ``full_attention`` with no
+    mask; gated by tanh(``cross_gate``) in a vlm ``cross`` layer."""
+    cfg = lm.cfg
+    b = x.shape[0]
+    hd, hq = cfg.resolved_head_dim, cfg.num_heads
+    h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    q = (h @ p["cross_wq"].to(h.dtype)).reshape(b, 1, hq, hd)
+    o = full_attention(q, entry["ck"], entry["cv"], causal=False, window=0)
+    out = o.reshape(b, 1, hq * hd) @ p["cross_wo"].to(h.dtype)
+    if gated:
+        out = out * torch.tanh(p["cross_gate"].to(out.dtype))
+    return x + out
+
+
 def _mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
     """One Mamba-2 layer of a decode step; updates ``h`` and ``conv`` in place."""
     cfg, s = lm.cfg, lm.cfg.ssm
@@ -228,26 +266,35 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
                 entry = _layer(cache[stage.name][ld.name], l)
                 if ld.kind == "mamba":
                     x = _mamba_decode(lm, p, entry, x)
+                elif ld.kind == "cross":
+                    x = _cross_decode(lm, p, entry, x, gated=True)
                 else:
                     x = _attn_decode(lm, p, entry, x, pos, sin, cos, stage.window(ld, l))
+                    if ld.with_cross:
+                        x = _cross_decode(lm, p, entry, x, gated=False)
                 if ld.with_mlp:
                     x, _ = lm._mlp(p, x, moe=ld.moe)
     cache["pos"] = pos + 1
     return _logits(lm, params, x), cache
 
 
-def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
+def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=None):
     """Run the forward pass over a prompt and populate the cache.
 
     tokens [B,S] → (logits of the last position [B,V] float32, cache).  Each
     attention layer's roped K/V (MLA: its latent and roped key head) go into
     its ring buffer (the trailing ``min(C, S)`` tokens); each Mamba-2 layer
-    leaves its final SSM state and its last K-1 pre-conv rows.  On CUDA every attention layer is one
-    flash-attention launch, every Mamba-2 layer one SSD-scan launch.
+    leaves its final SSM state and its last K-1 pre-conv rows; each
+    cross-attention layer its K/V over the source (``source_embeds``; for
+    encdec the encoder's output, encoded once here).  On CUDA every
+    attention layer is one flash-attention launch (a cross-attention one at
+    Sq != Skv, with no mask; each encoder layer one more), every Mamba-2
+    layer one SSD-scan launch.
     """
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)
     x = params["embed"].to(lm.compute_dtype)[tokens]
+    source = lm.source(params, source_embeds)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
@@ -258,6 +305,9 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
                     entry["h"][l].copy_(h_final)
                     conv = entry["conv"][l]  # a prompt shorter than K-1 fills the tail
                     conv[:, conv.shape[1] - conv_tail.shape[1]:] = conv_tail
+                elif ld.kind == "cross":
+                    x, kv = lm._cross_attn(p, x, source, gated=True)
+                    _write_source(entry, l, kv)
                 else:
                     x, kv = lm._self_attn(
                         p, x, window=stage.window(ld, l), positions=positions,
@@ -270,6 +320,9 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor):
                         positions.to(torch.int32).expand(b, s),
                         s,
                     )
+                    if ld.with_cross:
+                        x, kv = lm._cross_attn(p, x, source, gated=False)
+                        _write_source(entry, l, kv)
                 if ld.with_mlp:
                     x, _ = lm._mlp(p, x, moe=ld.moe)
     cache["pos"] = cache["pos"] + s

@@ -1,4 +1,4 @@
-"""The decoder (port of the dense, MoE, SSM and hybrid paths of ``repro.models.lm``).
+"""The language model (port of ``repro.models.lm``: every family of its configs).
 
 Parameters are the reference's: the same :class:`ParamDef` tables, so the
 same names and layer-stacked shapes (``layers.blk.wqkv`` is
@@ -21,15 +21,26 @@ functions.
 
 ``remat="full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, the reference's per-layer ``jax.checkpoint``);
-``"none"`` keeps activations.
+``"dots"`` keeps the outputs of the matmuls without batch dims
+(``aten.mm``/``aten.addmm``: every projection) and recomputes the rest, as
+the reference's ``dots_with_no_batch_dims_saveable`` policy (a selective
+checkpoint); ``"none"`` keeps activations.  The encoder's layers are
+recomputed whole under both ``"full"`` and ``"dots"``, as the reference's
+``encode``, whose ``jax.checkpoint`` takes no policy.
 
-The dense, the MoE (:mod:`.moe`: mixtral; DeepSeek-style shared experts
-and leading dense layers, with DeepSeek-V2's Multi-head Latent Attention,
-:meth:`LM._mla_attn`), the SSM (Mamba-2) and the hybrid (jamba: a
-``periods`` stage whose body is the config's ``hybrid_pattern`` of Mamba-2
-and attention layers, each with its dense or MoE MLP) families are
-ported.  Cross-attention and encoder configs raise ``NotImplementedError``
-(ROADMAP queue 1, item 6: other model families).
+Every family is ported: the dense, the MoE (:mod:`.moe`: mixtral;
+DeepSeek-style shared experts and leading dense layers, with DeepSeek-V2's
+Multi-head Latent Attention, :meth:`LM._mla_attn`), the SSM (Mamba-2), the
+hybrid (jamba: a ``periods`` stage whose body is the config's
+``hybrid_pattern`` of Mamba-2 and attention layers, each with its dense or
+MoE MLP), the ``vlm`` (llama-vision: a ``periods`` stage of k-1 self
+layers and one gated cross-attention layer reading ``source_embeds``) and
+the ``encdec`` (whisper: :meth:`LM.encode`, a bidirectional encoder over
+``source_embeds``, then decoder layers of self-attention, ungated
+cross-attention to the encoder's output and a GELU MLP) families.
+Cross-attention's K and V come from the source with no rope and attend
+without a mask (:meth:`LM._cross_attn`); on CUDA with no gradient that is
+a flash launch at Sq != Skv.
 A MoE layer's load-balancing loss is summed over the layers and returned
 by :meth:`LM.forward`; :meth:`LM.loss_fn` adds ``router_aux_weight`` of it
 to the loss it differentiates and reports the bare cross-entropy as
@@ -43,7 +54,11 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import records_grad
@@ -61,10 +76,11 @@ __all__ = ["LayerDef", "StageDef", "LM", "build_lm", "plan_stages", "build_param
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
     name: str               # body-position name (param subtree key)
-    kind: str               # "attn" | "mamba"
+    kind: str               # "attn" | "mamba" | "cross"
     window: int = 0         # 0=full; -1=per-layer metadata in StageDef.windows
     moe: bool = False       # the MLP is a mixture of experts
     with_mlp: bool = True
+    with_cross: bool = False  # whisper-style: self-attention, then cross-attention
     causal: bool = True
 
 
@@ -79,7 +95,7 @@ class StageDef:
         return self.windows[layer] if ld.window == -1 else ld.window
 
 
-def _require_ported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     other = [
         f for f in ("moe", "mla", "ssm", "cross_attn", "encoder") if getattr(cfg, f)
     ]
@@ -88,11 +104,12 @@ def _require_ported(cfg: ModelConfig) -> None:
         or (cfg.family == "moe" and other in (["moe"], ["moe", "mla"]))
         or (cfg.family == "ssm" and other == ["ssm"])
         or (cfg.family == "hybrid" and other == ["moe", "ssm"])
+        or (cfg.family == "vlm" and other == ["cross_attn"])
+        or (cfg.family == "encdec" and other == ["encoder"])
     ):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} {other or ''} is not ported yet; only the "
-            "dense decoder, the MoE decoder (with or without MLA), Mamba-2 and the "
-            "Mamba-2/attention/MoE hybrid are (ROADMAP queue 1, item 6: other model families)"
+            f"{cfg.name}: family {cfg.family!r} with {other or 'no extras'} is not a "
+            "combination the JAX package's configs use"
         )
 
 
@@ -100,11 +117,14 @@ def plan_stages(cfg: ModelConfig) -> list[StageDef]:
     """One homogeneous stack: Mamba-2 blocks with no MLP for the SSM family;
     for the hybrid family one ``periods`` stage repeating the config's
     ``hybrid_pattern`` (body ``p{i}_{kind}``, each layer with its MLP, a MoE
-    one where the config's cadence says so); for the dense and MoE families
-    attention + MLP, per-layer sliding windows riding along as metadata
-    when they vary (Gemma-3's local:global), after a dense ``head`` stage
-    for DeepSeek-style leading dense layers."""
-    _require_ported(cfg)
+    one where the config's cadence says so); for the vlm family one
+    ``periods`` stage of ``self0..self{k-2}`` and a non-causal ``cross``
+    layer; for the encdec family ``dec_layers`` of attention layers
+    ``with_cross`` (the encoder lies outside every stage); for the dense
+    and MoE families attention + MLP, per-layer sliding windows riding
+    along as metadata when they vary (Gemma-3's local:global), after a
+    dense ``head`` stage for DeepSeek-style leading dense layers."""
+    _check_family(cfg)
     if cfg.family == "ssm":
         return [StageDef("layers", cfg.num_layers, (LayerDef("blk", "mamba", with_mlp=False),))]
     if cfg.family == "hybrid":
@@ -112,6 +132,14 @@ def plan_stages(cfg: ModelConfig) -> list[StageDef]:
         body = tuple(LayerDef(f"p{i}_{k}", k, moe=moe_mask[i])
                      for i, k in enumerate(cfg.hybrid_pattern))
         return [StageDef("periods", cfg.num_layers // len(body), body)]
+    if cfg.family == "vlm":
+        k = cfg.cross_attn.every_k_layers
+        assert cfg.num_layers % k == 0
+        body = tuple([LayerDef(f"self{i}", "attn") for i in range(k - 1)]
+                     + [LayerDef("cross", "cross", causal=False)])
+        return [StageDef("periods", cfg.num_layers // k, body)]
+    if cfg.family == "encdec":
+        return [StageDef("dec_layers", cfg.num_layers, (LayerDef("blk", "attn", with_cross=True),))]
     windows = tuple(cfg.window_for_layer(i) for i in range(cfg.num_layers))
     uniform = len(set(windows)) == 1
     moe_mask = cfg.moe_layer_mask()
@@ -189,6 +217,33 @@ def _attn_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...]) -> list[Pa
     return defs
 
 
+def _cross_defs(cfg: ModelConfig, prefix: str, stack: tuple[int, ...], *,
+                gated: bool) -> list[ParamDef]:
+    """Cross-attention: q from the stream, k and v fused in ``cross_wkv``
+    (parts k, v) over the source's width; a gated layer scales its output
+    by tanh(``cross_gate``), initialised to 0."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    src = cfg.cross_attn.source_dim if cfg.cross_attn else d
+    defs, P = _stacked_def(prefix, stack)
+    P("cross_norm", (d,), ("embed",), init="ones")
+    P("cross_wq", (d, hq * hd), ("embed", "heads"), fan_in_dim=len(stack))
+    P(
+        "cross_wkv",
+        (src, 2 * hkv * hd),
+        ("embed", "qkv_fused"),
+        parts=(("k", hkv * hd), ("v", hkv * hd)),
+        parts_dim=len(stack) + 1,
+        kind="fused_qkv",
+        fan_in_dim=len(stack),
+    )
+    P("cross_wo", (hq * hd, d), ("heads", "embed"), fan_in_dim=len(stack))
+    if gated:
+        P("cross_gate", (1,), ("scalar",), init="zeros")
+    return defs
+
+
 def _mlp_defs(
     cfg: ModelConfig, prefix: str, stack: tuple[int, ...], *, moe: bool
 ) -> list[ParamDef]:
@@ -209,7 +264,7 @@ def _mlp_defs(
             P("ws_gate", (d, sf), ("embed", "mlp"), fan_in_dim=len(stack))
             P("ws_up", (d, sf), ("embed", "mlp"), fan_in_dim=len(stack))
             P("ws_down", (sf, d), ("mlp", "embed"), fan_in_dim=len(stack))
-    elif cfg.name.startswith("gpt3"):
+    elif cfg.family == "encdec" or cfg.name.startswith("gpt3"):
         P("w1", (d, ff), ("embed", "mlp"), fan_in_dim=len(stack))
         P("w2", (ff, d), ("mlp", "embed"), fan_in_dim=len(stack))
     else:
@@ -257,14 +312,46 @@ def build_param_defs(cfg: ModelConfig, vocab_padded: int) -> ParamRegistry:
             ParamDef("unembed", (cfg.d_model, vocab_padded), ("embed", "vocab"),
                      fan_in_dim=0)
         )
+    if cfg.encoder is not None:  # stacked over the encoder's layers, in no stage
+        stack = (cfg.encoder.num_layers,)
+        defs += _attn_defs(cfg, "encoder.blk", stack)
+        defs += _mlp_defs(cfg, "encoder.blk", stack, moe=False)
+        defs.append(ParamDef("encoder.norm", (cfg.d_model,), ("embed",), init="ones"))
     for stage in plan_stages(cfg):
         stack = (stage.count,)
         for ld in stage.body:
             prefix = f"{stage.name}.{ld.name}"
-            defs += (_mamba_defs if ld.kind == "mamba" else _attn_defs)(cfg, prefix, stack)
+            if ld.kind == "mamba":
+                defs += _mamba_defs(cfg, prefix, stack)
+            elif ld.kind == "cross":
+                defs += _cross_defs(cfg, prefix, stack, gated=True)
+            else:
+                defs += _attn_defs(cfg, prefix, stack)
+                if ld.with_cross:
+                    defs += _cross_defs(cfg, prefix, stack, gated=False)
             if ld.with_mlp:
                 defs += _mlp_defs(cfg, prefix, stack, moe=ld.moe)
     return ParamRegistry(defs)
+
+
+# remat="dots": the matmuls with no batch dims (every projection; attention's
+# batched products are recomputed), the reference's dots_with_no_batch_dims_saveable
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, *args, remat: str):
+    """``fn(*args)``, its activations recomputed in the backward pass as
+    ``remat`` says."""
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +368,7 @@ class LM:
     registry: ParamRegistry
     stages: list[StageDef]
     compute_dtype: torch.dtype = torch.bfloat16
-    remat: str = "full"  # "full" | "none"
+    remat: str = "full"  # "full" | "dots" | "none"
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Fresh fp32 weights from ``generator`` (on its device by default)."""
@@ -351,6 +438,28 @@ class LM:
         out = o.reshape(b, s, hq * vhd) @ p["wo"].to(h.dtype)
         return out, (c_kv, k_rope[:, :, 0, :])
 
+    def _cross_attn(self, p, x, source, *, gated: bool):
+        """Pre-norm cross-attention block (``repro/models/lm.py:471-491``):
+        q from the stream, k and v from ``source @ cross_wkv`` split in two,
+        no rope, attention with no mask; the output times
+        tanh(``cross_gate``) in a gated (llama-vision) layer.  Returns the
+        residual sum and (k, v) for the cache."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.resolved_head_dim
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        q = (h @ p["cross_wq"].to(h.dtype)).reshape(b, s, hq, hd)
+        kv = source.to(h.dtype) @ p["cross_wkv"].to(h.dtype)
+        k, v = torch.split(kv, [hkv * hd, hkv * hd], dim=-1)
+        k = k.reshape(b, -1, hkv, hd)
+        v = v.reshape(b, -1, hkv, hd)
+        o = self._attention(q, k, v, causal=False, window=0)
+        out = o.reshape(b, s, hq * hd) @ p["cross_wo"].to(h.dtype)
+        if gated:
+            out = out * torch.tanh(p["cross_gate"].to(out.dtype))
+        return x + out, (k, v)
+
     def _mlp(self, p, x, *, moe: bool = False):
         """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and
         the layer's aux loss (a float32 zero unless it is a MoE layer)."""
@@ -403,20 +512,26 @@ class LM:
         out = y @ p["out_proj"].to(y.dtype)
         return x + out, ((h_final, conv_tail) if return_state else None)
 
-    def _layer(self, ld: LayerDef, window, positions, keys, x, *values):
-        """One pre-norm layer (attention or Mamba-2, then the MLP if it has
-        one) on its params, given as positional tensors so that
-        ``torch.utils.checkpoint`` sees them; returns (x, aux)."""
+    def _layer(self, ld: LayerDef, window, positions, keys, x, source, *values):
+        """One pre-norm layer (attention, Mamba-2 or gated cross-attention;
+        an attention layer ``with_cross`` adds ungated cross-attention to
+        ``source``; then the MLP if it has one) on its params, given as
+        positional tensors so that ``torch.utils.checkpoint`` sees them;
+        returns (x, aux)."""
         p = dict(zip(keys, values))
         if ld.kind == "mamba":
             x, _ = self._mamba(p, x)
+        elif ld.kind == "cross":
+            x, _ = self._cross_attn(p, x, source, gated=True)
         else:
             x, _ = self._self_attn(p, x, window=window, positions=positions, causal=ld.causal)
+            if ld.with_cross:
+                x, _ = self._cross_attn(p, x, source, gated=False)
         if ld.with_mlp:
             return self._mlp(p, x, moe=ld.moe)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _stage_forward(self, stage: StageDef, params, x, *, positions):
+    def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None):
         # unbind once: the backward of a per-layer view is then one stack,
         # not a full-size zero tensor per layer
         per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
@@ -429,15 +544,38 @@ class LM:
                 fn = functools.partial(
                     self._layer, ld, stage.window(ld, layer), positions, keys
                 )
-                if self.remat == "full":
-                    x, a = checkpoint(fn, x, *values, use_reentrant=False)
-                else:
-                    x, a = fn(x, *values)
+                x, a = _remat(fn, x, source, *values, remat=self.remat)
                 aux = aux + a
         return x, aux
 
-    def forward(self, params, tokens: torch.Tensor, *, positions=None):
-        """tokens [B,S] → (fp32 logits [B,S,vocab_padded], aux loss scalar).
+    def encode(self, params, source_embeds: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder (``repro/models/lm.py:590-607``): the source in
+        the compute dtype through ``encoder.blk``'s layers (non-causal
+        self-attention at positions ``arange(S_src)``, then the MLP), each
+        recomputed in the backward pass unless ``remat="none"``, then
+        ``encoder.norm``."""
+        x = source_embeds.to(self.compute_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        blk = params["encoder"]["blk"]
+        keys = tuple(blk)
+        per = {k: blk[k].unbind(0) for k in keys}
+        ld = LayerDef("blk", "attn", causal=False)
+        fn = functools.partial(self._layer, ld, 0, positions, keys)
+        for layer in range(self.cfg.encoder.num_layers):
+            values = [per[k][layer] for k in keys]
+            x, _ = _remat(fn, x, None, *values, remat="none" if self.remat == "none" else "full")
+        return rms_norm(x, params["encoder"]["norm"], self.cfg.norm_eps)
+
+    def source(self, params, source_embeds):
+        """What the cross-attention layers read: the encoder's output for
+        encdec, the source embeds themselves for vlm, None otherwise."""
+        if self.cfg.encoder is not None:
+            return self.encode(params, source_embeds)
+        return source_embeds if self.cfg.cross_attn is not None else None
+
+    def forward(self, params, tokens: torch.Tensor, *, source_embeds=None, positions=None):
+        """tokens [B,S] (and, for vlm/encdec, ``source_embeds`` [B,S_src,·])
+        → (fp32 logits [B,S,vocab_padded], aux loss scalar).
 
         The logits are the bf16 activations times the bf16-rounded unembed,
         accumulated and returned in fp32 (the reference's einsum with
@@ -447,9 +585,11 @@ class LM:
         x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
+        source = self.source(params, source_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for stage in self.stages:
-            x, a = self._stage_forward(stage, params[stage.name], x, positions=positions)
+            x, a = self._stage_forward(stage, params[stage.name], x, positions=positions,
+                                       source=source)
             aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = x.float() @ self.unembed(params).float()
@@ -461,7 +601,7 @@ class LM:
         metrics carry the bare cross-entropy as ``loss`` and the aux."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits, aux = self.forward(params, inputs)
+        logits, aux = self.forward(params, inputs, source_embeds=batch.get("source_embeds"))
         logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -484,14 +624,11 @@ def build_lm(
     compute_dtype: torch.dtype = torch.bfloat16,
     remat: str = "full",
 ) -> LM:
-    """Construct the model for a (dense, MoE, SSM or hybrid) config.  ``vocab_multiple`` pads the
+    """Construct the model for a config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
     the padding is runtime-only, UCP atoms store the logical vocab."""
-    if remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat={remat!r}: only 'full' and 'none' are ported; 'dots' (save the "
-            "matmul outputs) is a ROADMAP performance note"
-        )
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat={remat!r}: takes 'full', 'dots' or 'none'")
     vp = -(-cfg.vocab_size // vocab_multiple) * vocab_multiple
     return LM(
         cfg=cfg,

@@ -9,10 +9,11 @@ committed checkpoint: DIRECT when the layout is unchanged, RESHARD_STREAM
 when it changed; training continues at the checkpointed step with the same
 global data order (the stateless pipeline of :mod:`.data`).
 
-Every family the model builds trains: dense, MoE (a MoE config's plan
-shards its expert tensors by expert parallelism or by expert-TP,
-``moe_mode``), Mamba-2 and the Mamba-2/attention/MoE hybrid; the rest are
-refused by :func:`~repro_torch.models.build_model` before a run starts.
+Every family trains: dense, MoE (a MoE config's plan shards its expert
+tensors by expert parallelism or by expert-TP, ``moe_mode``), Mamba-2, the
+Mamba-2/attention/MoE hybrid, and the cross-attention families (vlm,
+encdec), whose batches carry the stubbed frontend's ``source_embeds``
+beside the tokens.
 Each step's record carries the cross-entropy ``loss`` and the MoE ``aux``
 loss (0 for a model without experts).
 """
@@ -124,7 +125,10 @@ class Trainer:
             self.cfg, shape, step, seed=self.data_seed,
             batch_override=self.batch_size, seq_override=self.seq_len,
         )
-        return {"tokens": torch.from_numpy(full["tokens"]).long().to(self.device)}
+        out = {"tokens": torch.from_numpy(full["tokens"]).long().to(self.device)}
+        if "source_embeds" in full:  # vlm and encdec: the stubbed frontend's embeddings
+            out["source_embeds"] = torch.from_numpy(full["source_embeds"]).to(self.device)
+        return out
 
     def run(
         self,

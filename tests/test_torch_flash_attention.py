@@ -4,8 +4,9 @@ On CPU tensors ``repro_torch.kernels.flash_attention.ops.flash_attention``
 computes its plain version; it must match the reference Pallas kernel run
 in interpret mode and the reference oracle ``attention_ref`` over the whole
 sweep of ``tests/test_kernels.py``, and with a value head dim other than
-the key's (deepseek-v2's MLA: D = 192, Dv = 128), at that file's
-tolerances (fp32 atol 2e-5 / rtol 1e-5; bf16 2e-2).  Inputs are drawn by numpy from a seed and
+the key's (deepseek-v2's MLA: D = 192, Dv = 128), and with k and v of
+their own length (cross-attention: Sq != Skv, causal and not), at that
+file's tolerances (fp32 atol 2e-5 / rtol 1e-5; bf16 2e-2).  Inputs are drawn by numpy from a seed and
 handed to both packages.  The CUDA kernel itself is checked on the card
 (``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``)."""
 
@@ -114,6 +115,36 @@ def test_value_head_dim_other_than_the_keys(b, s, hq, hkv, d, dv, window, dtype)
     np.testing.assert_allclose(_np(out), _np(_oracle(js, True, window)), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (32, 96, False),   # a cross-attention layer: fewer queries than source rows
+    (96, 32, False),   # more queries than keys
+    (64, 160, True),   # causal at Sq < Skv: row i sees columns 0..i
+    (96, 32, True),    # causal at Sq > Skv: rows past Skv see every column
+    (1, 96, False),    # one decode query against the source
+])
+def test_query_and_key_lengths_differ(sq, skv, causal, dtype):
+    """q [B, Sq, Hq, D] against k, v [B, Skv, Hkv, D]: the plain version
+    against the reference Pallas kernel in interpret mode, with blocks that
+    divide both lengths, and against its oracle."""
+    js, ts = _inputs(2, sq, 4, 2, 16, dtype, seed=7, skv=skv)
+    out = flash_attention(*ts, causal=causal)
+    assert out.shape == (2, sq, 4, 16)
+    pallas = ref_flash(*js, causal=causal, block_q=min(32, sq), block_k=32, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(_oracle(js, causal, 0)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_cross_shape_matches_oracle(dtype):
+    """whisper-tiny's cross-attention: 432 decoder positions against the
+    1500 encoder frames, 6:6 heads of 64, no mask (1500 divides no tile of
+    the card kernel's 64: a ragged last tile)."""
+    js, ts = _inputs(1, 432, 6, 6, 64, dtype, seed=8, skv=1500)
+    out = flash_attention(*ts, causal=False)
+    np.testing.assert_allclose(_np(out), _np(_oracle(js, False, 0)), **_tol(dtype))
+
+
 def test_plain_version_takes_kernel_layout():
     """ref.attention_ref is the counterpart of the reference oracle, in the
     same [B, H, S, D] layout, and agrees with it at fp32 tolerance."""
@@ -185,6 +216,22 @@ def test_tensor_core_rounding_at_the_mla_head_dims():
     assert got.shape == (1, 512, 8, 128)
     q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
     want = ref_oracle(q, k, v, causal=True, scale=scale).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d", [
+    (512, 1600, 4, 1, 128),   # llama-vision's cross layer (4 of its 32:8 heads)
+    (432, 1500, 6, 6, 64),    # whisper's cross layers
+    (1500, 1500, 6, 6, 64),   # whisper's encoder
+])
+def test_tensor_core_rounding_at_the_cross_attention_shapes(sq, skv, hq, hkv, d):
+    """The bf16 kernel's error budget at Sq != Skv with no mask, and over a
+    ragged last tile of 1500 = 23 x 64 + 28 columns."""
+    js, ts = _inputs(1, sq, hq, hkv, d, "bfloat16", seed=9, skv=skv)
+    scale = d ** -0.5
+    got = _emulate_tensor_core_kernel(*ts, causal=False, window=0, scale=scale)
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
+    want = ref_oracle(q, k, v, causal=False, scale=scale).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
 
 

@@ -12,11 +12,17 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   layout (16:8 heads of 256, window 1024), jamba's (64:8 heads of 128) and
   deepseek-v2's MLA (128:128
   heads, D = 192 and Dv = 128, also as the strided view the model hands
-  over) in both dtypes; an uninstantiated (D, Dv) pair and a v whose Skv
-  or Hkv is not k's refused with the reason;
+  over) in both dtypes; k and v of their own length (Sq != Skv): the
+  cross-attention shapes of llama-vision (512 x 1600, 32:8 heads of 128)
+  and whisper (its encoder's 1500 x 1500 and its cross layers' 432 x 1500,
+  6:6 heads of 64, a ragged last tile), one query against 1600 keys, and
+  causal rows at Sq < Skv and Sq > Skv, in both dtypes; an uninstantiated
+  (D, Dv) pair and a v whose Skv or Hkv is not k's refused with the reason;
 * reduced smollm prefill and decode on the card (kernel path) against the
-  same weights on the CPU (plain path), in float32, and reduced gemma3 at
-  its head dim 256 the same way;
+  same weights on the CPU (plain path), in float32, reduced gemma3 at its
+  head dim 256 the same way, and reduced llama-vision (a nonzero gate) and
+  whisper with their source embeds (a flash launch a self, cross and
+  encoder layer);
 * the block-quant kernels against their plain version, byte for byte (q,
   scales and the decoded fp32), for int8, e4m3 and e5m2, at blocks 64-512
   and 100, through the vector kernels and the general ones (n = 100, a
@@ -93,8 +99,8 @@ def _tol(dtype):
     return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype,b,s,hq,hkv,d,window,causal,dv", [
-    (*case, None) if len(case) == 8 else case for case in [
+@pytest.mark.parametrize("dtype,b,s,hq,hkv,d,window,causal,dv,skv", [
+    (*case, None, None)[:10] for case in [
     (torch.bfloat16, 4, 512, 15, 5, 64, 0, True),
     (torch.bfloat16, 4, 500, 15, 5, 64, 0, True),
     (torch.bfloat16, 4, 500, 15, 5, 64, 128, True),
@@ -130,13 +136,29 @@ def _tol(dtype):
     # jamba's attention layer: 64:8 heads of 128 (a GQA group of 8), both kernels
     (torch.bfloat16, 2, 512, 64, 8, 128, 0, True),
     (torch.float32, 1, 512, 64, 8, 128, 0, True),
+    # k and v of their own length (the last field: Skv): llama-vision's cross
+    # layer (32:8 heads of 128 against 1600 patches), whisper's encoder and
+    # cross layers (6:6 heads of 64, 1500 frames: a ragged last tile), one
+    # query against the source, and causal rows at Sq < Skv and Sq > Skv
+    (torch.bfloat16, 2, 512, 32, 8, 128, 0, False, None, 1600),
+    (torch.float32, 1, 512, 32, 8, 128, 0, False, None, 1600),
+    (torch.bfloat16, 4, 1500, 6, 6, 64, 0, False, None, 1500),
+    (torch.float32, 1, 1500, 6, 6, 64, 0, False, None, 1500),
+    (torch.bfloat16, 4, 432, 6, 6, 64, 0, False, None, 1500),
+    (torch.float32, 2, 432, 6, 6, 64, 0, False, None, 1500),
+    (torch.bfloat16, 4, 1, 32, 8, 128, 0, False, None, 1600),
+    (torch.float32, 4, 1, 32, 8, 128, 0, False, None, 1600),
+    (torch.bfloat16, 2, 200, 8, 2, 64, 0, True, None, 300),
+    (torch.float32, 2, 200, 8, 2, 64, 0, True, None, 300),
+    (torch.bfloat16, 2, 300, 8, 2, 64, 0, True, None, 130),
+    (torch.float32, 2, 300, 8, 2, 64, 0, True, None, 130),
 ]])
-def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv):
-    dv = dv or d
+def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv, skv):
+    dv, skv = dv or d, skv or s
     g = torch.Generator(device=cuda).manual_seed(s + d)
     q = torch.randn(b, s, hq, d, generator=g, device=cuda).to(dtype)
-    k = torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype)
-    v = torch.randn(b, s, hkv, dv, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, dv, generator=g, device=cuda).to(dtype)
     launches = flash_attention.launches
     by_dtype = dict(flash_attention.launches_by_dtype)
     out = flash_attention(q, k, v, causal=causal, window=window)
@@ -225,16 +247,37 @@ def test_reduced_gemma3_head_dim_256_on_card_matches_cpu(cuda):
     _card_matches_cpu(cuda, cfg)
 
 
-def _card_matches_cpu(cuda, cfg):
+def test_reduced_llama_vision_on_card_matches_cpu(cuda):
+    """Reduced llama-vision with a nonzero gate: 8 causal self layers and 2
+    non-causal cross layers at Sq = 40 against 8 source embeds, one flash
+    launch each; decode attends to the cached source plainly."""
+    _card_matches_cpu(cuda, reduced(get_config("llama-3.2-vision-11b")), launches=10)
+
+
+def test_reduced_whisper_on_card_matches_cpu(cuda):
+    """Reduced whisper: 2 non-causal encoder layers over 8 frames, then 2
+    decoder layers, each a causal self launch and a cross launch."""
+    _card_matches_cpu(cuda, reduced(get_config("whisper-tiny")), launches=6)
+
+
+def _card_matches_cpu(cuda, cfg, launches=None):
     lm = build_model(cfg, compute_dtype=torch.float32)
     params_cpu = lm.init(torch.Generator().manual_seed(0))
+    if cfg.cross_attn is not None:  # the init's zero gate would hide the cross layers
+        params_cpu["periods"]["cross"]["cross_gate"].fill_(0.7)
     params_gpu = _to(params_cpu, cuda)
     toks = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1))
-    launches = flash_attention.launches
+    src = None
+    if cfg.encoder is not None or cfg.cross_attn is not None:
+        shape = ((2, cfg.encoder.source_len, cfg.d_model) if cfg.encoder is not None
+                 else (2, cfg.cross_attn.source_len, cfg.cross_attn.source_dim))
+        src = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    before = flash_attention.launches
     outs = []
     for params, dev in ((params_cpu, "cpu"), (params_gpu, cuda)):
         cache = D.init_cache(lm, 2, 48, device=dev)
-        logits, cache = D.prefill(lm, params, cache, toks.to(dev))
+        logits, cache = D.prefill(lm, params, cache, toks.to(dev),
+                                  source_embeds=None if src is None else src.to(dev))
         steps = [logits.cpu()]
         cur = logits.argmax(-1)[:, None]
         for _ in range(3):
@@ -242,7 +285,7 @@ def _card_matches_cpu(cuda, cfg):
             steps.append(lg.cpu())
             cur = lg[:, -1].argmax(-1)[:, None]
         outs.append(steps)
-    assert flash_attention.launches == launches + lm.cfg.num_layers
+    assert flash_attention.launches == before + (launches or lm.cfg.num_layers)
     for a, b in zip(*outs):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=0)
 

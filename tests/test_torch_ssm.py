@@ -355,10 +355,13 @@ def test_training_refuses_the_ssm_family(tmp_path):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b", "deepseek-v2-236b",
                                   "llama-3.2-vision-11b", "whisper-tiny"])
 def test_other_families_still_refused(arch):
-    """Cross-attention (llama-vision) and the encoder (whisper) are still
-    refused; mixtral (MoE, the eighth slice) builds, with its expert
-    tensors, deepseek-v2 (MLA, the ninth) with its latent projections, and
-    jamba (the hybrid, the tenth) with its MoE attention layer in a period."""
+    """Every family builds since the cross-attention slice (the name is the
+    one this test had while some were refused): mixtral (MoE, the eighth
+    slice) with its expert tensors, deepseek-v2 (MLA, the ninth) with its
+    latent projections, jamba (the hybrid, the tenth) with its MoE
+    attention layer in a period, llama-vision (the eleventh) with its
+    ``periods`` of four self layers and a gated cross layer, and whisper
+    with its ``encoder.blk.*`` group beside the ``dec_layers``."""
     cfg = TC.reduced(TC.get_config(arch))
     if arch == "jamba-1.5-large-398b":
         lm = build_model(cfg)
@@ -375,5 +378,16 @@ def test_other_families_still_refused(arch):
         assert [s.name for s in lm.stages] == ["head", "layers"]
         assert lm.registry["layers.blk.wkv_b"].axes == ("layers", "lora", "heads")
         return
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        build_model(cfg)
+    lm = build_model(cfg)
+    if arch == "llama-3.2-vision-11b":
+        (stage,) = lm.stages
+        assert (stage.name, [ld.name for ld in stage.body]) == (
+            "periods", ["self0", "self1", "self2", "self3", "cross"])
+        assert lm.registry["periods.cross.cross_wkv"].kind == "fused_qkv"
+        assert lm.registry["periods.cross.cross_gate"].axes == ("layers", "scalar")
+        return
+    assert [(s.name, [(ld.name, ld.with_cross) for ld in s.body]) for s in lm.stages] == [
+        ("dec_layers", [("blk", True)])]
+    names = [d.path for d in lm.registry]
+    assert {"encoder.blk.wqkv", "encoder.blk.w1", "encoder.norm", "dec_layers.blk.cross_wkv"} \
+        <= set(names)
