@@ -138,6 +138,24 @@ nothing falls back to the CPU or to a plain version):
    GC under a pin: an async ``keep_last=1`` delta manager whose delta at 30
    stalls after resolving base 10 while a rebase at 40 commits — base 10
    survives that GC, 30 commits and restores, the next GC leaves [40];
+8a. hot, the in-memory tier and elastic resume on full smollm-360m (4.34 GB
+   of fp32 state), the whole phase under one obs tracer: 4 steps under
+   data=2,model=2 with ``CheckpointPolicy(hot_interval=2, disk_interval=4,
+   codec="int8:b256", hot_replication=1, hot_max_snapshots=2)`` (steps 2
+   and 4 captured into host memory, step 4 drained to disk with every coded
+   moment shard encoded on the card: 60 quantize and 60 dequantize
+   launches); the uninterrupted run's steps 5-6; rank 1 lost (its buddy 0
+   holds its fragments): HOT_DIRECT under data=2,model=2 and HOT_RESHARD
+   under the mesh ``rebuild_on`` proposes for one device (data=1,model=1,
+   ``wqkv`` consolidated in all three kinds), each bit-equal to the
+   captured state with no checkpoint file opened (a spy on
+   ``DistCheckpoint.open``, the trace's ``engine.handle.miss``), 2 steps
+   after each (after HOT_DIRECT the uninterrupted losses within 1e-5); the
+   whole buddy group {0, 1} lost: no hot plan (``restore.hot_skip``) and
+   RESHARD_STREAM from the drained step (60 dequantize launches, params
+   bit-equal, every moment shard the served view), 2 steps; each restore
+   split by its spans; the Chrome trace exported and validated; the
+   phase's directories removed;
 9. mixtral-8x22b (the MoE family) at full width: d 6144, 48:8 heads of
    128, 8 experts top-2 of d_ff 16384, vocab 32768, window 4096.
    serve-moe, depth cut from 56 to 2 layers (5,410,781,184 params): init
@@ -272,7 +290,14 @@ nothing falls back to the CPU or to a plain version):
    prefill's device and kernel times are null where every profiler trace
    of it lost a record), the mixtral line (JSON), the deepseek line
    (JSON), the jamba line (JSON), the train_ssm line (JSON), the vlm and
-   encdec lines (JSON), the card line, then the result line (JSON, last).
+   encdec lines (JSON), the ``hot`` line (JSON: phase 8a's walls, bytes,
+   launches, losses and splits) and the ``restore_split`` line (JSON: every
+   weights-only DIRECT and RESHARD_STREAM restore of phases 6 and 9-14 run
+   under a tracer, its ``restore.plan``, ``restore.prefetch`` (reads and
+   region assembly) and ``restore.materialize`` (host-to-device copies,
+   closed after a synchronize) seconds beside its wall and the phase's warm
+   read floor; the block-quant rows add ``hot_launches``), the card line,
+   then the result line (JSON, last).
 """
 
 from __future__ import annotations
@@ -362,6 +387,53 @@ def reset_launches(counters: dict) -> None:
 
 def launch_counts(counters: dict) -> dict[str, int]:
     return {name: fn.launches for name, fn in counters.items()}
+
+
+# One record per weights-only restore of a serve phase: the restore's wall
+# split by its spans, beside the phase's read floor (the restore_split line).
+RESTORE_SPLIT: list[dict] = []
+SPLIT_SPANS = ("restore.plan", "restore.prefetch", "restore.materialize")
+
+
+def traced_restore(torch, phase: str, mesh: str, restore):
+    """Run ``restore()`` (a weights-only restore onto the card) under an obs
+    tracer: its wall, and the seconds of its ``restore.plan``,
+    ``restore.prefetch`` (reads, region assembly, decode) and
+    ``restore.materialize`` (host-to-device copies; the span closes after a
+    synchronize) spans, recorded in ``RESTORE_SPLIT``.  Returns what
+    ``restore`` returns and the wall."""
+    import repro_torch.obs as obs
+
+    with obs.enabled() as tracer:
+        t0 = time.perf_counter()
+        out = restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = tracer.span_records()
+    split = {name.split(".")[1] + "_s": sum(r["dur_us"] for r in spans if r["name"] == name) / 1e6
+             for name in SPLIT_SPANS}
+    check(split["prefetch_s"] > 0 and split["materialize_s"] > 0,
+          f"{phase} {mesh}: the restore recorded no prefetch or materialize span")
+    check(sum(split.values()) <= wall * 1.001,
+          f"{phase} {mesh}: the split {split} exceeds the wall {wall:.3f} s")
+    RESTORE_SPLIT.append(dict(phase=phase, mesh=mesh, total_s=wall, **split))
+    return out, wall
+
+
+def fmt_split(split: dict[str, float]) -> str:
+    return ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in split.items())
+
+
+def note_split_floor(torch, phase: str, read_gb: float, read_s: float) -> None:
+    """Put the phase's warm read floor beside its restores' split, and print
+    the split of each."""
+    for rec in RESTORE_SPLIT:
+        if rec["phase"] == phase:
+            rec.update(read_gb=read_gb, read_floor_s=read_s)
+            print(f"restore_split {phase} {rec['mesh']}: plan {rec['plan_s']:.3f} s, prefetch "
+                  f"(reads, assembly) {rec['prefetch_s']:.3f} s, materialize (host->device) "
+                  f"{rec['materialize_s']:.3f} s, of {rec['total_s']:.3f} s; warm read floor "
+                  f"{read_s:.3f} s for {read_gb:.3f} GB")
 
 
 def cuda_ms(torch, fn, iters: int = 50) -> float:
@@ -1180,10 +1252,8 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
         for mesh_str, expect in (("data=1,model=1", "reshard_stream"),
                                  ("data=2,model=2", "direct")):
             tlm, tplan = plan_for(mesh_str)
-            t0 = time.perf_counter()
-            flat, rp = restore_params(step_dir, tplan, dev)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
+            (flat, rp), restore_s = traced_restore(
+                torch, arch, mesh_str, lambda: restore_params(step_dir, tplan, dev))
             engine = default_engine(dev)
             check(len(engine.handles) == 0 and len(engine.atoms) == 0,
                   f"{mesh_str}: the restore left {len(engine.handles)} handles and "
@@ -1245,6 +1315,8 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
         a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
         check(torch.equal(a, b), "RESHARD_STREAM and DIRECT restores serve different tokens")
         print(f"serve {arch} tokens identical across restores; sample {a[0, :8].tolist()}")
+        _, read_gb, read_s = fp32_read_floor(step_dir, width)
+        note_split_floor(torch, arch, read_gb, read_s)
         if via_ucp:
             runs["via_ucp"] = serve_via_ucp(torch, arch, step_dir, src_plan, plan_for, saved,
                                             prompts, counts, reset, per_prefill, by_dtype)
@@ -2165,6 +2237,230 @@ def gc_under_pin(torch, phases, state, plan, root):
 MIXTRAL_PARAMS = {2: 5_410_781_184, 1: 2_906_720_256}  # at full width, by depth
 
 
+def hot_phase(torch, bq_ops) -> dict:
+    """The hot in-memory tier at the full width and depth of smollm-360m
+    (362 M params, 4.34 GB of fp32 state), under one obs tracer: 4 steps
+    under data=2,model=2 with ``hot_interval=2, disk_interval=4`` and
+    ``int8:b256`` moments (step 2 a capture, step 4 a capture and a coded
+    drain on the card); the uninterrupted run's steps 5-6; then one rank
+    lost whose buddy holds its fragments: HOT_DIRECT under data=2,model=2
+    and HOT_RESHARD under the mesh ``rebuild_on`` proposes for one device
+    (data=1,model=1: ``wqkv`` and both moments consolidated in memory),
+    each bit-equal to the captured step-4 state with no checkpoint file
+    opened; then the whole buddy group lost: no hot plan
+    (``restore.hot_skip``), and ``restore_latest`` falls through to
+    RESHARD_STREAM from the drained coded step.  2 steps after each resume
+    (finite; after HOT_DIRECT the uninterrupted run's losses).  The trace is
+    exported and validated.  Returns the phase's record."""
+    import repro_torch.core.dist_ckpt as dist_ckpt
+    import repro_torch.obs as obs
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.engine import default_workers
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.plan import ResumeMode, TargetSpec
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.elastic import ElasticEvent, hot_recover, rebuild_on
+    from repro_torch.hot import plan_hot_recovery
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    root = ROOT / "build" / "chip_smoke_hot"
+    shutil.rmtree(root, ignore_errors=True)
+    phases = PhaseLaunches(bq_ops)
+    opened: list = []
+    real_open = dist_ckpt.DistCheckpoint.open.__func__
+
+    def spy_open(cls, path):
+        opened.append(path)
+        return real_open(cls, path)
+
+    def losses(hist, what):
+        out = [h["loss"] for h in hist]
+        check(all(map(math.isfinite, out)), f"hot: {what} losses {out} not finite")
+        return out
+
+    def hot_restore(what, fn):
+        """A hot restore with DistCheckpoint.open spied on and the handle
+        cache's misses counted: neither may move."""
+        n_open, misses = len(opened), tracer.counters().get("engine.handle.miss", 0)
+        dist_ckpt.DistCheckpoint.open = classmethod(spy_open)
+        try:
+            state, info = fn()
+        finally:
+            dist_ckpt.DistCheckpoint.open = classmethod(real_open)
+        check(len(opened) == n_open and tracer.counters().get("engine.handle.miss", 0) == misses,
+              f"hot: {what} opened {opened[n_open:]} (handle misses "
+              f"{tracer.counters().get('engine.handle.miss', 0) - misses})")
+        return state, info
+
+    def spans_since(n: int, name: str) -> list[dict]:
+        return [r for r in tracer.span_records()[n:] if r["name"] == name]
+
+    def split_since(n: int) -> dict[str, float]:
+        """The seconds of a restore's spans recorded since ``n`` spans."""
+        return {name.split(".")[1] + "_s": sum(r["dur_us"] for r in spans_since(n, name)) / 1e6
+                for name in SPLIT_SPANS}
+
+    out: dict = {}
+    try:
+        with obs.enabled() as tracer:
+            # a ring budget that holds both snapshots (resident bytes count
+            # each fragment once per holder)
+            policy = CheckpointPolicy(hot_interval=2, disk_interval=4, codec="int8:b256",
+                                      hot_replication=1, hot_max_snapshots=2,
+                                      hot_max_bytes=64 << 30)
+            run = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string("data=2,model=2"),
+                                 batch_size=8, seq_len=512, ckpt_dir=str(root / "ck"),
+                                 policy=policy, device=dev)
+            mgr = run.manager
+            mark = phases.mark()
+            state4, hist = run.run(run.init_state(), 0, 4)
+            quant, dequant = phases.since("hot: 4 steps, captures at 2 and 4, drain of 4", mark)
+            first = losses(hist, "steps 1-4")
+            check(mgr.steps() == [4], f"hot: committed steps {mgr.steps()}, want [4]")
+            check([s.step for s in mgr.hot.snapshots()] == [2, 4],
+                  f"hot: ring {[s.step for s in mgr.hot.snapshots()]}, want [2, 4]")
+            manifest = dist_ckpt.DistCheckpoint.open(mgr.step_dir(4)).manifest
+            n_coded = len(manifest.shard_codecs)
+            check(n_coded > 0 and quant == n_coded and dequant == n_coded,
+                  f"hot: drain {quant} quantize, {dequant} dequantize launches, want {n_coded} "
+                  "each (encode on the card, then the served digest's decode)")
+            (drain,) = run.save_results
+            # per hot step: the device->host snapshot (save.stage), then the
+            # slices, digests and holders into the ring (hot.capture)
+            stages, captures = ([r["dur_us"] / 1e6 for r in tracer.span_records()
+                                 if r["name"] == name] for name in ("save.stage", "hot.capture"))
+            resident = mgr.hot.resident_nbytes
+            stored = sum(s.stored_nbytes for s in mgr.hot.snapshots())
+            print(f"hot smollm-360m 32 layers, data=2,model=2, 8x512: steps 1-4 losses "
+                  f"{[round(v, 4) for v in first]}; captures at 2 and 4: device->host snapshot "
+                  f"{', '.join(f'{c:.2f}' for c in stages)} s, then into the ring "
+                  f"{', '.join(f'{c:.2f}' for c in captures)} s (ring {stored / 1e9:.3f} GB stored, "
+                  f"{resident / 1e9:.3f} GB resident over the holders); drain of step 4 "
+                  f"{drain.bytes_written / 1e9:.3f} GB in {drain.shards_written} shards, "
+                  f"{drain.wall_time_s:.2f} s, coded {drain.coded_bytes / 1e9:.3f} of "
+                  f"{drain.coded_raw_bytes / 1e9:.3f} GB; {quant} quantize and {dequant} "
+                  f"dequantize launches ({n_coded} coded shards)")
+            want = [flatten_with_paths(t) for t in (state4.params, state4.exp_avg,
+                                                    state4.exp_avg_sq)]
+            plain = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string("data=2,model=2"),
+                                   batch_size=8, seq_len=512, device=dev)
+            _, hist = plain.run(state4, 4, 2)
+            uninterrupted = losses(hist, "uninterrupted steps 5-6")
+
+            # one rank lost, its buddy alive: HOT_DIRECT, then HOT_RESHARD
+            mark = phases.mark()
+            n_spans = len(tracer.span_records())
+            state, info = hot_restore("HOT_DIRECT", lambda: hot_recover(
+                mgr, ElasticEvent(3, "failure", (1,)), dev))
+            direct_split = split_since(n_spans)
+            check(info.mode is ResumeMode.HOT_DIRECT and info.step == 4 and state.step == 4,
+                  f"hot: rank 1 lost: {info.mode.value} step {info.step}, want hot_direct 4")
+            check(same_state(torch, state, want), "hot: HOT_DIRECT differs from the captured state")
+            direct_s = info.wall_time_s
+            _, hist = plain.run(state, 4, 2)
+            after_direct = losses(hist, "HOT_DIRECT steps 5-6")
+            gap = max(abs(a - b) for a, b in zip(after_direct, uninterrupted))
+            check(gap <= 1e-5, f"hot: HOT_DIRECT steps 5-6 {after_direct} vs uninterrupted "
+                  f"{uninterrupted}")
+            del state
+            one = rebuild_on(ElasticEvent(1, "failure"), cfg, parallel, tcfg, batch_size=8,
+                             seq_len=512, ckpt_dir=str(root / "one"), device=dev)
+            check(one.mesh == mesh_spec_from_string("data=1,model=1"),
+                  f"hot: rebuild_on proposed {one.mesh} for one device")
+            n_spans = len(tracer.span_records())
+            state, info = hot_restore("HOT_RESHARD", lambda: hot_recover(
+                mgr, ElasticEvent(1, "failure"), dev, target_plan=one.plan))
+            check(info.mode is ResumeMode.HOT_RESHARD and info.step == 4,
+                  f"hot: under data=1,model=1 {info.mode.value}, want hot_reshard")
+            reshard_split = split_since(n_spans)
+            check(same_state(torch, state, want), "hot: HOT_RESHARD differs from the captured state")
+            fused = [n for n in one.plan.param_specs if n.endswith("wqkv")]
+            merged = [r["attrs"]["param"] for r in spans_since(n_spans, "restore.consolidate")]
+            check(fused and sorted(merged) == sorted(fused * 3),
+                  f"hot: HOT_RESHARD consolidated {sorted(set(merged))}, want {fused} in all "
+                  "three kinds")
+            reshard_s = info.wall_time_s
+            _, hist = one.run(state, 4, 2)
+            after_reshard = losses(hist, "HOT_RESHARD steps 5-6")
+            reshard_gap = max(abs(a - b) for a, b in zip(after_reshard, uninterrupted))
+            del state
+            _, hot_d = phases.since("hot: HOT_DIRECT and HOT_RESHARD", mark)
+            check(hot_d == 0, f"hot: {hot_d} dequantize launches in the hot restores (raw memory)")
+            print(f"hot rank 1 lost (buddy 0 holds its fragments): HOT_DIRECT data=2,model=2 in "
+                  f"{direct_s:.2f} s ({fmt_split(direct_split)}), HOT_RESHARD data=1,model=1 "
+                  f"({fmt_split(reshard_split)}; rebuild_on's mesh for one "
+                  f"device; {fused} consolidated in all three kinds) in {reshard_s:.2f} s; both "
+                  f"bit-equal to the captured step 4, no checkpoint file opened; steps 5-6 after "
+                  f"HOT_DIRECT {after_direct} (uninterrupted {uninterrupted}, max gap {gap:.2e}), "
+                  f"after HOT_RESHARD {after_reshard} (max gap {reshard_gap:.2e})")
+
+            # the whole buddy group {0, 1} lost: disk, from the drained coded step
+            n_events = len(tracer.event_records())
+            mgr.hot.fail_ranks({0})
+            target = TargetSpec(one.plan.mesh, one.plan.param_specs)
+            check(plan_hot_recovery(mgr.hot, target, min_step=mgr.latest_step()) is None,
+                  "hot: a plan from snapshots that lost a whole buddy group")
+            skipped = [e["attrs"]["step"] for e in tracer.event_records()[n_events:]
+                       if e["name"] == "restore.hot_skip"]
+            check(skipped == [4], f"hot: restore.hot_skip for steps {skipped}, want [4]")
+            mark = phases.mark()
+            n_spans = len(tracer.span_records())
+            state, info = mgr.restore_latest(dev, target_plan=one.plan)
+            fall_split = split_since(n_spans)
+            _, fall_d = phases.since("hot: fall-through RESHARD_STREAM from the drained step", mark)
+            check(info.mode is ResumeMode.RESHARD_STREAM and info.step == 4,
+                  f"hot: fall-through {info.mode.value} step {info.step}, want reshard_stream 4")
+            check(fall_d == n_coded, f"hot: fall-through {fall_d} dequantize launches, "
+                  f"want {n_coded}")
+            for name, t in flatten_with_paths(state.params).items():
+                check(torch.equal(t, want[0][name]), f"hot: fall-through {name} differs")
+            n_checked, _ = digests_match(torch, {StateKind.EXP_AVG: state.exp_avg,
+                                                 StateKind.EXP_AVG_SQ: state.exp_avg_sq},
+                                         mgr.plan, manifest, default_workers())
+            check(n_checked == n_coded, f"hot: {n_checked} of {n_coded} served digests checked")
+            fall_s = info.wall_time_s
+            _, hist = one.run(state, 4, 2)
+            after_fall = losses(hist, "fall-through steps 5-6")
+            del state
+            print(f"hot buddy group {{0, 1}} lost: no hot plan (restore.hot_skip at step 4), "
+                  f"RESHARD_STREAM from the drained step 4 in {fall_s:.2f} s "
+                  f"({fmt_split(fall_split)}) with {fall_d} "
+                  f"dequantize launches, params bit-equal, {n_checked} moment shards equal to "
+                  f"the served view; steps 5-6 {after_fall}")
+            mgr.close()
+            one.manager.close()
+            trace = obs.write_chrome_trace(root / "trace.json", tracer)
+        doc = json.loads(trace.read_text())
+        n_complete = obs.validate_chrome_trace(doc)
+        counters = doc["otherData"]["counters"]
+        check(counters.get("hot.captures") == 2 and counters.get("restore.count") == 3,
+              f"hot: trace counters {counters}")
+        out = dict(snapshot_s=stages, capture_s=captures, stored_gb=stored / 1e9,
+                   resident_gb=resident / 1e9,
+                   hot_direct_s=direct_s, hot_reshard_s=reshard_s, hot_direct_split=direct_split,
+                   hot_reshard_split=reshard_split, fall_through_split=fall_split,
+                   drain_s=drain.wall_time_s,
+                   drain_gb=drain.bytes_written / 1e9, quantize=quant, dequantize=dequant,
+                   fall_through=info.mode.value, fall_through_s=fall_s,
+                   fall_through_dequantize=fall_d, hot_direct_loss_gap=gap,
+                   hot_reshard_loss_gap=reshard_gap, trace_spans=n_complete,
+                   trace_events=len(doc["traceEvents"]), losses=dict(
+                       first=first, uninterrupted=uninterrupted, hot_direct=after_direct,
+                       hot_reshard=after_reshard, fall_through=after_fall),
+                   launches_by_phase=phases.by_phase)
+        print(f"hot trace: {n_complete} spans validate ({len(doc['traceEvents'])} events), "
+              f"{trace.stat().st_size / 1e6:.2f} MB")
+    finally:
+        dist_ckpt.DistCheckpoint.open = classmethod(real_open)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def mixtral(layers: int):
     """mixtral-8x22b at full width with its depth cut to ``layers`` (every
     layer is alike: sliding window 4096 and 8 experts top-2)."""
@@ -2495,10 +2791,8 @@ def serve_restores(torch, label: str, cfg, plan_for, step_dir: Path, saved: dict
     out, runs = {}, {}
     for mesh_str, expect in (("data=1,model=1", "reshard_stream"), ("data=2,model=2", "direct")):
         tlm, tplan = plan_for(mesh_str)
-        t0 = time.perf_counter()
-        flat, rp = restore_params(step_dir, tplan, prompts.device)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+        (flat, rp), restore_s = traced_restore(
+            torch, label, mesh_str, lambda: restore_params(step_dir, tplan, prompts.device))
         check(rp.mode.value == expect, f"{label} {mesh_str}: {rp.mode.value}, want {expect}")
         check(set(flat) == set(saved), f"{label} {mesh_str}: restored parameter set differs")
         for name, t in flat.items():
@@ -2548,6 +2842,7 @@ def serve_restores(torch, label: str, cfg, plan_for, step_dir: Path, saved: dict
           f"the restores: RESHARD_STREAM {runs['data=1,model=1']['restore_s']:.2f} s, DIRECT "
           f"{runs['data=2,model=2']['restore_s']:.2f} s")
     out["read_floor"] = dict(gb=read_gb, seconds=read_s)
+    note_split_floor(torch, label, read_gb, read_s)
     a, b = runs["data=1,model=1"]["seq"], runs["data=2,model=2"]["seq"]
     check(torch.equal(a, b), f"{label}: RESHARD_STREAM and DIRECT restores serve other tokens")
     print(f"{label} tokens identical across restores; sample {a[0, :8].tolist()}")
@@ -3779,9 +4074,15 @@ def main() -> int:
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
     gemma = gemma_phase(torch, counters)
     train = train_phase(torch, ops, bq_ops)
+    bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    reset_launches(bq_counters)
+    hot = hot_phase(torch, bq_ops)
+    hot_bq = launch_counts(bq_counters)  # the drain's encode and digest, the fall-through's decode
+    check(hot_bq == {"quantize": hot["quantize"],
+                     "dequantize": hot["dequantize"] + hot["fall_through_dequantize"]},
+          f"hot: block-quant launches {hot_bq} outside the counted sub-phases")
     moe_serve = moe_serve_phase(torch, counters, bq_ops, kernel)
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
-    bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
     reset_launches(bq_counters)
     mla = mla_serve_phase(torch, counters, kernel)
     mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
@@ -3938,6 +4239,9 @@ def main() -> int:
             rows[-1][f"train_ssm_shard_{key}"] = train_ssm["shard_times"][name][key]
         if name == "dequantize_blocks":
             rows[-1]["convert_launches"] = train["export"]["launches"]
+        rows[-1]["hot_launches"] = hot_bq[which]
+        rows[-1]["hot_launches_by_phase"] = {k: v[which]
+                                             for k, v in hot["launches_by_phase"].items()}
     rows.append({
         "name": "ssd_scan_fwd",
         "route": "cuda",
@@ -4006,6 +4310,8 @@ def main() -> int:
     print(json.dumps({"encdec": {"serve": {k: v for k, v in encdec.items()
                                            if k not in ("save", "read_floor", "runs")},
                                  "train": train_encdec}}))
+    print(json.dumps({"hot": {k: v for k, v in hot.items() if k != "launches_by_phase"}}))
+    print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

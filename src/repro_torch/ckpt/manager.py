@@ -21,10 +21,19 @@
   ``KeyError``, ``IntegrityError``) falls back to VIA_UCP, with the failure
   in ``RestoreInfo.reason``, unless the mode was forced;
 * :meth:`CheckpointManager.export_ucp`: the explicit export of one step as
-  a UCP atom checkpoint, reusing a committed ``.ucp`` cache.
+  a UCP atom checkpoint, reusing a committed ``.ucp`` cache;
+* the hot in-memory tier (``hot_interval``): every ``hot_interval`` steps a
+  peer-replicated host snapshot, every ``disk_interval // hot_interval``-th
+  of them promoted to disk in the background (coded fragments encoded on
+  the state's device), see :mod:`repro_torch.hot`;
+* tiered resume (:meth:`CheckpointManager.restore_latest`): HOT_DIRECT →
+  HOT_RESHARD → DIRECT → RESHARD_STREAM → VIA_UCP, surviving in-memory
+  replicas first, then the disk tiers.
 
-The hot tier and fan-out publishing are refused by
-:class:`CheckpointPolicy`.
+Spans, counters, events and fault points are the reference's
+(:mod:`repro_torch.obs`, :mod:`repro_torch.chaos.points`); no fault point
+fires while a lock of the manager is held.  Fan-out publishing is refused
+by :class:`CheckpointPolicy` (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -32,26 +41,48 @@ from __future__ import annotations
 import dataclasses
 import shutil
 import threading
-import time
 from pathlib import Path
 from typing import Any, Mapping
 
 import torch
 
+import repro_torch.obs as obs
+from repro_torch.chaos.points import fault_point
 from repro_torch.core.atoms import UcpCheckpoint
 from repro_torch.core.convert import ConvertStats, convert_to_ucp
 from repro_torch.core.dist_ckpt import DistCheckpoint
 from repro_torch.core.engine import CheckpointEngine, default_engine, device_key
 from repro_torch.core.plan import ResumeMode, TargetSpec, plan_resume, stream_transforms
 from repro_torch.core.tensor_io import IntegrityError
+from repro_torch.core.pytree import flatten_with_paths
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState
 
 from .policy import CheckpointPolicy
-from .restore import state_from_source, state_from_stream, state_from_ucp
+from .restore import RestoreStats, state_from_source, state_from_stream, state_from_ucp
 from .saver import AsyncSaver, SaveResult, snapshot_state, write_distributed
 
 __all__ = ["CheckpointManager", "RestoreInfo", "cached_ucp"]
+
+
+def _dir_bytes(root: Path) -> int:
+    """Recursive file-size sum of one step directory (GC accounting; only
+    walked while a tracer is enabled)."""
+    total = 0
+    try:
+        for p in root.rglob("*"):
+            try:
+                if p.is_file():
+                    total += p.stat().st_size
+            except OSError:
+                continue
+    except OSError:
+        pass
+    return total
+
+
+def _state_device(state: TrainState) -> torch.device:
+    return next(iter(flatten_with_paths(state.params).values())).device
 
 
 def cached_ucp(
@@ -76,6 +107,7 @@ class RestoreInfo:
     scalars: dict[str, Any]
     wall_time_s: float
     convert_stats: ConvertStats | None = None  # set when VIA_UCP converted this time
+    restore_stats: RestoreStats | None = None
 
 
 class CheckpointManager:
@@ -96,13 +128,23 @@ class CheckpointManager:
         writes only the shards whose content digest changed since the
         previous committed step, the rest being manifest references into
         the chain; every ``full_interval``-th save is full (a rebase),
-        which bounds the chain and lets GC collect old ones."""
+        which bounds the chain and lets GC collect old ones.
+
+        Hot-tier policy: ``hot_interval`` (None = off) captures a
+        peer-replicated host snapshot every N steps; every
+        ``disk_interval // hot_interval``-th snapshot is promoted to a
+        durable disk checkpoint in the background (``disk_interval``
+        defaults to ``save_interval``).  ``hot_replication`` extra copies
+        per fragment; ``hot_max_snapshots`` / ``hot_max_bytes`` bound the
+        ring."""
         self.policy = policy if policy is not None else CheckpointPolicy()
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.plan = plan
         self.keep_last = self.policy.keep_last
         self.save_interval = self.policy.save_interval
+        self.disk_interval = self.policy.effective_disk_interval
+        self.hot_interval = self.policy.hot_interval
         self.save_mode = self.policy.save_mode
         self.full_interval = self.policy.full_interval
         self.codec = self.policy.codec
@@ -123,6 +165,25 @@ class CheckpointManager:
             if self.policy.async_save
             else None
         )
+        self.hot = None
+        self._drainer = None
+        if self.hot_interval is not None:
+            from repro_torch.hot import HotDrainer, HotTier
+
+            self.hot = HotTier(
+                replication=self.policy.hot_replication,
+                max_snapshots=self.policy.hot_max_snapshots,
+                max_bytes=self.policy.hot_max_bytes,
+                engine=self.engine,
+                # "all" captures every replica's write set, or the promoted
+                # checkpoints would be dedup'd; "delta" captures the dedup set
+                save_mode="all" if self.save_mode == "all" else "dedup",
+            )
+            self._drainer = HotDrainer(
+                every=max(1, self.disk_interval // self.hot_interval),
+                engine=self.engine,
+                max_pending=self.policy.max_pending_saves,
+            )
 
     def engine_for(self, device) -> CheckpointEngine:
         """This manager's I/O engine of ``device`` (None: the host): a
@@ -143,7 +204,13 @@ class CheckpointManager:
         return self.root / f"step_{step:08d}"
 
     def should_save(self, step: int) -> bool:
-        return step > 0 and step % self.save_interval == 0
+        if step <= 0:
+            return False
+        if self.hot is not None:
+            # the hot cadence subsumes the disk one: every Nth snapshot is
+            # promoted to disk by the drainer
+            return step % self.hot_interval == 0
+        return step % self.save_interval == 0
 
     def _base_loader(self, step: int):
         """A callable resolving the delta base of a save of ``step``, run on
@@ -189,9 +256,33 @@ class CheckpointManager:
         block: bool = False,
     ) -> None:
         """Save ``state`` as ``step``: queued on the async writer unless the
-        policy is synchronous or ``block`` asks to wait; then GC."""
+        policy is synchronous or ``block`` asks to wait; then GC.  With the
+        hot tier on, a hot step is captured into host memory and maybe
+        promoted to disk by the drainer."""
+        fault_point("manager.save.begin", step=step, block=block)
+        with obs.span("manager.save", step=step):
+            self._save(state, step, scalars=scalars, block=block)
+
+    def _save(
+        self, state: TrainState, step: int, *, scalars: Mapping[str, Any] | None, block: bool,
+    ) -> None:
         # a re-save into an existing step replaces its manifest
         self._refs_cache.pop(step, None)
+        if self.hot is not None and step % self.hot_interval == 0:
+            # host arrays (no coded kind left on the card): the ring holds
+            # host memory, and the drain encodes on the state's device
+            snap = snapshot_state(state)
+            hs, _ = self.hot.capture(
+                snap, self.plan, step, scalars=dict(scalars or {}),
+                config_fingerprint=self.config_fingerprint, device=_state_device(state),
+            )
+            del snap
+            drain_kw = self._next_save_kw(step) if self._drainer.next_drains else {}
+            self._drainer.maybe_drain(hs, self.step_dir(step), codec=self.codec, **drain_kw)
+            if block:
+                self._drainer.wait()
+            self.gc()
+            return
         kw = dict(
             scalars=dict(scalars or {}),
             config_fingerprint=self.config_fingerprint,
@@ -207,25 +298,38 @@ class CheckpointManager:
         self.gc()
 
     def wait(self) -> list[SaveResult]:
+        # A drainer failure must not leave async-saver errors undrained (or
+        # the reverse), and GC still sees whatever did commit.
         res: list[SaveResult] = []
         try:
-            if self._async is not None:
-                res.extend(self._async.wait())
+            if self._drainer is not None:
+                res.extend(self._drainer.wait())
         finally:
-            if self._async is not None:
-                self.gc()
+            try:
+                if self._async is not None:
+                    res.extend(self._async.wait())
+            finally:
+                if self._async is not None or self._drainer is not None:
+                    self.gc()
         return res
 
     def close(self) -> None:
-        """Drain the async writer (surfacing its errors), then close the
-        private engines (their pools and caches; a later use reopens)."""
+        """Drain the hot drainer and the async writer (surfacing their
+        errors), free the hot ring, then close the private engines (their
+        pools and caches; a later use reopens)."""
         try:
-            if self._async is not None:
-                self._async.close()
+            if self._drainer is not None:
+                self._drainer.close()
         finally:
-            if self.policy.io_workers is not None:
-                for eng in self._engines.values():
-                    eng.close()
+            try:
+                if self._async is not None:
+                    self._async.close()
+            finally:
+                if self.hot is not None:
+                    self.hot.clear()
+                if self.policy.io_workers is not None:
+                    for eng in self._engines.values():
+                        eng.close()
 
     # ----------------------------------------------------------------- lookup
     def steps(self) -> list[int]:
@@ -243,7 +347,13 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def _inflight_roots(self) -> set[Path]:
-        return self._async.pending_roots() if self._async is not None else set()
+        """Step directories with a save queued or mid-write right now."""
+        out: set[Path] = set()
+        if self._async is not None:
+            out |= self._async.pending_roots()
+        if self._drainer is not None:
+            out |= self._drainer.pending_roots()
+        return out
 
     def gc(self) -> None:
         """Keep the newest ``keep_last`` committed checkpoints (and their UCP
@@ -257,6 +367,11 @@ class CheckpointManager:
         Deletes newest-first (references only point backwards, so a GC cut
         short leaves no committed manifest naming a deleted ancestor) and
         drops the engines' handles of what it deletes."""
+        with obs.span("ckpt.gc"):
+            self._gc()
+
+    def _gc(self) -> None:
+        fault_point("manager.gc.begin")
         # Read order matters: in-flight BEFORE committed.  A background save
         # commits and *then* leaves the pending set, so any save gone from
         # `inflight` is already visible in `steps`.
@@ -287,13 +402,20 @@ class CheckpointManager:
             step_dir = self.step_dir(s)
             if s in keep or step_dir in inflight:
                 continue
+            # Outside the pin lock: a thread paused here must not block the
+            # base loader.
+            fault_point("manager.gc.delete", step=s)
             # One critical section per deletion, shared with the base loader:
             # a base resolved concurrently is either pinned already (skip) or
             # resolves after the deletion (the loader rebases).
             with self._pin_lock:
                 if step_dir in set().union(*self._pinned_chains.values()):
+                    obs.add("gc.pinned_steps")
                     continue
                 self._refs_cache.pop(s, None)
+                if obs.active() is not None:  # the sizing walk only when traced
+                    obs.add("gc.collected_bytes", _dir_bytes(step_dir))
+                obs.add("gc.collected_steps")
                 shutil.rmtree(step_dir, ignore_errors=True)
                 shutil.rmtree(Path(str(step_dir) + ".ucp"), ignore_errors=True)
             for eng in self._engines.values():
@@ -309,32 +431,51 @@ class CheckpointManager:
                     and p not in inflight
                     and p.name < newest.name
                 ):
+                    fault_point("manager.gc.wreckage", path=p.name)
+                    obs.add("gc.wreckage_removed")
                     shutil.rmtree(p, ignore_errors=True)
 
     # ---------------------------------------------------------------- restore
     def restore(
         self, device: str | torch.device, *, step: int | None = None,
-        force_mode: ResumeMode | None = None,
+        force_mode: ResumeMode | None = None, target_plan: ShardingPlan | None = None,
+        verify: bool = False,
     ) -> tuple[TrainState, RestoreInfo] | None:
         """Resume ``step`` (the newest committed one by default) onto
-        ``device`` under this manager's plan: DIRECT when the layouts are
-        equal, RESHARD_STREAM when they differ, VIA_UCP when the parameter
-        set changed.  A stream that fails with ``OSError``, ``KeyError`` or
+        ``device`` under ``target_plan`` (this manager's plan by default)
+        from the disk tiers: DIRECT when the layouts are equal,
+        RESHARD_STREAM when they differ, VIA_UCP when the parameter set
+        changed.  A stream that fails with ``OSError``, ``KeyError`` or
         ``IntegrityError`` falls back to VIA_UCP; other errors propagate.
         Reads go through this manager's engine of ``device``.
 
         ``force_mode`` pins RESHARD_STREAM or VIA_UCP (no fallback when
-        forced), or DIRECT only when the layouts are equal.  Returns None
-        when no committed checkpoint exists (a fresh start)."""
-        plan = self.plan
+        forced), or DIRECT only when the layouts are equal.  ``verify``
+        checks the checkpoint's content digests first and raises
+        :class:`IntegrityError` on a mismatch.  Returns None when no
+        committed checkpoint exists (a fresh start)."""
+        plan = target_plan or self.plan
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        t0 = time.perf_counter()
-        device = torch.device(device)
+        fault_point("manager.restore.begin", step=step)
+        with obs.timed("ckpt.restore", step=step) as sw:
+            return self._restore_traced(sw, plan, torch.device(device), step, force_mode,
+                                        verify)
+
+    def _restore_traced(self, sw, plan, device, step, force_mode, verify):
+        # The body of restore(), inside its ``ckpt.restore`` span: ``sw``
+        # gives the wall time and carries the plan's decision.
         ckpt = DistCheckpoint.open(self.step_dir(step))
+        if verify:
+            problems = ckpt.validate()
+            if problems:
+                raise IntegrityError(
+                    f"checkpoint step {step} failed verification: " + "; ".join(problems[:5])
+                )
         target = TargetSpec(plan.mesh, plan.param_specs)
-        rp = plan_resume(ckpt.manifest, target)
+        with obs.span("restore.plan"):
+            rp = plan_resume(ckpt.manifest, target)
         mode, reason = rp.mode, rp.reason
         if force_mode is not None:
             force = ResumeMode(force_mode)
@@ -344,14 +485,18 @@ class CheckpointManager:
                 raise ValueError(f"cannot force disk resume mode {force}")
             mode, reason = force, f"forced {force.value}; planner said {rp.mode.value}"
         state, cstats = None, None
+        stats = RestoreStats()
         engine = self.engine_for(device)
         try:
             if mode is ResumeMode.DIRECT:
-                state = state_from_source(ckpt, plan, device, engine=engine)
+                with obs.span("restore.tier", tier="direct"):
+                    state = state_from_source(ckpt, plan, device, engine=engine, stats=stats)
             elif mode is ResumeMode.RESHARD_STREAM:
                 transforms = rp.transforms or stream_transforms(ckpt.manifest, target)
                 try:
-                    state = state_from_stream(ckpt, plan, device, transforms, engine=engine)
+                    with obs.span("restore.tier", tier="reshard_stream"):
+                        state = state_from_stream(ckpt, plan, device, transforms,
+                                                  engine=engine, stats=stats)
                 except (OSError, KeyError, IntegrityError) as e:
                     # Expected stream-time failures: a shard lost or corrupt after
                     # planning, a manifest entry gone.  Programming errors
@@ -361,22 +506,28 @@ class CheckpointManager:
                     # drop what the engine cached of the (possibly damaged) source
                     # — for a delta, of its whole chain — and convert instead
                     engine.invalidate_chain(ckpt)
+                    obs.event("restore.fallback", step=step, tier="reshard_stream",
+                              to="via_ucp", error=f"{type(e).__name__}: {e}")
                     mode = ResumeMode.VIA_UCP
                     reason = (
                         f"{reason}; stream failed ({type(e).__name__}: {e}), "
                         "falling back to via_ucp"
                     )
+                    stats = RestoreStats()
             if mode is ResumeMode.VIA_UCP:
-                ucp, cstats = cached_ucp(ckpt, engine)
-                state = state_from_ucp(ucp, plan, device, engine=engine)
+                with obs.span("restore.tier", tier="via_ucp"):
+                    ucp, cstats = cached_ucp(ckpt, engine)
+                    state = state_from_ucp(ucp, plan, device, engine=engine, stats=stats)
         finally:
             engine.release(ckpt)  # no decoded shard outlives the restore
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        sw.set(mode=mode.value, reason=reason)
+        obs.add("restore.count")
         info = RestoreInfo(
             step=step, mode=mode, reason=reason,
-            scalars=dict(ckpt.manifest.scalars), wall_time_s=time.perf_counter() - t0,
-            convert_stats=cstats,
+            scalars=dict(ckpt.manifest.scalars), wall_time_s=sw.elapsed_s,
+            convert_stats=cstats, restore_stats=stats,
         )
         return state, info
 
@@ -407,7 +558,44 @@ class CheckpointManager:
             torch.cuda.synchronize(device)
         return ucp, cstats
 
-    def restore_latest(self, device: str | torch.device) -> tuple[TrainState, RestoreInfo] | None:
-        """Tiered resume over the disk tiers (the hot tier is not ported):
-        :meth:`restore` of the newest committed step."""
-        return self.restore(device)
+    def restore_latest(
+        self, device: str | torch.device, *, target_plan: ShardingPlan | None = None,
+        verify: bool = False,
+    ) -> tuple[TrainState, RestoreInfo] | None:
+        """Tiered resume onto ``device``: HOT_DIRECT → HOT_RESHARD → DIRECT
+        → RESHARD_STREAM → VIA_UCP.
+
+        Prefers the newest surviving in-memory snapshot when it is at least
+        as fresh as the best committed disk checkpoint and its replicas
+        still cover the full state (after any ``hot.fail_ranks``);
+        otherwise falls through to :meth:`restore`.  A hot restore opens no
+        checkpoint file.  With the hot tier off this is :meth:`restore`."""
+        plan = target_plan or self.plan
+        device = torch.device(device)
+        if self.hot is not None:
+            from repro_torch.hot import plan_hot_recovery, state_from_hot
+
+            target = TargetSpec(plan.mesh, plan.param_specs)
+            with obs.span("restore.plan"):
+                hp = plan_hot_recovery(self.hot, target, min_step=self.latest_step())
+            if hp is not None:
+                engine = self.engine_for(device)
+                with obs.timed("ckpt.restore", step=hp.step, mode=hp.mode.value,
+                               reason=hp.reason) as sw:
+                    stats = RestoreStats()
+                    try:
+                        with obs.span("restore.tier", tier=hp.mode.value):
+                            state = state_from_hot(hp.snapshot, plan, device, stats,
+                                                   engine=engine, verify=verify)
+                    finally:
+                        engine.release(hp.snapshot)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    obs.add("restore.count")
+                    info = RestoreInfo(
+                        step=hp.step, mode=hp.mode, reason=hp.reason,
+                        scalars=dict(hp.snapshot.manifest.scalars), wall_time_s=sw.elapsed_s,
+                        restore_stats=stats,
+                    )
+                return state, info
+        return self.restore(device, target_plan=target_plan, verify=verify)

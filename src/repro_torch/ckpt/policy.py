@@ -3,10 +3,11 @@
 
 Every field and default is the reference's, with its validation and the
 ``codec=`` tag shorthand; delta saves (``save_mode="delta"`` with
-``full_interval``) and the I/O pool width (``io_workers``) work as there.
-Knobs whose machinery the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item that brings it: the hot
-tier (``hot_interval``) and the fan-out registry (``registry``).
+``full_interval``), the hot in-memory tier (``hot_interval``,
+``hot_replication``, ``hot_max_snapshots``, ``hot_max_bytes`` and
+``disk_interval``) and the I/O pool width (``io_workers``) work as there.
+The fan-out registry (``registry``) raises ``NotImplementedError``: it is
+ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ class CheckpointPolicy:
 
     ================== ====================================================
     ``keep_last``      committed steps retained by GC
-    ``save_interval``  steps between saves
+    ``save_interval``  steps between saves (the hot cadence when the hot
+                       tier is on, the disk cadence otherwise)
     ``disk_interval``  steps between durable disk checkpoints (defaults to
                        ``save_interval``; only meaningful with a hot tier)
     ``hot_interval``   steps between in-memory snapshots (None = off)
@@ -81,13 +83,10 @@ class CheckpointPolicy:
             )
         if self.codec is not None and self.codec.is_raw:
             self.codec = None  # all-raw policy == no policy
-        missing = [
-            (self.hot_interval is not None, "hot_interval", "item 7: hot tier"),
-            (self.registry is not None, "registry", "item 8: fan-out"),
-        ]
-        for hit, knob, item in missing:
-            if hit:
-                raise NotImplementedError(f"{knob} is not ported yet (ROADMAP queue 1, {item})")
+        if self.registry is not None:
+            raise NotImplementedError(
+                "registry is not ported yet (ROADMAP queue 1, item 8: fan-out)"
+            )
 
     @property
     def effective_disk_interval(self) -> int:

@@ -62,17 +62,19 @@ from typing import Mapping
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core.convert import assemble_atom
 from repro_torch.core.engine import CheckpointEngine, default_engine
 from repro_torch.core.layout import DimSpec, MeshSpec, compute_layout
 from repro_torch.core.ops import clip_region_to_logical, gen_ucp_metadata, read_runtime_region
 from repro_torch.core.patterns import ParamSpec, ParamTransform, StateKind, TransformClass
 from repro_torch.core.pytree import unflatten_from_paths
-from repro_torch.core.tensor_io import staging_like, to_staging, torch_dtype
+from repro_torch.core.tensor_io import array_nbytes, staging_like, to_staging, torch_dtype
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState
 
 __all__ = [
+    "RestoreStats",
     "params_from_source",
     "params_from_ucp",
     "read_region_from_source",
@@ -115,6 +117,8 @@ def read_region_from_source(
         for rank, e, ovs in idx.overlapping(region)
     ]
     covered = sum(math.prod(hi - lo for lo, hi in ovs) for _, _, ovs in hits)
+    obs.add("restore.region_reads")
+    obs.add("restore.region_fragments", len(hits))
     out = staging_like([h for h, _, _ in hits], shape, dtype,
                        zero=covered < math.prod(shape), alloc=engine.alloc)
     for shard, e, ovs in hits:
@@ -232,9 +236,30 @@ def _coded_kinds(source) -> set[StateKind]:
             for key, tag in source.manifest.shard_codecs.items() if tag != "raw"}
 
 
+class RestoreStats:
+    """Bytes and arrays one restore served (the reference's accounting; the
+    ``restore.bytes_read`` and ``restore.arrays`` counters count the same)."""
+
+    def __init__(self):
+        self.bytes_read = 0
+        self.arrays = 0
+
+
+_FIELDS = {StateKind.FP32: "params", StateKind.EXP_AVG: "exp_avg",
+           StateKind.EXP_AVG_SQ: "exp_avg_sq"}
+
+
+def _device_done(device: torch.device) -> None:
+    """End a traced span after the card's queued work: CUDA work is
+    asynchronous, so a span closed at enqueue would undercount it.  No sync
+    while tracing is off (the disabled path stays free)."""
+    if device.type == "cuda" and obs.active() is not None:
+        torch.cuda.synchronize(device)
+
+
 def _build_flat(
     reader, plan: ShardingPlan, kind: StateKind, device, engine: CheckpointEngine,
-    *, pool: bool, whole: frozenset[str] = frozenset(),
+    *, pool: bool, whole: frozenset[str] = frozenset(), stats: RestoreStats | None = None,
 ) -> dict[str, torch.Tensor]:
     """One runtime-shaped tensor per parameter of ``kind`` on ``device``.
 
@@ -246,7 +271,12 @@ def _build_flat(
     evicted between concurrent region jobs and assembled, its coded shards
     decoded, again).  Then each region is copied into its tensor (a host
     region goes to the device once) and its staging buffer recycled.
-    Batching per kind bounds the staging to one copy of that kind."""
+    Batching per kind bounds the staging to one copy of that kind.
+
+    The two halves are the reference's ``restore.prefetch`` (reads,
+    assembly, decode) and ``restore.materialize`` (the copies into the
+    device tensors) spans; on a card each closes after a synchronize while
+    a tracer is enabled."""
     jobs = []
     for name, spec in plan.param_specs.items():
         regions = target_regions(spec, plan.mesh, kind)
@@ -256,17 +286,29 @@ def _build_flat(
     def read(job):
         return reader(job[0], kind, job[2], job[1])
 
-    pieces = engine.map(read, jobs) if pool else [read(j) for j in jobs]
+    field = _FIELDS[kind]
+    with obs.span("restore.prefetch", field=field, regions=sum(len(j[2]) for j in jobs)):
+        pieces = engine.map(read, jobs) if pool else [read(j) for j in jobs]
+        _device_done(device)
     out: dict[str, torch.Tensor] = {}
-    for i, (name, dtype, regions) in enumerate(jobs):
-        full = out.get(name)
-        if full is None:
-            shape = plan.param_specs[name].runtime_shape
-            full = out[name] = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
-        for region, piece in zip(regions, pieces[i]):
-            full[region] = to_staging(full, piece)
-            engine.recycle(piece)
-        pieces[i] = None
+    with obs.span("restore.materialize", field=field):
+        for i, (name, dtype, regions) in enumerate(jobs):
+            full = out.get(name)
+            if full is None:
+                shape = plan.param_specs[name].runtime_shape
+                full = out[name] = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+                if stats is not None:
+                    stats.arrays += 1
+                obs.add("restore.arrays")
+            for region, piece in zip(regions, pieces[i]):
+                n = array_nbytes(piece)
+                if stats is not None:
+                    stats.bytes_read += n
+                obs.add("restore.bytes_read", n)
+                full[region] = to_staging(full, piece)
+                engine.recycle(piece)
+            pieces[i] = None
+        _device_done(device)
     return out
 
 
@@ -277,6 +319,7 @@ def params_from_source(
     *,
     transforms: Mapping[str, ParamTransform] | None = None,
     engine: CheckpointEngine | None = None,
+    stats: RestoreStats | None = None,
 ) -> dict[str, torch.Tensor]:
     """Weights-only restore: flat ``{name: tensor}`` of runtime-shaped fp32
     weights on ``device``.
@@ -290,16 +333,17 @@ def params_from_source(
         return _build_flat(_reader_for(source, plan, transforms, engine), plan,
                            StateKind.FP32, torch.device(device), engine,
                            pool=StateKind.FP32 in _coded_kinds(source),
-                           whole=_consolidated(transforms))
+                           whole=_consolidated(transforms), stats=stats)
 
 
 def _build_state(
     reader, plan, device, step: int, engine: CheckpointEngine, coded: set[StateKind],
-    whole: frozenset[str] = frozenset(),
+    whole: frozenset[str] = frozenset(), stats: RestoreStats | None = None,
 ) -> TrainState:
     trees = {
         kind: unflatten_from_paths(
-            _build_flat(reader, plan, kind, device, engine, pool=kind in coded, whole=whole))
+            _build_flat(reader, plan, kind, device, engine, pool=kind in coded, whole=whole,
+                        stats=stats))
         for kind in (StateKind.FP32, StateKind.EXP_AVG, StateKind.EXP_AVG_SQ)
     }
     return TrainState(
@@ -328,14 +372,16 @@ def state_from_source(
     device: str | torch.device,
     *,
     engine: CheckpointEngine | None = None,
+    stats: RestoreStats | None = None,
 ) -> TrainState:
-    """DIRECT: the full TrainState (params, both moments, step) on
-    ``device``, from straight fragment unions."""
+    """DIRECT (and HOT_DIRECT): the full TrainState (params, both moments,
+    step) on ``device``, from straight fragment unions of any fragment
+    source — shard files, or a hot snapshot's surviving replicas."""
     device = torch.device(device)
     with _engine_for(source, device, engine) as engine:
         reader = _reader_for(source, plan, None, engine)
         return _build_state(reader, plan, device, int(source.manifest.step), engine,
-                            _coded_kinds(source))
+                            _coded_kinds(source), stats=stats)
 
 
 def state_from_stream(
@@ -345,17 +391,19 @@ def state_from_stream(
     transforms: Mapping[str, ParamTransform],
     *,
     engine: CheckpointEngine | None = None,
+    stats: RestoreStats | None = None,
 ) -> TrainState:
-    """RESHARD_STREAM: the full TrainState under a changed layout, with no
-    intermediate checkpoint.  Per the plan table, ``IDENTITY``/``RESLICE``
-    params stream Source fragments (clipped to the logical shape, padding
-    zero-filled) and ``CONSOLIDATE`` params are assembled in memory — on
-    the card for coded kinds — and served from the atom."""
+    """RESHARD_STREAM (and HOT_RESHARD): the full TrainState under a changed
+    layout, with no intermediate checkpoint.  Per the plan table,
+    ``IDENTITY``/``RESLICE`` params stream Source fragments (clipped to the
+    logical shape, padding zero-filled) and ``CONSOLIDATE`` params are
+    assembled in memory — on the card for coded kinds — and served from the
+    atom."""
     device = torch.device(device)
     with _engine_for(source, device, engine) as engine:
         reader = _reader_for(source, plan, transforms, engine)
         return _build_state(reader, plan, device, int(source.manifest.step), engine,
-                            _coded_kinds(source), _consolidated(transforms))
+                            _coded_kinds(source), _consolidated(transforms), stats)
 
 
 def state_from_ucp(
@@ -364,6 +412,7 @@ def state_from_ucp(
     device: str | torch.device,
     *,
     engine: CheckpointEngine | None = None,
+    stats: RestoreStats | None = None,
 ) -> TrainState:
     """VIA_UCP: the full TrainState on ``device`` from a UCP atom checkpoint
     (any Source layout; the Target plan's logical shapes must match the
@@ -371,7 +420,8 @@ def state_from_ucp(
     device = torch.device(device)
     with _engine_for(ucp, device, engine) as engine:
         reader = _ucp_reader(ucp, plan, engine)  # atoms are raw: read inline
-        return _build_state(reader, plan, device, int(ucp.manifest.step), engine, set())
+        return _build_state(reader, plan, device, int(ucp.manifest.step), engine, set(),
+                            stats=stats)
 
 
 def params_from_ucp(

@@ -33,13 +33,14 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-import time
 from pathlib import Path
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
+from repro_torch.chaos.points import fault_point
 from repro_torch.core.codec import CODEC_RAW, CodecPolicy, encode_shard
 from repro_torch.core.dist_ckpt import (
     DistCheckpoint,
@@ -54,7 +55,7 @@ from repro_torch.core.layout import slice_shard
 from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths
 from repro_torch.core.tensor_io import (
-    EXTENDED_DTYPES, content_digest, dtype_name, fsync_path, resolve_dtype, to_extended,
+    EXTENDED_DTYPES, array_nbytes, content_digest, dtype_name, fsync_path, resolve_dtype, to_extended,
     torch_dtype,
 )
 from repro_torch.dist.sharding import ShardingPlan
@@ -86,10 +87,11 @@ def snapshot_state(
         StateKind.EXP_AVG_SQ: state.exp_avg_sq,
     }
     out: dict[str, dict[StateKind, np.ndarray | torch.Tensor]] = {}
-    for kind, tree in trees.items():
-        coded = codec is not None and codec.tag_for(kind) != CODEC_RAW
-        for name, t in flatten_with_paths(tree).items():
-            out.setdefault(name, {})[kind] = t.detach().clone() if coded else _to_host(t)
+    with obs.span("save.stage"):
+        for kind, tree in trees.items():
+            coded = codec is not None and codec.tag_for(kind) != CODEC_RAW
+            for name, t in flatten_with_paths(tree).items():
+                out.setdefault(name, {})[kind] = t.detach().clone() if coded else _to_host(t)
     return out
 
 
@@ -117,10 +119,6 @@ class SaveResult:
     coded_raw_bytes: int = 0
     coded_bytes: int = 0
     device_to_host_bytes: int = 0
-
-
-def _nbytes(a) -> int:
-    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
 
 
 def _is_contiguous(a) -> bool:
@@ -165,12 +163,25 @@ def write_distributed(
     three tables (served digests, pre-encode digests where they differ,
     codec tags where not raw).  An all-raw policy is the plain byte path.
     """
-    t0 = time.perf_counter()
+    with obs.timed("ckpt.save", step=step) as sw:
+        return _write_distributed_traced(
+            sw, snap, plan, step, root, scalars, config_fingerprint,
+            save_mode, base, workers, engine, codec,
+        )
+
+
+def _write_distributed_traced(
+    sw, snap, plan, step, root, scalars, config_fingerprint,
+    save_mode, base, workers, engine, codec,
+) -> SaveResult:
+    # The body of write_distributed, inside its ``ckpt.save`` span: ``sw``
+    # gives the wall time and carries the result's attributes.
     fallback_reason = ""
     if save_mode == "delta":
-        base, fallback_reason = resolve_delta_base(
-            base, root, plan.mesh, plan.param_specs, save_mode
-        )
+        with obs.span("save.resolve_base"):
+            base, fallback_reason = resolve_delta_base(
+                base, root, plan.mesh, plan.param_specs, save_mode
+            )
         if base is None:
             save_mode = "dedup"  # rebase: write a full snapshot
     else:
@@ -219,7 +230,8 @@ def write_distributed(
         # The parallel path's fsync, in the worker that wrote the file, so
         # flushes overlap the other workers' writes; COMMIT still waits.
         if not serial:
-            fsync_path(ckpt.own_shard_path(rank, name, kind))
+            with obs.span("save.fsync"):
+                fsync_path(ckpt.own_shard_path(rank, name, kind))
 
     # A job returns (written, key, served digest, pre digest, tag, inherited,
     # coded raw bytes, coded bytes, device->host bytes).  An inherited shard
@@ -227,6 +239,11 @@ def write_distributed(
     # ancestor's file may be coded under another policy).
     def write_one(job):
         rank, name, kind, arr, layout, tag = job
+        fault_point("saver.shard", step=step, rank=rank, name=name, kind=kind.value)
+        with obs.span("save.shard", rank=rank, param=name, kind=kind.value) as sp:
+            return write_one_traced(sp, rank, name, kind, arr, layout, tag)
+
+    def write_one_traced(sp, rank, name, kind, arr, layout, tag):
         key = shard_digest_key(rank, name, kind)
         entries = layout.entries[rank]
         contiguous_view = None
@@ -245,6 +262,7 @@ def write_distributed(
             pre = content_digest(data)
             if base_digests is not None and base_digests.get(key) == pre:
                 engine.recycle(shard)
+                sp.set(inherited=True)
                 return inherited
             if tag == CODEC_RAW:
                 written = ckpt.write_shard(rank, name, kind, data, fsync=serial)
@@ -262,10 +280,11 @@ def write_distributed(
                 served = content_digest(enc.decoded)
                 on_device = isinstance(data, torch.Tensor) and data.device.type != "cpu"
                 # shard and decoded view hashed, q and scales encoded
-                d2h = 2 * _nbytes(data) + enc.payload.nbytes if on_device else 0
-                coded = (_nbytes(data), written, d2h)
+                d2h = 2 * array_nbytes(data) + enc.payload.nbytes if on_device else 0
+                coded = (array_nbytes(data), written, d2h)
             engine.recycle(shard)
             durable(rank, name, kind)
+            sp.set(codec=enc.tag)
             return (written, key, served, pre, enc.tag, False, *coded)
         written = digest = None
         if not serial and contiguous_view is not None:
@@ -311,7 +330,9 @@ def write_distributed(
         manifest.shard_codecs = codec_tbl
         if base is not None:
             flatten_provenance(manifest, base, [r[1] for r in results if r[5]])
-        ckpt.rewrite_manifest()
+        fault_point("saver.pre_manifest", step=step, mode=save_mode)
+        with obs.span("save.manifest"):
+            ckpt.rewrite_manifest()
         # A re-save into an existing directory must not leave readers on
         # stale handles of the replaced files: invalidate every engine that
         # could hold them (the one written through, the caller's, and the
@@ -324,9 +345,19 @@ def write_distributed(
             engine.close()
     if base is not None:
         check_chain_committed(ckpt)
+    fault_point("saver.pre_commit", step=step, mode=save_mode)
     ckpt.commit()
     res.mode = "delta" if base is not None else "full"
-    res.wall_time_s = time.perf_counter() - t0
+    res.wall_time_s = sw.elapsed_s
+    # One accumulation feeds both: the obs counters equal the SaveResult.
+    sw.set(mode=res.mode, bytes=res.bytes_written, shards_written=res.shards_written,
+           shards_inherited=res.shards_inherited)
+    obs.add(f"save.{res.mode}")
+    obs.add("save.bytes_written", res.bytes_written)
+    obs.add("save.shards_written", res.shards_written)
+    obs.add("save.shards_inherited", res.shards_inherited)
+    if fallback_reason:
+        obs.event("save.rebase", step=step, reason=fallback_reason)
     return res
 
 
@@ -386,10 +417,14 @@ class AsyncSaver:
         root_path = Path(root)
         with self._pending_lock:
             self._pending_roots.add(root_path)
+        # Explicit span handoff across the queue: the writer thread's spans
+        # hang off the span that submitted the save.
+        parent = obs.current()
 
         def job() -> SaveResult:
             try:
-                return write_distributed(snap, plan, step, root, **kw)
+                with obs.attach(parent), obs.span("save.async_job", step=step):
+                    return write_distributed(snap, plan, step, root, **kw)
             finally:
                 # only now may GC treat the directory as wreckage
                 with self._pending_lock:

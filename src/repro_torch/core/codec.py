@@ -44,11 +44,12 @@ import struct
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.kernels.block_quant.ops import block_dequantize, block_quantize
 from repro_torch.kernels.block_quant.ref import QDTYPES
 
 from .patterns import StateKind
-from .tensor_io import EXTENDED_DTYPES, IntegrityError, dtype_name, torch_dtype
+from .tensor_io import EXTENDED_DTYPES, IntegrityError, array_nbytes, dtype_name, torch_dtype
 
 __all__ = [
     "CODEC_RAW",
@@ -205,6 +206,7 @@ def encode_shard(arr, tag: str) -> EncodedShard:
         decoded = (d64 + residual.to(torch.float64)).to(t.dtype).reshape(t.shape)
         if not np.array_equal(_host_bytes(decoded), _host_bytes(t)):
             # exactness not provable for these values: refuse to pretend
+            obs.event("codec.ef_fallback", nbytes=array_nbytes(t))
             return EncodedShard(CODEC_RAW, None, arr)
         sections.append(("residual", residual.numpy()))
         decoded = decoded.to(t.device)
@@ -225,6 +227,9 @@ def encode_shard(arr, tag: str) -> EncodedShard:
         [np.frombuffer(_MAGIC + struct.pack("<I", len(hbytes)) + hbytes, dtype=np.uint8)]
         + [np.ascontiguousarray(a).view(np.uint8).reshape(-1) for _, a in sections]
     )
+    obs.add("codec.encode_shards")
+    obs.add("codec.encode_bytes_raw", array_nbytes(t))
+    obs.add("codec.encode_bytes_coded", int(payload.nbytes))
     return EncodedShard(spec.tag, payload, decoded)
 
 
@@ -281,6 +286,8 @@ def decode_payload(
     else:
         out = block_dequantize(q.to(dev), scales.to(dev), count=count).to(torch_dtype(dt))
     out = out.reshape(shape)
+    obs.add("codec.decode_shards")
+    obs.add("codec.decode_bytes", array_nbytes(out))
     if not on_card and dt not in EXTENDED_DTYPES:
         return out.numpy()
     return out

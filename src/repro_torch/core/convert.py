@@ -25,12 +25,13 @@ host to be written.
 from __future__ import annotations
 
 import dataclasses
-import time
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 import torch
+
+import repro_torch.obs as obs
 
 from .atoms import AtomInfo, UcpCheckpoint, UcpManifest
 from .dist_ckpt import DistCheckpoint
@@ -113,6 +114,19 @@ def _convert_one(
     Returns ``(bytes_read, bytes_written, atoms_written, digests)`` — one
     atom file per state kind the parameter carries; ``digests`` records each
     atom's content digest for the manifest."""
+    with obs.span("convert.param", param=spec.name) as sp:
+        result = _convert_one_traced(ckpt, ucp, spec, streaming, engine)
+        sp.set(bytes_written=result[1], atoms=result[2])
+    return result
+
+
+def _convert_one_traced(
+    ckpt: DistCheckpoint,
+    ucp: UcpCheckpoint,
+    spec: ParamSpec,
+    streaming: bool,
+    engine: CheckpointEngine,
+) -> tuple[int, int, int, dict[StateKind, str]]:
     read = written = atoms = 0
     digests: dict[StateKind, str] = {}
     for kind in STATE_KINDS:
@@ -196,30 +210,35 @@ def convert_to_ucp(
         ),
     )
 
-    t0 = time.perf_counter()
-    owns_engine = False
-    if workers is not None and (engine is None or engine.workers != workers):
-        device = engine.device if engine is not None else None
-        engine = CheckpointEngine(device, workers=max(1, workers))
-        owns_engine = True
-    elif engine is None:
-        engine = CheckpointEngine(workers=4)
-        owns_engine = True
     stats = ConvertStats(params=len(todo))
-    specs = list(todo.values())
-    try:
-        results = engine.map(lambda s: _convert_one(ckpt, ucp, s, streaming, engine), specs)
-    finally:
-        if owns_engine:
-            engine.close()
-    for spec, (r, w, a, digests) in zip(specs, results):
-        stats.bytes_read += r
-        stats.bytes_written += w
-        stats.atoms_written += a
-        ucp.manifest.atoms[spec.name] = dataclasses.replace(
-            ucp.manifest.atoms[spec.name], digests=digests
-        )
-    ucp._write_manifest()  # digests land before COMMIT
-    ucp.commit()
-    stats.wall_time_s = time.perf_counter() - t0
+    with obs.timed("convert.to_ucp", step=manifest.step, params=len(todo)) as sw:
+        owns_engine = False
+        if workers is not None and (engine is None or engine.workers != workers):
+            device = engine.device if engine is not None else None
+            engine = CheckpointEngine(device, workers=max(1, workers))
+            owns_engine = True
+        elif engine is None:
+            engine = CheckpointEngine(workers=4)
+            owns_engine = True
+        specs = list(todo.values())
+        try:
+            results = engine.map(lambda s: _convert_one(ckpt, ucp, s, streaming, engine), specs)
+        finally:
+            if owns_engine:
+                engine.close()
+        for spec, (r, w, a, digests) in zip(specs, results):
+            stats.bytes_read += r
+            stats.bytes_written += w
+            stats.atoms_written += a
+            ucp.manifest.atoms[spec.name] = dataclasses.replace(
+                ucp.manifest.atoms[spec.name], digests=digests
+            )
+        ucp._write_manifest()  # digests land before COMMIT
+        ucp.commit()
+        sw.set(bytes_written=stats.bytes_written, atoms=stats.atoms_written)
+    stats.wall_time_s = sw.elapsed_s
+    obs.add("convert.params", stats.params)
+    obs.add("convert.atoms_written", stats.atoms_written)
+    obs.add("convert.bytes_read", stats.bytes_read)
+    obs.add("convert.bytes_written", stats.bytes_written)
     return ucp, stats

@@ -37,6 +37,9 @@ from typing import Any, Mapping
 
 import numpy as np
 
+import repro_torch.obs as obs
+from repro_torch.chaos.points import fault_point
+
 from . import clock, codec
 from .layout import MeshSpec, ShardLayout
 from .patterns import ParamSpec, StateKind
@@ -326,12 +329,15 @@ class DistCheckpoint:
     def commit(self) -> None:
         """Atomic completion marker, written last and fsync'd.  A directory
         without COMMIT is garbage to discovery (crash-during-save safety)."""
-        tmp = self.root / "COMMIT.tmp"
-        with open(tmp, "w") as f:
-            f.write(json.dumps({"step": self.manifest.step, "t": clock.now()}))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, self.commit_path)
+        with obs.span("ckpt.commit", step=self.manifest.step):
+            fault_point("dist.pre_commit", step=self.manifest.step, root=str(self.root))
+            tmp = self.root / "COMMIT.tmp"
+            with open(tmp, "w") as f:
+                f.write(json.dumps({"step": self.manifest.step, "t": clock.now()}))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.commit_path)
+            fault_point("dist.committed", step=self.manifest.step, root=str(self.root))
 
     # ------------------------------------------------------------------- read
     @classmethod

@@ -24,8 +24,15 @@ through a :class:`CheckpointEngine`, which owns:
 
 A *fragment source* is anything with a ``.manifest`` (``params``, ``mesh``,
 ``save_mode``), ``.writing_ranks(name, kind)`` and
-``.read_fragment(rank, name, kind, engine=)`` — here, a
-:class:`~repro_torch.core.dist_ckpt.DistCheckpoint`.
+``.read_fragment(rank, name, kind, engine=)``: a
+:class:`~repro_torch.core.dist_ckpt.DistCheckpoint` (fragments are shard
+files) or a :class:`~repro_torch.hot.snapshot.HotSnapshot` (fragments are
+surviving in-memory replicas, keyed by a ``cache_key`` that changes on
+every rank failure).
+
+While a tracer is enabled (:mod:`repro_torch.obs`) the engine counts arena
+reuses and allocations, handle- and atom-cache hits, misses and evictions
+and index builds, and hands the submitting span over to its pool workers.
 
 An engine made for a CUDA ``device`` decodes coded fragments and atoms
 there (the dequantize kernel), and the region reads that use them assemble
@@ -44,6 +51,7 @@ ordered after the data it reads.
 from __future__ import annotations
 
 import bisect
+import functools
 import math
 import os
 import sys
@@ -54,6 +62,8 @@ from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
+
+import repro_torch.obs as obs
 
 from .tensor_io import resolve_dtype
 
@@ -171,8 +181,10 @@ class BufferArena:
                 self._retained -= raw.nbytes
                 self._pooled_ids.discard(id(raw))
                 self.reuses += 1
+                obs.add("engine.arena.reuse")
             else:
                 self.allocs += 1
+                obs.add("engine.arena.alloc")
         if raw is None:
             raw = np.empty(bucket, np.uint8).view(_ArenaBuffer)
         # a plain-ndarray view (np.save and torch never see the marker
@@ -224,11 +236,19 @@ class HandleCache:
     drops the reference only, so an evicted handle stays safe to use.
     """
 
-    def __init__(self, capacity: int = 128, max_bytes: int = 1 << 30):
+    def __init__(self, capacity: int = 128, max_bytes: int = 1 << 30,
+                 metric: str = "engine.handle"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self.max_bytes = int(max_bytes)
+        # obs counter prefix: the engine's two caches (file handles,
+        # consolidated atoms) count hit/miss/eviction under their own names,
+        # precomputed so the disabled path allocates nothing.
+        self.metric = metric
+        self._m_hit = metric + ".hit"
+        self._m_miss = metric + ".miss"
+        self._m_evict = metric + ".eviction"
         self._lock = threading.Lock()
         self._entries: OrderedDict[str, Any] = OrderedDict()  #: guarded by self._lock
         self._bytes = 0  #: guarded by self._lock
@@ -253,9 +273,12 @@ class HandleCache:
             if key in self._entries:
                 self.hits += 1
                 self._entries.move_to_end(key)
+                obs.add(self._m_hit)
                 return self._entries[key]
             self.misses += 1
+        obs.add(self._m_miss)
         value = loader()  # outside the lock: loads fault pages, read, decode
+        evicted = 0
         with self._lock:
             if key not in self._entries:
                 self._entries[key] = value
@@ -267,6 +290,9 @@ class HandleCache:
                 _, old = self._entries.popitem(last=False)
                 self._bytes -= self._weight(old)
                 self.evictions += 1
+                evicted += 1
+        if evicted:
+            obs.add(self._m_evict, evicted)
         return value
 
     def invalidate(self, path: str | os.PathLike | None = None) -> None:
@@ -407,7 +433,7 @@ class CheckpointEngine:
         self.handles = HandleCache(1024, 1 << 30)
         # Consolidated atoms of the stream restore: a byte-bounded LRU, so a
         # restore's peak memory for them is capped.
-        self.atoms = HandleCache(256, 1 << 30)
+        self.atoms = HandleCache(256, 1 << 30, metric="engine.atom")
         self.arena = BufferArena(1 << 30)
         self._indexes: dict[tuple[str, str, str], FragmentIndex] = {}  #: guarded by self._index_lock
         self._index_lock = threading.Lock()
@@ -447,6 +473,17 @@ class CheckpointEngine:
         items = list(items)
         if self.workers == 1 or len(items) <= 1:
             return [fn(x) for x in items]
+        parent = obs.current()
+        if parent is not None:
+            # Explicit span handoff into the pool: worker-side spans nest
+            # under the submitting span (which stays open: map() blocks on
+            # the results), not as per-thread roots.
+            inner = fn
+
+            def fn(x):
+                with obs.attach(parent):
+                    return inner(x)
+
         return list(self._get_pool().map(fn, items))
 
     def close(self) -> None:
@@ -476,8 +513,11 @@ class CheckpointEngine:
         # inserted, so a stale miss falls through to the locked setdefault.
         idx = self._indexes.get(key)
         if idx is not None:
+            obs.add("engine.index.hit")
             return idx
-        idx = FragmentIndex(source, name, kind)
+        with obs.span("engine.index_build", param=name):
+            obs.add("engine.index.build")
+            idx = FragmentIndex(source, name, kind)
         with self._index_lock:
             return self._indexes.setdefault(key, idx)
 
@@ -511,13 +551,15 @@ class CheckpointEngine:
             self.handles,
         )
 
-    def consolidated(self, source, name: str, kind, builder: Callable[[], Any]):
+    def consolidated(self, source, name: str, kind, build: Callable[[], Any]):
         """Memoized in-memory consolidated atom of one ``(source, param,
         kind)``: built once, then it serves every Target region of the
         parameter.  Single-flight per key, so concurrent region reads of
         one parameter never assemble it twice."""
         key = f"{source_cache_key(source)}::atom::{name}@{getattr(kind, 'value', kind)}"
-        return self._single_flight(key, builder)
+        if obs.active() is not None:
+            return self._single_flight(key, functools.partial(_traced, name, build))
+        return self._single_flight(key, build)
 
     def _single_flight(self, key: str, builder: Callable[[], Any],
                        cache: HandleCache | None = None) -> Any:
@@ -560,9 +602,20 @@ class CheckpointEngine:
     def release(self, source) -> None:
         """Drop what this engine cached of one checkpoint, its delta chain
         and its UCP atoms (``<root>.ucp``): the end of a restore or an
-        export, so that no decoded shard outlives the read that needed it."""
+        export, so that no decoded shard outlives the read that needed it.
+        A source with no root (an in-memory hot snapshot) drops what is
+        keyed by its ``cache_key``."""
+        if getattr(source, "root", None) is None:
+            self.invalidate(source_cache_key(source))
+            return
         self.invalidate_chain(source)
         self.invalidate(str(source.root) + ".ucp")
+
+
+def _traced(name: str, build: Callable[[], Any]) -> Any:
+    """Build a consolidated atom inside its ``restore.consolidate`` span."""
+    with obs.span("restore.consolidate", param=name):
+        return build()
 
 
 _default_engines: dict[str, CheckpointEngine] = {}  #: guarded by _default_lock

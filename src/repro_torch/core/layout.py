@@ -306,6 +306,9 @@ class ShardLayout:
     local_shape: tuple[int, ...]
     fragment_id: tuple[int, ...]
 
+    def ranks_for_fragment(self, frag: int) -> list[int]:
+        return [r for r, f in enumerate(self.fragment_id) if f == frag]
+
     def primary_ranks(self) -> list[int]:
         """One representative rank per distinct fragment (lowest rank wins)."""
         seen: dict[int, int] = {}

@@ -36,9 +36,11 @@ __all__ = [
 
 
 class ResumeMode(str, enum.Enum):
-    """The disk modes of the reference's ladder (its hot-tier modes come
-    with the hot tier, ROADMAP queue 1, item 7)."""
+    """The reference's recovery ladder, cheapest first: the hot tier's two
+    in-memory modes (:mod:`repro_torch.hot`), then the disk modes."""
 
+    HOT_DIRECT = "hot_direct"    # in-memory snapshot, identical layout
+    HOT_RESHARD = "hot_reshard"  # in-memory snapshot, resharded on the fly
     DIRECT = "direct"     # same layout: per-rank shard reads, no conversion
     RESHARD_STREAM = "reshard_stream"  # stream fragments into the new layout
     VIA_UCP = "via_ucp"   # param set changed: atoms, then Load

@@ -31,6 +31,7 @@ import torch
 __all__ = [
     "EXTENDED_DTYPES",
     "IntegrityError",
+    "array_nbytes",
     "content_digest",
     "digest_matches",
     "dtype_name",
@@ -74,6 +75,13 @@ def _raw_bytes_view(arr) -> np.ndarray:
             t = t.view(torch.uint16 if bits is np.uint16 else torch.uint8)
         return t.numpy()
     return np.ascontiguousarray(arr)
+
+
+def array_nbytes(arr) -> int:
+    """Element bytes of a numpy array or a torch tensor."""
+    if isinstance(arr, torch.Tensor):
+        return arr.numel() * arr.element_size()
+    return int(arr.nbytes)
 
 
 def content_digest(arr, algo: str = "sha256") -> str:

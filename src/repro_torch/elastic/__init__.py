@@ -1,0 +1,10 @@
+"""Elastic capacity: mesh proposals and in-process recovery (port of
+``repro.elastic``)."""
+
+from .planner import param_count, propose_mesh, state_bytes_per_chip
+from .resume import ElasticEvent, hot_recover, rebuild_on
+
+__all__ = [
+    "ElasticEvent", "hot_recover", "param_count", "propose_mesh", "rebuild_on",
+    "state_bytes_per_chip",
+]

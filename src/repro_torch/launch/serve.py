@@ -26,6 +26,11 @@ bytes are the ``.params`` of a full restore.
 
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises.  The last line of output is a JSON record of the run.
+
+Under a tracer (:mod:`repro_torch.obs`) the restore's plan is the
+``restore.plan`` span (beside ``restore.prefetch`` and
+``restore.materialize`` of the region reads), and the prefill and the
+decode steps are the reference's ``serve.prefill`` and ``serve.decode``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from pathlib import Path
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.ckpt.manager import cached_ucp
 from repro_torch.ckpt.restore import params_from_source, params_from_ucp
 from repro_torch.configs import ParallelismConfig, get_config, reduced
@@ -94,6 +100,9 @@ def latest_step_dir(root: str | Path) -> Path | None:
     return max(steps)[1] if steps else None
 
 
+DISK_MODES = (ResumeMode.DIRECT, ResumeMode.RESHARD_STREAM, ResumeMode.VIA_UCP)
+
+
 def restore_params(
     step_dir: str | Path, plan: ShardingPlan, device, *, force_mode: ResumeMode | None = None
 ) -> tuple[dict[str, torch.Tensor], ResumePlan]:
@@ -102,9 +111,12 @@ def restore_params(
     ``force_mode`` pins VIA_UCP (or RESHARD_STREAM, or DIRECT when the
     layouts are equal); the returned plan then carries that mode."""
     ckpt = DistCheckpoint.open(step_dir)
-    rp = plan_resume(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
+    with obs.span("restore.plan"):
+        rp = plan_resume(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
     if force_mode is not None:
         force = ResumeMode(force_mode)
+        if force not in DISK_MODES:
+            raise ValueError(f"cannot force disk restore mode {force}")
         if force is ResumeMode.DIRECT and rp.mode is not ResumeMode.DIRECT:
             raise ValueError(f"cannot force DIRECT restore: layouts differ ({rp.reason})")
         transforms = rp.transforms
@@ -157,19 +169,19 @@ def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len
     b, s = prompts.shape
     cache = D.init_cache(lm, b, cache_len or (s + gen), device=device)
     _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = D.prefill(lm, params, cache, prompts, source_embeds=source_embeds)
-    cur = logits.argmax(-1)[:, None]
-    _sync(device)
-    prefill_s = time.perf_counter() - t0
+    with obs.timed("serve.prefill", batch=b, prompt_len=s) as sw:
+        logits, cache = D.prefill(lm, params, cache, prompts, source_embeds=source_embeds)
+        cur = logits.argmax(-1)[:, None]
+        _sync(device)
+    prefill_s = sw.elapsed_s
     outs = [cur]
-    t0 = time.perf_counter()
-    for _ in range(gen - 1):
-        lg, cache = D.decode_step(lm, params, cache, cur)
-        cur = lg[:, -1].argmax(-1)[:, None]
-        outs.append(cur)
-    _sync(device)
-    return torch.cat(outs, 1), prefill_s, time.perf_counter() - t0
+    with obs.timed("serve.decode", batch=b, steps=gen - 1) as sw:
+        for _ in range(gen - 1):
+            lg, cache = D.decode_step(lm, params, cache, cur)
+            cur = lg[:, -1].argmax(-1)[:, None]
+            outs.append(cur)
+        _sync(device)
+    return torch.cat(outs, 1), prefill_s, sw.elapsed_s
 
 
 def main(argv=None) -> int:
@@ -181,7 +193,7 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default="data=1,model=1",
                    help="the layout this run plans its restore under")
     p.add_argument("--ckpt-dir", default=None, help="resume weights from here")
-    p.add_argument("--force-mode", default=None, choices=[m.value for m in ResumeMode],
+    p.add_argument("--force-mode", default=None, choices=[m.value for m in DISK_MODES],
                    help="pin the restore mode (via_ucp: convert the step into "
                    "<step dir>.ucp once and read its atoms)")
     p.add_argument("--batch", type=int, default=4)

@@ -17,11 +17,18 @@ Examples::
         --mesh data=2,model=2 --steps 20 --ckpt-dir /tmp/run2 --save-mode delta \
         --full-interval 4
 
+    # the hot tier: an in-memory snapshot every 2 steps, every 5th promoted
+    # to disk (--save-interval 10), and an obs trace of the run
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
+        --mesh data=2,model=2 --steps 20 --ckpt-dir /tmp/run3 --hot-interval 2 \
+        --trace /tmp/run3.trace.json
+
 The flags are the reference's.  The model trains on one device
 (``--device``, default ``cuda``; CUDA that is not there raises), and
 ``--mesh`` sets the checkpoint geometry.  Flags whose machinery is not
-ported raise: ``--host-devices`` above 0 (one device trains here),
-``--pipe-axis``, ``--hot-interval`` and ``--trace``.
+ported raise: ``--host-devices`` above 0 (one device trains here) and
+``--pipe-axis``.  ``--trace PATH`` records the run's spans and counters and
+writes them as a Chrome trace-event JSON at PATH.
 ``--log-json`` prints one JSON object per step (and one ``restored`` event).
 """
 
@@ -45,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--save-interval", type=int, default=10)
     p.add_argument("--hot-interval", type=int, default=None,
-                   help="the in-memory hot tier (not ported)")
+                   help="steps between in-memory hot snapshots (None = off); every "
+                   "(save-interval // hot-interval)-th snapshot is drained to disk")
     p.add_argument("--hot-replication", type=int, default=1)
     p.add_argument("--save-mode", default="dedup", choices=("dedup", "all", "delta"))
     p.add_argument("--full-interval", type=int, default=8,
@@ -73,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-json", action="store_true")
     p.add_argument("--trace", default=None, metavar="PATH",
-                   help="an obs trace of the run (not ported)")
+                   help="record an obs trace of the run and export it as a "
+                   "Chrome trace-event JSON (Perfetto-loadable) at PATH")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -82,8 +91,6 @@ def _refuse_unported(args) -> None:
     refused = [
         (args.host_devices > 0, "--host-devices", "one device trains here (item 11: multi-rank)"),
         (args.pipe_axis is not None, "--pipe-axis", "item 11: multi-rank runtime"),
-        (args.hot_interval is not None, "--hot-interval", "item 7: hot tier"),
-        (args.trace is not None, "--trace", "item 9: observability"),
     ]
     for hit, flag, item in refused:
         if hit:
@@ -94,6 +101,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
 
+    import repro_torch.obs as obs
+
+    tracer = obs.enable() if args.trace else None
+    try:
+        return _run(args)
+    finally:
+        if tracer is not None:
+            obs.write_chrome_trace(args.trace, tracer)
+            obs.disable(tracer)
+
+
+def _run(args) -> int:
     from repro_torch.ckpt.policy import CheckpointPolicy
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config, reduced
     from repro_torch.core.codec import CodecPolicy
@@ -136,6 +155,7 @@ def main(argv=None) -> int:
     policy = CheckpointPolicy(
         keep_last=args.keep_last,
         save_interval=args.save_interval,
+        hot_interval=args.hot_interval,
         hot_replication=args.hot_replication,
         async_save=not args.sync_save,
         save_mode=args.save_mode,

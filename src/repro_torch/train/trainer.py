@@ -21,11 +21,11 @@ loss (0 for a model without experts).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.ckpt.manager import CheckpointManager, RestoreInfo
 from repro_torch.ckpt.policy import CheckpointPolicy
 from repro_torch.configs.base import ModelConfig, ParallelismConfig, ShapeSpec, TrainConfig
@@ -141,16 +141,16 @@ class Trainer:
         history: list[dict[str, Any]] = []
         for step in range(start_step, start_step + num_steps):
             batch = self.batch(step)
-            t0 = time.perf_counter()
-            state, metrics = self.step_fn(state, batch)
-            _sync(self.device)
+            with obs.timed("train.step", step=step + 1) as sw:
+                state, metrics = self.step_fn(state, batch)
+                _sync(self.device)
             rec = {
                 "step": step + 1,
                 "loss": float(metrics["loss"]),
                 "aux": float(metrics["aux"]),
                 "grad_norm": float(metrics["grad_norm"]),
                 "lr": float(metrics["lr"]),
-                "dt": time.perf_counter() - t0,
+                "dt": sw.elapsed_s,
             }
             history.append(rec)
             if log:

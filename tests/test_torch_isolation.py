@@ -52,6 +52,9 @@ def test_scan_covers_the_port():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
+    for module in ("obs/trace.py", "obs/sinks.py", "chaos/points.py", "hot/snapshot.py",
+                   "hot/drain.py", "hot/recovery.py", "elastic/planner.py", "elastic/resume.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 30
 
 

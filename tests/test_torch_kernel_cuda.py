@@ -55,7 +55,12 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   recorded gradient;
 * each kernel's launches counted by dtype (bf16: the tensor-core kernel;
   fp32: the CUDA-core kernel), and the bf16 kernels' refusal of a view one
-  element off its row start.
+  element off its row start;
+* the hot tier's coded drain of a reduced smollm state on the card (one
+  quantize and one dequantize launch a coded fragment) byte-identical to
+  the CPU drain and to ``write_distributed``; a traced restore onto the
+  card whose ``restore.materialize`` span closes after a synchronize and
+  lasts at least the host-to-device copies timed by CUDA events.
 """
 
 import dataclasses
@@ -730,3 +735,109 @@ def test_export_ucp_on_card_equals_host_convert(cuda, tmp_path):
     assert card.validate() == []
     assert {n: a.digests for n, a in card.manifest.atoms.items()} == \
         {n: a.digests for n, a in host.manifest.atoms.items()}
+
+
+def _reduced_coded_state(device, mesh_d):
+    """Reduced smollm's plan under ``mesh_d`` and a state on ``device`` with
+    random moments (so every coded block has its own scale)."""
+    from repro_torch.core import MeshSpec
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+
+    cfg = reduced(get_config("smollm-360m"))
+    mesh, par = MeshSpec.from_dict(mesh_d), TC.ParallelismConfig()
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    plan = make_plan(cfg, lm.registry, par, mesh)
+    state = init_state(lm.init(torch.Generator(device=device).manual_seed(0)))
+    g = torch.Generator(device=device).manual_seed(1)
+    for tree in (state.exp_avg, state.exp_avg_sq):
+        for t in flatten_with_paths(tree).values():
+            t.copy_(torch.rand(t.shape, generator=g, device=device))
+    return plan, state
+
+
+def test_hot_drain_on_card_equals_cpu_drain(cuda, tmp_path):
+    """A reduced smollm's hot snapshot drained with int8:b256 moments: the
+    card state's drain encodes every coded fragment with the quantize
+    kernel (one launch each, and one dequantize for its served digest),
+    and its files are byte-identical to the drain of the same state on the
+    CPU (the plain codec) and to ``write_distributed``'s."""
+    from pathlib import Path
+
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.core import DistCheckpoint
+    from repro_torch.core.pytree import flatten_with_paths as flat
+    from repro_torch.hot import HotTier, persist_snapshot
+    from repro_torch.train.optimizer import TrainState
+
+    plan, state = _reduced_coded_state(cuda, {"data": 2, "model": 2})
+    policy = codec.CodecPolicy.moments("int8:b256")
+    cpu_state = TrainState(*(unflatten_from_paths({n: t.cpu() for n, t in flat(tree).items()})
+                             for tree in (state.params, state.exp_avg, state.exp_avg_sq)),
+                           state.step)
+    roots = {}
+    for label, st, dev in (("card", state, cuda), ("cpu", cpu_state, torch.device("cpu"))):
+        tier = HotTier(replication=1)
+        hs, _ = tier.capture(snapshot_state(st), plan, 4, device=dev)
+        q0, d0 = block_quantize.launches, block_dequantize.launches
+        res = persist_snapshot(hs, tmp_path / label / "step_00000004", codec=policy)
+        n_coded = len(DistCheckpoint.open(tmp_path / label / "step_00000004").manifest.shard_codecs)
+        launches = (block_quantize.launches - q0, block_dequantize.launches - d0)
+        want = (n_coded, n_coded) if label == "card" else (0, 0)
+        assert n_coded > 0 and launches == want, (label, launches, n_coded)
+        assert res.coded_bytes > 0
+        roots[label] = tmp_path / label / "step_00000004"
+        tier.clear()
+    write_distributed(snapshot_state(state, policy), plan, 4, tmp_path / "direct" / "step_00000004",
+                      codec=policy)
+    roots["direct"] = tmp_path / "direct" / "step_00000004"
+
+    def files(root: Path):
+        return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.glob("ranks/**/*.npy"))}
+
+    card = files(roots["card"])
+    for other in ("cpu", "direct"):
+        got = files(roots[other])
+        assert got.keys() == card.keys() and card
+        assert all(got[k] == card[k] for k in card), other
+    manifests = {k: DistCheckpoint.open(r).manifest.to_json() for k, r in roots.items()}
+    for m in manifests.values():
+        m.pop("created_at")
+    assert manifests["card"] == manifests["cpu"] == manifests["direct"]
+
+
+def test_traced_restore_materialize_spans_the_copies(cuda, tmp_path):
+    """A traced restore onto the card closes ``restore.materialize`` after a
+    synchronize: its duration is at least the host-to-device copies of the
+    same regions timed with CUDA events, and no copy is left queued when
+    it ends."""
+    import repro_torch.obs as obs
+    from repro_torch.ckpt.restore import params_from_source
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.core import DistCheckpoint, default_engine
+
+    plan, state = _reduced_coded_state(cuda, {"data": 2, "model": 2})
+    write_distributed(snapshot_state(state), plan, 1, tmp_path / "step_00000001")
+    ck = DistCheckpoint.open(tmp_path / "step_00000001")
+    params_from_source(ck, plan, cuda)  # warm: pages cached, CUDA context up
+    # the copies alone: each region's host array to the card, CUDA events
+    hosts = [t.cpu().numpy() for t in flatten_with_paths(state.params).values()]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for a in hosts:
+        torch.from_numpy(a).to(cuda)
+    end.record()
+    torch.cuda.synchronize()
+    copies_ms = start.elapsed_time(end)
+    with obs.enabled() as tracer:
+        out = params_from_source(ck, plan, cuda, engine=default_engine(cuda))
+        # the span closed after the card's queue drained: nothing is pending
+        assert torch.cuda.current_stream().query()
+    default_engine(cuda).release(ck)
+    spans = {r["name"]: r for r in tracer.span_records()}
+    assert {"restore.prefetch", "restore.materialize"} <= spans.keys()
+    mat_ms = spans["restore.materialize"]["dur_us"] / 1e3
+    assert mat_ms >= copies_ms * 0.9, (mat_ms, copies_ms)
+    assert spans["restore.materialize"]["ts_us"] >= spans["restore.prefetch"]["ts_us"]
+    for name, t in flatten_with_paths(state.params).items():
+        assert torch.equal(out[name], t), name

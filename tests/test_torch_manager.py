@@ -11,7 +11,8 @@ CPU):
   ``tests/test_reconfig_e2e.py``); with ``int8:b256`` they leave it, and
   the restored state and each continued step are held in fp32 against the
   JAX package continuing from the same coded checkpoint (see that test);
-* policy knobs and CLI flags whose machinery is not ported raise; delta
+* policy knobs and CLI flags whose machinery is not ported raise (the
+  hot tier's and ``--trace`` now run); delta
   saves through a 4-wide engine (``save_mode="delta"``, ``io_workers=4``)
   work, from the policy and from the CLI;
 * ``python -m repro_torch.launch.train --device cpu`` trains, then resumes
@@ -259,7 +260,13 @@ def test_int8_coded_resume_is_finite_and_mode_independent(tmp_path, mesh, mode):
     {"hot_interval": 2}, {"registry": object()},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_policy_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The fan-out registry (ROADMAP item 8) still raises; the hot tier
+    (item 7) is ported, so ``hot_interval`` now builds a policy."""
+    if "hot_interval" in kw:
+        policy = CheckpointPolicy(**kw)
+        assert (policy.hot_interval, policy.effective_disk_interval) == (2, 50)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         CheckpointPolicy(**kw)
 
 
@@ -278,9 +285,18 @@ def test_policy_validation_matches_reference(kw, err):
     ["--host-devices", "4"], ["--pipe-axis", "pipe"], ["--hot-interval", "2"],
     ["--trace", "t.json"],
 ], ids=lambda f: f[0])
-def test_unported_cli_flags_raise(flags):
+def test_unported_cli_flags_raise(flags, tmp_path):
+    """``--host-devices`` and ``--pipe-axis`` (item 11) still raise;
+    ``--hot-interval`` (item 7) and ``--trace`` (item 9a) are ported and run
+    (``tests/test_torch_elastic.py`` checks what they produce)."""
+    argv = ["--arch", "smollm-360m", "--reduced", "--device", "cpu"]
+    if flags[0] in ("--hot-interval", "--trace"):
+        flags = [flags[0], str(tmp_path / flags[1]) if flags[0] == "--trace" else flags[1]]
+        assert train_cli.main([*argv, "--steps", "1", "--batch", "2", "--seq", "16",
+                               "--ckpt-dir", str(tmp_path / "ck"), *flags]) == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu", *flags])
+        train_cli.main([*argv, *flags])
 
 
 def test_force_direct_on_a_changed_layout_raises(tmp_path):
