@@ -156,16 +156,37 @@ nothing falls back to the CPU or to a plain version):
    bit-equal, every moment shard the served view), 2 steps; each restore
    split by its spans; the Chrome trace exported and validated; the
    phase's directories removed;
+8b. fanout, full smollm-360m: a publisher trains under data=2,model=2
+   with ``CheckpointPolicy(codec="int8:b256", save_interval=2, keep_last=1,
+   registry=PublicationRegistry(...))`` (60 quantize launches a save); its
+   step 2 (seq 1) goes to 8 ``FleetReplica``s under data=1,model=1
+   (RESHARD_STREAM, ``wqkv`` consolidated) that share one card engine and
+   sync from threads: each bit-equal to ``params_from_source`` of the step
+   on the card, one set of tensors (``data_ptr``), each fp32 shard read from
+   disk once, 0 block-quant launches; the sync's wall and ``FanoutStats``;
+   2 independent readers with private engines restore the same step (wall
+   each, aggregate GB/s of both ways); replicas 0 and 7 and a direct
+   restore serve 4 x 512 and 16 steps in bf16 (32 flash launches a
+   prefill), equal tokens; a poisoned peer copy is caught by a new replica
+   (digest failure, refetch, holder evicted, bit-equal); seq 2 (step 4,
+   every weight changed) is synced under an obs tracer (``serve.sync``,
+   ``serve.fetch``, ``serve.publish`` spans and the ``serve.*`` counters),
+   every parameter rebuilt, bit-equal; seq 3 (step 5, ``final_norm``
+   changed) updates only ``final_norm`` in place, every other tensor kept;
+   the card memory the fleet keeps after seq 1, 2 and 3 (one set, not one
+   a publication); then the chaos sweep of seeds 0-2 with the harness's
+   state on the card, each report ok with the CPU run's schedule and
+   events;
 9. mixtral-8x22b (the MoE family) at full width: d 6144, 48:8 heads of
    128, 8 experts top-2 of d_ff 16384, vocab 32768, window 4096.
-   serve-moe, depth cut from 56 to 2 layers (5,410,781,184 params): init
+   serve-moe, depth cut from 56 to 1 layer (2,906,720,256 params): init
    on the card; a save under data=2,model=2 (expert parallelism) of the
    fp32 weights and bf16 zero moments coded ``int8:b256`` on the card
-   (one quantize launch a coded shard; 32.5 GB), beside the disk floor
+   (one quantize launch a coded shard), beside the disk floor
    measured on its largest files; weights-only restores under data=1,model=1
    (RESHARD_STREAM) and data=2,model=2 (DIRECT), each bit-equal to the
    save, then a read floor of the same fp32 files; from each, a bf16
-   prefill of 4 x 512 (2 flash launches at D = 128, counted) and 16
+   prefill of 4 x 512 (1 flash launch at D = 128, counted) and 16
    greedy decode steps, equal tokens, the share of routed slots dropped
    by capacity (none in decode); the profiled prefill and decode; one MoE
    layer's routing, dispatch, expert matmuls and combine timed apart; a 1
@@ -291,7 +312,9 @@ nothing falls back to the CPU or to a plain version):
    of it lost a record), the mixtral line (JSON), the deepseek line
    (JSON), the jamba line (JSON), the train_ssm line (JSON), the vlm and
    encdec lines (JSON), the ``hot`` line (JSON: phase 8a's walls, bytes,
-   launches, losses and splits) and the ``restore_split`` line (JSON: every
+   launches, losses and splits), the ``fanout`` line (JSON: phase 8b's
+   syncs, stats, retained memory, serves and chaos seeds; the kernels line
+   adds ``fanout_launches`` to the flash and block-quant rows) and the ``restore_split`` line (JSON: every
    weights-only DIRECT and RESHARD_STREAM restore of phases 6 and 9-14 run
    under a tracer, its ``restore.plan``, ``restore.prefetch`` (reads and
    region assembly) and ``restore.materialize`` (host-to-device copies,
@@ -2461,6 +2484,343 @@ def hot_phase(torch, bq_ops) -> dict:
     return out
 
 
+FANOUT_REPLICAS = 8
+
+
+def card_bytes(torch, value) -> int:
+    """Bytes of the card tensors in a cache entry (a tensor or a mapping)."""
+    if isinstance(value, dict):
+        return sum(card_bytes(torch, v) for v in value.values())
+    if isinstance(value, torch.Tensor) and value.device.type == "cuda":
+        return value.numel() * value.element_size()
+    return 0
+
+
+def fanout_phase(torch, bq_ops, counters) -> dict:
+    """Fan-out on full smollm-360m: a publisher trains under data=2,model=2
+    with ``CheckpointPolicy(codec="int8:b256", save_interval=2, keep_last=1,
+    registry=...)`` and publishes each commit; a fleet of 8 replicas under
+    data=1,model=1 (RESHARD_STREAM, ``wqkv`` consolidated), sharing one card
+    engine and syncing from threads, restores it through digest-checked
+    peer reads, bit-equal to a direct restore, with each fp32 shard read
+    from disk once; 2 independent readers restore the same step for
+    comparison; replicas 0 and 7 serve 4 x 512 through the flash kernel (32
+    launches a prefill), with the tokens of a direct-restore serve; seq 2
+    (every weight changed) and seq 3 (``final_norm`` alone) update the
+    fleet in place, the card memory it keeps measured after each; a corrupt
+    peer is caught and fetched again; one sync is traced; and the chaos
+    sweep runs 3 seeds with the harness's state on the card, each the CPU
+    run's schedule.  Returns the phase's record."""
+    import dataclasses
+
+    import repro_torch.obs as obs
+    from repro_torch.chaos.sweep import run_seed, sweep
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.restore import params_from_source
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.engine import CheckpointEngine
+    from repro_torch.core.plan import TargetSpec, stream_transforms
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import generate, restore_params, serving_parallelism
+    from repro_torch.models import build_model
+    from repro_torch.serve import FanoutStats, FleetReplica, PublicationRegistry
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    root = ROOT / "build" / "chip_smoke_fanout"
+    shutil.rmtree(root, ignore_errors=True)
+    phases = PhaseLaunches(bq_ops)
+    mesh11 = mesh_spec_from_string("data=1,model=1")
+    spar = serving_parallelism(mesh11)
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(spar, mesh11), compute_dtype=torch.bfloat16)
+    plan = make_plan(cfg, lm.registry, spar, mesh11)
+    registry = PublicationRegistry(name="fanout")
+    stats = FanoutStats()
+    engine = CheckpointEngine(dev)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    per_prefill = {"flash_attention": 32, "ssd_scan": 0}
+    reset = functools.partial(reset_launches, counters)
+    counts = functools.partial(launch_counts, counters)
+    out: dict = {"replicas": FANOUT_REPLICAS}
+
+    def direct(step):
+        """params_from_source of the step's directory on the card, through a
+        private engine: a reader of its own.  Returns the weights and the
+        wall."""
+        ckpt = DistCheckpoint.open(mgr.step_dir(step))
+        tr = stream_transforms(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
+        t0 = time.perf_counter()
+        with CheckpointEngine(dev) as private:
+            flat = params_from_source(ckpt, plan, dev, transforms=tr, engine=private)
+            torch.cuda.synchronize()
+        return flat, time.perf_counter() - t0
+
+    def same_as(reps, want, what):
+        for r in reps:
+            got = r.flat_params()
+            check(got.keys() == want.keys(), f"fanout: {what}: {r.name}'s parameter set differs")
+            for name, t in got.items():
+                check(torch.equal(t, want[name]), f"fanout: {what}: {r.name} {name} differs")
+
+    def fleet_sync(label, reps):
+        mark = phases.mark()
+        before = stats.as_dict()
+        errs: list = []
+
+        def one(r):
+            try:
+                check(r.sync(), f"fanout: {label}: {r.name} had no publication")
+            except BaseException as e:  # surfaced below, on the main thread
+                errs.append(e)
+
+        threads = [threading.Thread(target=one, args=(r,), name=f"replica-{r.name}") for r in reps]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), f"fanout: {label}: a sync hung")
+        if errs:
+            raise errs[0]
+        quant, dequant = phases.since(f"fanout: {label}", mark)
+        check(quant == dequant == 0, f"fanout: {label}: {quant} quantize and {dequant} "
+              "dequantize launches (a weights-only fleet reads raw fp32 shards on the host)")
+        now = stats.as_dict()
+        return wall, {k: now[k] - before[k] for k in now}
+
+    def retained(label):
+        gc.collect()
+        torch.cuda.synchronize()
+        got = dict(fleet_gb=(torch.cuda.memory_allocated() - base) / 1e9,
+                   engine_card_gb=sum(card_bytes(torch, v) for v in
+                                      list(engine.atoms._entries.values())) / 1e9)
+        check(got["fleet_gb"] <= one_set / 1e9 * 1.05 + 0.064,
+              f"fanout: after {label} the fleet keeps {got['fleet_gb']:.3f} GB on the card "
+              f"(one set is {one_set / 1e9:.3f} GB)")
+        return got
+
+    def serve(params_flat, what):
+        params_c = lm.registry.cast(unflatten_from_paths(params_flat), torch.bfloat16)
+        reset()
+        seq, prefill_s, decode_s = generate(lm, params_c, prompts, 17)
+        got = counts()
+        check(got == per_prefill, f"fanout: {what}: launches {got} in one prefill, "
+              f"want {per_prefill}")
+        check(tuple(seq.shape) == (4, 17), f"fanout: {what}: tokens {tuple(seq.shape)}")
+        return seq.cpu(), dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3 / 16,
+                               launches=got["flash_attention"])
+
+    try:
+        policy = CheckpointPolicy(codec="int8:b256", save_interval=2, keep_last=1,
+                                  registry=registry)
+        run = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string("data=2,model=2"),
+                             batch_size=8, seq_len=512, ckpt_dir=str(root / "ck"), policy=policy,
+                             device=dev)
+        mgr = run.manager
+        reps = [FleetReplica(f"r{i}", registry, plan, dev, engine=engine, stats=stats)
+                for i in range(FANOUT_REPLICAS)]
+
+        # seq 1: step 2, full
+        mark = phases.mark()
+        t0 = time.perf_counter()
+        state, _ = run.run(run.init_state(), 0, 2)
+        train2_s = time.perf_counter() - t0
+        q2, _ = phases.since("fanout: steps 1-2, save of 2", mark)
+        pub1 = registry.current()
+        check(pub1 is not None and (pub1.seq, pub1.step, pub1.kind) == (1, 2, "full"),
+              f"fanout: after step 2 the registry holds {pub1}")
+        n_coded = len(pub1.manifest.shard_codecs)
+        check(q2 == n_coded == 60, f"fanout: save of 2 made {q2} quantize launches "
+              f"({n_coded} coded shards), want 60")
+        torch.cuda.synchronize()
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        full_s, full_stats = fleet_sync("seq 1 full sync", reps)
+        one_set = sum(t.numel() * t.element_size() for t in reps[0].flat_params().values())
+        kept1 = retained("seq 1")  # before any other reader's copy exists
+        want, _ = direct(2)
+        same_as(reps, want, "seq 1")
+        for name, t in reps[0].flat_params().items():
+            check(all(r.flat_params()[name].data_ptr() == t.data_ptr() for r in reps),
+                  f"fanout: the replicas hold copies of {name}, not one tensor")
+        fp32 = [k for k in pub1.digests if k.endswith("@fp32")]
+        check(full_stats["disk_fetches"] == len(fp32) and full_stats["disk_bytes_read"] == one_set,
+              f"fanout: seq 1 read {full_stats['disk_fetches']} shards, "
+              f"{full_stats['disk_bytes_read']} bytes from disk ({len(fp32)} fp32 shards, "
+              f"{one_set} bytes)")
+        check(full_stats["disk_bytes_read"] <= 2 * one_set,
+              "fanout: fleet disk bytes over twice one reader's payload")
+        out["seq1"] = dict(sync_s=full_s, stats=full_stats, **kept1)
+        print(f"fanout smollm-360m: {FANOUT_REPLICAS} replicas data=1,model=1 from step 2 "
+              f"(trained under data=2,model=2; {n_coded} coded moment shards, {q2} quantize "
+              f"launches; steps 1-2 and the save {train2_s:.2f} s): full sync {full_s:.2f} s, "
+              f"{FANOUT_REPLICAS * one_set / 1e9 / full_s:.3f} GB/s aggregate "
+              f"({one_set / 1e9:.3f} GB of fp32 weights a replica); {full_stats}; "
+              f"card memory kept {out['seq1']['fleet_gb']:.3f} GB (engine's entries "
+              f"{out['seq1']['engine_card_gb']:.3f} GB); all bit-equal to a direct restore, "
+              "one tensor set, 0 block-quant launches")
+
+        # 2 independent readers of the same step, each its own engine
+        walls: list = [None, None]
+
+        def reader(i):
+            flat, walls[i] = direct(2)
+            check(all(torch.equal(flat[n], want[n]) for n in want),
+                  f"fanout: independent reader {i} differs")
+
+        threads = [threading.Thread(target=reader, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        both_s = time.perf_counter() - t0
+        check(all(w is not None for w in walls), "fanout: an independent reader failed")
+        out["independent"] = dict(reader_s=walls, wall_s=both_s,
+                                  aggregate_gb_s=2 * one_set / 1e9 / both_s)
+        out["seq1"]["aggregate_gb_s"] = FANOUT_REPLICAS * one_set / 1e9 / full_s
+        print(f"fanout 2 independent readers (private engines, concurrent): "
+              f"{', '.join(f'{w:.2f}' for w in walls)} s each, {both_s:.2f} s together, "
+              f"{out['independent']['aggregate_gb_s']:.3f} GB/s aggregate; the fleet "
+              f"{out['seq1']['aggregate_gb_s']:.3f} GB/s aggregate")
+
+        # serve from replicas 0 and 7 and from a direct restore of step 2
+        d_flat, _ = restore_params(mgr.step_dir(2), plan, dev)
+        serve(reps[0].flat_params(), "warm-up")  # the timed runs start warm
+        served = {}
+        for label, flat in (("replica 0", reps[0].flat_params()),
+                            ("replica 7", reps[-1].flat_params()), ("direct", d_flat)):
+            served[label] = serve(flat, label)
+        del d_flat, flat  # the loop's name would keep the direct restore on the card
+        seqs = [v[0] for v in served.values()]
+        check(all(torch.equal(a, seqs[0]) for a in seqs),
+              "fanout: replicas 0 and 7 and the direct restore serve other tokens")
+        out["serve"] = {k: v[1] for k, v in served.items()}
+        print(f"fanout serve 4x512 + 16 steps: " + "; ".join(
+            f"{k} prefill {v['prefill_ms']:.2f} ms, decode {v['decode_ms']:.3f} ms/token, "
+            f"{v['launches']} flash launches" for k, v in out["serve"].items())
+            + f"; equal tokens, sample {seqs[0][0, :8].tolist()}")
+
+        # a corrupt peer: poison one holder of one shard, sync a new replica
+        key = next(k for k in fp32 if "wqkv" in k)
+        skey = f"{key}@{pub1.digests[key]}"
+        holder = registry.holders(skey)[0]
+        registry.poison_holder(holder, skey)
+        vstats = FanoutStats()
+        victim = FleetReplica("victim", registry, plan, dev, engine=CheckpointEngine(dev),
+                              stats=vstats)
+        t0 = time.perf_counter()
+        check(victim.sync(), "fanout: the victim had no publication")
+        victim_s = time.perf_counter() - t0
+        same_as([victim], want, "the replica behind a corrupt peer")
+        check(vstats.digest_failures >= 1 and vstats.refetches >= 1,
+              f"fanout: corrupt peer not caught: {vstats.as_dict()}")
+        check(holder not in registry.holders(skey) and "victim" in registry.holders(skey),
+              f"fanout: holders of {key} after the corrupt fetch: {registry.holders(skey)}")
+        out["corrupt_peer"] = dict(sync_s=victim_s, stats=vstats.as_dict(), shard=key)
+        print(f"fanout corrupt peer ({holder}'s copy of {key}): a new replica with its own "
+              f"engine synced in {victim_s:.2f} s, {vstats.as_dict()}; holder evicted, "
+              "bit-equal")
+        registry.unsubscribe(victim.subscription)
+        victim.engine.close()
+        del victim, want, served, seqs
+
+        # seq 2: step 4, every weight changed, traced
+        with obs.enabled() as tracer:
+            mark = phases.mark()
+            state, _ = run.run(state, 2, 2)
+            q4, _ = phases.since("fanout: steps 3-4, save of 4", mark)
+            pub2 = registry.current()
+            check((pub2.seq, pub2.step, pub2.kind) == (2, 4, "delta"),
+                  f"fanout: after step 4 the registry holds seq {pub2.seq} step {pub2.step}")
+            names = set(plan.param_specs)
+            check(pub2.changed_params >= names, "fanout: seq 2 left some weight unchanged")
+            delta_s, delta_stats = fleet_sync("seq 2 delta sync", reps)
+        kept2 = retained("seq 2")
+        check(all(r.last_update == frozenset(names) for r in reps),
+              "fanout: seq 2 did not rebuild every parameter")
+        want, _ = direct(4)
+        same_as(reps, want, "seq 2")
+        del want
+        out["seq2"] = dict(sync_s=delta_s, stats=delta_stats, quantize=q4, **kept2)
+        span_names = {r["name"] for r in tracer.span_records()}
+        serve_counters = {k: v for k, v in tracer.counters().items() if k.startswith("serve.")}
+        check({"serve.sync", "serve.fetch", "serve.publish"} <= span_names,
+              f"fanout: traced sync lacks serve spans ({sorted(span_names)})")
+        check(serve_counters.get("serve.syncs") == FANOUT_REPLICAS
+              and serve_counters.get("serve.publications") == 1
+              and serve_counters.get("serve.disk_fetches") == delta_stats["disk_fetches"] > 0,
+              f"fanout: serve counters {serve_counters}")
+        out["trace"] = dict(spans=len(tracer.span_records()), serve_counters=serve_counters)
+        print(f"fanout seq 2 (step 4, {len(pub2.changed)} shards changed, {q4} quantize "
+              f"launches): delta sync {delta_s:.2f} s rebuilt all {len(names)} params, "
+              f"bit-equal to a direct restore; {delta_stats}; card memory kept "
+              f"{out['seq2']['fleet_gb']:.3f} GB; traced: {len(tracer.span_records())} spans, "
+              f"counters {serve_counters}")
+
+        # seq 3: step 5 = step 4 with final_norm changed
+        params5 = dict(state.params)
+        params5["final_norm"] = state.params["final_norm"] * 1.5
+        state5 = dataclasses.replace(state, params=params5, step=5)
+        mark = phases.mark()
+        mgr.save(state5, 5, block=True)
+        q5, _ = phases.since("fanout: save of 5 (final_norm changed)", mark)
+        check(q5 == 60, f"fanout: save of 5 made {q5} quantize launches, want 60")
+        pub3 = registry.current()
+        check((pub3.seq, pub3.step) == (3, 5) and pub3.changed_params == {"final_norm"},
+              f"fanout: seq 3 changed {sorted(pub3.changed_params)}, want final_norm")
+        ptrs = {n: t.data_ptr() for n, t in reps[0].flat_params().items()}
+        inplace_s, inplace_stats = fleet_sync("seq 3 in-place sync", reps)
+        kept3 = retained("seq 3")
+        check(all(r.last_update == frozenset({"final_norm"}) for r in reps),
+              f"fanout: seq 3 rebuilt {sorted(reps[0].last_update)}")
+        now = reps[0].flat_params()
+        check(all(now[n].data_ptr() == ptrs[n] for n in now if n != "final_norm")
+              and now["final_norm"].data_ptr() != ptrs["final_norm"],
+              "fanout: the in-place delta replaced an unchanged tensor")
+        want, _ = direct(5)
+        same_as(reps, want, "seq 3")
+        del want, now, state, state5, params5
+        out["seq3"] = dict(sync_s=inplace_s, stats=inplace_stats, quantize=q5, **kept3)
+        print(f"fanout seq 3 (step 5, final_norm changed): in-place sync {inplace_s:.3f} s "
+              f"(the full sync {full_s:.2f} s); {inplace_stats}; every other tensor kept; "
+              f"card memory kept after seq 1, 2, 3: "
+              f"{[round(out[k]['fleet_gb'], 3) for k in ('seq1', 'seq2', 'seq3')]} GB "
+              f"(engine's entries "
+              f"{[round(out[k]['engine_card_gb'], 3) for k in ('seq1', 'seq2', 'seq3')]} GB)")
+        mgr.close()
+        del reps
+        engine.close()
+
+        # chaos: 3 seeds with the harness's state on the card, each the CPU run's schedule
+        t0 = time.perf_counter()
+        res = sweep(range(3))
+        chaos_s = time.perf_counter() - t0
+        check(res.ok, f"fanout: chaos sweep on the card: {res.describe()}")
+        for rep in res.reports:
+            cpu = run_seed(rep.seed, device="cpu")
+            check(not rep.violations and rep.schedule == cpu.schedule
+                  and rep.events_completed == cpu.events_completed,
+                  f"fanout: chaos seed {rep.seed}: card {rep.events_completed} events, "
+                  f"CPU {cpu.events_completed}")
+        out["chaos"] = dict(seconds=chaos_s, seeds=[dict(
+            seed=r.seed, ok=r.ok, events_completed=r.events_completed, faults=len(r.schedule),
+            config=r.config) for r in res.reports])
+        print(f"fanout chaos sweep, seeds 0-2 on the card: {res.describe()} in {chaos_s:.2f} s; "
+              "schedules and events equal to the CPU runs'")
+        out["launches_by_phase"] = phases.by_phase
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def mixtral(layers: int):
     """mixtral-8x22b at full width with its depth cut to ``layers`` (every
     layer is alike: sliding window 4096 and 8 experts top-2)."""
@@ -2906,8 +3266,9 @@ def decode_check(torch, flm, params, prompts, counters: dict, lm_mod, full_atten
     return dict(max_abs_err=err, steps=steps, compared=int(same.sum()), of=same.numel())
 
 
-def moe_serve_phase(torch, counters: dict, bq_ops, kernel, layers: int = 2):
-    """mixtral-8x22b at full width, depth cut to ``layers``: save under
+def moe_serve_phase(torch, counters: dict, bq_ops, kernel, layers: int = 1):
+    """mixtral-8x22b at full width, depth cut to ``layers`` (one, so the whole
+    smoke stays near 1,000 s of its 1,200 s limit): save under
     data=2,model=2 (EP; fp32 weights, bf16 zero moments coded int8:b256 on
     the card); the serve path from it (:func:`serve_restores`:
     RESHARD_STREAM and DIRECT restores bit-equal to the save, a bf16
@@ -4081,6 +4442,12 @@ def main() -> int:
     check(hot_bq == {"quantize": hot["quantize"],
                      "dequantize": hot["dequantize"] + hot["fall_through_dequantize"]},
           f"hot: block-quant launches {hot_bq} outside the counted sub-phases")
+    reset_launches(bq_counters)
+    fanout = fanout_phase(torch, bq_ops, counters)
+    fanout_bq = launch_counts(bq_counters)  # the publisher's saves; the fleet's syncs make none
+    check(fanout_bq == {k: sum(v[k] for v in fanout["launches_by_phase"].values())
+                        for k in fanout_bq},
+          f"fanout: block-quant launches {fanout_bq} outside the counted sub-phases")
     moe_serve = moe_serve_phase(torch, counters, bq_ops, kernel)
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
     reset_launches(bq_counters)
@@ -4201,6 +4568,7 @@ def main() -> int:
         "encdec_prefill_device_ms": encdec["prefill_device_ms"],
         "encdec_prefill_kernel_ms": encdec["prefill_kernel_ms"],
         "train_encdec_launches": train_encdec_kernels["flash_attention"],
+        "fanout_launches": {k: v["launches"] for k, v in fanout["serve"].items()},
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -4239,6 +4607,9 @@ def main() -> int:
             rows[-1][f"train_ssm_shard_{key}"] = train_ssm["shard_times"][name][key]
         if name == "dequantize_blocks":
             rows[-1]["convert_launches"] = train["export"]["launches"]
+        rows[-1]["fanout_launches"] = fanout_bq[which]
+        rows[-1]["fanout_launches_by_phase"] = {k: v[which]
+                                                for k, v in fanout["launches_by_phase"].items()}
         rows[-1]["hot_launches"] = hot_bq[which]
         rows[-1]["hot_launches_by_phase"] = {k: v[which]
                                              for k, v in hot["launches_by_phase"].items()}
@@ -4311,6 +4682,7 @@ def main() -> int:
                                            if k not in ("save", "read_floor", "runs")},
                                  "train": train_encdec}}))
     print(json.dumps({"hot": {k: v for k, v in hot.items() if k != "launches_by_phase"}}))
+    print(json.dumps({"fanout": {k: v for k, v in fanout.items() if k != "launches_by_phase"}}))
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"kernels": rows}))
     print(card)

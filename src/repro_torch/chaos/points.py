@@ -11,13 +11,13 @@ is a single global read and a branch — zero-cost no-op — and the modules
 carrying the points import nothing but this file.
 
 When a controller is active (:func:`activate`: anything with
-``on_point(name, ctx)``; the reference's ``ChaosController`` and its
-schedules are ROADMAP item 9b), each hit reaches it, and it may raise
-:class:`FaultError` (a crash), act on the environment (rank loss, storage
-loss, clock skew), or pause the hitting thread on a gate so a test can
-build an exact interleaving.  ``CATALOG`` is the authoritative list of
-point names.  The port calls every point but the three of the fan-out
-tier (``registry.publish.*``, ``peer.fetch``: item 8).
+``on_point(name, ctx)``, such as
+:class:`~repro_torch.chaos.schedule.ChaosController`), each hit reaches
+it, and it may raise :class:`FaultError` (a crash), act on the environment
+(rank loss, storage loss, peer poisoning, clock skew), or pause the hitting
+thread on a gate so a test can build an exact interleaving.  ``CATALOG`` is
+the authoritative list of point names; schedules naming an unknown point
+are refused when they are built.
 
 Placement rule: a fault point never fires while holding a lock another
 fault point's thread might need — pauses must be able to stall a thread

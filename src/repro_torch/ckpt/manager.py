@@ -28,12 +28,17 @@
   the state's device), see :mod:`repro_torch.hot`;
 * tiered resume (:meth:`CheckpointManager.restore_latest`): HOT_DIRECT →
   HOT_RESHARD → DIRECT → RESHARD_STREAM → VIA_UCP, surviving in-memory
-  replicas first, then the disk tiers.
+  replicas first, then the disk tiers;
+* fan-out (``policy.registry``, a
+  :class:`~repro_torch.serve.PublicationRegistry`): every newly committed
+  step is published (``_maybe_publish`` runs after ``save()`` and in
+  ``wait()``, so an async save is announced once its commit is observed),
+  and GC keeps the currently published step, the fleet's disk tier, past
+  ``keep_last``.
 
 Spans, counters, events and fault points are the reference's
 (:mod:`repro_torch.obs`, :mod:`repro_torch.chaos.points`); no fault point
-fires while a lock of the manager is held.  Fan-out publishing is refused
-by :class:`CheckpointPolicy` (ROADMAP item 8).
+fires while a lock of the manager is held.
 """
 
 from __future__ import annotations
@@ -136,7 +141,12 @@ class CheckpointManager:
         durable disk checkpoint in the background (``disk_interval``
         defaults to ``save_interval``).  ``hot_replication`` extra copies
         per fragment; ``hot_max_snapshots`` / ``hot_max_bytes`` bound the
-        ring."""
+        ring.
+
+        Fan-out policy: ``registry`` publishes every newly committed step;
+        the newest committed step is always within ``keep_last`` and the
+        published one is kept too, so a publication's disk tier outlives
+        GC."""
         self.policy = policy if policy is not None else CheckpointPolicy()
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
@@ -148,6 +158,8 @@ class CheckpointManager:
         self.save_mode = self.policy.save_mode
         self.full_interval = self.policy.full_interval
         self.codec = self.policy.codec
+        self.registry = self.policy.registry
+        self._published_step: int | None = None
         self.config_fingerprint = dict(config_fingerprint or {})
         self._disk_save_seq = 0  # the save counter behind the rebase cadence
         # Chain pins: save root -> the chain directories its in-flight delta
@@ -282,6 +294,7 @@ class CheckpointManager:
             if block:
                 self._drainer.wait()
             self.gc()
+            self._maybe_publish()
             return
         kw = dict(
             scalars=dict(scalars or {}),
@@ -296,10 +309,11 @@ class CheckpointManager:
             snap = snapshot_state(state, self.codec)
             write_distributed(snap, self.plan, step, self.step_dir(step), **kw)
         self.gc()
+        self._maybe_publish()
 
     def wait(self) -> list[SaveResult]:
         # A drainer failure must not leave async-saver errors undrained (or
-        # the reverse), and GC still sees whatever did commit.
+        # the reverse), and GC and publishing still see whatever did commit.
         res: list[SaveResult] = []
         try:
             if self._drainer is not None:
@@ -311,7 +325,35 @@ class CheckpointManager:
             finally:
                 if self._async is not None or self._drainer is not None:
                     self.gc()
+                self._maybe_publish()
         return res
+
+    # ----------------------------------------------------------- publishing
+    def publish(self, step: int | None = None):
+        """Announce one committed step (the newest by default) to the fan-out
+        registry (:mod:`repro_torch.serve`).  Returns the
+        :class:`~repro_torch.serve.registry.Publication`, or None when
+        nothing is committed yet."""
+        if self.registry is None:
+            raise ValueError("CheckpointManager has no publication registry")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        pub = self.registry.publish(DistCheckpoint.open(self.step_dir(step)))
+        self._published_step = max(step, self._published_step or step)
+        return pub
+
+    def _maybe_publish(self) -> None:
+        """Publish the newest committed step not announced yet.  Runs after
+        every ``save()`` and ``wait()``: a synchronous save publishes at
+        once, an async or drained one on the next call that sees its
+        commit."""
+        if self.registry is None:
+            return
+        step = self.latest_step()
+        if step is None or (self._published_step is not None and step <= self._published_step):
+            return
+        self.publish(step)
 
     def close(self) -> None:
         """Drain the hot drainer and the async writer (surfacing their
@@ -378,6 +420,14 @@ class CheckpointManager:
         inflight = self._inflight_roots()
         steps = self.steps()
         keep: set[int] = set(steps[-self.keep_last:])
+        if self.registry is not None:
+            # The fleet's disk tier: the currently published step outlives GC
+            # even when newer commits pushed it past keep_last (a crash
+            # between commit and announce leaves the fleet on the older
+            # publication).
+            pub = self.registry.current()
+            if pub is not None and pub.step in steps:
+                keep.add(pub.step)
         # every step a kept chain references, to a fixpoint
         frontier = list(keep)
         while frontier:

@@ -5,9 +5,9 @@ Every field and default is the reference's, with its validation and the
 ``codec=`` tag shorthand; delta saves (``save_mode="delta"`` with
 ``full_interval``), the hot in-memory tier (``hot_interval``,
 ``hot_replication``, ``hot_max_snapshots``, ``hot_max_bytes`` and
-``disk_interval``) and the I/O pool width (``io_workers``) work as there.
-The fan-out registry (``registry``) raises ``NotImplementedError``: it is
-ROADMAP item 8.
+``disk_interval``), the I/O pool width (``io_workers``) and the fan-out
+registry (``registry``: every committed step is published to it) work as
+there.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ class CheckpointPolicy:
     ``codec``          a :class:`~repro_torch.core.codec.CodecPolicy`, a
                        codec tag (shorthand for "code the optimizer moments
                        with this tag, keep params raw"), or None (all raw)
-    ``registry``       fan-out publication registry
+    ``registry``       fan-out :class:`~repro_torch.serve.PublicationRegistry`:
+                       every committed step is published to it
     ================== ====================================================
     """
 
@@ -83,10 +84,6 @@ class CheckpointPolicy:
             )
         if self.codec is not None and self.codec.is_raw:
             self.codec = None  # all-raw policy == no policy
-        if self.registry is not None:
-            raise NotImplementedError(
-                "registry is not ported yet (ROADMAP queue 1, item 8: fan-out)"
-            )
 
     @property
     def effective_disk_interval(self) -> int:

@@ -75,6 +75,7 @@ from repro_torch.train.optimizer import TrainState
 
 __all__ = [
     "RestoreStats",
+    "build_param_arrays",
     "params_from_source",
     "params_from_ucp",
     "read_region_from_source",
@@ -111,26 +112,35 @@ def read_region_from_source(
     engine = engine or default_engine()
     idx = engine.index_for(source, name, kind)
     region = _canon_region(region, idx.spec.runtime_shape)
-    shape = tuple(r.stop - r.start for r in region)
-    hits = [
-        (engine.read_fragment(source, rank, name, kind), e, ovs)
-        for rank, e, ovs in idx.overlapping(region)
-    ]
-    covered = sum(math.prod(hi - lo for lo, hi in ovs) for _, _, ovs in hits)
-    obs.add("restore.region_reads")
-    obs.add("restore.region_fragments", len(hits))
-    out = staging_like([h for h, _, _ in hits], shape, dtype,
-                       zero=covered < math.prod(shape), alloc=engine.alloc)
-    for shard, e, ovs in hits:
-        src_idx = tuple(
-            slice(s0 + (lo - a0), s0 + (hi - a0))
-            for (a0, _), (s0, _), (lo, hi) in zip(e.atom_slice, e.shard_slice, ovs)
-        )
-        dst_idx = tuple(
-            slice(lo - r.start, hi - r.start) for (lo, hi), r in zip(ovs, region)
-        )
-        out[dst_idx] = to_staging(out, shard[src_idx])
-    return out
+
+    def build():
+        shape = tuple(r.stop - r.start for r in region)
+        hits = [
+            (engine.read_fragment(source, rank, name, kind), e, ovs)
+            for rank, e, ovs in idx.overlapping(region)
+        ]
+        covered = sum(math.prod(hi - lo for lo, hi in ovs) for _, _, ovs in hits)
+        obs.add("restore.region_reads")
+        obs.add("restore.region_fragments", len(hits))
+        out = staging_like([h for h, _, _ in hits], shape, dtype,
+                           zero=covered < math.prod(shape), alloc=engine.alloc)
+        for shard, e, ovs in hits:
+            src_idx = tuple(
+                slice(s0 + (lo - a0), s0 + (hi - a0))
+                for (a0, _), (s0, _), (lo, hi) in zip(e.atom_slice, e.shard_slice, ovs)
+            )
+            dst_idx = tuple(
+                slice(lo - r.start, hi - r.start) for (lo, hi), r in zip(ovs, region)
+            )
+            out[dst_idx] = to_staging(out, shard[src_idx])
+        return out
+
+    # Fan-out sources (``share_regions``, e.g. serve.PeerFragmentSource) pool
+    # identical region reads across a fleet: assembled once into the
+    # engine's byte-bounded cache, served to every reader.
+    if getattr(source, "share_regions", False):
+        return engine.shared_region(source, name, kind, region, dtype, build)
+    return build()
 
 
 def _stream_reader(
@@ -260,8 +270,10 @@ def _device_done(device: torch.device) -> None:
 def _build_flat(
     reader, plan: ShardingPlan, kind: StateKind, device, engine: CheckpointEngine,
     *, pool: bool, whole: frozenset[str] = frozenset(), stats: RestoreStats | None = None,
+    names=None,
 ) -> dict[str, torch.Tensor]:
-    """One runtime-shaped tensor per parameter of ``kind`` on ``device``.
+    """One runtime-shaped tensor per parameter of ``kind`` on ``device``
+    (of the parameters in ``names``, when given).
 
     Every (parameter, region) of the kind is read up front (through the
     engine's pool when ``pool``, else inline): one job a region, but one job
@@ -279,6 +291,8 @@ def _build_flat(
     a tracer is enabled."""
     jobs = []
     for name, spec in plan.param_specs.items():
+        if names is not None and name not in names:
+            continue
         regions = target_regions(spec, plan.mesh, kind)
         groups = [regions] if name in whole else [[region] for region in regions]
         jobs += [(name, spec.states[kind].dtype, group) for group in groups]
@@ -312,6 +326,31 @@ def _build_flat(
     return out
 
 
+def build_param_arrays(
+    source,
+    plan: ShardingPlan,
+    device: str | torch.device,
+    *,
+    transforms: Mapping[str, ParamTransform] | None = None,
+    names=None,
+    stats: RestoreStats | None = None,
+    engine: CheckpointEngine | None = None,
+) -> dict[str, torch.Tensor]:
+    """The serving side's building block: flat ``{name: tensor}`` of
+    runtime-shaped fp32 weights on ``device``, no optimizer moments.
+
+    ``transforms=None`` means the source layout equals the Target plan's
+    (DIRECT); a plan table from
+    :func:`~repro_torch.core.plan.stream_transforms` streams a layout change
+    (RESHARD_STREAM).  ``names`` restricts the restore to a subset of the
+    parameters: how a delta publication updates a live replica in place."""
+    with _engine_for(source, device, engine) as engine:
+        return _build_flat(_reader_for(source, plan, transforms, engine), plan,
+                           StateKind.FP32, torch.device(device), engine,
+                           pool=StateKind.FP32 in _coded_kinds(source),
+                           whole=_consolidated(transforms), stats=stats, names=names)
+
+
 def params_from_source(
     source,
     plan: ShardingPlan,
@@ -322,18 +361,10 @@ def params_from_source(
     stats: RestoreStats | None = None,
 ) -> dict[str, torch.Tensor]:
     """Weights-only restore: flat ``{name: tensor}`` of runtime-shaped fp32
-    weights on ``device``.
-
-    ``transforms=None`` means the source layout equals the Target plan's
-    (DIRECT); a plan table from
-    :func:`~repro_torch.core.plan.stream_transforms` streams a layout change
-    (RESHARD_STREAM).  The bytes are the ``.params`` of a full restore.
-    """
-    with _engine_for(source, device, engine) as engine:
-        return _build_flat(_reader_for(source, plan, transforms, engine), plan,
-                           StateKind.FP32, torch.device(device), engine,
-                           pool=StateKind.FP32 in _coded_kinds(source),
-                           whole=_consolidated(transforms), stats=stats)
+    weights on ``device`` (:func:`build_param_arrays` of every parameter).
+    The bytes are the ``.params`` of a full restore."""
+    return build_param_arrays(source, plan, device, transforms=transforms, stats=stats,
+                              engine=engine)
 
 
 def _build_state(

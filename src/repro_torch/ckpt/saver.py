@@ -403,6 +403,9 @@ class AsyncSaver:
             except BaseException as e:  # stashed, and re-raised by check()
                 self._errors.append(e)
             finally:
+                # The job pins its snapshot (a coded kind's copy stays on the
+                # card): drop it now, not when the next job arrives.
+                item = None
                 self._q.task_done()
 
     def submit(self, state: TrainState, plan: ShardingPlan, step: int, root, **kw):

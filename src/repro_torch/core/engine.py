@@ -20,7 +20,11 @@ through a :class:`CheckpointEngine`, which owns:
   reference's serial profile, kept so the parallel paths stay
   benchmarkable against it;
 * :class:`BufferArena` — recycled host staging buffers for shard slicing
-  and region assembly (warm pages, no first-touch faults).
+  and region assembly (warm pages, no first-touch faults);
+* the fan-out sharing of :meth:`CheckpointEngine.shared_region` (each
+  Target region of a publication assembled once per fleet) and
+  :meth:`CheckpointEngine.memo` (a fleet's built weights, once per
+  publication and Target layout), both in the atom cache.
 
 A *fragment source* is anything with a ``.manifest`` (``params``, ``mesh``,
 ``save_mode``), ``.writing_ranks(name, kind)`` and
@@ -57,6 +61,7 @@ import os
 import sys
 import threading
 from collections import OrderedDict
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Sequence
 
@@ -260,6 +265,10 @@ class HandleCache:
     def _weight(value: Any) -> int:
         if isinstance(value, torch.Tensor):
             return value.numel() * value.element_size()
+        if isinstance(value, Mapping):
+            # a memoized set of arrays (a serving fleet's built weights):
+            # the sum of its values, so it counts against the byte bound
+            return sum(HandleCache._weight(v) for v in value.values())
         # mmap views cost address space, not residency: count them light
         if isinstance(value, np.memmap) or (
             isinstance(value, np.ndarray) and isinstance(value.base, np.memmap)
@@ -560,6 +569,36 @@ class CheckpointEngine:
         if obs.active() is not None:
             return self._single_flight(key, functools.partial(_traced, name, build))
         return self._single_flight(key, build)
+
+    def shared_region(self, source, name: str, kind, region: Sequence[slice], dtype,
+                      builder: Callable[[], Any]) -> Any:
+        """Memoized region read: the *serving hot set* of fan-out sources.
+
+        A fleet of readers restoring onto one Target layout asks for the
+        same ``(source, param, kind, region)`` again and again; a source
+        that opts in (``share_regions = True``, e.g.
+        :class:`~repro_torch.serve.PeerFragmentSource`) gets each distinct
+        region assembled once, single-flight, into the byte-bounded atom
+        cache, and served from there to every reader.
+
+        The cached array is shared: consumers treat it as read-only (the
+        restore copies out of it).  ``recycle`` of a cached region is safe:
+        the arena's reclamation is refcount-gated and the cache entry keeps
+        the view chain alive until it is evicted."""
+        kv = getattr(kind, "value", kind)
+        span = ",".join(f"{r.start}:{r.stop}" for r in region)
+        key = (f"{source_cache_key(source)}::region::{name}@{kv}"
+               f"::{_np_dtype(dtype).str}::{span}")
+        return self._single_flight(key, builder)
+
+    def memo(self, key: str, builder: Callable[[], Any]) -> Any:
+        """Single-flight memoization under an explicit key in the atom
+        cache: derived values that fit neither the region nor the atom key
+        (a serving fleet's built weights, shared by replica threads).  Keys
+        start with the owning source's ``cache_key``, so ``invalidate`` of
+        that key drops them too.  A mapping of tensors weighs the sum of
+        their bytes."""
+        return self._single_flight(key, builder)
 
     def _single_flight(self, key: str, builder: Callable[[], Any],
                        cache: HandleCache | None = None) -> Any:

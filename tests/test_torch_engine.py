@@ -54,6 +54,7 @@ from repro_torch.core.engine import (  # noqa: E402
 from repro_torch.core.pytree import flatten_with_paths  # noqa: E402
 from repro_torch.dist.sharding import ShardingPlan  # noqa: E402
 from repro_torch.models import build_model as port_build  # noqa: E402
+from repro_torch.train.optimizer import TrainState  # noqa: E402
 
 ARCHS = ["smollm-360m", "mamba2-130m"]
 MESH = {"data": 2, "model": 2}
@@ -639,6 +640,38 @@ def test_async_saver_bounds_pending_snapshots(monkeypatch):
     s.close()
     with pytest.raises(ValueError):
         AsyncSaver(max_pending=0)
+
+
+def test_async_saver_drops_each_snapshot_after_its_write(tmp_path, monkeypatch):
+    """A finished job no longer pins its snapshot: once ``wait()`` returns,
+    nothing of it is alive (a coded kind's copy would otherwise stay on the
+    card until the next save arrives)."""
+    import gc
+    import weakref
+
+    import repro_torch.ckpt.saver as saver_mod
+
+    specs = {"w": T.uniform_param_spec("w", (8, 6), [T.DimSpec(("data",)), T.DimSpec()])}
+    plan = ShardingPlan(mesh=T.MeshSpec.from_dict({"data": 2}), param_specs=specs)
+    refs = []
+    real = saver_mod.snapshot_state
+
+    def tracked(state, codec=None):
+        snap = real(state, codec)
+        refs.extend(weakref.ref(a) for kinds in snap.values() for a in kinds.values()
+                    if isinstance(a, torch.Tensor))
+        return snap
+
+    monkeypatch.setattr(saver_mod, "snapshot_state", tracked)
+    tree = {"w": torch.randn(8, 6)}
+    state = TrainState(params=tree, exp_avg={"w": torch.rand(8, 6)},
+                       exp_avg_sq={"w": torch.rand(8, 6)}, step=1)
+    s = AsyncSaver(max_pending=1)
+    s.submit(state, plan, 1, tmp_path / "step_1", codec=CodecPolicy.moments("int8:b256"))
+    assert len(s.wait()) == 1
+    gc.collect()
+    assert len(refs) == 2 and all(r() is None for r in refs), "the writer kept its snapshot"
+    s.close()
 
 
 def test_engine_stress_under_many_threads(tmp_path, monkeypatch):

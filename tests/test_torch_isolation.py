@@ -53,7 +53,9 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     for module in ("obs/trace.py", "obs/sinks.py", "chaos/points.py", "hot/snapshot.py",
-                   "hot/drain.py", "hot/recovery.py", "elastic/planner.py", "elastic/resume.py"):
+                   "hot/drain.py", "hot/recovery.py", "elastic/planner.py", "elastic/resume.py",
+                   "serve/registry.py", "serve/peer.py", "serve/fleet.py", "chaos/schedule.py",
+                   "chaos/invariants.py", "chaos/harness.py", "chaos/sweep.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 30
 

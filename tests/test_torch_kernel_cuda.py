@@ -841,3 +841,129 @@ def test_traced_restore_materialize_spans_the_copies(cuda, tmp_path):
     assert spans["restore.materialize"]["ts_us"] >= spans["restore.prefetch"]["ts_us"]
     for name, t in flatten_with_paths(state.params).items():
         assert torch.equal(out[name], t), name
+
+
+def _fleet_checkpoint(tmp_path, registry, params, lm_plan, step):
+    """A weights-only save of ``params`` under the Source plan, published."""
+    from repro_torch.ckpt.saver import snapshot_weights, write_distributed
+    from repro_torch.core import DistCheckpoint
+
+    root = tmp_path / f"step_{step:08d}"
+    write_distributed(snapshot_weights(params), lm_plan, step, root)
+    return registry.publish(DistCheckpoint.open(root))
+
+
+def _fleet_plans(cfg):
+    from repro_torch.core import MeshSpec
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+
+    out = []
+    for mesh_d in ({"data": 2, "model": 2}, {"data": 1, "model": 1}):
+        mesh, par = MeshSpec.from_dict(mesh_d), TC.ParallelismConfig()
+        lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh), compute_dtype=torch.float32)
+        out.append((lm, make_plan(cfg, lm.registry, par, mesh)))
+    return out
+
+
+def _sync_threads(reps):
+    import threading
+
+    errs = []
+
+    def one(r):
+        try:
+            assert r.sync()
+        except BaseException as e:  # surfaced below
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in reps]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errs, errs
+
+
+def test_reduced_smollm_fleet_on_card_equals_cpu_fleet(cuda, tmp_path):
+    """A reduced smollm published under data=2,model=2 to a fleet of 3 on the
+    card (one engine, replica threads) and a fleet of 3 on the CPU, both
+    under data=1,model=1: the card replicas hold one set of tensors,
+    bit-equal to the CPU fleet's, with no block-quant launch (raw weights,
+    read on the host); served in fp32 from the card (a flash launch a
+    layer) the logits are the CPU fleet's within 1e-4."""
+    from repro_torch.core.engine import CheckpointEngine
+    from repro_torch.serve import FleetReplica, PublicationRegistry
+
+    cfg = reduced(get_config("smollm-360m"))
+    (lm, src_plan), (lm1, plan1) = _fleet_plans(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    registry = PublicationRegistry()
+    _fleet_checkpoint(tmp_path, registry, params, src_plan, 1)
+    engine = CheckpointEngine(cuda)
+    card = [FleetReplica(f"g{i}", registry, plan1, cuda, engine=engine) for i in range(3)]
+    host = [FleetReplica(f"c{i}", registry, plan1, "cpu", engine=CheckpointEngine(workers=2))
+            for i in range(3)]
+    q0, d0 = block_quantize.launches, block_dequantize.launches
+    _sync_threads(card)
+    assert (block_quantize.launches, block_dequantize.launches) == (q0, d0)
+    for r in host:
+        assert r.sync()
+    want = host[0].flat_params()
+    for r in card:
+        got = r.flat_params()
+        assert got.keys() == want.keys()
+        for name, t in got.items():
+            assert t.device.type == "cuda" and torch.equal(t.cpu(), want[name]), name
+            assert t.data_ptr() == card[0].flat_params()[name].data_ptr(), name
+    toks = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1))
+    before = flash_attention.launches
+    outs = []
+    for rep, dev in ((card[2], cuda), (host[1], torch.device("cpu"))):
+        with torch.inference_mode():
+            logits, _ = D.prefill(lm1, rep.params, D.init_cache(lm1, 2, 40, device=dev),
+                                  toks.to(dev))
+        outs.append(logits.cpu())
+    assert flash_attention.launches == before + cfg.num_layers
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), atol=1e-4, rtol=0)
+    engine.close()
+
+
+def test_fleet_card_memory_does_not_grow_per_publication(cuda, tmp_path):
+    """Three publications of a reduced smollm (every weight changed, then
+    every weight again, then ``final_norm`` alone) to 2 replicas on one card
+    engine: after each sync the card holds one set of weights, not one per
+    publication, and the in-place delta keeps every other tensor."""
+    import gc
+
+    from repro_torch.core.engine import CheckpointEngine
+    from repro_torch.serve import FleetReplica, PublicationRegistry
+
+    cfg = reduced(get_config("smollm-360m"))
+    (lm, src_plan), (_, plan1) = _fleet_plans(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    one_set = sum(t.numel() * 4 for t in flatten_with_paths(params).values())
+    registry = PublicationRegistry()
+    engine = CheckpointEngine(cuda)
+    reps = [FleetReplica(f"m{i}", registry, plan1, cuda, engine=engine) for i in range(2)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    retained = []
+    for step in (1, 2, 3):
+        if step == 3:
+            params["final_norm"] = params["final_norm"] + 1.0
+        elif step == 2:
+            params = unflatten_from_paths({n: t + 1.0 for n, t in flatten_with_paths(params).items()})
+        _fleet_checkpoint(tmp_path, registry, params, src_plan, step)
+        kept = reps[0].flat_params() if step == 3 else None
+        _sync_threads(reps)
+        gc.collect()
+        torch.cuda.synchronize()
+        retained.append(torch.cuda.memory_allocated() - base)
+    assert reps[0].last_update == frozenset({"final_norm"})
+    now = reps[0].flat_params()
+    assert all(now[n] is kept[n] for n in now if n != "final_norm")
+    assert all(r <= one_set * 1.05 + (1 << 20) for r in retained), (retained, one_set)
+    want = flatten_with_paths(params)
+    for name, t in now.items():
+        assert torch.equal(t.cpu(), want[name]), name
+    engine.close()

@@ -260,14 +260,15 @@ def test_int8_coded_resume_is_finite_and_mode_independent(tmp_path, mesh, mode):
     {"hot_interval": 2}, {"registry": object()},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_policy_knobs_raise(kw):
-    """The fan-out registry (ROADMAP item 8) still raises; the hot tier
-    (item 7) is ported, so ``hot_interval`` now builds a policy."""
+    """Both knobs are ported now: the hot tier (item 7) and the fan-out
+    registry (item 8) build a policy, and a manager with a registry
+    publishes its commits (``tests/test_torch_fanout.py`` checks what it
+    publishes)."""
+    policy = CheckpointPolicy(**kw)
     if "hot_interval" in kw:
-        policy = CheckpointPolicy(**kw)
         assert (policy.hot_interval, policy.effective_disk_interval) == (2, 50)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        CheckpointPolicy(**kw)
+    assert policy.registry is kw["registry"]
 
 
 @pytest.mark.parametrize("kw,err", [
