@@ -52,6 +52,23 @@ nothing falls back to the CPU or to a plain version):
    shard exceeds the 50 MB L2), the vector kernel's and the plain version's
    event times, and the bound (bytes over 3.35 TB/s; no single PyTorch
    call computes this function, so no library time);
+4a. collectives — 2 ranks as 2 spawned processes on the one card, a gloo
+   group with CUDA tensors (NCCL puts no two ranks on one device) through
+   a ``FileStore``; each builds full smollm-360m from seed 0 (the same
+   weights on both, checked), bf16 compute and remat, and runs 4 steps of
+   a fresh 4 x 512 batch from ``train/data.py`` (seeded by step and rank),
+   forward and backward with no update, every parameter's fp32 gradient
+   through ``repro_torch.dist.compressed_psum`` with its own residual
+   (one quantize and one dequantize launch a parameter).  Checks: step 0's
+   codes and scales bit-equal to the plain version of the same tensors;
+   every step, |synced - all_reduce(acc)| within the sum over ranks of
+   block absmax / 254 (plus fp32 slack; the uncompressed all-reduce runs
+   for this check only); per rank, sum_t sent_t = sum_t g_t - e_T within
+   1e-5 of sum |g|, and ||sum synced - sum true|| / ||sum true|| < 0.05;
+   exactly n_params launches of each kernel a rank and step; no flash
+   launch (a recorded gradient takes the plain attention); both ranks exit
+   0 within 240 s.  Prints the wire bytes and ratio, each step's sync wall,
+   its all-reduce share (s, GB/s) and the kernels' CUDA-event ms;
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -319,7 +336,9 @@ nothing falls back to the CPU or to a plain version):
    under a tracer, its ``restore.plan``, ``restore.prefetch`` (reads and
    region assembly) and ``restore.materialize`` (host-to-device copies,
    closed after a synchronize) seconds beside its wall and the phase's warm
-   read floor; the block-quant rows add ``hot_launches``), the card line,
+   read floor; the block-quant rows add ``hot_launches``), the
+   ``collectives`` line (JSON: phase 4a; every row adds
+   ``collectives_launches``, the block-quant rows by variant too), the card line,
    then the result line (JSON, last).
 """
 
@@ -4396,6 +4415,315 @@ def encdec_train_phase(torch, bq_ops, counters: dict) -> dict:
     return out
 
 
+COLLECTIVES_WORLD = 2        # ranks, as processes on the one card (gloo: NCCL refuses two)
+COLLECTIVES_STEPS = 4
+COLLECTIVES_BATCH = (4, 512)  # each rank's batch a step
+COLLECTIVES_JOIN_S = 240     # a rank still running after this fails the smoke
+COLLECTIVES_REL_BOUND = 0.05  # tests/test_collectives.py:64
+COLLECTIVES_RANK_GB = 24     # card memory a rank may need (smollm's gradients and sums)
+FP32_EPS = 2.0 ** -23
+
+
+def collectives_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the collectives phase, in a spawned process (module level,
+    so the spawned interpreter finds it in ``chip_smoke`` re-imported as
+    ``__mp_main__``).  Full smollm-360m from seed 0 (the same weights on
+    every rank, checked), bf16 compute with remat; each of
+    ``COLLECTIVES_STEPS`` steps takes a fresh batch from ``train/data.py``
+    seeded by step and rank, a forward and backward pass and no update, and
+    sends every parameter's fp32 gradient through ``compressed_psum`` with
+    its own residual.  Checks each step and writes what it measured to
+    ``rank<r>.json``; any failure raises, so the process exits non-zero."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.dist import collectives
+    from repro_torch.kernels.block_quant import kernel as bq_kernel
+    from repro_torch.kernels.block_quant import ops as bq_ops
+    from repro_torch.kernels.block_quant import ref as bq_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.train.data import batch_for_step
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=COLLECTIVES_JOIN_S))
+    try:
+        _, report = bq_kernel.build()
+        check(not report["compiled"], f"rank {rank} rebuilt the block-quant kernels")
+        cfg, parallel = get_config("smollm-360m"), ParallelismConfig()
+        lm = build_model(cfg, vocab_multiple=1, compute_dtype=getattr(torch, parallel.compute_dtype),
+                         remat=parallel.remat)
+        flat = flatten_with_paths(lm.init(torch.Generator(device=dev).manual_seed(0)))
+        names = list(flat)
+        n_elems = sum(t.numel() for t in flat.values())
+        # the same weights on every rank: a float64 fingerprint a tensor, on the host
+        fp = torch.stack([t.double().sum() for t in flat.values()]).cpu()
+        fp0 = fp.clone()
+        dist.broadcast(fp0, 0)
+        check(torch.equal(fp, fp0), f"rank {rank}: weights differ from rank 0's")
+
+        # spies on the module's own calls: the step-0 bit check against the
+        # plain version, the sent values, CUDA-event times and the all-reduce share
+        real_q, real_dq, real_dist = collectives.quantize_int8, collectives.dequantize_int8, collectives.dist
+        cur = {"name": None, "step": 0}
+        sum_sent: dict = {}
+        events: dict[str, list] = {"quantize": [], "dequantize": []}
+        code_diff = {"elements": 0, "scales": 0}
+        ar = {"s": 0.0, "bytes": 0}
+
+        def timed(kind, fn, *a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            events[kind].append((e0, e1))
+            return out
+
+        def spy_quantize(x, *, block=256):
+            q, scales = timed("quantize", real_q, x, block=block)
+            if cur["step"] == 0:
+                pq, ps = bq_ref.quantize_blocks(bq_ref.blocked(x, block=block), dtype="int8")
+                code_diff["elements"] += int((q.view(torch.uint8) != pq.view(torch.uint8)).sum())
+                code_diff["scales"] += int((scales.view(torch.int32) != ps.view(torch.int32)).sum())
+            return q, scales
+
+        def spy_dequantize(q, scales, shape):
+            sent = timed("dequantize", real_dq, q, scales, shape)
+            n = cur["name"]
+            sum_sent[n] = sent.clone() if n not in sum_sent else sum_sent[n].add_(sent)
+            return sent
+
+        class DistSpy:
+            ReduceOp = dist.ReduceOp
+            is_available = staticmethod(dist.is_available)
+            is_initialized = staticmethod(dist.is_initialized)
+
+            @staticmethod
+            def all_reduce(t, op, group=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce(t, op=op, group=group)
+                torch.cuda.synchronize()
+                ar["s"] += time.perf_counter() - t0
+                ar["bytes"] += t.numel() * t.element_size()
+
+        collectives.quantize_int8, collectives.dequantize_int8 = spy_quantize, spy_dequantize
+        collectives.dist = DistSpy
+        fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+        reset_launches(fns)
+        fa_ops.flash_attention.launches = 0
+
+        err = {n: torch.zeros_like(t) for n, t in flat.items()}
+        sum_g = {n: torch.zeros_like(t) for n, t in flat.items()}
+        sum_abs = {n: torch.zeros_like(t) for n, t in flat.items()}
+        sum_synced = {n: torch.zeros_like(t) for n, t in flat.items()}
+        b, s = COLLECTIVES_BATCH
+        steps, bound_ratio = [], 0.0
+        t_ready = time.perf_counter()
+        for step in range(COLLECTIVES_STEPS):
+            cur["step"] = step
+            full = batch_for_step(cfg, ShapeSpec("train", s, b, "train"), step, seed=rank,
+                                  batch_override=b, seq_override=s)
+            batch = {"tokens": torch.from_numpy(full["tokens"]).long().to(dev)}
+            t0 = time.perf_counter()
+            leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
+            loss, _ = lm.loss_fn(unflatten_from_paths(leaves), batch)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            loss = float(loss.detach())
+            del leaves
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t0
+            check(all(g.dtype == torch.float32 for g in grads.values()), "gradients not fp32")
+
+            before = {k: dict(fn.launches_by_variant) for k, fn in fns.items()}
+            ar["s"], ar["bytes"] = 0.0, 0
+            events["quantize"].clear()
+            events["dequantize"].clear()
+            sync_s, check_s, worst = 0.0, 0.0, 0.0
+            for n in names:
+                g = grads.pop(n)
+                acc = g + err[n]  # what compressed_psum sends, for the sum bound
+                cur["name"] = n
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                synced, err[n] = collectives.compressed_psum(g, err[n])
+                torch.cuda.synchronize()
+                sync_s += time.perf_counter() - t0
+                # the uncompressed sum and the bound, for the check only
+                t0 = time.perf_counter()
+                bound = bq_ref.blocked(acc, block=256).abs().amax(dim=1) / 254
+                dist.all_reduce(bound)
+                dist.all_reduce(acc)
+                bound = bound.repeat_interleave(256)[:acc.numel()].reshape(acc.shape)
+                # the scale's and the division's roundings (~130 eps of the bound),
+                # the product's and the two sums' (an eps of each value)
+                slack = 256 * FP32_EPS * bound + 2 * FP32_EPS * (acc.abs() + synced.abs())
+                ratio = (synced - acc).abs() / (bound + slack).clamp_min(torch.finfo(torch.float32).tiny)
+                worst = max(worst, float(ratio.max()))
+                torch.cuda.synchronize()
+                check_s += time.perf_counter() - t0
+                sum_g[n].add_(g)
+                sum_abs[n].add_(g.abs())
+                sum_synced[n].add_(synced)
+                del g, acc, synced, bound, slack, ratio
+            torch.cuda.synchronize()
+            by_variant = {k: {v: fn.launches_by_variant[v] - before[k][v] for v in before[k]}
+                          for k, fn in fns.items()}
+            check(all(sum(v.values()) == len(names) for v in by_variant.values()),
+                  f"rank {rank} step {step}: launches {by_variant}, want {len(names)} of each")
+            check(worst <= 1.0, f"rank {rank} step {step}: |synced - all_reduce(acc)| is "
+                                f"{worst:.3f} x the bound sum(absmax / 254)")
+            bound_ratio = max(bound_ratio, worst)
+            steps.append({
+                "step": step, "loss": loss, "grad_s": grad_s, "sync_s": sync_s,
+                "all_reduce_s": ar["s"], "all_reduce_gb_s": ar["bytes"] / ar["s"] / 1e9,
+                "check_s": check_s,
+                "quantize_ms": sum(e0.elapsed_time(e1) for e0, e1 in events["quantize"]),
+                "dequantize_ms": sum(e0.elapsed_time(e1) for e0, e1 in events["dequantize"]),
+                "launches_by_variant": by_variant,
+            })
+            if step == 0:
+                check(code_diff == {"elements": 0, "scales": 0},
+                      f"rank {rank} step 0: kernel codes differ from the plain version: {code_diff}")
+        loop_s = time.perf_counter() - t_ready
+
+        # per rank, telescoping: sum_t sent_t == sum_t g_t - e_T, within 1e-5 of sum|g|
+        tele = 0.0
+        for n in names:
+            diff = (sum_sent[n] - (sum_g[n] - err[n])).abs().max()
+            tele = max(tele, float(diff / sum_abs[n].max().clamp_min(1e-30)))
+        check(tele <= 1e-5, f"rank {rank}: telescoping identity off by {tele:.3g} of sum|g|")
+        # the relative error of the synced total against the true total
+        num = den = 0.0
+        for n in names:
+            true = sum_g[n]
+            dist.all_reduce(true)
+            num += float(((sum_synced[n] - true).double() ** 2).sum())
+            den += float((true.double() ** 2).sum())
+        rel = math.sqrt(num / den)
+        check(rel < COLLECTIVES_REL_BOUND, f"rank {rank}: ||sum synced - sum true|| / ||sum true|| "
+                                           f"= {rel:.4f} >= {COLLECTIVES_REL_BOUND}")
+        check(fa_ops.flash_attention.launches == 0,
+              f"rank {rank}: {fa_ops.flash_attention.launches} flash launches while training")
+        wire = sum(-(-t.numel() // 256) * (256 + 4) for t in flat.values())
+        result = {
+            "rank": rank, "n_params": len(names), "elements": n_elems,
+            "fp32_bytes": 4 * n_elems, "wire_bytes": wire, "steps": steps,
+            "step0_code_mismatches": code_diff, "sum_bound_max_ratio": bound_ratio,
+            "telescoping_max": tele, "rel_error": rel,
+            "flash_launches": fa_ops.flash_attention.launches,
+            "launches": {k: fn.launches for k, fn in fns.items()},
+            "launches_by_variant": {k: dict(fn.launches_by_variant) for k, fn in fns.items()},
+            "setup_s": t_ready - t_start, "loop_s": loop_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def collectives_phase(torch) -> dict:
+    """Two ranks on the one card, as processes of a gloo group (NCCL puts no
+    two ranks on one device; gloo takes CUDA tensors for ``all_reduce``):
+    :func:`collectives_rank` in each; joined with a timeout (a rank still
+    running is killed, and fails the smoke, as does a non-zero exit).
+    Returns the phase's measurements, summed and by rank."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    check(free >= COLLECTIVES_WORLD * COLLECTIVES_RANK_GB * 1e9,
+          f"collectives: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB, the parent holds "
+          f"{held / 1e9:.2f} GB; the ranks need {COLLECTIVES_WORLD * COLLECTIVES_RANK_GB} GB")
+    out_dir = ROOT / "build" / "chip_smoke_collectives"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=collectives_rank, args=(r, COLLECTIVES_WORLD, str(out_dir / "store"),
+                                                        str(out_dir)))
+             for r in range(COLLECTIVES_WORLD)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + COLLECTIVES_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"collectives: ranks {hung} still running after {COLLECTIVES_JOIN_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * COLLECTIVES_WORLD, f"collectives: rank exit codes {codes}")
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(COLLECTIVES_WORLD)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    first = ranks[0]
+    check(all(r["elements"] == first["elements"] and r["n_params"] == first["n_params"]
+              for r in ranks), "collectives: ranks disagree on the model")
+    per_step = [{
+        "step": i,
+        "losses": [r["steps"][i]["loss"] for r in ranks],
+        **{k: max(r["steps"][i][k] for r in ranks) for k in (
+            "grad_s", "sync_s", "all_reduce_s", "check_s", "quantize_ms", "dequantize_ms")},
+        "all_reduce_gb_s": min(r["steps"][i]["all_reduce_gb_s"] for r in ranks),
+    } for i in range(COLLECTIVES_STEPS)]
+    out = {
+        "world": COLLECTIVES_WORLD, "backend": "gloo", "tensors": "cuda",
+        "model": "smollm-360m, full width and depth", "batch": list(COLLECTIVES_BATCH),
+        "steps": COLLECTIVES_STEPS,
+        "n_params": first["n_params"], "elements": first["elements"],
+        "fp32_bytes": first["fp32_bytes"], "wire_bytes": first["wire_bytes"],
+        "wire_ratio": first["fp32_bytes"] / first["wire_bytes"],
+        "per_step": per_step,
+        "max_step0_code_mismatches": max(sum(r["step0_code_mismatches"].values()) for r in ranks),
+        "max_sum_bound_ratio": max(r["sum_bound_max_ratio"] for r in ranks),
+        "max_telescoping": max(r["telescoping_max"] for r in ranks),
+        "max_rel_error": max(r["rel_error"] for r in ranks),
+        "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("quantize", "dequantize")},
+        "launches_by_variant": {k: {v: sum(r["launches_by_variant"][k][v] for r in ranks)
+                                    for v in first["launches_by_variant"][k]}
+                                for k in ("quantize", "dequantize")},
+        "flash_launches": sum(r["flash_launches"] for r in ranks),
+        "setup_s": [r["setup_s"] for r in ranks], "loop_s": [r["loop_s"] for r in ranks],
+        "peak_gb": [r["peak_gb"] for r in ranks],
+        "parent_free_gb": free / 1e9, "parent_held_gb": held / 1e9,
+        "phase_s": wall,
+    }
+    want = COLLECTIVES_WORLD * COLLECTIVES_STEPS * first["n_params"]
+    check(out["launches"] == {"quantize": want, "dequantize": want},
+          f"collectives: launches {out['launches']}, want {want} of each")
+    print(f"collectives smollm-360m: {COLLECTIVES_WORLD} ranks (gloo, CUDA tensors), "
+          f"{out['n_params']} params, {out['elements']:,} elements, "
+          f"{out['fp32_bytes'] / 1e9:.3f} GB fp32 -> {out['wire_bytes'] / 1e9:.4f} GB on the wire "
+          f"(x{out['wire_ratio']:.3f}); phase {wall:.1f} s")
+    for st in per_step:
+        print(f"  step {st['step']}: losses {[round(v, 4) for v in st['losses']]}, sync "
+              f"{st['sync_s']:.3f} s of which all-reduce {st['all_reduce_s']:.3f} s "
+              f"({st['all_reduce_gb_s']:.2f} GB/s), quantize {st['quantize_ms']:.3f} ms, "
+              f"dequantize {st['dequantize_ms']:.3f} ms (CUDA events)")
+    print(f"  checks: step-0 code mismatches {out['max_step0_code_mismatches']}, sum bound "
+          f"{out['max_sum_bound_ratio']:.4f} of its limit, telescoping {out['max_telescoping']:.3g}"
+          f" of sum|g|, relative error {out['max_rel_error']:.5f}; launches "
+          f"{out['launches_by_variant']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4425,6 +4753,7 @@ def main() -> int:
                                                "fwd_kernel_tc<192, 128>", "fwd_kernel<float, 192, 128>"))
     k = kernel_phase(torch, F, kernel, ops, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
+    coll = collectives_phase(torch)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
                            "jamba-1.5-large-398b")
@@ -4569,6 +4898,7 @@ def main() -> int:
         "encdec_prefill_kernel_ms": encdec["prefill_kernel_ms"],
         "train_encdec_launches": train_encdec_kernels["flash_attention"],
         "fanout_launches": {k: v["launches"] for k, v in fanout["serve"].items()},
+        "collectives_launches": coll["flash_launches"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -4611,6 +4941,8 @@ def main() -> int:
         rows[-1]["fanout_launches_by_phase"] = {k: v[which]
                                                 for k, v in fanout["launches_by_phase"].items()}
         rows[-1]["hot_launches"] = hot_bq[which]
+        rows[-1]["collectives_launches"] = coll["launches"][which]
+        rows[-1]["collectives_launches_by_variant"] = coll["launches_by_variant"][which]
         rows[-1]["hot_launches_by_phase"] = {k: v[which]
                                              for k, v in hot["launches_by_phase"].items()}
     rows.append({
@@ -4684,6 +5016,7 @@ def main() -> int:
     print(json.dumps({"hot": {k: v for k, v in hot.items() if k != "launches_by_phase"}}))
     print(json.dumps({"fanout": {k: v for k, v in fanout.items() if k != "launches_by_phase"}}))
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
+    print(json.dumps({"collectives": coll}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

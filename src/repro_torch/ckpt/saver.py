@@ -400,7 +400,7 @@ class AsyncSaver:
                 return
             try:
                 self._results.append(item())
-            except BaseException as e:  # stashed, and re-raised by check()
+            except BaseException as e:  # repro: allow[except-discipline] -- worker thread: every failure (incl. injected FaultError) is stashed and re-raised via check()
                 self._errors.append(e)
             finally:
                 # The job pins its snapshot (a coded kind's copy stays on the

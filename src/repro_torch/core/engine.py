@@ -156,7 +156,7 @@ class BufferArena:
             size <<= 1
         return size
 
-    def _reap_locked(self) -> None:
+    def _reap_locked(self) -> None:  # repro: holds[self._lock]
         """Move pending buffers whose view chains died onto the free lists."""
         still: list[np.ndarray] = []
         for raw in self._pending:
@@ -520,7 +520,7 @@ class CheckpointEngine:
         key = (source_cache_key(source), name, getattr(kind, "value", str(kind)))
         # Unlocked peek: dict.get is atomic and an index is immutable once
         # inserted, so a stale miss falls through to the locked setdefault.
-        idx = self._indexes.get(key)
+        idx = self._indexes.get(key)  # repro: allow[lock-discipline] -- GIL-atomic read of an insert-only dict; misses retry under the lock
         if idx is not None:
             obs.add("engine.index.hit")
             return idx

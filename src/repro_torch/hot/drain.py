@@ -308,7 +308,7 @@ class HotDrainer:
                 return
             try:
                 self._results.append(item())
-            except BaseException as e:  # stashed, and re-raised by check()
+            except BaseException as e:  # repro: allow[except-discipline] -- worker thread: every failure (incl. injected FaultError) is stashed and re-raised via check()
                 self._errors.append(e)
             finally:
                 self._q.task_done()

@@ -339,7 +339,7 @@ class HotTier:
             self._evict_locked()
         return hs, stats
 
-    def _evict_locked(self) -> None:  # holds self._lock
+    def _evict_locked(self) -> None:  # repro: holds[self._lock]
         def over_budget() -> bool:
             return (
                 len(self._ring) > self.max_snapshots

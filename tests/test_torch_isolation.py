@@ -55,7 +55,10 @@ def test_scan_covers_the_port():
     for module in ("obs/trace.py", "obs/sinks.py", "chaos/points.py", "hot/snapshot.py",
                    "hot/drain.py", "hot/recovery.py", "elastic/planner.py", "elastic/resume.py",
                    "serve/registry.py", "serve/peer.py", "serve/fleet.py", "chaos/schedule.py",
-                   "chaos/invariants.py", "chaos/harness.py", "chaos/sweep.py"):
+                   "chaos/invariants.py", "chaos/harness.py", "chaos/sweep.py",
+                   "dist/collectives.py", "dist/__init__.py", "analysis/__init__.py",
+                   "analysis/__main__.py", "analysis/core.py", "analysis/simple_rules.py",
+                   "analysis/locks.py", "analysis/catalog_rules.py", "analysis/pins.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 30
 

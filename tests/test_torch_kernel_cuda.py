@@ -60,7 +60,11 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   quantize and one dequantize launch a coded fragment) byte-identical to
   the CPU drain and to ``write_distributed``; a traced restore onto the
   card whose ``restore.materialize`` span closes after a synchronize and
-  lasts at least the host-to-device copies timed by CUDA events.
+  lasts at least the host-to-device copies timed by CUDA events;
+* ``compressed_psum`` on the card in a one-rank gloo group (one quantize
+  and one dequantize launch, bit-equal to the CPU's plain path), and two
+  spawned gloo ranks on the one card bit-equal to the same world on the
+  CPU.
 """
 
 import dataclasses
@@ -967,3 +971,42 @@ def test_fleet_card_memory_does_not_grow_per_publication(cuda, tmp_path):
     for name, t in now.items():
         assert torch.equal(t.cpu(), want[name]), name
     engine.close()
+
+
+def test_compressed_psum_on_card_launches_each_kernel_once(cuda, tmp_path):
+    """A CUDA ``compressed_psum`` in a one-rank gloo group: exactly one
+    quantize and one dequantize launch, and the result bit-equal to the
+    CPU's plain path."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import compressed_psum
+
+    g = torch.randn(3, 300, generator=torch.Generator().manual_seed(0)) * 5
+    e = torch.randn(3, 300, generator=torch.Generator().manual_seed(1)) * 1e-2
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        want = compressed_psum(g, e)
+        q0, d0 = block_quantize.launches, block_dequantize.launches
+        got = compressed_psum(g.to(cuda), e.to(cuda))
+        assert (block_quantize.launches - q0, block_dequantize.launches - d0) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_two_rank_gloo_world_on_card_equals_cpu(cuda, tmp_path):
+    """Two spawned gloo ranks on the one card (NCCL puts no two ranks on
+    one device): every step's synced and residual bit-equal to the same
+    world on the CPU, one quantize and one dequantize launch a step."""
+    from test_torch_collectives import STEPS, run_ranks
+
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card = run_ranks(tmp_path / "card", 2, device="cuda")
+    host = run_ranks(tmp_path / "cpu", 2, device="cpu")
+    for c, h in zip(card, host):
+        assert c["launches"].tolist() == [[1, 1]] * STEPS
+        for key in ("synced", "err"):
+            np.testing.assert_array_equal(c[key].view(np.uint32), h[key].view(np.uint32))
