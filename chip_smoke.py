@@ -69,6 +69,25 @@ nothing falls back to the CPU or to a plain version):
    launch (a recorded gradient takes the plain attention); both ranks exit
    0 within 240 s.  Prints the wire bytes and ratio, each step's sync wall,
    its all-reduce share (s, GB/s) and the kernels' CUDA-event ms;
+4b. multirank — the multi-rank training runtime on full smollm-360m (8 x
+   512 global, bf16 compute): a one-process baseline (data=1,model=1, 4
+   steps); 2 spawned ranks on the one card (gloo with CUDA tensors, a
+   ``FileStore``) through ``Trainer.create(..., group=)`` under
+   data=2,model=1, steps 1-2 with each rank writing its own ``int8:b256``
+   shards at step 2; 2 new ranks under data=1,model=2 resuming step 2
+   (RESHARD_STREAM) for steps 3-4; one process under data=1,model=1
+   resuming step 2.  Checks (each fails the smoke): the gloo probe takes
+   CUDA tensors for the runtime's collectives (all six probed, values
+   checked, are printed); steps 1-2 and both resumes' steps 3-4 finite and
+   within 2e-2 of the baseline; the 2-rank checkpoint's digests, codec tags
+   and files equal to one process's save of the gathered step-2 state; the
+   ranks' quantize and dequantize launches summing to that save's, all
+   vector; each resumed rank's state bit-equal to ``slice_shard`` of a
+   one-process restore; no launch while training; both worlds exit 0
+   within 300 s.  Prints each step's wall split into gather, forward and
+   backward, all-reduce (s, GB/s) and update, the gather through gloo's
+   CUDA ``all_gather`` beside one through pinned host buffers, each rank's
+   save and restore (s, bytes, shard bytes) and peak card memory;
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -338,7 +357,9 @@ nothing falls back to the CPU or to a plain version):
    closed after a synchronize) seconds beside its wall and the phase's warm
    read floor; the block-quant rows add ``hot_launches``), the
    ``collectives`` line (JSON: phase 4a; every row adds
-   ``collectives_launches``, the block-quant rows by variant too), the card line,
+   ``collectives_launches``, the block-quant rows by variant too), the
+   ``multirank`` line (JSON: phase 4b; the block-quant rows add
+   ``multirank_launches`` and ``multirank_launches_by_phase``), the card line,
    then the result line (JSON, last).
 """
 
@@ -4724,6 +4745,441 @@ def collectives_phase(torch) -> dict:
     return out
 
 
+MULTIRANK_WORLD = 2        # ranks, as processes on the one card (gloo: NCCL refuses two)
+MULTIRANK_BATCH = (8, 512)  # the global batch a step: 4 x 512 a rank under data=2
+MULTIRANK_JOIN_S = 300      # a world still running after this fails the smoke
+MULTIRANK_TOL = 2e-2        # tests/test_reconfig_e2e.py: the paper's accepted divergence
+MULTIRANK_CODEC = "int8:b256"
+MULTIRANK_MESH = {"save": "data=2,model=1", "resume": "data=1,model=2"}
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single")
+RUNTIME_COLLECTIVES = ("all_reduce", "broadcast", "all_gather")  # what the runtime sends gloo
+
+
+def gloo_cuda_probe(torch, dist) -> dict[str, str]:
+    """Which collectives gloo takes with CUDA tensors (torch as installed):
+    each tried once on a small card tensor, in a group of its own, its values
+    checked; "ok", "wrong values" or the error's first line.  A probe only:
+    the runtime's collectives (``RUNTIME_COLLECTIVES``) must be "ok"."""
+    g = dist.new_group(backend="gloo")
+    n, me, dev = g.size(), dist.get_rank(g), torch.device("cuda")
+    m = 4 * n
+    xs = [torch.arange(m, dtype=torch.float32, device=dev) + 100 * r for r in range(n)]
+    x = xs[me]
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=g)
+        return torch.equal(y, sum(xs))
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0, group=g)
+        return torch.equal(y, xs[0])
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(ys, x, group=g)
+        return all(torch.equal(a, b) for a, b in zip(ys, xs))
+
+    def all_gather_into_tensor():
+        y = torch.empty(n * m, device=dev)
+        dist.all_gather_into_tensor(y, x, group=g)
+        return torch.equal(y, torch.cat(xs))
+
+    def reduce_scatter_tensor():
+        y = torch.empty(m // n, device=dev)
+        dist.reduce_scatter_tensor(y, x, group=g)
+        return torch.equal(y, sum(xs)[me * (m // n):(me + 1) * (m // n)])
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=g)
+        k = m // n
+        return torch.equal(y, torch.cat([xs[r][me * k:(me + 1) * k] for r in range(n)]))
+
+    calls = {f.__name__: f for f in (all_reduce, broadcast, all_gather, all_gather_into_tensor,
+                                     reduce_scatter_tensor, all_to_all_single)}
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            right = calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok" if right else "wrong values"
+        except Exception as e:  # the probe's answer: recorded, nothing falls back
+            out[name] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+    dist.barrier()
+    return out
+
+
+def gather_routes(torch, dist, plan, local: dict, reps: int = 2) -> dict:
+    """The runtime's ``gather_full`` of every weight (gloo's own CUDA
+    ``all_gather``) against the same gather through pinned host buffers (the
+    route the runtime would need if gloo refused CUDA tensors), in turns:
+    seconds per route and whether the two agree bit for bit.  Every rank
+    runs it together."""
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.dist.sharding import gather_full
+
+    world = dist.group.WORLD
+    n = world.size()
+    layouts = {k: plan.param_specs[k].layout_for(StateKind.FP32, plan.mesh) for k in local}
+
+    def staged(t, layout):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for _ in range(n)]
+        dist.all_gather(outs, host, group=world)
+        full = torch.empty(layout.global_shape, dtype=t.dtype, device=t.device)
+        for r in layout.primary_ranks():
+            shard = outs[r].to(t.device, non_blocking=True)
+            for e in layout.entries[r]:
+                full[e.atom_index()] = shard[e.shard_index()]
+        return full
+
+    routes = {"staged": staged, "direct": lambda t, layout: gather_full(t, layout, world)}
+    times: dict[str, list[float]] = {k: [] for k in routes}
+    got: dict = {}
+    for route in ("staged", "direct") * reps:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        full = {k: routes[route](t, layouts[k]) for k, t in local.items()}
+        torch.cuda.synchronize()
+        times[route].append(time.perf_counter() - t0)
+        got.setdefault(route, full)
+        del full
+    same = all(torch.equal(got["staged"][k].view(torch.int32), got["direct"][k].view(torch.int32))
+               for k in local)
+    return {"staged_s": times["staged"], "direct_s": times["direct"], "bit_equal": same,
+            "bytes": sum(t.numel() * t.element_size() for t in got["staged"].values())}
+
+
+def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) -> None:
+    """One rank of the multirank phase, in a spawned process: full
+    smollm-360m through ``Trainer.create(..., group=WORLD)`` on the one card.
+    ``stage="save"``: data=2,model=1 from seed 0, steps 1-2 with an
+    ``int8:b256`` save at step 2 (each rank writes its own shards), then the
+    gathered state saved by one process (rank 0) for its digests.
+    ``stage="resume"``: data=1,model=2 resumes step 2 (RESHARD_STREAM), the
+    state held bit for bit against ``slice_shard`` of a one-process
+    restore, then steps 3-4.  Writes what it measured to ``<stage><r>.json``;
+    any failure raises, so the process exits non-zero."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.kernels.block_quant import kernel as bq_kernel
+    from repro_torch.kernels.block_quant import ops as bq_ops
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer, gather_state
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MULTIRANK_JOIN_S))
+    try:
+        _, report = bq_kernel.build()
+        check(not report["compiled"], f"rank {rank} rebuilt the block-quant kernels")
+        fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+        out: dict = {"rank": rank, "stage": stage}
+        if stage == "save":
+            out["gloo_cuda"] = gloo_cuda_probe(torch, dist)
+            check(all(out["gloo_cuda"][c] == "ok" for c in RUNTIME_COLLECTIVES),
+                  f"gloo refuses a collective the runtime sends it on the card: {out['gloo_cuda']}")
+        cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+        root = Path(out_dir) / "ckpt"
+        b, s = MULTIRANK_BATCH
+        policy = CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=2 if stage == "save" else 1000)
+        t = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(MULTIRANK_MESH[stage]),
+                           batch_size=b, seq_len=s, ckpt_dir=str(root), policy=policy,
+                           group=dist.group.WORLD)
+        out["device"] = str(t.device)
+        torch.cuda.reset_peak_memory_stats()
+        t_ready = time.perf_counter()
+        if stage == "save":
+            state = t.init_state()
+            reset_launches(fns)
+            state, hist = t.run(state, 0, 2)  # the main path: 2 steps and the save
+            out["launches"] = launch_counts(fns)
+            out["launches_by_variant"] = {k: dict(fn.launches_by_variant) for k, fn in fns.items()}
+            (res,) = t.save_results
+            out["save"] = {"s": res.wall_time_s, "bytes": res.bytes_written,
+                           "shards": res.shards_written, "coded_bytes": res.coded_bytes}
+            out["gather_routes"] = gather_routes(torch, dist, t.plan,
+                                                 flatten_with_paths(state.params))
+            check(out["gather_routes"]["bit_equal"], f"rank {rank}: the two gather routes differ")
+            t0 = time.perf_counter()
+            full = gather_state(state, t.plan, dist.group.WORLD)
+            torch.cuda.synchronize()
+            out["gather_state_s"] = time.perf_counter() - t0
+            del state
+            if rank == 0:  # the one-process saver of the gathered state: the digests to match
+                reset_launches(fns)
+                one = Path(out_dir) / "one"
+                t0 = time.perf_counter()
+                write_distributed(snapshot_state(full, t.manager.codec), t.plan, 2, one,
+                                  codec=t.manager.codec,
+                                  config_fingerprint=t.manager.config_fingerprint)
+                out["one_save_s"] = time.perf_counter() - t0
+                out["one_launches"] = launch_counts(fns)
+                out["one_launches_by_variant"] = {k: dict(fn.launches_by_variant)
+                                                  for k, fn in fns.items()}
+                step2 = root / "step_00000002"
+                a, c = DistCheckpoint.open(step2), DistCheckpoint.open(one)
+                files = [sorted(p.relative_to(d).as_posix() for p in d.rglob("*.npy"))
+                         for d in (step2, one)]
+                out["check"] = {
+                    "committed": a.is_committed, "digests": len(a.manifest.shard_digests),
+                    "digests_equal": a.manifest.shard_digests == c.manifest.shard_digests,
+                    "codecs_equal": a.manifest.shard_codecs == c.manifest.shard_codecs,
+                    "files": len(files[0]), "files_equal": files[0] == files[1],
+                    "bytes": sum(p.stat().st_size for p in step2.rglob("*.npy")),
+                }
+                shutil.rmtree(one)
+            del full
+            dist.barrier()
+        else:
+            reset_launches(fns)
+            state, info = t.init_or_restore()
+            check(info is not None, f"rank {rank}: nothing to resume")
+            out["restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                              "bytes_read": info.restore_stats.bytes_read,
+                              "reason": info.reason}
+            out["restore_launches"] = launch_counts(fns)
+            trees = {StateKind.FP32: state.params, StateKind.EXP_AVG: state.exp_avg,
+                     StateKind.EXP_AVG_SQ: state.exp_avg_sq}
+            out["shard_bytes"] = sum(x.numel() * x.element_size() for tree in trees.values()
+                                     for x in flatten_with_paths(tree).values())
+            # the one-process restore of the same step, cut to this rank's shards
+            one = CheckpointManager(str(root), t.plan,
+                                    policy=CheckpointPolicy(save_interval=1000, async_save=False))
+            full, _ = one.restore(t.device)
+            fulls = {StateKind.FP32: full.params, StateKind.EXP_AVG: full.exp_avg,
+                     StateKind.EXP_AVG_SQ: full.exp_avg_sq}
+            diff = 0
+            for kind, tree in trees.items():
+                want = flatten_with_paths(fulls[kind])
+                for name, got in flatten_with_paths(tree).items():
+                    layout = t.plan.param_specs[name].layout_for(kind, t.plan.mesh)
+                    cut = slice_shard(want[name], layout, rank)
+                    diff += int((got.view(torch.int32) != cut.view(torch.int32)).sum())
+            out["bits_differing"] = diff
+            del full, fulls, want, cut
+            torch.cuda.empty_cache()
+            reset_launches(fns)
+            state, hist = t.run(state, 2, 2)  # steps 3-4; no save
+            out["run_launches"] = launch_counts(fns)
+        t.manager.close()
+        out["hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")}
+                       for h in hist]
+        out["setup_s"] = t_ready - t_start
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_multirank_world(torch, stage: str, out_dir: Path) -> tuple[list[dict], float]:
+    """Spawn the ranks of one stage, join them with the phase's time limit
+    (a rank still running is killed, and fails the smoke, as does a non-zero
+    exit), and return each rank's record and the world's wall."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = out_dir / f"store_{stage}"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=multirank_rank,
+                         args=(r, MULTIRANK_WORLD, str(store), str(out_dir), stage))
+             for r in range(MULTIRANK_WORLD)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MULTIRANK_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"multirank {stage}: ranks {hung} still running after {MULTIRANK_JOIN_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * MULTIRANK_WORLD, f"multirank {stage}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [json.loads((out_dir / f"{stage}{r}.json").read_text())
+            for r in range(MULTIRANK_WORLD)], wall
+
+
+def multirank_phase(torch, bq_ops) -> dict:
+    """The multi-rank training runtime on the one card: a one-process
+    baseline (data=1,model=1, 4 steps), 2 ranks under data=2,model=1 (steps
+    1-2, each rank saving its own ``int8:b256`` shards at step 2), 2 new
+    ranks under data=1,model=2 resuming step 2 (RESHARD_STREAM; steps 3-4),
+    and one process under data=1,model=1 resuming step 2 (2 ranks -> 1;
+    steps 3-4).  Returns the phase's measurements."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    b, s = MULTIRANK_BATCH
+    out_dir = ROOT / "build" / "chip_smoke_multirank"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    def trainer(**kw):
+        return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string("data=1,model=1"),
+                              batch_size=b, seq_len=s, device=torch.device("cuda"), **kw)
+
+    try:
+        base = trainer()
+        _, hist = base.run(base.init_state(), 0, 4)
+        baseline = [h["loss"] for h in hist]
+        check(all(map(math.isfinite, baseline)), f"multirank baseline: losses {baseline}")
+        del base, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        saved, save_wall = run_multirank_world(torch, "save", out_dir)
+        resumed, resume_wall = run_multirank_world(torch, "resume", out_dir)
+        reset_launches(fns)
+        one = trainer(ckpt_dir=str(out_dir / "ckpt"),
+                      policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000))
+        state, info = one.init_or_restore()
+        one_restore = launch_counts(fns)
+        _, hist = one.run(state, 2, 2)
+        one.manager.close()
+        one_losses = [h["loss"] for h in hist]
+        del one, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the 2-rank run: every rank logs the mean, so the ranks agree
+    save_losses = [h["loss"] for h in saved[0]["hist"]]
+    check(all(r["hist"][i]["loss"] == save_losses[i] for r in saved for i in range(2)),
+          "multirank save: the ranks report different losses")
+    gap_save = max(abs(x - y) for x, y in zip(save_losses, baseline[:2]))
+    check(all(map(math.isfinite, save_losses)) and gap_save <= MULTIRANK_TOL,
+          f"multirank: 2-rank steps 1-2 {save_losses} left the baseline {baseline[:2]}")
+    chk = saved[0]["check"]
+    check(chk["committed"] and chk["digests_equal"] and chk["codecs_equal"] and chk["files_equal"],
+          f"multirank: the 2-rank checkpoint is not the one-process save of the gathered state "
+          f"({chk})")
+    per_rank = {k: [r["launches"][k] for r in saved] for k in fns}
+    summed = {k: sum(v) for k, v in per_rank.items()}
+    one_save = saved[0]["one_launches"]
+    check(summed == one_save and all(v > 0 for v in summed.values()),
+          f"multirank: the ranks' save launches {per_rank} do not sum to the one-process "
+          f"save's {one_save}")
+    vector = all(set(k for k, n in r["launches_by_variant"][f].items() if n) <= {"vector"}
+                 for r in saved for f in fns)
+    check(vector, f"multirank: a save launch was not the vector kernel: "
+                  f"{[r['launches_by_variant'] for r in saved]}")
+    # the 2-rank resume under another layout
+    for r in resumed:
+        check(r["restore"]["mode"] == "reshard_stream" and r["restore"]["step"] == 2,
+              f"multirank resume rank {r['rank']}: {r['restore']}")
+        check(r["bits_differing"] == 0, f"multirank resume rank {r['rank']}: {r['bits_differing']} "
+                                        "elements differ from the one-process restore's shard")
+        check(r["run_launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank resume rank {r['rank']}: launches while training {r['run_launches']}")
+    resume_losses = [h["loss"] for h in resumed[0]["hist"]]
+    gap_resume = max(abs(x - y) for x, y in zip(resume_losses, baseline[2:]))
+    check(all(map(math.isfinite, resume_losses)) and gap_resume <= MULTIRANK_TOL,
+          f"multirank: resumed steps 3-4 {resume_losses} left the baseline {baseline[2:]}")
+    check(info is not None and info.mode.value == "reshard_stream" and info.step == 2,
+          f"multirank: the one-process resume of the 2-rank checkpoint: {info}")
+    gap_one = max(abs(x - y) for x, y in zip(one_losses, baseline[2:]))
+    check(all(map(math.isfinite, one_losses)) and gap_one <= MULTIRANK_TOL,
+          f"multirank: the one-process resume's steps 3-4 {one_losses} left the baseline")
+    resume_dq = sum(r["restore_launches"]["dequantize"] for r in resumed)
+    out = {
+        "model": "smollm-360m, full width and depth", "world": MULTIRANK_WORLD,
+        "backend": "gloo", "tensors": "cuda", "batch": list(MULTIRANK_BATCH),
+        "codec": MULTIRANK_CODEC, "meshes": MULTIRANK_MESH,
+        "gloo_cuda": saved[0]["gloo_cuda"],
+        "baseline": baseline, "save_losses": save_losses, "resume_losses": resume_losses,
+        "one_process_losses": one_losses,
+        "gaps": {"save": gap_save, "resume": gap_resume, "one_process": gap_one},
+        "steps": {stage: [{"rank": r["rank"], **h} for r in ranks for h in r["hist"]]
+                  for stage, ranks in (("save", saved), ("resume", resumed))},
+        "save": [{"rank": r["rank"], **r["save"]} for r in saved],
+        "commit": chk,
+        "gather_state_s": [r["gather_state_s"] for r in saved],
+        "gather_routes": [r["gather_routes"] for r in saved],
+        "one_save_s": saved[0]["one_save_s"],
+        "restore": [{"rank": r["rank"], **r["restore"], "shard_bytes": r["shard_bytes"]}
+                    for r in resumed],
+        "one_process_restore": {"mode": info.mode.value, "s": info.wall_time_s,
+                                "bytes_read": info.restore_stats.bytes_read},
+        "peak_gb": {"save": [r["peak_gb"] for r in saved], "resume": [r["peak_gb"] for r in resumed]},
+        "setup_s": {"save": [r["setup_s"] for r in saved], "resume": [r["setup_s"] for r in resumed]},
+        "world_s": {"save": save_wall, "resume": resume_wall},
+        "launches_by_rank": per_rank,
+        "launches_by_phase": {
+            "save_2_ranks": summed,
+            "resume_2_ranks": {"quantize": 0, "dequantize": resume_dq},
+            "resume_1_process": one_restore,
+            "check_one_process_save": one_save,
+        },
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    out["launches"] = {k: summed[k] + out["launches_by_phase"]["resume_2_ranks"][k]
+                       + one_restore[k] for k in fns}
+    print(f"multirank smollm-360m: {MULTIRANK_WORLD} ranks on the one card (gloo, CUDA tensors); "
+          f"gloo takes CUDA tensors for: {[k for k, v in out['gloo_cuda'].items() if v == 'ok']}; "
+          f"refuses: {{{', '.join(f'{k}: {v[:60]}' for k, v in out['gloo_cuda'].items() if v != 'ok')}}}")
+    print(f"  baseline data=1,model=1 losses {[round(v, 4) for v in baseline]}; phase "
+          f"{out['phase_s']:.1f} s (worlds {save_wall:.1f} s and {resume_wall:.1f} s)")
+    for stage, ranks in (("save", saved), ("resume", resumed)):
+        for r in ranks:
+            for h in r["hist"]:
+                sp = h["split"]
+                gbs = sp["all_reduce_bytes"] / sp["all_reduce_s"] / 1e9 if sp["all_reduce_bytes"] else 0.0
+                print(f"  {MULTIRANK_MESH[stage]} rank {r['rank']} step {h['step']}: loss "
+                      f"{h['loss']:.4f}, wall {h['dt']:.2f} s = gather {sp['gather_s']:.2f} + "
+                      f"forward/backward {sp['grad_s']:.2f} + all-reduce {sp['all_reduce_s']:.2f} "
+                      f"({sp['all_reduce_bytes'] / 1e9:.3f} GB, {gbs:.2f} GB/s) + update "
+                      f"{sp['update_s']:.2f}")
+    for r in saved:
+        gr = r["gather_routes"]
+        print(f"  gather of the {gr['bytes'] / 1e9:.3f} GB of fp32 weights, rank {r['rank']}: "
+              f"the runtime's (gloo's CUDA all_gather) {[round(v, 3) for v in gr['direct_s']]} s, "
+              f"through pinned host buffers {[round(v, 3) for v in gr['staged_s']]} s; bit-equal")
+    for r in saved:
+        print(f"  save step 2 rank {r['rank']}: {r['save']['bytes'] / 1e9:.3f} GB, "
+              f"{r['save']['shards']} shards in {r['save']['s']:.2f} s; launches {r['launches']}; "
+              f"peak {r['peak_gb']:.2f} GB")
+    print(f"  commit: {chk['files']} files, {chk['bytes'] / 1e9:.3f} GB; {chk['digests']} digests "
+          f"equal the one-process save's of the gathered state ({saved[0]['one_save_s']:.2f} s, "
+          f"launches {one_save})")
+    for r in resumed:
+        rs = r["restore"]
+        print(f"  resume rank {r['rank']} ({MULTIRANK_MESH['resume']}): {rs['mode']} in {rs['s']:.2f} s, "
+              f"{rs['bytes_read'] / 1e9:.3f} GB read for {r['shard_bytes'] / 1e9:.3f} GB of shards; "
+              f"bit-equal to the one-process restore's shard; losses "
+              f"{[round(h['loss'], 4) for h in r['hist']]}; peak {r['peak_gb']:.2f} GB")
+    print(f"  resume 1 process (data=1,model=1): {info.mode.value} in {info.wall_time_s:.2f} s; "
+          f"losses {[round(v, 4) for v in one_losses]}; gaps to the baseline {out['gaps']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4754,6 +5210,7 @@ def main() -> int:
     k = kernel_phase(torch, F, kernel, ops, ref)
     bq = block_quant_phase(torch, bq_ops, bq_ref)
     coll = collectives_phase(torch)
+    multi = multirank_phase(torch, bq_ops)
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
                            "jamba-1.5-large-398b")
@@ -4943,6 +5400,9 @@ def main() -> int:
         rows[-1]["hot_launches"] = hot_bq[which]
         rows[-1]["collectives_launches"] = coll["launches"][which]
         rows[-1]["collectives_launches_by_variant"] = coll["launches_by_variant"][which]
+        rows[-1]["multirank_launches"] = multi["launches"][which]
+        rows[-1]["multirank_launches_by_phase"] = {k: v[which]
+                                                   for k, v in multi["launches_by_phase"].items()}
         rows[-1]["hot_launches_by_phase"] = {k: v[which]
                                              for k, v in hot["launches_by_phase"].items()}
     rows.append({
@@ -5017,6 +5477,7 @@ def main() -> int:
     print(json.dumps({"fanout": {k: v for k, v in fanout.items() if k != "launches_by_phase"}}))
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"collectives": coll}))
+    print(json.dumps({"multirank": multi}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

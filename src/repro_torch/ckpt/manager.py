@@ -36,6 +36,16 @@
   and GC keeps the currently published step, the fleet's disk tier, past
   ``keep_last``.
 
+With ``group`` (a ``torch.distributed`` group of the plan's mesh size) the
+manager is one rank's: every rank runs ``should_save`` and ``save``, each
+writes only the shards it owns (:func:`write_distributed` with
+``ranks=(rank,)``, coordinated on a gloo group the manager keeps for
+checkpoints), rank 0 commits and then runs GC, the ranks agree on
+``latest_step`` over ``group`` (rank 0's answer, broadcast), ``restore`` and
+``restore_latest`` build the rank's shards, and ``wait()`` raises every
+rank's writer error.  The hot tier, fan-out and delta saves under a group
+raise (ROADMAP item 11b).
+
 Spans, counters, events and fault points are the reference's
 (:mod:`repro_torch.obs`, :mod:`repro_torch.chaos.points`); no fault point
 fires while a lock of the manager is held.
@@ -50,6 +60,7 @@ from pathlib import Path
 from typing import Any, Mapping
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.chaos.points import fault_point
@@ -123,6 +134,7 @@ class CheckpointManager:
         *,
         policy: CheckpointPolicy | None = None,
         config_fingerprint: Mapping[str, Any] | None = None,
+        group=None,
     ):
         """All checkpointing knobs live on one validated
         :class:`~repro_torch.ckpt.policy.CheckpointPolicy`;
@@ -148,6 +160,28 @@ class CheckpointManager:
         published one is kept too, so a publication's disk tier outlives
         GC."""
         self.policy = policy if policy is not None else CheckpointPolicy()
+        self.group = group
+        self.rank = 0
+        self._ckpt_group = None
+        self._stash: list[SaveResult] = []  # results drained before a blocking save
+        if group is not None:
+            refused = [
+                (self.policy.hot_interval is not None, "the hot tier (hot_interval)"),
+                (self.policy.registry is not None, "fan-out (registry)"),
+                (self.policy.save_mode == "delta", 'save_mode="delta"'),
+            ]
+            for hit, what in refused:
+                if hit:
+                    raise NotImplementedError(
+                        f"{what} under a multi-rank group is ROADMAP item 11b")
+            if group.size() != plan.mesh.size:
+                raise ValueError(f"the group has {group.size()} ranks; the plan's mesh "
+                                 f"{dict(plan.mesh.axes)} has {plan.mesh.size}")
+            self.rank = dist.get_rank(group)
+            # saves coordinate on a group of their own: the async writer's
+            # collectives never interleave with the training step's
+            self._ckpt_group = dist.new_group(
+                [dist.get_global_rank(group, r) for r in range(group.size())], backend="gloo")
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.plan = plan
@@ -303,6 +337,11 @@ class CheckpointManager:
             codec=self.codec,
         )
         kw.update(self._next_save_kw(step))
+        if self.group is not None:
+            kw.update(ranks=(self.rank,), group=self._ckpt_group)
+            if self._async is not None and block:
+                # the checkpoint group is the writer thread's until it drains
+                self._stash += self._async.wait()
         if self._async is not None and not block:
             self._async.submit(state, self.plan, step, self.step_dir(step), **kw)
         else:
@@ -314,7 +353,8 @@ class CheckpointManager:
     def wait(self) -> list[SaveResult]:
         # A drainer failure must not leave async-saver errors undrained (or
         # the reverse), and GC and publishing still see whatever did commit.
-        res: list[SaveResult] = []
+        res: list[SaveResult] = self._stash
+        self._stash = []
         try:
             if self._drainer is not None:
                 res.extend(self._drainer.wait())
@@ -326,6 +366,8 @@ class CheckpointManager:
                 if self._async is not None or self._drainer is not None:
                     self.gc()
                 self._maybe_publish()
+                if self.group is not None:
+                    self._from_rank0(None)  # every rank sees rank 0's commits and GC
         return res
 
     # ----------------------------------------------------------- publishing
@@ -385,8 +427,19 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> int | None:
+        """The newest committed step; under a group, rank 0's answer on every
+        rank (a collective: every rank calls it, from its main thread)."""
         s = self.steps()
-        return s[-1] if s else None
+        latest = s[-1] if s else None
+        if self.group is None:
+            return latest
+        return self._from_rank0(latest)
+
+    def _from_rank0(self, value):
+        """Rank 0's ``value`` on every rank of the group (a barrier too)."""
+        box = [value]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return box[0]
 
     def _inflight_roots(self) -> set[Path]:
         """Step directories with a save queued or mid-write right now."""
@@ -409,6 +462,8 @@ class CheckpointManager:
         Deletes newest-first (references only point backwards, so a GC cut
         short leaves no committed manifest naming a deleted ancestor) and
         drops the engines' handles of what it deletes."""
+        if self.rank != 0:
+            return  # rank 0 collects, after its commits
         with obs.span("ckpt.gc"):
             self._gc()
 
@@ -537,37 +592,50 @@ class CheckpointManager:
         state, cstats = None, None
         stats = RestoreStats()
         engine = self.engine_for(device)
+        rank = None if self.group is None else self.rank  # None: the whole state
+        if rank is not None and plan.mesh.size != self.group.size():
+            raise ValueError(f"the target mesh {dict(plan.mesh.axes)} is not the group's size "
+                             f"{self.group.size()}")
         try:
             if mode is ResumeMode.DIRECT:
                 with obs.span("restore.tier", tier="direct"):
-                    state = state_from_source(ckpt, plan, device, engine=engine, stats=stats)
+                    state = state_from_source(ckpt, plan, device, engine=engine, stats=stats,
+                                              rank=rank)
             elif mode is ResumeMode.RESHARD_STREAM:
                 transforms = rp.transforms or stream_transforms(ckpt.manifest, target)
+                failure = None
                 try:
                     with obs.span("restore.tier", tier="reshard_stream"):
                         state = state_from_stream(ckpt, plan, device, transforms,
-                                                  engine=engine, stats=stats)
+                                                  engine=engine, stats=stats, rank=rank)
                 except (OSError, KeyError, IntegrityError) as e:
                     # Expected stream-time failures: a shard lost or corrupt after
                     # planning, a manifest entry gone.  Programming errors
                     # propagate.
-                    if force_mode is not None:
+                    if force_mode is not None and self.group is None:
                         raise
+                    failure = f"{type(e).__name__}: {e}"
+                if self.group is not None:
+                    # the ranks fall back together, or not at all
+                    failed = self._all_failures(failure)
+                    if failed and force_mode is not None:
+                        raise IntegrityError(f"forced reshard_stream failed: {'; '.join(failed)}")
+                    failure = failed[0] if failed else None
+                if failure is not None:
                     # drop what the engine cached of the (possibly damaged) source
                     # — for a delta, of its whole chain — and convert instead
                     engine.invalidate_chain(ckpt)
                     obs.event("restore.fallback", step=step, tier="reshard_stream",
-                              to="via_ucp", error=f"{type(e).__name__}: {e}")
+                              to="via_ucp", error=failure)
                     mode = ResumeMode.VIA_UCP
-                    reason = (
-                        f"{reason}; stream failed ({type(e).__name__}: {e}), "
-                        "falling back to via_ucp"
-                    )
+                    reason = f"{reason}; stream failed ({failure}), falling back to via_ucp"
                     stats = RestoreStats()
+                    state = None
             if mode is ResumeMode.VIA_UCP:
                 with obs.span("restore.tier", tier="via_ucp"):
-                    ucp, cstats = cached_ucp(ckpt, engine)
-                    state = state_from_ucp(ucp, plan, device, engine=engine, stats=stats)
+                    ucp, cstats = self._shared_ucp(ckpt, engine)
+                    state = state_from_ucp(ucp, plan, device, engine=engine, stats=stats,
+                                           rank=rank)
         finally:
             engine.release(ckpt)  # no decoded shard outlives the restore
         if device.type == "cuda":
@@ -580,6 +648,33 @@ class CheckpointManager:
             convert_stats=cstats, restore_stats=stats,
         )
         return state, info
+
+    def _all_failures(self, failure: str | None) -> list[str]:
+        """Every rank's stream failure (None where it succeeded), as text,
+        on every rank."""
+        everyone: list = [None] * self.group.size()
+        dist.all_gather_object(everyone, failure, group=self.group)
+        return [f"rank {r}: {f}" for r, f in enumerate(everyone) if f is not None]
+
+    def _shared_ucp(
+        self, ckpt: DistCheckpoint, engine: CheckpointEngine, convert_workers: int | None = None,
+    ) -> tuple[UcpCheckpoint, ConvertStats | None]:
+        """:func:`cached_ucp`; under a group rank 0 converts (once) and the
+        other ranks open its atoms after it committed them."""
+        if self.group is None:
+            return cached_ucp(ckpt, engine, convert_workers=convert_workers)
+        out, err = None, None
+        if self.rank == 0:
+            try:
+                out = cached_ucp(ckpt, engine, convert_workers=convert_workers)
+            except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank below
+                err = e
+        msg = self._from_rank0(None if err is None else f"{type(err).__name__}: {err}")
+        if msg is not None:
+            raise RuntimeError(f"UCP conversion on rank 0 failed: {msg}") from err
+        if out is not None:
+            return out
+        return UcpCheckpoint.open(Path(str(ckpt.root) + ".ucp")), None
 
     def export_ucp(
         self, step: int | None = None, *, device: str | torch.device = "cuda",
@@ -601,7 +696,7 @@ class CheckpointManager:
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")
         engine = self.engine_for(device)
         try:
-            ucp, cstats = cached_ucp(ckpt, engine, convert_workers=convert_workers)
+            ucp, cstats = self._shared_ucp(ckpt, engine, convert_workers)
         finally:
             engine.release(ckpt)
         if device.type == "cuda":

@@ -46,6 +46,14 @@ Regions are served as in the reference:
 
 Either way the bytes are the reference's (``repro/ckpt/restore.py:259-310``).
 
+``rank=r`` builds rank ``r``'s local state of a multi-rank run instead:
+each tensor is the rank's checkpoint shard under the Target plan (its
+fragment's entries read as regions, padding zero), bit-equal to
+``slice_shard`` of the full restore, read from the regions of the rank's
+own shards alone (under DIRECT, its own fragment's file, or the primary
+rank's when it is a replica), as the reference reads each device's
+addressable regions (``repro/ckpt/restore.py:169-190``).
+
 VIA_UCP (:func:`state_from_ucp`, :func:`params_from_ucp`) serves the same
 Target regions from a UCP atom checkpoint instead: each atom is opened once
 (``CheckpointEngine.read_atom``) and every region is cut from it by
@@ -270,7 +278,7 @@ def _device_done(device: torch.device) -> None:
 def _build_flat(
     reader, plan: ShardingPlan, kind: StateKind, device, engine: CheckpointEngine,
     *, pool: bool, whole: frozenset[str] = frozenset(), stats: RestoreStats | None = None,
-    names=None,
+    names=None, rank: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """One runtime-shaped tensor per parameter of ``kind`` on ``device``
     (of the parameters in ``names``, when given).
@@ -290,10 +298,16 @@ def _build_flat(
     device tensors) spans; on a card each closes after a synchronize while
     a tracer is enabled."""
     jobs = []
+    places: dict[str, list] = {}  # per parameter of a rank: where each region lands
     for name, spec in plan.param_specs.items():
         if names is not None and name not in names:
             continue
-        regions = target_regions(spec, plan.mesh, kind)
+        if rank is None:
+            regions = target_regions(spec, plan.mesh, kind)
+        else:
+            entries = spec.layout_for(kind, plan.mesh).entries[rank]
+            regions = [e.atom_index() for e in entries]
+            places[name] = [e.shard_index() for e in entries]
         groups = [regions] if name in whole else [[region] for region in regions]
         jobs += [(name, spec.states[kind].dtype, group) for group in groups]
 
@@ -305,12 +319,18 @@ def _build_flat(
         pieces = engine.map(read, jobs) if pool else [read(j) for j in jobs]
         _device_done(device)
     out: dict[str, torch.Tensor] = {}
+    done: dict[str, int] = {}  # regions of a rank's parameter placed so far
     with obs.span("restore.materialize", field=field):
         for i, (name, dtype, regions) in enumerate(jobs):
             full = out.get(name)
             if full is None:
-                shape = plan.param_specs[name].runtime_shape
-                full = out[name] = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+                if rank is None:
+                    shape = plan.param_specs[name].runtime_shape
+                    full = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+                else:  # the rank's shard: padding stays zero
+                    layout = plan.param_specs[name].layout_for(kind, plan.mesh)
+                    full = torch.zeros(layout.local_shape, dtype=torch_dtype(dtype), device=device)
+                out[name] = full
                 if stats is not None:
                     stats.arrays += 1
                 obs.add("restore.arrays")
@@ -319,6 +339,9 @@ def _build_flat(
                 if stats is not None:
                     stats.bytes_read += n
                 obs.add("restore.bytes_read", n)
+                if rank is not None:
+                    region = places[name][done.get(name, 0)]
+                    done[name] = done.get(name, 0) + 1
                 full[region] = to_staging(full, piece)
                 engine.recycle(piece)
             pieces[i] = None
@@ -370,11 +393,12 @@ def params_from_source(
 def _build_state(
     reader, plan, device, step: int, engine: CheckpointEngine, coded: set[StateKind],
     whole: frozenset[str] = frozenset(), stats: RestoreStats | None = None,
+    rank: int | None = None,
 ) -> TrainState:
     trees = {
         kind: unflatten_from_paths(
             _build_flat(reader, plan, kind, device, engine, pool=kind in coded, whole=whole,
-                        stats=stats))
+                        stats=stats, rank=rank))
         for kind in (StateKind.FP32, StateKind.EXP_AVG, StateKind.EXP_AVG_SQ)
     }
     return TrainState(
@@ -404,6 +428,7 @@ def state_from_source(
     *,
     engine: CheckpointEngine | None = None,
     stats: RestoreStats | None = None,
+    rank: int | None = None,
 ) -> TrainState:
     """DIRECT (and HOT_DIRECT): the full TrainState (params, both moments,
     step) on ``device``, from straight fragment unions of any fragment
@@ -412,7 +437,7 @@ def state_from_source(
     with _engine_for(source, device, engine) as engine:
         reader = _reader_for(source, plan, None, engine)
         return _build_state(reader, plan, device, int(source.manifest.step), engine,
-                            _coded_kinds(source), stats=stats)
+                            _coded_kinds(source), stats=stats, rank=rank)
 
 
 def state_from_stream(
@@ -423,6 +448,7 @@ def state_from_stream(
     *,
     engine: CheckpointEngine | None = None,
     stats: RestoreStats | None = None,
+    rank: int | None = None,
 ) -> TrainState:
     """RESHARD_STREAM (and HOT_RESHARD): the full TrainState under a changed
     layout, with no intermediate checkpoint.  Per the plan table,
@@ -434,7 +460,7 @@ def state_from_stream(
     with _engine_for(source, device, engine) as engine:
         reader = _reader_for(source, plan, transforms, engine)
         return _build_state(reader, plan, device, int(source.manifest.step), engine,
-                            _coded_kinds(source), _consolidated(transforms), stats)
+                            _coded_kinds(source), _consolidated(transforms), stats, rank)
 
 
 def state_from_ucp(
@@ -444,6 +470,7 @@ def state_from_ucp(
     *,
     engine: CheckpointEngine | None = None,
     stats: RestoreStats | None = None,
+    rank: int | None = None,
 ) -> TrainState:
     """VIA_UCP: the full TrainState on ``device`` from a UCP atom checkpoint
     (any Source layout; the Target plan's logical shapes must match the
@@ -452,7 +479,7 @@ def state_from_ucp(
     with _engine_for(ucp, device, engine) as engine:
         reader = _ucp_reader(ucp, plan, engine)  # atoms are raw: read inline
         return _build_state(reader, plan, device, int(ucp.manifest.step), engine, set(),
-                            stats=stats)
+                            stats=stats, rank=rank)
 
 
 def params_from_ucp(

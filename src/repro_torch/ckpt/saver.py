@@ -26,6 +26,14 @@ from ``created_at`` — serial or parallel, raw or coded, full or delta.
   scales and the bytes the two digests hash go to the host.
 * :class:`AsyncSaver` overlaps the writes with training; the delta base it
   diffs against is resolved on its writer thread.
+* A multi-rank save (``ranks=(rank,)``, ``group=``): the snapshot holds
+  that rank's local shards, and the rank writes the shards it owns (under
+  ``dedup`` the fragments it is primary for, under ``all`` its own); every
+  rank's digests and errors go to every rank over ``group`` (a group kept
+  for checkpoints, so a writer thread never interleaves with the training
+  step's collectives), and group rank 0 writes the manifest and then
+  COMMIT, after every rank's shards are durable.  The files are the
+  single-process save's of the gathered state.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.chaos.points import fault_point
@@ -138,6 +147,8 @@ def write_distributed(
     workers: int | None = None,
     engine: CheckpointEngine | None = None,
     codec: CodecPolicy | None = None,
+    ranks: tuple[int, ...] | None = None,
+    group=None,
 ) -> SaveResult:
     """Write one distributed checkpoint (all ranks' shards) and commit.
 
@@ -162,20 +173,47 @@ def write_distributed(
     records the served digest of its decoded view; the manifest carries the
     three tables (served digests, pre-encode digests where they differ,
     codec tags where not raw).  An all-raw policy is the plain byte path.
+
+    ``ranks=(rank,)`` with ``group``: one rank's part of a multi-rank save;
+    ``snap`` holds that rank's local shards (see the module docstring).
+    The result counts the rank's own shards and bytes.
     """
+    if ranks is not None:
+        if group is None or len(ranks) != 1:
+            raise ValueError("a per-rank save takes ranks=(rank,) and its group")
+        if save_mode == "delta":
+            raise NotImplementedError(
+                "delta saves under a group are ROADMAP item 11b; save dedup or all")
     with obs.timed("ckpt.save", step=step) as sw:
         return _write_distributed_traced(
             sw, snap, plan, step, root, scalars, config_fingerprint,
-            save_mode, base, workers, engine, codec,
+            save_mode, base, workers, engine, codec, ranks, group,
         )
+
+
+def _gather_results(results, error, group, step: int) -> tuple[list, range]:
+    """Every rank's job results in group-rank order, and where this rank's
+    own lie among them; or raise every rank's failure on every rank."""
+    me = dist.get_rank(group)
+    mine = ("error", f"rank {me}: {type(error).__name__}: {error}") \
+        if error is not None else ("ok", results)
+    everyone: list = [None] * group.size()
+    dist.all_gather_object(everyone, mine, group=group)
+    failures = [p[1] for p in everyone if p[0] == "error"]
+    if failures:
+        raise RuntimeError(f"distributed save of step {step} failed: " + "; ".join(failures)) \
+            from error
+    start = sum(len(p[1]) for p in everyone[:me])
+    return [r for _, rs in everyone for r in rs], range(start, start + len(results))
 
 
 def _write_distributed_traced(
     sw, snap, plan, step, root, scalars, config_fingerprint,
-    save_mode, base, workers, engine, codec,
+    save_mode, base, workers, engine, codec, ranks, group,
 ) -> SaveResult:
     # The body of write_distributed, inside its ``ckpt.save`` span: ``sw``
     # gives the wall time and carries the result's attributes.
+    coordinator = group is None or dist.get_rank(group) == 0
     fallback_reason = ""
     if save_mode == "delta":
         with obs.span("save.resolve_base"):
@@ -199,7 +237,10 @@ def _write_distributed_traced(
         config_fingerprint=dict(config_fingerprint or {}),
         save_mode=save_mode,
     )
-    ckpt = DistCheckpoint.create(root, manifest)
+    if coordinator:
+        ckpt = DistCheckpoint.create(root, manifest)
+    else:  # only the coordinator writes the manifest
+        ckpt = DistCheckpoint(root, manifest)
     caller_engine = engine
     owns_engine = False
     if workers is not None and (engine is None or engine.workers != workers):
@@ -224,7 +265,10 @@ def _write_distributed_traced(
                 arr = arr.astype(resolve_dtype(dt), copy=False)
             layout = spec.layout_for(kind, plan.mesh)
             for rank in ckpt.writing_ranks(name, kind):
-                jobs.append((rank, name, kind, arr, layout, tag))
+                if ranks is None:
+                    jobs.append((rank, name, kind, arr, layout, tag))
+                elif rank in ranks:  # the snapshot is this rank's shard: nothing to slice
+                    jobs.append((rank, name, kind, arr, None, tag))
 
     def durable(rank, name, kind) -> None:
         # The parallel path's fsync, in the worker that wrote the file, so
@@ -245,12 +289,16 @@ def _write_distributed_traced(
 
     def write_one_traced(sp, rank, name, kind, arr, layout, tag):
         key = shard_digest_key(rank, name, kind)
-        entries = layout.entries[rank]
         contiguous_view = None
-        if len(entries) == 1 and entries[0].shard_slice == tuple((0, s) for s in layout.local_shape):
-            view = arr[entries[0].atom_index()]
-            if _is_contiguous(view):
-                contiguous_view = view
+        if layout is None:  # the rank's own shard, whole
+            contiguous_view = arr if _is_contiguous(arr) else (
+                arr.contiguous() if isinstance(arr, torch.Tensor) else np.ascontiguousarray(arr))
+        else:
+            entries = layout.entries[rank]
+            if len(entries) == 1 and entries[0].shard_slice == tuple((0, s) for s in layout.local_shape):
+                view = arr[entries[0].atom_index()]
+                if _is_contiguous(view):
+                    contiguous_view = view
         inherited = (0, key, None, None, None, True, 0, 0, 0)
         if tag != CODEC_RAW or base_digests is not None:
             # Digest first (the delta key; zero-copy for a contiguous shard),
@@ -287,10 +335,11 @@ def _write_distributed_traced(
             sp.set(codec=enc.tag)
             return (written, key, served, pre, enc.tag, False, *coded)
         written = digest = None
-        if not serial and contiguous_view is not None:
+        if (not serial or layout is None) and contiguous_view is not None:
             # zero-copy: the shard is one padding-free contiguous rectangle
-            # of the snapshot, written without a staging copy
-            written = ckpt.write_shard(rank, name, kind, contiguous_view, fsync=False)
+            # of the snapshot (or the rank's own shard), written without a
+            # staging copy
+            written = ckpt.write_shard(rank, name, kind, contiguous_view, fsync=serial)
             digest = content_digest(contiguous_view)
         if written is None:
             shard = slice_shard(arr, layout, rank, alloc=engine.alloc)
@@ -302,25 +351,39 @@ def _write_distributed_traced(
 
     res = SaveResult(step, Path(root), 0, 0.0, fallback_reason=fallback_reason)
     try:
-        results = engine.map(write_one, jobs)
+        own = None  # where this rank's results lie among every rank's
+        if group is None:
+            results = engine.map(write_one, jobs)
+        else:
+            # every rank's digests (and failures) to every rank; returns
+            # once every rank's shards are written and durable
+            results, error = [], None
+            try:
+                results = engine.map(write_one, jobs)
+            except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
+                error = e
+            results, own = _gather_results(results, error, group, step)
         # Digests land in the manifest before COMMIT, for every shard,
         # written and inherited, so the next delta diffs this manifest alone.
         served_tbl: dict[str, str] = {}
         pre_tbl: dict[str, str] = {}
         codec_tbl: dict[str, str] = {}
-        for written, key, served, pre, tag, inh, raw_b, coded_b, d2h in results:
+        for i, (written, key, served, pre, tag, inh, raw_b, coded_b, d2h) in enumerate(results):
             if inh:
                 served = base.manifest.shard_digests[key]
                 pre = base_digests[key]
                 tag = base.manifest.codec_tag(key)
-                res.shards_inherited += 1
-            else:
-                res.shards_written += 1
             served_tbl[key] = served
             if pre != served:
                 pre_tbl[key] = pre
             if tag != CODEC_RAW:
                 codec_tbl[key] = tag
+            if own is not None and i not in own:
+                continue  # another rank's shard: its bytes are in that rank's result
+            if inh:
+                res.shards_inherited += 1
+            else:
+                res.shards_written += 1
             res.bytes_written += written
             res.coded_raw_bytes += raw_b
             res.coded_bytes += coded_b
@@ -331,8 +394,9 @@ def _write_distributed_traced(
         if base is not None:
             flatten_provenance(manifest, base, [r[1] for r in results if r[5]])
         fault_point("saver.pre_manifest", step=step, mode=save_mode)
-        with obs.span("save.manifest"):
-            ckpt.rewrite_manifest()
+        if coordinator:
+            with obs.span("save.manifest"):
+                ckpt.rewrite_manifest()
         # A re-save into an existing directory must not leave readers on
         # stale handles of the replaced files: invalidate every engine that
         # could hold them (the one written through, the caller's, and the
@@ -346,7 +410,10 @@ def _write_distributed_traced(
     if base is not None:
         check_chain_committed(ckpt)
     fault_point("saver.pre_commit", step=step, mode=save_mode)
-    ckpt.commit()
+    if coordinator:
+        ckpt.commit()
+    if group is not None:
+        dist.barrier(group=group)  # every rank returns after COMMIT
     res.mode = "delta" if base is not None else "full"
     res.wall_time_s = sw.elapsed_s
     # One accumulation feeds both: the obs counters equal the SaveResult.

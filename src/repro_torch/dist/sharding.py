@@ -1,4 +1,5 @@
-"""The sharding rule table, UCP half (port of ``repro.dist.sharding``).
+"""The sharding rule table and the multi-rank runtime (port of
+``repro.dist.sharding``).
 
 :func:`make_plan` applies the reference's rule table to a model's
 :class:`~repro_torch.models.common.ParamRegistry` and a
@@ -15,9 +16,27 @@ every tensor with at least two non-stack dims over the model axis; ZeRO-3 /
 FSDP shards the largest remaining dim over the data axes for weights and
 moments, ZeRO-1 for the moments only; a pipe axis shards the layer stack.
 
-The runtime half of the reference (``PartitionSpec``s, ``make_sharder``,
-``cache_pspecs``) waits for the multi-rank runtime (ROADMAP queue 1,
-item 11): on one card the logical model lives on one device.
+The plan also gives the runtime :class:`PartitionSpec` of every state kind
+(``partition_specs``, ``moment_partition_specs``, ``state_pspecs()``), entry
+for entry the reference's.
+
+The runtime half places state over the ranks of a ``torch.distributed``
+group laid over the mesh (:class:`RankGroups`): a rank's local tensor of a
+(parameter, kind) is its *checkpoint shard* (``slice_shard`` through the
+kind's layout, fused sub-fragments and padding included), so a save needs
+no exchange and DIRECT reads the rank's own file; :func:`gather_full`
+inverts the layout's index maps to rebuild the runtime-shaped tensor for
+compute.  Ranks are mesh ranks (row-major coordinates); the data, model and
+pipe subgroups are created by every rank in one order.  The collectives
+take the tensors where they are: gloo takes CUDA tensors for each one the
+runtime sends (``all_reduce``, ``broadcast``, ``all_gather``; the smoke's
+``multirank`` phase checks it on the card, and found pinned host staging of
+the gather no faster).
+
+Compute stays unsharded here: every rank runs the whole model on its rows
+of the batch.  Tensor-parallel compute (``make_sharder``), sequence
+parallelism and the decode cache's specs (``cache_pspecs``) are ROADMAP
+item 11b.
 """
 
 from __future__ import annotations
@@ -25,12 +44,27 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig, ParallelismConfig
-from repro_torch.core.layout import DimSpec, MeshSpec, SubFragment
+from repro_torch.core.layout import DimSpec, MeshSpec, ShardLayout, SubFragment, slice_shard
 from repro_torch.core.patterns import ParamSpec, StateKind, StateLayoutSpec
 from repro_torch.models.common import ParamDef, ParamRegistry
 
-__all__ = ["ShardingPlan", "make_plan", "vocab_multiple"]
+__all__ = [
+    "PartitionSpec",
+    "RankGroups",
+    "ShardingPlan",
+    "axis_groups",
+    "batch_axes",
+    "data_coord",
+    "gather_full",
+    "local_shard",
+    "make_plan",
+    "rank_rows",
+    "vocab_multiple",
+]
 
 
 # Logical axes tensor parallelism may claim (first eligible dim wins).
@@ -51,6 +85,28 @@ def vocab_multiple(parallel: ParallelismConfig, mesh: MeshSpec) -> int:
     return max(1, m)
 
 
+class PartitionSpec(tuple):
+    """The runtime sharding of one array, entry per dim, major to minor:
+    ``None`` (replicated), an axis name, or a tuple of axis names — the
+    reference's ``jax.sharding.PartitionSpec`` as a plain tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _pspec_entry(dim: DimSpec):
+    if not dim.axes:
+        return None
+    return dim.axes[0] if len(dim.axes) == 1 else tuple(dim.axes)
+
+
+def _pspec(spec: StateLayoutSpec) -> PartitionSpec:
+    return PartitionSpec(*[_pspec_entry(d) for d in spec.dims])
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:
     """One run's state-distribution description: the mesh, the per-param
@@ -59,6 +115,26 @@ class ShardingPlan:
     mesh: MeshSpec
     param_specs: dict[str, ParamSpec]
     moe_mode: str = "none"
+
+    @property
+    def partition_specs(self) -> dict[str, PartitionSpec]:
+        """Runtime PartitionSpec per parameter (fp32 master weights)."""
+        return {n: _pspec(s.states[StateKind.FP32]) for n, s in self.param_specs.items()}
+
+    @property
+    def moment_partition_specs(self) -> dict[str, PartitionSpec]:
+        """Runtime PartitionSpec per parameter for the Adam moments."""
+        return {n: _pspec(s.states[StateKind.EXP_AVG]) for n, s in self.param_specs.items()}
+
+    def state_pspecs(self) -> dict[str, dict[str, PartitionSpec]]:
+        """PartitionSpec trees for every TrainState field, by flat path."""
+        return {
+            "params": self.partition_specs,
+            "exp_avg": self.moment_partition_specs,
+            "exp_avg_sq": {
+                n: _pspec(s.states[StateKind.EXP_AVG_SQ]) for n, s in self.param_specs.items()
+            },
+        }
 
 
 def _moe_mode(cfg: ModelConfig, parallel: ParallelismConfig, mesh: MeshSpec) -> str:
@@ -188,3 +264,125 @@ def make_plan(
         for d in registry
     }
     return ShardingPlan(mesh=mesh, param_specs=specs, moe_mode=moe_mode)
+
+
+# ---------------------------------------------------------------------------
+# The multi-rank runtime: ranks of a torch.distributed group over the mesh
+# ---------------------------------------------------------------------------
+
+def batch_axes(parallel: ParallelismConfig, mesh: MeshSpec) -> tuple[str, ...]:
+    """The mesh axes the batch dim shards over, major to minor: the
+    reference's ``P(bspec, None)`` of ``Trainer._batch_shardings``."""
+    return tuple(a for a in parallel.data_axes if mesh.has_axis(a))
+
+
+def data_coord(mesh: MeshSpec, rank: int, axes: tuple[str, ...]) -> int:
+    """Mixed-radix coordinate of ``rank`` over ``axes`` (first axis major)."""
+    coords = mesh.coords(rank)
+    c = 0
+    for a in axes:
+        c = c * mesh.axis_size(a) + coords[a]
+    return c
+
+
+def rank_rows(batch_size: int, parallel: ParallelismConfig, mesh: MeshSpec, rank: int) -> slice:
+    """The rows of a global batch that ``rank`` computes: its data
+    coordinate's even chunk.  Ranks that differ only in model or pipe
+    coordinates compute the same rows."""
+    axes = batch_axes(parallel, mesh)
+    n = math.prod(mesh.axis_size(a) for a in axes) if axes else 1
+    if batch_size % n:
+        raise ValueError(f"batch {batch_size} does not split over the data axes {axes} ({n})")
+    per = batch_size // n
+    c = data_coord(mesh, rank, axes)
+    return slice(c * per, (c + 1) * per)
+
+
+def axis_groups(mesh: MeshSpec, axes: tuple[str, ...]) -> list[list[int]]:
+    """The mesh ranks that differ only in ``axes``, one list per group, each
+    ordered by its coordinate over ``axes`` (first axis major); the groups in
+    the order of their lowest rank.  Every rank derives the same lists."""
+    axes = tuple(a for a in axes if mesh.has_axis(a))
+    groups: dict[tuple, list[int]] = {}
+    for r in mesh.ranks():
+        coords = mesh.coords(r)
+        key = tuple(coords[a] for a in mesh.axis_names if a not in axes)
+        groups.setdefault(key, []).append(r)
+    for members in groups.values():
+        members.sort(key=lambda r: data_coord(mesh, r, axes))
+    return sorted(groups.values(), key=lambda m: min(m))
+
+
+@dataclasses.dataclass
+class RankGroups:
+    """One rank's place in a ``torch.distributed`` group laid over a plan's
+    mesh: ``rank`` is ``dist.get_rank(group)`` and its mesh rank; ``data``,
+    ``model`` and ``pipe`` are its subgroups (None when the axes' size is 1);
+    ``data_size`` is the data group's size (the gradient mean's divisor)."""
+
+    group: "dist.ProcessGroup"
+    plan: ShardingPlan
+    parallel: ParallelismConfig
+    rank: int
+    data: "dist.ProcessGroup | None"
+    model: "dist.ProcessGroup | None"
+    pipe: "dist.ProcessGroup | None"
+    data_size: int
+
+    @property
+    def mesh(self) -> MeshSpec:
+        return self.plan.mesh
+
+    @classmethod
+    def create(cls, group, plan: ShardingPlan, parallel: ParallelismConfig) -> "RankGroups":
+        """Check ``group`` against the plan's mesh and create the subgroups.
+        Every rank of ``group`` must call this, with equal plans, in the same
+        order as its other ``new_group`` calls."""
+        if group is None or not dist.is_initialized():
+            raise ValueError("a multi-rank run needs an initialized torch.distributed group")
+        mesh = plan.mesh
+        if group.size() != mesh.size:
+            raise ValueError(
+                f"the group has {group.size()} ranks; the mesh {dict(mesh.axes)} has {mesh.size}"
+            )
+        rank = dist.get_rank(group)
+        backend = dist.get_backend(group)
+        glob = [dist.get_global_rank(group, r) for r in range(group.size())]
+        pipe = (parallel.pipe_axis,) if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else ()
+        model = (parallel.model_axis,) if mesh.has_axis(parallel.model_axis) else ()
+        data = batch_axes(parallel, mesh)
+        mine = {}
+        for label, axes in (("data", data), ("model", model), ("pipe", pipe)):
+            mine[label] = None
+            if math.prod(mesh.axis_size(a) for a in axes) <= 1:
+                continue  # the same on every rank: no group to create
+            for members in axis_groups(mesh, axes):
+                g = dist.new_group([glob[r] for r in members], backend=backend)
+                if rank in members:
+                    mine[label] = g
+        dsize = math.prod(mesh.axis_size(a) for a in data) if data else 1
+        return cls(group=group, plan=plan, parallel=parallel, rank=rank,
+                   data=mine["data"], model=mine["model"], pipe=mine["pipe"],
+                   data_size=dsize)
+
+
+def gather_full(local: torch.Tensor, layout: ShardLayout, group) -> torch.Tensor:
+    """The runtime-shaped tensor from every rank's local shard: inverts the
+    layout's :class:`~repro_torch.core.layout.IndexEntry` maps (one primary
+    rank per fragment; padding dropped).  A layout with one fragment is
+    every rank's whole tensor already: returned as it is."""
+    if len(set(layout.fragment_id)) == 1:
+        return local
+    shards = [torch.empty_like(local) for _ in range(group.size())]
+    dist.all_gather(shards, local.contiguous(), group=group)
+    full = torch.empty(layout.global_shape, dtype=local.dtype, device=local.device)
+    for r in layout.primary_ranks():
+        for e in layout.entries[r]:
+            full[e.atom_index()] = shards[r][e.shard_index()]
+    return full
+
+
+def local_shard(full, layout: ShardLayout, rank: int):
+    """Rank ``rank``'s local shard of a runtime-shaped tensor: its
+    checkpoint shard (:func:`~repro_torch.core.layout.slice_shard`)."""
+    return slice_shard(full, layout, rank)

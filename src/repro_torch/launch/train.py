@@ -23,12 +23,25 @@ Examples::
         --mesh data=2,model=2 --steps 20 --ckpt-dir /tmp/run3 --hot-interval 2 \
         --trace /tmp/run3.trace.json
 
-The flags are the reference's.  The model trains on one device
-(``--device``, default ``cuda``; CUDA that is not there raises), and
-``--mesh`` sets the checkpoint geometry.  Flags whose machinery is not
-ported raise: ``--host-devices`` above 0 (one device trains here) and
-``--pipe-axis``.  ``--trace PATH`` records the run's spans and counters and
-writes them as a Chrome trace-event JSON at PATH.
+    # 4 ranks (4 processes on this host, a gloo group), each holding and
+    # saving only its shards of a data=2,model=2 layout; then 2 ranks resume
+    # the run under another layout and world size
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
+        --device cpu --host-devices 4 --mesh data=2,model=2 --steps 10 --ckpt-dir /tmp/run4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
+        --device cpu --host-devices 2 --mesh data=2,model=1 --steps 20 --ckpt-dir /tmp/run4
+
+The flags are the reference's.  Without ``--host-devices`` the model
+trains on one device (``--device``, default ``cuda``; CUDA that is not
+there raises), and ``--mesh`` sets the checkpoint geometry.
+``--host-devices N`` runs N ranks as N processes of this host in a gloo
+group (a ``FileStore`` in a temporary directory), which this process
+starts and supervises; on the CPU with ``--device cpu``, else on the
+cards (rank r on ``cuda:(r % device_count)``).  N must equal the mesh's
+size.  Only rank 0 prints.  ``--pipe-axis`` names the stage axis, by the
+reference's rule (a named axis of the mesh, else ``pipe`` when the mesh
+has one).  ``--trace PATH`` records the run's spans and counters and
+writes them as a Chrome trace-event JSON at PATH (rank 0's).
 ``--log-json`` prints one JSON object per step (and one ``restored`` event).
 """
 
@@ -36,7 +49,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
+import tempfile
+import time
+from pathlib import Path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", required=True)
     p.add_argument("--reduced", action="store_true", help="tiny same-family config")
     p.add_argument("--host-devices", type=int, default=0,
-                   help="the reference's simulated CPU devices; must be 0 here")
+                   help="run N ranks as N processes of this host (N = the mesh's size)")
     p.add_argument("--mesh", default="data=1,model=1")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=8)
@@ -84,26 +102,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="record an obs trace of the run and export it as a "
                    "Chrome trace-event JSON (Perfetto-loadable) at PATH")
     p.add_argument("--device", default="cuda")
+    # a spawned rank's place in a --host-devices world (set by rank 0)
+    p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--store", default=None, help=argparse.SUPPRESS)
     return p
 
 
-def _refuse_unported(args) -> None:
-    refused = [
-        (args.host_devices > 0, "--host-devices", "one device trains here (item 11: multi-rank)"),
-        (args.pipe_axis is not None, "--pipe-axis", "item 11: multi-rank runtime"),
-    ]
-    for hit, flag, item in refused:
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1, {item})")
-
-
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.host_devices:
+        from repro_torch.launch.mesh import mesh_spec_from_string
+
+        size = mesh_spec_from_string(args.mesh).size
+        if args.host_devices != size:
+            raise SystemExit(f"--host-devices {args.host_devices} is not the size of the "
+                             f"mesh {args.mesh} ({size}): one rank per mesh position")
+        if args.store is None:
+            return _spawn_world(argv, args)
 
     import repro_torch.obs as obs
 
-    tracer = obs.enable() if args.trace else None
+    tracer = obs.enable() if args.trace and args.rank == 0 else None
     try:
         return _run(args)
     finally:
@@ -112,24 +132,77 @@ def main(argv=None) -> int:
             obs.disable(tracer)
 
 
+def _spawn_world(argv: list[str], args) -> int:
+    """Start the N ranks of a ``--host-devices`` world as processes of this
+    host and supervise them: rank 0 prints to this process's stdout; a rank
+    that fails stops the others at once (rather than leave them waiting in
+    a collective) and fails the run."""
+    src = str(Path(__file__).resolve().parents[2])  # the directory holding repro_torch
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+               "--store", os.path.join(tmp, "store")]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
+                                  stdout=None if r == 0 else subprocess.DEVNULL)
+                 for r in range(args.host_devices)]
+        try:
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = {r: c for r, c in enumerate(codes) if c not in (None, 0)}
+                if failed:
+                    print(f"ranks exited non-zero: {failed}; stopping the world",
+                          file=sys.stderr, flush=True)
+                    return 1
+                if all(c == 0 for c in codes):
+                    return 0
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
 def _run(args) -> int:
+    from repro_torch.launch.serve import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.host_devices:
+        return _train(args, device, None)
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(args.store, args.host_devices),
+                            rank=args.rank, world_size=args.host_devices,
+                            timeout=datetime.timedelta(minutes=30))
+    try:
+        # a bare "cuda": the trainer places rank r on cuda:(r % device_count)
+        return _train(args, None if str(device) == "cuda" else device, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, group) -> int:
     from repro_torch.ckpt.policy import CheckpointPolicy
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config, reduced
     from repro_torch.core.codec import CodecPolicy
     from repro_torch.launch.mesh import mesh_spec_from_string
-    from repro_torch.launch.serve import resolve_device
     from repro_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     mesh = mesh_spec_from_string(args.mesh)
     names = mesh.axis_names
+    lead = args.rank == 0  # only rank 0 prints
     parallel = ParallelismConfig(
         data_axes=tuple(a for a in ("pod", "data") if a in names) or ("data",),
         model_axis="model",
-        pipe_axis="pipe" if "pipe" in names else None,
+        # the reference's rule: a named pipe axis of the mesh, else "pipe"
+        pipe_axis=(args.pipe_axis if args.pipe_axis in names
+                   else ("pipe" if "pipe" in names else None)),
         fsdp=not args.no_fsdp,
         zero=args.zero,
         tensor_parallel=not args.no_tp,
@@ -165,11 +238,11 @@ def _run(args) -> int:
     trainer = Trainer.create(
         cfg, parallel, tcfg, mesh,
         batch_size=args.batch, seq_len=args.seq,
-        ckpt_dir=args.ckpt_dir, policy=policy, device=device,
+        ckpt_dir=args.ckpt_dir, policy=policy, device=device, group=group,
     )
     state, info = trainer.init_or_restore()
     start = state.step
-    if info is not None:
+    if info is not None and lead:
         print(json.dumps({
             "event": "restored",
             "step": info.step,
@@ -179,6 +252,8 @@ def _run(args) -> int:
         }), flush=True)
 
     def log(rec):
+        if not lead:
+            return
         if args.log_json:
             print(json.dumps({"event": "step", **rec}), flush=True)
         else:

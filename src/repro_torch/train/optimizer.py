@@ -66,15 +66,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def adamw_update(state: TrainState, grads: dict, cfg: TrainConfig) -> tuple[TrainState, dict]:
+def adamw_update(
+    state: TrainState, grads: dict, cfg: TrainConfig, *, gnorm: torch.Tensor | None = None,
+) -> tuple[TrainState, dict]:
     """One AdamW step (grad clip → moments → bias-corrected update → decay).
 
+    ``gnorm``: the global gradient norm to clip by, when ``grads`` are one
+    rank's regions of the full gradient (default: the norm of ``grads``).
     Returns the new state and ``{"grad_norm", "lr"}`` as 0-d fp32 tensors."""
     params = flatten_with_paths(state.params)
     g_flat = flatten_with_paths(grads)
     device = next(iter(params.values())).device
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     one = torch.ones((), dtype=torch.float32, device=device)
     clip = torch.minimum(one, cfg.grad_clip * one / torch.clamp(gnorm, min=1e-9))
     lr = lr_schedule(cfg, step)

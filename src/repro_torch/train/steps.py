@@ -2,23 +2,47 @@
 
 The step runs eagerly (there is no ``jit``): gradients by
 ``torch.autograd.grad`` of :meth:`LM.loss_fn`, then :func:`adamw_update`.
-Gradient accumulation splits the global batch ``[B, ...]`` into ``accum``
+Gradient accumulation splits the batch ``[B, ...]`` into ``accum``
 microbatches of ``B/accum`` and sums fp32 gradients, as the reference's
 ``lax.scan`` does.  ``cast_params_once`` casts the fp32 master to the
 compute dtype once per microstep (a differentiable cast).
+``grad_transform`` maps the gradient tree before the update, as in the
+reference.
+
+With ``group`` (a :class:`~repro_torch.dist.sharding.RankGroups`) the state
+holds the rank's local shards and the batch is the rank's rows
+(:func:`~repro_torch.dist.sharding.rank_rows`).  One step:
+
+1. gather each parameter's full fp32 weights from the ranks' shards;
+2. forward and backward on the rank's rows;
+3. all-reduce the gradients over the data subgroup, divided by its size
+   (the loss and ``aux`` are averaged the same way, so every rank reports
+   the single-device value);
+4. ``grad_transform``;
+5. clip by the global norm of the full reduced gradient;
+6. AdamW on the rank's moment regions of the weights and gradients; where
+   the weights' layout is not the moments' (ZeRO-1 keeps the weights
+   replicated over the data axes), the new weights are gathered from the
+   regions' owners, so every replica is bit-identical.
+
+The step's wall is split into those phases in ``step.split`` (seconds, and
+the all-reduced bytes), timed after a device synchronize.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ParallelismConfig, TrainConfig
+from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 from repro_torch.models.lm import LM
 
-from .optimizer import TrainState, adamw_update
+from .optimizer import TrainState, adamw_update, global_norm
 
 __all__ = ["make_train_step"]
 
@@ -27,6 +51,9 @@ def make_train_step(
     lm: LM,
     tcfg: TrainConfig,
     parallel: ParallelismConfig,
+    *,
+    grad_transform: Callable | None = None,
+    group=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     accum = max(parallel.grad_accum, 1)
 
@@ -43,24 +70,99 @@ def make_train_step(
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), metrics, dict(zip(leaves, grads))
 
-    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def loss_and_grads(params: dict, batch: dict):
         if accum == 1:
-            loss, metrics, grads = value_and_grad(state.params, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                     for k, v in batch.items()}
-            gsum: dict[str, torch.Tensor] = {}
-            lsum = None
-            for i in range(accum):
-                loss_i, _, g = value_and_grad(state.params, {k: v[i] for k, v in micro.items()})
-                for n, gi in g.items():
-                    gsum[n] = gsum[n] + gi.float() if n in gsum else gi.float()
-                lsum = loss_i if lsum is None else lsum + loss_i
-            grads = {n: g / accum for n, g in gsum.items()}
-            loss = lsum / accum
-            metrics = {"loss": loss, "aux": torch.zeros((), device=loss.device)}
-        new_state, opt_metrics = adamw_update(state, unflatten_from_paths(grads), tcfg)
+            loss, metrics, grads = value_and_grad(params, batch)
+            return {k: v.detach() for k, v in metrics.items()}, grads
+        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                 for k, v in batch.items()}
+        gsum: dict[str, torch.Tensor] = {}
+        lsum = None
+        for i in range(accum):
+            loss_i, _, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
+            for n, gi in g.items():
+                gsum[n] = gsum[n] + gi.float() if n in gsum else gi.float()
+            lsum = loss_i if lsum is None else lsum + loss_i
+        loss = lsum / accum
+        return ({"loss": loss, "aux": torch.zeros((), device=loss.device)},
+                {n: g / accum for n, g in gsum.items()})
+
+    if group is None:
+        def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+            metrics, grads = loss_and_grads(state.params, batch)
+            grads = unflatten_from_paths(grads)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            new_state, opt_metrics = adamw_update(state, grads, tcfg)
+            return new_state, {**metrics, **opt_metrics}
+
+        return train_step
+    return _sharded_step(loss_and_grads, tcfg, grad_transform, group)
+
+
+def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg):
+    from repro_torch.dist.sharding import gather_full, local_shard
+
+    specs = rg.plan.param_specs
+    mesh, rank = rg.mesh, rg.rank
+    w_layout = {n: s.layout_for(StateKind.FP32, mesh) for n, s in specs.items()}
+    m_layout = {n: s.layout_for(StateKind.EXP_AVG, mesh) for n, s in specs.items()}
+    for n, s in specs.items():
+        if s.states[StateKind.EXP_AVG_SQ].dims != s.states[StateKind.EXP_AVG].dims:
+            raise NotImplementedError(f"{n}: the two moments are laid out differently")
+    split: dict[str, float] = {}
+
+    def clock(device) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        local = flatten_with_paths(state.params)
+        device = next(iter(local.values())).device
+        t0 = clock(device)
+        full = {n: gather_full(t, w_layout[n], rg.group) for n, t in local.items()}
+        t1 = clock(device)
+        metrics, grads = loss_and_grads(unflatten_from_paths(full), batch)
+        t2 = clock(device)
+        reduced = 0
+        if rg.data is not None:
+            for g in grads.values():
+                dist.all_reduce(g, group=rg.data)
+                g.div_(rg.data_size)
+                reduced += g.numel() * g.element_size()
+            # loss and aux: the mean over the data group, as on one device
+            la = torch.stack([metrics["loss"].float(), metrics["aux"].float()])
+            dist.all_reduce(la, group=rg.data)
+            la = la / rg.data_size
+            metrics = {"loss": la[0], "aux": la[1]}
+        t3 = clock(device)
+        tree = unflatten_from_paths(grads)
+        if grad_transform is not None:
+            tree = grad_transform(tree)
+        gnorm = global_norm(tree)
+        grads = flatten_with_paths(tree)
+        del tree
+        p_mom = {n: local_shard(full[n], m_layout[n], rank) for n in local}
+        g_mom = {n: local_shard(grads.pop(n), m_layout[n], rank) for n in local}
+        del full
+        upd, opt_metrics = adamw_update(
+            TrainState(unflatten_from_paths(p_mom), state.exp_avg, state.exp_avg_sq, state.step),
+            unflatten_from_paths(g_mom), tcfg, gnorm=gnorm,
+        )
+        del p_mom, g_mom
+        new_p = flatten_with_paths(upd.params)
+        for n, t in new_p.items():
+            if specs[n].states[StateKind.FP32].dims != specs[n].states[StateKind.EXP_AVG].dims:
+                # ZeRO-1: the weights' shard spans several ranks' moment
+                # regions; take each region from its owner
+                new_p[n] = local_shard(gather_full(t, m_layout[n], rg.group), w_layout[n], rank)
+        t4 = clock(device)
+        split.clear()
+        split.update(gather_s=t1 - t0, grad_s=t2 - t1, all_reduce_s=t3 - t2,
+                     all_reduce_bytes=reduced, update_s=t4 - t3)
+        new_state = TrainState(unflatten_from_paths(new_p), upd.exp_avg, upd.exp_avg_sq, upd.step)
         return new_state, {**metrics, **opt_metrics}
 
+    train_step.split = split
     return train_step

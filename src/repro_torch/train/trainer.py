@@ -16,6 +16,15 @@ encdec), whose batches carry the stubbed frontend's ``source_embeds``
 beside the tokens.
 Each step's record carries the cross-entropy ``loss`` and the MoE ``aux``
 loss (0 for a model without experts).
+
+With ``group`` (an initialized ``torch.distributed`` group of the mesh's
+size) the run is multi-rank: this process is rank ``dist.get_rank(group)``
+of the mesh, holds only its shards of every state kind (its checkpoint
+shards), computes its rows of each global batch, and the ranks together
+take the single-device step (:mod:`.steps`); the manager saves and restores
+the rank's shards alone.  Without a group the trainer is the single-device
+one.  A MoE config with a data size above 1 is refused: capacity and the
+aux loss are not separable over batch rows.
 """
 
 from __future__ import annotations
@@ -24,13 +33,18 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.ckpt.manager import CheckpointManager, RestoreInfo
 from repro_torch.ckpt.policy import CheckpointPolicy
 from repro_torch.configs.base import ModelConfig, ParallelismConfig, ShapeSpec, TrainConfig
-from repro_torch.core.layout import MeshSpec
-from repro_torch.dist.sharding import ShardingPlan, make_plan, vocab_multiple
+from repro_torch.core.layout import MeshSpec, slice_shard
+from repro_torch.core.patterns import StateKind
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+from repro_torch.dist.sharding import (
+    RankGroups, ShardingPlan, gather_full, make_plan, rank_rows, vocab_multiple,
+)
 from repro_torch.models import build_model
 from repro_torch.models.lm import LM
 
@@ -38,9 +52,40 @@ from .data import batch_for_step
 from .optimizer import TrainState, init_state
 from .steps import make_train_step
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "gather_state", "shard_state"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+_KINDS = (("params", StateKind.FP32), ("exp_avg", StateKind.EXP_AVG),
+          ("exp_avg_sq", StateKind.EXP_AVG_SQ))
+
+
+def shard_state(state: TrainState, plan: ShardingPlan, rank: int) -> TrainState:
+    """Rank ``rank``'s local state: every tensor cut to the rank's
+    checkpoint shard of its kind (``slice_shard``, padding zero)."""
+    trees = {}
+    for field, kind in _KINDS:
+        flat = flatten_with_paths(getattr(state, field))
+        trees[field] = unflatten_from_paths({
+            n: slice_shard(t, plan.param_specs[n].layout_for(kind, plan.mesh), rank)
+            for n, t in flat.items()
+        })
+    return TrainState(step=state.step, **trees)
+
+
+def gather_state(state: TrainState, plan: ShardingPlan, group) -> TrainState:
+    """The runtime-shaped state from every rank's local state (a collective
+    over ``group``): :func:`~repro_torch.dist.sharding.gather_full` of each
+    tensor."""
+    trees = {}
+    for field, kind in _KINDS:
+        flat = flatten_with_paths(getattr(state, field))
+        trees[field] = unflatten_from_paths({
+            n: gather_full(t, plan.param_specs[n].layout_for(kind, plan.mesh), group)
+            for n, t in flat.items()
+        })
+    return TrainState(step=state.step, **trees)
 
 
 def _sync(device: torch.device) -> None:
@@ -62,6 +107,8 @@ class Trainer:
     batch_size: int
     seq_len: int
     data_seed: int
+    # The rank's place in a multi-rank run (None: one device).
+    ranks: RankGroups | None = None
     # What the saves of run() reported, oldest first.
     save_results: list = dataclasses.field(default_factory=list)
 
@@ -77,8 +124,17 @@ class Trainer:
         seq_len: int,
         ckpt_dir: str | None = None,
         policy: CheckpointPolicy | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        group=None,
+        grad_transform: Callable | None = None,
     ) -> "Trainer":
+        """``device`` defaults to ``cuda``, and under ``group`` to
+        ``cuda:(rank % device_count)``.  ``grad_transform`` maps the
+        gradient tree before the update (the reference's hook)."""
+        if device is None:
+            device = "cuda"
+            if group is not None and torch.cuda.is_available():
+                device = f"cuda:{dist.get_rank(group) % torch.cuda.device_count()}"
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")
@@ -89,12 +145,22 @@ class Trainer:
             remat=parallel.remat,
         )
         plan = make_plan(cfg, lm.registry, parallel, mesh)
+        ranks = None
+        if group is not None:
+            ranks = RankGroups.create(group, plan, parallel)
+            if cfg.moe is not None and ranks.data_size > 1:
+                raise NotImplementedError(
+                    f"MoE under a data size of {ranks.data_size}: capacity and the aux loss "
+                    "are not separable over batch rows (a split batch would route apart from "
+                    "the global one); use a data size of 1 (EP or expert-TP storage)"
+                )
         manager = (
             CheckpointManager(
                 ckpt_dir, plan, policy=policy,
                 config_fingerprint={
                     "model": cfg.fingerprint(), "parallel": parallel.fingerprint(),
                 },
+                group=group,
             )
             if ckpt_dir
             else None
@@ -102,15 +168,33 @@ class Trainer:
         return cls(
             cfg=cfg, parallel=parallel, tcfg=tcfg, mesh=mesh, device=device, lm=lm,
             plan=plan, manager=manager,
-            step_fn=make_train_step(lm, tcfg, parallel),
-            batch_size=batch_size, seq_len=seq_len, data_seed=tcfg.seed,
+            step_fn=make_train_step(lm, tcfg, parallel, grad_transform=grad_transform,
+                                    group=ranks),
+            batch_size=batch_size, seq_len=seq_len, data_seed=tcfg.seed, ranks=ranks,
         )
 
     def init_state(self) -> TrainState:
         """Fresh weights from a generator on the device seeded with the run's
-        seed, zero moments in ``moment_dtype``."""
+        seed, zero moments in ``moment_dtype``.  Under a group the full
+        weights are drawn on every rank (mesh-invariant) and the rank keeps
+        its shards."""
         params = self.lm.init(torch.Generator(device=self.device).manual_seed(self.tcfg.seed))
-        return init_state(params, moment_dtype=_DTYPES[self.parallel.moment_dtype])
+        mdt = _DTYPES[self.parallel.moment_dtype]
+        if self.ranks is None:
+            return init_state(params, moment_dtype=mdt)
+        rank, mesh, specs = self.ranks.rank, self.mesh, self.plan.param_specs
+        flat = flatten_with_paths(params)
+        del params
+        local = {}
+        for n in list(flat):
+            local[n] = slice_shard(flat.pop(n), specs[n].layout_for(StateKind.FP32, mesh), rank)
+        zeros = {
+            n: torch.zeros(specs[n].layout_for(StateKind.EXP_AVG, mesh).local_shape, dtype=mdt,
+                           device=self.device)
+            for n in local
+        }
+        return TrainState(unflatten_from_paths(local), unflatten_from_paths(zeros),
+                          unflatten_from_paths({n: z.clone() for n, z in zeros.items()}), 0)
 
     def init_or_restore(self) -> tuple[TrainState, RestoreInfo | None]:
         if self.manager is not None:
@@ -125,8 +209,12 @@ class Trainer:
             self.cfg, shape, step, seed=self.data_seed,
             batch_override=self.batch_size, seq_override=self.seq_len,
         )
+        keys = [k for k in ("tokens", "source_embeds") if k in full]  # vlm and encdec: embeddings
+        if self.ranks is not None:
+            sl = rank_rows(self.batch_size, self.parallel, self.mesh, self.ranks.rank)
+            full = {k: full[k][sl] for k in keys}
         out = {"tokens": torch.from_numpy(full["tokens"]).long().to(self.device)}
-        if "source_embeds" in full:  # vlm and encdec: the stubbed frontend's embeddings
+        if "source_embeds" in keys:  # the stubbed frontend's embeddings
             out["source_embeds"] = torch.from_numpy(full["source_embeds"]).to(self.device)
         return out
 
@@ -152,6 +240,8 @@ class Trainer:
                 "lr": float(metrics["lr"]),
                 "dt": sw.elapsed_s,
             }
+            if self.ranks is not None:
+                rec["split"] = dict(self.step_fn.split)
             history.append(rec)
             if log:
                 log(rec)

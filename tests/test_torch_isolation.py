@@ -56,7 +56,9 @@ def test_scan_covers_the_port():
                    "hot/drain.py", "hot/recovery.py", "elastic/planner.py", "elastic/resume.py",
                    "serve/registry.py", "serve/peer.py", "serve/fleet.py", "chaos/schedule.py",
                    "chaos/invariants.py", "chaos/harness.py", "chaos/sweep.py",
-                   "dist/collectives.py", "dist/__init__.py", "analysis/__init__.py",
+                   "dist/collectives.py", "dist/__init__.py", "dist/sharding.py",
+                   "train/steps.py", "train/trainer.py", "launch/train.py",
+                   "analysis/__init__.py",
                    "analysis/__main__.py", "analysis/core.py", "analysis/simple_rules.py",
                    "analysis/locks.py", "analysis/catalog_rules.py", "analysis/pins.py"):
         assert f"src/repro_torch/{module}" in names, module

@@ -64,7 +64,10 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 * ``compressed_psum`` on the card in a one-rank gloo group (one quantize
   and one dequantize launch, bit-equal to the CPU's plain path), and two
   spawned gloo ranks on the one card bit-equal to the same world on the
-  CPU.
+  CPU;
+* the multi-rank trainer: two spawned ranks on the one card against the
+  same world on the CPU (losses, a coded save's digests, and each rank's
+  block-quant launches, one per coded shard it owns).
 """
 
 import dataclasses
@@ -1010,3 +1013,37 @@ def test_two_rank_gloo_world_on_card_equals_cpu(cuda, tmp_path):
         assert c["launches"].tolist() == [[1, 1]] * STEPS
         for key in ("synced", "err"):
             np.testing.assert_array_equal(c[key].view(np.uint32), h[key].view(np.uint32))
+
+
+def test_multirank_world_on_card_equals_cpu(cuda, tmp_path):
+    """Two spawned ranks of the multi-rank trainer on the one card (gloo,
+    data=2,model=1, reduced smollm in fp32): each of 3 steps' losses within
+    1e-5 of the same world on the CPU (gradient norms within 1e-4 relative,
+    as ``test_reduced_train_step_on_card_matches_cpu``), an ``int8:b256``
+    save of one seeded state with the CPU world's digests, and each rank's
+    quantize and dequantize launches one per coded shard it owns (none on
+    the CPU)."""
+    from test_torch_multirank import ARCH, run_world
+
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+
+    lm = build_model(reduced(get_config(ARCH)), compute_dtype=torch.float32)
+    flat = {n: t.numpy() for n, t in
+            flatten_with_paths(lm.init(torch.Generator().manual_seed(0))).items()}
+    worlds = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        np.savez(d / "weights.npz", **flat)
+        worlds[dev] = (d, run_world(d, 2, "device_world", device=dev))
+    (dc, card), (dh, host) = worlds["cuda"], worlds["cpu"]
+    for c, h in zip(card, host):
+        for (lc, gc), (lh, gh) in zip(c["hist"], h["hist"], strict=True):
+            assert abs(lc - lh) <= 1e-5 and abs(gc - gh) <= 1e-4 * gh
+    mc = DistCheckpoint.open(dc / "coded" / "step_00000001").manifest
+    mh = DistCheckpoint.open(dh / "coded" / "step_00000001").manifest
+    assert mc.shard_digests == mh.shard_digests and mc.shard_codecs == mh.shard_codecs
+    for r, (c, h) in enumerate(zip(card, host)):
+        owned = sum(1 for k, tag in mc.shard_codecs.items()
+                    if tag != "raw" and k.startswith(f"rank_{r:05d}/"))
+        assert owned and c["launches"] == (owned, owned) and h["launches"] == (0, 0)

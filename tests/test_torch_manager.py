@@ -283,21 +283,21 @@ def test_policy_validation_matches_reference(kw, err):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--host-devices", "4"], ["--pipe-axis", "pipe"], ["--hot-interval", "2"],
+    ["--host-devices", "2", "--mesh", "data=2,model=1"],
+    ["--pipe-axis", "pipe", "--mesh", "pipe=2,data=1,model=1"], ["--hot-interval", "2"],
     ["--trace", "t.json"],
 ], ids=lambda f: f[0])
 def test_unported_cli_flags_raise(flags, tmp_path):
-    """``--host-devices`` and ``--pipe-axis`` (item 11) still raise;
-    ``--hot-interval`` (item 7) and ``--trace`` (item 9a) are ported and run
-    (``tests/test_torch_elastic.py`` checks what they produce)."""
+    """Every flag that once raised is ported now and runs: ``--host-devices``
+    and ``--pipe-axis`` (item 11a; ``tests/test_torch_multirank.py`` and the
+    multi-rank cases of ``tests/test_torch_reconfig_e2e.py`` check what they
+    produce), ``--hot-interval`` (item 7) and ``--trace`` (item 9a;
+    ``tests/test_torch_elastic.py``)."""
     argv = ["--arch", "smollm-360m", "--reduced", "--device", "cpu"]
-    if flags[0] in ("--hot-interval", "--trace"):
-        flags = [flags[0], str(tmp_path / flags[1]) if flags[0] == "--trace" else flags[1]]
-        assert train_cli.main([*argv, "--steps", "1", "--batch", "2", "--seq", "16",
-                               "--ckpt-dir", str(tmp_path / "ck"), *flags]) == 0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main([*argv, *flags])
+    if flags[0] == "--trace":
+        flags = [flags[0], str(tmp_path / flags[1])]
+    assert train_cli.main([*argv, "--steps", "1", "--batch", "2", "--seq", "16",
+                           "--ckpt-dir", str(tmp_path / "ck"), *flags]) == 0
 
 
 def test_force_direct_on_a_changed_layout_raises(tmp_path):

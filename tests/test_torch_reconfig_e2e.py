@@ -15,6 +15,11 @@ own baseline.)
 Independent launcher runs go out together, one thread each, so the file
 stays well inside a minute and a half.
 
+The multi-rank cases run the Source as 4 ranks (``--host-devices 4
+--mesh data=2,model=2``: 4 processes in a gloo group, each holding, saving
+and restoring only its own shards) and resume it as 2 ranks under another
+mesh (``--host-devices 2``), each tracking the same baseline within 2e-2.
+
 ``test_moe_arch_reconfig`` is the reference's Fig. 10 case: reduced
 mixtral trained under expert parallelism (data=1,model=4), resumed under
 expert-TP (data=2,model=2, ``--no-ep``) through RESHARD_STREAM, with
@@ -160,3 +165,38 @@ def test_multiple_sources_to_single_target(runs, case):
     assert sorted(steps) == list(range(6, 9))
     for s in range(6, 9):
         assert abs(steps[s] - baseline[s]) < TOL
+
+
+# Multi-rank: a 4-rank Source, resumed as 2 ranks under another mesh.
+RANK_TARGETS = [("data=2,model=1", "reshard_stream"), ("data=1,model=2", "reshard_stream")]
+
+
+@pytest.fixture(scope="module")
+def rank_runs(runs, tmp_path_factory):
+    baseline = runs[0]
+    ck = tmp_path_factory.mktemp("ranks")
+    (source,) = _all([["--host-devices", "4", "--mesh", "data=2,model=2", "--steps", "5",
+                       "--ckpt-dir", str(ck)]])
+    resumed = _all([["--host-devices", "2", "--mesh", mesh, "--steps", "10", "--ckpt-dir",
+                     str(ck), "--save-interval", "100"] for mesh, _ in RANK_TARGETS])
+    return baseline, source, resumed
+
+
+def test_four_rank_source_tracks_the_baseline(rank_runs):
+    baseline, (steps, restored), _ = rank_runs
+    assert restored is None and sorted(steps) == list(range(1, 6))
+    for s in range(1, 6):
+        assert abs(steps[s] - baseline[s]) < TOL
+
+
+@pytest.mark.parametrize("case", range(len(RANK_TARGETS)), ids=[t[0] for t in RANK_TARGETS])
+def test_four_ranks_resume_as_two(rank_runs, case):
+    baseline, _, resumed = rank_runs
+    steps, restored = resumed[case]
+    assert restored is not None and restored["step"] == 5
+    assert restored["mode"] == RANK_TARGETS[case][1], restored["reason"]
+    assert sorted(steps) == list(range(6, 11))
+    for s in range(6, 11):
+        assert abs(steps[s] - baseline[s]) < TOL, (
+            f"step {s}: resumed {steps[s]:.4f} vs baseline {baseline[s]:.4f}"
+        )
