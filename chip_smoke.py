@@ -38,8 +38,15 @@ nothing falls back to the CPU or to a plain version):
    causal self layers (S=512), whisper-tiny's encoder (B=4, 1500 x 1500,
    6:6 heads of 64: a ragged last tile) and cross layers (432 x 1500), each
    as the layouts above (the bound counts the pairs each mask allows, a
-   causal row seeing at most Skv keys); and causal launches at 512 x 1600
-   and 1600 x 512 (8:2 heads of 128) against the plain version only;
+   causal row seeing at most Skv keys); causal launches at 512 x 1600
+   and 1600 x 512 (8:2 heads of 128) against the plain version only; and
+   at a ``q_offset`` (row i at position ``q_offset + i``): smollm-360m's
+   rank-1 prefill under sequence parallelism over model=2 (B=4, 256 rows at
+   offset 256 against 512 keys, 15:5 heads of 64) and a windowed ragged
+   one, both kernels against the plain version, then the bf16 kernel's
+   device time beside the fp32 kernel's, the plain version's, the bound and
+   the library's (``scaled_dot_product_attention`` with
+   ``causal_lower_right(256, 512)``, its backend named);
 4. kernel block_quant — quantize and dequantize against their plain version
    for int8, e4m3 and e5m2 on a ragged count, an all-zero block, values up
    to 1e30, a non-finite case (±NaN, ±inf and an all-NaN block) and one
@@ -54,7 +61,8 @@ nothing falls back to the CPU or to a plain version):
    call computes this function, so no library time);
 4a. collectives — 2 ranks as 2 spawned processes on the one card, a gloo
    group with CUDA tensors (NCCL puts no two ranks on one device) through
-   a ``FileStore``; each builds full smollm-360m from seed 0 (the same
+   a ``FileStore``; each builds smollm-360m at full width, its depth cut
+   from 32 to 8 layers (``CUT_LAYERS``), from seed 0 (the same
    weights on both, checked), bf16 compute and remat, and runs 4 steps of
    a fresh 4 x 512 batch from ``train/data.py`` (seeded by step and rank),
    forward and backward with no update, every parameter's fp32 gradient
@@ -75,8 +83,17 @@ nothing falls back to the CPU or to a plain version):
    ``FileStore``) through ``Trainer.create(..., group=)`` under
    data=2,model=1, steps 1-2 with each rank writing its own ``int8:b256``
    shards at step 2; 2 new ranks under data=1,model=2 resuming step 2
-   (RESHARD_STREAM) for steps 3-4; one process under data=1,model=1
-   resuming step 2.  Checks (each fails the smoke): the gloo probe takes
+   (RESHARD_STREAM) for steps 3-4, computed partitioned over the model
+   axis (the stream's 512 positions split over model=2, MLP and vocab over
+   model, attention by query rows from the gathered attention weights:
+   each step's split adds ``tp_s``), which
+   then serve step 2's weights restored weights-only under data=1,model=2
+   (RESHARD_STREAM, ``wqkv`` consolidated; a 4 x 512 prefill, 32 flash
+   launches a rank: rank 0 256 x 256 rows, rank 1 256 x 512 at
+   ``q_offset`` 256; 16 greedy decode steps), held against one process's
+   serve of the same step (prefill logits within 0.1, tokens equal up to
+   the first step whose top-2 margin is under it); one process under
+   data=1,model=1 resuming step 2.  Checks (each fails the smoke): the gloo probe takes
    CUDA tensors for the runtime's collectives (all six probed, values
    checked, are printed); steps 1-2 and both resumes' steps 3-4 finite and
    within 2e-2 of the baseline; the 2-rank checkpoint's digests, codec tags
@@ -88,6 +105,16 @@ nothing falls back to the CPU or to a plain version):
    backward, all-reduce (s, GB/s) and update, the gather through gloo's
    CUDA ``all_gather`` beside one through pinned host buffers, each rank's
    save and restore (s, bytes, shard bytes) and peak card memory;
+4c. multirank-tp — tensor-parallel compute on full gpt3-350m (24 layers,
+   d 1024, 16:16 heads of 64, d_ff 4096, vocab 51200; no cut), 8 x 512,
+   bf16 compute, remat full: a one-process baseline (steps 1-2
+   from seed 0), then 2 spawned ranks under data=1,model=2 computing by
+   heads (8:8 a rank, nothing gathered over the model axis) for steps
+   1-2, each saving its own ``int8:b256`` shards at step 2 (its quantize
+   launches one per coded shard it owns), then serving step 2 restored
+   weights-only (DIRECT): 24 flash launches a rank a prefill at 8:8 heads,
+   held against one process's serve as in 4b; losses within 2e-2 of the
+   baseline;
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -139,7 +166,8 @@ nothing falls back to the CPU or to a plain version):
    bf16 (head dim 256), its wall and profiled device time; the card's fp32
    logits against the port's CPU path within 1e-3 over 32 tokens, every
    launch there fp32;
-8. train, full smollm-360m at all 32 layers, seed 0, batch 8 × seq 512
+8. train, smollm-360m at full width, its depth cut from 32 to 8 layers
+   (``CUT_LAYERS``: the smoke's time budget), seed 0, batch 8 × seq 512
    from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
    6 uninterrupted steps (the baseline); separately 3 steps under a
    ``CheckpointManager`` with ``CheckpointPolicy(codec="int8:b256",
@@ -359,12 +387,17 @@ nothing falls back to the CPU or to a plain version):
    ``collectives`` line (JSON: phase 4a; every row adds
    ``collectives_launches``, the block-quant rows by variant too), the
    ``multirank`` line (JSON: phase 4b; the block-quant rows add
-   ``multirank_launches`` and ``multirank_launches_by_phase``), the card line,
-   then the result line (JSON, last).
+   ``multirank_launches`` and ``multirank_launches_by_phase``, the flash
+   row its serve's launches by rank), the ``multirank_tp`` line (JSON: phase
+   4c; every row adds ``multirank_tp_launches``), the flash row's
+   ``q_offset`` shape (``qoff_*``), the ``phase_seconds`` line (JSON: each
+   phase's wall, the smoke's budget), the card line, then the result line
+   (JSON, last).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import filecmp
 import functools
 import gc
@@ -401,6 +434,9 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 # Traces a device time may take: the profiler loses records now and then
 # (at D = 128 an empty 20-call trace was followed by one with 3 launches).
 TRACES = 5
+# The train and collectives phases' depth: smollm-360m's 32 layers cut to 8
+# (full width) when the smoke reached 1,110 s of its 1,200 s limit
+CUT_LAYERS = 8
 # What device_ms timed by CUDA events because every trace lost records.
 EVENT_TIMED: list[str] = []
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
@@ -556,17 +592,18 @@ def ms_by(kernel: str) -> str:
         f"; by CUDA events, the profiler having lost its records: {lost}" if lost else "")
 
 
-def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float):
+def attention_bound(q, k, v, o, *, causal: bool, window: int, flops_peak: float,
+                    q_offset: int = 0):
     """Least time for the work: each input read once and the output written
     once at the memory rate, against the score and P·V products this run's
     mask allows at the peak rate of the inputs' type: 2·D FLOPs a pair for
-    Q·Kᵀ and 2·Dv for P·V."""
+    Q·Kᵀ and 2·Dv for P·V (row i at position ``q_offset + i``)."""
     b, s, hq, d = q.shape
     dv, skv = v.shape[-1], k.shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
     pairs = 0
-    for i in range(s):  # row i sees columns lo..hi-1 (causal: at most i, and none past Skv)
-        lo = max(0, i - window + 1) if window > 0 else 0
+    for i in range(q_offset, q_offset + s):  # position i sees columns lo..hi-1 (causal: at
+        lo = max(0, i - window + 1) if window > 0 else 0  # most i, and none past Skv)
         hi = min(i + 1, skv) if causal else skv
         pairs += max(0, hi - lo)
     flops = 2.0 * (d + dv) * pairs * b * hq
@@ -830,11 +867,113 @@ def kernel_phase(torch, F, kernel, ops, ref):
     enc_cross = head_layout(torch, F, kernel, ops, ref, hq=6, hkv=6, d=64, long=None, s=432,
                             skv=1500, causal=False, label="whisper-tiny cross")
     offset = offset_causal_rows(torch, kernel, ref)
+    qoff = q_offset_rows(torch, F, kernel, ops, ref)
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
                 d256=d256, d128=d128, d192=d192, jamba=jamba, vlm_cross=vlm_cross,
                 vlm_self=vlm_self, encdec_encoder=enc, encdec_self=enc_self,
                 encdec_cross=enc_cross,
-                offset_causal=offset)
+                offset_causal=offset, qoff=qoff)
+
+
+QOFF_SHAPE = (4, 256, 512, 15, 5, 64, 256)  # smollm-360m's rank 1 at model=2: B, Sq, Skv, heads, D, q_offset
+# the other launches of the multi-rank serves (B, Sq, Skv, q heads, kv
+# heads, window, q_offset): gpt3-350m by heads (8:8 a rank), smollm-360m's rank 0
+MAIN_PATH_ROWS = ((4, 512, 512, 8, 8, 0, 0), (4, 256, 256, 15, 5, 0, 0))
+
+
+def q_offset_rows(torch, F, kernel, ops, ref) -> dict:
+    """The kernel at a ``q_offset`` (row i at position ``q_offset + i``):
+    smollm-360m's rank-1 prefill under sequence parallelism over model=2
+    (B 4, 256 query rows at offset 256 against 512 keys, 15:5 heads of 64,
+    causal), a windowed, ragged one (B 2, 200 rows at offset 500 against
+    700 keys, window 128, 8:2 heads of 64), and the multi-rank serves' other
+    launches (``MAIN_PATH_ROWS``: gpt3-350m's 8:8 heads a rank at 512 x 512,
+    smollm-360m's rank 0 at 256 x 256, offset 0), both kernels against the
+    plain version; then at the first shape the bf16 kernel's device time beside
+    the fp32 kernel's, the plain version's event time, the bound, and the
+    library: ``scaled_dot_product_attention`` with the lower-right causal
+    mask (``torch.nn.attention.bias.causal_lower_right``, the same mask at
+    Sq = 256, Skv = 512), checked against the kernel, the device kernel it
+    dispatches to named from a profile."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(256)
+    b, sq, skv, hq, hkv, d, off = QOFF_SHAPE
+    scale = d ** -0.5
+    worst, main = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for bb, n_q, n_kv, h_q, h_kv, window, q_off in ((b, sq, skv, hq, hkv, 0, off),
+                                                        (2, 200, 700, 8, 2, 128, 500),
+                                                        *MAIN_PATH_ROWS):
+            q, k, v = (torch.randn(bb, n, h, d, generator=g, device=dev).to(dtype)
+                       for n, h in ((n_q, h_q), (n_kv, h_kv), (n_kv, h_kv)))
+            out = kernel.flash_attention_fwd(q, k, v, causal=True, window=window, scale=scale,
+                                             q_offset=q_off)
+            plain = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=True, window=window, scale=scale,
+                                      q_offset=q_off).transpose(1, 2)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[name]
+            diff = (out.float() - plain.float()).abs()
+            err = diff.max().item()
+            ok = bool(torch.isfinite(out.float()).all()) and bool(
+                (diff <= atol + rtol * plain.float().abs()).all())
+            tag = (f"{name} B={bb} Sq={n_q} Skv={n_kv} {h_q}:{h_kv} heads of {d} causal "
+                   f"window={window} q_offset={q_off}")
+            print(f"kernel {tag}: max_abs_err {err:.3e} (tolerance atol {atol} rtol {rtol}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{tag}: kernel disagrees with its plain version")
+            worst[tag] = err
+            if dtype == torch.bfloat16 and main is None:
+                main = (q, k, v, out)
+    q, k, v, out = main
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    mask = causal_lower_right(sq, skv)
+    runs = {
+        "kernel": lambda: ops.flash_attention(q, k, v, causal=True, scale=scale, q_offset=off),
+        "fp32": lambda: ops.flash_attention(q32, k32, v32, causal=True, scale=scale,
+                                            q_offset=off),
+        "plain": lambda: ref.attention_ref(qt, kt, vt, causal=True, scale=scale, q_offset=off),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          scale=scale, enable_gqa=True),
+    }
+    lib = runs["library"]().transpose(1, 2).float()
+    atol, rtol = TOL["bfloat16"]
+    lib_err = (lib - out.float()).abs().max().item()
+    check(bool(((lib - out.float()).abs() <= atol + rtol * lib.abs()).all()),
+          f"q_offset: the kernel and the lower-right causal library call disagree ({lib_err:.3e})")
+    del lib
+    top = device_profile(torch, runs["library"], top=1)[2]
+    backend = top[0][0] if top else "not named by the profiler"  # its busiest device kernel
+    print(f"library causal_lower_right({sq}, {skv}): {backend[:90]}; agrees with the kernel "
+          f"to {lib_err:.3e} (tolerance atol {atol} rtol {rtol})")
+    plain_ms = sum(cuda_ms(torch, runs["plain"], iters=20) for _ in range(2)) / 2
+    event_ms = cuda_ms(torch, runs["kernel"], iters=50)
+    device: dict[str, list[float]] = {"kernel": [], "library": [], "fp32": []}
+    for name in ("kernel", "library", "fp32", "fp32", "library", "kernel"):
+        per_call, top = device_ms(torch, runs[name], f"flash_attention_fwd q_offset {name}",
+                                  launches=None if name == "library"
+                                  else lambda: ops.flash_attention.launches)
+        device[name].append(per_call)
+        print(f"kernel flash_attention q_offset {name} device time (profiler): {per_call:.5f} ms "
+              "per call; " + "; ".join(f"{key[:48]} x{count} {t:.3f} ms" for key, t, count in top))
+    ms = {n: sum(t) / len(t) for n, t in device.items()}
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        q, k, v, out, causal=True, window=0, flops_peak=PEAK_BF16_FLOPS, q_offset=off)
+    print(f"kernel bf16 B={b} Sq={sq} Skv={skv} {hq}:{hkv} D={d} causal q_offset={off} "
+          f"(smollm-360m rank 1 of model=2): device ms {ms['kernel']:.5f} (event {event_ms:.5f}) "
+          f"library ({backend[:40]}) device ms {ms['library']:.5f} fp32 kernel device ms "
+          f"{ms['fp32']:.5f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); {bound_ms / ms['kernel']:.3f} of "
+          "the bound")
+    return dict(ms=ms["kernel"], event_ms=event_ms, library_ms=ms["library"],
+                library_backend=backend, fp32_ms=ms["fp32"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max(e for t, e in worst.items() if t.startswith("bfloat16")),
+                max_abs_err_by_case=worst)
 
 
 def offset_causal_rows(torch, kernel, ref) -> dict:
@@ -1875,11 +2014,11 @@ def same_state(torch, state, flats) -> bool:
 
 
 def train_phase(torch, ops, bq_ops):
-    """Train full smollm-360m; save coded under data=2,model=2, serial and
-    parallel; export serial and parallel; resume under two layouts through
-    serial and parallel engines; continue; then delta saves and their resume,
-    and GC under an in-flight delta's pin.  Returns the launch counts and
-    measurements."""
+    """Train smollm-360m (full width, ``CUT_LAYERS`` layers); save coded
+    under data=2,model=2, serial and parallel; export serial and parallel;
+    resume under two layouts through serial and parallel engines; continue;
+    then delta saves and their resume, and GC under an in-flight delta's
+    pin.  Returns the launch counts and measurements."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.ckpt.policy import CheckpointPolicy
     from repro_torch.ckpt.saver import snapshot_state, write_distributed
@@ -1893,7 +2032,8 @@ def train_phase(torch, ops, bq_ops):
     from repro_torch.train.trainer import Trainer
 
     dev = torch.device("cuda")
-    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+    tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
     check(parallel.compute_dtype == "bfloat16" and parallel.moment_dtype == "float32",
           "train: not bf16 compute with fp32 moments")
     root = ROOT / "build" / "chip_smoke_train_ckpt"
@@ -1920,7 +2060,7 @@ def train_phase(torch, ops, bq_ops):
         state, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
         step_s = sorted(h["dt"] for h in hist[1:])[len(hist[1:]) // 2]
-        print(f"train baseline smollm-360m 32 layers, 8x512 tokens, 6 steps: losses "
+        print(f"train baseline smollm-360m {cfg.num_layers} layers, 8x512 tokens, 6 steps: losses "
               f"{[round(v, 4) for v in baseline]}; median step {step_s * 1e3:.1f} ms "
               f"({8 * 512 / step_s:.0f} tokens/s)")
         check(all(map(math.isfinite, baseline)), "baseline loss not finite")
@@ -3100,11 +3240,12 @@ def moe_breakdown(torch, lm, params_c, prompts, label: str = "mixtral") -> dict:
 
 class FlashShapes:
     """Records the (dtype, D, Dv) of every flash kernel launch while it is
-    open (a shim around the wrapper's ``kernel.flash_attention_fwd``), and
-    in ``calls`` its (dtype, Sq, Skv, causal)."""
+    open (a shim around the wrapper's ``kernel.flash_attention_fwd``), in
+    ``calls`` its (dtype, Sq, Skv, causal), in ``offsets`` its ``q_offset``
+    and in ``heads`` its (Hq, Hkv)."""
 
     def __init__(self, kernel):
-        self.kernel, self.shapes, self.calls = kernel, [], []
+        self.kernel, self.shapes, self.calls, self.offsets, self.heads = kernel, [], [], [], []
 
     def __enter__(self):
         launch = self._saved = self.kernel.flash_attention_fwd
@@ -3113,6 +3254,8 @@ class FlashShapes:
             dtype = str(q.dtype).removeprefix("torch.")
             self.shapes.append((dtype, q.shape[-1], v.shape[-1]))
             self.calls.append((dtype, q.shape[1], k.shape[1], bool(kw["causal"])))
+            self.offsets.append(int(kw.get("q_offset", 0)))
+            self.heads.append((q.shape[2], k.shape[2]))
             return launch(q, k, v, **kw)
 
         self.kernel.flash_attention_fwd = recording
@@ -3270,8 +3413,8 @@ def decode_check(torch, flm, params, prompts, counters: dict, lm_mod, full_atten
         for plain in (False, True):
             kernel_fn = lm_mod.flash_attention
             if plain:
-                lm_mod.flash_attention = lambda q, k, v, *, causal, window: full_attention(
-                    q, k, v, causal=causal, window=window)
+                lm_mod.flash_attention = lambda q, k, v, *, causal, window, q_offset=0: (
+                    full_attention(q, k, v, causal=causal, window=window, q_offset=q_offset))
             try:
                 reset_launches(counters)
                 cache = D.init_cache(flm, b, s + steps, device=prompts.device)
@@ -3506,8 +3649,8 @@ def routing_check(torch, flm, params, prompts, reset, counts, lm_mod, full_atten
     ``mixes_after`` says a sequence mixer follows the last MoE layer too
     (jamba's Mamba-2 layer), so every flip reaches the later positions."""
     want = want or {"flash_attention": layers}
-    plain = {"flash_attention": lambda q, k, v, *, causal, window: full_attention(
-        q, k, v, causal=causal, window=window)}
+    plain = {"flash_attention": lambda q, k, v, *, causal, window, q_offset=0: full_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset)}
     if ssd_chunked is not None:
         plain["ssd_scan"] = ssd_chunked
     with torch.inference_mode():
@@ -4480,7 +4623,8 @@ def collectives_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     try:
         _, report = bq_kernel.build()
         check(not report["compiled"], f"rank {rank} rebuilt the block-quant kernels")
-        cfg, parallel = get_config("smollm-360m"), ParallelismConfig()
+        cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+        parallel = ParallelismConfig()
         lm = build_model(cfg, vocab_multiple=1, compute_dtype=getattr(torch, parallel.compute_dtype),
                          remat=parallel.remat)
         flat = flatten_with_paths(lm.init(torch.Generator(device=dev).manual_seed(0)))
@@ -4706,7 +4850,8 @@ def collectives_phase(torch) -> dict:
     } for i in range(COLLECTIVES_STEPS)]
     out = {
         "world": COLLECTIVES_WORLD, "backend": "gloo", "tensors": "cuda",
-        "model": "smollm-360m, full width and depth", "batch": list(COLLECTIVES_BATCH),
+        "model": f"smollm-360m, full width, {CUT_LAYERS} of 32 layers",
+        "batch": list(COLLECTIVES_BATCH),
         "steps": COLLECTIVES_STEPS,
         "n_params": first["n_params"], "elements": first["elements"],
         "fp32_bytes": first["fp32_bytes"], "wire_bytes": first["wire_bytes"],
@@ -4746,7 +4891,10 @@ def collectives_phase(torch) -> dict:
 
 
 MULTIRANK_WORLD = 2        # ranks, as processes on the one card (gloo: NCCL refuses two)
-MULTIRANK_BATCH = (8, 512)  # the global batch a step: 4 x 512 a rank under data=2
+# The global batch a step (rows, positions; a row holds one more token, the
+# last label), 4 rows a rank under data=2; 512 positions split over model=2,
+# so the partitioned steps run sequence-parallel
+MULTIRANK_BATCH = (8, 512)
 MULTIRANK_JOIN_S = 300      # a world still running after this fails the smoke
 MULTIRANK_TOL = 2e-2        # tests/test_reconfig_e2e.py: the paper's accepted divergence
 MULTIRANK_CODEC = "int8:b256"
@@ -4754,6 +4902,14 @@ MULTIRANK_MESH = {"save": "data=2,model=1", "resume": "data=1,model=2"}
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
                "reduce_scatter_tensor", "all_to_all_single")
 RUNTIME_COLLECTIVES = ("all_reduce", "broadcast", "all_gather")  # what the runtime sends gloo
+SERVE_BATCH = (4, 512)     # a multi-rank serve's prompts
+SERVE_GEN = 17             # tokens generate() returns: the prefill's and 16 greedy decode steps
+# bf16 prefill logits of a partitioned serve against one process's: the
+# bf16 logits bound of tests/test_torch_serve.py (the partial sums of the
+# row-parallel products round to bf16 before they are added)
+SERVE_LOGIT_TOL = 0.1
+TP_ARCH = "gpt3-350m"      # the multirank-tp phase: the paper's Table 4 model, heads 16:16
+TP_MESH = "data=1,model=2"
 
 
 def gloo_cuda_probe(torch, dist) -> dict[str, str]:
@@ -4855,6 +5011,156 @@ def gather_routes(torch, dist, plan, local: dict, reps: int = 2) -> dict:
             "bytes": sum(t.numel() * t.element_size() for t in got["staged"].values())}
 
 
+def serve_prompts(torch, cfg, device):
+    """The multi-rank serves' prompts: ``SERVE_BATCH`` tokens from a seed."""
+    return torch.randint(0, cfg.vocab_size, SERVE_BATCH,
+                         generator=torch.Generator().manual_seed(7)).to(device)
+
+
+def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out_dir: Path,
+               label: str) -> dict:
+    """One rank of a multi-rank serve, in a spawned process of a world: the
+    serve CLI's path (a rank context over ``mesh_str``, the rank's own
+    weight shards restored weights-only, gathered over the data axes once,
+    the weights it does not compute locally over the model axis), bf16;
+    a warm-up ``generate`` of 2 tokens, then a counted prefill (every flash launch's
+    shape, ``q_offset`` and heads recorded; its logits gathered over the
+    vocab shards) and a timed ``generate`` of ``SERVE_GEN`` tokens.  Rank 0
+    saves the logits and tokens for the parent's comparison."""
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.dist.sharding import RankGroups, make_plan, vocab_multiple
+    from repro_torch.dist.tensor_parallel import TensorParallel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import generate, rank_weights, restore_params, serving_parallelism
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+
+    dev = torch.device("cuda")
+    mesh = mesh_spec_from_string(mesh_str)
+    par = serving_parallelism(mesh)
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    plan = make_plan(cfg, lm.registry, par, mesh)
+    ranks = RankGroups.create(dist.group.WORLD, plan, par)
+    lm.tp = TensorParallel(ranks, cfg)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    flat, rp = restore_params(step_dir, plan, dev, rank=ranks.rank, group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(rp.mode.value == expect, f"{label} serve rank {ranks.rank}: {rp.mode.value}, want {expect}")
+    shard_gb = sum(t.numel() * t.element_size() for t in flat.values()) / 1e9
+    t0 = time.perf_counter()
+    comp = rank_weights(lm, ranks, flat)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    del flat
+    params = lm.registry.cast(unflatten_from_paths(comp), torch.bfloat16)
+    del comp
+    prompts = serve_prompts(torch, cfg, dev)
+    b, s = prompts.shape
+    generate(lm, params, prompts, 2)  # warm-up: the prefill and a decode step at the timed shapes
+    fns = {"flash_attention": fa_ops.flash_attention}
+    reset_launches(fns)
+    with torch.inference_mode(), FlashShapes(fa_kernel) as shapes:
+        logits, _ = D.prefill(lm, params, D.init_cache(lm, b, s + SERVE_GEN, device=dev), prompts)
+        logits = lm.tp.gather_vocab(logits, cfg.vocab_size)
+    launches = launch_counts(fns)["flash_attention"]
+    lm.tp.seconds, lm.tp.bytes = 0.0, 0
+    seq, prefill_s, decode_s = generate(lm, params, prompts, SERVE_GEN)
+    if ranks.rank == 0:
+        torch.save({"logits": logits.float().cpu(), "seq": seq.cpu()},
+                   out_dir / f"{label}_serve.pt")
+    return {"mode": rp.mode.value, "consolidated": sorted(rp.consolidate_params),
+            "restore_s": restore_s, "shard_gb": shard_gb, "gather_s": gather_s,
+            "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3 / (SERVE_GEN - 1),
+            "tp_s": lm.tp.seconds, "tp_bytes": lm.tp.bytes, "heads_local": lm.tp.heads,
+            "gathered": sorted(lm.tp.gathered), "flash_launches": launches,
+            "flash_calls": shapes.calls, "flash_offsets": shapes.offsets,
+            "flash_heads": shapes.heads}
+
+
+def one_process_serve(torch, cfg, step_dir: Path, fed) -> dict:
+    """The same step restored weights-only by one process (data=1,model=1)
+    and served in bf16 with the plain attention in place of the flash
+    kernel (``full_attention`` on fp32 copies of q, k and v, swapped in as
+    :func:`decode_check` swaps it; no flash launch), fed the multi-rank
+    serve's tokens ``fed`` [B, SERVE_GEN]: the prefill's logits, and at each
+    step its argmax, its top logit and the logit of the fed token."""
+    from repro_torch.core.pytree import unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import restore_params, serving_parallelism
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.attention import full_attention
+
+    dev = torch.device("cuda")
+    mesh = mesh_spec_from_string("data=1,model=1")
+    par = serving_parallelism(mesh)
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    flat, rp = restore_params(step_dir, make_plan(cfg, lm.registry, par, mesh), dev)
+    params = lm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+    del flat
+    prompts = serve_prompts(torch, cfg, dev)
+    b, s = prompts.shape
+    fed = fed.to(dev)
+    own, top, at_fed = [], [], []
+    kernel_fn, launches = lm_mod.flash_attention, fa_ops.flash_attention.launches
+    lm_mod.flash_attention = lambda q, k, v, *, causal, window, q_offset=0: full_attention(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        q_offset=q_offset).to(q.dtype)
+    try:
+        with torch.inference_mode():
+            cache = D.init_cache(lm, b, s + SERVE_GEN, device=dev)
+            logits, cache = D.prefill(lm, params, cache, prompts)
+            first, lg = logits.float().cpu(), logits
+            for i in range(SERVE_GEN):
+                lgf = lg.float()
+                own.append(lgf.argmax(-1).cpu())
+                top.append(lgf.max(-1).values.cpu())
+                at_fed.append(lgf.gather(-1, fed[:, i:i + 1])[:, 0].cpu())
+                if i + 1 < SERVE_GEN:
+                    lg, cache = D.decode_step(lm, params, cache, fed[:, i:i + 1])
+                    lg = lg[:, -1]
+    finally:
+        lm_mod.flash_attention = kernel_fn
+    check(fa_ops.flash_attention.launches == launches,
+          "the one-process serve launched the flash kernel")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"mode": rp.mode.value, "logits": first, "own": torch.stack(own, 1),
+            "top": torch.stack(top, 1), "at_fed": torch.stack(at_fed, 1)}
+
+
+def hold_serve(torch, label: str, ranked: dict, one: dict) -> dict:
+    """A multi-rank serve (rank 0's saved prefill logits and greedy tokens)
+    against one process serving the same step through the plain attention,
+    fed the same tokens (:func:`one_process_serve`): the prefill logits
+    within ``SERVE_LOGIT_TOL``, and at every step of every row the
+    multi-rank serve's token within ``SERVE_LOGIT_TOL`` of one process's
+    top logit, so a token differs from one process's argmax only at a
+    near-tie (which may go either way after bf16 rounding)."""
+    err = (ranked["logits"] - one["logits"]).abs().max().item()
+    check(err <= SERVE_LOGIT_TOL, f"{label}: prefill logits {err:.4f} from one process's "
+                                  f"(tolerance {SERVE_LOGIT_TOL})")
+    gap = one["top"] - one["at_fed"]  # [B, SERVE_GEN], 0 where the tokens agree
+    worst = gap.max().item()
+    check(worst <= SERVE_LOGIT_TOL, f"{label}: a greedy token {worst:.4f} under one process's "
+                                    f"top logit (tolerance {SERVE_LOGIT_TOL})")
+    equal = (one["own"] == ranked["seq"]).sum(1).tolist()
+    print(f"{label}: prefill logits within {err:.4f} of one process's through the plain "
+          f"attention (tolerance {SERVE_LOGIT_TOL}); fed the same tokens, one process's argmax "
+          f"equals the greedy token at {equal} of {SERVE_GEN} steps a row, every greedy token "
+          f"within {worst:.4f} of one process's top logit (tolerance {SERVE_LOGIT_TOL})")
+    return {"logits_max_abs_err": err, "equal_steps": equal, "top_gap": worst,
+            "tolerance": SERVE_LOGIT_TOL}
+
+
 def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) -> None:
     """One rank of the multirank phase, in a spawned process: full
     smollm-360m through ``Trainer.create(..., group=WORLD)`` on the one card.
@@ -4863,8 +5169,14 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     gathered state saved by one process (rank 0) for its digests.
     ``stage="resume"``: data=1,model=2 resumes step 2 (RESHARD_STREAM), the
     state held bit for bit against ``slice_shard`` of a one-process
-    restore, then steps 3-4.  Writes what it measured to ``<stage><r>.json``;
-    any failure raises, so the process exits non-zero."""
+    restore, then steps 3-4, computed partitioned over the model axis
+    (MLP and vocab over model, attention by query rows); then the same
+    ranks serve step 2's weights under data=1,model=2 (:func:`rank_serve`).
+    ``stage="tp"``: gpt3-350m under data=1,model=2 from seed 0, steps 1-2
+    partitioned (attention by heads) with each rank saving its own
+    ``int8:b256`` shards at step 2, then the same ranks serve step 2
+    (DIRECT).  Writes what it measured to ``<stage><r>.json``; any failure
+    raises, so the process exits non-zero."""
     import datetime
 
     import torch
@@ -4889,10 +5201,17 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=MULTIRANK_JOIN_S))
     try:
-        _, report = bq_kernel.build()
-        check(not report["compiled"], f"rank {rank} rebuilt the block-quant kernels")
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+        for built in (bq_kernel, fa_kernel):
+            _, report = built.build()
+            check(not report["compiled"], f"rank {rank} rebuilt {report['library']}")
         fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
         out: dict = {"rank": rank, "stage": stage}
+        if stage == "tp":
+            (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
+                multirank_tp_rank(torch, dist, rank, Path(out_dir), fns, t_start)))
+            return
         if stage == "save":
             out["gloo_cuda"] = gloo_cuda_probe(torch, dist)
             check(all(out["gloo_cuda"][c] == "ok" for c in RUNTIME_COLLECTIVES),
@@ -4980,6 +5299,13 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             reset_launches(fns)
             state, hist = t.run(state, 2, 2)  # steps 3-4; no save
             out["run_launches"] = launch_counts(fns)
+            out["gathered"] = sorted(t.lm.tp.gathered)
+            out["seq_parallel"] = t.lm.tp.sp  # the last forward's decision
+            del state
+            torch.cuda.empty_cache()
+            out["serve"] = rank_serve(torch, dist, cfg, MULTIRANK_MESH["resume"],
+                                      root / "step_00000002", "reshard_stream", Path(out_dir),
+                                      "multirank")
         t.manager.close()
         out["hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")}
                        for h in hist]
@@ -5026,9 +5352,14 @@ def multirank_phase(torch, bq_ops) -> dict:
     """The multi-rank training runtime on the one card: a one-process
     baseline (data=1,model=1, 4 steps), 2 ranks under data=2,model=1 (steps
     1-2, each rank saving its own ``int8:b256`` shards at step 2), 2 new
-    ranks under data=1,model=2 resuming step 2 (RESHARD_STREAM; steps 3-4),
-    and one process under data=1,model=1 resuming step 2 (2 ranks -> 1;
-    steps 3-4).  Returns the phase's measurements."""
+    ranks under data=1,model=2 resuming step 2 (RESHARD_STREAM; steps 3-4
+    computed partitioned over the model axis: MLP and vocab over model,
+    attention by query rows from the gathered attention weights), which
+    then serve step 2's weights (RESHARD_STREAM, ``wqkv`` consolidated;
+    rank 0's prefill rows 0-255, rank 1's 256-511 at ``q_offset`` 256),
+    held against one process's serve of the same step; and one process
+    under data=1,model=1 resuming step 2 (2 ranks -> 1; steps 3-4).
+    Returns the phase's measurements."""
     from repro_torch.ckpt.policy import CheckpointPolicy
     from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
     from repro_torch.launch.mesh import mesh_spec_from_string
@@ -5056,6 +5387,9 @@ def multirank_phase(torch, bq_ops) -> dict:
         torch.cuda.empty_cache()
         saved, save_wall = run_multirank_world(torch, "save", out_dir)
         resumed, resume_wall = run_multirank_world(torch, "resume", out_dir)
+        ranked_serve = torch.load(out_dir / "multirank_serve.pt")
+        one_serve = one_process_serve(torch, cfg, out_dir / "ckpt" / "step_00000002",
+                                      ranked_serve["seq"])
         reset_launches(fns)
         one = trainer(ckpt_dir=str(out_dir / "ckpt"),
                       policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000))
@@ -5109,6 +5443,22 @@ def multirank_phase(torch, bq_ops) -> dict:
     check(all(map(math.isfinite, one_losses)) and gap_one <= MULTIRANK_TOL,
           f"multirank: the one-process resume's steps 3-4 {one_losses} left the baseline")
     resume_dq = sum(r["restore_launches"]["dequantize"] for r in resumed)
+    half = SERVE_BATCH[1] // 2
+    for r in resumed:  # partitioned: attention by query rows from the gathered weights
+        sv, lo = r["serve"], r["rank"] * half
+        check(r["gathered"] == ["layers.blk.wo", "layers.blk.wqkv"] and r["seq_parallel"]
+              and sv["gathered"] == r["gathered"] and not sv["heads_local"],
+              f"multirank resume rank {r['rank']}: gathered {r['gathered']} / {sv['gathered']}")
+        check(sv["mode"] == "reshard_stream" and "layers.blk.wqkv" in sv["consolidated"],
+              f"multirank serve rank {r['rank']}: {sv['mode']}, consolidated {sv['consolidated']}")
+        check(sv["flash_launches"] == cfg.num_layers
+              and set(map(tuple, sv["flash_calls"])) == {("bfloat16", half, lo + half, True)}
+              and set(sv["flash_offsets"]) == {lo},
+              f"multirank serve rank {r['rank']}: {sv['flash_launches']} flash launches "
+              f"{set(map(tuple, sv['flash_calls']))} at q_offset {set(sv['flash_offsets'])}")
+        check(all("tp_s" in h["split"] for h in r["hist"]),
+              f"multirank resume rank {r['rank']}: no tp_s in the split")
+    held = hold_serve(torch, "multirank serve", ranked_serve, one_serve)
     out = {
         "model": "smollm-360m, full width and depth", "world": MULTIRANK_WORLD,
         "backend": "gloo", "tensors": "cuda", "batch": list(MULTIRANK_BATCH),
@@ -5128,6 +5478,9 @@ def multirank_phase(torch, bq_ops) -> dict:
                     for r in resumed],
         "one_process_restore": {"mode": info.mode.value, "s": info.wall_time_s,
                                 "bytes_read": info.restore_stats.bytes_read},
+        "serve": [{"rank": r["rank"], **r["serve"]} for r in resumed],
+        "serve_held": held, "one_process_serve_mode": one_serve["mode"],
+        "flash_launches_by_rank": [r["serve"]["flash_launches"] for r in resumed],
         "peak_gb": {"save": [r["peak_gb"] for r in saved], "resume": [r["peak_gb"] for r in resumed]},
         "setup_s": {"save": [r["setup_s"] for r in saved], "resume": [r["setup_s"] for r in resumed]},
         "world_s": {"save": save_wall, "resume": resume_wall},
@@ -5152,11 +5505,13 @@ def multirank_phase(torch, bq_ops) -> dict:
             for h in r["hist"]:
                 sp = h["split"]
                 gbs = sp["all_reduce_bytes"] / sp["all_reduce_s"] / 1e9 if sp["all_reduce_bytes"] else 0.0
+                tp = (f" + model-group collectives {sp['tp_s']:.2f} ({sp['tp_bytes'] / 1e9:.3f} GB)"
+                      if "tp_s" in sp else "")
                 print(f"  {MULTIRANK_MESH[stage]} rank {r['rank']} step {h['step']}: loss "
                       f"{h['loss']:.4f}, wall {h['dt']:.2f} s = gather {sp['gather_s']:.2f} + "
-                      f"forward/backward {sp['grad_s']:.2f} + all-reduce {sp['all_reduce_s']:.2f} "
-                      f"({sp['all_reduce_bytes'] / 1e9:.3f} GB, {gbs:.2f} GB/s) + update "
-                      f"{sp['update_s']:.2f}")
+                      f"forward/backward {sp['grad_s']:.2f}{tp} + all-reduce "
+                      f"{sp['all_reduce_s']:.2f} ({sp['all_reduce_bytes'] / 1e9:.3f} GB, "
+                      f"{gbs:.2f} GB/s) + update {sp['update_s']:.2f}")
     for r in saved:
         gr = r["gather_routes"]
         print(f"  gather of the {gr['bytes'] / 1e9:.3f} GB of fp32 weights, rank {r['rank']}: "
@@ -5175,9 +5530,169 @@ def multirank_phase(torch, bq_ops) -> dict:
               f"{rs['bytes_read'] / 1e9:.3f} GB read for {r['shard_bytes'] / 1e9:.3f} GB of shards; "
               f"bit-equal to the one-process restore's shard; losses "
               f"{[round(h['loss'], 4) for h in r['hist']]}; peak {r['peak_gb']:.2f} GB")
+    for r in resumed:
+        sv = r["serve"]
+        print(f"  serve rank {r['rank']} ({MULTIRANK_MESH['resume']}): {sv['mode']} restore "
+              f"{sv['restore_s']:.2f} s ({sv['shard_gb']:.3f} GB of its shards), gather "
+              f"{sv['gather_s']:.2f} s, prefill 4x512 {sv['prefill_ms']:.1f} ms ({sv['flash_launches']} "
+              f"flash launches {sorted(set(map(tuple, sv['flash_calls'])))} at q_offset "
+              f"{sorted(set(sv['flash_offsets']))}), decode {sv['decode_ms']:.2f} ms/token, "
+              f"model-group collectives {sv['tp_s']:.2f} s ({sv['tp_bytes'] / 1e9:.3f} GB)")
     print(f"  resume 1 process (data=1,model=1): {info.mode.value} in {info.wall_time_s:.2f} s; "
           f"losses {[round(v, 4) for v in one_losses]}; gaps to the baseline {out['gaps']}")
     return out
+
+
+def multirank_tp_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank-tp world (:func:`multirank_rank`'s ``tp``
+    stage): gpt3-350m at full width under ``TP_MESH``, bf16 compute, remat
+    full, from seed 0: steps 1-2 with each rank saving its own
+    ``int8:b256`` shards at step 2, then :func:`rank_serve` of step 2."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config(TP_ARCH)
+    root = out_dir / "ckpt"
+    b, s = MULTIRANK_BATCH
+    t = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0), mesh_spec_from_string(TP_MESH),
+                       batch_size=b, seq_len=s, ckpt_dir=str(root),
+                       policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=2),
+                       group=dist.group.WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    t_ready = time.perf_counter()
+    state = t.init_state()
+    reset_launches(fns)
+    state, hist = t.run(state, 0, 2)  # the main path: 2 partitioned steps and the save
+    launches = launch_counts(fns)
+    (res,) = t.save_results
+    t.manager.close()
+    out = {"rank": rank, "stage": "tp", "device": str(t.device),
+           "heads_local": t.lm.tp.heads, "gathered": sorted(t.lm.tp.gathered),
+           "seq_parallel": t.lm.tp.sp,
+           "hist": [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")} for h in hist],
+           "launches": launches,
+           "save": {"s": res.wall_time_s, "bytes": res.bytes_written,
+                    "shards": res.shards_written, "coded_bytes": res.coded_bytes},
+           "setup_s": t_ready - t_start, "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, t
+    torch.cuda.empty_cache()
+    out["serve"] = rank_serve(torch, dist, get_config(TP_ARCH), TP_MESH, root / "step_00000002",
+                              "direct", out_dir, "multirank_tp")
+    return out
+
+
+def multirank_tp_phase(torch, bq_ops) -> dict:
+    """Tensor-parallel compute on the one card: gpt3-350m at full width (24
+    layers, d 1024, 16:16 heads of 64, d_ff 4096, vocab 51200; no cut), 8 x
+    512 a step, bf16 compute, remat full.  A
+    one-process baseline (data=1,model=1, steps 1-2 from seed 0), then 2
+    spawned ranks under data=1,model=2 computing by heads (8:8 a rank) for
+    steps 1-2, each saving its own ``int8:b256`` shards at step 2, then
+    serving step 2 restored weights-only (DIRECT) through the same ranks;
+    one process serves the same step (RESHARD_STREAM) for the comparison.
+    Returns the phase's measurements."""
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config(TP_ARCH)
+    b, s = MULTIRANK_BATCH
+    out_dir = ROOT / "build" / "chip_smoke_multirank_tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        base = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                              mesh_spec_from_string("data=1,model=1"), batch_size=b, seq_len=s,
+                              device=torch.device("cuda"))
+        n_params = sum(math.prod(d.shape) for d in base.lm.registry)
+        _, hist = base.run(base.init_state(), 0, 2)
+        baseline = [h["loss"] for h in hist]
+        base_step_s = [h["dt"] for h in hist]
+        del base, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, wall = run_multirank_world(torch, "tp", out_dir)
+        step2 = out_dir / "ckpt" / "step_00000002"
+        codecs = DistCheckpoint.open(step2).manifest.shard_codecs
+        coded = {r: sum(1 for k, tag in codecs.items()
+                        if tag != "raw" and k.startswith(f"rank_{r:05d}/")) for r in range(2)}
+        ranked = torch.load(out_dir / "multirank_tp_serve.pt")
+        one = one_process_serve(torch, cfg, step2, ranked["seq"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [h["loss"] for h in ranks[0]["hist"]]
+    check(all(r["hist"][i]["loss"] == losses[i] for r in ranks for i in range(2)),
+          "multirank-tp: the ranks report different losses")
+    gap = max(abs(x - y) for x, y in zip(losses, baseline))
+    check(all(map(math.isfinite, losses)) and gap <= MULTIRANK_TOL,
+          f"multirank-tp: partitioned steps 1-2 {losses} left the baseline {baseline}")
+    for r in ranks:
+        check(r["heads_local"] and r["gathered"] == [] and r["seq_parallel"],
+              f"multirank-tp rank {r['rank']}: heads local {r['heads_local']}, gathered "
+              f"{r['gathered']}")
+        check(r["launches"]["quantize"] == coded[r["rank"]] > 0,
+              f"multirank-tp rank {r['rank']}: {r['launches']} quantize launches for "
+              f"{coded[r['rank']]} coded shards of its own")
+        sv = r["serve"]
+        check(sv["flash_launches"] == cfg.num_layers
+              and set(map(tuple, sv["flash_calls"])) == {("bfloat16", 512, 512, True)}
+              and set(sv["flash_offsets"]) == {0}
+              and set(map(tuple, sv["flash_heads"])) == {(8, 8)},
+              f"multirank-tp serve rank {r['rank']}: {sv['flash_launches']} flash launches "
+              f"{set(map(tuple, sv['flash_calls']))} heads {set(map(tuple, sv['flash_heads']))}")
+    held = hold_serve(torch, "multirank-tp serve", ranked, one)
+    out = {"model": f"{TP_ARCH}, full width and depth", "params": n_params,
+           "world": MULTIRANK_WORLD, "mesh": TP_MESH, "batch": list(MULTIRANK_BATCH),
+           "baseline": baseline, "baseline_step_s": base_step_s, "losses": losses, "gap": gap,
+           "steps": [{"rank": r["rank"], **h} for r in ranks for h in r["hist"]],
+           "save": [{"rank": r["rank"], **r["save"]} for r in ranks],
+           "serve": [{"rank": r["rank"], **r["serve"]} for r in ranks],
+           "one_process_serve_mode": one["mode"], "held": held,
+           "train_peak_gb": [r["train_peak_gb"] for r in ranks],
+           "setup_s": [r["setup_s"] for r in ranks], "world_s": wall,
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("quantize", "dequantize")},
+           "flash_launches_by_rank": [r["serve"]["flash_launches"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-tp {TP_ARCH} ({n_params:,} params): {MULTIRANK_WORLD} ranks under {TP_MESH} "
+          f"by heads (8:8 a rank), 8 x 512; baseline {[round(v, 4) for v in baseline]} "
+          f"({[round(v, 2) for v in base_step_s]} s a step), ranks {[round(v, 4) for v in losses]}, "
+          f"gap {gap:.2e}; phase {out['phase_s']:.1f} s (world {wall:.1f} s)")
+    for r in ranks:
+        for h in r["hist"]:
+            sp = h["split"]
+            print(f"  {TP_MESH} rank {r['rank']} step {h['step']}: wall {h['dt']:.2f} s = gather "
+                  f"{sp['gather_s']:.2f} + forward/backward {sp['grad_s']:.2f} + model-group "
+                  f"collectives {sp['tp_s']:.2f} ({sp['tp_bytes'] / 1e9:.3f} GB) + all-reduce "
+                  f"{sp['all_reduce_s']:.2f} + update {sp['update_s']:.2f}")
+        sv = r["serve"]
+        print(f"  rank {r['rank']}: save {r['save']['bytes'] / 1e9:.3f} GB in {r['save']['s']:.2f} s "
+              f"({r['launches']}); serve restore {sv['mode']} {sv['restore_s']:.2f} s "
+              f"({sv['shard_gb']:.3f} GB of its shards), gather {sv['gather_s']:.2f} s, prefill "
+              f"4x512 {sv['prefill_ms']:.1f} ms ({sv['flash_launches']} flash launches at 8:8 heads), "
+              f"decode {sv['decode_ms']:.2f} ms/token, model-group collectives {sv['tp_s']:.2f} s "
+              f"({sv['tp_bytes'] / 1e9:.3f} GB) in the generate")
+    return out
+
+
+class PhaseClock:
+    """Each phase's wall seconds since the previous mark, printed as the
+    phase ends and kept for the ``phase_seconds`` line (the smoke's time
+    budget)."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+        print(f"phase {name}: {self.seconds[name]:.1f} s (the smoke at {now - self.start:.1f} s)",
+              flush=True)
 
 
 def main() -> int:
@@ -5201,52 +5716,72 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    clock = PhaseClock()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
     usage = build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
+    clock.mark("build")
     check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256, 256>", "fwd_kernel<float, 256, 256>",
                                                "fwd_kernel_tc<192, 128>", "fwd_kernel<float, 192, 128>"))
     k = kernel_phase(torch, F, kernel, ops, ref)
+    clock.mark("kernel flash_attention")
     bq = block_quant_phase(torch, bq_ops, bq_ref)
+    clock.mark("kernel block_quant")
     coll = collectives_phase(torch)
+    clock.mark("collectives")
     multi = multirank_phase(torch, bq_ops)
+    clock.mark("multirank")
+    multi_tp = multirank_tp_phase(torch, bq_ops)
+    clock.mark("multirank-tp")
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
                            "jamba-1.5-large-398b")
+    clock.mark("kernel ssd_scan")
     counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     runs = serve_phase(torch, "smollm-360m", counters,
                        {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48, via_ucp=True)
+    clock.mark("serve smollm-360m")
     ssm_runs = serve_phase(torch, "mamba2-130m", counters,
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
+    clock.mark("serve mamba2-130m")
     gemma = gemma_phase(torch, counters)
+    clock.mark("gemma3")
     train = train_phase(torch, ops, bq_ops)
+    clock.mark("train")
     bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
     reset_launches(bq_counters)
     hot = hot_phase(torch, bq_ops)
+    clock.mark("hot")
     hot_bq = launch_counts(bq_counters)  # the drain's encode and digest, the fall-through's decode
     check(hot_bq == {"quantize": hot["quantize"],
                      "dequantize": hot["dequantize"] + hot["fall_through_dequantize"]},
           f"hot: block-quant launches {hot_bq} outside the counted sub-phases")
     reset_launches(bq_counters)
     fanout = fanout_phase(torch, bq_ops, counters)
+    clock.mark("fanout")
     fanout_bq = launch_counts(bq_counters)  # the publisher's saves; the fleet's syncs make none
     check(fanout_bq == {k: sum(v[k] for v in fanout["launches_by_phase"].values())
                         for k in fanout_bq},
           f"fanout: block-quant launches {fanout_bq} outside the counted sub-phases")
     moe_serve = moe_serve_phase(torch, counters, bq_ops, kernel)
+    clock.mark("serve-moe")
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
+    clock.mark("train-moe")
     reset_launches(bq_counters)
     mla = mla_serve_phase(torch, counters, kernel)
+    clock.mark("serve-mla")
     mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
     check(mla_bq == {"quantize": 0, "dequantize": 0}, f"serve-mla: block-quant launches {mla_bq}")
     reset_launches(bq_counters)
     hybrid = hybrid_serve_phase(torch, counters, kernel)
+    clock.mark("serve-hybrid")
     hybrid_bq = launch_counts(bq_counters)  # bf16 weights saved uncoded: none
     check(hybrid_bq == {"quantize": 0, "dequantize": 0},
           f"serve-hybrid: block-quant launches {hybrid_bq}")
     reset_launches(counters)
     train_ssm = ssm_train_phase(torch, bq_ops, bq_ref, counters)
+    clock.mark("train-ssm")
     train_ssm_kernels = launch_counts(counters)  # training goes through the plain versions
     # llama-vision: 4 causal self layers, then the gated cross layer at 512 x 1600
     reset_launches(bq_counters)
@@ -5254,17 +5789,20 @@ def main() -> int:
                             prompt_len=512, n_params=VLM_PARAMS, label="vlm",
                             want=[("bfloat16", 512, 512, True)] * 4
                             + [("bfloat16", 512, 1600, False)])
+    clock.mark("serve-vlm")
     # whisper: 4 encoder layers over 1500 frames, then each decoder layer's
     # causal self-attention and its cross-attention to the encoder's output
     encdec = cross_serve_phase(torch, counters, kernel, arch="whisper-tiny", layers=None,
                                prompt_len=432, n_params=WHISPER_PARAMS, label="encdec",
                                want=[("bfloat16", 1500, 1500, False)] * 4
                                + [("bfloat16", 432, 432, True), ("bfloat16", 432, 1500, False)] * 4)
+    clock.mark("serve-encdec")
     cross_bq = launch_counts(bq_counters)  # both serve phases save their weights uncoded: none
     check(cross_bq == {"quantize": 0, "dequantize": 0},
           f"serve-vlm and serve-encdec: block-quant launches {cross_bq}")
     reset_launches(counters)
     train_encdec = encdec_train_phase(torch, bq_ops, counters)
+    clock.mark("train-encdec")
     train_encdec_kernels = launch_counts(counters)
 
     rows = [{
@@ -5356,6 +5894,14 @@ def main() -> int:
         "train_encdec_launches": train_encdec_kernels["flash_attention"],
         "fanout_launches": {k: v["launches"] for k, v in fanout["serve"].items()},
         "collectives_launches": coll["flash_launches"],
+        **{f"qoff_{key}": k["qoff"][key] for key in (
+            "ms", "event_ms", "library_ms", "library_backend", "fp32_ms", "plain_ms", "bound_ms",
+            "bound_by", "max_abs_err")},
+        "qoff_shape": "bf16 B=4 Sq=256 Skv=512 15:5 heads of 64, causal, q_offset 256 "
+                      "(smollm-360m's rank 1 of model=2 under sequence parallelism); library: "
+                      "scaled_dot_product_attention with causal_lower_right(256, 512)",
+        "multirank_launches": multi["flash_launches_by_rank"],
+        "multirank_tp_launches": multi_tp["flash_launches_by_rank"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -5401,6 +5947,7 @@ def main() -> int:
         rows[-1]["collectives_launches"] = coll["launches"][which]
         rows[-1]["collectives_launches_by_variant"] = coll["launches_by_variant"][which]
         rows[-1]["multirank_launches"] = multi["launches"][which]
+        rows[-1]["multirank_tp_launches"] = multi_tp["launches"][which]
         rows[-1]["multirank_launches_by_phase"] = {k: v[which]
                                                    for k, v in multi["launches_by_phase"].items()}
         rows[-1]["hot_launches_by_phase"] = {k: v[which]
@@ -5478,6 +6025,9 @@ def main() -> int:
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"collectives": coll}))
     print(json.dumps({"multirank": multi}))
+    print(json.dumps({"multirank_tp": multi_tp}))
+    print(json.dumps({"phase_seconds": clock.seconds,
+                      "total_s": time.perf_counter() - clock.start}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

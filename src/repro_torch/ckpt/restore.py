@@ -358,9 +358,11 @@ def build_param_arrays(
     names=None,
     stats: RestoreStats | None = None,
     engine: CheckpointEngine | None = None,
+    rank: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """The serving side's building block: flat ``{name: tensor}`` of
-    runtime-shaped fp32 weights on ``device``, no optimizer moments.
+    runtime-shaped fp32 weights on ``device``, no optimizer moments (with
+    ``rank``: that rank's checkpoint shards of them).
 
     ``transforms=None`` means the source layout equals the Target plan's
     (DIRECT); a plan table from
@@ -371,7 +373,8 @@ def build_param_arrays(
         return _build_flat(_reader_for(source, plan, transforms, engine), plan,
                            StateKind.FP32, torch.device(device), engine,
                            pool=StateKind.FP32 in _coded_kinds(source),
-                           whole=_consolidated(transforms), stats=stats, names=names)
+                           whole=_consolidated(transforms), stats=stats, names=names,
+                           rank=rank)
 
 
 def params_from_source(
@@ -382,12 +385,14 @@ def params_from_source(
     transforms: Mapping[str, ParamTransform] | None = None,
     engine: CheckpointEngine | None = None,
     stats: RestoreStats | None = None,
+    rank: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """Weights-only restore: flat ``{name: tensor}`` of runtime-shaped fp32
-    weights on ``device`` (:func:`build_param_arrays` of every parameter).
-    The bytes are the ``.params`` of a full restore."""
+    weights on ``device`` (:func:`build_param_arrays` of every parameter;
+    with ``rank``, that rank's checkpoint shards).  The bytes are the
+    ``.params`` of a full restore."""
     return build_param_arrays(source, plan, device, transforms=transforms, stats=stats,
-                              engine=engine)
+                              engine=engine, rank=rank)
 
 
 def _build_state(
@@ -488,11 +493,13 @@ def params_from_ucp(
     device: str | torch.device,
     *,
     engine: CheckpointEngine | None = None,
+    rank: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """Weights-only VIA_UCP restore: flat ``{name: tensor}`` of runtime-shaped
-    fp32 weights on ``device``, read from the ``fp32`` atoms alone — the
-    ``.params`` of :func:`state_from_ucp`."""
+    fp32 weights on ``device`` (with ``rank``, that rank's checkpoint
+    shards), read from the ``fp32`` atoms alone — the ``.params`` of
+    :func:`state_from_ucp`."""
     device = torch.device(device)
     with _engine_for(ucp, device, engine) as engine:
         return _build_flat(_ucp_reader(ucp, plan, engine), plan, StateKind.FP32, device, engine,
-                           pool=False)
+                           pool=False, rank=rank)

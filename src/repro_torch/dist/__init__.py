@@ -4,7 +4,11 @@
   checkpoint specs and runtime ``PartitionSpec``s) and the multi-rank
   runtime's helpers: :class:`RankGroups` (a rank's place and subgroups in a
   ``torch.distributed`` group over the mesh), :func:`gather_full`,
-  :func:`local_shard`, :func:`rank_rows`.
+  :func:`local_shard`, :func:`rank_rows`; the activation and decode-cache
+  rules :func:`make_sharder` and :func:`cache_pspecs`.
+* :mod:`repro_torch.dist.tensor_parallel` — the dense family's partitioned
+  compute over the model axis (:class:`TensorParallel`, installed as
+  ``LM.tp``).
 * :mod:`repro_torch.dist.collectives` — compressed gradient collectives
   (block-wise int8 quantization with error feedback) over a
   ``torch.distributed`` process group.
@@ -15,22 +19,28 @@ from .sharding import (
     PartitionSpec,
     RankGroups,
     ShardingPlan,
+    cache_pspecs,
     gather_full,
     local_shard,
     make_plan,
+    make_sharder,
     rank_rows,
     vocab_multiple,
 )
+from .tensor_parallel import TensorParallel
 
 __all__ = [
     "PartitionSpec",
     "RankGroups",
     "ShardingPlan",
+    "TensorParallel",
+    "cache_pspecs",
     "compressed_psum",
     "dequantize_int8",
     "gather_full",
     "local_shard",
     "make_plan",
+    "make_sharder",
     "quantize_int8",
     "rank_rows",
     "vocab_multiple",

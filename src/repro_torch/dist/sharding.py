@@ -33,23 +33,34 @@ runtime sends (``all_reduce``, ``broadcast``, ``all_gather``; the smoke's
 ``multirank`` phase checks it on the card, and found pinned host staging of
 the gather no faster).
 
-Compute stays unsharded here: every rank runs the whole model on its rows
-of the batch.  Tensor-parallel compute (``make_sharder``), sequence
-parallelism and the decode cache's specs (``cache_pspecs``) are ROADMAP
-item 11b.
+The compute half: :func:`make_sharder` is the reference's activation rule
+(which logical axis of an activation goes over which mesh axis), returning
+the :class:`PartitionSpec` it decides for a shape instead of constraining an
+array; the dense family computes by it
+(:mod:`repro_torch.dist.tensor_parallel`).  :func:`cache_pspecs` is the
+decode cache's rule, which ``models.decode.init_cache`` follows under a
+rank context.  A rank's weights for compute are its *model-local* tensors:
+the full data replica of its model shard (:func:`model_layout`,
+:func:`gather_shard` over the data subgroup), and, for the weights no rank
+computes from its shard alone, the whole tensor (:func:`gather_full` over
+the model subgroup).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ParallelismConfig
-from repro_torch.core.layout import DimSpec, MeshSpec, ShardLayout, SubFragment, slice_shard
+from repro_torch.core.layout import (
+    DimSpec, IndexEntry, MeshSpec, ShardLayout, SubFragment, compute_layout, slice_shard,
+)
 from repro_torch.core.patterns import ParamSpec, StateKind, StateLayoutSpec
+from repro_torch.core.pytree import tree_map_with_path
 from repro_torch.models.common import ParamDef, ParamRegistry
 
 __all__ = [
@@ -58,10 +69,15 @@ __all__ = [
     "ShardingPlan",
     "axis_groups",
     "batch_axes",
+    "cache_pspecs",
     "data_coord",
     "gather_full",
+    "gather_shard",
     "local_shard",
     "make_plan",
+    "make_sharder",
+    "model_layout",
+    "place",
     "rank_rows",
     "vocab_multiple",
 ]
@@ -267,6 +283,117 @@ def make_plan(
 
 
 # ---------------------------------------------------------------------------
+# Activation sharding (the decisions the model computes by)
+# ---------------------------------------------------------------------------
+
+
+def make_sharder(
+    parallel: ParallelismConfig, mesh: MeshSpec
+) -> Callable[[tuple[int, ...], tuple[str, ...]], PartitionSpec]:
+    """The reference's activation-sharding rule as a function of a shape and
+    its logical axes, returning the :class:`PartitionSpec` the reference's
+    ``make_sharder`` constrains that activation to (all ``None`` where it
+    leaves the array alone).
+
+    ``batch`` goes over the data axes; ``heads`` / ``kv_heads`` / ``vocab``
+    over the model axis under tensor parallelism, the first one that
+    divides; ``seq`` over the model axis under sequence parallelism, but
+    only when TP did not claim it for this tensor.  An axis is applied only
+    where the dimension divides."""
+    data = tuple(a for a in parallel.data_axes if mesh.has_axis(a))
+    dsize = math.prod(mesh.axis_size(a) for a in data) if data else 1
+    model = parallel.model_axis if mesh.has_axis(parallel.model_axis) else None
+    msize = mesh.axis_size(model) if model else 1
+
+    def shard(shape: tuple[int, ...], axes: tuple[str, ...]) -> PartitionSpec:
+        if len(shape) != len(axes):
+            return PartitionSpec(*([None] * len(shape)))
+        entries: list = [None] * len(axes)
+        model_used = False
+        for i, ax in enumerate(axes):
+            if ax == "batch" and data and shape[i] % dsize == 0:
+                entries[i] = data if len(data) > 1 else data[0]
+            elif (
+                ax in ("heads", "kv_heads", "vocab")
+                and model
+                and parallel.tensor_parallel
+                and not model_used
+                and shape[i] % msize == 0
+            ):
+                entries[i] = model
+                model_used = True
+        if model and parallel.sequence_parallel and not model_used:
+            for i, ax in enumerate(axes):
+                if ax == "seq" and shape[i] % msize == 0:
+                    entries[i] = model
+                    break
+        return PartitionSpec(*entries)
+
+    return shard
+
+
+def cache_pspecs(cache, parallel: ParallelismConfig, mesh: MeshSpec):
+    """PartitionSpec tree for a decode cache (``models.decode.init_cache``),
+    entry for entry the reference's: the leaves may be tensors or anything
+    with a ``shape``.
+
+    The batch dim shards over the data axes.  Under tensor parallelism the
+    KV-head dim shards over the model axis when it divides; otherwise, with
+    ``parallel.shard_cache_seq``, the cache-length dim shards instead of
+    replicating the whole cache per rank.  Mamba state shards its head dim,
+    conv state its channel dim."""
+    data = tuple(a for a in parallel.data_axes if mesh.has_axis(a))
+    dsize = math.prod(mesh.axis_size(a) for a in data) if data else 1
+    dentry = (data if len(data) > 1 else data[0]) if data else None
+    model = (
+        parallel.model_axis
+        if parallel.tensor_parallel and mesh.has_axis(parallel.model_axis)
+        else None
+    )
+    msize = mesh.axis_size(model) if model else 1
+
+    def spec(path: str, leaf) -> PartitionSpec:
+        shape = tuple(leaf.shape)
+        name = path.split(".")[-1]
+        if name == "pos":
+            return PartitionSpec(dentry if dsize and shape[0] % dsize == 0 else None)
+        entries: list = [None] * len(shape)
+        if dentry is not None and len(shape) > 1 and shape[1] % dsize == 0:
+            entries[1] = dentry  # [stack, batch, ...]
+        if model is not None:
+            if name in ("k", "v", "ck", "cv") and len(shape) == 5:
+                if shape[3] % msize == 0:
+                    entries[3] = model  # KV heads
+                elif parallel.shard_cache_seq and shape[2] % msize == 0:
+                    entries[2] = model  # cache length
+            elif name == "h" and len(shape) == 5 and shape[2] % msize == 0:
+                entries[2] = model  # SSM heads
+            elif name == "conv" and len(shape) == 4 and shape[3] % msize == 0:
+                entries[3] = model  # conv channels
+            elif (
+                name in ("c_kv", "k_rope", "slot_pos")
+                and parallel.shard_cache_seq
+                and len(shape) >= 3
+                and shape[2] % msize == 0
+            ):
+                entries[2] = model
+        return PartitionSpec(*entries)
+
+    return tree_map_with_path(spec, cache)
+
+
+def local_shape(shape: tuple[int, ...], spec: PartitionSpec, mesh: MeshSpec) -> tuple[int, ...]:
+    """A rank's shape of an array of ``shape`` laid out by ``spec`` (each
+    sharded dim divided by the product of its axes' sizes; the specs here
+    shard only dims that divide)."""
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        out.append(n // math.prod(mesh.axis_size(a) for a in axes))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # The multi-rank runtime: ranks of a torch.distributed group over the mesh
 # ---------------------------------------------------------------------------
 
@@ -318,7 +445,8 @@ class RankGroups:
     """One rank's place in a ``torch.distributed`` group laid over a plan's
     mesh: ``rank`` is ``dist.get_rank(group)`` and its mesh rank; ``data``,
     ``model`` and ``pipe`` are its subgroups (None when the axes' size is 1);
-    ``data_size`` is the data group's size (the gradient mean's divisor)."""
+    ``data_size`` is the data group's size (the gradient mean's divisor);
+    ``members[label]`` the mesh ranks of a subgroup in its rank order."""
 
     group: "dist.ProcessGroup"
     plan: ShardingPlan
@@ -328,6 +456,9 @@ class RankGroups:
     model: "dist.ProcessGroup | None"
     pipe: "dist.ProcessGroup | None"
     data_size: int
+    # the mesh ranks of this rank's data and model subgroups, in the
+    # subgroups' rank order ([rank] where the subgroup is None)
+    members: dict = dataclasses.field(default_factory=dict)
 
     @property
     def mesh(self) -> MeshSpec:
@@ -351,35 +482,91 @@ class RankGroups:
         pipe = (parallel.pipe_axis,) if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else ()
         model = (parallel.model_axis,) if mesh.has_axis(parallel.model_axis) else ()
         data = batch_axes(parallel, mesh)
-        mine = {}
+        mine, members_of = {}, {}
         for label, axes in (("data", data), ("model", model), ("pipe", pipe)):
-            mine[label] = None
+            mine[label], members_of[label] = None, [rank]
             if math.prod(mesh.axis_size(a) for a in axes) <= 1:
                 continue  # the same on every rank: no group to create
             for members in axis_groups(mesh, axes):
                 g = dist.new_group([glob[r] for r in members], backend=backend)
                 if rank in members:
+                    # a subgroup ranks its members by their global rank
                     mine[label] = g
+                    members_of[label] = sorted(members, key=lambda r: glob[r])
         dsize = math.prod(mesh.axis_size(a) for a in data) if data else 1
         return cls(group=group, plan=plan, parallel=parallel, rank=rank,
                    data=mine["data"], model=mine["model"], pipe=mine["pipe"],
-                   data_size=dsize)
+                   data_size=dsize, members=members_of)
 
 
-def gather_full(local: torch.Tensor, layout: ShardLayout, group) -> torch.Tensor:
+def model_layout(spec: ParamSpec, kind: StateKind, mesh: MeshSpec, model_axis: str) -> ShardLayout:
+    """The layout of a tensor of ``kind`` split over the model axis alone
+    (its data and pipe axes dropped): a rank's *model-local* tensor, the
+    full data replica of its model shard."""
+    dims = tuple(DimSpec(tuple(a for a in d.axes if a == model_axis), d.parts)
+                 for d in spec.states[kind].dims)
+    return compute_layout(spec.runtime_shape, dims, mesh)
+
+
+def place(dst: torch.Tensor, dst_entries, src: torch.Tensor, src_entries) -> None:
+    """Copy into ``dst`` every element of ``src`` whose runtime coordinates
+    both sets of :class:`~repro_torch.core.layout.IndexEntry` cover (each
+    maps a region of the runtime tensor to a region of its local tensor)."""
+    for e in src_entries:
+        for f in dst_entries:
+            lo = [max(a[0], b[0]) for a, b in zip(e.atom_slice, f.atom_slice)]
+            hi = [min(a[1], b[1]) for a, b in zip(e.atom_slice, f.atom_slice)]
+            if any(l >= h for l, h in zip(lo, hi)):
+                continue
+            d = tuple(slice(s0 + l - a0, s0 + h - a0)
+                      for (s0, _), (a0, _), l, h in zip(f.shard_slice, f.atom_slice, lo, hi))
+            s_ = tuple(slice(s0 + l - a0, s0 + h - a0)
+                       for (s0, _), (a0, _), l, h in zip(e.shard_slice, e.atom_slice, lo, hi))
+            dst[d] = src[s_]
+
+
+def gather_shard(local: torch.Tensor, layout: ShardLayout, target: ShardLayout, rank: int,
+                 group, members: list[int]) -> torch.Tensor:
+    """Rank ``rank``'s tensor of the ``target`` layout from the shards of
+    ``layout`` that the subgroup ``group`` (mesh ranks ``members``, in its
+    rank order) holds: one all-gather, or none where the members hold one
+    fragment.  Every target element must lie in some member's shard (the
+    data subgroup's shards cover the rank's model shard)."""
+    out = torch.zeros(target.local_shape, dtype=local.dtype, device=local.device)
+    if group is None or len({layout.fragment_id[r] for r in members}) == 1:
+        place(out, target.entries[rank], local, layout.entries[rank])
+        return out
+    return _gather_into(out, target.entries[rank], local, layout, group, members)
+
+
+def gather_full(local: torch.Tensor, layout: ShardLayout, group,
+                members: list[int] | None = None) -> torch.Tensor:
     """The runtime-shaped tensor from every rank's local shard: inverts the
     layout's :class:`~repro_torch.core.layout.IndexEntry` maps (one primary
-    rank per fragment; padding dropped).  A layout with one fragment is
+    rank per fragment; padding dropped).  ``group`` is the whole mesh's
+    group, or a subgroup whose members (mesh ranks ``members``, in its rank
+    order) together hold every fragment.  A layout with one fragment is
     every rank's whole tensor already: returned as it is."""
     if len(set(layout.fragment_id)) == 1:
         return local
-    shards = [torch.empty_like(local) for _ in range(group.size())]
+    whole = tuple((0, n) for n in layout.global_shape)
+    out = torch.empty(layout.global_shape, dtype=local.dtype, device=local.device)
+    members = list(range(group.size())) if members is None else members
+    return _gather_into(out, (IndexEntry(whole, whole),), local, layout, group, members)
+
+
+def _gather_into(out: torch.Tensor, out_entries, local: torch.Tensor, layout: ShardLayout,
+                 group, members: list[int]) -> torch.Tensor:
+    """``out`` (mapped by ``out_entries``) filled from the members' shards of
+    ``layout``, all-gathered over ``group``: one member a fragment."""
+    shards = [torch.empty_like(local) for _ in members]
     dist.all_gather(shards, local.contiguous(), group=group)
-    full = torch.empty(layout.global_shape, dtype=local.dtype, device=local.device)
-    for r in layout.primary_ranks():
-        for e in layout.entries[r]:
-            full[e.atom_index()] = shards[r][e.shard_index()]
-    return full
+    done = set()
+    for r, shard in zip(members, shards):
+        if layout.fragment_id[r] not in done:
+            done.add(layout.fragment_id[r])
+            place(out, out_entries, shard, layout.entries[r])
+    return out
 
 
 def local_shard(full, layout: ShardLayout, rank: int):

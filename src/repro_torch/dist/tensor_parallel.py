@@ -1,0 +1,359 @@
+"""Tensor- and sequence-parallel compute of the dense family over the model
+subgroup of a multi-rank run.
+
+The reference installs ``make_sharder`` as ``LM.shard`` and constrains a few
+activations (``repro/models/lm.py:430,438,508,542,613,635``); GSPMD then
+partitions every product from the weights' and the activations' shardings.
+Eager PyTorch has no partitioner, so the port's layer code computes its part
+itself, by the same decisions (:func:`~repro_torch.dist.sharding.make_sharder`
+of the logical shapes), with Megatron's patterns written out here as
+``torch.autograd.Function``s on the model subgroup: each one's backward is
+the transpose of its forward (all-gather ↔ reduce-scatter, identity ↔
+all-reduce).
+
+A rank computes from its *model-local* weights, the full data replica of its
+model shard (FSDP's gather over the data subgroup stays).  With ``m`` ranks
+over the model axis and a prompt or batch of ``S`` positions:
+
+* **sequence parallelism** — where the sharder puts the residual stream's
+  ``seq`` over the model axis (``S`` divides by ``m``), a rank holds rows
+  ``[c·S/m, (c+1)·S/m)`` of the stream (``c`` its model coordinate); the
+  normed input of each block is all-gathered over seq and its output
+  reduce-scattered; otherwise the stream is replicated, the normed input
+  enters a block through an identity whose backward all-reduces, and the
+  block's output is all-reduced;
+* **attention, heads divide** (``hq`` and ``hkv`` by ``m``): the rank's
+  ``wqkv`` shard is its heads' q, k and v columns (the plan splits each
+  sub-fragment evenly), so it computes its heads and the row-parallel
+  ``wo``; the cache keeps its KV heads;
+* **attention, heads do not divide**: ``wqkv`` and ``wo`` are gathered over
+  the model subgroup (:attr:`TensorParallel.gathered`).  Under sequence
+  parallelism every rank computes K and V for all rows and q for its own
+  rows only, against keys ``[0, (c+1)·S/m)`` at ``q_offset = c·S/m``; its
+  output stays its rows.  Without it attention is replicated;
+* **the MLP**: column-parallel on the rank's ``mlp`` columns, row-parallel
+  down-projection;
+* **the vocabulary**: a masked lookup in the rank's rows of ``embed``,
+  vocab-sharded logits, and a vocab-parallel cross-entropy (max and
+  sum-of-exp all-reduced, each label's logit from its owner, padding
+  masked), so every model rank gets the same loss.
+
+Gradients: a weight split over the model axis and computed locally needs no
+exchange; a gathered weight's and a replicated weight's (the norms') are
+complete on every rank without sequence parallelism and partial with it,
+and are then summed over the model subgroup (:meth:`TensorParallel.reduce_grads`).
+The seconds and bytes of every model-subgroup collective accumulate in
+:attr:`TensorParallel.seconds` and :attr:`TensorParallel.bytes`.
+
+Every collective is a gloo or NCCL ``all_reduce`` or ``all_gather``: a
+reduce-scatter is an all-reduce and a slice (gloo has no reduce-scatter).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, ParallelismConfig
+from repro_torch.core.layout import MeshSpec, slice_shard
+from repro_torch.core.patterns import StateKind
+
+from .sharding import RankGroups, gather_full, gather_shard, make_sharder, model_layout, place
+
+__all__ = ["TensorParallel", "partitions"]
+
+_ATTN = ("wqkv", "wo")  # the attention weights, gathered where heads do not divide
+
+
+def partitions(cfg: ModelConfig, parallel: ParallelismConfig, mesh: MeshSpec) -> bool:
+    """Whether a run computes partitioned over the model axis: the dense
+    family under tensor parallelism, with a model axis of size > 1 and no
+    pipe axis over 1.  Every other family (and any mesh with a pipe axis)
+    gathers the whole model on each rank (ROADMAP item 11b.4)."""
+    m = mesh.axis_size(parallel.model_axis) if mesh.has_axis(parallel.model_axis) else 1
+    pipe = (mesh.axis_size(parallel.pipe_axis)
+            if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else 1)
+    return cfg.family == "dense" and parallel.tensor_parallel and m > 1 and pipe == 1
+
+
+class TensorParallel:
+    """A rank's context of partitioned compute: its :class:`RankGroups`, the
+    sharder, and the collectives of the model subgroup.  Install it as
+    ``LM.tp``; the model then computes by it (:mod:`repro_torch.models.lm`,
+    :mod:`repro_torch.models.decode`)."""
+
+    def __init__(self, ranks: RankGroups, cfg: ModelConfig):
+        par, mesh = ranks.parallel, ranks.mesh
+        if not partitions(cfg, par, mesh):
+            raise ValueError(f"{cfg.name} under {dict(mesh.axes)} does not compute partitioned")
+        self.ranks = ranks
+        self.parallel = par
+        self.mesh = mesh
+        self.sharder = make_sharder(par, mesh)
+        self.axis = par.model_axis
+        self.size = mesh.axis_size(self.axis)
+        self.coord = mesh.coords(ranks.rank)[self.axis]
+        self.group = ranks.model
+        self.members = ranks.members["model"]
+        if [mesh.coords(r)[self.axis] for r in self.members] != list(range(self.size)):
+            raise ValueError(f"model subgroup {self.members} is not in model-coordinate order")
+        # q heads go over the model axis where the sharder says so; a rank
+        # computes them from its own wqkv shard only when its GQA groups are
+        # whole (the kv heads divide too); else it computes by rows
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        self.heads = hq % self.size == 0 and hkv % self.size == 0
+        specs = ranks.plan.param_specs
+        self.layouts = {n: model_layout(s, StateKind.FP32, mesh, self.axis)
+                        for n, s in specs.items()}
+        self.split = {n: any(self.axis in d.axes for d in s.states[StateKind.FP32].dims)
+                      for n, s in specs.items()}
+        self.gathered = frozenset(
+            n for n in specs if self.split[n] and not self.heads and n.split(".")[-1] in _ATTN)
+        self.sp = False  # the last forward's decision (decide_sp)
+        self.seconds = 0.0
+        self.bytes = 0
+
+    # -- decisions ----------------------------------------------------------
+
+    def decide_sp(self, b: int, s: int, d: int) -> bool:
+        """Whether the residual stream [b, s, d] is seq-sharded (the sharder's
+        entry for ``(batch, seq, embed)``), kept as :attr:`sp`.  The forward
+        decides once (``LM.forward``, ``decode.prefill``); its layers and
+        :meth:`reduce_grads` read :attr:`sp`."""
+        self.sp = self.sharder((b, s, d), ("batch", "seq", "embed"))[1] == self.axis
+        return self.sp
+
+    def rows(self, s: int) -> tuple[int, int]:
+        """This rank's rows of a seq-sharded stream of ``s`` positions."""
+        n = s // self.size
+        return self.coord * n, (self.coord + 1) * n
+
+    def vocab_start(self, local_vocab: int) -> int:
+        return self.coord * local_vocab
+
+    # -- the collectives (timed) ---------------------------------------------
+
+    def _clock(self, t: torch.Tensor) -> float:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        return time.perf_counter()
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """In place over the model subgroup."""
+        t0 = self._clock(t)
+        dist.all_reduce(t, op=op, group=self.group)
+        self.seconds += self._clock(t) - t0
+        self.bytes += t.numel() * t.element_size()
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model subgroup's tensors concatenated along ``dim`` in
+        model-coordinate order."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        t0 = self._clock(t)
+        dist.all_gather(parts, t, group=self.group)
+        self.seconds += self._clock(t) - t0
+        self.bytes += t.numel() * t.element_size() * self.size
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the model subgroup, this rank's chunk along ``dim``."""
+        t = self.all_reduce(t.clone())
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.coord * n, n).contiguous()
+
+    # -- the autograd patterns ----------------------------------------------
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """[b, s/m, ...] → [b, s, ...]; backward reduce-scatters."""
+        return _GatherSeq.apply(x, self)
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial [b, s, ...] → the sum's rows of this rank; backward gathers."""
+        return _ScatterSeq.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial → the sum over the model subgroup; backward is the identity."""
+        return _Reduce.apply(x, self)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; backward all-reduces (the input of a column-parallel
+        product under a replicated stream)."""
+        return _Copy.apply(x, self)
+
+    def enter(self, h: torch.Tensor, sp: bool) -> torch.Tensor:
+        """A block's normed input as its partitioned products read it."""
+        return self.gather_seq(h) if sp else self.copy(h)
+
+    def leave(self, out: torch.Tensor, sp: bool) -> torch.Tensor:
+        """A block's partial output as the residual stream holds it."""
+        return self.scatter_seq(out) if sp else self.reduce(out)
+
+    # -- the vocabulary ------------------------------------------------------
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
+        """Vocab-parallel lookup in this rank's rows of ``embed``: masked,
+        then reduce-scattered over seq (``sp``) or all-reduced."""
+        vl = table.shape[0]
+        ids = tokens - self.vocab_start(vl)
+        own = (ids >= 0) & (ids < vl)
+        x = F.embedding(ids.clamp(0, vl - 1), table) * own[..., None].to(table.dtype)
+        return self.leave(x, sp)
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+        """Per-token NLL from vocab-sharded fp32 logits [..., Vl] over the
+        logical ``vocab`` (the padding columns masked), equal on every rank."""
+        shape = labels.shape
+        nll = _VocabCrossEntropy.apply(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                                       self, vocab)
+        return nll.reshape(shape)
+
+    def _masked(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        vl = logits.shape[-1]
+        col = self.vocab_start(vl) + torch.arange(vl, device=logits.device)
+        return logits.masked_fill(col >= vocab, float("-inf"))
+
+    def greedy(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """Argmax over the vocab shards of ``logits`` [..., Vl]: each rank's
+        (max, index) all-gathered, ties to the lower index as ``argmax``; the
+        same token on every rank."""
+        lg = self._masked(logits.float(), vocab)
+        mx, idx = lg.max(-1)
+        idx = idx + self.vocab_start(lg.shape[-1])
+        mxs = self.all_gather(mx[None], 0)
+        ids = self.all_gather(idx[None], 0)
+        best = mxs.argmax(0)  # the first (lowest-index) shard of the maximum
+        return ids.gather(0, best[None])[0]
+
+    def gather_vocab(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """The whole logits [..., vocab] from the vocab shards."""
+        return self.all_gather(logits, logits.dim() - 1)[..., :vocab]
+
+    # -- weights and gradients ----------------------------------------------
+
+    def weights(self, local: dict) -> tuple[dict, dict]:
+        """From the rank's checkpoint shards (flat), its model-local weights
+        (gathered over the data subgroup) and the weights it computes from:
+        the model-local ones, and the :attr:`gathered` ones whole (gathered
+        over the model subgroup)."""
+        rg, specs = self.ranks, self.ranks.plan.param_specs
+        mloc = {n: gather_shard(t, specs[n].layout_for(StateKind.FP32, self.mesh), self.layouts[n],
+                                rg.rank, rg.data, rg.members["data"])
+                for n, t in local.items()}
+        comp = {n: gather_full(t, self.layouts[n], self.group, self.members)
+                if n in self.gathered else t for n, t in mloc.items()}
+        return mloc, comp
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """Gradients of the weights the rank computed from (``weights()``'s
+        second tree) → its model-local gradients: a gathered weight's summed
+        (partial where the forward sharded the stream, :attr:`sp`) and cut to
+        the rank's shard, a replicated weight's summed when partial."""
+        out, sp = {}, self.sp
+        for n, g in grads.items():
+            if n in self.gathered:
+                if sp:
+                    self.all_reduce(g)
+                g = slice_shard(g, self.layouts[n], self.ranks.rank)
+            elif sp and not self.split[n]:
+                self.all_reduce(g)
+            out[n] = g
+        return out
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of model-local gradients, each element counted
+        once across the model shards."""
+        split = [g.float().square().sum() for n, g in grads.items() if self.split[n]]
+        rep = [g.float().square().sum() for n, g in grads.items() if not self.split[n]]
+        sq = self.all_reduce(torch.stack(split).sum().reshape(1))[0]
+        return torch.sqrt(sq + torch.stack(rep).sum()) if rep else torch.sqrt(sq)
+
+    def relayout(self, name: str, t: torch.Tensor, layout) -> torch.Tensor:
+        """A model-local tensor cut to the rank's shard of ``layout`` (which
+        the model shard covers: the moments' regions, the weights')."""
+        out = torch.zeros(layout.local_shape, dtype=t.dtype, device=t.device)
+        place(out, layout.entries[self.ranks.rank], t, self.layouts[name].entries[self.ranks.rank])
+        return out
+
+    def local_heads(self, cfg: ModelConfig) -> tuple[int, int]:
+        """(q heads, kv heads) this rank computes from its own wqkv shard."""
+        if self.heads:
+            return cfg.num_heads // self.size, cfg.num_kv_heads // self.size
+        return cfg.num_heads, cfg.num_kv_heads
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_gather(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce_scatter(g, 1), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.reduce_scatter(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_gather(g, 1), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.clone()), None
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Megatron's vocab-parallel cross-entropy: nll = log Σexp(l - max) +
+    max - l[label], the sums and the label's logit all-reduced; the backward
+    is softmax - onehot on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp, vocab):
+        lg = tp._masked(logits, vocab)
+        mx = tp.all_reduce(lg.max(-1).values, dist.ReduceOp.MAX)
+        e = torch.exp(lg - mx[:, None])
+        s = tp.all_reduce(e.sum(-1))
+        vl = lg.shape[-1]
+        idx = labels - tp.vocab_start(vl)
+        own = (idx >= 0) & (idx < vl)
+        at = idx.clamp(0, vl - 1)
+        pick = torch.where(own, lg.gather(-1, at[:, None])[:, 0], torch.zeros_like(mx))
+        pick = tp.all_reduce(pick)
+        ctx.save_for_backward(e / s[:, None], at, own)
+        return torch.log(s) + mx - pick
+
+    @staticmethod
+    def backward(ctx, g):
+        p, at, own = ctx.saved_tensors
+        grad = p.clone()
+        rows = torch.arange(grad.shape[0], device=grad.device)
+        grad[rows, at] -= own.to(grad.dtype)
+        return grad * g[:, None], None, None, None

@@ -15,7 +15,15 @@
 //   * ragged tails: rows and columns past Sq / Skv are masked here, so S need
 //     not divide the tile (the Pallas kernel raises, kernel.py:115-117);
 //   * a masked score contributes exactly 0 to l and acc, so a row with no
-//     allowed key comes out as 0 (l clamped at 1e-37, as kernel.py:92), not NaN.
+//     allowed key comes out as 0 (l clamped at 1e-37, as kernel.py:92), not NaN;
+//   * q_offset: row i of Q sits at position q_offset + i in the causal and
+//     window masks, the contract of the reference's LM._attention
+//     (src/repro/models/lm.py:396-410).  A rank that computes a block of query
+//     rows under sequence parallelism attends at its place in the sequence
+//     (Sq = 256 rows at offset 256 against Skv = 512 keys).  The offset moves
+//     the visible KV range, the mask and the mask test; the q-tile order
+//     (latest first) stays, as a uniform offset keeps the last tile the
+//     heaviest.
 //
 // Two kernels, chosen by the inputs' dtype (the only switch):
 //
@@ -113,7 +121,7 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, int Sq, int Skv, int groups, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale, int causal, int window) {
+           Strides vs, Strides os, float scale, int causal, int window, int q_off) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;   // padded rows: column walks hit distinct banks
   constexpr int PP = BK + 1;
@@ -152,8 +160,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
   // The KV range this q-tile can see: tiles wholly in the future (causal) or
   // wholly before every row's window are skipped.
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int kv_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int kv_end = causal ? min(Skv, q_off + q0 + BQ) : Skv;
+  const int kv_begin = window > 0 ? (max(0, q_off + q0 - window + 1) / BK) * BK : 0;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's sK/sV/sP reads are done
@@ -199,7 +207,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = k0 + tx + 16 * j;
-        const int diff = qr - kc;
+        const int diff = q_off + qr - kc;
         ok[j] = kc < Skv && (!causal || diff >= 0) && (window <= 0 || diff < window);
         s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
         rmax = fmaxf(rmax, s[i][j]);
@@ -258,7 +266,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
            int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-           int causal, int window, cudaStream_t stream) {
+           int causal, int window, int q_off, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D, DV>() * sizeof(float);
   // Above 48 KB of dynamic shared memory needs an opt-in, once per
   // instantiation and device (not per launch: it is a driver call).
@@ -275,7 +283,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   fwd_kernel<T, D, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale, causal, window);
+      static_cast<T*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale, causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -286,11 +294,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 template <typename T>
 int dispatch_d(int D, int DV, const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
-               float scale, int causal, int window, cudaStream_t st) {
+               float scale, int causal, int window, int q_off, cudaStream_t st) {
 #define REPRO_CASE(d, dv)                                                                   \
   if (D == d && DV == dv)                                                                   \
     return launch<T, d, dv>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, \
-                            window, st);
+                            window, q_off, st);
   REPRO_FLASH_PAIRS(REPRO_CASE)
 #undef REPRO_CASE
   return -2;  // unsupported (D, DV) pair
@@ -386,7 +394,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               bf16* __restrict__ o, int Sq, int Skv, int groups, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale_log2, int causal, int window) {
+              Strides vs, Strides os, float scale_log2, int causal, int window, int q_off) {
   using Sh = TcShape<D, DV>;
   constexpr int LD = Sh::LD, LDV = Sh::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -415,8 +423,8 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 
   // The KV range this q-tile can see: tiles wholly in the future (causal) or
   // wholly before every row's window are skipped.
-  const int kv_end = causal ? min(Skv, q0 + TC_BQ) : Skv;
-  const int kv_begin = window > 0 ? (max(0, q0 - window + 1) / TC_BK) * TC_BK : 0;
+  const int kv_end = causal ? min(Skv, q_off + q0 + TC_BQ) : Skv;
+  const int kv_begin = window > 0 ? (max(0, q_off + q0 - window + 1) / TC_BK) * TC_BK : 0;
   const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + TC_BK - 1) / TC_BK : 0;
 
   stage_tile<D, LD>(sQ, qb, qs.s, q0, Sq);
@@ -446,7 +454,7 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     for (int kk = 0; kk < Sh::KSTEPS; ++kk) ldmatrix_x4(qf[Sh::Q_IN_REGS ? kk : 0], qrow + kk * 16);
   }
 
-  const int wr_lo = q0 + warp * 16, wr_hi = wr_lo + 15;  // this warp's rows
+  const int wr_lo = q_off + q0 + warp * 16, wr_hi = wr_lo + 15;  // this warp's positions
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = kv_begin + t * TC_BK;
     const int buf = t & 1;
@@ -492,7 +500,7 @@ fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * scale_log2;
         if (need_mask) {
-          const int row = row0 + (e >> 1) * 8;
+          const int row = q_off + row0 + (e >> 1) * 8;  // the row's position
           const int col = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
           const int diff = row - col;
           const bool ok = col < Skv && (!causal || diff >= 0) && (window <= 0 || diff < window);
@@ -581,7 +589,7 @@ bool aligned16(const void* p, const Strides& st, int nb, int ns, int nh) {
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int Hq,
               int Hkv, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-              int window, cudaStream_t stream) {
+              int window, int q_off, cudaStream_t stream) {
   if (!aligned16(q, qs, B, Sq, Hq) || !aligned16(k, ks, B, Skv, Hkv) ||
       !aligned16(v, vs, B, Skv, Hkv) || !aligned16(o, os, B, Sq, Hq))
     return -3;
@@ -599,17 +607,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   dim3 grid(Hq, B, (Sq + TC_BQ - 1) / TC_BQ);
   fwd_kernel_tc<D, DV><<<grid, TC_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale * LOG2E, causal, window);
+      static_cast<bf16*>(o), Sq, Skv, Hq / Hkv, qs, ks, vs, os, scale * LOG2E, causal, window,
+      q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_tc(int D, int DV, const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale, int causal, int window, cudaStream_t st) {
+                float scale, int causal, int window, int q_off, cudaStream_t st) {
 #define REPRO_CASE(d, dv)                                                                   \
   if (D == d && DV == dv)                                                                   \
     return launch_tc<d, dv>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, \
-                            window, st);
+                            window, q_off, st);
   REPRO_FLASH_PAIRS(REPRO_CASE)
 #undef REPRO_CASE
   return -2;  // unsupported (D, DV) pair
@@ -621,20 +630,23 @@ extern "C" {
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
 // D is q's and k's head dim, Dv v's and o's.  Strides in elements, [B, S, H]
-// order.  Returns 0, a cudaError_t from the launch, -1 (dtype), -2 (a (D, Dv)
-// pair not instantiated) or -3 (a bf16 row base not 16-byte aligned).
+// order.  q_offset >= 0: row i of q is at position q_offset + i in the masks.
+// Returns 0, a cudaError_t from the launch, -1 (dtype), -2 (a (D, Dv) pair
+// not instantiated) or -3 (a bf16 row base not 16-byte aligned).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                               int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv, long long qsb,
                               long long qss, long long qsh, long long ksb, long long kss,
                               long long ksh, long long vsb, long long vss, long long vsh,
                               long long osb, long long oss, long long osh, float scale,
-                              int causal, int window, void* stream) {
+                              int causal, int window, int q_offset, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal,
+                             window, q_offset, st);
   if (dtype == 1)
-    return dispatch_tc(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal, window, st);
+    return dispatch_tc(D, Dv, q, k, v, o, B, Sq, Skv, Hq, Hkv, qs, ks, vs, os, scale, causal,
+                       window, q_offset, st);
   return -1;
 }
 

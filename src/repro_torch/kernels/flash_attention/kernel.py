@@ -8,7 +8,8 @@ plain C entry point loaded with ``ctypes``).  Nothing is compiled or loaded
 when this module is imported.
 
 The launch takes tensors in the model layout ``[B, S, H, D]`` with their
-strides (the head dim must be contiguous); v's head dim ``Dv`` may differ
+strides and a ``q_offset`` (row i of q at position ``q_offset + i`` in the
+masks) (the head dim must be contiguous); v's head dim ``Dv`` may differ
 from q's and k's ``D`` for the pairs the source instantiates
 (:data:`HEAD_DIMS`: ``(d, d)`` for d in 8..256, and DeepSeek-V2's MLA
 ``(192, 128)``), and the output is ``[B, Sq, Hq, Dv]``.  It runs on
@@ -68,7 +69,7 @@ def build() -> tuple[ctypes.CDLL, dict]:
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _LIB, _REPORT = lib, report
@@ -116,10 +117,13 @@ def flash_attention_fwd(
     causal: bool,
     window: int,
     scale: float,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Launch the kernel once: q [B,Sq,Hq,D], k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv]
-    → o [B,Sq,Hq,Dv]."""
+    → o [B,Sq,Hq,Dv]; q's rows at positions ``q_offset ..``."""
     _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_fwd: q_offset {q_offset} < 0")
     if q.dtype == torch.bfloat16 and (got := row_alignment(q, k, v)) < ROW_ALIGN:
         raise ValueError(
             f"flash_attention_fwd: the bfloat16 kernel copies {ROW_ALIGN}-byte rows; the rows "
@@ -135,7 +139,7 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
             b, sq, skv, hq, hkv, d, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            float(scale), int(causal), int(window), stream,
+            float(scale), int(causal), int(window), int(q_offset), stream,
         )
     if err != 0:
         raise launch_error(lib, err, "flash_attention_fwd", _REFUSALS.get(err, "refused"))

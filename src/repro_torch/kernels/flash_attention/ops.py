@@ -4,7 +4,10 @@
 ``flash_attention(q, k, v)`` takes ``[B, S, H, D]`` tensors, v with its own
 head dim ``Dv`` (MLA's 128 beside q's and k's 192), and returns
 ``[B, Sq, Hq, Dv]``; the default scale is ``1/sqrt(D)``, q's head dim, as
-the reference's ``full_attention``:
+the reference's ``full_attention``, and row i of q sits at position
+``q_offset + i`` in the causal and window masks, as in the reference's
+``LM._attention`` (a rank's query rows under sequence parallelism attend
+at their place in the whole sequence):
 
 * on CUDA tensors it launches the Hopper kernel (``kernel.py``) or raises —
   there is no fallback and no switch.  The kernel has no backward (the JAX
@@ -54,18 +57,20 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     devices = {t.device.type for t in (q, k, v)}
     if devices == {"cpu"}:
         o = attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, scale=scale,
+            causal=causal, window=window, scale=scale, q_offset=q_offset,
         )
         return o.transpose(1, 2)
     if devices == {"cuda"}:
         refuse_grad(q, k, v)
-        o = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
+        o = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale,
+                                       q_offset=q_offset)
         flash_attention.launches += 1
         flash_attention.launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
         return o

@@ -22,7 +22,9 @@ def attention_ref(
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """Row i of q sits at position ``q_offset + i`` in the masks."""
     _, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -31,7 +33,7 @@ def attention_ref(
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     diff = (
-        torch.arange(sq, device=q.device)[:, None]
+        q_offset + torch.arange(sq, device=q.device)[:, None]
         - torch.arange(skv, device=q.device)[None, :]
     )
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)

@@ -27,6 +27,21 @@ bytes are the ``.params`` of a full restore.
 ``--device`` defaults to ``cuda``; asking for CUDA where there is none
 raises.  The last line of output is a JSON record of the run.
 
+``--host-devices N`` serves from N ranks, N processes of this host in a
+gloo group started and supervised as the train launcher's (rank r on
+``cuda:(r % device_count)``, or the CPU with ``--device cpu``); N must be
+the mesh's size.  Each rank restores only its own shards of the weights
+(the restore's ``rank=`` path, DIRECT or RESHARD_STREAM), gathers them over
+the data axes once, and serves its rows of the batch: the dense family
+computes partitioned over the model axis
+(:class:`~repro_torch.dist.tensor_parallel.TensorParallel`, its decode cache
+laid out by ``cache_pspecs``), every other family from the whole weights.
+Rank 0 prints, every row's tokens::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --reduced \\
+        --device cpu --host-devices 2 --mesh data=1,model=2 --ckpt-dir /path/to/run \\
+        --batch 4 --prompt-len 16 --gen 8
+
 Under a tracer (:mod:`repro_torch.obs`) the restore's plan is the
 ``restore.plan`` span (beside ``restore.prefetch`` and
 ``restore.materialize`` of the region reads), and the prefill and the
@@ -54,8 +69,13 @@ from repro_torch.core.layout import MeshSpec
 from repro_torch.core.plan import (
     ResumeMode, ResumePlan, TargetSpec, plan_resume, stream_transforms,
 )
-from repro_torch.core.pytree import unflatten_from_paths
-from repro_torch.dist.sharding import ShardingPlan, make_plan, vocab_multiple
+from repro_torch.core.layout import slice_shard
+from repro_torch.core.patterns import StateKind
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+from repro_torch.dist.sharding import (
+    RankGroups, ShardingPlan, gather_full, make_plan, rank_rows, vocab_multiple,
+)
+from repro_torch.dist.tensor_parallel import TensorParallel, partitions
 from repro_torch.launch.mesh import mesh_spec_from_string
 from repro_torch.models import build_model
 from repro_torch.models import decode as D
@@ -67,6 +87,7 @@ __all__ = [
     "generate",
     "draw_source_embeds",
     "serving_parallelism",
+    "rank_weights",
     "resolve_device",
     "main",
 ]
@@ -104,12 +125,15 @@ DISK_MODES = (ResumeMode.DIRECT, ResumeMode.RESHARD_STREAM, ResumeMode.VIA_UCP)
 
 
 def restore_params(
-    step_dir: str | Path, plan: ShardingPlan, device, *, force_mode: ResumeMode | None = None
+    step_dir: str | Path, plan: ShardingPlan, device, *, force_mode: ResumeMode | None = None,
+    rank: int | None = None, group=None,
 ) -> tuple[dict[str, torch.Tensor], ResumePlan]:
     """Weights-only restore of one committed step onto ``device`` under the
     Target ``plan``: flat fp32 params and the resume plan that served them.
     ``force_mode`` pins VIA_UCP (or RESHARD_STREAM, or DIRECT when the
-    layouts are equal); the returned plan then carries that mode."""
+    layouts are equal); the returned plan then carries that mode.  With
+    ``rank`` (of ``group``, every rank calling): that rank's checkpoint
+    shards, read from its own regions; a VIA_UCP conversion is rank 0's."""
     ckpt = DistCheckpoint.open(step_dir)
     with obs.span("restore.plan"):
         rp = plan_resume(ckpt.manifest, TargetSpec(plan.mesh, plan.param_specs))
@@ -128,10 +152,15 @@ def restore_params(
     engine = default_engine(device)
     try:
         if rp.mode is ResumeMode.VIA_UCP:
+            if group is not None:  # one conversion; the others reuse its commit
+                if rank == 0:
+                    cached_ucp(ckpt, engine)
+                torch.distributed.barrier(group=group)
             ucp, _ = cached_ucp(ckpt, engine)
-            return params_from_ucp(ucp, plan, device, engine=engine), rp
+            return params_from_ucp(ucp, plan, device, engine=engine, rank=rank), rp
         transforms = rp.transforms if rp.mode is ResumeMode.RESHARD_STREAM else None
-        return params_from_source(ckpt, plan, device, transforms=transforms, engine=engine), rp
+        return params_from_source(ckpt, plan, device, transforms=transforms, engine=engine,
+                                  rank=rank), rp
     finally:
         engine.release(ckpt)
 
@@ -163,33 +192,50 @@ def generate(lm: LM, params: dict, prompts: torch.Tensor, gen: int, *, cache_len
     ``params`` are nested, in the compute dtype (``ParamRegistry.cast``:
     the leaves the reference reads in float32 stay float32).  Returns the generated
     tokens ``[B, gen]``, the prefill seconds and the decode seconds (each
-    ended by a device synchronise).
+    ended by a device synchronise).  Under a rank context (``lm.tp``) the
+    prompts are the rank's rows and ``params`` its compute weights
+    (:func:`rank_weights`); the greedy pick spans the vocab shards.
     """
     device = prompts.device
     b, s = prompts.shape
-    cache = D.init_cache(lm, b, cache_len or (s + gen), device=device)
+    rows = b * (lm.tp.ranks.data_size if lm.tp is not None else 1)  # the cache's global batch
+    cache = D.init_cache(lm, rows, cache_len or (s + gen), device=device)
     _sync(device)
     with obs.timed("serve.prefill", batch=b, prompt_len=s) as sw:
         logits, cache = D.prefill(lm, params, cache, prompts, source_embeds=source_embeds)
-        cur = logits.argmax(-1)[:, None]
+        cur = D.greedy(lm, logits)[:, None]
         _sync(device)
     prefill_s = sw.elapsed_s
     outs = [cur]
     with obs.timed("serve.decode", batch=b, steps=gen - 1) as sw:
         for _ in range(gen - 1):
             lg, cache = D.decode_step(lm, params, cache, cur)
-            cur = lg[:, -1].argmax(-1)[:, None]
+            cur = D.greedy(lm, lg[:, -1])[:, None]
             outs.append(cur)
         _sync(device)
     return torch.cat(outs, 1), prefill_s, sw.elapsed_s
 
 
+def rank_weights(lm: LM, ranks: RankGroups, local: dict) -> dict:
+    """A serving rank's flat compute weights from its checkpoint shards:
+    gathered over the data axes (and the weights no rank computes from its
+    shard, over the model axis) under partitioned compute, else the whole
+    weights (every rank of a family that does not partition computes them
+    all)."""
+    if lm.tp is not None:
+        return lm.tp.weights(local)[1]
+    plan = ranks.plan
+    return {n: gather_full(t, plan.param_specs[n].layout_for(StateKind.FP32, plan.mesh),
+                           ranks.group) for n, t in local.items()}
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True)
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--host-devices", type=int, default=0,
-                   help="accepted for the reference's command line; one device serves here")
+                   help="serve from N ranks, N processes of this host (N = the mesh's size)")
     p.add_argument("--mesh", default="data=1,model=1",
                    help="the layout this run plans its restore under")
     p.add_argument("--ckpt-dir", default=None, help="resume weights from here")
@@ -202,40 +248,92 @@ def main(argv=None) -> int:
     p.add_argument("--cache-len", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    # a spawned rank's place in a --host-devices world (set by the launcher)
+    p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    if not args.host_devices:
+        return _serve(args, device, None)
+    size = mesh_spec_from_string(args.mesh).size
+    if args.host_devices != size:
+        raise SystemExit(f"--host-devices {args.host_devices} is not the size of the mesh "
+                         f"{args.mesh} ({size}): one rank per mesh position")
+    if args.store is None:
+        from repro_torch.launch.train import _spawn_world
 
+        return _spawn_world(argv, args, module="repro_torch.launch.serve")
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(args.store, args.host_devices),
+                            rank=args.rank, world_size=args.host_devices,
+                            timeout=datetime.timedelta(minutes=30))
+    try:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device(f"cuda:{args.rank % torch.cuda.device_count()}")
+        return _serve(args, device, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, device: torch.device, group) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     mesh = mesh_spec_from_string(args.mesh)
     parallel = serving_parallelism(mesh)
     lm = build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh))
+    plan = make_plan(cfg, lm.registry, parallel, mesh)
+    ranks = None
+    if group is not None:
+        ranks = RankGroups.create(group, plan, parallel)
+        if partitions(cfg, parallel, mesh):
+            lm.tp = TensorParallel(ranks, cfg)
+    rank = None if ranks is None else ranks.rank
+    lead = not rank  # only rank 0 prints
 
     step_dir = latest_step_dir(args.ckpt_dir) if args.ckpt_dir else None
     mode, step = "random_init", None
     if step_dir is not None:
-        plan = make_plan(cfg, lm.registry, parallel, mesh)
         t0 = time.perf_counter()
-        flat, rp = restore_params(step_dir, plan, device, force_mode=args.force_mode)
+        flat, rp = restore_params(step_dir, plan, device, force_mode=args.force_mode, rank=rank,
+                                  group=group)
         _sync(device)
-        params = unflatten_from_paths(flat)
         mode, step = rp.mode.value, rp.source_step
-        print(f"restored step {step} via {mode} in {time.perf_counter() - t0:.2f}s")
+        if lead:
+            print(f"restored step {step} via {mode} in {time.perf_counter() - t0:.2f}s")
     else:
-        if args.ckpt_dir:
+        if args.ckpt_dir and lead:
             print("no checkpoint found; serving from random init")
-        params = lm.init(torch.Generator(device=device).manual_seed(args.seed))
+        flat = flatten_with_paths(lm.init(torch.Generator(device=device).manual_seed(args.seed)))
+        if ranks is not None:
+            flat = {n: slice_shard(t, plan.param_specs[n].layout_for(StateKind.FP32, mesh), rank)
+                    for n, t in flat.items()}
+    if ranks is not None:
+        flat = rank_weights(lm, ranks, flat)
+    params = unflatten_from_paths(flat)
 
     prompts = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed),
     ).to(device)
+    source = draw_source_embeds(cfg, args.batch, args.seed, device)
+    if ranks is not None:  # the rank's rows of the batch
+        rows = rank_rows(args.batch, parallel, mesh, rank)
+        prompts = prompts[rows]
+        source = None if source is None else source[rows]
     seq, prefill_s, decode_s = generate(
         lm, lm.registry.cast(params, lm.compute_dtype), prompts, args.gen,
-        cache_len=args.cache_len,
-        source_embeds=draw_source_embeds(cfg, args.batch, args.seed, device),
+        cache_len=args.cache_len, source_embeds=source,
     )
+    if ranks is not None and ranks.data is not None:  # every row's tokens, in batch order
+        parts = [torch.empty_like(seq) for _ in ranks.members["data"]]
+        torch.distributed.all_gather(parts, seq.contiguous(), group=ranks.data)
+        seq = torch.cat(parts, 0)
+    if not lead:
+        return 0
     steps = max(args.gen - 1, 1)
     print(f"prefill {args.prompt_len} toks × {args.batch} reqs: {prefill_s * 1e3:.1f} ms")
     print(f"decode  {args.gen - 1} steps × {args.batch} reqs: {decode_s * 1e3:.1f} ms "
@@ -243,6 +341,7 @@ def main(argv=None) -> int:
     print("sample:", seq[0, :16].tolist())
     print(json.dumps({
         "event": "serve", "device": str(device), "mode": mode, "step": step,
+        "ranks": 1 if ranks is None else ranks.mesh.size,
         "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": decode_s * 1e3 / steps,
         "tokens": seq.tolist(),
     }))

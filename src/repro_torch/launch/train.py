@@ -132,16 +132,16 @@ def main(argv=None) -> int:
             obs.disable(tracer)
 
 
-def _spawn_world(argv: list[str], args) -> int:
+def _spawn_world(argv: list[str], args, module: str = "repro_torch.launch.train") -> int:
     """Start the N ranks of a ``--host-devices`` world as processes of this
-    host and supervise them: rank 0 prints to this process's stdout; a rank
-    that fails stops the others at once (rather than leave them waiting in
-    a collective) and fails the run."""
+    host (``python -m module``) and supervise them: rank 0 prints to this
+    process's stdout; a rank that fails stops the others at once (rather
+    than leave them waiting in a collective) and fails the run."""
     src = str(Path(__file__).resolve().parents[2])  # the directory holding repro_torch
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+        cmd = [sys.executable, "-m", module, *argv,
                "--store", os.path.join(tmp, "store")]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env,
                                   stdout=None if r == 0 else subprocess.DEVNULL)

@@ -28,21 +28,34 @@ the next position:
 Unlike the reference, which returns a new cache, the port writes the
 buffers in place (it saves a full copy of the cache per step) and returns
 the same dict with ``pos`` advanced.
+
+Under a rank context (``lm.tp``, the dense family of a multi-rank run) the
+cache holds the rank's shard of each entry by
+:func:`~repro_torch.dist.sharding.cache_pspecs` (its rows of the batch, its
+KV heads where they divide the model axis, else the whole cache), prefill
+computes partitioned as the training forward does, a decode step (one
+position, which does not split) all-reduces after the row-parallel
+products, and both return the rank's vocab shard of the logits
+(:func:`greedy` picks across the shards).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+from repro_torch.dist.sharding import cache_pspecs, local_shape
 
 from .attention import decode_attention, full_attention
 from .common import apply_rope, rms_norm, rotary_embedding
 from .lm import LM, LayerDef
 from .ssm import conv_decode_step, ssm_decode_step
 
-__all__ = ["init_cache", "prefill", "decode_step"]
+__all__ = ["init_cache", "prefill", "decode_step", "greedy"]
 
 
 def _cache_len_for(ld: LayerDef, cache_len: int) -> int:
@@ -52,6 +65,12 @@ def _cache_len_for(ld: LayerDef, cache_len: int) -> int:
 
 
 def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
+    """The empty cache for ``batch`` requests of up to ``cache_len``
+    positions.  Under a rank context ``batch`` is the global batch and each
+    entry is the rank's shard by ``cache_pspecs`` (a cache-length-sharded
+    entry, ``shard_cache_seq``, is refused: decode attends to whole caches)."""
+    if lm.tp is not None:
+        return _rank_cache(lm, batch, cache_len, device)
     cfg = lm.cfg
     dt = lm.compute_dtype
     hd = cfg.resolved_head_dim
@@ -102,6 +121,21 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     return cache
 
 
+def _rank_cache(lm: LM, batch: int, cache_len: int, device) -> dict:
+    tp = lm.tp
+    shapes = init_cache(dataclasses.replace(lm, tp=None), batch, cache_len, device="meta")
+    specs = flatten_with_paths(cache_pspecs(shapes, tp.parallel, tp.mesh))
+    out = {}
+    for path, t in flatten_with_paths(shapes).items():
+        spec = specs[path]
+        if path.split(".")[-1] in ("k", "v") and spec[2] is not None:
+            raise NotImplementedError(f"{path}: a cache sharded over its length (shard_cache_seq)")
+        out[path] = torch.full(local_shape(tuple(t.shape), spec, tp.mesh),
+                               -1 if path.endswith("slot_pos") else 0, dtype=t.dtype,
+                               device=device)
+    return unflatten_from_paths(out)
+
+
 def _cross_entry(n: int, batch: int, src: int, hkv: int, hd: int, dt, device) -> dict:
     return {name: torch.zeros((n, batch, src, hkv, hd), dtype=dt, device=device)
             for name in ("ck", "cv")}
@@ -139,10 +173,27 @@ def _write_source(entry: dict, l: int, kv) -> None:
 def _logits(lm: LM, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm and unembed over the logical vocab; the products of the
     compute-dtype operands accumulate in float32, as the reference's
-    ``preferred_element_type=float32``."""
+    ``preferred_element_type=float32``.  Under a rank context: the rank's
+    vocab shard, its padding columns included."""
     x = rms_norm(x, params["final_norm"], lm.cfg.norm_eps)
     logits = x.float() @ lm.unembed(params).float()
-    return logits[..., : lm.cfg.vocab_size]
+    return logits if lm.tp is not None else logits[..., : lm.cfg.vocab_size]
+
+
+def greedy(lm: LM, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` [..., V]: ``argmax``, or
+    under a rank context the argmax across the vocab shards (ties to the
+    lower index), the same on every rank."""
+    if lm.tp is not None:
+        return lm.tp.greedy(logits, lm.cfg.vocab_size)
+    return logits.argmax(-1)
+
+
+def _embed(lm: LM, params, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
+    table = params["embed"].to(lm.compute_dtype)
+    if lm.tp is not None:
+        return lm.tp.embed(table, tokens, sp)
+    return table[tokens]
 
 
 def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tensor:
@@ -153,8 +204,11 @@ def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tenso
         return _mla_decode(lm, p, entry, x, pos, sin, cos)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    heads = lm.tp is not None and lm.tp.heads  # the rank's own heads, its cache's
+    hq, hkv = lm.tp.local_heads(cfg) if lm.tp is not None else (cfg.num_heads, cfg.num_kv_heads)
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    if heads:
+        h = lm.tp.copy(h)
     qkv = h @ p["wqkv"].to(h.dtype)
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = apply_rope(q.reshape(b, 1, hq, hd), sin, cos)
@@ -166,7 +220,8 @@ def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tenso
         q, entry["k"], entry["v"], cache_positions=entry["slot_pos"], cur_pos=pos,
         window=window,
     )
-    return x + o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
+    out = o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
+    return x + (lm.tp.reduce(out) if heads else out)
 
 
 def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
@@ -254,7 +309,7 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens [B,1] → (logits [B,1,V] float32, cache)."""
     cfg = lm.cfg
     pos = cache["pos"]
-    x = params["embed"].to(lm.compute_dtype)[tokens]
+    x = lm.shard(_embed(lm, params, tokens, False), ("batch", "seq", "embed"))
     # the width each attention layer ropes: MLA ropes only the rope part of
     # a head (64 of deepseek-v2's 192), every other layer the whole head
     width = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
@@ -293,7 +348,8 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
     """
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)
-    x = params["embed"].to(lm.compute_dtype)[tokens]
+    sp = lm.tp is not None and lm.tp.decide_sp(b, s, lm.cfg.d_model)
+    x = _embed(lm, params, tokens, sp)
     source = lm.source(params, source_embeds)
     for stage in lm.stages:
         for l in range(stage.count):
@@ -324,6 +380,8 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
                         x, kv = lm._cross_attn(p, x, source, gated=False)
                         _write_source(entry, l, kv)
                 if ld.with_mlp:
-                    x, _ = lm._mlp(p, x, moe=ld.moe)
+                    x, _ = lm._mlp(p, x, moe=ld.moe, sp=sp)
     cache["pos"] = cache["pos"] + s
+    if sp:  # the last position is the last model rank's: gather the rows
+        x = lm.tp.gather_seq(x)
     return _logits(lm, params, x[:, -1]), cache

@@ -45,12 +45,25 @@ A MoE layer's load-balancing loss is summed over the layers and returned
 by :meth:`LM.forward`; :meth:`LM.loss_fn` adds ``router_aux_weight`` of it
 to the loss it differentiates and reports the bare cross-entropy as
 ``loss``, as the reference does.
+
+``LM.shard`` is the reference's activation hook (identity by default),
+called at the reference's call sites (``repro/models/lm.py:430,438,508,542,
+613,635``).  It cannot partition work in eager PyTorch, so a multi-rank run
+of the dense family installs a rank context instead, ``LM.tp``
+(:class:`~repro_torch.dist.tensor_parallel.TensorParallel`): at the same
+call sites the layer code computes only its part, by the sharder's
+decisions for the logical shapes (vocab-parallel embedding and logits,
+column/row-parallel MLP and attention, the residual stream's rows under
+sequence parallelism).  Under it :meth:`LM.forward` returns the rank's
+vocab shard of the logits and :meth:`LM.loss_fn` the vocab-parallel
+cross-entropy, equal on every model rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -359,6 +372,10 @@ def _remat(fn, *args, remat: str):
 # ---------------------------------------------------------------------------
 
 
+def _no_shard(x, axes):
+    return x
+
+
 @dataclasses.dataclass
 class LM:
     """Functional model: nested params in, tensors out."""
@@ -369,21 +386,29 @@ class LM:
     stages: list[StageDef]
     compute_dtype: torch.dtype = torch.bfloat16
     remat: str = "full"  # "full" | "dots" | "none"
+    # token groups of a MoE layer over the batch (None: one a sequence)
+    moe_groups: int | None = None
+    # the reference's activation-sharding hook (identity unless installed)
+    shard: Callable[[torch.Tensor, tuple[str, ...]], torch.Tensor] = _no_shard
+    # the rank context of partitioned compute (dist.tensor_parallel), or None
+    tp: Any = None
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Fresh fp32 weights from ``generator`` (on its device by default)."""
         return self.registry.init(generator, device=device)
 
-    def _attention(self, q, k, v, *, causal: bool, window: int):
+    def _attention(self, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
+        """Row i of q sits at position ``q_offset + i`` in the causal and
+        window masks (the reference's ``q_offset``)."""
         if q.is_cuda and not records_grad(q, k, v):
-            return flash_attention(q, k, v, causal=causal, window=window)
+            return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
         sq, skv = q.shape[1], k.shape[1]
         if max(sq, skv) <= 2048:
-            return full_attention(q, k, v, causal=causal, window=window)
+            return full_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
         kv_block = max(b for b in (1024, 512, 500, 400, 256, 128, 100, 64, 32, 16, 8, 4, 2, 1)
                        if skv % b == 0)
         q_block = max(b for b in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if sq % b == 0)
-        return chunked_attention(q, k, v, causal=causal, window=window,
+        return chunked_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                  q_block=q_block, kv_block=kv_block)
 
     def _self_attn(self, p, x, *, window: int, positions, causal: bool = True):
@@ -391,24 +416,68 @@ class LM:
         residual sum and what the cache keeps of this layer: its roped
         (k, v), or MLA's (c_kv, k_rope)."""
         cfg = self.cfg
-        b, s, _ = x.shape
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         if cfg.mla is not None:
             out, kv = self._mla_attn(p, h, positions=positions, window=window)
-            return x + out, kv
-        hd = cfg.resolved_head_dim
-        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+            return x + self.shard(out, ("batch", "seq", "embed")), kv
+        if self.tp is not None:
+            return self._tp_self_attn(p, x, h, window=window, positions=positions, causal=causal)
+        out, kv = self._gqa(p, h, cfg.num_heads, cfg.num_kv_heads, window=window,
+                            positions=positions, causal=causal)
+        return x + self.shard(out, ("batch", "seq", "embed")), kv
+
+    def _gqa(self, p, h, hq: int, hkv: int, *, window: int, positions, causal: bool):
+        """Projections, rope and attention of ``hq``:``hkv`` heads from the
+        normed input; returns the output projection and (k, v)."""
+        b, s, _ = h.shape
+        hd = self.cfg.resolved_head_dim
         qkv = h @ p["wqkv"].to(h.dtype)
         q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
         q = q.reshape(b, s, hq, hd)
         k = k.reshape(b, s, hkv, hd)
         v = v.reshape(b, s, hkv, hd)
-        sin, cos = rotary_embedding(positions, hd, cfg.rope_theta)
+        sin, cos = rotary_embedding(positions, hd, self.cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+        q = self.shard(q, ("batch", "seq", "heads", "head_dim"))
         o = self._attention(q, k, v, causal=causal, window=window)
-        out = o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype)
-        return x + out, (k, v)
+        return o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype), (k, v)
+
+    def _tp_self_attn(self, p, x, h, *, window: int, positions, causal: bool):
+        """Partitioned self-attention (:mod:`repro_torch.dist.tensor_parallel`).
+        The stream is seq-sharded where the forward decided so
+        (``tp.sp``).  Heads that divide: the rank's own heads from its
+        ``wqkv`` shard, the row-parallel ``wo``.  Else, from the gathered
+        weights: under sequence parallelism K and V for every row and q for
+        the rank's rows, attending to keys up to its last row at its
+        ``q_offset``; without it the whole block, replicated."""
+        tp, cfg = self.tp, self.cfg
+        sp = tp.sp
+        hq, hkv = tp.local_heads(cfg)
+        if tp.heads:
+            out, kv = self._gqa(p, tp.enter(h, sp), hq, hkv, window=window,
+                                positions=positions, causal=causal)
+            return x + tp.leave(out, sp), kv
+        if not sp:
+            out, kv = self._gqa(p, h, hq, hkv, window=window, positions=positions,
+                                causal=causal)
+            return x + out, kv
+        b, s, _ = h.shape
+        hd = cfg.resolved_head_dim
+        wq, wk, wv = torch.split(p["wqkv"].to(h.dtype), [hq * hd, hkv * hd, hkv * hd], dim=-1)
+        hf = tp.gather_seq(h)
+        n = hf.shape[1]
+        lo, hi = tp.rows(n)
+        k = (hf @ wk).reshape(b, n, hkv, hd)
+        v = (hf @ wv).reshape(b, n, hkv, hd)
+        q = (h @ wq).reshape(b, s, hq, hd)
+        sin, cos = rotary_embedding(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, sin[lo:hi], cos[lo:hi])
+        k = apply_rope(k, sin, cos)
+        end = hi if causal else n
+        o = self._attention(q, k[:, :end], v[:, :end], causal=causal, window=window,
+                            q_offset=lo)
+        return x + o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype), (k, v)
 
     def _mla_attn(self, p, h, *, positions, window: int):
         """DeepSeek-V2's Multi-head Latent Attention on the normed input
@@ -460,22 +529,31 @@ class LM:
             out = out * torch.tanh(p["cross_gate"].to(out.dtype))
         return x + out, (k, v)
 
-    def _mlp(self, p, x, *, moe: bool = False):
+    def _mlp(self, p, x, *, moe: bool = False, sp: bool = False):
         """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and
-        the layer's aux loss (a float32 zero unless it is a MoE layer)."""
+        the layer's aux loss (a float32 zero unless it is a MoE layer).
+        Under a rank context the dense MLP is column-parallel on the rank's
+        ``mlp`` columns and row-parallel after; ``sp``: the stream is
+        seq-sharded."""
         cfg = self.cfg
         h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if moe:
-            # one token group a sequence: no caller of the reference sets moe_groups
-            out, aux = moe_block(h, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg.moe)
+            # one token group a sequence unless moe_groups says otherwise, as the reference
+            out, aux = moe_block(h, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg.moe,
+                                 groups=self.moe_groups)
             if cfg.moe.num_shared:
                 out = out + swiglu(h, p["ws_gate"], p["ws_up"], p["ws_down"])
-        elif "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
+            return x + self.shard(out, ("batch", "seq", "embed")), aux
+        if self.tp is not None:
+            h = self.tp.enter(h, sp)
+        if "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
             out = F.gelu(h @ p["w1"].to(h.dtype), approximate="tanh") @ p["w2"].to(h.dtype)
         else:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        return x + out, aux
+        if self.tp is not None:
+            return x + self.tp.leave(out, sp), aux
+        return x + self.shard(out, ("batch", "seq", "embed")), aux
 
     def _mamba(self, p, x, *, return_state: bool = False):
         """Pre-norm Mamba-2 block on one layer's params; returns the residual
@@ -510,7 +588,8 @@ class LM:
         y = y.reshape(b, sl, di) * F.silu(z)
         y = rms_norm(y, p["ssm_norm"], cfg.norm_eps)
         out = y @ p["out_proj"].to(y.dtype)
-        return x + out, ((h_final, conv_tail) if return_state else None)
+        return x + self.shard(out, ("batch", "seq", "embed")), (
+            (h_final, conv_tail) if return_state else None)
 
     def _layer(self, ld: LayerDef, window, positions, keys, x, source, *values):
         """One pre-norm layer (attention, Mamba-2 or gated cross-attention;
@@ -528,7 +607,7 @@ class LM:
             if ld.with_cross:
                 x, _ = self._cross_attn(p, x, source, gated=False)
         if ld.with_mlp:
-            return self._mlp(p, x, moe=ld.moe)
+            return self._mlp(p, x, moe=ld.moe, sp=self.tp is not None and self.tp.sp)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None):
@@ -582,7 +661,13 @@ class LM:
         ``preferred_element_type=float32``): both operands are upcast
         exactly and multiplied in fp32."""
         cfg = self.cfg
-        x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
+        sp = False
+        if self.tp is not None:  # the rank's rows of embed, its rows of the stream
+            sp = self.tp.decide_sp(tokens.shape[0], tokens.shape[1], cfg.d_model)
+            x = self.tp.embed(params["embed"].to(self.compute_dtype), tokens, sp)
+        else:
+            x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
+            x = self.shard(x, ("batch", "seq", "embed"))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         source = self.source(params, source_embeds)
@@ -592,8 +677,10 @@ class LM:
                                        source=source)
             aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if self.tp is not None:  # the rank's vocab shard of every position's logits
+            return self.tp.enter(x, sp).float() @ self.unembed(params).float(), aux
         logits = x.float() @ self.unembed(params).float()
-        return logits, aux
+        return self.shard(logits, ("batch", "seq", "vocab")), aux
 
     def loss_fn(self, params, batch):
         """Next-token cross-entropy over the logical vocabulary, plus
@@ -602,9 +689,12 @@ class LM:
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(params, inputs, source_embeds=batch.get("source_embeds"))
-        logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        if self.tp is not None:  # vocab-parallel, the padding masked
+            nll = self.tp.cross_entropy(logits, labels.long(), self.cfg.vocab_size)
+        else:
+            logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
         loss = nll.mean()
         total = loss
         if self.cfg.moe is not None:
@@ -623,10 +713,13 @@ def build_lm(
     vocab_multiple: int = 1,
     compute_dtype: torch.dtype = torch.bfloat16,
     remat: str = "full",
+    moe_groups: int | None = None,
+    shard: Callable | None = None,
 ) -> LM:
     """Construct the model for a config.  ``vocab_multiple`` pads the
     vocab dim of the embedding to the mesh-axis multiple that shards it;
-    the padding is runtime-only, UCP atoms store the logical vocab."""
+    the padding is runtime-only, UCP atoms store the logical vocab.
+    ``moe_groups`` and ``shard`` are the reference's."""
     if remat not in ("full", "dots", "none"):
         raise ValueError(f"remat={remat!r}: takes 'full', 'dots' or 'none'")
     vp = -(-cfg.vocab_size // vocab_multiple) * vocab_multiple
@@ -637,4 +730,6 @@ def build_lm(
         stages=plan_stages(cfg),
         compute_dtype=compute_dtype,
         remat=remat,
+        moe_groups=moe_groups,
+        shard=shard or _no_shard,
     )

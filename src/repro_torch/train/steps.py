@@ -27,6 +27,22 @@ holds the rank's local shards and the batch is the rank's rows
 
 The step's wall is split into those phases in ``step.split`` (seconds, and
 the all-reduced bytes), timed after a device synchronize.
+
+When the model computes partitioned over the model axis (``lm.tp``, a
+:class:`~repro_torch.dist.tensor_parallel.TensorParallel`: the dense family
+under tensor parallelism), step 1 gathers each weight over the data
+subgroup only, into the rank's model-local tensor (FSDP's gather), and over
+the model subgroup only the weights no rank computes from its shard
+(attention's where its heads do not divide the model axis); step 2 computes
+the rank's partition; the gradients come back model-local (a gathered
+weight's cut to the rank's shard, a replicated weight's summed over the
+model subgroup where the compute was split by rows), the clip takes the
+norm of the model-local gradients with each element counted once, and the
+update reads its moment regions out of the model-local tensors.  The split
+then adds ``tp_s`` and ``tp_bytes``, the model-subgroup collectives (inside
+the forward and backward, and the gradients' reduction after); ``grad_s``
+is the forward and backward less the collectives inside them.
+``grad_transform`` then sees the rank's model-local gradients.
 """
 
 from __future__ import annotations
@@ -97,10 +113,10 @@ def make_train_step(
             return new_state, {**metrics, **opt_metrics}
 
         return train_step
-    return _sharded_step(loss_and_grads, tcfg, grad_transform, group)
+    return _sharded_step(loss_and_grads, tcfg, grad_transform, group, lm.tp)
 
 
-def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg):
+def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None):
     from repro_torch.dist.sharding import gather_full, local_shard
 
     specs = rg.plan.param_specs
@@ -121,9 +137,17 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg):
         local = flatten_with_paths(state.params)
         device = next(iter(local.values())).device
         t0 = clock(device)
-        full = {n: gather_full(t, w_layout[n], rg.group) for n, t in local.items()}
+        if tp is None:
+            full = {n: gather_full(t, w_layout[n], rg.group) for n, t in local.items()}
+            comp = full
+        else:  # model-local weights; the gathered ones whole to compute from
+            full, comp = tp.weights(local)
+            tp.seconds, tp.bytes = 0.0, 0
         t1 = clock(device)
-        metrics, grads = loss_and_grads(unflatten_from_paths(full), batch)
+        metrics, grads = loss_and_grads(unflatten_from_paths(comp), batch)
+        del comp
+        if tp is not None:  # summed over the model group as the forward sharded the stream
+            grads = tp.reduce_grads(grads)
         t2 = clock(device)
         reduced = 0
         if rg.data is not None:
@@ -140,11 +164,16 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg):
         tree = unflatten_from_paths(grads)
         if grad_transform is not None:
             tree = grad_transform(tree)
-        gnorm = global_norm(tree)
         grads = flatten_with_paths(tree)
+        if tp is None:
+            gnorm = global_norm(tree)
+            cut = lambda n, t: local_shard(t, m_layout[n], rank)  # noqa: E731
+        else:
+            gnorm = tp.global_norm(grads)
+            cut = lambda n, t: tp.relayout(n, t, m_layout[n])  # noqa: E731
         del tree
-        p_mom = {n: local_shard(full[n], m_layout[n], rank) for n in local}
-        g_mom = {n: local_shard(grads.pop(n), m_layout[n], rank) for n in local}
+        p_mom = {n: cut(n, full[n]) for n in local}
+        g_mom = {n: cut(n, grads.pop(n)) for n in local}
         del full
         upd, opt_metrics = adamw_update(
             TrainState(unflatten_from_paths(p_mom), state.exp_avg, state.exp_avg_sq, state.step),
@@ -161,6 +190,9 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg):
         split.clear()
         split.update(gather_s=t1 - t0, grad_s=t2 - t1, all_reduce_s=t3 - t2,
                      all_reduce_bytes=reduced, update_s=t4 - t3)
+        if tp is not None:  # the model-subgroup collectives, out of grad_s
+            split.update(grad_s=split["grad_s"] - tp.seconds, tp_s=tp.seconds,
+                         tp_bytes=tp.bytes)
         new_state = TrainState(unflatten_from_paths(new_p), upd.exp_avg, upd.exp_avg_sq, upd.step)
         return new_state, {**metrics, **opt_metrics}
 

@@ -23,13 +23,19 @@ of the mesh, holds only its shards of every state kind (its checkpoint
 shards), computes its rows of each global batch, and the ranks together
 take the single-device step (:mod:`.steps`); the manager saves and restores
 the rank's shards alone.  Without a group the trainer is the single-device
-one.  A MoE config with a data size above 1 is refused: capacity and the
-aux loss are not separable over batch rows.
+one.  The dense family under tensor parallelism computes partitioned over
+the model axis (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`,
+installed as ``lm.tp``); every other family gathers the whole model on each
+rank.  A MoE layer routes one token group a sequence unless ``moe_groups``
+says otherwise, so capacity and the aux loss split over the data axes with
+the batch rows; a ``moe_groups`` that does not divide by the data size is
+refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -43,8 +49,9 @@ from repro_torch.core.layout import MeshSpec, slice_shard
 from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 from repro_torch.dist.sharding import (
-    RankGroups, ShardingPlan, gather_full, make_plan, rank_rows, vocab_multiple,
+    RankGroups, ShardingPlan, batch_axes, gather_full, make_plan, rank_rows, vocab_multiple,
 )
+from repro_torch.dist.tensor_parallel import TensorParallel, partitions
 from repro_torch.models import build_model
 from repro_torch.models.lm import LM
 
@@ -127,10 +134,14 @@ class Trainer:
         device: str | torch.device | None = None,
         group=None,
         grad_transform: Callable | None = None,
+        moe_groups: int | None = None,
     ) -> "Trainer":
         """``device`` defaults to ``cuda``, and under ``group`` to
         ``cuda:(rank % device_count)``.  ``grad_transform`` maps the
-        gradient tree before the update (the reference's hook)."""
+        gradient tree before the update (the reference's hook).
+        ``moe_groups``: the token groups a MoE layer routes over the global
+        batch (the reference's ``LM.moe_groups``; None: one a sequence);
+        under a group each rank routes its share of them."""
         if device is None:
             device = "cuda"
             if group is not None and torch.cuda.is_available():
@@ -138,22 +149,25 @@ class Trainer:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA was requested but is not available (pass device='cpu')")
+        dsize = 1
+        if group is not None:
+            dsize = math.prod(mesh.axis_size(a) for a in batch_axes(parallel, mesh))
+            if moe_groups is not None and moe_groups % dsize:
+                raise ValueError(f"moe_groups {moe_groups} does not split over the data size "
+                                 f"{dsize}")
         lm = build_model(
             cfg,
             vocab_multiple=vocab_multiple(parallel, mesh),
             compute_dtype=_DTYPES[parallel.compute_dtype],
             remat=parallel.remat,
+            moe_groups=None if moe_groups is None else moe_groups // dsize,
         )
         plan = make_plan(cfg, lm.registry, parallel, mesh)
         ranks = None
         if group is not None:
             ranks = RankGroups.create(group, plan, parallel)
-            if cfg.moe is not None and ranks.data_size > 1:
-                raise NotImplementedError(
-                    f"MoE under a data size of {ranks.data_size}: capacity and the aux loss "
-                    "are not separable over batch rows (a split batch would route apart from "
-                    "the global one); use a data size of 1 (EP or expert-TP storage)"
-                )
+            if partitions(cfg, parallel, mesh):
+                lm.tp = TensorParallel(ranks, cfg)
         manager = (
             CheckpointManager(
                 ckpt_dir, plan, policy=policy,

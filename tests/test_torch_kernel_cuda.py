@@ -67,7 +67,18 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   CPU;
 * the multi-rank trainer: two spawned ranks on the one card against the
   same world on the CPU (losses, a coded save's digests, and each rank's
-  block-quant launches, one per coded shard it owns).
+  block-quant launches, one per coded shard it owns);
+* the flash kernel at a ``q_offset`` (row i at position ``q_offset + i``):
+  smollm-360m's rank-1 rows under sequence parallelism (B 4, 256 query rows
+  at offset 256 against 512 keys, 15:5 heads of 64), windowed and ragged
+  ones, against the plain version in both dtypes, and against the rows of
+  the whole sequence's attention;
+* tensor-parallel compute on the card: two spawned gloo ranks under
+  data=1,model=2 (reduced smollm at 15:5 heads, attention by query rows;
+  reduced gpt3, by heads), 3 fp32 train steps and a served prefill and
+  decode, against the same world on the CPU (losses within 1e-5, gradient
+  norms 1e-4 relative, logits 1e-4, equal tokens, a flash launch a layer
+  and rank on the card, none on the CPU).
 """
 
 import dataclasses
@@ -184,6 +195,37 @@ def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv,
     ).transpose(1, 2)
     assert out.dtype == dtype and out.shape == (b, s, hq, dv)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,b,sq,skv,hq,hkv,d,window,off", [
+    (torch.bfloat16, 4, 256, 512, 15, 5, 64, 0, 256),  # smollm-360m's rank 1 at model=2
+    (torch.float32, 4, 256, 512, 15, 5, 64, 0, 256),
+    (torch.bfloat16, 4, 256, 256, 15, 5, 64, 0, 0),    # its rank 0
+    (torch.bfloat16, 2, 200, 700, 8, 2, 64, 128, 500),  # a window, ragged tiles
+    (torch.float32, 2, 200, 700, 8, 2, 64, 128, 500),
+    (torch.bfloat16, 1, 77, 130, 4, 2, 128, 0, 53),
+    (torch.float32, 2, 100, 160, 6, 3, 16, 32, 37),
+])
+def test_kernel_matches_plain_at_a_q_offset(cuda, dtype, b, sq, skv, hq, hkv, d, window, off):
+    g = torch.Generator(device=cuda).manual_seed(sq + off)
+    q = torch.randn(b, sq, hq, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dtype)
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             causal=True, window=window, q_offset=off).transpose(1, 2)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **_tol(dtype))
+    if off + sq <= skv:  # the same rows of the whole sequence's attention
+        qf = torch.randn(b, off + sq, hq, d, generator=g, device=cuda).to(dtype)
+        qf[:, off:] = q
+        whole = flash_attention(qf, k[:, :off + sq], v[:, :off + sq], causal=True, window=window)
+        part = flash_attention(q, k[:, :off + sq], v[:, :off + sq], causal=True, window=window,
+                               q_offset=off)
+        np.testing.assert_allclose(part.float().cpu().numpy(),
+                                   whole[:, off:].float().cpu().numpy(), **_tol(dtype))
 
 
 def test_kernel_takes_the_mla_value_view(cuda):
@@ -1047,3 +1089,33 @@ def test_multirank_world_on_card_equals_cpu(cuda, tmp_path):
         owned = sum(1 for k, tag in mc.shard_codecs.items()
                     if tag != "raw" and k.startswith(f"rank_{r:05d}/"))
         assert owned and c["launches"] == (owned, owned) and h["launches"] == (0, 0)
+
+
+def test_tensor_parallel_world_on_card_equals_cpu(cuda, tmp_path):
+    """Two spawned gloo ranks on the one card computing partitioned over
+    model=2 (reduced smollm at 15:5 heads of 8: attention by query rows, the
+    rank-1 prefill a flash launch at q_offset 4; reduced gpt3: by heads)
+    against the same world on the CPU, in fp32."""
+    from test_torch_tensor_parallel import MODELS, SERVE, TRAIN, port_cfg, run_world
+
+    names = ["smollm15_m2", "gpt3_m2", "serve_smollm15_m2", "serve_gpt3_m2"]
+    worlds = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        for model in MODELS:
+            lm = build_model(port_cfg(model), compute_dtype=torch.float32)
+            np.savez(d / f"weights_{model}.npz", **{n: t.numpy() for n, t in flatten_with_paths(
+                lm.init(torch.Generator().manual_seed(0))).items()})
+        worlds[dev] = run_world(d, 2, dev, names)
+    for c, h in zip(worlds["cuda"], worlds["cpu"]):
+        for name in names:
+            if name in TRAIN:
+                for (lc, gc), (lh, gh) in zip(c[name]["hist"], h[name]["hist"], strict=True):
+                    assert abs(lc - lh) <= 1e-5 and abs(gc - gh) <= 1e-4 * gh, name
+                continue
+            np.testing.assert_allclose(c[name]["logits"].numpy(), h[name]["logits"].numpy(),
+                                       atol=1e-4, err_msg=name)
+            assert torch.equal(c[name]["tokens"], h[name]["tokens"]), name
+            layers = port_cfg(SERVE[name][0]).num_layers
+            assert (c[name]["flash_launches"], h[name]["flash_launches"]) == (layers, 0), name

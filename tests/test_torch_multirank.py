@@ -8,10 +8,14 @@ reduced smollm-360m in fp32.  Two worlds run once per module:
 * 4 ranks: data=2,model=2 (ZeRO-3/FSDP and TP storage) and pipe=2,data=2;
   the first also saves its step-3 state raw and ``int8:b256`` through the
   rank-aware manager, restores the raw one DIRECT with the shard files
-  opened recorded, and trains 3 steps with an async save every step;
+  opened recorded, and trains 3 steps with an async save every step; then
+  reduced mixtral-8x22b under data=2,model=2 with EP and with expert-TP
+  (``--no-ep``, the reference's Fig. 10 target) storage;
 * 2 ranks: data=2,model=1, ZeRO-1 (weights replicated over the data axis,
   moments sharded), the 4-rank checkpoints resumed under data=1,model=2
-  (RESHARD_STREAM) and 2 more steps, and the MoE refusal.
+  (RESHARD_STREAM) and 2 more steps computed partitioned over the model
+  axis (the int8 one also on the gathered path), and reduced mixtral-8x22b
+  under data=2,model=1.
 
 Each world's results are held here against:
 
@@ -34,9 +38,13 @@ Each world's results are held here against:
   shard bytes;
 * a shard lost after planning: every rank falls back to VIA_UCP together
   and raises rank 0's conversion failure;
+* MoE under a data size of 2: losses, aux and gradient norms over 3 fp32
+  steps within 1e-5 relative of the single-device port and of the
+  reference's jitted no-mesh step (a MoE layer routes one token group a
+  sequence, so capacity and the aux loss split with the batch rows);
 * refusals: a group of another size than the mesh, the hot tier, delta
-  saves and fan-out under a group, MoE with a data size above 1, and
-  ``--host-devices`` other than the mesh size.
+  saves and fan-out under a group, a ``moe_groups`` that does not split
+  over the data size, and ``--host-devices`` other than the mesh size.
 
 The reference is imported lazily, so the spawned ranks (which import this
 module to find their entry point) load no JAX.
@@ -59,16 +67,17 @@ from repro_torch.ckpt.policy import CheckpointPolicy  # noqa: E402
 from repro_torch.core.dist_ckpt import DistCheckpoint  # noqa: E402
 from repro_torch.core.layout import MeshSpec, slice_shard  # noqa: E402
 from repro_torch.core.patterns import StateKind  # noqa: E402
-from repro_torch.core.pytree import flatten_with_paths  # noqa: E402
+from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths  # noqa: E402
 from repro_torch.dist.sharding import make_plan, rank_rows  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build_model, params_from_reference  # noqa: E402
 from repro_torch.train import data as tdata  # noqa: E402
 from repro_torch.train.optimizer import TrainState, init_state  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
-from repro_torch.train.trainer import Trainer, shard_state  # noqa: E402
+from repro_torch.train.trainer import Trainer, gather_state, shard_state  # noqa: E402
 
 ARCH = "smollm-360m"
+MOE = "mixtral-8x22b"
 B, S, STEPS = 4, 32, 3
 JOIN_TIMEOUT_S = 240
 REL = 1e-5
@@ -97,12 +106,13 @@ def parallel_for(mesh: MeshSpec, **kw) -> TC.ParallelismConfig:
 
 
 def _trainer(mesh_d, group=None, *, arch=ARCH, ckpt_dir=None, policy=None,
-             grad_transform=None, device="cpu", **par) -> Trainer:
+             grad_transform=None, device="cpu", moe_groups=None, **par) -> Trainer:
     mesh = MeshSpec.from_dict(mesh_d)
     cfg = TC.reduced(TC.get_config(arch))
     return Trainer.create(cfg, parallel_for(mesh, **par), TC.TrainConfig(), mesh,
                           batch_size=B, seq_len=S, device=device, group=group,
-                          ckpt_dir=ckpt_dir, policy=policy, grad_transform=grad_transform)
+                          ckpt_dir=ckpt_dir, policy=policy, grad_transform=grad_transform,
+                          moe_groups=moe_groups)
 
 
 def halve_port(grads: dict) -> dict:
@@ -178,7 +188,22 @@ def world4(rank, out, weights):
     res["async"] = {"results": len(t2.save_results), "steps": t2.manager.steps()}
     t2.manager.close()
     _, _, res["pipe"] = _train(rank, out, weights, {"pipe": 2, "data": 2})
+    res["moe22_ep"] = _moe_train(rank, out, {"data": 2, "model": 2})
+    res["moe22_tp"] = _moe_train(rank, out, {"data": 2, "model": 2}, expert_parallel=False)
     return res
+
+
+def _moe_train(rank, out, mesh_d, **par):
+    """3 fp32 steps of reduced mixtral from the reference's weights: (loss,
+    aux, grad norm) a step."""
+    weights = dict(np.load(out / "weights_moe.npz"))
+    t = _trainer(mesh_d, dist.group.WORLD, arch=MOE, remat="none", **par)
+    state = shard_state(init_state(params_from_reference(weights, t.lm, "cpu")), t.plan, rank)
+    hist = []
+    for step in range(STEPS):
+        state, m = t.step_fn(state, t.batch(step))
+        hist.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
+    return {"hist": hist, "moe_mode": t.plan.moe_mode}
 
 
 def world2(rank, out, weights):
@@ -191,14 +216,25 @@ def world2(rank, out, weights):
     _, _, res["zero1"] = _train(rank, out, weights, {"data": 2, "model": 1}, zero=1, fsdp=False)
     _, _, res["transform"] = _steps(_trainer({"data": 2, "model": 1}, dist.group.WORLD,
                                              grad_transform=halve_port), rank, weights)
-    for label in ("raw", "int8"):
+    # partitioned over the model axis (the dense family's tensor-parallel
+    # compute), and the int8 one also on the gathered path (every rank the whole model)
+    for key, label, tp in (("raw", "raw", True), ("int8", "int8", True),
+                           ("int8_gathered", "int8", False)):
         t = _trainer({"data": 1, "model": 2}, dist.group.WORLD, ckpt_dir=out / f"{label}22",
-                     policy=CheckpointPolicy(save_interval=100, async_save=False))
+                     policy=CheckpointPolicy(save_interval=100, async_save=False),
+                     tensor_parallel=tp)
         state, info = t.init_or_restore()
         restored = _flat_state(state)
-        state, hist = t.run(state, state.step, 2)
-        res[f"resume_{label}"] = {"mode": info.mode.value, "state": restored,
-                                  "hist": [(h["loss"], h["grad_norm"]) for h in hist]}
+        hist, states = [], []
+        for _ in range(2):  # each step's gathered state kept for the step-by-step check
+            states.append(_flat_state(gather_state(state, t.plan, dist.group.WORLD)))
+            state, h = t.run(state, state.step, 1)
+            hist += h
+        states.append(_flat_state(gather_state(state, t.plan, dist.group.WORLD)))
+        res[f"resume_{key}"] = {"mode": info.mode.value, "state": restored,
+                                "partitioned": t.lm.tp is not None,
+                                "hist": [(h["loss"], h["grad_norm"]) for h in hist],
+                                "states": states if rank == 0 else None}
         t.manager.close()
     # a shard lost after planning: the stream fails, the ranks fall back to
     # VIA_UCP together, and rank 0's conversion fails on every rank
@@ -214,12 +250,12 @@ def world2(rank, out, weights):
         res["lost"] = "restored"
     except RuntimeError as e:
         res["lost"] = str(e)
+    res["moe21"] = _moe_train(rank, out, {"data": 2, "model": 1})
     try:
-        _trainer({"data": 2, "model": 1}, dist.group.WORLD, arch="mixtral-8x22b")
-        res["moe_data2"] = "created"
-    except NotImplementedError as e:
-        res["moe_data2"] = str(e)
-    _trainer({"data": 1, "model": 2}, dist.group.WORLD, arch="mixtral-8x22b")  # EP: exact
+        _trainer({"data": 2, "model": 1}, dist.group.WORLD, arch=MOE, moe_groups=3)
+        res["moe_groups3"] = "created"
+    except ValueError as e:
+        res["moe_groups3"] = str(e)
     return res
 
 
@@ -299,21 +335,30 @@ def run_world(out: Path, world: int, body: str, device: str = "cpu") -> list[dic
 # and the two worlds
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _reference_weights(arch: str) -> dict:
     import jax
 
     repro = _ref()
     from repro.models import build_model as ref_build
 
-    rlm = ref_build(repro.configs.reduced(repro.configs.get_config(ARCH)),
+    rlm = ref_build(repro.configs.reduced(repro.configs.get_config(arch)),
                     compute_dtype=jax.numpy.float32)
     return {k: np.asarray(v) for k, v in
             repro.core.pytree.flatten_with_paths(rlm.init(jax.random.PRNGKey(0))).items()}
 
 
-def _global_batch(step: int) -> np.ndarray:
-    cfg = TC.reduced(TC.get_config(ARCH))
+@pytest.fixture(scope="module")
+def weights():
+    return _reference_weights(ARCH)
+
+
+@pytest.fixture(scope="module")
+def weights_moe():
+    return _reference_weights(MOE)
+
+
+def _global_batch(step: int, arch: str = ARCH) -> np.ndarray:
+    cfg = TC.reduced(TC.get_config(arch))
     return tdata.batch_for_step(cfg, TC.ShapeSpec("train", S, B, "train"), step, seed=0,
                                 batch_override=B, seq_override=S)["tokens"]
 
@@ -370,10 +415,50 @@ def single(weights):
     return _single_steps(weights)
 
 
+def _moe_reference_steps(weights):
+    """3 steps of reduced mixtral under the reference's plain ``jax.jit``
+    step, no mesh, fp32 and remat none: (loss, aux, grad norm) a step."""
+    import jax
+    import jax.numpy as jnp
+
+    repro = _ref()
+    from repro.models import build_model as ref_build
+    from repro.train.optimizer import init_state as ref_init_state
+    from repro.train.steps import make_train_step as ref_make_step
+
+    rc = repro.configs
+    rlm = ref_build(rc.reduced(rc.get_config(MOE)), compute_dtype=jnp.float32, remat="none")
+    params = repro.core.pytree.unflatten_from_paths({k: jnp.asarray(v) for k, v in weights.items()})
+    step = jax.jit(ref_make_step(rlm, rc.TrainConfig(), rc.ParallelismConfig(
+        compute_dtype="float32", remat="none")))
+    state, hist = ref_init_state(params), []
+    for i in range(STEPS):
+        state, m = step(state, {"tokens": jnp.asarray(_global_batch(i, MOE))})
+        hist.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
+    return hist
+
+
+def _moe_single_steps(weights):
+    lm = build_model(TC.reduced(TC.get_config(MOE)), compute_dtype=torch.float32, remat="none")
+    step = make_train_step(lm, TC.TrainConfig(), TC.ParallelismConfig(
+        compute_dtype="float32", remat="none"))
+    state, hist = init_state(params_from_reference(weights, lm, "cpu")), []
+    for i in range(STEPS):
+        state, m = step(state, {"tokens": torch.from_numpy(_global_batch(i, MOE)).long()})
+        hist.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
+    return hist
+
+
 @pytest.fixture(scope="module")
-def worlds(weights, tmp_path_factory):
+def moe_hists(weights_moe):
+    return _moe_single_steps(weights_moe), _moe_reference_steps(weights_moe)
+
+
+@pytest.fixture(scope="module")
+def worlds(weights, weights_moe, tmp_path_factory):
     out = tmp_path_factory.mktemp("worlds")
     np.savez(out / "weights.npz", **weights)
+    np.savez(out / "weights_moe.npz", **weights_moe)
     w4 = run_world(out, 4, "world4")
     w2 = run_world(out, 2, "world2")  # resumes the 4-rank checkpoints
     return out, w4, w2
@@ -629,28 +714,63 @@ def test_direct_restore_reads_only_the_ranks_own_fragments(worlds, codec):
                     assert torch.equal(t, res["final"][field][name]), (field, name)
 
 
-def _one_process_restore(root, mesh_d):
-    t = _trainer(mesh_d, ckpt_dir=root, policy=CheckpointPolicy(save_interval=100))
+def _one_process_restore(root, mesh_d, **par):
+    t = _trainer(mesh_d, ckpt_dir=root, policy=CheckpointPolicy(save_interval=100), **par)
     state, info = t.manager.restore("cpu")
     return t, state, info
 
 
-@pytest.mark.parametrize("codec", ["raw", "int8"])
+def _hold_step(got: dict, want: TrainState, before: dict, coded: bool) -> None:
+    """A rank group's state after a step (flat, gathered) against the single
+    device's step from the same state: every element within ``REL`` of its
+    tensor's largest.  After an int8-coded resume a parameter may leave that
+    only where the code zeroed the second moment: there Adam divides a
+    gradient of rounding size by a root of the same size, so the
+    partitioned sums' rounding moves the update; the moments themselves
+    hold everywhere."""
+    for field, _ in FIELDS:
+        for name, w in flatten_with_paths(getattr(want, field)).items():
+            off = (got[field][name] - w).abs() > REL * w.abs().max()
+            if coded and field == "params":
+                off &= before["exp_avg_sq"][name] != 0
+            assert not off.any(), (field, name, int(off.sum()))
+
+
+@pytest.mark.parametrize("codec", ["raw", "int8", "int8_gathered"])
 def test_four_ranks_resume_as_two_under_another_layout(worlds, codec):
+    """The 4-rank step-3 checkpoints (raw and ``int8:b256``) resumed by 2
+    ranks under data=1,model=2: each rank's restored shards are the
+    one-process restore's.  Computing partitioned over the model axis, each
+    of the 2 steps after it is the single device's step from the ranks' own
+    state (loss, gradient norm, the state it leaves), and the raw resume's 2
+    steps follow the single device's trajectory; ``int8_gathered`` resumes
+    the coded checkpoint on the gathered path (``tensor_parallel=False``),
+    whose 2 steps follow the single device's trajectory too."""
+    label = codec.removesuffix("_gathered")
+    par = {"tensor_parallel": False} if codec.endswith("_gathered") else {}
     out, ranks = _world(worlds, f"resume_{codec}")
-    t, state, info = _one_process_restore(out / f"{codec}22", {"data": 1, "model": 2})
+    t, state, info = _one_process_restore(out / f"{label}22", {"data": 1, "model": 2}, **par)
     assert info.mode.value == "reshard_stream"
     full = _flat_state(state)
     for r, res in enumerate(ranks):
         assert res["mode"] == "reshard_stream"
+        assert res["partitioned"] == (not par)
         for field, kind in FIELDS:
             for name, got in res["state"][field].items():
                 layout = t.plan.param_specs[name].layout_for(kind, t.plan.mesh)
                 assert torch.equal(got, slice_shard(full[field][name], layout, r)), (field, name)
-    # and the 2 steps after it are the single device's from the same state
-    _, hist = _single_steps(None, state=state, start=STEPS, n=2)
-    for res in ranks:
-        for (loss, gn), (l1, g1) in zip(res["hist"], hist):
+        assert res["hist"] == ranks[0]["hist"]
+    states = ranks[0]["states"]
+    for i in range(2):
+        before = TrainState(step=STEPS + i,
+                            **{f: unflatten_from_paths(states[i][f]) for f, _ in FIELDS})
+        after, ((l1, g1),) = _single_steps(None, state=before, start=STEPS + i, n=1)
+        loss, gn = ranks[0]["hist"][i]
+        assert abs(loss - l1) <= REL * abs(l1) and abs(gn - g1) <= REL * abs(g1)
+        _hold_step(states[i + 1], after, states[i], coded=label == "int8")
+    if codec != "int8":
+        _, hist = _single_steps(None, state=state, start=STEPS, n=2)
+        for (loss, gn), (l1, g1) in zip(ranks[0]["hist"], hist, strict=True):
             assert abs(loss - l1) <= REL * abs(l1) and abs(gn - g1) <= REL * abs(g1)
 
 
@@ -679,9 +799,28 @@ def test_a_lost_shard_fails_every_rank_together(worlds):
     assert all(msg.startswith("UCP conversion on rank 0 failed") for msg in ranks), ranks
 
 
-def test_moe_under_a_data_size_above_one_is_refused(worlds):
-    _, ranks = _world(worlds, "moe_data2")
-    assert all("not separable" in msg for msg in ranks)
+MOE_WORLDS = [("moe21", "ep"), ("moe22_ep", "ep"), ("moe22_tp", "tp")]
+
+
+@pytest.mark.parametrize("scenario,mode", MOE_WORLDS, ids=[w[0] for w in MOE_WORLDS])
+def test_moe_under_a_data_size_of_two_tracks_single_device_and_reference(
+        worlds, moe_hists, scenario, mode):
+    """A MoE layer routes one token group a sequence in both packages, so the
+    data axes split capacity and the aux loss with the rows: data=2,model=1,
+    and data=2,model=2 under EP and expert-TP storage (Fig. 10's target)."""
+    _, ranks = _world(worlds, scenario)
+    single, ref = moe_hists
+    for res in ranks:
+        assert res["moe_mode"] == mode
+        for got, one, want in zip(res["hist"], single, ref, strict=True):
+            for g, o, w in zip(got, one, want):
+                assert abs(g - o) <= REL * abs(o) and abs(g - w) <= REL * abs(w), (got, one, want)
+    assert all(r["hist"] == ranks[0]["hist"] for r in ranks)
+
+
+def test_moe_groups_that_do_not_split_over_the_data_size_are_refused(worlds):
+    _, ranks = _world(worlds, "moe_groups3")
+    assert all(msg == "moe_groups 3 does not split over the data size 2" for msg in ranks)
 
 
 @pytest.fixture
