@@ -77,8 +77,9 @@ nothing falls back to the CPU or to a plain version):
    launch (a recorded gradient takes the plain attention); both ranks exit
    0 within 240 s.  Prints the wire bytes and ratio, each step's sync wall,
    its all-reduce share (s, GB/s) and the kernels' CUDA-event ms;
-4b. multirank — the multi-rank training runtime on full smollm-360m (8 x
-   512 global, bf16 compute): a one-process baseline (data=1,model=1, 4
+4b. multirank — the multi-rank training runtime on smollm-360m at full
+   width, its depth cut from 32 to 8 layers (``CUT_LAYERS``; 8 x 512
+   global, bf16 compute): a one-process baseline (data=1,model=1, 4
    steps); 2 spawned ranks on the one card (gloo with CUDA tensors, a
    ``FileStore``) through ``Trainer.create(..., group=)`` under
    data=2,model=1, steps 1-2 with each rank writing its own ``int8:b256``
@@ -115,6 +116,24 @@ nothing falls back to the CPU or to a plain version):
    weights-only (DIRECT): 24 flash launches a rank a prefill at 8:8 heads,
    held against one process's serve as in 4b; losses within 2e-2 of the
    baseline;
+4d. multirank-hot — the hot tier, delta drains and fan-out under a group:
+   2 spawned ranks of full smollm-360m (8 x 512, bf16) under
+   data=2,model=1 with ``CheckpointPolicy(codec="int8:b256",
+   hot_interval=2, disk_interval=2, hot_replication=1, save_mode="delta",
+   full_interval=2)`` and a ``PublicationRegistry`` on rank 0: captures at
+   steps 2 and 4 (each rank stages its own shards and receives its buddy's
+   over gloo, digest-checked), drained coded on the card (step 2 full,
+   step 4 a delta on it), each drain's tables equal to a one-process
+   persist of the gathered state; a ``FleetReplica`` in rank 0's process
+   syncs both publications (full, then delta), bit-equal to the gathered
+   weights, and prefills 4 x 512 (32 flash launches, finite logits);
+   HOT_RESHARD of step 4 under data=1,model=2 on both ranks, bit-equal to
+   ``slice_shard`` of the gathered state with no file opened; then rank 1's
+   process exits and rank 0 destroys the group and recovers alone under
+   data=1,model=1 from its own memory (bit-equal, no file opened) and
+   takes a step.  Prints each capture's device->host, slice-and-digest and
+   exchange seconds and bytes, each drain's seconds, shards and launches,
+   and the recovery's spans;
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -434,8 +453,10 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 # Traces a device time may take: the profiler loses records now and then
 # (at D = 128 an empty 20-call trace was followed by one with 3 launches).
 TRACES = 5
-# The train and collectives phases' depth: smollm-360m's 32 layers cut to 8
-# (full width) when the smoke reached 1,110 s of its 1,200 s limit
+# The train, collectives and multirank phases' depth: smollm-360m's 32
+# layers cut to 8 (full width) when the smoke reached 1,110 s of its 1,200 s
+# limit (train, collectives), and 1,054 s with the multirank-hot stage
+# (multirank)
 CUT_LAYERS = 8
 # What device_ms timed by CUDA events because every trace lost records.
 EVENT_TIMED: list[str] = []
@@ -4910,6 +4931,12 @@ SERVE_GEN = 17             # tokens generate() returns: the prefill's and 16 gre
 SERVE_LOGIT_TOL = 0.1
 TP_ARCH = "gpt3-350m"      # the multirank-tp phase: the paper's Table 4 model, heads 16:16
 TP_MESH = "data=1,model=2"
+# The multirank-hot stage: 2 ranks of smollm-360m under data=2,model=1, each
+# holding 4.34 GB a snapshot (its fp32 weights and moments, its buddy's
+# moments); a ring of 2 snapshots keeps 17.4 GB of host memory over the 2
+HOT_MESH = "data=2,model=1"
+HOT_RESHARD_MESH = "data=1,model=2"
+HOT_RING = 2
 
 
 def gloo_cuda_probe(torch, dist) -> dict[str, str]:
@@ -5162,8 +5189,9 @@ def hold_serve(torch, label: str, ranked: dict, one: dict) -> dict:
 
 
 def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) -> None:
-    """One rank of the multirank phase, in a spawned process: full
-    smollm-360m through ``Trainer.create(..., group=WORLD)`` on the one card.
+    """One rank of the multirank phase, in a spawned process: smollm-360m
+    at full width, ``CUT_LAYERS`` layers, through ``Trainer.create(...,
+    group=WORLD)`` on the one card.
     ``stage="save"``: data=2,model=1 from seed 0, steps 1-2 with an
     ``int8:b256`` save at step 2 (each rank writes its own shards), then the
     gathered state saved by one process (rank 0) for its digests.
@@ -5175,8 +5203,10 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     ``stage="tp"``: gpt3-350m under data=1,model=2 from seed 0, steps 1-2
     partitioned (attention by heads) with each rank saving its own
     ``int8:b256`` shards at step 2, then the same ranks serve step 2
-    (DIRECT).  Writes what it measured to ``<stage><r>.json``; any failure
-    raises, so the process exits non-zero."""
+    (DIRECT).  ``stage="hot"``: the hot tier, delta drains and fan-out under
+    the group (:func:`multirank_hot_rank`).  Writes what it measured to
+    ``<stage><r>.json``; any failure raises, so the process exits
+    non-zero."""
     import datetime
 
     import torch
@@ -5208,15 +5238,17 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             check(not report["compiled"], f"rank {rank} rebuilt {report['library']}")
         fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
         out: dict = {"rank": rank, "stage": stage}
-        if stage == "tp":
+        if stage in ("tp", "hot"):
+            body = multirank_tp_rank if stage == "tp" else multirank_hot_rank
             (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
-                multirank_tp_rank(torch, dist, rank, Path(out_dir), fns, t_start)))
+                body(torch, dist, rank, Path(out_dir), fns, t_start)))
             return
         if stage == "save":
             out["gloo_cuda"] = gloo_cuda_probe(torch, dist)
             check(all(out["gloo_cuda"][c] == "ok" for c in RUNTIME_COLLECTIVES),
                   f"gloo refuses a collective the runtime sends it on the card: {out['gloo_cuda']}")
-        cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+        cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+        tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
         root = Path(out_dir) / "ckpt"
         b, s = MULTIRANK_BATCH
         policy = CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=2 if stage == "save" else 1000)
@@ -5313,7 +5345,8 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(out))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # the hot stage's survivor destroys it itself
+            dist.destroy_process_group()
 
 
 def run_multirank_world(torch, stage: str, out_dir: Path) -> tuple[list[dict], float]:
@@ -5366,7 +5399,8 @@ def multirank_phase(torch, bq_ops) -> dict:
     from repro_torch.train.trainer import Trainer
 
     fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
-    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+    tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
     b, s = MULTIRANK_BATCH
     out_dir = ROOT / "build" / "chip_smoke_multirank"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -5460,7 +5494,7 @@ def multirank_phase(torch, bq_ops) -> dict:
               f"multirank resume rank {r['rank']}: no tp_s in the split")
     held = hold_serve(torch, "multirank serve", ranked_serve, one_serve)
     out = {
-        "model": "smollm-360m, full width and depth", "world": MULTIRANK_WORLD,
+        "model": f"smollm-360m, full width, {CUT_LAYERS} of 32 layers", "world": MULTIRANK_WORLD,
         "backend": "gloo", "tensors": "cuda", "batch": list(MULTIRANK_BATCH),
         "codec": MULTIRANK_CODEC, "meshes": MULTIRANK_MESH,
         "gloo_cuda": saved[0]["gloo_cuda"],
@@ -5495,7 +5529,7 @@ def multirank_phase(torch, bq_ops) -> dict:
     }
     out["launches"] = {k: summed[k] + out["launches_by_phase"]["resume_2_ranks"][k]
                        + one_restore[k] for k in fns}
-    print(f"multirank smollm-360m: {MULTIRANK_WORLD} ranks on the one card (gloo, CUDA tensors); "
+    print(f"multirank smollm-360m ({cfg.num_layers} layers): {MULTIRANK_WORLD} ranks on the one card (gloo, CUDA tensors); "
           f"gloo takes CUDA tensors for: {[k for k, v in out['gloo_cuda'].items() if v == 'ok']}; "
           f"refuses: {{{', '.join(f'{k}: {v[:60]}' for k, v in out['gloo_cuda'].items() if v != 'ok')}}}")
     print(f"  baseline data=1,model=1 losses {[round(v, 4) for v in baseline]}; phase "
@@ -5678,6 +5712,372 @@ def multirank_tp_phase(torch, bq_ops) -> dict:
     return out
 
 
+def host_available_gb() -> float:
+    """MemAvailable of this host (``/proc/meminfo``), in GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def multirank_hot_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank-hot stage: full smollm-360m under
+    data=2,model=1 through ``Trainer.create(..., group=WORLD)`` with
+    ``CheckpointPolicy(codec="int8:b256", hot_interval=2, disk_interval=2,
+    hot_replication=1, save_mode="delta", full_interval=2)`` and a
+    ``PublicationRegistry`` on rank 0.  Steps 1-2 (the capture of 2 drained
+    full), then steps 3-4 (the capture of 4 drained as a delta on 2); after
+    each, rank 0's ``FleetReplica`` (data=1,model=1, in its process) syncs
+    the publication, and rank 0 persists a one-process capture of the
+    gathered state the same way for the digest tables.  Then HOT_RESHARD of
+    step 4 under data=1,model=2 on both ranks, and rank 1's process exits:
+    rank 0 destroys the group and recovers alone under the mesh
+    ``rebuild_on`` proposes, from its own memory, and takes one step.
+    Returns the rank's record."""
+    import repro_torch.core.dist_ckpt as dist_ckpt
+    import repro_torch.obs as obs
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.saver import snapshot_state
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.elastic import ElasticEvent, hot_recover, rebuild_on
+    from repro_torch.hot import HotTier, persist_snapshot
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.launch.serve import serving_parallelism
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.serve import FleetReplica, PublicationRegistry
+    from repro_torch.train.trainer import Trainer, gather_state
+
+    dev = torch.device("cuda")
+    world = dist.group.WORLD
+    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    b, s = MULTIRANK_BATCH
+    root = out_dir / "hot"
+    flash = {"flash_attention": fa_ops.flash_attention}
+    reg = PublicationRegistry(name="multirank-hot") if rank == 0 else None
+    policy = CheckpointPolicy(codec=MULTIRANK_CODEC, hot_interval=2, disk_interval=2,
+                              hot_replication=1, save_mode="delta", full_interval=2,
+                              hot_max_snapshots=HOT_RING, hot_max_bytes=1 << 40, registry=reg)
+    t = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(HOT_MESH), batch_size=b,
+                       seq_len=s, ckpt_dir=str(root / "ck"), policy=policy, device=dev,
+                       group=world)
+    mgr = t.manager
+    out: dict = {"rank": rank, "stage": "hot", "device": str(t.device),
+                 "host_available_gb": {"start": host_available_gb()},
+                 "publishes": mgr.registry is not None}
+    fields = (("params", StateKind.FP32), ("exp_avg", StateKind.EXP_AVG),
+              ("exp_avg_sq", StateKind.EXP_AVG_SQ))
+    replica = lm11 = None
+    if rank == 0:  # the fleet's replica, in rank 0's process
+        mesh11 = mesh_spec_from_string("data=1,model=1")
+        spar = serving_parallelism(mesh11)
+        lm11 = build_model(cfg, vocab_multiple=vocab_multiple(spar, mesh11),
+                           compute_dtype=torch.bfloat16)
+        replica = FleetReplica("hot-r0", reg, make_plan(cfg, lm11.registry, spar, mesh11), dev)
+
+    def logical(t_, spec):
+        return t_[tuple(slice(0, n) for n in spec.logical_shape)]
+
+    def bits_differing(got: dict, want: dict, specs) -> int:
+        n = 0
+        for name, g in got.items():
+            a, w = logical(g, specs[name]), logical(want[name], specs[name])
+            n += a.numel() if a.shape != w.shape else int(
+                (a.contiguous().view(torch.uint8) != w.contiguous().view(torch.uint8)).sum())
+        return n
+
+    def one_process_drain(full, step: int, base) -> dict:
+        """Rank 0: a one-process capture of the gathered state persisted
+        as the group's drain was, and its tables against the group's."""
+        tier = HotTier(replication=1, max_snapshots=1, max_bytes=1 << 40, engine=mgr.engine)
+        t0 = time.perf_counter()
+        hs, st = tier.capture(snapshot_state(full), t.plan, step,
+                              config_fingerprint=mgr.config_fingerprint, device=dev)
+        capture_s = time.perf_counter() - t0
+        target = root / "one" / f"step_{step:08d}"
+        res = persist_snapshot(hs, target, engine=mgr.engine, codec=mgr.codec,
+                               save_mode=None if base is None else "delta",
+                               base=None if base is None else dist_ckpt.DistCheckpoint.open(base))
+        tier.clear()
+        a = dist_ckpt.DistCheckpoint.open(mgr.step_dir(step)).manifest
+        c = dist_ckpt.DistCheckpoint.open(target).manifest
+        keys = ("shard_digests", "shard_pre_digests", "shard_codecs", "shard_sources",
+                "save_mode", "base_step")
+        return {"equal": {k: getattr(a, k) == getattr(c, k) for k in keys},
+                "digests": len(a.shard_digests), "codecs": dict(a.shard_codecs),
+                "stats": dataclasses.asdict(st), "capture_s": capture_s,
+                "persist_s": res.wall_time_s, "mode": res.mode}
+
+    t_ready = time.perf_counter()
+    state = t.init_state()
+    drains, syncs = [], []
+    full = None
+    tracer = obs.enable()  # the captures' split: span attributes
+    for start in (0, 2):
+        reset_launches(fns)
+        state, hist = t.run(state, start, 2)  # two steps, a capture and its drain
+        res = t.save_results[-1]
+        drains.append({"step": res.step, "mode": res.mode, "s": res.wall_time_s,
+                       "bytes": res.bytes_written, "written": res.shards_written,
+                       "inherited": res.shards_inherited, "launches": launch_counts(fns),
+                       "hist": [{k: h[k] for k in ("step", "loss", "dt")} for h in hist]})
+        out["host_available_gb"][f"after_step_{start + 2}"] = host_available_gb()
+        del full
+        full = gather_state(state, t.plan, world)
+        if rank == 0:
+            t0 = time.perf_counter()
+            check(replica.sync(), f"multirank-hot: the replica had no publication of step {start + 2}")
+            syncs.append({"step": replica.step, "seq": replica.seq, "s": time.perf_counter() - t0,
+                          "params_updated": len(replica.last_update)})
+            drains[-1]["one_process"] = one_process_drain(
+                full, start + 2, None if start == 0 else root / "one" / "step_00000002")
+        dist.barrier()
+    obs.disable(tracer)
+    spans = tracer.span_records()
+    saves = {r["span_id"] for r in spans if r["name"] == "manager.save"}
+    # each of the manager's captures (not rank 0's one-process checks): its
+    # attributes (ReplicaStats, stage, exchange, verify), and its
+    # device->host copy, the save.stage span beside it in manager.save
+    out["captures"] = [
+        {**c["attrs"], "d2h_s": sum(r["dur_us"] for r in spans if r["name"] == "save.stage"
+                                    and r["parent_id"] == c["parent_id"]) / 1e6}
+        for c in spans if c["name"] == "hot.capture" and c["parent_id"] in saves]
+    del spans, saves, tracer
+    out["drains"], out["syncs"] = drains, syncs
+    specs = t.plan.param_specs
+    if rank == 0:  # the replica's weights, then one counted prefill on them
+        out["replica_bits_differing"] = bits_differing(replica.flat_params(),
+                                                       flatten_with_paths(full.params), specs)
+        params_c = lm11.registry.cast(replica.params, torch.bfloat16)
+        prompts = serve_prompts(torch, cfg, dev)
+        cache = D.init_cache(lm11, prompts.shape[0], prompts.shape[1], device=dev)
+        reset_launches(flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = D.prefill(lm11, params_c, cache, prompts)
+        torch.cuda.synchronize()
+        out["replica_prefill"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                  "flash_launches": launch_counts(flash)["flash_attention"],
+                                  "finite": bool(torch.isfinite(logits).all()),
+                                  "shape": list(logits.shape)}
+        del params_c, cache, logits
+        torch.cuda.empty_cache()
+
+    opened: list = []
+    real_open, real_read = dist_ckpt.DistCheckpoint.open.__func__, dist_ckpt.DistCheckpoint.read_shard
+
+    def spy_open(cls, root_, *a, **kw):
+        opened.append(str(root_))
+        return real_open(cls, root_, *a, **kw)
+
+    def spy_read(self, *a, **kw):
+        opened.append(str(self.root))
+        return real_read(self, *a, **kw)
+
+    def spied(fn):
+        dist_ckpt.DistCheckpoint.open = classmethod(spy_open)
+        dist_ckpt.DistCheckpoint.read_shard = spy_read
+        try:
+            return fn()
+        finally:
+            dist_ckpt.DistCheckpoint.open = classmethod(real_open)
+            dist_ckpt.DistCheckpoint.read_shard = real_read
+
+    # HOT_RESHARD of step 4 under data=1,model=2 on the live ranks
+    mesh12 = mesh_spec_from_string(HOT_RESHARD_MESH)
+    plan12 = make_plan(cfg, build_model(cfg, vocab_multiple=vocab_multiple(parallel, mesh12)
+                                        ).registry, parallel, mesh12)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches(fns)  # a hot restore decodes nothing: the fragments are raw host bytes
+    t0 = time.perf_counter()
+    st12, info = spied(lambda: mgr.restore_latest(dev, target_plan=plan12))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches12 = launch_counts(fns)
+    diff = 0
+    for field, kind in fields:
+        want = flatten_with_paths(getattr(full, field))
+        for name, got in flatten_with_paths(getattr(st12, field)).items():
+            cut = slice_shard(want[name], plan12.param_specs[name].layout_for(kind, mesh12), rank)
+            diff += int((got.contiguous().view(torch.uint8) != cut.contiguous().view(torch.uint8)
+                         ).sum()) if got.shape == cut.shape else got.numel()
+    rs = info.restore_stats
+    out["reshard"] = {"mode": info.mode.value, "step": info.step, "s": wall,
+                      "files_opened": len(opened), "bits_differing": diff,
+                      "fetched_bytes": rs.fetched_bytes, "sent_bytes": rs.sent_bytes,
+                      "fetch_s": rs.fetch_s, "bytes_read": rs.bytes_read,
+                      "launches": launches12}
+    del st12
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 1:  # this process dies; rank 0 carries on alone
+        mgr.close()
+        out["setup_s"] = t_ready - t_start
+        return out
+
+    dist.destroy_process_group()
+    event = ElasticEvent(1, "failure", (1,))
+    solo = rebuild_on(event, cfg, parallel, tcfg, batch_size=b, seq_len=s,
+                      ckpt_dir=str(root / "solo"), device=dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    opened.clear()
+    reset_launches(fns)
+    with obs.enabled() as tracer:
+        t0 = time.perf_counter()
+        st, info = spied(lambda: hot_recover(mgr, event, dev, target_plan=solo.plan))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches_rc = launch_counts(fns)
+    spans = tracer.span_records()
+    split = {name: sum(r["dur_us"] for r in spans if r["name"] == name) / 1e6
+             for name in ("restore.plan", "restore.tier", "restore.prefetch",
+                          "restore.materialize", "restore.consolidate")}
+    diff = sum(bits_differing(flatten_with_paths(getattr(st, f)),
+                              flatten_with_paths(getattr(full, f)), specs) for f, _ in fields)
+    del full
+    torch.cuda.empty_cache()
+    out["recover"] = {"mode": info.mode.value, "step": info.step, "s": wall,
+                      "files_opened": len(opened), "bits_differing": diff, "spans_s": split,
+                      "mesh": dict(solo.mesh.axes), "bytes_read": info.restore_stats.bytes_read,
+                      "launches": launches_rc}
+    _, hist = solo.run(st, info.step, 1)
+    out["recover"]["step_after"] = {k: hist[0][k] for k in ("step", "loss", "dt")}
+    mgr.close()
+    solo.manager.close()
+    out["setup_s"] = t_ready - t_start
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def multirank_hot_phase(torch, bq_ops) -> dict:
+    """The hot tier, delta drains and fan-out under a group of 2 ranks on
+    the one card (:func:`multirank_hot_rank`).  Checks (each fails the
+    smoke): step 2 drained full and step 4 a delta on it that inherits
+    nothing (AdamW changes every shard), each drain's digest tables,
+    codecs, sources and base those of a one-process capture of the gathered
+    state persisted the same way; the ranks' capture statistics summing to
+    that capture's, their mirrored bytes the bytes that went over the
+    group; each rank's quantize launches a drain the coded shards it owns,
+    as many dequantize launches; the replica's syncs full then delta, its
+    weights bit-equal to the gathered step-4 state, 32 flash launches in
+    its prefill with finite logits; rank 1 no registry; HOT_RESHARD
+    bit-equal to ``slice_shard`` of the gathered state with no file opened
+    and no block-quant launch on either rank; the lone survivor's recovery
+    bit-equal with no file opened and no block-quant launch, and a finite
+    loss after it.  Returns the record."""
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    out_dir = ROOT / "build" / "chip_smoke_multirank_hot"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        ranks, wall = run_multirank_world(torch, "hot", out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0, r1 = ranks
+    for r in ranks:
+        modes = [(d["step"], d["mode"]) for d in r["drains"]]
+        check(modes == [(2, "full"), (4, "delta")], f"multirank-hot rank {r['rank']}: drains {modes}")
+        check([c["step"] for c in r["captures"]] == [2, 4],
+              f"multirank-hot rank {r['rank']}: captures {[c['step'] for c in r['captures']]}")
+    for i, d0 in enumerate(r0["drains"]):
+        one = d0["one_process"]
+        check(all(one["equal"].values()), f"multirank-hot: drain of step {d0['step']} differs from "
+                                          f"the one-process persist: {one['equal']}")
+        written = sum(r["drains"][i]["written"] for r in ranks)
+        inherited = sum(r["drains"][i]["inherited"] for r in ranks)
+        check(written == one["digests"] and inherited == 0,
+              f"multirank-hot: step {d0['step']} wrote {written} and inherited {inherited} of "
+              f"{one['digests']} shards")
+        for r in ranks:
+            coded = sum(1 for k in one["codecs"] if k.startswith(f"rank_{r['rank']:05d}/"))
+            got = r["drains"][i]["launches"]
+            check(got["quantize"] == got["dequantize"] == coded > 0,
+                  f"multirank-hot rank {r['rank']} step {d0['step']}: launches {got} for "
+                  f"{coded} coded shards of its own")
+        for key in ("fragments", "natural_fragments", "stored_bytes", "resident_bytes",
+                    "mirrored_bytes"):
+            got = sum(r["captures"][i][key] for r in ranks)
+            check(got == one["stats"][key], f"multirank-hot: capture of step {d0['step']}: "
+                  f"{key} {got} over the ranks, one process {one['stats'][key]}")
+        moved = sum(r["captures"][i]["received_bytes"] for r in ranks)
+        check(moved == sum(r["captures"][i]["sent_bytes"] for r in ranks)
+              == one["stats"]["mirrored_bytes"] > 0,
+              f"multirank-hot: step {d0['step']}: {moved} bytes moved, "
+              f"{one['stats']['mirrored_bytes']} mirrored")
+    check([(x["step"], x["seq"]) for x in r0["syncs"]] == [(2, 1), (4, 2)],
+          f"multirank-hot: replica syncs {r0['syncs']}")
+    check(r0["publishes"] and not r1["publishes"], "multirank-hot: only rank 0 publishes")
+    check(r0["replica_bits_differing"] == 0,
+          f"multirank-hot: the replica differs from the gathered state in "
+          f"{r0['replica_bits_differing']} elements")
+    pf = r0["replica_prefill"]
+    check(pf["flash_launches"] == 32 and pf["finite"],
+          f"multirank-hot: the replica's prefill: {pf}")
+    for r in ranks:
+        rs = r["reshard"]
+        check((rs["mode"], rs["step"], rs["files_opened"], rs["bits_differing"])
+              == ("hot_reshard", 4, 0, 0) and rs["launches"] == dict.fromkeys(fns, 0),
+              f"multirank-hot rank {r['rank']}: reshard {rs}")
+    rc = r0["recover"]
+    check((rc["mode"], rc["step"], rc["files_opened"], rc["bits_differing"])
+          == ("hot_reshard", 4, 0, 0) and rc["mesh"] == {"data": 1, "model": 1}
+          and rc["launches"] == dict.fromkeys(fns, 0),
+          f"multirank-hot: the lone survivor's recovery {rc}")
+    check(math.isfinite(rc["step_after"]["loss"]),
+          f"multirank-hot: the step after the recovery: {rc['step_after']}")
+    launches = {k: sum(d["launches"][k] for r in ranks for d in r["drains"]) for k in fns}
+    out = {"model": "smollm-360m, full width and depth", "world": MULTIRANK_WORLD,
+           "mesh": HOT_MESH, "batch": list(MULTIRANK_BATCH), "codec": MULTIRANK_CODEC,
+           "ring": HOT_RING, "ranks": ranks, "world_s": wall, "launches": launches,
+           "launches_by_drain": {f"step_{d['step']}": {k: sum(r["drains"][i]["launches"][k]
+                                                              for r in ranks) for k in fns}
+                                 for i, d in enumerate(r0["drains"])},
+           "flash_launches": pf["flash_launches"], "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-hot smollm-360m: {MULTIRANK_WORLD} ranks under {HOT_MESH} on the one card; "
+          f"hot_interval=2, disk_interval=2, int8:b256, delta full_interval=2; world {wall:.1f} s; "
+          f"host MemAvailable {[r['host_available_gb'] for r in ranks]} GB")
+    for r in ranks:
+        for c in r["captures"]:
+            gbs = c["received_bytes"] / c["exchange_s"] / 1e9 if c["exchange_s"] else 0.0
+            print(f"  rank {r['rank']} capture {c['step']}: device->host {c['d2h_s']:.3f} s, "
+                  f"slice and digest {c['stage_s']:.3f} s, mirror exchange {c['exchange_s']:.3f} s "
+                  f"({c['received_bytes'] / 1e9:.3f} GB in, {c['sent_bytes'] / 1e9:.3f} GB out, "
+                  f"{gbs:.3f} GB/s in), mirror digests {c['verify_s']:.3f} s; resident "
+                  f"{c['resident_bytes'] / 1e9:.3f} GB, mirrored {c['mirrored_bytes'] / 1e9:.3f} GB")
+        for d in r["drains"]:
+            print(f"  rank {r['rank']} drain {d['step']} ({d['mode']}): {d['s']:.3f} s, "
+                  f"{d['bytes'] / 1e9:.3f} GB, {d['written']} shards written, {d['inherited']} "
+                  f"inherited; launches {d['launches']}; steps "
+                  f"{[(h['step'], round(h['loss'], 4), round(h['dt'], 2)) for h in d['hist']]}")
+        rs = r["reshard"]
+        print(f"  rank {r['rank']} HOT_RESHARD {HOT_RESHARD_MESH}: {rs['s']:.3f} s, "
+              f"{rs['fetched_bytes'] / 1e9:.3f} GB fetched, {rs['sent_bytes'] / 1e9:.3f} GB sent "
+              f"({rs['fetch_s']:.3f} s), 0 files opened, bit-equal")
+    for d in r0["drains"]:
+        one = d["one_process"]
+        print(f"  step {d['step']}: {one['digests']} digests equal the one-process persist's "
+              f"(capture {one['capture_s']:.3f} s, persist {one['persist_s']:.3f} s)")
+    for x in r0["syncs"]:
+        print(f"  replica sync seq {x['seq']} (step {x['step']}): {x['s']:.3f} s, "
+              f"{x['params_updated']} params rebuilt")
+    print(f"  replica prefill {SERVE_BATCH[0]}x{SERVE_BATCH[1]}: {pf['ms']:.1f} ms, {pf['flash_launches']} flash launches, "
+          f"finite logits; bit-equal to the gathered step-4 weights")
+    print(f"  rank 1 exits; rank 0 alone ({rc['mesh']}): {rc['mode']} in {rc['s']:.3f} s "
+          f"(spans {', '.join(f'{k} {v:.3f} s' for k, v in rc['spans_s'].items())}), "
+          f"{rc['bytes_read'] / 1e9:.3f} GB served from its memory, 0 files opened, bit-equal; "
+          f"step {rc['step_after']['step']} loss {rc['step_after']['loss']:.4f}")
+    return out
+
+
 class PhaseClock:
     """Each phase's wall seconds since the previous mark, printed as the
     phase ends and kept for the ``phase_seconds`` line (the smoke's time
@@ -5734,6 +6134,8 @@ def main() -> int:
     clock.mark("multirank")
     multi_tp = multirank_tp_phase(torch, bq_ops)
     clock.mark("multirank-tp")
+    multi_hot = multirank_hot_phase(torch, bq_ops)
+    clock.mark("multirank-hot")
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
                            "jamba-1.5-large-398b")
@@ -5902,6 +6304,7 @@ def main() -> int:
                       "scaled_dot_product_attention with causal_lower_right(256, 512)",
         "multirank_launches": multi["flash_launches_by_rank"],
         "multirank_tp_launches": multi_tp["flash_launches_by_rank"],
+        "multirank_hot_launches": multi_hot["flash_launches"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -5948,6 +6351,9 @@ def main() -> int:
         rows[-1]["collectives_launches_by_variant"] = coll["launches_by_variant"][which]
         rows[-1]["multirank_launches"] = multi["launches"][which]
         rows[-1]["multirank_tp_launches"] = multi_tp["launches"][which]
+        rows[-1]["multirank_hot_launches"] = multi_hot["launches"][which]
+        rows[-1]["multirank_hot_launches_by_drain"] = {
+            k: v[which] for k, v in multi_hot["launches_by_drain"].items()}
         rows[-1]["multirank_launches_by_phase"] = {k: v[which]
                                                    for k, v in multi["launches_by_phase"].items()}
         rows[-1]["hot_launches_by_phase"] = {k: v[which]
@@ -6026,6 +6432,7 @@ def main() -> int:
     print(json.dumps({"collectives": coll}))
     print(json.dumps({"multirank": multi}))
     print(json.dumps({"multirank_tp": multi_tp}))
+    print(json.dumps({"multirank_hot": multi_hot}))
     print(json.dumps({"phase_seconds": clock.seconds,
                       "total_s": time.perf_counter() - clock.start}))
     print(json.dumps({"kernels": rows}))

@@ -43,8 +43,24 @@ writes only the shards it owns (:func:`write_distributed` with
 checkpoints), rank 0 commits and then runs GC, the ranks agree on
 ``latest_step`` over ``group`` (rank 0's answer, broadcast), ``restore`` and
 ``restore_latest`` build the rank's shards, and ``wait()`` raises every
-rank's writer error.  The hot tier, fan-out and delta saves under a group
-raise (ROADMAP item 11b).
+rank's writer error.  Under a group too:
+
+* a delta diffs each rank's shards against the base rank 0 resolves (its
+  base loader, and so its chain pins, run on rank 0 alone); the rebase
+  cadence advances on every rank at the same saves;
+* the hot tier is each rank's own ring (:class:`~repro_torch.hot.HotTier`
+  with the group): a capture stages the rank's shards and exchanges buddy
+  mirrors over a third gloo group, the hot group, on the calling thread.
+  The drainer's promotions use the checkpoint group from the drainer's
+  thread, so a capture never waits for a drain, and two threads never
+  issue collectives on one group; the async writer and the drainer take
+  the checkpoint group in turn (one's queue is drained before the other
+  is handed a save);
+* fan-out is rank 0's: a registry on any other rank is refused, every
+  rank enters ``publish`` (a collective) and gets rank 0's publication;
+* after a real process death, :meth:`leave_group` lets a lone survivor
+  carry on as one process from its own memory
+  (:func:`repro_torch.elastic.hot_recover`).
 
 Spans, counters, events and fault points are the reference's
 (:mod:`repro_torch.obs`, :mod:`repro_torch.chaos.points`); no fault point
@@ -76,7 +92,7 @@ from repro_torch.train.optimizer import TrainState
 
 from .policy import CheckpointPolicy
 from .restore import RestoreStats, state_from_source, state_from_stream, state_from_ucp
-from .saver import AsyncSaver, SaveResult, snapshot_state, write_distributed
+from .saver import AsyncSaver, SaveResult, on_rank0, snapshot_state, write_distributed
 
 __all__ = ["CheckpointManager", "RestoreInfo", "cached_ucp"]
 
@@ -163,25 +179,30 @@ class CheckpointManager:
         self.group = group
         self.rank = 0
         self._ckpt_group = None
+        self._hot_group = None
+        # whether (group) rank 0 publishes: every rank enters publish() then
+        self._publishing = self.policy.registry is not None
         self._stash: list[SaveResult] = []  # results drained before a blocking save
         if group is not None:
-            refused = [
-                (self.policy.hot_interval is not None, "the hot tier (hot_interval)"),
-                (self.policy.registry is not None, "fan-out (registry)"),
-                (self.policy.save_mode == "delta", 'save_mode="delta"'),
-            ]
-            for hit, what in refused:
-                if hit:
-                    raise NotImplementedError(
-                        f"{what} under a multi-rank group is ROADMAP item 11b")
             if group.size() != plan.mesh.size:
                 raise ValueError(f"the group has {group.size()} ranks; the plan's mesh "
                                  f"{dict(plan.mesh.axes)} has {plan.mesh.size}")
             self.rank = dist.get_rank(group)
+            has: list = [None] * group.size()
+            dist.all_gather_object(has, self.policy.registry is not None, group=group)
+            off = [r for r, h in enumerate(has) if h and r != 0]
+            if off:
+                raise ValueError(f"a publication registry belongs to group rank 0, which commits "
+                                 f"and publishes; ranks {off} were given one")
+            self._publishing = bool(has[0])
+            ranks = [dist.get_global_rank(group, r) for r in range(group.size())]
             # saves coordinate on a group of their own: the async writer's
             # collectives never interleave with the training step's
-            self._ckpt_group = dist.new_group(
-                [dist.get_global_rank(group, r) for r in range(group.size())], backend="gloo")
+            self._ckpt_group = dist.new_group(ranks, backend="gloo")
+            if self.policy.hot_interval is not None:
+                # the capture's and recovery's exchanges (host bytes, the
+                # calling thread) never interleave with a drain's collectives
+                self._hot_group = dist.new_group(ranks, backend="gloo")
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.plan = plan
@@ -224,11 +245,13 @@ class CheckpointManager:
                 # "all" captures every replica's write set, or the promoted
                 # checkpoints would be dedup'd; "delta" captures the dedup set
                 save_mode="all" if self.save_mode == "all" else "dedup",
+                group=self._hot_group,
             )
             self._drainer = HotDrainer(
                 every=max(1, self.disk_interval // self.hot_interval),
                 engine=self.engine,
                 max_pending=self.policy.max_pending_saves,
+                group=self._ckpt_group,
             )
 
     def engine_for(self, device) -> CheckpointEngine:
@@ -323,7 +346,10 @@ class CheckpointManager:
                 config_fingerprint=self.config_fingerprint, device=_state_device(state),
             )
             del snap
-            drain_kw = self._next_save_kw(step) if self._drainer.next_drains else {}
+            drain_kw = {}
+            if self._drainer.next_drains:
+                self._one_writer(self._drainer)
+                drain_kw = self._next_save_kw(step)
             self._drainer.maybe_drain(hs, self.step_dir(step), codec=self.codec, **drain_kw)
             if block:
                 self._drainer.wait()
@@ -339,6 +365,7 @@ class CheckpointManager:
         kw.update(self._next_save_kw(step))
         if self.group is not None:
             kw.update(ranks=(self.rank,), group=self._ckpt_group)
+            self._one_writer(self._async)
             if self._async is not None and block:
                 # the checkpoint group is the writer thread's until it drains
                 self._stash += self._async.wait()
@@ -349,6 +376,21 @@ class CheckpointManager:
             write_distributed(snap, self.plan, step, self.step_dir(step), **kw)
         self.gc()
         self._maybe_publish()
+
+    def _one_writer(self, writer) -> None:
+        """Under a group the async writer and the drainer share the
+        checkpoint group: before ``writer`` (one of them, or None for a
+        synchronous save) is handed a save, the other's queue is drained,
+        its results kept for :meth:`wait`."""
+        if self.group is None:
+            return
+        for other in (self._async, self._drainer):
+            if other is None or other is writer:
+                continue
+            if other.pending_roots():
+                self._stash += other.wait()
+            if other.pending_roots():
+                raise RuntimeError("an async save and a drain would share the checkpoint group")
 
     def wait(self) -> list[SaveResult]:
         # A drainer failure must not leave async-saver errors undrained (or
@@ -375,13 +417,22 @@ class CheckpointManager:
         """Announce one committed step (the newest by default) to the fan-out
         registry (:mod:`repro_torch.serve`).  Returns the
         :class:`~repro_torch.serve.registry.Publication`, or None when
-        nothing is committed yet."""
-        if self.registry is None:
-            raise ValueError("CheckpointManager has no publication registry")
+        nothing is committed yet.
+
+        Under a group every rank calls it (a collective): rank 0 publishes
+        to its registry, and every rank returns rank 0's publication."""
+        if not self._publishing:
+            raise ValueError("CheckpointManager has no publication registry"
+                             + (" on group rank 0" if self.group is not None else ""))
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        pub = self.registry.publish(DistCheckpoint.open(self.step_dir(step)))
+        if self.group is None:
+            pub = self.registry.publish(DistCheckpoint.open(self.step_dir(step)))
+        else:
+            pub = on_rank0(
+                lambda: self.registry.publish(DistCheckpoint.open(self.step_dir(step))),
+                self.group)
         self._published_step = max(step, self._published_step or step)
         return pub
 
@@ -389,8 +440,9 @@ class CheckpointManager:
         """Publish the newest committed step not announced yet.  Runs after
         every ``save()`` and ``wait()``: a synchronous save publishes at
         once, an async or drained one on the next call that sees its
-        commit."""
-        if self.registry is None:
+        commit.  Under a group every rank runs it in the same order (its
+        ``latest_step`` is a collective) when rank 0 publishes."""
+        if not self._publishing:
             return
         step = self.latest_step()
         if step is None or (self._published_step is not None and step <= self._published_step):
@@ -725,13 +777,18 @@ class CheckpointManager:
                 hp = plan_hot_recovery(self.hot, target, min_step=self.latest_step())
             if hp is not None:
                 engine = self.engine_for(device)
+                rank = None if self.group is None else self.rank  # None: the whole state
+                if rank is not None and plan.mesh.size != self.group.size():
+                    raise ValueError(f"the target mesh {dict(plan.mesh.axes)} is not the "
+                                     f"group's size {self.group.size()}")
                 with obs.timed("ckpt.restore", step=hp.step, mode=hp.mode.value,
                                reason=hp.reason) as sw:
                     stats = RestoreStats()
                     try:
                         with obs.span("restore.tier", tier=hp.mode.value):
                             state = state_from_hot(hp.snapshot, plan, device, stats,
-                                                   engine=engine, verify=verify)
+                                                   engine=engine, verify=verify, rank=rank,
+                                                   group=self._hot_group)
                     finally:
                         engine.release(hp.snapshot)
                     if device.type == "cuda":
@@ -744,3 +801,31 @@ class CheckpointManager:
                     )
                 return state, info
         return self.restore(device, target_plan=target_plan, verify=verify)
+
+    def leave_group(self, failed_ranks) -> None:
+        """Carry on as one process after the group died with
+        ``failed_ranks`` (real process deaths; the default group already
+        destroyed): this rank, the lone survivor, keeps its hot snapshots,
+        its own fragments and its peers' mirrors, and restores, saves and
+        publishes on its own from here (its plan's mesh stays the group's).
+
+        Re-forming a group of two or more survivors is not supported
+        (ROADMAP item 11b.5) and raises; so does a rank among the failed."""
+        if self.group is None:
+            return
+        failed = {int(r) for r in failed_ranks}
+        survivors = [r for r in range(self.plan.mesh.size) if r not in failed]
+        if self.rank in failed:
+            raise ValueError(f"rank {self.rank} is among the failed ranks {sorted(failed)}: "
+                             "it has nothing to recover")
+        if len(survivors) > 1:
+            raise NotImplementedError(
+                f"{len(survivors)} ranks survive ({survivors}): re-forming a group of the "
+                "survivors is not supported (ROADMAP item 11b.5); a lone survivor recovers alone")
+        self.group = self._ckpt_group = self._hot_group = None
+        self.rank = 0
+        self._publishing = self.registry is not None
+        if self.hot is not None:
+            self.hot.leave_group()
+        if self._drainer is not None:
+            self._drainer.group = None

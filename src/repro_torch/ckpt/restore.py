@@ -54,6 +54,13 @@ own shards alone (under DIRECT, its own fragment's file, or the primary
 rank's when it is a replica), as the reference reads each device's
 addressable regions (``repro/ckpt/restore.py:169-190``).
 
+A rank of a group restoring from a hot snapshot holds only some
+fragments: :func:`fragments_needed` lists, from the index alone, the
+fragments a rank's regions read (the same walk as the readers below), the
+missing ones are fetched from a peer, and :class:`FetchedSource` serves the
+rank's own fragments and the fetched ones through one source, under a
+cache key of its own.
+
 VIA_UCP (:func:`state_from_ucp`, :func:`params_from_ucp`) serves the same
 Target regions from a UCP atom checkpoint instead: each atom is opened once
 (``CheckpointEngine.read_atom``) and every region is cut from it by
@@ -64,6 +71,7 @@ averaged atoms broadcast, as the reference's ``state_from_ucp``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 from typing import Mapping
 
@@ -72,7 +80,7 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.core.convert import assemble_atom
-from repro_torch.core.engine import CheckpointEngine, default_engine
+from repro_torch.core.engine import CheckpointEngine, default_engine, source_cache_key
 from repro_torch.core.layout import DimSpec, MeshSpec, compute_layout
 from repro_torch.core.ops import clip_region_to_logical, gen_ucp_metadata, read_runtime_region
 from repro_torch.core.patterns import ParamSpec, ParamTransform, StateKind, TransformClass
@@ -82,8 +90,10 @@ from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.train.optimizer import TrainState
 
 __all__ = [
+    "FetchedSource",
     "RestoreStats",
     "build_param_arrays",
+    "fragments_needed",
     "params_from_source",
     "params_from_ucp",
     "read_region_from_source",
@@ -256,11 +266,79 @@ def _coded_kinds(source) -> set[StateKind]:
 
 class RestoreStats:
     """Bytes and arrays one restore served (the reference's accounting; the
-    ``restore.bytes_read`` and ``restore.arrays`` counters count the same)."""
+    ``restore.bytes_read`` and ``restore.arrays`` counters count the same),
+    and under a group the bytes a rank fetched from its peers' memory and
+    sent to them, with the exchange's wall."""
 
     def __init__(self):
         self.bytes_read = 0
         self.arrays = 0
+        self.fetched_bytes = 0
+        self.sent_bytes = 0
+        self.fetch_s = 0.0
+
+
+_fetch_uid = itertools.count(1)
+
+
+class FetchedSource:
+    """A fragment source of one rank of a group: ``source``'s fragments this
+    process holds, and ``fetched`` ones (``{(name, kind value, owner):
+    host array}``) received from the ranks that hold them.
+
+    Its ``cache_key`` is new for every exchange, so an engine never serves
+    a region from an index built before the fetch changed what is
+    available."""
+
+    def __init__(self, source, fetched: Mapping[tuple[str, str, int], object]):
+        self.source = source
+        self.manifest = source.manifest
+        self.fetched = dict(fetched)
+        self.uid = next(_fetch_uid)
+
+    @property
+    def cache_key(self) -> str:
+        return f"{source_cache_key(self.source)}+fetched{self.uid}"
+
+    def writing_ranks(self, name: str, kind: StateKind) -> list[int]:
+        return self.source.writing_ranks(name, kind)
+
+    def read_fragment(self, rank: int, name: str, kind: StateKind, *, engine=None):
+        got = self.fetched.get((name, kind.value, rank))
+        if got is not None:
+            return got
+        return self.source.read_fragment(rank, name, kind, engine=engine)
+
+
+def fragments_needed(
+    source, plan: ShardingPlan, rank: int,
+    transforms: Mapping[str, ParamTransform] | None, engine: CheckpointEngine,
+) -> set[tuple[str, str, int]]:
+    """The fragments ``(name, kind value, owner)`` of ``source`` that rank
+    ``rank``'s restore under ``plan`` reads: DIRECT (``transforms=None``)
+    and streamed params the fragments overlapping its regions (clipped to
+    the logical shape), a consolidated one every fragment of the param.
+    Built from the source's index alone, so every rank can reckon every
+    rank's needs."""
+    out: set[tuple[str, str, int]] = set()
+    for kind in _FIELDS:
+        for name, spec in plan.param_specs.items():
+            tr = None if transforms is None else transforms[name]
+            if tr is not None and tr.cls is TransformClass.CONSOLIDATE:
+                out |= {(name, kind.value, r) for r in source.writing_ranks(name, kind)}
+                continue
+            idx = engine.index_for(source, name, kind)
+            for e in spec.layout_for(kind, plan.mesh).entries[rank]:
+                region = e.atom_index()
+                if tr is not None:
+                    clipped = clip_region_to_logical(_canon_region(region, spec.runtime_shape),
+                                                     spec.logical_shape)
+                    if clipped is None:
+                        continue  # all padding
+                    region = clipped[0]
+                for owner, _, _ in idx.overlapping(_canon_region(region, idx.spec.runtime_shape)):
+                    out.add((name, kind.value, owner))
+    return out
 
 
 _FIELDS = {StateKind.FP32: "params", StateKind.EXP_AVG: "exp_avg",

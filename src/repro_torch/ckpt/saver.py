@@ -33,7 +33,12 @@ from ``created_at`` — serial or parallel, raw or coded, full or delta.
   for checkpoints, so a writer thread never interleaves with the training
   step's collectives), and group rank 0 writes the manifest and then
   COMMIT, after every rank's shards are durable.  The files are the
-  single-process save's of the gathered state.
+  single-process save's of the gathered state.  A multi-rank delta diffs
+  each rank's own shards against one base that every rank agrees on
+  (:func:`agree_delta_base`: rank 0 resolves it, and its base loader pins
+  the chain, then broadcasts it); the inherited shards' provenance reaches
+  rank 0 with the gathered results.  Rank 0's commit, or its failure,
+  reaches every rank (:func:`commit_on_rank0`, :func:`on_rank0`).
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from repro_torch.train.optimizer import TrainState, init_state
 
 __all__ = [
     "snapshot_state", "snapshot_weights", "write_distributed", "AsyncSaver", "SaveResult",
+    "agree_delta_base", "commit_on_rank0", "on_rank0",
 ]
 
 
@@ -178,12 +184,8 @@ def write_distributed(
     ``snap`` holds that rank's local shards (see the module docstring).
     The result counts the rank's own shards and bytes.
     """
-    if ranks is not None:
-        if group is None or len(ranks) != 1:
-            raise ValueError("a per-rank save takes ranks=(rank,) and its group")
-        if save_mode == "delta":
-            raise NotImplementedError(
-                "delta saves under a group are ROADMAP item 11b; save dedup or all")
+    if ranks is not None and (group is None or len(ranks) != 1):
+        raise ValueError("a per-rank save takes ranks=(rank,) and its group")
     with obs.timed("ckpt.save", step=step) as sw:
         return _write_distributed_traced(
             sw, snap, plan, step, root, scalars, config_fingerprint,
@@ -207,6 +209,59 @@ def _gather_results(results, error, group, step: int) -> tuple[list, range]:
     return [r for _, rs in everyone for r in rs], range(start, start + len(results))
 
 
+def on_rank0(fn, group):
+    """``fn()`` run on group rank 0 of ``group`` alone, its value on every
+    rank (a barrier too); a failure there raises on every rank."""
+    src = dist.get_global_rank(group, 0)
+    box: list = [None]
+    if dist.get_rank(group) == 0:
+        try:
+            box = [("ok", fn())]
+        except Exception as e:  # repro: allow[except-discipline] -- broadcast, then re-raised on every rank
+            dist.broadcast_object_list([("error", f"{type(e).__name__}: {e}")], src=src,
+                                       group=group)
+            raise
+    dist.broadcast_object_list(box, src=src, group=group)
+    status, value = box[0]
+    if status == "error":
+        raise RuntimeError(f"group rank 0 failed: {value}")
+    return value
+
+
+def agree_delta_base(base, root, mesh, params, save_mode: str, group):
+    """:func:`resolve_delta_base` of a multi-rank save: ``(base, reason)``
+    on every rank of ``group``, one base for all.
+
+    Group rank 0 resolves ``base`` (a callable runs there alone, so only
+    rank 0's manager pins the chain) and broadcasts the base's directory
+    name, or the reason it rebases; every other rank opens that sibling of
+    ``root``."""
+    if group is None:
+        return resolve_delta_base(base, root, mesh, params, save_mode)
+    resolved: list = []
+
+    def resolve():
+        resolved[:] = resolve_delta_base(base, root, mesh, params, save_mode)
+        return None if resolved[0] is None else resolved[0].root.name, resolved[1]
+
+    name, reason = on_rank0(resolve, group)
+    if resolved:  # rank 0
+        return resolved[0], reason
+    return (None if name is None else DistCheckpoint.open(Path(root).parent / name)), reason
+
+
+def commit_on_rank0(ckpt: DistCheckpoint, group, *, chain: bool) -> None:
+    """The commit of a multi-rank save: group rank 0 checks the delta
+    chain (``chain``) and writes COMMIT; every rank returns after COMMIT, or
+    all raise."""
+    def commit():
+        if chain:
+            check_chain_committed(ckpt)
+        ckpt.commit()
+
+    on_rank0(commit, group)
+
+
 def _write_distributed_traced(
     sw, snap, plan, step, root, scalars, config_fingerprint,
     save_mode, base, workers, engine, codec, ranks, group,
@@ -215,11 +270,17 @@ def _write_distributed_traced(
     # gives the wall time and carries the result's attributes.
     coordinator = group is None or dist.get_rank(group) == 0
     fallback_reason = ""
+    error = None  # under a group: this rank's failure, raised on every rank
     if save_mode == "delta":
         with obs.span("save.resolve_base"):
-            base, fallback_reason = resolve_delta_base(
-                base, root, plan.mesh, plan.param_specs, save_mode
-            )
+            try:
+                base, fallback_reason = agree_delta_base(
+                    base, root, plan.mesh, plan.param_specs, save_mode, group
+                )
+            except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
+                if group is None:
+                    raise
+                base, error = None, e
         if base is None:
             save_mode = "dedup"  # rebase: write a full snapshot
     else:
@@ -357,11 +418,12 @@ def _write_distributed_traced(
         else:
             # every rank's digests (and failures) to every rank; returns
             # once every rank's shards are written and durable
-            results, error = [], None
-            try:
-                results = engine.map(write_one, jobs)
-            except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
-                error = e
+            results = []
+            if error is None:
+                try:
+                    results = engine.map(write_one, jobs)
+                except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
+                    error = e
             results, own = _gather_results(results, error, group, step)
         # Digests land in the manifest before COMMIT, for every shard,
         # written and inherited, so the next delta diffs this manifest alone.
@@ -407,13 +469,13 @@ def _write_distributed_traced(
     finally:
         if owns_engine:
             engine.close()
-    if base is not None:
+    if group is None and base is not None:
         check_chain_committed(ckpt)
     fault_point("saver.pre_commit", step=step, mode=save_mode)
-    if coordinator:
+    if group is None:
         ckpt.commit()
-    if group is not None:
-        dist.barrier(group=group)  # every rank returns after COMMIT
+    else:  # rank 0 checks the chain and commits
+        commit_on_rank0(ckpt, group, chain=base is not None)
     res.mode = "delta" if base is not None else "full"
     res.wall_time_s = sw.elapsed_s
     # One accumulation feeds both: the obs counters equal the SaveResult.

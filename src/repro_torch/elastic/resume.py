@@ -22,6 +22,15 @@ Two recovery regimes:
 The port's device model is one card with simulated ranks: the proposed
 :class:`~repro_torch.core.layout.MeshSpec` is the rebuilt trainer's
 checkpoint geometry, and its model trains on ``device``.
+
+Under a group whose ranks are processes, a rank's memory dies with its
+process.  :func:`hot_recover` on a live group marks the failed ranks on
+every rank (one agreed event) and each rank restores its shards, fetching
+what it lost from its buddies.  After a real death, once the survivor has
+destroyed the default group, the lone survivor leaves the group and
+recovers as one process from the snapshot in its own memory (its own
+fragments and its peers' mirrors); two or more survivors re-forming a
+group is refused.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ParallelismConfig, TrainConfig
 from repro_torch.train.trainer import Trainer
@@ -96,7 +106,14 @@ def hot_recover(
     tiered ladder: surviving in-memory replicas when they cover the state,
     disk otherwise.  Returns ``(state, RestoreInfo)`` or None when nothing
     committed exists.
+
+    A manager of a group whose default group was destroyed (the failed
+    ranks' processes died) first leaves it
+    (:meth:`~repro_torch.ckpt.manager.CheckpointManager.leave_group`): a
+    lone survivor then recovers on its own, and two or more survivors raise.
     """
+    if getattr(manager, "group", None) is not None and not dist.is_initialized():
+        manager.leave_group(event.failed_ranks)
     if manager.hot is not None and event.failed_ranks:
         manager.hot.fail_ranks(event.failed_ranks)
     return manager.restore_latest(device, target_plan=target_plan, verify=verify)

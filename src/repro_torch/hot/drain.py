@@ -22,6 +22,15 @@ on a card uploads each coded fragment there and encodes it with the
 block-quant kernels, as ``write_distributed`` encodes a card state's
 shards; a host state keeps the plain codec.  The files are byte-identical
 either way.
+
+Under a group (``group=``, the ranks processes of a gloo group, each
+holding its part of the snapshot) each rank writes the fragments it owns
+(a fragment whose owner failed: its lowest surviving holder) and encodes
+its coded ones on its own card; every rank builds the one manifest from the
+shared index and the gathered results, a delta diffing against the base
+rank 0 resolved (``agree_delta_base``), and rank 0 writes the manifest and
+commits.  The directory is a one-process ``persist_snapshot`` of the
+gathered snapshot's, byte for byte but for ``created_at``.
 """
 
 from __future__ import annotations
@@ -33,17 +42,17 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.chaos.points import fault_point
-from repro_torch.ckpt.saver import SaveResult
+from repro_torch.ckpt.saver import SaveResult, _gather_results, agree_delta_base, commit_on_rank0
 from repro_torch.core.codec import CODEC_RAW, CodecPolicy, encode_shard
 from repro_torch.core.dist_ckpt import (
     DistCheckpoint,
     DistManifest,
     check_chain_committed,
     flatten_provenance,
-    resolve_delta_base,
     shard_digest_key,
 )
 from repro_torch.core.engine import CheckpointEngine, default_engine
@@ -73,6 +82,8 @@ def persist_snapshot(
     base: "DistCheckpoint | Callable[[], DistCheckpoint | None] | None" = None,
     save_mode: str | None = None,
     codec: CodecPolicy | None = None,
+    group=None,
+    failed: frozenset[int] | None = None,
 ) -> SaveResult:
     """Write one hot snapshot to disk as a committed distributed checkpoint.
 
@@ -96,12 +107,24 @@ def persist_snapshot(
     (see the module notes).  Snapshots stay raw in memory; capture digests
     are the pre-encode digests, so the delta diff against a coded base
     still holds.
+
+    ``group``: this rank's part of a multi-rank promotion (a collective;
+    see the module notes), the writers chosen with the failed ranks
+    ``failed`` (the snapshot's, by default); the result counts the rank's
+    own shards and bytes.
     """
     with obs.timed("hot.drain", step=snapshot.step) as sw:
         return _persist_snapshot_traced(
             sw, snapshot, root, engine=engine, fragments=fragments,
-            base=base, save_mode=save_mode, codec=codec,
+            base=base, save_mode=save_mode, codec=codec, group=group, failed=failed,
         )
+
+
+def drain_writer(frag, failed) -> int:
+    """The rank that writes a fragment in a multi-rank promotion: its owner,
+    or when the owner failed its lowest surviving holder."""
+    alive = [h for h in frag.holders if h not in failed]
+    return frag.owner if frag.owner in alive else min(alive)
 
 
 def _persist_snapshot_traced(
@@ -114,6 +137,8 @@ def _persist_snapshot_traced(
     base: "DistCheckpoint | Callable[[], DistCheckpoint | None] | None" = None,
     save_mode: str | None = None,
     codec: CodecPolicy | None = None,
+    group=None,
+    failed: frozenset[int] | None = None,
 ) -> SaveResult:
     if fragments is None:
         # A direct call checks completeness now (the drainer checks at
@@ -139,8 +164,15 @@ def _persist_snapshot_traced(
     if codec is not None and codec.is_raw:
         codec = None  # an all-raw policy is no policy: the plain byte path
     fallback_reason = ""
+    error = None  # under a group: this rank's failure, raised on every rank
     if save_mode == "delta":
-        base, fallback_reason = resolve_delta_base(base, root, m.mesh, m.params, m.save_mode)
+        try:
+            base, fallback_reason = agree_delta_base(base, root, m.mesh, m.params, m.save_mode,
+                                                     group)
+        except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
+            if group is None:
+                raise
+            base, error = None, e
     else:
         base = None
     # Capture digests are the pre-encode digests; the delta diff runs
@@ -178,7 +210,15 @@ def _persist_snapshot_traced(
     )
     if base is not None:
         flatten_provenance(manifest, base, inherited_keys)
-    ckpt = DistCheckpoint.create(root, manifest)
+    rank = None if group is None else dist.get_rank(group)
+    if rank is None or rank == 0:
+        ckpt = DistCheckpoint.create(root, manifest)
+    else:  # only rank 0 writes the manifest
+        ckpt = DistCheckpoint(root, manifest)
+    if rank is not None:
+        # this rank's part: the fragments it writes
+        failed = snapshot.failed_ranks if failed is None else failed
+        fragments = [f for f in fragments if drain_writer(f[2], failed) == rank]
     jobs = [
         (name, StateKind(kv), frag.owner, frag.data,
          codec.tag_for(StateKind(kv)) if codec is not None else CODEC_RAW)
@@ -211,7 +251,16 @@ def _persist_snapshot_traced(
                     fsync_path(ckpt.own_shard_path(rank, name, kind))
             return written, key, served, tag, *coded
 
-    results = engine.map(write_one, jobs)
+    own = results = []
+    if group is None:
+        own = results = engine.map(write_one, jobs)
+    else:
+        if error is None:
+            try:
+                own = engine.map(write_one, jobs)
+            except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank by _gather_results
+                error = e
+        results, _ = _gather_results(own, error, group, m.step)
     # Coded shards know their served digest only after encoding: fix up the
     # tables and rewrite the manifest once, still strictly before COMMIT.
     needs_rewrite = False
@@ -223,26 +272,29 @@ def _persist_snapshot_traced(
             needs_rewrite = True
             manifest.shard_pre_digests[key] = digests[key]
             manifest.shard_digests[key] = served
-    if needs_rewrite:
+    if needs_rewrite and (rank is None or rank == 0):
         with obs.span("save.manifest"):
             ckpt.rewrite_manifest()
     engine.invalidate(ckpt.root)  # a re-drain into the same dir replaced files
-    if base is not None:
+    if group is None and base is not None:
         check_chain_committed(ckpt)
     fault_point("drain.pre_commit", step=m.step, mode="delta" if base is not None else "full")
-    ckpt.commit()
+    if group is None:
+        ckpt.commit()
+    else:  # rank 0 checks the chain and commits
+        commit_on_rank0(ckpt, group, chain=base is not None)
     result = SaveResult(
         snapshot.step,
         Path(str(root)),
-        sum(r[0] for r in results),
+        sum(r[0] for r in own),
         sw.elapsed_s,
         mode="delta" if base is not None else "full",
         shards_written=len(jobs),
         shards_inherited=len(fragments) - len(jobs),
         fallback_reason=fallback_reason,
-        coded_raw_bytes=sum(r[4] for r in results),
-        coded_bytes=sum(r[5] for r in results),
-        device_to_host_bytes=sum(r[6] for r in results),
+        coded_raw_bytes=sum(r[4] for r in own),
+        coded_bytes=sum(r[5] for r in own),
+        device_to_host_bytes=sum(r[6] for r in own),
     )
     sw.set(mode=result.mode, bytes=result.bytes_written,
            shards_written=result.shards_written, shards_inherited=result.shards_inherited)
@@ -271,13 +323,18 @@ class HotDrainer:
         every: int = 1,
         engine: CheckpointEngine | None = None,
         max_pending: int = 2,
+        group=None,
     ):
+        """``group``: promotions are multi-rank (``persist_snapshot(...,
+        group=)``), their collectives issued from this drainer's thread
+        alone."""
         if every < 1:
             raise ValueError(f"every must be >= 1, got {every}")
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.every = int(every)
         self.engine = engine or default_engine()
+        self.group = group
         self._seq = 0
         self._q: queue.Queue = queue.Queue(maxsize=max_pending)
         self._results: list[SaveResult] = []
@@ -342,6 +399,8 @@ class HotDrainer:
         # write releases the snapshot, and persisting the then-empty
         # snapshot would commit a checkpoint with no shards.
         fragments = snapshot.fragments()
+        failed = frozenset(snapshot.failed_ranks)  # the writers of a multi-rank drain
+        group = self.group
         root_path = Path(str(root))
         with self._pending_lock:
             self._pending_roots.add(root_path)
@@ -352,7 +411,8 @@ class HotDrainer:
                 with obs.attach(parent), obs.span("hot.drain_job", step=snapshot.step):
                     return persist_snapshot(
                         snapshot, root, engine=engine, fragments=fragments,
-                        base=base, save_mode=save_mode, codec=codec,
+                        base=base, save_mode=save_mode, codec=codec, group=group,
+                        failed=failed,
                     )
             finally:
                 with self._pending_lock:

@@ -22,15 +22,27 @@ snapshot that (a) is at least as fresh as the best disk checkpoint, (b)
 still covers every fragment after failures, and (c) is structurally
 servable under the target.  Anything else falls through to the disk planner
 inside ``CheckpointManager.restore``.
+
+Under a group the plan is the same on every rank: its inputs are the
+shared index, the agreed failures and rank 0's newest commit.  Each rank
+then builds its own shards (``state_from_hot(..., rank=, group=)``): it
+reads the fragments it holds, and every fragment its regions need that it
+does not hold comes from the lowest surviving holder, planned by every rank
+from the index alone and moved in one exchange.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
+import torch.distributed as dist
+
 import repro_torch.obs as obs
+from repro_torch.core.engine import default_engine
+from repro_torch.core.patterns import StateKind
 from repro_torch.core.plan import (
     ResumeMode,
     TargetSpec,
@@ -40,7 +52,7 @@ from repro_torch.core.plan import (
 )
 from repro_torch.core.tensor_io import IntegrityError
 
-from .snapshot import HotSnapshot, HotTier
+from .snapshot import HotSnapshot, HotTier, exchange_fragments, host_empty, n_chunks
 
 __all__ = [
     "HotRecoveryPlan",
@@ -114,6 +126,52 @@ def plan_hot_recovery(
     return None
 
 
+def fetch_plan(snapshot: HotSnapshot, plan, transforms, engine, world: int):
+    """Every fragment some rank's restore under ``plan`` reads and does not
+    hold, in one order on every rank: ``(rank, name, kind value, owner,
+    sender)``, the sender its lowest surviving holder."""
+    from repro_torch.ckpt.restore import fragments_needed
+
+    out = []
+    failed = snapshot.failed_ranks
+    for r in range(world):
+        for name, kv, owner in sorted(fragments_needed(snapshot, plan, r, transforms, engine)):
+            frag = snapshot.fragment(name, kv, owner)
+            alive = [h for h in frag.holders if h not in failed]
+            if r not in alive:
+                out.append((r, name, kv, owner, min(alive)))
+    return out
+
+
+def fetch_fragments(snapshot: HotSnapshot, plan, transforms, engine, rank: int, group,
+                    stats=None):
+    """Run the exchange of :func:`fetch_plan`: this rank sends what it is
+    the sender of and receives what it needs; returns the
+    :class:`~repro_torch.ckpt.restore.FetchedSource` serving both."""
+    from repro_torch.ckpt.restore import FetchedSource
+
+    t0 = time.perf_counter()
+    sends, recvs, fetched, tag = [], [], {}, 0
+    for r, name, kv, owner, sender in fetch_plan(snapshot, plan, transforms, engine,
+                                                 group.size()):
+        frag = snapshot.fragment(name, kv, owner)
+        spec = snapshot.manifest.params[name]
+        layout = spec.layout_for(StateKind(kv), snapshot.manifest.mesh)
+        if sender == rank:
+            sends.append((r, frag.data, tag))
+        if r == rank:
+            fetched[(name, kv, owner)] = host_empty(layout.local_shape,
+                                                    spec.states[StateKind(kv)].dtype)
+            recvs.append((sender, fetched[(name, kv, owner)], tag))
+        tag += n_chunks(frag.nbytes)
+    sent, received = exchange_fragments(sends, recvs, group)
+    if stats is not None:
+        stats.sent_bytes += sent
+        stats.fetched_bytes += received
+        stats.fetch_s += time.perf_counter() - t0
+    return FetchedSource(snapshot, fetched)
+
+
 def state_from_hot(
     snapshot: HotSnapshot,
     plan,
@@ -122,6 +180,8 @@ def state_from_hot(
     *,
     engine=None,
     verify: bool = False,
+    rank: int | None = None,
+    group=None,
 ):
     """Restore a TrainState onto ``device`` from an in-memory snapshot (no
     disk I/O).
@@ -135,20 +195,41 @@ def state_from_hot(
     ``verify=True`` re-digests every surviving fragment against its capture
     digest first: a replica that rotted in host memory raises
     :class:`IntegrityError` instead of resuming from corrupt state.
+
+    ``rank`` and ``group`` (a collective over ``group``): rank ``rank``'s
+    shards under ``plan``, from the fragments it holds and those fetched
+    from its peers (the module notes); ``verify`` failures of any rank
+    raise on every rank.  ``stats`` then also counts the bytes fetched and
+    sent.
     """
     from repro_torch.ckpt.restore import state_from_source, state_from_stream
 
-    if verify:
-        problems = snapshot.verify()
-        if problems:
-            raise IntegrityError(
-                f"hot snapshot @ step {snapshot.step} failed verification: "
-                + "; ".join(problems[:5])
-            )
+    problems = snapshot.verify() if verify else []
+    if group is not None and verify:
+        everyone: list = [None] * group.size()
+        dist.all_gather_object(everyone, problems, group=group)
+        problems = [p for part in everyone for p in part]
+    if problems:
+        raise IntegrityError(
+            f"hot snapshot @ step {snapshot.step} failed verification: "
+            + "; ".join(problems[:5])
+        )
     target = TargetSpec(plan.mesh, plan.param_specs)
-    if layouts_equal(snapshot.manifest, target):
-        # HOT_DIRECT: bit-exact fragment reads — params_to_average replicas
-        # keep their per-replica copies, padding bytes included.
-        return state_from_source(snapshot, plan, device, engine=engine, stats=stats)
-    transforms = stream_transforms(snapshot.manifest, target)
-    return state_from_stream(snapshot, plan, device, transforms, engine=engine, stats=stats)
+    # HOT_DIRECT: bit-exact fragment reads — params_to_average replicas keep
+    # their per-replica copies, padding bytes included.
+    transforms = (None if layouts_equal(snapshot.manifest, target)
+                  else stream_transforms(snapshot.manifest, target))
+    source, own_engine = snapshot, engine is None and group is not None
+    if group is not None:
+        engine = engine or default_engine(device)
+        source = fetch_fragments(snapshot, plan, transforms, engine, rank, group, stats)
+    try:
+        if transforms is None:
+            return state_from_source(source, plan, device, engine=engine, stats=stats, rank=rank)
+        return state_from_stream(source, plan, device, transforms, engine=engine, stats=stats,
+                                 rank=rank)
+    finally:
+        if source is not snapshot:
+            engine.release(source)  # its index and what it fetched
+        if own_engine:
+            engine.release(snapshot)  # the indexes the fetch plan built

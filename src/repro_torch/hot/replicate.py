@@ -52,6 +52,8 @@ __all__ = [
     "binomial_parent",
     "buddy_group",
     "fanout_ladder",
+    "mirror_targets",
+    "natural_holders",
     "place_holders",
 ]
 
@@ -181,3 +183,28 @@ def place_holders(
             if peer not in holders and peer not in exclude:
                 holders.append(peer)
     return tuple(holders)
+
+
+def natural_holders(
+    layout: ShardLayout, owner: int, *, natural_replication: bool = True
+) -> frozenset[int]:
+    """Ranks whose runtime state holds ``owner``'s fragment byte for byte:
+    the ranks of its fragment, or the owner alone when replicas diverge
+    (``natural_replication=False``, as for :func:`place_holders`)."""
+    if not natural_replication:
+        return frozenset((owner,))
+    return frozenset(layout.ranks_for_fragment(layout.fragment_id[owner]))
+
+
+def mirror_targets(
+    layout: ShardLayout,
+    owner: int,
+    holders: tuple[int, ...],
+    *,
+    natural_replication: bool = True,
+) -> tuple[int, ...]:
+    """The holders that must receive ``owner``'s bytes when every rank is a
+    process (the buddy mirrors, in holder order): every holder that is not a
+    natural one, which stages its own identical runtime copy instead."""
+    natural = natural_holders(layout, owner, natural_replication=natural_replication)
+    return tuple(h for h in holders if h not in natural)

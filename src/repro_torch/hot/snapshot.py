@@ -27,18 +27,37 @@ One process simulates every rank: replica copies are byte-identical by
 construction, so each fragment's bytes are stored once with their holder
 ranks; ``fail_ranks`` drops dead holders and frees a fragment only when its
 last holder is gone — the observable semantics of per-host replica loss.
+
+Under a group (``HotTier(group=...)``: every rank a process holding only
+its own shards) each holder keeps its own host copy in its own process.
+A capture stages the rank's own shard where it is the fragment's owner or
+a natural holder (replicas of one fragment hold the same bytes, so nothing
+moves for them), and buddy mirrors receive the owner's bytes over the
+group (:func:`exchange_fragments`: uint8 views of host arrays through
+gloo), each checked against the owner's digest.  Every rank keeps the whole
+index (name, kind, owner, holders, digest, size) and the bytes it holds
+(``data`` is None for the rest).  Placement, the ring budget and recovery
+planning read the index alone, so every rank takes the same decisions; a
+failure is one event that every rank checks it agrees on, and a failed
+rank empties its own ring.  The capture's statistics are the rank's: what
+it owns (fragments, stored bytes), what it holds (resident bytes) and what
+it received (mirrored bytes), so each sums over the ranks to a one-process
+capture's of the gathered state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import threading
+import time
 from collections import deque
 from typing import Any, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch.chaos.points import fault_point
@@ -52,9 +71,13 @@ from repro_torch.core.tensor_io import (
     torch_dtype,
 )
 
-from .replicate import ReplicaStats, ReplicationPolicy, place_holders
+from .replicate import ReplicaStats, ReplicationPolicy, mirror_targets, natural_holders, place_holders
 
-__all__ = ["HotFragment", "HotSnapshot", "HotTier"]
+__all__ = ["HotFragment", "HotSnapshot", "HotTier", "exchange_fragments", "host_empty"]
+
+# The largest message of a fragment exchange: a fragment moves as chunks of
+# at most this many bytes, each under its own tag.
+EXCHANGE_CHUNK = 256 << 20
 
 _uid_counter = itertools.count(1)
 
@@ -70,14 +93,67 @@ def _host_array(arr, dtype: str):
     return np.asarray(arr).astype(resolve_dtype(dtype), copy=False)
 
 
+def host_empty(shape, dtype: str):
+    """An uninitialized host array of the checkpoint dtype ``dtype``, of the
+    type :func:`_host_array` gives (a CPU tensor for an extended dtype,
+    else numpy), of exactly its size (no arena bucket)."""
+    if dtype in EXTENDED_DTYPES:
+        return torch.empty(tuple(shape), dtype=torch_dtype(dtype))
+    return np.empty(tuple(shape), resolve_dtype(dtype))
+
+
+def _byte_chunks(arr) -> list[torch.Tensor]:
+    """``arr``'s element bytes as uint8 CPU tensors of at most
+    ``EXCHANGE_CHUNK`` bytes (views: a receive lands in ``arr``)."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
+    flat = t.reshape(-1).view(torch.uint8)
+    return [flat[i:i + EXCHANGE_CHUNK] for i in range(0, flat.numel(), EXCHANGE_CHUNK)]
+
+
+def n_chunks(nbytes: int) -> int:
+    """The messages (and so the tags) one fragment of ``nbytes`` moves as."""
+    return -(-nbytes // EXCHANGE_CHUNK)
+
+
+def exchange_fragments(sends, recvs, group) -> tuple[int, int]:
+    """Move host fragments between the ranks of ``group`` as one batch of
+    point-to-point operations; returns (bytes sent, bytes received).
+
+    ``sends`` and ``recvs`` are ``(group rank of the peer, host array,
+    tag)``: a receive lands in its (contiguous) array, and a fragment of
+    ``n`` bytes moves as :func:`n_chunks` messages tagged ``tag``,
+    ``tag + 1``, ... .  Every rank enumerates the exchange in one global
+    order, so the tags of a send and of its receive agree; a rank with
+    nothing to move posts nothing."""
+    ops, sent, received = [], 0, 0
+    for peers, op in ((sends, dist.isend), (recvs, dist.irecv)):
+        for peer, arr, tag in peers:
+            for k, piece in enumerate(_byte_chunks(arr)):
+                ops.append(dist.P2POp(op, piece, dist.get_global_rank(group, peer), group,
+                                      tag + k))
+            if op is dist.isend:
+                sent += array_nbytes(arr)
+            else:
+                received += array_nbytes(arr)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return sent, received
+
+
 @dataclasses.dataclass
 class HotFragment:
-    """One stored fragment: bytes + replica holders + capture-time digest."""
+    """One stored fragment: bytes + replica holders + capture-time digest.
+
+    ``data`` is None where this process holds no copy (a rank of a group
+    that is not among the holders, or whose copy was lost); ``nbytes`` is
+    the fragment's size either way."""
 
     owner: int
-    data: Any  # host numpy array (or CPU tensor of an extended dtype)
+    data: Any  # host numpy array (or CPU tensor of an extended dtype), or None
     holders: tuple[int, ...]
     digest: str
+    nbytes: int = 0
 
     def alive(self, failed: set[int]) -> bool:
         return any(h not in failed for h in self.holders)
@@ -93,6 +169,9 @@ class HotSnapshot:
         self.uid = uid or f"snap{next(_uid_counter)}"
         self.device = torch.device(device)
         self.failed_ranks: set[int] = set()
+        # This process's rank under a group (None: one process holds every
+        # fragment).
+        self.rank: int | None = None
         self._gen = 0
         # (name, kind.value, owner) -> fragment;  (name, kind.value) -> owners
         self._frags: dict[tuple[str, str, int], HotFragment] = {}
@@ -119,14 +198,22 @@ class HotSnapshot:
         frag = self._frags[(name, kv, rank)]
         if not frag.alive(self.failed_ranks):
             raise KeyError(f"{name}@{kv} owner {rank}: every replica holder failed")
+        if frag.data is None:
+            raise KeyError(f"{name}@{kv} owner {rank}: rank {self.rank} holds no copy "
+                           f"(holders {frag.holders}); fetch it from one")
         return frag.data
 
     # --------------------------------------------------------------- content
     def add_fragment(self, name: str, kind: StateKind, owner: int, data,
-                     holders: tuple[int, ...], digest: str) -> None:
+                     holders: tuple[int, ...], digest: str, nbytes: int | None = None) -> None:
         kv = getattr(kind, "value", str(kind))
-        self._frags[(name, kv, owner)] = HotFragment(owner, data, holders, digest)
+        n = array_nbytes(data) if nbytes is None else int(nbytes)
+        self._frags[(name, kv, owner)] = HotFragment(owner, data, holders, digest, n)
         self._owners[(name, kv)] = self._owners.get((name, kv), ()) + (owner,)
+
+    def fragment(self, name: str, kind: StateKind, owner: int) -> HotFragment:
+        """The index entry of one fragment (alive or not)."""
+        return self._frags[(name, getattr(kind, "value", str(kind)), owner)]
 
     def fragments(self) -> list[tuple[str, str, HotFragment]]:
         """Live ``(name, kind_value, fragment)`` triples (stable order)."""
@@ -145,14 +232,15 @@ class HotSnapshot:
 
     @property
     def stored_nbytes(self) -> int:
-        """Bytes stored once per fragment (simulation memory)."""
-        return sum(array_nbytes(f.data) for f in self._frags.values())
+        """Bytes stored once per surviving fragment (simulation memory)."""
+        return sum(f.nbytes for f in self._frags.values() if f.alive(self.failed_ranks))
 
     @property
     def resident_nbytes(self) -> int:
-        """Modeled aggregate host residency: bytes × surviving holders."""
+        """Modeled aggregate host residency: bytes × surviving holders (from
+        the index, so every rank of a group reckons the same)."""
         return sum(
-            array_nbytes(f.data) * sum(1 for h in f.holders if h not in self.failed_ranks)
+            f.nbytes * sum(1 for h in f.holders if h not in self.failed_ranks)
             for f in self._frags.values()
         )
 
@@ -165,14 +253,20 @@ class HotSnapshot:
         """
         self.failed_ranks |= set(int(r) for r in ranks)
         self._gen += 1
+        lost_here = self.rank is not None and self.rank in self.failed_ranks
         dead: list[str] = []
         for key, frag in list(self._frags.items()):
-            if not frag.alive(self.failed_ranks):
+            alive = frag.alive(self.failed_ranks)
+            if not alive:
                 name, kv, owner = key
                 dead.append(f"{name}@{kv} owner {owner}")
+            if (not alive or lost_here) and frag.data is not None:
                 if engine is not None:
                     engine.recycle(frag.data)
-                frag.data = np.empty(0, np.uint8)  # the bytes are gone
+                # the bytes are gone (a new entry: a queued drain keeps its
+                # own reference to the old one)
+                self._frags[key] = dataclasses.replace(
+                    frag, data=np.empty(0, np.uint8) if self.rank is None else None)
         return dead
 
     def missing_fragments(self) -> list[str]:
@@ -191,7 +285,7 @@ class HotSnapshot:
         """Re-digest every surviving fragment against its capture digest."""
         problems: list[str] = []
         for name, kv, frag in self.fragments():
-            if not digest_matches(frag.data, frag.digest):
+            if frag.data is not None and not digest_matches(frag.data, frag.digest):
                 problems.append(
                     f"{name}@{kv} owner {frag.owner}: content does not "
                     f"match captured digest {frag.digest}"
@@ -202,7 +296,8 @@ class HotSnapshot:
         """Return every buffer to the arena (ring eviction / clear)."""
         if engine is not None:
             for frag in self._frags.values():
-                engine.recycle(frag.data)
+                if frag.data is not None:
+                    engine.recycle(frag.data)
         self._frags.clear()
         self._owners.clear()
         self._gen += 1
@@ -219,7 +314,14 @@ class HotTier:
         max_bytes: int = 2 << 30,
         engine: CheckpointEngine | None = None,
         save_mode: str = "dedup",
+        group=None,
     ):
+        """``group``: a gloo group of the plan's mesh size whose ranks are
+        processes; this tier is then one rank's (see the module notes), and
+        its captures and failures are collectives over ``group``, issued
+        from one thread."""
+        self.group = group
+        self.rank = None if group is None else dist.get_rank(group)
         self.policy = ReplicationPolicy(replication)
         self.max_snapshots = int(max_snapshots)
         if self.max_snapshots < 1:
@@ -251,14 +353,17 @@ class HotTier:
         Fragments are sliced exactly like the disk save path (same writing
         ranks, same shard geometry, same digests), so a drained hot snapshot
         is byte-identical to a ``write_distributed`` of the same state.
+
+        Under a group ``snap`` holds this rank's local shards, and every
+        rank captures together (a collective): see the module notes.
         """
         fault_point("hot.capture", step=int(step))
         with obs.span("hot.capture", step=int(step)) as sp:
             hs, stats = self._capture(
                 snap, plan, step, scalars=scalars, config_fingerprint=config_fingerprint,
-                device=device,
+                device=device, span=sp,
             )
-            sp.set(fragments=stats.fragments, resident_bytes=stats.resident_bytes)
+            sp.set(**dataclasses.asdict(stats))
         obs.add("hot.captures")
         obs.add("hot.fragments", stats.fragments)
         obs.add("hot.stored_bytes", stats.stored_bytes)
@@ -275,6 +380,7 @@ class HotTier:
         scalars: Mapping[str, Any] | None = None,
         config_fingerprint: Mapping[str, Any] | None = None,
         device: str | torch.device = "cpu",
+        span=obs.NULL_SPAN,
     ) -> tuple[HotSnapshot, ReplicaStats]:
         manifest = DistManifest(
             step=int(step),
@@ -285,9 +391,26 @@ class HotTier:
             save_mode=self.save_mode,
         )
         hs = HotSnapshot(step, manifest, device=device)
+        with self._lock:
+            failed = frozenset(self.failed_ranks)  # one consistent view per capture
+        if self.group is not None:
+            stats = self._capture_group(snap, plan, hs, failed, span)
+        else:
+            stats = self._capture_one(snap, plan, hs, failed)
+        with self._lock:
+            if self.failed_ranks:
+                # ranks already lost before this capture hold nothing
+                hs.fail_ranks(self.failed_ranks, engine=self.engine)
+            self._ring.append(hs)
+            self.captures += 1
+            self._evict_locked()
+        return hs, stats
+
+    def _capture_one(self, snap, plan, hs: HotSnapshot, failed: frozenset[int]) -> ReplicaStats:
+        """One process: every rank's fragment sliced out of the whole
+        snapshot, its bytes stored once."""
         stats = ReplicaStats()
         engine = self.engine
-
         jobs: list[tuple[str, StateKind, int, Any, Any]] = []
         for name, spec in plan.param_specs.items():
             for kind, arr in snap[name].items():
@@ -295,9 +418,6 @@ class HotTier:
                 layout = spec.layout_for(kind, plan.mesh)
                 for rank in writing_ranks_for(spec, layout, self.save_mode):
                     jobs.append((name, kind, rank, arr, layout))
-
-        with self._lock:
-            failed = frozenset(self.failed_ranks)  # one consistent view per capture
 
         def stage(job):
             name, kind, rank, arr, layout = job
@@ -329,15 +449,103 @@ class HotTier:
                 stats.natural_fragments += 1
             else:
                 stats.mirrored_bytes += n * (len(holders) - natural)
+        return stats
 
-        with self._lock:
-            if self.failed_ranks:
-                # ranks already lost before this capture hold nothing
-                hs.fail_ranks(self.failed_ranks, engine=engine)
-            self._ring.append(hs)
-            self.captures += 1
-            self._evict_locked()
-        return hs, stats
+    def _capture_group(self, snap, plan, hs: HotSnapshot, failed: frozenset[int],
+                       span) -> ReplicaStats:
+        """One rank of a group: stage what this rank holds of its own
+        shards, receive its buddies' mirrored fragments, and agree on the
+        index (the module notes).  Any rank's problem raises on every rank.
+        The wall splits into ``span``'s attributes: ``stage_s`` (slice and
+        digest), ``exchange_s`` (the mirror exchange, ``sent_bytes`` out and
+        ``received_bytes`` in) and ``verify_s`` (the mirrors' digests)."""
+        rank, group, engine = self.rank, self.group, self.engine
+        if group.size() != plan.mesh.size:
+            raise ValueError(f"the hot tier's group has {group.size()} ranks; the plan's mesh "
+                             f"{dict(plan.mesh.axes)} has {plan.mesh.size}")
+        hs.rank = rank
+        t0 = time.perf_counter()
+        # The whole index, in one order on every rank: (name, kind, owner,
+        # holders, natural holders, mirrors, bytes, dtype, shape, natural count).
+        index, local = [], {}
+        for name, spec in plan.param_specs.items():
+            natural_rep = not spec.average and self.save_mode != "all"
+            for kind, arr in snap[name].items():
+                dtype = spec.states[kind].dtype
+                layout = spec.layout_for(kind, plan.mesh)
+                arr = _host_array(arr, dtype)
+                if tuple(arr.shape) != tuple(layout.local_shape):
+                    raise ValueError(f"{name}@{kind.value}: the snapshot holds {tuple(arr.shape)}, "
+                                     f"rank {rank}'s shard is {tuple(layout.local_shape)}")
+                # contiguous: a receive lands in its buffer, a send reads its own
+                local[(name, kind)] = (arr.contiguous() if isinstance(arr, torch.Tensor)
+                                       else np.ascontiguousarray(arr))
+                nbytes = math.prod(layout.local_shape) * resolve_dtype(dtype).itemsize
+                for owner in writing_ranks_for(spec, layout, self.save_mode):
+                    holders = place_holders(layout, owner, self.policy,
+                                            natural_replication=natural_rep, exclude=failed)
+                    natural = natural_holders(layout, owner, natural_replication=natural_rep)
+                    n_nat = 1 if not natural_rep else len(natural - failed)
+                    index.append((name, kind, owner, holders, natural,
+                                  mirror_targets(layout, owner, holders,
+                                                 natural_replication=natural_rep),
+                                  nbytes, dtype, layout.local_shape, n_nat))
+        # this rank's own shards: owned, or held as a natural replica
+        staged = [i for i, e in enumerate(index)
+                  if e[2] == rank or (rank in e[3] and rank in e[4])]
+        mine = dict(zip(staged, engine.map(lambda i: content_digest(local[index[i][:2]]),
+                                           staged)))
+        t1 = time.perf_counter()
+        owned = {i: d for i, d in mine.items() if index[i][2] == rank}
+        everyone: list = [None] * group.size()
+        dist.all_gather_object(everyone, owned, group=group)
+        digest = {i: d for part in everyone for i, d in part.items()}
+        # the buddy mirrors: the owner's bytes to each mirror holder
+        sends, recvs, received, tag = [], [], {}, 0
+        for i, (name, kind, owner, _h, _n, mirrors, nbytes, dtype, shape, _) in enumerate(index):
+            for h in mirrors:
+                if nbytes and owner == rank:
+                    sends.append((h, local[(name, kind)], tag))
+                if nbytes and h == rank:
+                    received[i] = host_empty(shape, dtype)
+                    recvs.append((owner, received[i], tag))
+                tag += n_chunks(nbytes)
+        sent_b, recv_b = exchange_fragments(sends, recvs, group)
+        t2 = time.perf_counter()
+        got = dict(zip(received, engine.map(lambda i: content_digest(received[i]), received)))
+        problems = [
+            f"{index[i][0]}@{index[i][1].value} owner {index[i][2]}: rank {rank}'s "
+            f"{'mirror' if i in received else 'replica'} digest {d} is not the owner's "
+            f"{digest[i]}"
+            for i, d in (*mine.items(), *got.items()) if d != digest[i]
+        ]
+        dist.all_gather_object(everyone, problems, group=group)
+        problems = [p for part in everyone for p in part]
+        if problems:
+            raise ValueError(f"hot capture of step {hs.step} under a group: "
+                             + "; ".join(problems[:5]))
+        stats = ReplicaStats()
+        for i, (name, kind, owner, holders, natural, _m, nbytes, _d, _s, n_nat) in enumerate(index):
+            data = received.get(i)
+            if data is None and rank in holders and rank in natural:
+                data = local[(name, kind)]
+            hs.add_fragment(name, kind, owner, data, holders, digest[i], nbytes)
+            if data is not None:
+                stats.resident_bytes += nbytes
+            if i in received:
+                stats.mirrored_bytes += nbytes
+            if owner == rank:
+                stats.fragments += 1
+                stats.stored_bytes += nbytes
+                stats.natural_fragments += n_nat >= len(holders)
+        span.set(stage_s=t1 - t0, exchange_s=t2 - t1, verify_s=time.perf_counter() - t2,
+                 sent_bytes=sent_b, received_bytes=recv_b)
+        return stats
+
+    def leave_group(self) -> None:
+        """Forget the group (it died with a rank): this tier becomes one
+        process's, serving what its snapshots hold."""
+        self.group, self.rank = None, None
 
     def _evict_locked(self) -> None:  # repro: holds[self._lock]
         def over_budget() -> bool:
@@ -375,6 +583,12 @@ class HotTier:
         coverage (recovery planning skips those).
         """
         ranks = set(int(r) for r in ranks)
+        if self.group is not None:
+            # one event: every rank must lose the same ranks
+            everyone: list = [None] * self.group.size()
+            dist.all_gather_object(everyone, sorted(ranks), group=self.group)
+            if any(e != sorted(ranks) for e in everyone):
+                raise ValueError(f"the ranks disagree on the failed ranks: {everyone}")
         out: dict[int, list[str]] = {}
         with self._lock:
             # under the lock: a concurrent _capture reads this set

@@ -31,7 +31,15 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
         --device cpu --host-devices 2 --mesh data=2,model=1 --steps 20 --ckpt-dir /tmp/run4
 
-The flags are the reference's.  Without ``--host-devices`` the model
+    # 2 ranks with the hot tier (each rank's ring holds its own fragments and
+    # its buddy's mirrors) and delta drains, every 2nd one a full rebase
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced \
+        --device cpu --host-devices 2 --mesh data=2,model=1 --steps 8 --ckpt-dir /tmp/run5 \
+        --save-interval 2 --hot-interval 1 --save-mode delta --full-interval 2
+
+The flags are the reference's, and ``--compute-dtype`` (default
+``bfloat16``, the reference's only dtype; ``float32`` makes runs under two
+layouts agree to rounding).  Without ``--host-devices`` the model
 trains on one device (``--device``, default ``cuda``; CUDA that is not
 there raises), and ``--mesh`` sets the checkpoint geometry.
 ``--host-devices N`` runs N ranks as N processes of this host in a gloo
@@ -93,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--remat", default="full", choices=("none", "full", "dots"))
     p.add_argument("--moment-dtype", default="float32")
+    p.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                   help="the forward and backward's dtype (float32: runs that must agree "
+                   "with another layout to rounding)")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup", type=int, default=10)
     p.add_argument("--total-steps", type=int, default=200)
@@ -209,6 +220,7 @@ def _train(args, device, group) -> int:
         expert_parallel=not args.no_ep,
         sequence_parallel=not args.no_sp,
         moment_dtype=args.moment_dtype,
+        compute_dtype=args.compute_dtype,
         remat=args.remat,
         grad_accum=args.grad_accum,
     )

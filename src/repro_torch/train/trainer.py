@@ -22,7 +22,8 @@ size) the run is multi-rank: this process is rank ``dist.get_rank(group)``
 of the mesh, holds only its shards of every state kind (its checkpoint
 shards), computes its rows of each global batch, and the ranks together
 take the single-device step (:mod:`.steps`); the manager saves and restores
-the rank's shards alone.  Without a group the trainer is the single-device
+the rank's shards alone (and, with the hot tier, holds its own fragments
+and its buddies' mirrors).  Without a group the trainer is the single-device
 one.  The dense family under tensor parallelism computes partitioned over
 the model axis (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`,
 installed as ``lm.tp``); every other family gathers the whole model on each

@@ -42,9 +42,10 @@ Each world's results are held here against:
   steps within 1e-5 relative of the single-device port and of the
   reference's jitted no-mesh step (a MoE layer routes one token group a
   sequence, so capacity and the aux loss split with the batch rows);
-* refusals: a group of another size than the mesh, the hot tier, delta
-  saves and fan-out under a group, a ``moe_groups`` that does not split
-  over the data size, and ``--host-devices`` other than the mesh size.
+* refusals: a group of another size than the mesh, a ``moe_groups`` that
+  does not split over the data size, and ``--host-devices`` other than the
+  mesh size.  The hot tier, delta saves and fan-out under a group are
+  ``tests/test_torch_multirank_hot.py``'s.
 
 The reference is imported lazily, so the spawned ranks (which import this
 module to find their entry point) load no JAX.
@@ -289,9 +290,12 @@ def device_world(rank, out, weights, device):
 
 
 def rank_main(rank: int, world: int, store: str, out_dir: str, body: str,
-              device: str = "cpu") -> None:
+              device: str = "cpu", module: str | None = None) -> None:
+    """One rank: ``body`` (a function of this module, or of ``module``)
+    run in a gloo world, its result saved for the test."""
     torch.set_num_threads(1)
     import datetime
+    import importlib
 
     if device != "cpu":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -302,16 +306,20 @@ def rank_main(rank: int, world: int, store: str, out_dir: str, body: str,
         out = Path(out_dir)
         weights = dict(np.load(out / "weights.npz"))
         kw = {} if body != "device_world" else {"device": device}
-        res = globals()[body](rank, out, weights, **kw)
+        fn = globals()[body] if module is None else getattr(importlib.import_module(module), body)
+        res = fn(rank, out, weights, **kw)
         torch.save(res, out / f"{body}_rank{rank}.pt")
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a body may have destroyed it (a rank's death)
+            dist.destroy_process_group()
 
 
-def run_world(out: Path, world: int, body: str, device: str = "cpu") -> list[dict]:
+def run_world(out: Path, world: int, body: str, device: str = "cpu",
+              module: str | None = None) -> list[dict]:
     ctx = torch.multiprocessing.get_context("spawn")
     store = out / f"store_{body}"
-    procs = [ctx.Process(target=rank_main, args=(r, world, str(store), str(out), body, device))
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, str(store), str(out), body, device, module))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -835,16 +843,6 @@ def one_rank_group(tmp_path):
 def test_a_group_of_another_size_is_refused(one_rank_group):
     with pytest.raises(ValueError, match="the group has 1 ranks"):
         _trainer({"data": 2, "model": 1}, one_rank_group)
-
-
-@pytest.mark.parametrize("policy", [
-    {"hot_interval": 1}, {"save_mode": "delta"}, {"registry": object()},
-], ids=["hot", "delta", "publish"])
-def test_group_refuses_what_is_not_ported(one_rank_group, tmp_path, policy):
-    plan = _plan({"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        CheckpointManager(tmp_path / "ck", plan, policy=CheckpointPolicy(**policy),
-                          group=one_rank_group)
 
 
 def test_one_rank_group_is_the_single_device_trainer(one_rank_group, tmp_path):
