@@ -117,7 +117,8 @@ nothing falls back to the CPU or to a plain version):
    held against one process's serve as in 4b; losses within 2e-2 of the
    baseline;
 4d. multirank-hot — the hot tier, delta drains and fan-out under a group:
-   2 spawned ranks of full smollm-360m (8 x 512, bf16) under
+   2 spawned ranks of smollm-360m at full width, ``CUT_LAYERS`` (8) of its
+   32 layers (8 x 512, bf16) under
    data=2,model=1 with ``CheckpointPolicy(codec="int8:b256",
    hot_interval=2, disk_interval=2, hot_replication=1, save_mode="delta",
    full_interval=2)`` and a ``PublicationRegistry`` on rank 0: captures at
@@ -126,7 +127,7 @@ nothing falls back to the CPU or to a plain version):
    step 4 a delta on it), each drain's tables equal to a one-process
    persist of the gathered state; a ``FleetReplica`` in rank 0's process
    syncs both publications (full, then delta), bit-equal to the gathered
-   weights, and prefills 4 x 512 (32 flash launches, finite logits);
+   weights, and prefills 4 x 512 (8 flash launches, finite logits);
    HOT_RESHARD of step 4 under data=1,model=2 on both ranks, bit-equal to
    ``slice_shard`` of the gathered state with no file opened; then rank 1's
    process exits and rank 0 destroys the group and recovers alone under
@@ -134,6 +135,19 @@ nothing falls back to the CPU or to a plain version):
    takes a step.  Prints each capture's device->host, slice-and-digest and
    exchange seconds and bytes, each drain's seconds, shards and launches,
    and the recovery's spans;
+4e. multirank-ssm — Mamba-2 by SSM heads: mamba2-130m at full width and
+   depth (24 layers, 24 heads of 64, state 128), 8 x 512, bf16; a
+   one-process baseline (steps 1-4 from seed 0), then 2 spawned ranks
+   under data=1,model=2 (12 heads a rank; ``conv_w`` the one weight
+   gathered over the model axis) for steps 1-2, each saving its own
+   ``int8:b256`` shards at step 2, resuming step 2 under data=2,model=1
+   (RESHARD_STREAM) for steps 3-4, then serving step 2 by heads (DIRECT:
+   24 SSD launches a rank at H = 12, bf16, and an fp32 prefill through the
+   fp32 kernel); losses within 2e-2 of the baseline; the fp32 prefill
+   logits within 1e-3 of one process's through ``ssd_chunked``; the bf16
+   serve held against one process's through the SSD kernel within the
+   larger of 0.1 and twice that process's own bf16 error (its bf16 logits
+   against its fp32 ones), prefill and every greedy token;
 5. kernel ssd_scan — against its plain versions (``ssd_chunked``, the
    chunked form it computes, and the O(S) ``ssd_ref``) at the SSM serving
    slice's shapes (B=4, S=512, H=24, P=64, G=1, N=128, chunk 256, bf16 x/B/C;
@@ -151,13 +165,15 @@ nothing falls back to the CPU or to a plain version):
    chunk 256; fp32 at B=1) both kernels against ``ssd_chunked`` and
    ``ssd_ref`` in float64, the bf16 kernel's device and event times, the
    fp32 kernel's device time, the plain version's event time and the bound;
-6. serve, full smollm-360m (32 layers) and then full mamba2-130m (24
+   and the same at one rank's heads of mamba2-130m under model=2 (H = 12);
+6. serve, smollm-360m at full width cut to ``CUT_LAYERS`` (8 of 32) layers,
+   and then full mamba2-130m (24
    layers), each: init on the card from a seeded generator;
    ``write_distributed`` of the weights under data=2,model=2; weights-only
    restore under data=1,model=1 (RESHARD_STREAM, fused QKV or the five-part
    ``in_proj`` consolidated) and data=2,model=2 (DIRECT), each bit-equal to
    the save; prefill 4 × 512 tokens and 16 greedy decode steps from each
-   restore, every kernel's launches counted around each run (smollm: 32
+   restore, every kernel's launches counted around each run (smollm: 8
    flash-attention and 0 SSD-scan launches per prefill; mamba2: 24 and 0
    the other way), all of them bf16 (the tensor-core kernels); both give
    the same tokens; smollm then exports the step as UCP atoms
@@ -239,7 +255,8 @@ nothing falls back to the CPU or to a plain version):
    bit-equal, every moment shard the served view), 2 steps; each restore
    split by its spans; the Chrome trace exported and validated; the
    phase's directories removed;
-8b. fanout, full smollm-360m: a publisher trains under data=2,model=2
+8b. fanout, smollm-360m at full width, ``CUT_LAYERS`` layers: a publisher
+   trains under data=2,model=2
    with ``CheckpointPolicy(codec="int8:b256", save_interval=2, keep_last=1,
    registry=PublicationRegistry(...))`` (60 quantize launches a save); its
    step 2 (seq 1) goes to 8 ``FleetReplica``s under data=1,model=1
@@ -249,7 +266,7 @@ nothing falls back to the CPU or to a plain version):
    disk once, 0 block-quant launches; the sync's wall and ``FanoutStats``;
    2 independent readers with private engines restore the same step (wall
    each, aggregate GB/s of both ways); replicas 0 and 7 and a direct
-   restore serve 4 x 512 and 16 steps in bf16 (32 flash launches a
+   restore serve 4 x 512 and 16 steps in bf16 (8 flash launches a
    prefill), equal tokens; a poisoned peer copy is caught by a new replica
    (digest failure, refetch, holder evicted, bit-equal); seq 2 (step 4,
    every weight changed) is synced under an obs tracer (``serve.sync``,
@@ -292,6 +309,18 @@ nothing falls back to the CPU or to a plain version):
    shard digest of the save equal to the restored state re-cut under the
    Source plan (params bit-equal, moments the codec's served view), then
    3 more steps with finite losses beside the baseline's;
+   multirank-moe, the paper's Fig. 10 move on compute: the same config, 8 x
+   512, bf16 compute and moments, 2 spawned ranks under data=1,model=2,
+   steps 1-2 with expert parallelism (4 of 8 experts a rank, attention
+   24:4 heads of 128 a rank, the vocab split), each saving its own
+   ``int8:b256`` shards at step 2; the same ranks resume step 2 under
+   expert-TP (RESHARD_STREAM, ``moe_expert`` consolidated: 8192 of each
+   expert's 16384 a rank) for steps 3-4; then a weights-only DIRECT serve
+   of step 2 (one flash launch a rank at 24:4 of 128, 16 greedy decode
+   steps) held against one process's serve after the ranks exit; losses
+   within 2e-2 of train-moe's baseline steps 1-4 (the ranks' init shards
+   and batches shown equal to that run's), the same expert picks on both
+   ranks, each rank's peak card memory;
 10. serve-mla: deepseek-v2-236b (MLA) at full width: d 5120, 128 heads,
    q_lora 1536, kv_lora 512, nope 128, rope 64, v 128, 160 experts top-6
    of d_ff 1536 and 2 shared, vocab 102400; depth cut from 60 to 2 layers
@@ -456,7 +485,9 @@ TRACES = 5
 # The train, collectives and multirank phases' depth: smollm-360m's 32
 # layers cut to 8 (full width) when the smoke reached 1,110 s of its 1,200 s
 # limit (train, collectives), and 1,054 s with the multirank-hot stage
-# (multirank)
+# (multirank); then serve smollm-360m, fanout and multirank-hot too, for the
+# multirank-moe and multirank-ssm stages (their 66 s and the mixtral ranks'
+# run would take the smoke past 1,200 s)
 CUT_LAYERS = 8
 # What device_ms timed by CUDA events because every trace lost records.
 EVENT_TIMED: list[str] = []
@@ -876,6 +907,9 @@ def kernel_phase(torch, F, kernel, ops, ref):
                        label="deepseek-v2-236b MLA")
     jamba = head_layout(torch, F, kernel, ops, ref, hq=64, hkv=8, d=128, long=None,
                         label="jamba-1.5-large-398b")
+    # a rank's heads of mixtral-8x22b at model=2 (the multirank-moe serve)
+    mixtral_rank = head_layout(torch, F, kernel, ops, ref, hq=24, hkv=4, d=128, long=None,
+                               label="mixtral-8x22b rank of model=2")
     # cross-attention: k and v of their own length, with no mask
     vlm_cross = head_layout(torch, F, kernel, ops, ref, hq=32, hkv=8, d=128, long=None,
                             s=512, skv=1600, causal=False, label="llama-3.2-vision-11b cross")
@@ -890,7 +924,8 @@ def kernel_phase(torch, F, kernel, ops, ref):
     offset = offset_causal_rows(torch, kernel, ref)
     qoff = q_offset_rows(torch, F, kernel, ops, ref)
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
-                d256=d256, d128=d128, d192=d192, jamba=jamba, vlm_cross=vlm_cross,
+                d256=d256, d128=d128, d192=d192, jamba=jamba, mixtral_rank=mixtral_rank,
+                vlm_cross=vlm_cross,
                 vlm_self=vlm_self, encdec_encoder=enc, encdec_self=enc_self,
                 encdec_cross=enc_cross,
                 offset_causal=offset, qoff=qoff)
@@ -1382,7 +1417,7 @@ def ssd_layout(torch, F, ssd_ops, ssd_ref, shape: tuple, chunk: int, label: str)
 
 
 def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: int,
-                via_ucp: bool = False):
+                via_ucp: bool = False, layers: int | None = None):
     """Save, restore two ways, and serve one full-size config on the card.
     ``counters`` maps each kernel to its wrapper (whose ``launches`` count);
     ``per_prefill`` gives the launches one prefill of this config must make;
@@ -1390,7 +1425,8 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
     ``via_ucp`` adds the export of the step as UCP atoms and a third restore
     from them, and the I/O engine's checks: the save, the restores and the
     export each serial and parallel (byte- and bit-equal, walls, the disk
-    floor), then a delta save and its restores."""
+    floor), then a delta save and its restores.  ``layers`` cuts the depth
+    (the smoke's time budget)."""
     from repro_torch.ckpt.restore import params_from_source
     from repro_torch.ckpt.saver import snapshot_weights, write_distributed
     from repro_torch.core.dist_ckpt import DistCheckpoint
@@ -1407,6 +1443,8 @@ def serve_phase(torch, arch: str, counters: dict, per_prefill: dict, cpu_len: in
 
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
 
     def plan_for(mesh_str, dtype=torch.bfloat16):
         mesh = mesh_spec_from_string(mesh_str)
@@ -2731,7 +2769,7 @@ def fanout_phase(torch, bq_ops, counters) -> dict:
     from repro_torch.train.trainer import Trainer
 
     dev = torch.device("cuda")
-    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    cfg, tcfg, parallel = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS), TrainConfig(seed=0), ParallelismConfig()
     root = ROOT / "build" / "chip_smoke_fanout"
     shutil.rmtree(root, ignore_errors=True)
     phases = PhaseLaunches(bq_ops)
@@ -2744,7 +2782,7 @@ def fanout_phase(torch, bq_ops, counters) -> dict:
     engine = CheckpointEngine(dev)
     prompts = torch.randint(0, cfg.vocab_size, (4, 512),
                             generator=torch.Generator().manual_seed(1)).to(dev)
-    per_prefill = {"flash_attention": 32, "ssd_scan": 0}
+    per_prefill = {"flash_attention": cfg.num_layers, "ssd_scan": 0}
     reset = functools.partial(reset_launches, counters)
     counts = functools.partial(launch_counts, counters)
     out: dict = {"replicas": FANOUT_REPLICAS}
@@ -3284,6 +3322,37 @@ class FlashShapes:
 
     def __exit__(self, *exc):
         self.kernel.flash_attention_fwd = self._saved
+
+
+class SsdHeads:
+    """Records the (dtype, H) of every SSD kernel launch while it is open (a
+    shim around the wrapper's ``kernel.ssd_scan_fwd``) in ``heads``."""
+
+    def __init__(self, kernel):
+        self.kernel, self.heads = kernel, []
+
+    def __enter__(self):
+        launch = self._saved = self.kernel.ssd_scan_fwd
+
+        def recording(x, *args, **kw):
+            self.heads.append((str(x.dtype).removeprefix("torch."), x.shape[2]))
+            return launch(x, *args, **kw)
+
+        self.kernel.ssd_scan_fwd = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.ssd_scan_fwd = self._saved
+
+
+def routes_digest(log: MoeLog) -> str:
+    """A digest of every expert a logged run picked, in order (the same on
+    every model rank of a partitioned run, which routes all of its data
+    replica's tokens)."""
+    h = hashlib.sha256()
+    for idx, _ in log.routes:
+        h.update(idx.numpy().tobytes())
+    return f"{len(log.routes)}:{h.hexdigest()[:16]}"
 
 
 def capacity_drops(log: MoeLog, per_forward: int) -> tuple[float, float]:
@@ -4929,6 +4998,9 @@ SERVE_GEN = 17             # tokens generate() returns: the prefill's and 16 gre
 # bf16 logits bound of tests/test_torch_serve.py (the partial sums of the
 # row-parallel products round to bf16 before they are added)
 SERVE_LOGIT_TOL = 0.1
+# fp32 prefill logits of a partitioned serve against one process's through
+# the plain versions (the card-vs-CPU fp32 logits bound of the serve phases)
+SERVE_FP32_TOL = 1e-3
 TP_ARCH = "gpt3-350m"      # the multirank-tp phase: the paper's Table 4 model, heads 16:16
 TP_MESH = "data=1,model=2"
 # The multirank-hot stage: 2 ranks of smollm-360m under data=2,model=1, each
@@ -5045,20 +5117,26 @@ def serve_prompts(torch, cfg, device):
 
 
 def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out_dir: Path,
-               label: str) -> dict:
+               label: str, fp32_prefill: bool = False, moment_dtype: str = "float32") -> dict:
     """One rank of a multi-rank serve, in a spawned process of a world: the
     serve CLI's path (a rank context over ``mesh_str``, the rank's own
     weight shards restored weights-only, gathered over the data axes once,
     the weights it does not compute locally over the model axis), bf16;
     a warm-up ``generate`` of 2 tokens, then a counted prefill (every flash launch's
-    shape, ``q_offset`` and heads recorded; its logits gathered over the
-    vocab shards) and a timed ``generate`` of ``SERVE_GEN`` tokens.  Rank 0
-    saves the logits and tokens for the parent's comparison."""
+    shape, ``q_offset`` and heads recorded, every SSD launch's heads; the
+    experts every MoE layer picks, as a digest; its logits gathered over the
+    vocab shards) and a timed ``generate`` of ``SERVE_GEN`` tokens; with
+    ``fp32_prefill`` first a prefill of fp32 weights in fp32 (the kernels'
+    fp32 versions).  The plan takes the save's ``moment_dtype`` (a layout
+    that differs only there is not DIRECT).  Rank 0 saves the logits and
+    tokens for the parent's comparison."""
     from repro_torch.core.pytree import unflatten_from_paths
     from repro_torch.dist.sharding import RankGroups, make_plan, vocab_multiple
     from repro_torch.dist.tensor_parallel import TensorParallel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.mesh import mesh_spec_from_string
     from repro_torch.launch.serve import generate, rank_weights, restore_params, serving_parallelism
     from repro_torch.models import build_model
@@ -5066,7 +5144,7 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
 
     dev = torch.device("cuda")
     mesh = mesh_spec_from_string(mesh_str)
-    par = serving_parallelism(mesh)
+    par = dataclasses.replace(serving_parallelism(mesh), moment_dtype=moment_dtype)
     lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
     plan = make_plan(cfg, lm.registry, par, mesh)
     ranks = RankGroups.create(dist.group.WORLD, plan, par)
@@ -5084,21 +5162,30 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
     del flat
-    params = lm.registry.cast(unflatten_from_paths(comp), torch.bfloat16)
-    del comp
     prompts = serve_prompts(torch, cfg, dev)
     b, s = prompts.shape
+    logits32 = None
+    if fp32_prefill:
+        lm32 = dataclasses.replace(lm, compute_dtype=torch.float32)
+        with torch.inference_mode():
+            logits32, _ = D.prefill(lm32, unflatten_from_paths(comp),
+                                    D.init_cache(lm32, b, s, device=dev), prompts)
+            logits32 = lm.tp.gather_vocab(logits32, cfg.vocab_size).cpu()
+    params = lm.registry.cast(unflatten_from_paths(comp), torch.bfloat16)
+    del comp
     generate(lm, params, prompts, 2)  # warm-up: the prefill and a decode step at the timed shapes
-    fns = {"flash_attention": fa_ops.flash_attention}
+    fns = {"flash_attention": fa_ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     reset_launches(fns)
-    with torch.inference_mode(), FlashShapes(fa_kernel) as shapes:
+    with (torch.inference_mode(), FlashShapes(fa_kernel) as shapes, SsdHeads(ssd_kernel) as ssd,
+          MoeLog(torch) as log):
         logits, _ = D.prefill(lm, params, D.init_cache(lm, b, s + SERVE_GEN, device=dev), prompts)
         logits = lm.tp.gather_vocab(logits, cfg.vocab_size)
-    launches = launch_counts(fns)["flash_attention"]
+    counted = launch_counts(fns)
+    launches = counted["flash_attention"]
     lm.tp.seconds, lm.tp.bytes = 0.0, 0
     seq, prefill_s, decode_s = generate(lm, params, prompts, SERVE_GEN)
     if ranks.rank == 0:
-        torch.save({"logits": logits.float().cpu(), "seq": seq.cpu()},
+        torch.save({"logits": logits.float().cpu(), "seq": seq.cpu(), "logits32": logits32},
                    out_dir / f"{label}_serve.pt")
     return {"mode": rp.mode.value, "consolidated": sorted(rp.consolidate_params),
             "restore_s": restore_s, "shard_gb": shard_gb, "gather_s": gather_s,
@@ -5106,42 +5193,61 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
             "tp_s": lm.tp.seconds, "tp_bytes": lm.tp.bytes, "heads_local": lm.tp.heads,
             "gathered": sorted(lm.tp.gathered), "flash_launches": launches,
             "flash_calls": shapes.calls, "flash_offsets": shapes.offsets,
-            "flash_heads": shapes.heads}
+            "flash_heads": shapes.heads, "ssd_launches": counted["ssd_scan"],
+            "ssd_heads": ssd.heads, "ssm_heads_local": lm.tp.ssm_heads,
+            "routes": routes_digest(log)}
 
 
-def one_process_serve(torch, cfg, step_dir: Path, fed) -> dict:
+def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
+                      fp32_prefill: bool = False) -> dict:
     """The same step restored weights-only by one process (data=1,model=1)
     and served in bf16 with the plain attention in place of the flash
     kernel (``full_attention`` on fp32 copies of q, k and v, swapped in as
-    :func:`decode_check` swaps it; no flash launch), fed the multi-rank
+    :func:`decode_check` swaps it; no flash launch) and ``ssd_chunked`` in
+    place of the SSD kernel (no SSD launch), or with ``plain`` off through
+    both kernels, fed the multi-rank
     serve's tokens ``fed`` [B, SERVE_GEN]: the prefill's logits, and at each
-    step its argmax, its top logit and the logit of the fed token."""
+    step its argmax, its top logit and the logit of the fed token; with
+    ``fp32_prefill`` also the logits of an fp32 prefill through the plain
+    attention and ``ssd_chunked``."""
     from repro_torch.core.pytree import unflatten_from_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.mesh import mesh_spec_from_string
     from repro_torch.launch.serve import restore_params, serving_parallelism
     from repro_torch.models import build_model
     from repro_torch.models import decode as D
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.attention import full_attention
+    from repro_torch.models.ssm import ssd_chunked
 
     dev = torch.device("cuda")
     mesh = mesh_spec_from_string("data=1,model=1")
     par = serving_parallelism(mesh)
     lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
     flat, rp = restore_params(step_dir, make_plan(cfg, lm.registry, par, mesh), dev)
-    params = lm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
-    del flat
     prompts = serve_prompts(torch, cfg, dev)
     b, s = prompts.shape
     fed = fed.to(dev)
     own, top, at_fed = [], [], []
     kernel_fn, launches = lm_mod.flash_attention, fa_ops.flash_attention.launches
+    ssd_fn, ssd_launches = lm_mod.ssd_scan, ssd_ops.ssd_scan.launches
     lm_mod.flash_attention = lambda q, k, v, *, causal, window, q_offset=0: full_attention(
         q.float(), k.float(), v.float(), causal=causal, window=window,
         q_offset=q_offset).to(q.dtype)
+    lm_mod.ssd_scan = ssd_chunked
+    logits32 = None
     try:
+        if fp32_prefill:
+            lm32 = dataclasses.replace(lm, compute_dtype=torch.float32)
+            with torch.inference_mode():
+                logits32 = D.prefill(lm32, unflatten_from_paths(flat),
+                                     D.init_cache(lm32, b, s, device=dev), prompts)[0].cpu()
+        if not plain:
+            lm_mod.flash_attention, lm_mod.ssd_scan = kernel_fn, ssd_fn
+        params = lm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
+        del flat
         with torch.inference_mode():
             cache = D.init_cache(lm, b, s + SERVE_GEN, device=dev)
             logits, cache = D.prefill(lm, params, cache, prompts)
@@ -5155,37 +5261,37 @@ def one_process_serve(torch, cfg, step_dir: Path, fed) -> dict:
                     lg, cache = D.decode_step(lm, params, cache, fed[:, i:i + 1])
                     lg = lg[:, -1]
     finally:
-        lm_mod.flash_attention = kernel_fn
-    check(fa_ops.flash_attention.launches == launches,
-          "the one-process serve launched the flash kernel")
+        lm_mod.flash_attention, lm_mod.ssd_scan = kernel_fn, ssd_fn
+    check(not plain or (fa_ops.flash_attention.launches == launches
+                        and ssd_ops.ssd_scan.launches == ssd_launches),
+          "the one-process serve launched the flash or the SSD kernel")
     del params, cache
     torch.cuda.empty_cache()
     return {"mode": rp.mode.value, "logits": first, "own": torch.stack(own, 1),
-            "top": torch.stack(top, 1), "at_fed": torch.stack(at_fed, 1)}
+            "top": torch.stack(top, 1), "at_fed": torch.stack(at_fed, 1), "logits32": logits32}
 
 
-def hold_serve(torch, label: str, ranked: dict, one: dict) -> dict:
+def hold_serve(torch, label: str, ranked: dict, one: dict, tol: float = SERVE_LOGIT_TOL) -> dict:
     """A multi-rank serve (rank 0's saved prefill logits and greedy tokens)
     against one process serving the same step through the plain attention,
     fed the same tokens (:func:`one_process_serve`): the prefill logits
     within ``SERVE_LOGIT_TOL``, and at every step of every row the
     multi-rank serve's token within ``SERVE_LOGIT_TOL`` of one process's
     top logit, so a token differs from one process's argmax only at a
-    near-tie (which may go either way after bf16 rounding)."""
+    near-tie (which may go either way after bf16 rounding); ``tol`` where a
+    stage sets its own limit (``SERVE_LOGIT_TOL`` else)."""
     err = (ranked["logits"] - one["logits"]).abs().max().item()
-    check(err <= SERVE_LOGIT_TOL, f"{label}: prefill logits {err:.4f} from one process's "
-                                  f"(tolerance {SERVE_LOGIT_TOL})")
+    check(err <= tol, f"{label}: prefill logits {err:.4f} from one process's (tolerance {tol})")
     gap = one["top"] - one["at_fed"]  # [B, SERVE_GEN], 0 where the tokens agree
     worst = gap.max().item()
-    check(worst <= SERVE_LOGIT_TOL, f"{label}: a greedy token {worst:.4f} under one process's "
-                                    f"top logit (tolerance {SERVE_LOGIT_TOL})")
+    check(worst <= tol, f"{label}: a greedy token {worst:.4f} under one process's "
+                        f"top logit (tolerance {tol})")
     equal = (one["own"] == ranked["seq"]).sum(1).tolist()
-    print(f"{label}: prefill logits within {err:.4f} of one process's through the plain "
-          f"attention (tolerance {SERVE_LOGIT_TOL}); fed the same tokens, one process's argmax "
-          f"equals the greedy token at {equal} of {SERVE_GEN} steps a row, every greedy token "
-          f"within {worst:.4f} of one process's top logit (tolerance {SERVE_LOGIT_TOL})")
-    return {"logits_max_abs_err": err, "equal_steps": equal, "top_gap": worst,
-            "tolerance": SERVE_LOGIT_TOL}
+    print(f"{label}: prefill logits within {err:.4f} of one process's (tolerance {tol}); fed the "
+          f"same tokens, one process's argmax equals the greedy token at {equal} of {SERVE_GEN} "
+          f"steps a row, every greedy token within {worst:.4f} of one process's top logit "
+          f"(tolerance {tol})")
+    return {"logits_max_abs_err": err, "equal_steps": equal, "top_gap": worst, "tolerance": tol}
 
 
 def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) -> None:
@@ -5226,6 +5332,8 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     from repro_torch.train.trainer import Trainer, gather_state
 
     t_start = time.perf_counter()
+    if stage == "moe":  # two ranks of mixtral's state on one card: no stranded segments
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
@@ -5233,13 +5341,17 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     try:
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-        for built in (bq_kernel, fa_kernel):
+        from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+        for built in (bq_kernel, fa_kernel) + ((ssd_kernel,) if stage == "ssm" else ()):
             _, report = built.build()
             check(not report["compiled"], f"rank {rank} rebuilt {report['library']}")
         fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
         out: dict = {"rank": rank, "stage": stage}
-        if stage in ("tp", "hot"):
-            body = multirank_tp_rank if stage == "tp" else multirank_hot_rank
+        bodies = {"tp": multirank_tp_rank, "hot": multirank_hot_rank, "moe": multirank_moe_rank,
+                  "ssm": multirank_ssm_rank}
+        if stage in bodies:
+            body = bodies[stage]
             (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
                 body(torch, dist, rank, Path(out_dir), fns, t_start)))
             return
@@ -5349,10 +5461,11 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             dist.destroy_process_group()
 
 
-def run_multirank_world(torch, stage: str, out_dir: Path) -> tuple[list[dict], float]:
+def run_multirank_world(torch, stage: str, out_dir: Path,
+                        join_s: float = MULTIRANK_JOIN_S) -> tuple[list[dict], float]:
     """Spawn the ranks of one stage, join them with the phase's time limit
-    (a rank still running is killed, and fails the smoke, as does a non-zero
-    exit), and return each rank's record and the world's wall."""
+    ``join_s`` (a rank still running is killed, and fails the smoke, as does
+    a non-zero exit), and return each rank's record and the world's wall."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -5364,12 +5477,12 @@ def run_multirank_world(torch, stage: str, out_dir: Path) -> tuple[list[dict], f
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + MULTIRANK_JOIN_S
+        deadline = time.monotonic() + join_s
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         wall = time.perf_counter() - t0
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        check(not hung, f"multirank {stage}: ranks {hung} still running after {MULTIRANK_JOIN_S} s")
+        check(not hung, f"multirank {stage}: ranks {hung} still running after {join_s} s")
         codes = [p.exitcode for p in procs]
         check(codes == [0] * MULTIRANK_WORLD, f"multirank {stage}: rank exit codes {codes}")
     finally:
@@ -5712,6 +5825,412 @@ def multirank_tp_phase(torch, bq_ops) -> dict:
     return out
 
 
+# The multirank-moe stage: mixtral-8x22b at full width, 1 of 56 layers, 2
+# ranks under data=1,model=2 (EP: 4 experts a rank, then expert-TP: 8192 of
+# each expert's 16384), bf16 moments as the train-moe phase
+MOE_MESH = "data=1,model=2"
+MOE_JOIN_S = 480            # the stage's world: 2 saves and resumes of 17 GB, a serve
+# The multirank-ssm stage: mamba2-130m at full width and depth, 12 of 24 SSM
+# heads a rank under data=1,model=2, resumed under data=2,model=1
+SSM_MESH = {"save": "data=1,model=2", "resume": "data=2,model=1"}
+
+
+def bits_sum(torch, t) -> int:
+    """The sum of a tensor's 32-bit words (an equality check of two draws)."""
+    return int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+
+
+def tokens_digest(tokens) -> str:
+    return hashlib.sha256(tokens.cpu().long().numpy().tobytes()).hexdigest()[:16]
+
+
+def multirank_moe_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank-moe world (:func:`multirank_rank`'s ``moe``
+    stage): mixtral-8x22b at full width, 1 layer, bf16 compute and moments,
+    from seed 0 under ``MOE_MESH`` with expert parallelism: its init shards'
+    and batches' digests, steps 1-2 partitioned (4 experts a rank) with each
+    rank's ``int8:b256`` save at step 2; then the same ranks resume step 2
+    under expert-TP (RESHARD_STREAM) for steps 3-4 (8192 of each expert's
+    16384 a rank); then :func:`rank_serve` of step 2 (DIRECT, EP).  Each
+    state has one owner while ``Trainer.run`` steps it."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.plan import TargetSpec, plan_resume
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    _, cfg = mixtral(1)
+    ep = ParallelismConfig(moment_dtype="bfloat16")
+    root = out_dir / "ckpt"
+    b, s = MULTIRANK_BATCH
+    mesh = mesh_spec_from_string(MOE_MESH)
+
+    def trainer(parallel, save_interval):
+        return Trainer.create(cfg, parallel, TrainConfig(seed=0), mesh, batch_size=b, seq_len=s,
+                              ckpt_dir=str(root), group=dist.group.WORLD,
+                              policy=CheckpointPolicy(codec=MULTIRANK_CODEC,
+                                                      save_interval=save_interval))
+
+    out: dict = {"rank": rank, "stage": "moe"}
+    torch.cuda.reset_peak_memory_stats()
+    t = trainer(ep, 2)
+    tp = t.lm.tp
+    check(tp is not None and tp.moe_mode == "ep" and tp.heads and not tp.gathered,
+          f"multirank-moe rank {rank}: not partitioned by experts and heads")
+    box = [t.init_state()]
+    out["init_bits"] = {n: bits_sum(torch, x) for n, x in flatten_with_paths(box[0].params).items()}
+    out["batches"] = [tokens_digest(t.batch(i)["tokens"]) for i in range(4)]
+    out["setup_s"] = time.perf_counter() - t_start
+    reset_launches(fns)
+    with MoeLog(torch) as log:
+        state, hist = t.run(box.pop(), 0, 2)  # the main path: 2 partitioned steps and the save
+    del state
+    out["save_launches"] = launch_counts(fns)
+    (res,) = t.save_results
+    out["save"] = {"s": res.wall_time_s, "bytes": res.bytes_written, "shards": res.shards_written}
+    out["ep"] = {"hist": [{k: h[k] for k in ("step", "loss", "aux", "grad_norm", "dt", "split")}
+                          for h in hist], "routes": routes_digest(log),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    t.manager.close()
+    del t, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tgt = trainer(dataclasses.replace(ep, expert_parallel=False), 1000)
+    check(tgt.lm.tp.moe_mode == "tp", f"multirank-moe rank {rank}: {tgt.lm.tp.moe_mode}")
+    step2 = root / "step_00000002"
+    rp = plan_resume(DistCheckpoint.open(step2).manifest, TargetSpec(tgt.plan.mesh,
+                                                                     tgt.plan.param_specs))
+    reset_launches(fns)
+    state, info = tgt.init_or_restore()
+    out["restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                      "bytes_read": info.restore_stats.bytes_read,
+                      "consolidated": sorted(rp.consolidate_params),
+                      "launches": launch_counts(fns)}
+    box = [state]
+    del state
+    reset_launches(fns)
+    with MoeLog(torch) as log:
+        state, hist = tgt.run(box.pop(), 2, 2)  # steps 3-4 under expert-TP; no save
+    del state
+    out["tp"] = {"hist": [{k: h[k] for k in ("step", "loss", "aux", "grad_norm", "dt", "split")}
+                          for h in hist], "routes": routes_digest(log),
+                 "launches": launch_counts(fns),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    tgt.manager.close()
+    del tgt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"] = rank_serve(torch, dist, cfg, MOE_MESH, step2, "direct", out_dir,
+                              "multirank_moe", moment_dtype="bfloat16")
+    out["serve"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def multirank_moe_phase(torch, bq_ops, baseline: list[float]) -> dict:
+    """Partitioned MoE compute on the one card, the paper's Fig. 10 move:
+    mixtral-8x22b at full width cut to 1 layer (2,906,720,256 params), 8 x
+    512 a step, bf16 compute and moments, remat full; 2 spawned ranks train
+    steps 1-2 under data=1,model=2 with expert parallelism (4 of 8 experts
+    a rank, attention 24:4 heads of 128 a rank, the vocab split), each
+    saving its own ``int8:b256`` shards at step 2, then resume step 2 under
+    expert-TP (RESHARD_STREAM, ``moe_expert`` consolidated) for steps 3-4,
+    then serve step 2 (DIRECT, one flash launch a rank at 24:4 of 128);
+    one process serves the same step after the ranks exit.  The one-process
+    losses are the train-moe phase's ``baseline`` (steps 1-4 of the same
+    config, seed and batches): this phase shows the ranks' init shards and
+    batches equal that run's (its init redrawn here and cut by the 2-rank
+    plan).  Returns the phase's measurements."""
+    from repro_torch.configs import ParallelismConfig, ShapeSpec
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.models import build_model
+    from repro_torch.train.data import batch_for_step
+
+    _, cfg = mixtral(1)
+    b, s = MULTIRANK_BATCH
+    mesh = mesh_spec_from_string(MOE_MESH)
+    par = ParallelismConfig(moment_dtype="bfloat16")
+    out_dir = ROOT / "build" / "chip_smoke_multirank_moe"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    # the train-moe phase's init (Trainer.init_state: the full draw from the
+    # seed on the card) cut by this stage's plan, and its batches
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    plan = make_plan(cfg, lm.registry, par, mesh)
+    full = flatten_with_paths(lm.init(torch.Generator(device="cuda").manual_seed(0)))
+    want_bits = [{n: bits_sum(torch, slice_shard(x, plan.param_specs[n].layout_for(
+        StateKind.FP32, mesh), r)) for n, x in full.items()} for r in range(MULTIRANK_WORLD)]
+    del full
+    torch.cuda.empty_cache()
+    want_batches = [tokens_digest(torch.as_tensor(batch_for_step(
+        cfg, ShapeSpec("train", s, b, "train"), i, seed=0, batch_override=b,
+        seq_override=s)["tokens"])) for i in range(4)]
+    try:
+        ranks, wall = run_multirank_world(torch, "moe", out_dir, join_s=MOE_JOIN_S)
+        step2 = out_dir / "ckpt" / "step_00000002"
+        ranked = torch.load(out_dir / "multirank_moe_serve.pt")
+        one = one_process_serve(torch, cfg, step2, ranked["seq"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in ranks:
+        check(r["init_bits"] == want_bits[r["rank"]] and r["batches"] == want_batches,
+              f"multirank-moe rank {r['rank']}: init or batches differ from the train-moe phase's")
+    losses = [h["loss"] for h in ranks[0]["ep"]["hist"] + ranks[0]["tp"]["hist"]]
+    check(all(h["loss"] == x for r in ranks for h, x in zip(r["ep"]["hist"] + r["tp"]["hist"],
+                                                          losses)),
+          "multirank-moe: the ranks report different losses")
+    gap = max(abs(x - y) for x, y in zip(losses, baseline[:4]))
+    check(all(map(math.isfinite, losses)) and gap <= MULTIRANK_TOL,
+          f"multirank-moe: steps 1-4 {losses} left one process's {baseline[:4]}")
+    for key in ("ep", "tp"):
+        check(ranks[0][key]["routes"] == ranks[1][key]["routes"],
+              f"multirank-moe {key}: the ranks routed apart")
+    check(ranks[0]["serve"]["routes"] == ranks[1]["serve"]["routes"],
+          "multirank-moe serve: the ranks routed apart")
+    for r in ranks:
+        rs, sv = r["restore"], r["serve"]
+        check(rs["mode"] == "reshard_stream" and rs["step"] == 2
+              and "layers.blk.we_gate" in rs["consolidated"],
+              f"multirank-moe resume rank {r['rank']}: {rs['mode']}, consolidated "
+              f"{rs['consolidated']}")
+        check(r["save_launches"]["quantize"] > 0 and rs["launches"]["dequantize"] > 0
+              and r["tp"]["launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank-moe rank {r['rank']}: block-quant launches {r['save_launches']}, "
+              f"{rs['launches']}, {r['tp']['launches']}")
+        check(sv["mode"] == "direct" and sv["flash_launches"] == cfg.num_layers
+              and set(map(tuple, sv["flash_heads"])) == {(24, 4)}
+              and set(map(tuple, sv["flash_calls"])) == {("bfloat16", 512, 512, True)},
+              f"multirank-moe serve rank {r['rank']}: {sv['mode']}, {sv['flash_launches']} flash "
+              f"launches at heads {set(map(tuple, sv['flash_heads']))}")
+    held = hold_serve(torch, "multirank-moe serve", ranked, one)
+    launches = {k: sum(r["save_launches"][k] + r["restore"]["launches"][k] for r in ranks)
+                for k in fns}
+    out = {"model": "mixtral-8x22b, full width, 1 of 56 layers", "mesh": MOE_MESH,
+           "batch": list(MULTIRANK_BATCH), "baseline": baseline[:4], "losses": losses,
+           "gap": gap, "init_and_batches_equal_train_moe": True,
+           "steps": [{"rank": r["rank"], "mode": key, **h} for r in ranks
+                     for key in ("ep", "tp") for h in r[key]["hist"]],
+           "save": [{"rank": r["rank"], **r["save"]} for r in ranks],
+           "restore": [{"rank": r["rank"], **r["restore"]} for r in ranks],
+           "serve": [{"rank": r["rank"], **r["serve"]} for r in ranks],
+           "held": held, "one_process_serve_mode": one["mode"],
+           "peak_gb": {key: [r[key]["peak_gb"] for r in ranks] for key in ("ep", "tp")}
+           | {"serve": [r["serve"]["peak_gb"] for r in ranks]},
+           "setup_s": [r["setup_s"] for r in ranks], "world_s": wall,
+           "launches": launches,
+           "launches_by_rank": {k: [r["save_launches"][k] + r["restore"]["launches"][k]
+                                    for r in ranks] for k in fns},
+           "flash_launches_by_rank": [r["serve"]["flash_launches"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-moe mixtral-8x22b (1 layer, full width): {MULTIRANK_WORLD} ranks under "
+          f"{MOE_MESH}, 8 x 512; EP steps 1-2 then expert-TP steps 3-4: "
+          f"{[round(v, 4) for v in losses]} against one process's {[round(v, 4) for v in baseline[:4]]} "
+          f"(gap {gap:.2e}); init and batches equal train-moe's; phase {out['phase_s']:.1f} s "
+          f"(world {wall:.1f} s)")
+    for r in ranks:
+        for key in ("ep", "tp"):
+            for h in r[key]["hist"]:
+                sp = h["split"]
+                print(f"  {key} rank {r['rank']} step {h['step']}: loss {h['loss']:.4f} aux "
+                      f"{h['aux']:.4f}, wall {h['dt']:.2f} s = gather {sp['gather_s']:.2f} + "
+                      f"forward/backward {sp['grad_s']:.2f} + model-group collectives "
+                      f"{sp['tp_s']:.2f} ({sp['tp_bytes'] / 1e9:.3f} GB) + update "
+                      f"{sp['update_s']:.2f}; peak {r[key]['peak_gb']:.2f} GB")
+        rs, sv = r["restore"], r["serve"]
+        print(f"  rank {r['rank']}: save {r['save']['bytes'] / 1e9:.3f} GB in {r['save']['s']:.2f} "
+              f"s ({r['save_launches']}); resume {rs['mode']} {rs['s']:.2f} s "
+              f"({rs['bytes_read'] / 1e9:.3f} GB read; consolidated {rs['consolidated']}; "
+              f"{rs['launches']}); serve {sv['mode']} restore {sv['restore_s']:.2f} s, prefill "
+              f"4x512 {sv['prefill_ms']:.1f} ms ({sv['flash_launches']} flash at 24:4 of 128), "
+              f"decode {sv['decode_ms']:.2f} ms/token, model-group collectives {sv['tp_s']:.2f} s "
+              f"({sv['tp_bytes'] / 1e9:.3f} GB); serve peak {sv['peak_gb']:.2f} GB")
+    return out
+
+
+def multirank_ssm_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank-ssm world (:func:`multirank_rank`'s ``ssm``
+    stage): mamba2-130m at full width and depth, bf16, from seed 0: steps
+    1-2 under ``SSM_MESH["save"]`` by SSM heads (12 of 24 a rank) with each
+    rank's ``int8:b256`` save at step 2; the same ranks resume step 2 under
+    ``SSM_MESH["resume"]`` (RESHARD_STREAM) for steps 3-4; then
+    :func:`rank_serve` of step 2 by heads (DIRECT)."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("mamba2-130m")
+    root = out_dir / "ckpt"
+    b, s = MULTIRANK_BATCH
+
+    def trainer(stage, save_interval):
+        return Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                              mesh_spec_from_string(SSM_MESH[stage]), batch_size=b, seq_len=s,
+                              ckpt_dir=str(root), group=dist.group.WORLD,
+                              policy=CheckpointPolicy(codec=MULTIRANK_CODEC,
+                                                      save_interval=save_interval))
+
+    out: dict = {"rank": rank, "stage": "ssm"}
+    torch.cuda.reset_peak_memory_stats()
+    t = trainer("save", 2)
+    check(t.lm.tp is not None and t.lm.tp.ssm_heads
+          and sorted(n.split(".")[-1] for n in t.lm.tp.gathered) == ["conv_w"],
+          f"multirank-ssm rank {rank}: not by SSM heads (gathered {sorted(t.lm.tp.gathered)})")
+    out["setup_s"] = time.perf_counter() - t_start
+    reset_launches(fns)
+    state, hist = t.run(t.init_state(), 0, 2)  # the main path: 2 steps by heads and the save
+    del state
+    out["save_launches"] = launch_counts(fns)
+    (res,) = t.save_results
+    out["save"] = {"s": res.wall_time_s, "bytes": res.bytes_written, "shards": res.shards_written}
+    out["hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")} for h in hist]
+    t.manager.close()
+    del t
+    torch.cuda.empty_cache()
+    tgt = trainer("resume", 1000)
+    reset_launches(fns)
+    state, info = tgt.init_or_restore()
+    out["restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                      "bytes_read": info.restore_stats.bytes_read, "launches": launch_counts(fns)}
+    state, hist = tgt.run(state, 2, 2)
+    out["hist"] += [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")} for h in hist]
+    tgt.manager.close()
+    del tgt, state
+    torch.cuda.empty_cache()
+    out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["serve"] = rank_serve(torch, dist, cfg, SSM_MESH["save"], root / "step_00000002",
+                              "direct", out_dir, "multirank_ssm", fp32_prefill=True)
+    return out
+
+
+def multirank_ssm_phase(torch, bq_ops) -> dict:
+    """Partitioned Mamba-2 on the one card: mamba2-130m at full width and
+    depth (24 layers, 24 SSM heads of 64, state 128), 8 x 512, bf16.  A
+    one-process baseline (data=1,model=1, steps 1-4 from seed 0); 2 spawned
+    ranks train steps 1-2 under data=1,model=2 by heads (12 a rank; the
+    conv's even channel split out of line with x/B/C), each saving its own
+    ``int8:b256`` shards at step 2, resume step 2 under data=2,model=1
+    (RESHARD_STREAM) for steps 3-4, and serve step 2 by heads (DIRECT: 24
+    SSD launches a rank at H = 12).  One process serves the same step
+    through the SSD kernel (H = 24): the bf16 serve is held to it, which
+    isolates the partitioning), within the larger of ``SERVE_LOGIT_TOL``
+    and twice that process's own bf16 error e (its bf16 prefill logits
+    against its fp32 ones): 24 Mamba-2 layers in bf16 sit ~0.2 from fp32 in
+    one process already (0.246 on the CPU at init), so no bf16 path,
+    partitioned or not, meets 0.1 against another, and two paths each
+    within e of fp32 lie within 2e of each other; and an fp32 prefill of the ranks (the
+    fp32 kernel at H = 12) is held within ``SERVE_FP32_TOL`` of one
+    process's through ``ssd_chunked``, which bounds what partitioning
+    adds.  The gap to one process's bf16 ``ssd_chunked`` is reported beside
+    them.  Returns the phase's measurements."""
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("mamba2-130m")
+    b, s = MULTIRANK_BATCH
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    out_dir = ROOT / "build" / "chip_smoke_multirank_ssm"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    try:
+        base = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                              mesh_spec_from_string("data=1,model=1"), batch_size=b, seq_len=s,
+                              device=torch.device("cuda"))
+        _, hist = base.run(base.init_state(), 0, 4)
+        baseline = [h["loss"] for h in hist]
+        del base, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, wall = run_multirank_world(torch, "ssm", out_dir)
+        step2 = out_dir / "ckpt" / "step_00000002"
+        ranked = torch.load(out_dir / "multirank_ssm_serve.pt")
+        one = one_process_serve(torch, cfg, step2, ranked["seq"], plain=False, fp32_prefill=True)
+        one_plain = one_process_serve(torch, cfg, step2, ranked["seq"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [h["loss"] for h in ranks[0]["hist"]]
+    check(all([h["loss"] for h in r["hist"]] == losses for r in ranks),
+          "multirank-ssm: the ranks report different losses")
+    err32 = (ranked["logits32"] - one["logits32"]).abs().max().item()
+    check(err32 <= SERVE_FP32_TOL, f"multirank-ssm: fp32 prefill logits {err32:.2e} from one "
+                                   f"process's through ssd_chunked (tolerance {SERVE_FP32_TOL})")
+    plain_gap = (ranked["logits"] - one_plain["logits"]).abs().max().item()
+    print(f"multirank-ssm serve: fp32 prefill logits (the fp32 kernel at H = {nh // 2} on 2 ranks) "
+          f"within {err32:.2e} of one process's through ssd_chunked (tolerance "
+          f"{SERVE_FP32_TOL}); bf16 prefill logits {plain_gap:.4f} from one process's through "
+          f"bf16 ssd_chunked (reported, not limited)")
+    gap = max(abs(x - y) for x, y in zip(losses, baseline))
+    check(all(map(math.isfinite, losses)) and gap <= MULTIRANK_TOL,
+          f"multirank-ssm: steps 1-4 {losses} left one process's {baseline}")
+    for r in ranks:
+        rs, sv = r["restore"], r["serve"]
+        check(rs["mode"] == "reshard_stream" and rs["step"] == 2,
+              f"multirank-ssm resume rank {r['rank']}: {rs}")
+        check(r["save_launches"]["quantize"] > 0 and rs["launches"]["dequantize"] > 0,
+              f"multirank-ssm rank {r['rank']}: block-quant launches {r['save_launches']}, "
+              f"{rs['launches']}")
+        check(sv["mode"] == "direct" and sv["ssm_heads_local"] and sv["flash_launches"] == 0
+              and sv["ssd_launches"] == cfg.num_layers
+              and set(map(tuple, sv["ssd_heads"])) == {("bfloat16", nh // 2)},
+              f"multirank-ssm serve rank {r['rank']}: {sv['mode']}, {sv['ssd_launches']} SSD "
+              f"launches at {set(map(tuple, sv['ssd_heads']))}")
+    own = (one["logits"] - one["logits32"]).abs().max().item()  # one process's bf16 error
+    ranked_own = (ranked["logits"] - one["logits32"]).abs().max().item()
+    tol = max(SERVE_LOGIT_TOL, 2 * own)
+    print(f"multirank-ssm serve: bf16 prefill logits from one process's fp32 ones: one "
+          f"process's {own:.4f}, the ranks' {ranked_own:.4f}; the bf16 limit {tol:.4f}")
+    held = hold_serve(torch, "multirank-ssm serve", ranked, one, tol=tol)
+    launches = {k: sum(r["save_launches"][k] + r["restore"]["launches"][k] for r in ranks)
+                for k in fns}
+    out = {"model": "mamba2-130m, full width and depth", "meshes": SSM_MESH,
+           "batch": list(MULTIRANK_BATCH), "baseline": baseline, "losses": losses, "gap": gap,
+           "fp32_prefill_max_abs_err": err32, "fp32_tolerance": SERVE_FP32_TOL,
+           "bf16_gap_to_plain_ssd": plain_gap, "one_process_bf16_error": own,
+           "ranks_bf16_error": ranked_own,
+           "steps": [{"rank": r["rank"], **h} for r in ranks for h in r["hist"]],
+           "save": [{"rank": r["rank"], **r["save"]} for r in ranks],
+           "restore": [{"rank": r["rank"], **r["restore"]} for r in ranks],
+           "serve": [{"rank": r["rank"], **r["serve"]} for r in ranks],
+           "held": held, "one_process_serve_mode": one["mode"],
+           "train_peak_gb": [r["train_peak_gb"] for r in ranks],
+           "setup_s": [r["setup_s"] for r in ranks], "world_s": wall, "launches": launches,
+           "ssd_launches_by_rank": [r["serve"]["ssd_launches"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-ssm mamba2-130m: {MULTIRANK_WORLD} ranks, steps 1-2 under "
+          f"{SSM_MESH['save']} by SSM heads ({nh // 2} of {nh} a rank), 3-4 under "
+          f"{SSM_MESH['resume']}: {[round(v, 4) for v in losses]} against one process's "
+          f"{[round(v, 4) for v in baseline]} (gap {gap:.2e}); phase {out['phase_s']:.1f} s "
+          f"(world {wall:.1f} s)")
+    for r in ranks:
+        for h in r["hist"]:
+            sp = h["split"]
+            tp = (f" + model-group collectives {sp['tp_s']:.2f} ({sp['tp_bytes'] / 1e9:.3f} GB)"
+                  if "tp_s" in sp else "")
+            print(f"  rank {r['rank']} step {h['step']}: loss {h['loss']:.4f}, wall {h['dt']:.2f} s "
+                  f"= gather {sp['gather_s']:.2f} + forward/backward {sp['grad_s']:.2f}{tp} + "
+                  f"all-reduce {sp['all_reduce_s']:.2f} + update {sp['update_s']:.2f}")
+        rs, sv = r["restore"], r["serve"]
+        print(f"  rank {r['rank']}: save {r['save']['bytes'] / 1e9:.3f} GB in {r['save']['s']:.2f} "
+              f"s ({r['save_launches']}); resume {rs['mode']} {rs['s']:.2f} s ({rs['launches']}); "
+              f"serve {sv['mode']} prefill 4x512 {sv['prefill_ms']:.1f} ms ({sv['ssd_launches']} "
+              f"SSD launches at H = {nh // 2}), decode {sv['decode_ms']:.2f} ms/token, "
+              f"model-group collectives {sv['tp_s']:.2f} s ({sv['tp_bytes'] / 1e9:.3f} GB); "
+              f"train peak {r['train_peak_gb']:.2f} GB")
+    return out
+
+
 def host_available_gb() -> float:
     """MemAvailable of this host (``/proc/meminfo``), in GB."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -5755,7 +6274,7 @@ def multirank_hot_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start
 
     dev = torch.device("cuda")
     world = dist.group.WORLD
-    cfg, tcfg, parallel = get_config("smollm-360m"), TrainConfig(seed=0), ParallelismConfig()
+    cfg, tcfg, parallel = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS), TrainConfig(seed=0), ParallelismConfig()
     b, s = MULTIRANK_BATCH
     root = out_dir / "hot"
     flash = {"flash_attention": fa_ops.flash_attention}
@@ -6020,7 +6539,7 @@ def multirank_hot_phase(torch, bq_ops) -> dict:
           f"multirank-hot: the replica differs from the gathered state in "
           f"{r0['replica_bits_differing']} elements")
     pf = r0["replica_prefill"]
-    check(pf["flash_launches"] == 32 and pf["finite"],
+    check(pf["flash_launches"] == CUT_LAYERS and pf["finite"],
           f"multirank-hot: the replica's prefill: {pf}")
     for r in ranks:
         rs = r["reshard"]
@@ -6136,13 +6655,18 @@ def main() -> int:
     clock.mark("multirank-tp")
     multi_hot = multirank_hot_phase(torch, bq_ops)
     clock.mark("multirank-hot")
+    multi_ssm = multirank_ssm_phase(torch, bq_ops)
+    clock.mark("multirank-ssm")
     ssd = ssd_phase(torch, F, ssd_ops, ssd_ref)
     ssd_jamba = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 128, 128, 1, 128), 256,
                            "jamba-1.5-large-398b")
+    ssd_rank = ssd_layout(torch, F, ssd_ops, ssd_ref, (4, 512, 12, 64, 1, 128), 256,
+                          "mamba2-130m rank of model=2")
     clock.mark("kernel ssd_scan")
     counters = {"flash_attention": ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     runs = serve_phase(torch, "smollm-360m", counters,
-                       {"flash_attention": 32, "ssd_scan": 0}, cpu_len=48, via_ucp=True)
+                       {"flash_attention": CUT_LAYERS, "ssd_scan": 0}, cpu_len=48, via_ucp=True,
+                       layers=CUT_LAYERS)
     clock.mark("serve smollm-360m")
     ssm_runs = serve_phase(torch, "mamba2-130m", counters,
                            {"flash_attention": 0, "ssd_scan": 24}, cpu_len=512)
@@ -6170,6 +6694,8 @@ def main() -> int:
     clock.mark("serve-moe")
     moe_train = moe_train_phase(torch, bq_ops, bq_ref, counters)
     clock.mark("train-moe")
+    multi_moe = multirank_moe_phase(torch, bq_ops, moe_train["baseline"])
+    clock.mark("multirank-moe")
     reset_launches(bq_counters)
     mla = mla_serve_phase(torch, counters, kernel)
     clock.mark("serve-mla")
@@ -6305,6 +6831,14 @@ def main() -> int:
         "multirank_launches": multi["flash_launches_by_rank"],
         "multirank_tp_launches": multi_tp["flash_launches_by_rank"],
         "multirank_hot_launches": multi_hot["flash_launches"],
+        "multirank_moe_launches": multi_moe["flash_launches_by_rank"],
+        "multirank_ssm_launches": multi_ssm["serve"][0]["flash_launches"]
+        + multi_ssm["serve"][1]["flash_launches"],
+        **{f"mixtral_rank_{key}": k["mixtral_rank"][key] for key in (
+            "ms", "event_ms", "library_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+        "mixtral_rank_shape": "bf16 B=4 S=512 24:4 heads of 128, causal (mixtral-8x22b: a "
+                              "rank's heads at model=2)",
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -6352,6 +6886,9 @@ def main() -> int:
         rows[-1]["multirank_launches"] = multi["launches"][which]
         rows[-1]["multirank_tp_launches"] = multi_tp["launches"][which]
         rows[-1]["multirank_hot_launches"] = multi_hot["launches"][which]
+        rows[-1]["multirank_moe_launches"] = multi_moe["launches"][which]
+        rows[-1]["multirank_moe_launches_by_rank"] = multi_moe["launches_by_rank"][which]
+        rows[-1]["multirank_ssm_launches"] = multi_ssm["launches"][which]
         rows[-1]["multirank_hot_launches_by_drain"] = {
             k: v[which] for k, v in multi_hot["launches_by_drain"].items()}
         rows[-1]["multirank_launches_by_phase"] = {k: v[which]
@@ -6387,6 +6924,12 @@ def main() -> int:
         "vlm_launches": vlm["launches"]["ssd_scan"],
         "encdec_launches": encdec["launches"]["ssd_scan"],
         "train_encdec_launches": train_encdec_kernels["ssd_scan"],
+        "multirank_ssm_launches": multi_ssm["ssd_launches_by_rank"],
+        "multirank_moe_launches": sum(r["ssd_launches"] for r in multi_moe["serve"]),
+        **{f"mamba2_rank_{key}": ssd_rank[key] for key in (
+            "ms", "event_ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "mamba2_rank_shape": "bf16 B=4 S=512 H=12 P=64 G=1 N=128 chunk 256 (mamba2-130m: a "
+                             "rank's heads at model=2)",
     })
     print(json.dumps({"io": {"serve smollm-360m": runs["io"], "train smollm-360m": train["io"],
                              "train delta": train["delta"], "train gc under pin": train["gc"],
@@ -6433,6 +6976,8 @@ def main() -> int:
     print(json.dumps({"multirank": multi}))
     print(json.dumps({"multirank_tp": multi_tp}))
     print(json.dumps({"multirank_hot": multi_hot}))
+    print(json.dumps({"multirank_moe": multi_moe}))
+    print(json.dumps({"multirank_ssm": multi_ssm}))
     print(json.dumps({"phase_seconds": clock.seconds,
                       "total_s": time.perf_counter() - clock.start}))
     print(json.dumps({"kernels": rows}))

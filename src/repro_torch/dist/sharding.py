@@ -531,12 +531,21 @@ def gather_shard(local: torch.Tensor, layout: ShardLayout, target: ShardLayout, 
     ``layout`` that the subgroup ``group`` (mesh ranks ``members``, in its
     rank order) holds: one all-gather, or none where the members hold one
     fragment.  Every target element must lie in some member's shard (the
-    data subgroup's shards cover the rank's model shard)."""
+    data subgroup's shards cover the rank's model shard).  Where the rank's
+    shard already is the target (no data axis splits it), ``local`` itself."""
+    if _same_region(layout, target, rank):
+        return local
     out = torch.zeros(target.local_shape, dtype=local.dtype, device=local.device)
     if group is None or len({layout.fragment_id[r] for r in members}) == 1:
         place(out, target.entries[rank], local, layout.entries[rank])
         return out
     return _gather_into(out, target.entries[rank], local, layout, group, members)
+
+
+def _same_region(a: ShardLayout, b: ShardLayout, rank: int) -> bool:
+    """Whether ``rank``'s local tensors of two layouts hold the same elements
+    in the same places."""
+    return a.local_shape == b.local_shape and a.entries[rank] == b.entries[rank]
 
 
 def gather_full(local: torch.Tensor, layout: ShardLayout, group,

@@ -1,12 +1,13 @@
-"""Tensor- and sequence-parallel compute of the dense family over the model
-subgroup of a multi-rank run.
+"""Tensor- and sequence-parallel compute over the model subgroup of a
+multi-rank run: the dense, MoE (without MLA), SSM and hybrid families.
 
 The reference installs ``make_sharder`` as ``LM.shard`` and constrains a few
 activations (``repro/models/lm.py:430,438,508,542,613,635``); GSPMD then
 partitions every product from the weights' and the activations' shardings.
 Eager PyTorch has no partitioner, so the port's layer code computes its part
 itself, by the same decisions (:func:`~repro_torch.dist.sharding.make_sharder`
-of the logical shapes), with Megatron's patterns written out here as
+of the logical shapes, the plan's ``moe_mode`` and its split of each
+weight), with Megatron's patterns written out here as
 ``torch.autograd.Function``s on the model subgroup: each one's backward is
 the transpose of its forward (all-gather ↔ reduce-scatter, identity ↔
 all-reduce).
@@ -32,7 +33,33 @@ over the model axis and a prompt or batch of ``S`` positions:
   rows only, against keys ``[0, (c+1)·S/m)`` at ``q_offset = c·S/m``; its
   output stays its rows.  Without it attention is replicated;
 * **the MLP**: column-parallel on the rank's ``mlp`` columns, row-parallel
-  down-projection;
+  down-projection (also a MoE layer's shared experts);
+* **MoE**: every model rank routes all of its data replica's tokens, so
+  its slots and drops are one process's.  Under ``moe_mode == "ep"`` the
+  rank holds experts ``[c·E/m, (c+1)·E/m)`` and dispatches only their
+  slots; under ``"tp"`` it holds every expert's ``expert_mlp`` slice (the
+  columns of ``we_gate``/``we_up``, the rows of ``we_down``).  Either way its
+  combined output is partial and the row-parallel reduce sums it (no
+  all-to-all: the tokens are replicated over model).  The load-balancing
+  loss is computed whole on every rank, so its gradient is divided by ``m``
+  there (:meth:`TensorParallel.shared`): the sums over the model subgroup
+  that complete the combine path's partial gradients then count it once;
+* **Mamba-2, SSM heads divide** (:attr:`TensorParallel.ssm_heads`): the rank
+  computes heads ``[c·nh/m, (c+1)·nh/m)``.  Its ``in_proj`` shard is
+  ``z_c | x_c | B_c | C_c | dt_c`` (each sub-fragment split evenly, so
+  ``B_c`` and ``C_c`` are slices of the state dim, one group); the depthwise conv runs
+  on those channels with the gathered ``conv_w`` (``[conv_dim, K]``, a few
+  kB a layer), then B and C are all-gathered (every head reads all of
+  them); the SSD scan runs on the rank's heads; ``ssm_norm``, an RMS norm
+  over the whole ``d_inner``, all-reduces its sum of squares; ``out_proj``
+  is row-parallel.  The decode cache holds the rank's ``cache_pspecs``
+  shard: ``h`` its heads, ``conv`` an even slice of the concatenated
+  ``[x|B|C]`` channels, which is not the rank's sub-fragments, so prefill
+  and decode all-gather those K-1 rows and cut the rank's slice;
+* **Mamba-2, SSM heads do not divide**: ``in_proj``, ``conv_w`` and
+  ``out_proj`` are gathered and the block is computed whole (over the
+  gathered rows under sequence parallelism, each rank keeping its own), its
+  decode state whole on every rank;
 * **the vocabulary**: a masked lookup in the rank's rows of ``embed``,
   vocab-sharded logits, and a vocab-parallel cross-entropy (max and
   sum-of-exp all-reduced, each label's logit from its owner, padding
@@ -42,7 +69,12 @@ Gradients: a weight split over the model axis and computed locally needs no
 exchange; a gathered weight's and a replicated weight's (the norms') are
 complete on every rank without sequence parallelism and partial with it,
 and are then summed over the model subgroup (:meth:`TensorParallel.reduce_grads`).
-The seconds and bytes of every model-subgroup collective accumulate in
+Some are partial even without it (:attr:`TensorParallel.partial`): the
+router's (each rank's combine path reaches it through its own experts'
+outputs) and, where the SSM heads divide, Mamba's per-head ``a_log``,
+``d_skip`` and ``dt_bias``, ``ssm_norm``, ``conv_b`` and the gathered
+``conv_w`` (each rank reads its heads' or channels' part).  The seconds and
+bytes of every model-subgroup collective accumulate in
 :attr:`TensorParallel.seconds` and :attr:`TensorParallel.bytes`.
 
 Every collective is a gloo or NCCL ``all_reduce`` or ``all_gather``: a
@@ -61,22 +93,49 @@ from repro_torch.configs.base import ModelConfig, ParallelismConfig
 from repro_torch.core.layout import MeshSpec, slice_shard
 from repro_torch.core.patterns import StateKind
 
-from .sharding import RankGroups, gather_full, gather_shard, make_sharder, model_layout, place
+from .sharding import (
+    RankGroups, _moe_mode, _same_region, gather_full, gather_shard, make_sharder, model_layout,
+    place,
+)
 
 __all__ = ["TensorParallel", "partitions"]
 
 _ATTN = ("wqkv", "wo")  # the attention weights, gathered where heads do not divide
+_MAMBA = ("in_proj", "conv_w", "out_proj")  # Mamba's split weights, gathered where heads do not
+# replicated weights a rank reads in part where the SSM heads divide (and
+# conv_w, gathered there): their gradients are partial on every rank
+_SSM_PARTIAL = ("a_log", "d_skip", "dt_bias", "ssm_norm", "conv_b", "conv_w")
 
 
 def partitions(cfg: ModelConfig, parallel: ParallelismConfig, mesh: MeshSpec) -> bool:
-    """Whether a run computes partitioned over the model axis: the dense
-    family under tensor parallelism, with a model axis of size > 1 and no
-    pipe axis over 1.  Every other family (and any mesh with a pipe axis)
-    gathers the whole model on each rank (ROADMAP item 11b.4)."""
+    """Whether a run computes partitioned over the model axis: under tensor
+    parallelism, with a model axis of size > 1 and no pipe axis over 1, the
+    dense, MoE without MLA, SSM and hybrid families, where a MoE layer's
+    experts split (expert parallelism, or each expert's width divides the
+    model size; shared experts' width too).  MLA, vlm and encdec, and any
+    mesh with a pipe axis or tensor parallelism off, gather the whole model
+    on each rank (ROADMAP item 11b.4)."""
     m = mesh.axis_size(parallel.model_axis) if mesh.has_axis(parallel.model_axis) else 1
     pipe = (mesh.axis_size(parallel.pipe_axis)
             if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else 1)
-    return cfg.family == "dense" and parallel.tensor_parallel and m > 1 and pipe == 1
+    if not (parallel.tensor_parallel and m > 1 and pipe == 1):
+        return False
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.mla is not None:
+        return False
+    moe = cfg.moe
+    if moe is None:
+        return True
+    ep = _moe_mode(cfg, parallel, mesh) == "ep"
+    return (ep or moe.d_ff_expert % m == 0) and moe.num_shared * moe.d_ff_expert % m == 0
+
+
+def _ssm_split(cfg: ModelConfig, m: int) -> bool:
+    """Whether a rank computes whole SSM heads of its own: the heads and the
+    state dim divide ``m``, with one B/C group that every head reads (as in
+    every config; more groups take the gathered path)."""
+    s = cfg.ssm
+    return (s is not None and s.n_groups == 1 and s.n_heads(cfg.d_model) % m == 0
+            and s.d_state % m == 0)
 
 
 class TensorParallel:
@@ -105,13 +164,19 @@ class TensorParallel:
         # whole (the kv heads divide too); else it computes by rows
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         self.heads = hq % self.size == 0 and hkv % self.size == 0
+        # Mamba-2 by heads (cfg.num_heads is not the SSM's: mamba2's is 1)
+        self.ssm_heads = _ssm_split(cfg, self.size)
+        self.moe_mode = ranks.plan.moe_mode  # "ep": experts over model; "tp": their width
         specs = ranks.plan.param_specs
         self.layouts = {n: model_layout(s, StateKind.FP32, mesh, self.axis)
                         for n, s in specs.items()}
         self.split = {n: any(self.axis in d.axes for d in s.states[StateKind.FP32].dims)
                       for n, s in specs.items()}
-        self.gathered = frozenset(
-            n for n in specs if self.split[n] and not self.heads and n.split(".")[-1] in _ATTN)
+        leaf = {n: n.split(".")[-1] for n in specs}
+        gather = ((() if self.heads else _ATTN) + (("conv_w",) if self.ssm_heads else _MAMBA))
+        self.gathered = frozenset(n for n in specs if self.split[n] and leaf[n] in gather)
+        partial = ("router",) + (_SSM_PARTIAL if self.ssm_heads else ())
+        self.partial = frozenset(n for n in specs if leaf[n] in partial)
         self.sp = False  # the last forward's decision (decide_sp)
         self.seconds = 0.0
         self.bytes = 0
@@ -133,6 +198,14 @@ class TensorParallel:
 
     def vocab_start(self, local_vocab: int) -> int:
         return self.coord * local_vocab
+
+    def experts(self, e: int) -> tuple[int, int] | None:
+        """The experts ``[lo, hi)`` whose weights this rank holds under
+        expert parallelism; None where it holds a slice of every expert."""
+        if self.moe_mode != "ep":
+            return None
+        n = e // self.size
+        return self.coord * n, (self.coord + 1) * n
 
     # -- the collectives (timed) ---------------------------------------------
 
@@ -168,9 +241,14 @@ class TensorParallel:
 
     # -- the autograd patterns ----------------------------------------------
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' tensors concatenated along ``dim``; backward
+        reduce-scatters (each rank's use of the whole is partial)."""
+        return _Gather.apply(x, self, dim)
+
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
         """[b, s/m, ...] → [b, s, ...]; backward reduce-scatters."""
-        return _GatherSeq.apply(x, self)
+        return self.gather(x, 1)
 
     def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
         """Partial [b, s, ...] → the sum's rows of this rank; backward gathers."""
@@ -184,6 +262,33 @@ class TensorParallel:
         """The identity; backward all-reduces (the input of a column-parallel
         product under a replicated stream)."""
         return _Copy.apply(x, self)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial → the sum, which each rank reads for its own part;
+        backward sums too."""
+        return _PSum.apply(x, self)
+
+    def shared(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity on a value every model rank computes whole from
+        replicated inputs; backward divides by ``m``, because the gradients
+        it reaches are summed over the model subgroup (the MoE aux loss)."""
+        return _Shared.apply(x, self)
+
+    def regroup(self, t: torch.Tensor, widths: tuple[int, ...]) -> list[torch.Tensor]:
+        """A last dim all-gathered from per-rank ``[p0_c | p1_c | ...]`` (of
+        ``widths``) → the parts whole, ``[p0_0 … p0_{m-1}]``, ``[p1_0 …]``, …"""
+        per = t.unflatten(-1, (self.size, sum(widths)))
+        return [q.flatten(-2) for q in per.split(list(widths), -1)]
+
+    def rms_norm(self, y: torch.Tensor, scale: torch.Tensor, eps: float,
+                 width: int) -> torch.Tensor:
+        """``models.common.rms_norm`` over a last dim of ``width`` whose
+        ``y.shape[-1]`` channels this rank holds (``scale`` its slice): the
+        sum of squares all-reduced, the reference's cast order."""
+        dt = y.dtype
+        yf = y.float()
+        var = self.psum(yf.square().sum(-1, keepdim=True)) / width
+        return (yf * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
 
     def enter(self, h: torch.Tensor, sp: bool) -> torch.Tensor:
         """A block's normed input as its partitioned products read it."""
@@ -251,17 +356,16 @@ class TensorParallel:
 
     def reduce_grads(self, grads: dict) -> dict:
         """Gradients of the weights the rank computed from (``weights()``'s
-        second tree) → its model-local gradients: a gathered weight's summed
-        (partial where the forward sharded the stream, :attr:`sp`) and cut to
-        the rank's shard, a replicated weight's summed when partial."""
+        second tree) → its model-local gradients: a gathered or replicated
+        weight's summed where it is partial (every one where the forward
+        sharded the stream, :attr:`sp`; those of :attr:`partial` always), a
+        gathered weight's then cut to the rank's shard."""
         out, sp = {}, self.sp
         for n, g in grads.items():
-            if n in self.gathered:
-                if sp:
-                    self.all_reduce(g)
-                g = slice_shard(g, self.layouts[n], self.ranks.rank)
-            elif sp and not self.split[n]:
+            if n in self.partial or (sp and (n in self.gathered or not self.split[n])):
                 self.all_reduce(g)
+            if n in self.gathered:
+                g = slice_shard(g, self.layouts[n], self.ranks.rank)
             out[n] = g
         return out
 
@@ -275,7 +379,10 @@ class TensorParallel:
 
     def relayout(self, name: str, t: torch.Tensor, layout) -> torch.Tensor:
         """A model-local tensor cut to the rank's shard of ``layout`` (which
-        the model shard covers: the moments' regions, the weights')."""
+        the model shard covers: the moments' regions, the weights'); ``t``
+        itself where that shard is the model-local tensor."""
+        if _same_region(self.layouts[name], layout, self.ranks.rank):
+            return t
         out = torch.zeros(layout.local_shape, dtype=t.dtype, device=t.device)
         place(out, layout.entries[self.ranks.rank], t, self.layouts[name].entries[self.ranks.rank])
         return out
@@ -287,15 +394,15 @@ class TensorParallel:
         return cfg.num_heads, cfg.num_kv_heads
 
 
-class _GatherSeq(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return tp.all_gather(x, 1)
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.tp.reduce_scatter(g, 1), None
+        return ctx.tp.reduce_scatter(g, ctx.dim), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -328,6 +435,28 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.tp.all_reduce(g.clone()), None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.clone()), None
+
+
+class _Shared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.size = tp.size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
 
 
 class _VocabCrossEntropy(torch.autograd.Function):

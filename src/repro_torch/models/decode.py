@@ -29,14 +29,16 @@ Unlike the reference, which returns a new cache, the port writes the
 buffers in place (it saves a full copy of the cache per step) and returns
 the same dict with ``pos`` advanced.
 
-Under a rank context (``lm.tp``, the dense family of a multi-rank run) the
-cache holds the rank's shard of each entry by
+Under a rank context (``lm.tp``: the dense, MoE, SSM or hybrid family of
+a multi-rank run) the cache holds the rank's shard of each entry by
 :func:`~repro_torch.dist.sharding.cache_pspecs` (its rows of the batch, its
-KV heads where they divide the model axis, else the whole cache), prefill
-computes partitioned as the training forward does, a decode step (one
-position, which does not split) all-reduces after the row-parallel
-products, and both return the rank's vocab shard of the logits
-(:func:`greedy` picks across the shards).
+KV heads where they divide the model axis, else the whole cache; a Mamba
+layer's ``h`` its SSM heads and ``conv`` an even slice of its channels,
+whole where the SSM heads do not divide and the block computes from the
+gathered weights), prefill computes partitioned as the training forward
+does, a decode step (one position, which does not split) all-reduces after
+the row-parallel products, and both return the rank's vocab shard of the
+logits (:func:`greedy` picks across the shards).
 """
 
 from __future__ import annotations
@@ -128,8 +130,11 @@ def _rank_cache(lm: LM, batch: int, cache_len: int, device) -> dict:
     out = {}
     for path, t in flatten_with_paths(shapes).items():
         spec = specs[path]
-        if path.split(".")[-1] in ("k", "v") and spec[2] is not None:
+        name = path.split(".")[-1]
+        if name in ("k", "v") and spec[2] is not None:
             raise NotImplementedError(f"{path}: a cache sharded over its length (shard_cache_seq)")
+        if name in ("h", "conv") and not tp.ssm_heads:  # the whole block on every rank
+            spec = type(spec)(*(None if e == tp.axis else e for e in spec))
         out[path] = torch.full(local_shape(tuple(t.shape), spec, tp.mesh),
                                -1 if path.endswith("slot_pos") else 0, dtype=t.dtype,
                                device=device)
@@ -280,6 +285,8 @@ def _cross_decode(lm: LM, p, entry, x, *, gated: bool) -> torch.Tensor:
 
 def _mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
     """One Mamba-2 layer of a decode step; updates ``h`` and ``conv`` in place."""
+    if lm.tp is not None and lm.tp.ssm_heads:
+        return _tp_mamba_decode(lm, p, entry, x)
     cfg, s = lm.cfg, lm.cfg.ssm
     b = x.shape[0]
     di = s.d_inner(cfg.d_model)
@@ -303,6 +310,38 @@ def _mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
     y = y.reshape(b, di) * F.silu(z)
     y = rms_norm(y, p["ssm_norm"], cfg.norm_eps)
     return x + (y @ p["out_proj"].to(y.dtype))[:, None]
+
+
+def _tp_mamba_decode(lm: LM, p, entry, x) -> torch.Tensor:
+    """One Mamba-2 layer of a decode step on the rank's SSM heads (as
+    :meth:`LM._tp_mixer`): the token's pre-conv ``x|B|C`` and the conv
+    window are all-gathered whole (the rank's ``conv`` entry is an even slice
+    of the channels, not its heads'), convolved with the gathered ``conv_w``,
+    and the rank's slice of the new window written back; the rank's heads
+    of ``h`` step; ``out_proj``'s rows give a partial output, all-reduced."""
+    tp, cfg, s = lm.tp, lm.cfg, lm.cfg.ssm
+    b = x.shape[0]
+    m, c = tp.size, tp.coord
+    di, nh, n = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.d_state  # one group
+    dil, nhl, gnl, w = di // m, nh // m, n // m, (di + 2 * n) // m
+    h = tp.copy(rms_norm(x, p["norm"], cfg.norm_eps))
+    zxbcdt = (h @ p["in_proj"].to(h.dtype))[:, 0]
+    z, xbc, dt = torch.split(zxbcdt, [dil, dil + 2 * gnl, nhl], dim=-1)
+    tok = torch.cat(tp.regroup(tp.all_gather(xbc, -1), (dil, gnl, gnl)), -1)
+    conv_new, post = conv_decode_step(tp.all_gather(entry["conv"], -1), tok,
+                                      p["conv_w"].to(h.dtype), p["conv_b"].to(h.dtype))
+    entry["conv"].copy_(conv_new[..., c * w:(c + 1) * w])
+    xin = post[:, c * dil:(c + 1) * dil].reshape(b, nhl, s.head_dim)
+    bmat, cmat = post[:, di:di + n].reshape(b, 1, n), post[:, di + n:].reshape(b, 1, n)
+    heads = slice(c * nhl, (c + 1) * nhl)
+    dt = F.softplus(dt.float() + p["dt_bias"][heads])
+    a = -torch.exp(p["a_log"][heads].float())
+    h_new, y = ssm_decode_step(entry["h"], xin, dt, a, bmat, cmat)
+    entry["h"].copy_(h_new)
+    y = y + xin * p["d_skip"][heads].to(y.dtype)[None, :, None]
+    y = y.reshape(b, dil) * F.silu(z)
+    y = tp.rms_norm(y, p["ssm_norm"][c * dil:(c + 1) * dil], cfg.norm_eps, di)
+    return x + tp.reduce(y @ p["out_proj"].to(y.dtype))[:, None]
 
 
 def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):

@@ -49,14 +49,17 @@ to the loss it differentiates and reports the bare cross-entropy as
 ``LM.shard`` is the reference's activation hook (identity by default),
 called at the reference's call sites (``repro/models/lm.py:430,438,508,542,
 613,635``).  It cannot partition work in eager PyTorch, so a multi-rank run
-of the dense family installs a rank context instead, ``LM.tp``
+of the dense, MoE (without MLA), SSM or hybrid family installs a rank
+context instead, ``LM.tp``
 (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`): at the same
 call sites the layer code computes only its part, by the sharder's
-decisions for the logical shapes (vocab-parallel embedding and logits,
-column/row-parallel MLP and attention, the residual stream's rows under
-sequence parallelism).  Under it :meth:`LM.forward` returns the rank's
-vocab shard of the logits and :meth:`LM.loss_fn` the vocab-parallel
-cross-entropy, equal on every model rank.
+decisions for the logical shapes and the plan's split of the weights
+(vocab-parallel embedding and logits, column/row-parallel MLP and
+attention, a MoE layer's experts or their slices, Mamba-2 by SSM heads,
+the residual stream's rows under sequence parallelism).  Under it
+:meth:`LM.forward` returns the rank's vocab shard of the logits and
+:meth:`LM.loss_fn` the vocab-parallel cross-entropy, equal on every model
+rank.
 """
 
 from __future__ import annotations
@@ -532,39 +535,75 @@ class LM:
     def _mlp(self, p, x, *, moe: bool = False, sp: bool = False):
         """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and
         the layer's aux loss (a float32 zero unless it is a MoE layer).
-        Under a rank context the dense MLP is column-parallel on the rank's
-        ``mlp`` columns and row-parallel after; ``sp``: the stream is
+        Under a rank context the dense MLP (and a MoE layer's shared
+        experts) is column-parallel on the rank's ``mlp`` columns and
+        row-parallel after; a MoE layer routes every token of the data
+        replica and runs the rank's experts (EP) or its slice of each
+        expert's width (expert-TP), its output partial, its aux loss whole
+        with the gradient shared over the model ranks; ``sp``: the stream is
         seq-sharded."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if tp is not None:
+            h = tp.enter(h, sp)
         if moe:
             # one token group a sequence unless moe_groups says otherwise, as the reference
             out, aux = moe_block(h, p["router"], p["we_gate"], p["we_up"], p["we_down"], cfg.moe,
-                                 groups=self.moe_groups)
+                                 groups=self.moe_groups,
+                                 owned=None if tp is None else tp.experts(cfg.moe.num_experts))
             if cfg.moe.num_shared:
                 out = out + swiglu(h, p["ws_gate"], p["ws_up"], p["ws_down"])
-            return x + self.shard(out, ("batch", "seq", "embed")), aux
-        if self.tp is not None:
-            h = self.tp.enter(h, sp)
-        if "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
+            if tp is not None:
+                aux = tp.shared(aux)
+        elif "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
             out = F.gelu(h @ p["w1"].to(h.dtype), approximate="tanh") @ p["w2"].to(h.dtype)
         else:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        if self.tp is not None:
-            return x + self.tp.leave(out, sp), aux
+        if tp is not None:
+            return x + tp.leave(out, sp), aux
         return x + self.shard(out, ("batch", "seq", "embed")), aux
 
     def _mamba(self, p, x, *, return_state: bool = False):
         """Pre-norm Mamba-2 block on one layer's params; returns the residual
         sum and, with ``return_state``, (h_final [B,H,P,N] float32, the last
-        K-1 pre-conv ``xbc`` rows) for the decode cache."""
+        K-1 pre-conv ``xbc`` rows) for the decode cache.  Under a rank
+        context: by the rank's SSM heads (:meth:`_tp_mixer`, its state the
+        rank's cache shard) where they divide, else the whole block from the
+        gathered weights (over the gathered rows under sequence
+        parallelism, the rank's rows kept)."""
+        tp = self.tp
+        h = rms_norm(x, p["norm"], self.cfg.norm_eps)
+        if tp is not None and tp.ssm_heads:
+            out, state = self._tp_mixer(p, tp.enter(h, tp.sp), return_state)
+            return x + tp.leave(out, tp.sp), state
+        if tp is not None and tp.sp:
+            out, state = self._mixer(p, tp.gather_seq(h), return_state)
+            lo, hi = tp.rows(out.shape[1])
+            return x + out[:, lo:hi], state
+        out, state = self._mixer(p, h, return_state)
+        return x + self.shard(out, ("batch", "seq", "embed")), state
+
+    def _scan(self, xin, dt, a, bmat, cmat):
+        """The SSD scan at the config's chunk (halved until it divides the
+        length): the kernel on CUDA tensors with no gradient recorded, else
+        ``ssd_chunked``."""
+        sl = xin.shape[1]
+        chunk = min(self.cfg.ssm.chunk, sl)
+        while sl % chunk:
+            chunk //= 2
+        if xin.is_cuda and not records_grad(xin, dt, a, bmat, cmat):
+            return ssd_scan(xin, dt, a, bmat, cmat, chunk=chunk)
+        return ssd_chunked(xin, dt, a, bmat, cmat, chunk=chunk)
+
+    def _mixer(self, p, h, return_state: bool):
+        """The Mamba-2 mixer on the normed input h [B,S,d]: (the output
+        projection, the decode state or None)."""
         cfg, s = self.cfg, self.cfg.ssm
-        b, sl, d = x.shape
+        b, sl, d = h.shape
         di = s.d_inner(d)
         nh = s.n_heads(d)
         g, n = s.n_groups, s.d_state
-        h = rms_norm(x, p["norm"], cfg.norm_eps)
         zxbcdt = h @ p["in_proj"].to(h.dtype)
         z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
         conv_tail = xbc[:, -(s.d_conv - 1):, :] if return_state else None
@@ -577,19 +616,50 @@ class LM:
         cmat = cmat.reshape(b, sl, g, n)
         dt = F.softplus(dt.float() + p["dt_bias"])
         a = -torch.exp(p["a_log"].float())
-        chunk = min(s.chunk, sl)
-        while sl % chunk:
-            chunk //= 2
-        if xin.is_cuda and not records_grad(xin, dt, a, bmat, cmat):
-            y, h_final = ssd_scan(xin, dt, a, bmat, cmat, chunk=chunk)
-        else:
-            y, h_final = ssd_chunked(xin, dt, a, bmat, cmat, chunk=chunk)
+        y, h_final = self._scan(xin, dt, a, bmat, cmat)
         y = y + xin * p["d_skip"].to(y.dtype)[None, None, :, None]
         y = y.reshape(b, sl, di) * F.silu(z)
         y = rms_norm(y, p["ssm_norm"], cfg.norm_eps)
-        out = y @ p["out_proj"].to(y.dtype)
-        return x + self.shard(out, ("batch", "seq", "embed")), (
-            (h_final, conv_tail) if return_state else None)
+        return y @ p["out_proj"].to(y.dtype), (h_final, conv_tail) if return_state else None
+
+    def _tp_mixer(self, p, h, return_state: bool):
+        """The Mamba-2 mixer on this rank's SSM heads ``[c·nh/m, (c+1)·nh/m)``
+        (:mod:`repro_torch.dist.tensor_parallel`) from the entered input h
+        [B,S,d]: ``in_proj``'s shard gives ``z_c | x_c | B_c | C_c | dt_c``;
+        the depthwise conv runs on the x_c, B_c, C_c channels with the
+        gathered ``conv_w``; B and C are all-gathered; the scan, the skip,
+        the gate and ``ssm_norm`` (its sum of squares all-reduced) run on
+        the rank's heads; ``out_proj``'s rows give a partial output.  The
+        state: the rank's heads of h_final, and of the last K-1 pre-conv
+        rows the cache's even slice of the ``[x|B|C]`` channels (all-gathered,
+        then cut)."""
+        tp, cfg, s = self.tp, self.cfg, self.cfg.ssm
+        b, sl, d = h.shape
+        m, c = tp.size, tp.coord
+        di, nh, n = s.d_inner(d), s.n_heads(d), s.d_state  # one group (tp.ssm_heads)
+        dil, nhl, gnl = di // m, nh // m, n // m
+        zxbcdt = h @ p["in_proj"].to(h.dtype)
+        z, xbc, dt = torch.split(zxbcdt, [dil, dil + 2 * gnl, nhl], dim=-1)
+        conv_tail = None
+        if return_state:
+            w = (di + 2 * n) // m
+            tail = tp.regroup(tp.all_gather(xbc[:, -(s.d_conv - 1):], -1), (dil, gnl, gnl))
+            conv_tail = torch.cat(tail, -1)[..., c * w:(c + 1) * w]
+        ar = functools.partial(torch.arange, device=h.device)
+        chans = torch.cat([ar(c * dil, (c + 1) * dil), ar(di + c * gnl, di + (c + 1) * gnl),
+                           ar(di + n + c * gnl, di + n + (c + 1) * gnl)])
+        xbc = causal_conv1d(xbc, p["conv_w"].to(h.dtype)[chans], p["conv_b"].to(h.dtype)[chans])
+        xin, bc = torch.split(xbc, [dil, 2 * gnl], dim=-1)
+        bmat, cmat = (t.reshape(b, sl, 1, n) for t in tp.regroup(tp.gather(bc, -1), (gnl, gnl)))
+        heads = slice(c * nhl, (c + 1) * nhl)
+        xin = xin.reshape(b, sl, nhl, s.head_dim)
+        dt = F.softplus(dt.float() + p["dt_bias"][heads])
+        a = -torch.exp(p["a_log"][heads].float())
+        y, h_final = self._scan(xin, dt, a, bmat, cmat)
+        y = y + xin * p["d_skip"][heads].to(y.dtype)[None, None, :, None]
+        y = y.reshape(b, sl, dil) * F.silu(z)
+        y = tp.rms_norm(y, p["ssm_norm"][c * dil:(c + 1) * dil], cfg.norm_eps, di)
+        return y @ p["out_proj"].to(y.dtype), (h_final, conv_tail) if return_state else None
 
     def _layer(self, ld: LayerDef, window, positions, keys, x, source, *values):
         """One pre-norm layer (attention, Mamba-2 or gated cross-attention;

@@ -18,6 +18,15 @@ matrix products over the expert dim, ``torch.bmm``), :func:`combine` and
 :func:`aux_loss` (Switch/GShard load balancing from the one-hot *before*
 the capacity drop).  The JAX package runs no Pallas kernel here, so
 neither does the port.
+
+Under expert parallelism a rank holds the weights of experts ``[lo, hi)``
+only (``moe_block(..., owned=(lo, hi))``): it routes every token as one
+process does, then dispatches and combines only its experts' slots, so its
+output is its experts' share of the sum (the row-parallel reduce of
+:mod:`repro_torch.dist.tensor_parallel` adds the shares).  Under expert-TP
+it holds a slice of every expert's width and calls ``moe_block`` as one
+process does: the products over that slice give a partial output the same
+way.
 """
 
 from __future__ import annotations
@@ -127,10 +136,14 @@ def moe_block(
     cfg: MoEConfig,
     *,
     groups: int | None = None,
+    owned: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed SwiGLU experts.
 
-    x [B,S,d]; router_w [d,E]; w_gate/w_up [E,d,f]; w_down [E,f,d].
+    x [B,S,d]; router_w [d,E]; w_gate/w_up [E,d,f]; w_down [E,f,d], or with
+    ``owned = (lo, hi)`` the weights of experts ``[lo, hi)`` only, whose
+    slots alone are dispatched and combined (every other slot reads the
+    sink's zero row).
     Returns (out [B,S,d] in x's dtype, the aux loss as a float32 scalar)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -144,6 +157,12 @@ def moe_block(
     xg = x.reshape(g, t, d)
     probs, gate_k, idx_k = route(xg, router_w, k)
     slot, keep, oh = assign_slots(idx_k, e, c)
-    y = experts(dispatch(xg, slot, e, c), w_gate, w_up, w_down)
+    held = e
+    if owned is not None:
+        lo, hi = owned
+        held = hi - lo
+        mine = (slot >= lo * c) & (slot < hi * c)
+        slot = torch.where(mine, slot - lo * c, torch.full_like(slot, held * c))
+    y = experts(dispatch(xg, slot, held, c), w_gate, w_up, w_down)
     out = combine(y, slot, gate_k * keep)
     return out.reshape(b, s, d), aux_loss(oh, probs).float()

@@ -47,7 +47,8 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
   serving shapes, bf16 (y 5e-2) and fp32 (y 5e-4/1e-4), h_final 5e-3 as
   there; strided views; chunks that are not powers of two (40, 96) and the
   model's halving down to 4 (S = 500); P = 128 (two column tiles; also at
-  jamba's N = 128 and chunk 256), G = 2
+  jamba's N = 128 and chunk 256), one rank's 12 of mamba2-130m's 24 heads
+  at model=2 (B 4, S 512: the partitioned prefill's launch), G = 2
   and 3, N = 100 (8-byte row copies); reduced mamba2 on the card (one
   kernel launch per layer) against the CPU path in float32; the fp32
   kernel against a float64 recurrence at the B = 1 serving shape, no
@@ -638,6 +639,7 @@ def _ssd_close(got, want, dtype):
     (1, 256, 2, 128, 1, 64, 64),
     (2, 192, 6, 32, 3, 64, 96),
     (1, 512, 4, 128, 1, 128, 256),  # jamba's Mamba-2: P = N = 128, chunk 256
+    (4, 512, 12, 64, 1, 128, 256),  # mamba2-130m's rank at model=2: 12 of its 24 heads
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
     x, dt, a, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed=s + n)

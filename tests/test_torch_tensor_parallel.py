@@ -6,7 +6,9 @@ on the CPU, held against the JAX package and the single-device port.
   decode step, traced once per arch with a recording hook) equals the one
   the reference's ``make_sharder`` builds on an ``AbstractMesh`` (captured
   by replacing ``jax.lax.with_sharding_constraint``), for reduced smollm,
-  gpt3, gemma3 and minitron at data=1,model=2, data=2,model=2 and
+  gpt3, gemma3, minitron, mixtral, mamba2 and jamba (the MoE, SSM and
+  hybrid families compute partitioned too, ``tests/test_torch_tensor_
+  parallel_families.py``) at data=1,model=2, data=2,model=2 and
   data=1,model=4 with tensor and sequence parallelism each on and off; and
   the port's ``LM.shard`` hook sees the reference's (shape, axes) set;
 * ``cache_pspecs``: equal to the reference's on both packages' ``init_cache``
@@ -413,7 +415,8 @@ def _ranks(worlds, name):
 # make_sharder and the hook's call sites
 
 
-SHARDER_ARCHS = ["smollm-360m", "gpt3-350m", "gemma3-12b", "minitron-8b"]
+SHARDER_ARCHS = ["smollm-360m", "gpt3-350m", "gemma3-12b", "minitron-8b", "mixtral-8x22b",
+                 "mamba2-130m", "jamba-1.5-large-398b"]
 SHARDER_MESHES = [{"data": 1, "model": 2}, {"data": 2, "model": 2}, {"data": 1, "model": 4}]
 FLAGS = [(True, True), (True, False), (False, True), (False, False)]
 _CALLS: dict = {}
@@ -466,7 +469,8 @@ def test_make_sharder_equals_the_reference_at_every_call_site(monkeypatch, arch,
     monkeypatch.setattr(jax.lax, "with_sharding_constraint",
                         lambda x, sharding: got.append(tuple(sharding.spec)) or x)
     calls = reference_calls(arch)
-    assert len(calls) >= 6  # q, the block outputs, the embedded input, logits, decode
+    # q, the block outputs, the embedded input, logits, decode (mamba2 has no q)
+    assert len(calls) >= (4 if arch == "mamba2-130m" else 6)
     claimed = 0
     for shape, axes in calls:
         got.clear()
@@ -499,6 +503,10 @@ def test_port_calls_the_hook_at_the_reference_call_sites(arch):
 
 
 def test_partitioned_compute_is_the_dense_family_under_tp():
+    """Under tensor parallelism with a model axis: the dense family, MoE
+    without MLA (EP and expert-TP), the SSM and the hybrid families
+    partition; MLA, vlm and encdec keep the gathered path (as does any run
+    with TP off, no model axis or a pipe axis)."""
     m22 = MeshSpec.from_dict({"data": 2, "model": 2})
     par = TC.ParallelismConfig()
     assert partitions(TC.get_config("smollm-360m"), par, m22)
@@ -508,8 +516,13 @@ def test_partitioned_compute_is_the_dense_family_under_tp():
         {"data": 4, "model": 1}))
     assert not partitions(TC.get_config("smollm-360m"), TC.ParallelismConfig(pipe_axis="pipe"),
                           MeshSpec.from_dict({"pipe": 2, "data": 1, "model": 2}))
-    for arch in ("mixtral-8x22b", "deepseek-v2-236b", "mamba2-130m", "jamba-1.5-large-398b",
-                 "llama-3.2-vision-11b", "whisper-tiny"):
+    for arch in ("mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b"):
+        assert partitions(TC.get_config(arch), par, m22), arch
+        assert partitions(TC.get_config(arch), TC.ParallelismConfig(expert_parallel=False),
+                          m22), arch
+        assert not partitions(TC.get_config(arch), TC.ParallelismConfig(tensor_parallel=False),
+                              m22), arch
+    for arch in ("deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny"):
         assert not partitions(TC.get_config(arch), par, m22), arch
 
 
