@@ -62,7 +62,7 @@ nothing falls back to the CPU or to a plain version):
 4a. collectives — 2 ranks as 2 spawned processes on the one card, a gloo
    group with CUDA tensors (NCCL puts no two ranks on one device) through
    a ``FileStore``; each builds smollm-360m at full width, its depth cut
-   from 32 to 8 layers (``CUT_LAYERS``), from seed 0 (the same
+   from 32 to 2 layers (``CUT_LAYERS``), from seed 0 (the same
    weights on both, checked), bf16 compute and remat, and runs 4 steps of
    a fresh 4 x 512 batch from ``train/data.py`` (seeded by step and rank),
    forward and backward with no update, every parameter's fp32 gradient
@@ -78,7 +78,7 @@ nothing falls back to the CPU or to a plain version):
    0 within 240 s.  Prints the wire bytes and ratio, each step's sync wall,
    its all-reduce share (s, GB/s) and the kernels' CUDA-event ms;
 4b. multirank — the multi-rank training runtime on smollm-360m at full
-   width, its depth cut from 32 to 8 layers (``CUT_LAYERS``; 8 x 512
+   width, its depth cut from 32 to 2 layers (``CUT_LAYERS``; 8 x 512
    global, bf16 compute): a one-process baseline (data=1,model=1, 4
    steps); 2 spawned ranks on the one card (gloo with CUDA tensors, a
    ``FileStore``) through ``Trainer.create(..., group=)`` under
@@ -106,8 +106,9 @@ nothing falls back to the CPU or to a plain version):
    backward, all-reduce (s, GB/s) and update, the gather through gloo's
    CUDA ``all_gather`` beside one through pinned host buffers, each rank's
    save and restore (s, bytes, shard bytes) and peak card memory;
-4c. multirank-tp — tensor-parallel compute on full gpt3-350m (24 layers,
-   d 1024, 16:16 heads of 64, d_ff 4096, vocab 51200; no cut), 8 x 512,
+4c. multirank-tp — tensor-parallel compute on gpt3-350m at full width (d
+   1024, 16:16 heads of 64, d_ff 4096, vocab 51200), ``TP_LAYERS`` (12) of
+   its 24 layers, 8 x 512,
    bf16 compute, remat full: a one-process baseline (steps 1-2
    from seed 0), then 2 spawned ranks under data=1,model=2 computing by
    heads (8:8 a rank, nothing gathered over the model axis) for steps
@@ -117,7 +118,7 @@ nothing falls back to the CPU or to a plain version):
    held against one process's serve as in 4b; losses within 2e-2 of the
    baseline;
 4d. multirank-hot — the hot tier, delta drains and fan-out under a group:
-   2 spawned ranks of smollm-360m at full width, ``CUT_LAYERS`` (8) of its
+   2 spawned ranks of smollm-360m at full width, ``CUT_LAYERS`` (2) of its
    32 layers (8 x 512, bf16) under
    data=2,model=1 with ``CheckpointPolicy(codec="int8:b256",
    hot_interval=2, disk_interval=2, hot_replication=1, save_mode="delta",
@@ -166,7 +167,7 @@ nothing falls back to the CPU or to a plain version):
    ``ssd_ref`` in float64, the bf16 kernel's device and event times, the
    fp32 kernel's device time, the plain version's event time and the bound;
    and the same at one rank's heads of mamba2-130m under model=2 (H = 12);
-6. serve, smollm-360m at full width cut to ``CUT_LAYERS`` (8 of 32) layers,
+6. serve, smollm-360m at full width cut to ``CUT_LAYERS`` (2 of 32) layers,
    and then full mamba2-130m (24
    layers), each: init on the card from a seeded generator;
    ``write_distributed`` of the weights under data=2,model=2; weights-only
@@ -201,7 +202,7 @@ nothing falls back to the CPU or to a plain version):
    bf16 (head dim 256), its wall and profiled device time; the card's fp32
    logits against the port's CPU path within 1e-3 over 32 tokens, every
    launch there fp32;
-8. train, smollm-360m at full width, its depth cut from 32 to 8 layers
+8. train, smollm-360m at full width, its depth cut from 32 to 2 layers
    (``CUT_LAYERS``: the smoke's time budget), seed 0, batch 8 × seq 512
    from ``train/data.py``, bf16 compute, fp32 master and moments, TF32 off:
    6 uninterrupted steps (the baseline); separately 3 steps under a
@@ -338,6 +339,13 @@ nothing falls back to the CPU or to a plain version):
    (the logits of the tokens no flip reaches within 1e-3), and 16 decode
    steps after a kernel prefill against the same steps after a plain one
    (the logits of every step and row routed alike within 1e-3);
+   multirank-mla, MLA by heads: the freed parent spawns 2 ranks under
+   data=1,model=2 that restore serve-mla's checkpoint (kept for them:
+   RESHARD_STREAM, each its own shards, 64 of 128 heads and 80 of 160
+   experts a rank, the latent projections whole) and serve 4 x 512
+   prompts: exactly 2 bf16 flash launches a rank at 64:64 of (192, 128),
+   16 decode steps through the whole latent cache, the same experts on
+   both ranks, held against one process's serve of the same step;
 11. serve-hybrid: jamba-1.5-large-398b at full width: d 8192, 64:8 heads
    of 128, Mamba-2 with d_inner 16384 in 128 heads of 128, state 128,
    conv 4, 16 experts top-2 of d_ff 24576, dense d_ff 24576, vocab 65536;
@@ -384,7 +392,12 @@ nothing falls back to the CPU or to a plain version):
    512 x 1600) and 16 greedy decode steps, equal tokens; the profiled
    prefill and decode.  In fp32 on the card: the kernel path against the
    plain attention through the prefill and 16 decode steps, logits within
-   1e-3; another source moves the logits;
+   1e-3; another source moves the logits; multirank-vlm, cross-attention
+   by heads: 2 ranks restore serve-vlm's checkpoint under data=1,model=2
+   (RESHARD_STREAM) and serve 4 x 512 prompts with the serve CLI's source
+   embeds: exactly 5 bf16 flash launches a rank at 16:4 of 128 (4 causal
+   512 x 512, 1 non-causal 512 x 1600), 16 decode steps, held against one
+   process's serve;
 14. serve-encdec: whisper-tiny at full width and depth (d 384, 6 heads of
    64, 4 encoder layers over 1500 frames, 4 decoder layers, vocab 51865
    padded to 51866 under data=2,model=2; 56,355,840 params), the same way
@@ -399,7 +412,16 @@ nothing falls back to the CPU or to a plain version):
    data=1,model=1 (RESHARD_STREAM) and data=2,model=2 (DIRECT) with every
    shard digest checked (the vocab-padded ones of the RESHARD_STREAM
    resume, which lacks the padding rows, against the DIRECT resume), 3
-   steps each, within 2e-2 of the baseline while saving;
+   steps each, within 2e-2 of the baseline while saving; multirank-encdec,
+   the encoder-decoder by heads: the same config and batches on 2 ranks
+   under data=1,model=2 (3:3 heads of 64 a rank; the encoder's 1500 frames
+   and the decoder's 448 positions each seq-sharded), steps 1-2 with each
+   rank's ``int8:b256`` save, steps 3-4 resumed under data=2,model=1
+   (RESHARD_STREAM, each rank's state bit-equal to its shard of a
+   one-process restore), losses within 2e-2 of train-encdec's baseline
+   (the ranks' init shards and batches equal to its), then a DIRECT serve
+   of step 2 by heads: 4 x 432 prompts, exactly 12 bf16 flash launches a
+   rank at 3:3 of 64, 16 decode steps, held against one process's serve;
 16. the I/O line (JSON: the walls above), the kernels line (JSON: each row
    names its variants; ``ms`` is the profiler's device time per launch,
    with ``event_ms`` beside it; rows 2-3 add the general kernel's device
@@ -438,7 +460,13 @@ nothing falls back to the CPU or to a plain version):
    ``multirank_launches`` and ``multirank_launches_by_phase``, the flash
    row its serve's launches by rank), the ``multirank_tp`` line (JSON: phase
    4c; every row adds ``multirank_tp_launches``), the flash row's
-   ``q_offset`` shape (``qoff_*``), the ``phase_seconds`` line (JSON: each
+   ``q_offset`` shape (``qoff_*``), the ``multirank_mla``,
+   ``multirank_vlm`` and ``multirank_encdec`` lines (JSON: each rank's
+   steps split into ``tp_s`` and bytes, ``grad_s`` and update, saves,
+   restores, prefill and decode times, flash launches and shapes, peak
+   card memory; the flash row adds their launches by rank and the per-rank
+   shapes ``deepseek_rank_*``, ``vlm_rank_*``, ``whisper_rank_*``, the
+   block-quant rows ``multirank_encdec_launches``), the ``phase_seconds`` line (JSON: each
    phase's wall, the smoke's budget), the card line, then the result line
    (JSON, last).
 """
@@ -487,8 +515,10 @@ TRACES = 5
 # limit (train, collectives), and 1,054 s with the multirank-hot stage
 # (multirank); then serve smollm-360m, fanout and multirank-hot too, for the
 # multirank-moe and multirank-ssm stages (their 66 s and the mixtral ranks'
-# run would take the smoke past 1,200 s)
-CUT_LAYERS = 8
+# run would take the smoke past 1,200 s); then all six to 4, when the
+# multirank-mla, -vlm and -encdec stages took the smoke to 1,155 s, and to 2
+# (with multirank-tp's gpt3-350m to ``TP_LAYERS``) at 1,176 s
+CUT_LAYERS = 2
 # What device_ms timed by CUDA events because every trace lost records.
 EVENT_TIMED: list[str] = []
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
@@ -910,6 +940,14 @@ def kernel_phase(torch, F, kernel, ops, ref):
     # a rank's heads of mixtral-8x22b at model=2 (the multirank-moe serve)
     mixtral_rank = head_layout(torch, F, kernel, ops, ref, hq=24, hkv=4, d=128, long=None,
                                label="mixtral-8x22b rank of model=2")
+    # a rank's heads at model=2 of the partitioned MLA, vlm and encdec serves
+    deepseek_rank = head_layout(torch, F, kernel, ops, ref, hq=64, hkv=64, d=192, dv=128,
+                                long=None, label="deepseek-v2-236b MLA rank of model=2")
+    vlm_rank = head_layout(torch, F, kernel, ops, ref, hq=16, hkv=4, d=128, long=None, s=512,
+                           skv=1600, causal=False,
+                           label="llama-3.2-vision-11b cross, rank of model=2")
+    whisper_rank = head_layout(torch, F, kernel, ops, ref, hq=3, hkv=3, d=64, long=None, s=1500,
+                               causal=False, label="whisper-tiny encoder, rank of model=2")
     # cross-attention: k and v of their own length, with no mask
     vlm_cross = head_layout(torch, F, kernel, ops, ref, hq=32, hkv=8, d=128, long=None,
                             s=512, skv=1600, causal=False, label="llama-3.2-vision-11b cross")
@@ -925,6 +963,7 @@ def kernel_phase(torch, F, kernel, ops, ref):
     qoff = q_offset_rows(torch, F, kernel, ops, ref)
     return dict(ms=ms, event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst,
                 d256=d256, d128=d128, d192=d192, jamba=jamba, mixtral_rank=mixtral_rank,
+                deepseek_rank=deepseek_rank, vlm_rank=vlm_rank, whisper_rank=whisper_rank,
                 vlm_cross=vlm_cross,
                 vlm_self=vlm_self, encdec_encoder=enc, encdec_self=enc_self,
                 encdec_cross=enc_cross,
@@ -3980,7 +4019,9 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
     cache, the same tokens, the profiled prefill and decode).  Then in fp32
     on the card: the kernel path against the plain attention, by routing
     (``routing_check``), and 16 decode steps after a kernel prefill against
-    the same steps after a plain prefill (:func:`decode_check`)."""
+    the same steps after a plain prefill (:func:`decode_check`).  The
+    checkpoint stays for the multirank-mla stage: its step directory is the
+    record's ``step_dir``, for the caller to remove."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4034,15 +4075,11 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
     prompts = torch.randint(0, cfg.vocab_size, (4, 512),
                             generator=torch.Generator().manual_seed(6)).to(dev)
     saved = flatten_with_paths(params)
-    try:
-        # the fp32 weights alone (a serving checkpoint: 21.4 GB)
-        step_dir, save = save_weights(torch, "deepseek", cfg, src_plan, saved, root,
-                                      default_workers())
-        out = serve_restores(torch, "deepseek", cfg, plan_for, step_dir, saved, prompts, counters,
-                             kernel, per_prefill, on_run=on_run)
-        out["save"] = save
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # the fp32 weights alone (a serving checkpoint: 21.4 GB)
+    step_dir, save = save_weights(torch, "deepseek", cfg, src_plan, saved, root, default_workers())
+    out = serve_restores(torch, "deepseek", cfg, plan_for, step_dir, saved, prompts, counters,
+                         kernel, per_prefill, on_run=on_run)
+    out["save"] = save
 
     # Right by the repo's own means, in fp32 on the card: the kernel path
     # against the plain path, by the experts chosen, then through decode.
@@ -4053,6 +4090,7 @@ def mla_serve_phase(torch, counters: dict, kernel, layers: int = 2):
     check(shapes.shapes == [("float32", *pair)] * layers, f"deepseek fp32 flash {shapes.shapes}")
     out["decode_check"] = decode_check(torch, flm, params, prompts, counters, lm_mod,
                                        full_attention, layers, "deepseek", routed=True)
+    out["step_dir"] = step_dir
     return out
 
 
@@ -4542,7 +4580,8 @@ def cross_serve_phase(torch, counters: dict, kernel, *, arch: str, layers: int |
     same tokens; the profiled prefill and decode).  Then in fp32 on the
     card: the kernel path against the plain attention through the prefill
     and 16 decode steps (:func:`decode_check`); and another source moves
-    the logits."""
+    the logits.  The checkpoint stays for a multi-rank stage: its step
+    directory is the record's ``step_dir``, for the caller to remove."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4606,15 +4645,12 @@ def cross_serve_phase(torch, counters: dict, kernel, *, arch: str, layers: int |
                             generator=torch.Generator().manual_seed(6)).to(dev)
     src = draw_source_embeds(cfg, 4, 7, dev)  # the serve CLI's draw: bf16, from the seed
     saved = flatten_with_paths(params)
-    try:
-        step_dir, save = save_weights(torch, label, cfg, src_plan, saved, root, default_workers())
-        out = {"source_shape": list(src.shape)}
-        out.update(serve_restores(torch, label, cfg, plan_for, step_dir, saved, prompts,
-                                  counters, kernel, per_prefill, source_embeds=src,
-                                  cache_len=cache_len, on_run=on_run))
-        out["save"] = save
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    step_dir, save = save_weights(torch, label, cfg, src_plan, saved, root, default_workers())
+    out = {"source_shape": list(src.shape)}
+    out.update(serve_restores(torch, label, cfg, plan_for, step_dir, saved, prompts, counters,
+                              kernel, per_prefill, source_embeds=src, cache_len=cache_len,
+                              on_run=on_run))
+    out["save"] = save
     del saved
     torch.cuda.empty_cache()
 
@@ -4641,6 +4677,7 @@ def cross_serve_phase(torch, counters: dict, kernel, *, arch: str, layers: int |
     del params, flm
     gc.collect()
     torch.cuda.empty_cache()
+    out["step_dir"] = step_dir
     return out
 
 
@@ -5002,6 +5039,7 @@ SERVE_LOGIT_TOL = 0.1
 # the plain versions (the card-vs-CPU fp32 logits bound of the serve phases)
 SERVE_FP32_TOL = 1e-3
 TP_ARCH = "gpt3-350m"      # the multirank-tp phase: the paper's Table 4 model, heads 16:16
+TP_LAYERS = 12             # of its 24: cut when the smoke reached 1,176 s (PR 29's proof)
 TP_MESH = "data=1,model=2"
 # The multirank-hot stage: 2 ranks of smollm-360m under data=2,model=1, each
 # holding 4.34 GB a snapshot (its fp32 weights and moments, its buddy's
@@ -5110,18 +5148,27 @@ def gather_routes(torch, dist, plan, local: dict, reps: int = 2) -> dict:
             "bytes": sum(t.numel() * t.element_size() for t in got["staged"].values())}
 
 
-def serve_prompts(torch, cfg, device):
-    """The multi-rank serves' prompts: ``SERVE_BATCH`` tokens from a seed."""
-    return torch.randint(0, cfg.vocab_size, SERVE_BATCH,
-                         generator=torch.Generator().manual_seed(7)).to(device)
+def serve_prompts(torch, cfg, device, prompt_len: int = SERVE_BATCH[1]):
+    """The multi-rank serves' prompts: ``SERVE_BATCH`` rows of
+    ``prompt_len`` tokens from a seed, and for a vlm or encdec config the
+    serve CLI's source embeds from another (the same on every rank)."""
+    from repro_torch.launch.serve import draw_source_embeds
+
+    b = SERVE_BATCH[0]
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt_len),
+                            generator=torch.Generator().manual_seed(7)).to(device)
+    return prompts, draw_source_embeds(cfg, b, 8, device)
 
 
 def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out_dir: Path,
-               label: str, fp32_prefill: bool = False, moment_dtype: str = "float32") -> dict:
+               label: str, fp32_prefill: bool = False, moment_dtype: str = "float32",
+               prompt_len: int = SERVE_BATCH[1]) -> dict:
     """One rank of a multi-rank serve, in a spawned process of a world: the
     serve CLI's path (a rank context over ``mesh_str``, the rank's own
     weight shards restored weights-only, gathered over the data axes once,
-    the weights it does not compute locally over the model axis), bf16;
+    the weights it does not compute locally over the model axis), bf16,
+    on ``prompt_len`` tokens a row (and the source embeds of a vlm or
+    encdec config, :func:`serve_prompts`);
     a warm-up ``generate`` of 2 tokens, then a counted prefill (every flash launch's
     shape, ``q_offset`` and heads recorded, every SSD launch's heads; the
     experts every MoE layer picks, as a digest; its logits gathered over the
@@ -5162,28 +5209,31 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
     del flat
-    prompts = serve_prompts(torch, cfg, dev)
+    prompts, source = serve_prompts(torch, cfg, dev, prompt_len)
     b, s = prompts.shape
     logits32 = None
     if fp32_prefill:
         lm32 = dataclasses.replace(lm, compute_dtype=torch.float32)
         with torch.inference_mode():
             logits32, _ = D.prefill(lm32, unflatten_from_paths(comp),
-                                    D.init_cache(lm32, b, s, device=dev), prompts)
+                                    D.init_cache(lm32, b, s, device=dev), prompts,
+                                    source_embeds=source)
             logits32 = lm.tp.gather_vocab(logits32, cfg.vocab_size).cpu()
     params = lm.registry.cast(unflatten_from_paths(comp), torch.bfloat16)
     del comp
-    generate(lm, params, prompts, 2)  # warm-up: the prefill and a decode step at the timed shapes
+    # warm-up: the prefill and a decode step at the timed shapes
+    generate(lm, params, prompts, 2, source_embeds=source)
     fns = {"flash_attention": fa_ops.flash_attention, "ssd_scan": ssd_ops.ssd_scan}
     reset_launches(fns)
     with (torch.inference_mode(), FlashShapes(fa_kernel) as shapes, SsdHeads(ssd_kernel) as ssd,
           MoeLog(torch) as log):
-        logits, _ = D.prefill(lm, params, D.init_cache(lm, b, s + SERVE_GEN, device=dev), prompts)
+        logits, _ = D.prefill(lm, params, D.init_cache(lm, b, s + SERVE_GEN, device=dev), prompts,
+                              source_embeds=source)
         logits = lm.tp.gather_vocab(logits, cfg.vocab_size)
     counted = launch_counts(fns)
     launches = counted["flash_attention"]
     lm.tp.seconds, lm.tp.bytes = 0.0, 0
-    seq, prefill_s, decode_s = generate(lm, params, prompts, SERVE_GEN)
+    seq, prefill_s, decode_s = generate(lm, params, prompts, SERVE_GEN, source_embeds=source)
     if ranks.rank == 0:
         torch.save({"logits": logits.float().cpu(), "seq": seq.cpu(), "logits32": logits32},
                    out_dir / f"{label}_serve.pt")
@@ -5192,14 +5242,15 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
             "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3 / (SERVE_GEN - 1),
             "tp_s": lm.tp.seconds, "tp_bytes": lm.tp.bytes, "heads_local": lm.tp.heads,
             "gathered": sorted(lm.tp.gathered), "flash_launches": launches,
-            "flash_calls": shapes.calls, "flash_offsets": shapes.offsets,
+            "flash_calls": shapes.calls, "flash_dims": shapes.shapes,
+            "flash_offsets": shapes.offsets,
             "flash_heads": shapes.heads, "ssd_launches": counted["ssd_scan"],
             "ssd_heads": ssd.heads, "ssm_heads_local": lm.tp.ssm_heads,
             "routes": routes_digest(log)}
 
 
 def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
-                      fp32_prefill: bool = False) -> dict:
+                      fp32_prefill: bool = False, prompt_len: int = SERVE_BATCH[1]) -> dict:
     """The same step restored weights-only by one process (data=1,model=1)
     and served in bf16 with the plain attention in place of the flash
     kernel (``full_attention`` on fp32 copies of q, k and v, swapped in as
@@ -5209,7 +5260,8 @@ def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
     serve's tokens ``fed`` [B, SERVE_GEN]: the prefill's logits, and at each
     step its argmax, its top logit and the logit of the fed token; with
     ``fp32_prefill`` also the logits of an fp32 prefill through the plain
-    attention and ``ssd_chunked``."""
+    attention and ``ssd_chunked``; ``prompt_len`` and the source embeds as
+    the multi-rank serve's (:func:`serve_prompts`)."""
     from repro_torch.core.pytree import unflatten_from_paths
     from repro_torch.dist.sharding import make_plan, vocab_multiple
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -5227,7 +5279,7 @@ def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
     par = serving_parallelism(mesh)
     lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
     flat, rp = restore_params(step_dir, make_plan(cfg, lm.registry, par, mesh), dev)
-    prompts = serve_prompts(torch, cfg, dev)
+    prompts, source = serve_prompts(torch, cfg, dev, prompt_len)
     b, s = prompts.shape
     fed = fed.to(dev)
     own, top, at_fed = [], [], []
@@ -5243,14 +5295,15 @@ def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
             lm32 = dataclasses.replace(lm, compute_dtype=torch.float32)
             with torch.inference_mode():
                 logits32 = D.prefill(lm32, unflatten_from_paths(flat),
-                                     D.init_cache(lm32, b, s, device=dev), prompts)[0].cpu()
+                                     D.init_cache(lm32, b, s, device=dev), prompts,
+                                     source_embeds=source)[0].cpu()
         if not plain:
             lm_mod.flash_attention, lm_mod.ssd_scan = kernel_fn, ssd_fn
         params = lm.registry.cast(unflatten_from_paths(flat), torch.bfloat16)
         del flat
         with torch.inference_mode():
             cache = D.init_cache(lm, b, s + SERVE_GEN, device=dev)
-            logits, cache = D.prefill(lm, params, cache, prompts)
+            logits, cache = D.prefill(lm, params, cache, prompts, source_embeds=source)
             first, lg = logits.float().cpu(), logits
             for i in range(SERVE_GEN):
                 lgf = lg.float()
@@ -5332,7 +5385,7 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
     from repro_torch.train.trainer import Trainer, gather_state
 
     t_start = time.perf_counter()
-    if stage == "moe":  # two ranks of mixtral's state on one card: no stranded segments
+    if stage in ("moe", "mla"):  # two ranks of MoE state on one card: no stranded segments
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -5349,7 +5402,8 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
         fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
         out: dict = {"rank": rank, "stage": stage}
         bodies = {"tp": multirank_tp_rank, "hot": multirank_hot_rank, "moe": multirank_moe_rank,
-                  "ssm": multirank_ssm_rank}
+                  "ssm": multirank_ssm_rank, "mla": multirank_serve_rank,
+                  "vlm": multirank_serve_rank, "encdec": multirank_encdec_rank}
         if stage in bodies:
             body = bodies[stage]
             (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
@@ -5700,7 +5754,7 @@ def multirank_tp_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start:
     from repro_torch.launch.mesh import mesh_spec_from_string
     from repro_torch.train.trainer import Trainer
 
-    cfg = get_config(TP_ARCH)
+    cfg = dataclasses.replace(get_config(TP_ARCH), num_layers=TP_LAYERS)
     root = out_dir / "ckpt"
     b, s = MULTIRANK_BATCH
     t = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0), mesh_spec_from_string(TP_MESH),
@@ -5725,15 +5779,15 @@ def multirank_tp_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start:
            "setup_s": t_ready - t_start, "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del state, t
     torch.cuda.empty_cache()
-    out["serve"] = rank_serve(torch, dist, get_config(TP_ARCH), TP_MESH, root / "step_00000002",
-                              "direct", out_dir, "multirank_tp")
+    out["serve"] = rank_serve(torch, dist, cfg, TP_MESH, root / "step_00000002", "direct",
+                              out_dir, "multirank_tp")
     return out
 
 
 def multirank_tp_phase(torch, bq_ops) -> dict:
-    """Tensor-parallel compute on the one card: gpt3-350m at full width (24
-    layers, d 1024, 16:16 heads of 64, d_ff 4096, vocab 51200; no cut), 8 x
-    512 a step, bf16 compute, remat full.  A
+    """Tensor-parallel compute on the one card: gpt3-350m at full width (d
+    1024, 16:16 heads of 64, d_ff 4096, vocab 51200), ``TP_LAYERS`` of its
+    24 layers, 8 x 512 a step, bf16 compute, remat full.  A
     one-process baseline (data=1,model=1, steps 1-2 from seed 0), then 2
     spawned ranks under data=1,model=2 computing by heads (8:8 a rank) for
     steps 1-2, each saving its own ``int8:b256`` shards at step 2, then
@@ -5745,7 +5799,7 @@ def multirank_tp_phase(torch, bq_ops) -> dict:
     from repro_torch.launch.mesh import mesh_spec_from_string
     from repro_torch.train.trainer import Trainer
 
-    cfg = get_config(TP_ARCH)
+    cfg = dataclasses.replace(get_config(TP_ARCH), num_layers=TP_LAYERS)
     b, s = MULTIRANK_BATCH
     out_dir = ROOT / "build" / "chip_smoke_multirank_tp"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -5792,7 +5846,7 @@ def multirank_tp_phase(torch, bq_ops) -> dict:
               f"multirank-tp serve rank {r['rank']}: {sv['flash_launches']} flash launches "
               f"{set(map(tuple, sv['flash_calls']))} heads {set(map(tuple, sv['flash_heads']))}")
     held = hold_serve(torch, "multirank-tp serve", ranked, one)
-    out = {"model": f"{TP_ARCH}, full width and depth", "params": n_params,
+    out = {"model": f"{TP_ARCH}, full width, {TP_LAYERS} of 24 layers", "params": n_params,
            "world": MULTIRANK_WORLD, "mesh": TP_MESH, "batch": list(MULTIRANK_BATCH),
            "baseline": baseline, "baseline_step_s": base_step_s, "losses": losses, "gap": gap,
            "steps": [{"rank": r["rank"], **h} for r in ranks for h in r["hist"]],
@@ -6373,7 +6427,7 @@ def multirank_hot_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start
         out["replica_bits_differing"] = bits_differing(replica.flat_params(),
                                                        flatten_with_paths(full.params), specs)
         params_c = lm11.registry.cast(replica.params, torch.bfloat16)
-        prompts = serve_prompts(torch, cfg, dev)
+        prompts, _ = serve_prompts(torch, cfg, dev)
         cache = D.init_cache(lm11, prompts.shape[0], prompts.shape[1], device=dev)
         reset_launches(flash)
         torch.cuda.synchronize()
@@ -6596,6 +6650,352 @@ def multirank_hot_phase(torch, bq_ops) -> dict:
           f"step {rc['step_after']['step']} loss {rc['step_after']['loss']:.4f}")
     return out
 
+# The partitioned MLA, cross-attention and encoder-decoder stages: 2 ranks
+# under data=1,model=2 on the one card, by heads (deepseek-v2 64 of 128 a
+# rank, llama-vision 16:4 of 32:8, whisper 3:3 of 6:6)
+CROSS_MESH = "data=1,model=2"
+CROSS_JOIN_S = 420          # a world: a restore of half a 21.4 GB checkpoint a rank, a serve
+ENCDEC_RESUME_MESH = "data=2,model=1"
+ENCDEC_BATCH = (8, 448)     # train-encdec's batch: 8 rows of 448 positions, 1500 frames
+ENCDEC_PROMPT = 432         # serve-encdec's prompts
+CROSS_STAGES = {            # stage: (arch, layers or None for the config's depth)
+    "mla": ("deepseek-v2-236b", 2),
+    "vlm": ("llama-3.2-vision-11b", 5),
+    "encdec": ("whisper-tiny", None),
+}
+
+
+def cross_stage_cfg(stage: str):
+    from repro_torch.configs import get_config
+
+    arch, layers = CROSS_STAGES[stage]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def batch_digest(torch, batch: dict) -> str:
+    """A digest of a batch's tokens and, where it has them, its source
+    embeds (float32 bytes)."""
+    h = hashlib.sha256(batch["tokens"].cpu().long().numpy().tobytes())
+    if "source_embeds" in batch:
+        h.update(batch["source_embeds"].cpu().float().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def multirank_serve_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank-mla or multirank-vlm world
+    (:func:`multirank_rank`'s ``mla`` and ``vlm`` stages): :func:`rank_serve`
+    of the serve phase's checkpoint (saved under data=2,model=2, restored
+    under ``CROSS_MESH``: RESHARD_STREAM) by heads, at the prompt length
+    ``spec.json`` names; no block-quant launch (the weights were saved
+    uncoded)."""
+    spec = json.loads((out_dir / "spec.json").read_text())
+    cfg = cross_stage_cfg(spec["stage"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fns)
+    serve = rank_serve(torch, dist, cfg, CROSS_MESH, Path(spec["step_dir"]), "reshard_stream",
+                       out_dir, f"multirank_{spec['stage']}", prompt_len=spec["prompt_len"])
+    serve["block_quant_launches"] = launch_counts(fns)
+    serve["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return {"rank": rank, "stage": spec["stage"], "setup_s": time.perf_counter() - t_start,
+            "serve": serve}
+
+
+def multirank_encdec_rank(torch, dist, rank: int, out_dir: Path, fns: dict,
+                          t_start: float) -> dict:
+    """One rank of the multirank-encdec world (:func:`multirank_rank`'s
+    ``encdec`` stage): whisper-tiny at full width and depth, bf16 compute,
+    fp32 moments, remat full, ``ENCDEC_BATCH`` from seed 0 under
+    ``CROSS_MESH`` (3:3 heads of 64 a rank; the encoder's 1500 frames and
+    the decoder's 448 positions each seq-sharded): its init shards' and
+    batches' digests, steps 1-2 partitioned with each rank's ``int8:b256``
+    save at step 2; the same ranks resume step 2 under
+    ``ENCDEC_RESUME_MESH`` (RESHARD_STREAM, each rank's state bit-equal to
+    its shard of a one-process restore) for steps 3-4; then
+    :func:`rank_serve` of step 2 (DIRECT) by heads."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.configs import ParallelismConfig, TrainConfig
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = cross_stage_cfg("encdec")
+    root = out_dir / "ckpt"
+    b, s = ENCDEC_BATCH
+
+    def trainer(mesh_str, save_interval):
+        return Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                              mesh_spec_from_string(mesh_str), batch_size=b, seq_len=s,
+                              ckpt_dir=str(root), group=dist.group.WORLD,
+                              policy=CheckpointPolicy(codec=MULTIRANK_CODEC,
+                                                      save_interval=save_interval))
+
+    def record(hist):
+        return [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")} for h in hist]
+
+    out: dict = {"rank": rank, "stage": "encdec"}
+    torch.cuda.reset_peak_memory_stats()
+    t = trainer(CROSS_MESH, 2)
+    tp = t.lm.tp
+    check(tp is not None and tp.heads and not tp.gathered,
+          f"multirank-encdec rank {rank}: not partitioned by heads")
+    box = [t.init_state()]
+    out["init_bits"] = {n: bits_sum(torch, x) for n, x in flatten_with_paths(box[0].params).items()}
+    out["batches"] = [batch_digest(torch, t.batch(i)) for i in range(4)]
+    out["setup_s"] = time.perf_counter() - t_start
+    reset_launches(fns)
+    state, hist = t.run(box.pop(), 0, 2)  # the main path: 2 partitioned steps and the save
+    del state
+    out["save_launches"] = launch_counts(fns)
+    (res,) = t.save_results
+    out["save"] = {"s": res.wall_time_s, "bytes": res.bytes_written, "shards": res.shards_written}
+    out["tp"] = {"hist": record(hist), "sp": tp.sp, "enc_sp": tp.enc_sp,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    t.manager.close()
+    del t, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tgt = trainer(ENCDEC_RESUME_MESH, 1000)
+    check(tgt.lm.tp is None, f"multirank-encdec rank {rank}: a model axis of 1 partitions")
+    reset_launches(fns)
+    state, info = tgt.init_or_restore()
+    out["restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                      "bytes_read": info.restore_stats.bytes_read,
+                      "launches": launch_counts(fns)}
+    whole, _ = CheckpointManager(str(root), tgt.plan, policy=CheckpointPolicy(
+        save_interval=1000, async_save=False)).restore(tgt.device)
+    diff = 0
+    for kind, tree, want in ((StateKind.FP32, state.params, whole.params),
+                             (StateKind.EXP_AVG, state.exp_avg, whole.exp_avg),
+                             (StateKind.EXP_AVG_SQ, state.exp_avg_sq, whole.exp_avg_sq)):
+        want = flatten_with_paths(want)
+        for n, got in flatten_with_paths(tree).items():
+            cut = slice_shard(want[n], tgt.plan.param_specs[n].layout_for(kind, tgt.mesh), rank)
+            diff += int((got.view(torch.int32) != cut.view(torch.int32)).sum())
+    out["restore"]["bits_differing"] = diff
+    del whole, want, cut
+    box = [state]
+    del state
+    reset_launches(fns)
+    state, hist = tgt.run(box.pop(), 2, 2)  # steps 3-4 under data parallelism; no save
+    del state
+    out["dp"] = {"hist": record(hist), "launches": launch_counts(fns),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    tgt.manager.close()
+    del tgt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fns)
+    out["serve"] = rank_serve(torch, dist, cfg, CROSS_MESH, root / "step_00000002", "direct",
+                              out_dir, "multirank_encdec", prompt_len=ENCDEC_PROMPT)
+    out["serve"]["block_quant_launches"] = launch_counts(fns)
+    out["serve"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def check_rank_serve(label: str, sv: dict, rank: int, expect: str, want_calls: list,
+                     want_heads: tuple, want_dims: tuple) -> None:
+    """A rank's serve by heads: the restore's mode, exactly the flash
+    launches ``want_calls`` (dtype, Sq, Skv, causal) at ``want_heads`` and
+    (D, Dv) ``want_dims``, nothing gathered over the model axis."""
+    check(sv["mode"] == expect, f"{label} serve rank {rank}: {sv['mode']}, want {expect}")
+    check(sv["heads_local"] and not sv["gathered"],
+          f"{label} serve rank {rank}: not by heads (gathered {sv['gathered']})")
+    calls = [tuple(c) for c in sv["flash_calls"]]
+    check(sv["flash_launches"] == len(want_calls) and calls == [tuple(c) for c in want_calls],
+          f"{label} serve rank {rank}: {sv['flash_launches']} flash launches {calls}, want "
+          f"{want_calls}")
+    check(set(map(tuple, sv["flash_heads"])) == {want_heads}
+          and set(map(tuple, sv["flash_dims"])) == {("bfloat16", *want_dims)},
+          f"{label} serve rank {rank}: flash heads {set(map(tuple, sv['flash_heads']))}, "
+          f"(dtype, D, Dv) {set(map(tuple, sv['flash_dims']))}")
+
+
+def print_rank_serve(label: str, r: dict, sv: dict, prompt: str) -> None:
+    print(f"  {label} rank {r['rank']}: serve {sv['mode']} restore {sv['restore_s']:.2f} s "
+          f"({sv['shard_gb']:.3f} GB of fp32 shards; consolidated {sv['consolidated']}), "
+          f"prefill {prompt} {sv['prefill_ms']:.1f} ms ({sv['flash_launches']} flash launches at "
+          f"{sorted(set(map(tuple, sv['flash_heads'])))} heads), decode {sv['decode_ms']:.2f} "
+          f"ms/token, model-group collectives {sv['tp_s']:.2f} s "
+          f"({sv['tp_bytes'] / 1e9:.3f} GB); peak {sv['peak_gb']:.2f} GB")
+
+
+def multirank_serve_phase(torch, stage: str, step_dir: Path, prompt_len: int,
+                          want_calls: list, want_heads: tuple, want_dims: tuple) -> dict:
+    """Partitioned serving by heads on the one card, from a serve phase's
+    checkpoint (``step_dir``, saved under data=2,model=2 and kept for this
+    stage): 2 spawned ranks under ``CROSS_MESH`` restore it (RESHARD_STREAM,
+    each its own shards) and serve 4 x ``prompt_len`` prompts (and the
+    serve CLI's source embeds) through :func:`rank_serve`: a counted
+    prefill whose flash launches must be ``want_calls`` at ``want_heads``
+    and (D, Dv) ``want_dims`` a rank, 16 decode steps; a MoE config's ranks
+    route alike; then one process serves the same step through the plain
+    attention, fed the ranks' tokens (:func:`hold_serve`).  The parent's
+    trees are freed before the ranks start."""
+    cfg = cross_stage_cfg(stage)
+    label = f"multirank-{stage}"
+    out_dir = ROOT / "build" / f"chip_smoke_multirank_{stage}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    (out_dir / "spec.json").write_text(json.dumps({"stage": stage, "step_dir": str(step_dir),
+                                                   "prompt_len": prompt_len}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    try:
+        ranks, wall = run_multirank_world(torch, stage, out_dir, join_s=CROSS_JOIN_S)
+        ranked = torch.load(out_dir / f"multirank_{stage}_serve.pt")
+        one = one_process_serve(torch, cfg, step_dir, ranked["seq"], prompt_len=prompt_len)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in ranks:
+        sv = r["serve"]
+        check_rank_serve(label, sv, r["rank"], "reshard_stream", want_calls, want_heads, want_dims)
+        check(sv["block_quant_launches"] == {"quantize": 0, "dequantize": 0},
+              f"{label} rank {r['rank']}: block-quant launches {sv['block_quant_launches']}")
+    if cfg.moe is not None:
+        check(ranks[0]["serve"]["routes"] == ranks[1]["serve"]["routes"],
+              f"{label} serve: the ranks routed apart")
+    held = hold_serve(torch, f"{label} serve", ranked, one)
+    out = {"model": f"{cfg.name}, full width, {cfg.num_layers} layers", "mesh": CROSS_MESH,
+           "prompts": [SERVE_BATCH[0], prompt_len],
+           "serve": [{"rank": r["rank"], **r["serve"]} for r in ranks],
+           "held": held, "one_process_serve_mode": one["mode"],
+           "setup_s": [r["setup_s"] for r in ranks], "world_s": wall,
+           "flash_launches_by_rank": [r["serve"]["flash_launches"] for r in ranks],
+           "peak_gb": [r["serve"]["peak_gb"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"{label} {cfg.name} ({cfg.num_layers} layers, full width): {MULTIRANK_WORLD} ranks "
+          f"under {CROSS_MESH} by heads, {want_heads[0]}:{want_heads[1]} a rank; phase "
+          f"{out['phase_s']:.1f} s (world {wall:.1f} s)")
+    for r in ranks:
+        print_rank_serve(label, r, r["serve"], f"{SERVE_BATCH[0]}x{prompt_len}")
+    return out
+
+
+def multirank_encdec_phase(torch, bq_ops, baseline: list[float]) -> dict:
+    """The partitioned encoder-decoder on the one card: whisper-tiny at full
+    width and depth (3:3 of 6:6 heads of 64 a rank, the vocab 51,865 padded
+    to 51,866 and split), ``ENCDEC_BATCH`` a step with 1500 frames; 2
+    spawned ranks train steps 1-2 under ``CROSS_MESH`` (the encoder's and
+    the decoder's streams each seq-sharded), each saving its own
+    ``int8:b256`` shards at step 2, resume step 2 under
+    ``ENCDEC_RESUME_MESH`` (RESHARD_STREAM) for steps 3-4, then serve step
+    2 (DIRECT) by heads: 4 x ``ENCDEC_PROMPT`` prompts, exactly 12 flash
+    launches a rank (4 encoder 1500 x 1500, then 4 x (432 x 432 causal, 432
+    x 1500)), 16 decode steps, held against one process (:func:`hold_serve`).
+    The one-process losses are train-encdec's ``baseline`` (steps 1-4 of
+    the same config, seed and batches): this phase shows the ranks' init
+    shards and batches equal that run's (its init redrawn here and cut by
+    the 2-rank plan)."""
+    from repro_torch.configs import ParallelismConfig, ShapeSpec
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.dist.sharding import make_plan, vocab_multiple
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.models import build_model
+    from repro_torch.train.data import batch_for_step
+
+    cfg = cross_stage_cfg("encdec")
+    b, s = ENCDEC_BATCH
+    mesh = mesh_spec_from_string(CROSS_MESH)
+    par = ParallelismConfig()
+    out_dir = ROOT / "build" / "chip_smoke_multirank_encdec"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    lm = build_model(cfg, vocab_multiple=vocab_multiple(par, mesh))
+    plan = make_plan(cfg, lm.registry, par, mesh)
+    full = flatten_with_paths(lm.init(torch.Generator(device="cuda").manual_seed(0)))
+    want_bits = [{n: bits_sum(torch, slice_shard(x, plan.param_specs[n].layout_for(
+        StateKind.FP32, mesh), r)) for n, x in full.items()} for r in range(MULTIRANK_WORLD)]
+    del full, lm
+    torch.cuda.empty_cache()
+    want_batches = [batch_digest(torch, {k: torch.as_tensor(v) for k, v in batch_for_step(
+        cfg, ShapeSpec("train", s, b, "train"), i, seed=0, batch_override=b,
+        seq_override=s).items() if k in ("tokens", "source_embeds")}) for i in range(4)]
+    try:
+        ranks, wall = run_multirank_world(torch, "encdec", out_dir, join_s=CROSS_JOIN_S)
+        ranked = torch.load(out_dir / "multirank_encdec_serve.pt")
+        one = one_process_serve(torch, cfg, out_dir / "ckpt" / "step_00000002", ranked["seq"],
+                                prompt_len=ENCDEC_PROMPT)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in ranks:
+        check(r["init_bits"] == want_bits[r["rank"]] and r["batches"] == want_batches,
+              f"multirank-encdec rank {r['rank']}: init or batches differ from train-encdec's")
+    losses = [h["loss"] for h in ranks[0]["tp"]["hist"] + ranks[0]["dp"]["hist"]]
+    check(all(h["loss"] == x for r in ranks for h, x in zip(r["tp"]["hist"] + r["dp"]["hist"],
+                                                          losses)),
+          "multirank-encdec: the ranks report different losses")
+    gap = max(abs(x - y) for x, y in zip(losses, baseline[:4]))
+    check(all(map(math.isfinite, losses)) and gap <= MULTIRANK_TOL,
+          f"multirank-encdec: steps 1-4 {losses} left one process's {baseline[:4]}")
+    want_calls = ([("bfloat16", 1500, 1500, False)] * 4
+                  + [("bfloat16", ENCDEC_PROMPT, ENCDEC_PROMPT, True),
+                     ("bfloat16", ENCDEC_PROMPT, 1500, False)] * 4)
+    for r in ranks:
+        rs, sv = r["restore"], r["serve"]
+        check(r["tp"]["sp"] and r["tp"]["enc_sp"],
+              f"multirank-encdec rank {r['rank']}: streams seq-sharded {r['tp']['sp']}, "
+              f"{r['tp']['enc_sp']}")
+        check(rs["mode"] == "reshard_stream" and rs["step"] == 2 and rs["bits_differing"] == 0,
+              f"multirank-encdec resume rank {r['rank']}: {rs['mode']} step {rs['step']}, "
+              f"{rs['bits_differing']} bits differing from a one-process restore")
+        check(r["save_launches"]["quantize"] > 0 and rs["launches"]["dequantize"] > 0
+              and r["dp"]["launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank-encdec rank {r['rank']}: block-quant launches {r['save_launches']}, "
+              f"{rs['launches']}, {r['dp']['launches']}")
+        check_rank_serve("multirank-encdec", sv, r["rank"], "direct", want_calls, (3, 3), (64, 64))
+        check(sv["block_quant_launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank-encdec serve rank {r['rank']}: {sv['block_quant_launches']}")
+    held = hold_serve(torch, "multirank-encdec serve", ranked, one)
+    launches = {k: sum(r["save_launches"][k] + r["restore"]["launches"][k] for r in ranks)
+                for k in fns}
+    out = {"model": "whisper-tiny, full width and depth", "mesh": CROSS_MESH,
+           "resume_mesh": ENCDEC_RESUME_MESH, "batch": list(ENCDEC_BATCH),
+           "baseline": baseline[:4], "losses": losses, "gap": gap,
+           "init_and_batches_equal_train_encdec": True,
+           "steps": [{"rank": r["rank"], "mode": key, **h} for r in ranks
+                     for key in ("tp", "dp") for h in r[key]["hist"]],
+           "save": [{"rank": r["rank"], **r["save"]} for r in ranks],
+           "restore": [{"rank": r["rank"], **r["restore"]} for r in ranks],
+           "serve": [{"rank": r["rank"], **r["serve"]} for r in ranks],
+           "held": held, "one_process_serve_mode": one["mode"],
+           "peak_gb": {key: [r[key]["peak_gb"] for r in ranks] for key in ("tp", "dp", "serve")},
+           "setup_s": [r["setup_s"] for r in ranks], "world_s": wall, "launches": launches,
+           "flash_launches_by_rank": [r["serve"]["flash_launches"] for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-encdec whisper-tiny: {MULTIRANK_WORLD} ranks under {CROSS_MESH} (3:3 heads "
+          f"a rank), {b} x {s} with 1500 frames; steps 1-2 partitioned then steps 3-4 under "
+          f"{ENCDEC_RESUME_MESH}: {[round(v, 4) for v in losses]} against one process's "
+          f"{[round(v, 4) for v in baseline[:4]]} (gap {gap:.2e}); init and batches equal "
+          f"train-encdec's; phase {out['phase_s']:.1f} s (world {wall:.1f} s)")
+    for r in ranks:
+        for key in ("tp", "dp"):
+            for h in r[key]["hist"]:
+                sp = h["split"]
+                tp_part = (f" + model-group collectives {sp['tp_s']:.3f} "
+                           f"({sp['tp_bytes'] / 1e9:.3f} GB)" if "tp_s" in sp else "")
+                print(f"  {key} rank {r['rank']} step {h['step']}: loss {h['loss']:.4f}, wall "
+                      f"{h['dt']:.3f} s = gather {sp['gather_s']:.3f} + forward/backward "
+                      f"{sp['grad_s']:.3f}{tp_part} + all-reduce {sp['all_reduce_s']:.3f} + "
+                      f"update {sp['update_s']:.3f}; peak {r[key]['peak_gb']:.2f} GB")
+        rs = r["restore"]
+        print(f"  rank {r['rank']}: save {r['save']['bytes'] / 1e9:.3f} GB in "
+              f"{r['save']['s']:.2f} s ({r['save_launches']}); resume {rs['mode']} {rs['s']:.2f} s "
+              f"({rs['bytes_read'] / 1e9:.3f} GB read; {rs['launches']}; "
+              f"{rs['bits_differing']} bits differing)")
+        print_rank_serve("multirank-encdec", r, r["serve"], f"{SERVE_BATCH[0]}x{ENCDEC_PROMPT}")
+    return out
+
 
 class PhaseClock:
     """Each phase's wall seconds since the previous mark, printed as the
@@ -6701,6 +7101,14 @@ def main() -> int:
     clock.mark("serve-mla")
     mla_bq = launch_counts(bq_counters)  # the phase saves its weights uncoded: none
     check(mla_bq == {"quantize": 0, "dequantize": 0}, f"serve-mla: block-quant launches {mla_bq}")
+    # deepseek-v2 by heads from serve-mla's checkpoint: 2 flash launches a rank
+    step_dir = mla.pop("step_dir")
+    try:
+        multi_mla = multirank_serve_phase(torch, "mla", step_dir, 512,
+                                          [("bfloat16", 512, 512, True)] * 2, (64, 64), (192, 128))
+    finally:
+        shutil.rmtree(step_dir.parent, ignore_errors=True)
+    clock.mark("multirank-mla")
     reset_launches(bq_counters)
     hybrid = hybrid_serve_phase(torch, counters, kernel)
     clock.mark("serve-hybrid")
@@ -6713,17 +7121,25 @@ def main() -> int:
     train_ssm_kernels = launch_counts(counters)  # training goes through the plain versions
     # llama-vision: 4 causal self layers, then the gated cross layer at 512 x 1600
     reset_launches(bq_counters)
+    vlm_want = [("bfloat16", 512, 512, True)] * 4 + [("bfloat16", 512, 1600, False)]
     vlm = cross_serve_phase(torch, counters, kernel, arch="llama-3.2-vision-11b", layers=5,
-                            prompt_len=512, n_params=VLM_PARAMS, label="vlm",
-                            want=[("bfloat16", 512, 512, True)] * 4
-                            + [("bfloat16", 512, 1600, False)])
+                            prompt_len=512, n_params=VLM_PARAMS, label="vlm", want=vlm_want)
     clock.mark("serve-vlm")
+    # llama-vision by heads from serve-vlm's checkpoint: 5 flash launches a rank
+    step_dir = vlm.pop("step_dir")
+    try:
+        multi_vlm = multirank_serve_phase(torch, "vlm", step_dir, 512, vlm_want, (16, 4),
+                                          (128, 128))
+    finally:
+        shutil.rmtree(step_dir.parent, ignore_errors=True)
+    clock.mark("multirank-vlm")
     # whisper: 4 encoder layers over 1500 frames, then each decoder layer's
     # causal self-attention and its cross-attention to the encoder's output
     encdec = cross_serve_phase(torch, counters, kernel, arch="whisper-tiny", layers=None,
                                prompt_len=432, n_params=WHISPER_PARAMS, label="encdec",
                                want=[("bfloat16", 1500, 1500, False)] * 4
                                + [("bfloat16", 432, 432, True), ("bfloat16", 432, 1500, False)] * 4)
+    shutil.rmtree(encdec.pop("step_dir").parent, ignore_errors=True)
     clock.mark("serve-encdec")
     cross_bq = launch_counts(bq_counters)  # both serve phases save their weights uncoded: none
     check(cross_bq == {"quantize": 0, "dequantize": 0},
@@ -6732,6 +7148,8 @@ def main() -> int:
     train_encdec = encdec_train_phase(torch, bq_ops, counters)
     clock.mark("train-encdec")
     train_encdec_kernels = launch_counts(counters)
+    multi_encdec = multirank_encdec_phase(torch, bq_ops, train_encdec["baseline"])
+    clock.mark("multirank-encdec")
 
     rows = [{
         "name": "flash_attention_fwd",
@@ -6839,6 +7257,19 @@ def main() -> int:
             "max_abs_err")},
         "mixtral_rank_shape": "bf16 B=4 S=512 24:4 heads of 128, causal (mixtral-8x22b: a "
                               "rank's heads at model=2)",
+        **{f"{tag}_{key}": k[tag][key] for tag in ("deepseek_rank", "vlm_rank", "whisper_rank")
+           for key in ("ms", "event_ms", "library_ms", "fp32_ms", "plain_ms", "bound_ms",
+                       "bound_by", "max_abs_err")},
+        "deepseek_rank_library_backend": k["deepseek_rank"]["library_backend"],
+        "deepseek_rank_shape": "bf16 B=4 S=512 64:64 heads, q and k of 192, v of 128, causal "
+                               "(deepseek-v2-236b MLA: a rank's heads at model=2)",
+        "vlm_rank_shape": "bf16 B=4 Sq=512 Skv=1600 16:4 heads of 128, no mask "
+                          "(llama-3.2-vision-11b's cross layer: a rank's heads at model=2)",
+        "whisper_rank_shape": "bf16 B=4 S=1500 3:3 heads of 64, no mask (whisper-tiny's "
+                              "encoder: a rank's heads at model=2)",
+        "multirank_mla_launches": multi_mla["flash_launches_by_rank"],
+        "multirank_vlm_launches": multi_vlm["flash_launches_by_rank"],
+        "multirank_encdec_launches": multi_encdec["flash_launches_by_rank"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -6889,6 +7320,7 @@ def main() -> int:
         rows[-1]["multirank_moe_launches"] = multi_moe["launches"][which]
         rows[-1]["multirank_moe_launches_by_rank"] = multi_moe["launches_by_rank"][which]
         rows[-1]["multirank_ssm_launches"] = multi_ssm["launches"][which]
+        rows[-1]["multirank_encdec_launches"] = multi_encdec["launches"][which]
         rows[-1]["multirank_hot_launches_by_drain"] = {
             k: v[which] for k, v in multi_hot["launches_by_drain"].items()}
         rows[-1]["multirank_launches_by_phase"] = {k: v[which]
@@ -6978,6 +7410,9 @@ def main() -> int:
     print(json.dumps({"multirank_hot": multi_hot}))
     print(json.dumps({"multirank_moe": multi_moe}))
     print(json.dumps({"multirank_ssm": multi_ssm}))
+    print(json.dumps({"multirank_mla": multi_mla}))
+    print(json.dumps({"multirank_vlm": multi_vlm}))
+    print(json.dumps({"multirank_encdec": multi_encdec}))
     print(json.dumps({"phase_seconds": clock.seconds,
                       "total_s": time.perf_counter() - clock.start}))
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
 """Tensor- and sequence-parallel compute over the model subgroup of a
-multi-rank run: the dense, MoE (without MLA), SSM and hybrid families.
+multi-rank run: every family of the configs (dense, MoE with or without
+MLA, SSM, hybrid, vlm and encdec).
 
 The reference installs ``make_sharder`` as ``LM.shard`` and constrains a few
 activations (``repro/models/lm.py:430,438,508,542,613,635``); GSPMD then
@@ -22,7 +23,9 @@ over the model axis and a prompt or batch of ``S`` positions:
   normed input of each block is all-gathered over seq and its output
   reduce-scattered; otherwise the stream is replicated, the normed input
   enters a block through an identity whose backward all-reduces, and the
-  block's output is all-reduced;
+  block's output is all-reduced.  Each stream decides for itself: whisper's
+  encoder ([B, 1500, d]) and its decoder ([B, S, d]) may decide apart
+  (:attr:`TensorParallel.enc_sp`, :attr:`TensorParallel.sp`);
 * **attention, heads divide** (``hq`` and ``hkv`` by ``m``): the rank's
   ``wqkv`` shard is its heads' q, k and v columns (the plan splits each
   sub-fragment evenly), so it computes its heads and the row-parallel
@@ -32,6 +35,30 @@ over the model axis and a prompt or batch of ``S`` positions:
   parallelism every rank computes K and V for all rows and q for its own
   rows only, against keys ``[0, (c+1)·S/m)`` at ``q_offset = c·S/m``; its
   output stays its rows.  Without it attention is replicated;
+* **MLA (DeepSeek-V2), heads divide** (``hq`` by ``m``): the rank's
+  ``wq_b`` and ``wkv_b`` shards are its heads' columns and its ``wo`` shard
+  their rows; ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm`` are
+  replicated and computed whole on every rank (from the gathered rows under
+  sequence parallelism), so the latent cache (``c_kv``, ``k_rope``) is whole
+  on every rank, as ``cache_pspecs`` leaves it; a decode step absorbs the
+  rank's slice of ``wkv_b``.  Else ``wq_b``, ``wkv_b`` and ``wo`` are
+  gathered and the block runs as the dense family's gathered attention (K/V
+  for every row, q for the rank's rows at its ``q_offset``);
+* **cross-attention** (vlm's gated layers, encdec's ungated ones), where the
+  heads divide: ``cross_wq`` by q heads, ``cross_wkv`` by its k and v
+  sub-fragments (the rank's KV heads), ``cross_wo`` by rows; the source is
+  whole on every rank and each rank projects its own KV heads from it (the
+  cache's ``ck``/``cv`` are those heads); a gated layer applies
+  tanh(``cross_gate``) after the row-parallel reduction, so the gate's
+  gradient is whole.  Else the three are gathered and the block runs on the
+  rank's rows (no mask: every row reads the whole source) or replicated;
+* **the encoder's output** (encdec) is all-gathered over seq once where the
+  encoder's stream was sharded; every cross layer then reads it.  In the
+  backward the ranks' gradients into it are summed over the model subgroup
+  once (the gather's reduce-scatter, or an identity whose backward
+  all-reduces) where each rank's use of it is partial (by heads, or by the
+  decoder's rows), and taken as they are where every rank computes the
+  cross layers whole (:meth:`TensorParallel.whole`);
 * **the MLP**: column-parallel on the rank's ``mlp`` columns, row-parallel
   down-projection (also a MoE layer's shared experts);
 * **MoE**: every model rank routes all of its data replica's tokens, so
@@ -67,15 +94,19 @@ over the model axis and a prompt or batch of ``S`` positions:
 
 Gradients: a weight split over the model axis and computed locally needs no
 exchange; a gathered weight's and a replicated weight's (the norms') are
-complete on every rank without sequence parallelism and partial with it,
-and are then summed over the model subgroup (:meth:`TensorParallel.reduce_grads`).
+complete on every rank without sequence parallelism and partial with it
+(by the weight's own stream: ``encoder.*`` weights by the encoder's
+decision, the rest by the decoder's), and are then summed over the model
+subgroup (:meth:`TensorParallel.reduce_grads`).
 Some are partial even without it (:attr:`TensorParallel.partial`): the
 router's (each rank's combine path reaches it through its own experts'
-outputs) and, where the SSM heads divide, Mamba's per-head ``a_log``,
-``d_skip`` and ``dt_bias``, ``ssm_norm``, ``conv_b`` and the gathered
-``conv_w`` (each rank reads its heads' or channels' part).  The seconds and
-bytes of every model-subgroup collective accumulate in
-:attr:`TensorParallel.seconds` and :attr:`TensorParallel.bytes`.
+outputs); where the MLA heads divide, ``wq_a``, ``q_norm``, ``wkv_a`` and
+``kv_norm`` (each rank reaches them through its own heads, the shared
+``k_rope`` columns of ``wkv_a`` too); and, where the SSM heads divide,
+Mamba's per-head ``a_log``, ``d_skip`` and ``dt_bias``, ``ssm_norm``,
+``conv_b`` and the gathered ``conv_w`` (each rank reads its heads' or
+channels' part).  The seconds and bytes of every model-subgroup collective
+accumulate in :attr:`TensorParallel.seconds` and :attr:`TensorParallel.bytes`.
 
 Every collective is a gloo or NCCL ``all_reduce`` or ``all_gather``: a
 reduce-scatter is an all-reduce and a slice (gloo has no reduce-scatter).
@@ -100,7 +131,11 @@ from .sharding import (
 
 __all__ = ["TensorParallel", "partitions"]
 
-_ATTN = ("wqkv", "wo")  # the attention weights, gathered where heads do not divide
+# the attention weights (GQA, MLA and cross-attention), gathered where heads do not divide
+_ATTN = ("wqkv", "wo", "wq_b", "wkv_b", "cross_wq", "cross_wkv", "cross_wo")
+# MLA's replicated weights, which a rank reaches only through its own heads
+# where they divide: their gradients are partial on every rank
+_MLA_PARTIAL = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 _MAMBA = ("in_proj", "conv_w", "out_proj")  # Mamba's split weights, gathered where heads do not
 # replicated weights a rank reads in part where the SSM heads divide (and
 # conv_w, gathered there): their gradients are partial on every rank
@@ -109,18 +144,16 @@ _SSM_PARTIAL = ("a_log", "d_skip", "dt_bias", "ssm_norm", "conv_b", "conv_w")
 
 def partitions(cfg: ModelConfig, parallel: ParallelismConfig, mesh: MeshSpec) -> bool:
     """Whether a run computes partitioned over the model axis: under tensor
-    parallelism, with a model axis of size > 1 and no pipe axis over 1, the
-    dense, MoE without MLA, SSM and hybrid families, where a MoE layer's
-    experts split (expert parallelism, or each expert's width divides the
-    model size; shared experts' width too).  MLA, vlm and encdec, and any
-    mesh with a pipe axis or tensor parallelism off, gather the whole model
-    on each rank (ROADMAP item 11b.4)."""
+    parallelism, with a model axis of size > 1 and no pipe axis over 1,
+    every family (dense, MoE with or without MLA, SSM, hybrid, vlm, encdec),
+    where a MoE layer's experts split (expert parallelism, or each expert's
+    width divides the model size; shared experts' width too).  A mesh with
+    a pipe axis, or tensor parallelism off, gathers the whole model on each
+    rank (ROADMAP items 11b.4.4 and 11b.4.5)."""
     m = mesh.axis_size(parallel.model_axis) if mesh.has_axis(parallel.model_axis) else 1
     pipe = (mesh.axis_size(parallel.pipe_axis)
             if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else 1)
     if not (parallel.tensor_parallel and m > 1 and pipe == 1):
-        return False
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.mla is not None:
         return False
     moe = cfg.moe
     if moe is None:
@@ -160,10 +193,12 @@ class TensorParallel:
         if [mesh.coords(r)[self.axis] for r in self.members] != list(range(self.size)):
             raise ValueError(f"model subgroup {self.members} is not in model-coordinate order")
         # q heads go over the model axis where the sharder says so; a rank
-        # computes them from its own wqkv shard only when its GQA groups are
-        # whole (the kv heads divide too); else it computes by rows
+        # computes them from its own wqkv (cross_wq, cross_wkv) shard only
+        # when its GQA groups are whole (the kv heads divide too), MLA's from
+        # its wq_b and wkv_b shards when the heads divide; else it computes
+        # by rows
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
-        self.heads = hq % self.size == 0 and hkv % self.size == 0
+        self.heads = hq % self.size == 0 and (cfg.mla is not None or hkv % self.size == 0)
         # Mamba-2 by heads (cfg.num_heads is not the SSM's: mamba2's is 1)
         self.ssm_heads = _ssm_split(cfg, self.size)
         self.moe_mode = ranks.plan.moe_mode  # "ep": experts over model; "tp": their width
@@ -175,21 +210,28 @@ class TensorParallel:
         leaf = {n: n.split(".")[-1] for n in specs}
         gather = ((() if self.heads else _ATTN) + (("conv_w",) if self.ssm_heads else _MAMBA))
         self.gathered = frozenset(n for n in specs if self.split[n] and leaf[n] in gather)
-        partial = ("router",) + (_SSM_PARTIAL if self.ssm_heads else ())
+        partial = (("router",) + (_SSM_PARTIAL if self.ssm_heads else ())
+                   + (_MLA_PARTIAL if self.heads and cfg.mla is not None else ()))
         self.partial = frozenset(n for n in specs if leaf[n] in partial)
-        self.sp = False  # the last forward's decision (decide_sp)
+        self.sp = False      # the last forward's decision for the decoder's stream (decide_sp)
+        self.enc_sp = False  # and for the encoder's (encdec)
         self.seconds = 0.0
         self.bytes = 0
 
     # -- decisions ----------------------------------------------------------
 
-    def decide_sp(self, b: int, s: int, d: int) -> bool:
+    def decide_sp(self, b: int, s: int, d: int, *, encoder: bool = False) -> bool:
         """Whether the residual stream [b, s, d] is seq-sharded (the sharder's
-        entry for ``(batch, seq, embed)``), kept as :attr:`sp`.  The forward
-        decides once (``LM.forward``, ``decode.prefill``); its layers and
-        :meth:`reduce_grads` read :attr:`sp`."""
-        self.sp = self.sharder((b, s, d), ("batch", "seq", "embed"))[1] == self.axis
-        return self.sp
+        entry for ``(batch, seq, embed)``), kept as :attr:`sp` (the
+        encoder's as :attr:`enc_sp`).  The forward decides once a stream
+        (``LM.forward``, ``LM.encode``, ``decode.prefill``) and hands the
+        decision to its layers; :meth:`reduce_grads` reads both."""
+        sp = self.sharder((b, s, d), ("batch", "seq", "embed"))[1] == self.axis
+        if encoder:
+            self.enc_sp = sp
+        else:
+            self.sp = sp
+        return sp
 
     def rows(self, s: int) -> tuple[int, int]:
         """This rank's rows of a seq-sharded stream of ``s`` positions."""
@@ -290,6 +332,16 @@ class TensorParallel:
         var = self.psum(yf.square().sum(-1, keepdim=True)) / width
         return (yf * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
 
+    def whole(self, x: torch.Tensor, sp: bool, partial: bool) -> torch.Tensor:
+        """A stream's output that every rank reads whole (the encoder's,
+        read by every cross layer): all-gathered over seq where ``sp``
+        sharded it.  Backward: the ranks' gradients summed over the model
+        subgroup where each rank's use of it is ``partial``; else each
+        rank's gradient is complete, and it keeps its own (rows)."""
+        if sp:
+            return self.gather_seq(x) if partial else _GatherOwn.apply(x, self, 1)
+        return self.copy(x) if partial else x
+
     def enter(self, h: torch.Tensor, sp: bool) -> torch.Tensor:
         """A block's normed input as its partitioned products read it."""
         return self.gather_seq(h) if sp else self.copy(h)
@@ -358,10 +410,12 @@ class TensorParallel:
         """Gradients of the weights the rank computed from (``weights()``'s
         second tree) → its model-local gradients: a gathered or replicated
         weight's summed where it is partial (every one where the forward
-        sharded the stream, :attr:`sp`; those of :attr:`partial` always), a
-        gathered weight's then cut to the rank's shard."""
-        out, sp = {}, self.sp
+        sharded the weight's stream, :attr:`enc_sp` for ``encoder.*`` and
+        :attr:`sp` for the rest; those of :attr:`partial` always), a gathered
+        weight's then cut to the rank's shard."""
+        out = {}
         for n, g in grads.items():
+            sp = self.enc_sp if n.startswith("encoder.") else self.sp
             if n in self.partial or (sp and (n in self.gathered or not self.split[n])):
                 self.all_reduce(g)
             if n in self.gathered:
@@ -388,7 +442,8 @@ class TensorParallel:
         return out
 
     def local_heads(self, cfg: ModelConfig) -> tuple[int, int]:
-        """(q heads, kv heads) this rank computes from its own wqkv shard."""
+        """(q heads, kv heads) this rank computes from its own wqkv (or
+        cross_wq and cross_wkv) shard."""
         if self.heads:
             return cfg.num_heads // self.size, cfg.num_kv_heads // self.size
         return cfg.num_heads, cfg.num_kv_heads
@@ -403,6 +458,21 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.tp.reduce_scatter(g, ctx.dim), None, None
+
+
+class _GatherOwn(torch.autograd.Function):
+    """All-gather whose every rank's use is complete: backward keeps the
+    rank's own chunk of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.tp.size
+        return g.narrow(ctx.dim, ctx.tp.coord * n, n).contiguous(), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):

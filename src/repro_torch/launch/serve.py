@@ -32,10 +32,11 @@ gloo group started and supervised as the train launcher's (rank r on
 ``cuda:(r % device_count)``, or the CPU with ``--device cpu``); N must be
 the mesh's size.  Each rank restores only its own shards of the weights
 (the restore's ``rank=`` path, DIRECT or RESHARD_STREAM), gathers them over
-the data axes once, and serves its rows of the batch: the dense family
-computes partitioned over the model axis
+the data axes once, and serves its rows of the batch: under tensor
+parallelism every family computes partitioned over the model axis
 (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`, its decode cache
-laid out by ``cache_pspecs``), every other family from the whole weights.
+laid out by ``cache_pspecs``; vlm and encdec ranks draw the same source
+embeds from ``--seed``), else from the whole weights.
 Rank 0 prints, every row's tokens::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --reduced \\

@@ -29,16 +29,20 @@ Unlike the reference, which returns a new cache, the port writes the
 buffers in place (it saves a full copy of the cache per step) and returns
 the same dict with ``pos`` advanced.
 
-Under a rank context (``lm.tp``: the dense, MoE, SSM or hybrid family of
-a multi-rank run) the cache holds the rank's shard of each entry by
+Under a rank context (``lm.tp``: any family of a multi-rank run) the cache
+holds the rank's shard of each entry by
 :func:`~repro_torch.dist.sharding.cache_pspecs` (its rows of the batch, its
-KV heads where they divide the model axis, else the whole cache; a Mamba
-layer's ``h`` its SSM heads and ``conv`` an even slice of its channels,
-whole where the SSM heads do not divide and the block computes from the
-gathered weights), prefill computes partitioned as the training forward
-does, a decode step (one position, which does not split) all-reduces after
-the row-parallel products, and both return the rank's vocab shard of the
-logits (:func:`greedy` picks across the shards).
+KV heads where they divide the model axis, else the whole cache; a cross
+layer's ``ck``/``cv`` likewise its KV heads; MLA's latent ``c_kv``,
+``k_rope`` and ``slot_pos`` whole on every rank; a Mamba layer's ``h`` its
+SSM heads and ``conv`` an even slice of its channels, whole where the SSM
+heads do not divide and the block computes from the gathered weights),
+prefill computes partitioned as the training forward does (whisper's
+encoder too, once), a decode step (one position, which does not split)
+all-reduces after the row-parallel products (an MLA layer's from its heads'
+slice of the absorbed ``wkv_b``; a cross layer's before its gate), and both
+return the rank's vocab shard of the logits (:func:`greedy` picks across the
+shards).
 """
 
 from __future__ import annotations
@@ -70,7 +74,8 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     """The empty cache for ``batch`` requests of up to ``cache_len``
     positions.  Under a rank context ``batch`` is the global batch and each
     entry is the rank's shard by ``cache_pspecs`` (a cache-length-sharded
-    entry, ``shard_cache_seq``, is refused: decode attends to whole caches)."""
+    entry, ``shard_cache_seq``, is refused: decode attends to whole caches,
+    ROADMAP item 11b.4.6)."""
     if lm.tp is not None:
         return _rank_cache(lm, batch, cache_len, device)
     cfg = lm.cfg
@@ -131,7 +136,7 @@ def _rank_cache(lm: LM, batch: int, cache_len: int, device) -> dict:
     for path, t in flatten_with_paths(shapes).items():
         spec = specs[path]
         name = path.split(".")[-1]
-        if name in ("k", "v") and spec[2] is not None:
+        if name in ("k", "v", "c_kv", "k_rope", "slot_pos") and spec[2] is not None:
             raise NotImplementedError(f"{path}: a cache sharded over its length (shard_cache_seq)")
         if name in ("h", "conv") and not tp.ssm_heads:  # the whole block on every rank
             spec = type(spec)(*(None if e == tp.axis else e for e in spec))
@@ -239,9 +244,12 @@ def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
     latent space goes through kv_b's value half, then wo."""
     cfg, m = lm.cfg, lm.cfg.mla
     b = x.shape[0]
-    hq = cfg.num_heads
+    heads = lm.tp is not None and lm.tp.heads  # the rank's heads; the latent cache whole
+    hq = cfg.num_heads // (lm.tp.size if heads else 1)
     nope, rope, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    if heads:
+        h = lm.tp.copy(h)
     qa = rms_norm(h @ p["wq_a"].to(h.dtype), p["q_norm"], cfg.norm_eps)
     q = (qa @ p["wq_b"].to(h.dtype)).reshape(b, 1, hq, nope + rope)
     kva = h @ p["wkv_a"].to(h.dtype)
@@ -263,21 +271,30 @@ def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1).to(h.dtype)
     ctx = torch.einsum("bshc,bcr->bshr", probs, entry["c_kv"])
     o = torch.einsum("bshr,rhn->bshn", ctx, w_v)  # [b, 1, hq, vhd]
-    return x + o.reshape(b, 1, hq * vhd) @ p["wo"].to(h.dtype)
+    out = o.reshape(b, 1, hq * vhd) @ p["wo"].to(h.dtype)
+    return x + (lm.tp.reduce(out) if heads else out)
 
 
 def _cross_decode(lm: LM, p, entry, x, *, gated: bool) -> torch.Tensor:
     """One cross-attention layer of a decode step
     (``repro/models/decode.py:181-196``): q from this token against the
     source's cached ``ck``/``cv``, the plain ``full_attention`` with no
-    mask; gated by tanh(``cross_gate``) in a vlm ``cross`` layer."""
+    mask; gated by tanh(``cross_gate``) in a vlm ``cross`` layer.  Under a
+    rank context where the heads divide: the rank's q heads against its KV
+    heads' ``ck``/``cv``, reduced before the gate."""
     cfg = lm.cfg
     b = x.shape[0]
-    hd, hq = cfg.resolved_head_dim, cfg.num_heads
+    hd = cfg.resolved_head_dim
+    heads = lm.tp is not None and lm.tp.heads
+    hq = lm.tp.local_heads(cfg)[0] if lm.tp is not None else cfg.num_heads
     h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+    if heads:
+        h = lm.tp.copy(h)
     q = (h @ p["cross_wq"].to(h.dtype)).reshape(b, 1, hq, hd)
     o = full_attention(q, entry["ck"], entry["cv"], causal=False, window=0)
     out = o.reshape(b, 1, hq * hd) @ p["cross_wo"].to(h.dtype)
+    if heads:
+        out = lm.tp.reduce(out)
     if gated:
         out = out * torch.tanh(p["cross_gate"].to(out.dtype))
     return x + out
@@ -389,24 +406,24 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
     positions = torch.arange(s, device=tokens.device)
     sp = lm.tp is not None and lm.tp.decide_sp(b, s, lm.cfg.d_model)
     x = _embed(lm, params, tokens, sp)
-    source = lm.source(params, source_embeds)
+    source = lm.source(params, source_embeds, sp=sp)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
                 p = _layer(params[stage.name][ld.name], l)
                 entry = cache[stage.name][ld.name]
                 if ld.kind == "mamba":
-                    x, (h_final, conv_tail) = lm._mamba(p, x, return_state=True)
+                    x, (h_final, conv_tail) = lm._mamba(p, x, return_state=True, sp=sp)
                     entry["h"][l].copy_(h_final)
                     conv = entry["conv"][l]  # a prompt shorter than K-1 fills the tail
                     conv[:, conv.shape[1] - conv_tail.shape[1]:] = conv_tail
                 elif ld.kind == "cross":
-                    x, kv = lm._cross_attn(p, x, source, gated=True)
+                    x, kv = lm._cross_attn(p, x, source, gated=True, sp=sp)
                     _write_source(entry, l, kv)
                 else:
                     x, kv = lm._self_attn(
                         p, x, window=stage.window(ld, l), positions=positions,
-                        causal=ld.causal,
+                        causal=ld.causal, sp=sp,
                     )
                     for name, t in zip(("c_kv", "k_rope") if lm.cfg.mla else ("k", "v"), kv):
                         _fill_ring(entry[name][l], t, s)
@@ -416,7 +433,7 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
                         s,
                     )
                     if ld.with_cross:
-                        x, kv = lm._cross_attn(p, x, source, gated=False)
+                        x, kv = lm._cross_attn(p, x, source, gated=False, sp=sp)
                         _write_source(entry, l, kv)
                 if ld.with_mlp:
                     x, _ = lm._mlp(p, x, moe=ld.moe, sp=sp)

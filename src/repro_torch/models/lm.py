@@ -49,14 +49,16 @@ to the loss it differentiates and reports the bare cross-entropy as
 ``LM.shard`` is the reference's activation hook (identity by default),
 called at the reference's call sites (``repro/models/lm.py:430,438,508,542,
 613,635``).  It cannot partition work in eager PyTorch, so a multi-rank run
-of the dense, MoE (without MLA), SSM or hybrid family installs a rank
-context instead, ``LM.tp``
+of any family installs a rank context instead, ``LM.tp``
 (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`): at the same
 call sites the layer code computes only its part, by the sharder's
 decisions for the logical shapes and the plan's split of the weights
 (vocab-parallel embedding and logits, column/row-parallel MLP and
-attention, a MoE layer's experts or their slices, Mamba-2 by SSM heads,
-the residual stream's rows under sequence parallelism).  Under it
+attention, MLA and cross-attention by heads, a MoE layer's experts or their
+slices, Mamba-2 by SSM heads, each stream's rows under sequence
+parallelism: whisper's encoder decides its own).  Each stream's decision is
+bound into its layers (``sp``), so a layer recomputed in the backward pass
+computes as it did in the forward.  Under it
 :meth:`LM.forward` returns the rank's vocab shard of the logits and
 :meth:`LM.loss_fn` the vocab-parallel cross-entropy, equal on every model
 rank.
@@ -414,17 +416,21 @@ class LM:
         return chunked_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                  q_block=q_block, kv_block=kv_block)
 
-    def _self_attn(self, p, x, *, window: int, positions, causal: bool = True):
+    def _self_attn(self, p, x, *, window: int, positions, causal: bool = True, sp: bool = False):
         """Pre-norm self-attention block on one layer's params; returns the
         residual sum and what the cache keeps of this layer: its roped
-        (k, v), or MLA's (c_kv, k_rope)."""
-        cfg = self.cfg
+        (k, v), or MLA's (c_kv, k_rope).  ``sp``: under a rank context, the
+        stream is seq-sharded."""
+        cfg, tp = self.cfg, self.tp
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         if cfg.mla is not None:
-            out, kv = self._mla_attn(p, h, positions=positions, window=window)
+            out, kv = self._mla_attn(p, h, positions=positions, window=window, sp=sp)
+            if tp is not None and tp.heads:
+                return x + tp.leave(out, sp), kv
             return x + self.shard(out, ("batch", "seq", "embed")), kv
-        if self.tp is not None:
-            return self._tp_self_attn(p, x, h, window=window, positions=positions, causal=causal)
+        if tp is not None:
+            return self._tp_self_attn(p, x, h, window=window, positions=positions, causal=causal,
+                                      sp=sp)
         out, kv = self._gqa(p, h, cfg.num_heads, cfg.num_kv_heads, window=window,
                             positions=positions, causal=causal)
         return x + self.shard(out, ("batch", "seq", "embed")), kv
@@ -446,16 +452,15 @@ class LM:
         o = self._attention(q, k, v, causal=causal, window=window)
         return o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype), (k, v)
 
-    def _tp_self_attn(self, p, x, h, *, window: int, positions, causal: bool):
+    def _tp_self_attn(self, p, x, h, *, window: int, positions, causal: bool, sp: bool):
         """Partitioned self-attention (:mod:`repro_torch.dist.tensor_parallel`).
-        The stream is seq-sharded where the forward decided so
-        (``tp.sp``).  Heads that divide: the rank's own heads from its
+        The stream is seq-sharded where its forward decided so (``sp``).
+        Heads that divide: the rank's own heads from its
         ``wqkv`` shard, the row-parallel ``wo``.  Else, from the gathered
         weights: under sequence parallelism K and V for every row and q for
         the rank's rows, attending to keys up to its last row at its
         ``q_offset``; without it the whole block, replicated."""
         tp, cfg = self.tp, self.cfg
-        sp = tp.sp
         hq, hkv = tp.local_heads(cfg)
         if tp.heads:
             out, kv = self._gqa(p, tp.enter(h, sp), hq, hkv, window=window,
@@ -482,7 +487,7 @@ class LM:
                             q_offset=lo)
         return x + o.reshape(b, s, hq * hd) @ p["wo"].to(h.dtype), (k, v)
 
-    def _mla_attn(self, p, h, *, positions, window: int):
+    def _mla_attn(self, p, h, *, positions, window: int, sp: bool = False):
         """DeepSeek-V2's Multi-head Latent Attention on the normed input
         (``repro/models/lm.py:440-469``): q through its low-rank pair
         (q_a, rms_norm, q_b); one latent ``c_kv`` (rms_norm) and one shared
@@ -490,37 +495,64 @@ class LM:
         head's [k_nope | v].  Attention runs with q and k of nope + rope
         (192) and v of ``v_head_dim`` (128), always causal, the scale
         1/sqrt(nope + rope); v is the strided view of kv_b's output.
-        Returns the block's output and (c_kv, k_rope) for the latent cache."""
-        cfg, m = self.cfg, self.cfg.mla
-        b, s, _ = h.shape
+        Returns the block's output and (c_kv, k_rope) for the latent cache.
+
+        Under a rank context where the heads divide, the rank's heads (its
+        ``wq_b``/``wkv_b`` columns, ``wo`` rows: a partial output) from the
+        entered input, the latent whole; where they do not and the stream is
+        seq-sharded (``sp``), the latent and K/V for every row and q for the
+        rank's rows at its ``q_offset`` from the gathered weights (the
+        output is its rows); else the whole block."""
+        cfg, m, tp = self.cfg, self.cfg.mla, self.tp
         hq = cfg.num_heads
         nope, rope, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-        qa = rms_norm(h @ p["wq_a"].to(h.dtype), p["q_norm"], cfg.norm_eps)
+        hk = hq_in = h  # the rows K/V are computed for, and those q is
+        lo = 0
+        if tp is not None and tp.heads:
+            hk = hq_in = tp.enter(h, sp)
+            hq //= tp.size
+        elif tp is not None and sp:
+            hk = tp.gather_seq(h)
+            lo = tp.rows(hk.shape[1])[0]
+        b, s, _ = hq_in.shape
+        n = hk.shape[1]
+        qa = rms_norm(hq_in @ p["wq_a"].to(h.dtype), p["q_norm"], cfg.norm_eps)
         q = (qa @ p["wq_b"].to(h.dtype)).reshape(b, s, hq, nope + rope)
-        kva = h @ p["wkv_a"].to(h.dtype)
+        kva = hk @ p["wkv_a"].to(h.dtype)
         c_kv, k_rope = kva[..., : m.kv_lora_rank], kva[..., m.kv_lora_rank:]
         c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
-        kvb = (c_kv @ p["wkv_b"].to(h.dtype)).reshape(b, s, hq, nope + vhd)
+        kvb = (c_kv @ p["wkv_b"].to(h.dtype)).reshape(b, n, hq, nope + vhd)
         k_nope, v = kvb[..., :nope], kvb[..., nope:]
         sin, cos = rotary_embedding(positions, rope, cfg.rope_theta)
-        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], sin, cos)], dim=-1)
+        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], sin[lo:lo + s], cos[lo:lo + s])],
+                      dim=-1)
         k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)  # 1 shared head
-        k = torch.cat([k_nope, k_rope.expand(b, s, hq, rope)], dim=-1)
-        o = self._attention(q, k, v, causal=True, window=window)
+        k = torch.cat([k_nope, k_rope.expand(b, n, hq, rope)], dim=-1)
+        if lo + s < n:  # keys up to the rank's last row
+            k, v = k[:, :lo + s], v[:, :lo + s]
+        o = self._attention(q, k, v, causal=True, window=window, q_offset=lo)
         out = o.reshape(b, s, hq * vhd) @ p["wo"].to(h.dtype)
         return out, (c_kv, k_rope[:, :, 0, :])
 
-    def _cross_attn(self, p, x, source, *, gated: bool):
+    def _cross_attn(self, p, x, source, *, gated: bool, sp: bool = False):
         """Pre-norm cross-attention block (``repro/models/lm.py:471-491``):
         q from the stream, k and v from ``source @ cross_wkv`` split in two,
         no rope, attention with no mask; the output times
         tanh(``cross_gate``) in a gated (llama-vision) layer.  Returns the
-        residual sum and (k, v) for the cache."""
-        cfg = self.cfg
-        b, s, _ = x.shape
+        residual sum and (k, v) for the cache.  Under a rank context where
+        the heads divide: the rank's q heads from the entered input and its
+        KV heads from the whole source, ``cross_wo``'s rows, the reduction
+        (``sp``: a reduce-scatter), then the gate; else the block from the
+        gathered weights on the stream's rows."""
+        cfg, tp = self.cfg, self.tp
         hd = cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        heads = tp is not None and tp.heads
+        if heads:
+            h = tp.enter(h, sp)
+            hq, hkv = tp.local_heads(cfg)
+        b, s, _ = h.shape
         q = (h @ p["cross_wq"].to(h.dtype)).reshape(b, s, hq, hd)
         kv = source.to(h.dtype) @ p["cross_wkv"].to(h.dtype)
         k, v = torch.split(kv, [hkv * hd, hkv * hd], dim=-1)
@@ -528,6 +560,8 @@ class LM:
         v = v.reshape(b, -1, hkv, hd)
         o = self._attention(q, k, v, causal=False, window=0)
         out = o.reshape(b, s, hq * hd) @ p["cross_wo"].to(h.dtype)
+        if heads:  # the gate after the reduction: its gradient is then whole
+            out = tp.leave(out, sp)
         if gated:
             out = out * torch.tanh(p["cross_gate"].to(out.dtype))
         return x + out, (k, v)
@@ -564,20 +598,20 @@ class LM:
             return x + tp.leave(out, sp), aux
         return x + self.shard(out, ("batch", "seq", "embed")), aux
 
-    def _mamba(self, p, x, *, return_state: bool = False):
+    def _mamba(self, p, x, *, return_state: bool = False, sp: bool = False):
         """Pre-norm Mamba-2 block on one layer's params; returns the residual
         sum and, with ``return_state``, (h_final [B,H,P,N] float32, the last
         K-1 pre-conv ``xbc`` rows) for the decode cache.  Under a rank
         context: by the rank's SSM heads (:meth:`_tp_mixer`, its state the
         rank's cache shard) where they divide, else the whole block from the
         gathered weights (over the gathered rows under sequence
-        parallelism, the rank's rows kept)."""
+        parallelism, ``sp``, the rank's rows kept)."""
         tp = self.tp
         h = rms_norm(x, p["norm"], self.cfg.norm_eps)
         if tp is not None and tp.ssm_heads:
-            out, state = self._tp_mixer(p, tp.enter(h, tp.sp), return_state)
-            return x + tp.leave(out, tp.sp), state
-        if tp is not None and tp.sp:
+            out, state = self._tp_mixer(p, tp.enter(h, sp), return_state)
+            return x + tp.leave(out, sp), state
+        if tp is not None and sp:
             out, state = self._mixer(p, tp.gather_seq(h), return_state)
             lo, hi = tp.rows(out.shape[1])
             return x + out[:, lo:hi], state
@@ -661,26 +695,29 @@ class LM:
         y = tp.rms_norm(y, p["ssm_norm"][c * dil:(c + 1) * dil], cfg.norm_eps, di)
         return y @ p["out_proj"].to(y.dtype), (h_final, conv_tail) if return_state else None
 
-    def _layer(self, ld: LayerDef, window, positions, keys, x, source, *values):
+    def _layer(self, ld: LayerDef, window, positions, keys, sp, x, source, *values):
         """One pre-norm layer (attention, Mamba-2 or gated cross-attention;
         an attention layer ``with_cross`` adds ungated cross-attention to
         ``source``; then the MLP if it has one) on its params, given as
         positional tensors so that ``torch.utils.checkpoint`` sees them;
-        returns (x, aux)."""
+        ``sp``: its stream's sequence-parallel decision under a rank
+        context; returns (x, aux)."""
         p = dict(zip(keys, values))
         if ld.kind == "mamba":
-            x, _ = self._mamba(p, x)
+            x, _ = self._mamba(p, x, sp=sp)
         elif ld.kind == "cross":
-            x, _ = self._cross_attn(p, x, source, gated=True)
+            x, _ = self._cross_attn(p, x, source, gated=True, sp=sp)
         else:
-            x, _ = self._self_attn(p, x, window=window, positions=positions, causal=ld.causal)
+            x, _ = self._self_attn(p, x, window=window, positions=positions, causal=ld.causal,
+                                   sp=sp)
             if ld.with_cross:
-                x, _ = self._cross_attn(p, x, source, gated=False)
+                x, _ = self._cross_attn(p, x, source, gated=False, sp=sp)
         if ld.with_mlp:
-            return self._mlp(p, x, moe=ld.moe, sp=self.tp is not None and self.tp.sp)
+            return self._mlp(p, x, moe=ld.moe, sp=sp)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None):
+    def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None,
+                       sp: bool = False):
         # unbind once: the backward of a per-layer view is then one stack,
         # not a full-size zero tensor per layer
         per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
@@ -691,35 +728,50 @@ class LM:
                 keys = tuple(per[ld.name])
                 values = [per[ld.name][k][layer] for k in keys]
                 fn = functools.partial(
-                    self._layer, ld, stage.window(ld, layer), positions, keys
+                    self._layer, ld, stage.window(ld, layer), positions, keys, sp
                 )
                 x, a = _remat(fn, x, source, *values, remat=self.remat)
                 aux = aux + a
         return x, aux
 
-    def encode(self, params, source_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, source_embeds: torch.Tensor, *, sp: bool = False) -> torch.Tensor:
         """Whisper's encoder (``repro/models/lm.py:590-607``): the source in
         the compute dtype through ``encoder.blk``'s layers (non-causal
         self-attention at positions ``arange(S_src)``, then the MLP), each
         recomputed in the backward pass unless ``remat="none"``, then
-        ``encoder.norm``."""
+        ``encoder.norm``.  Under a rank context the encoder's stream takes
+        its own sequence-parallel decision (the rank's rows of the source
+        where it splits) and its layers compute partitioned; the output is
+        whole on every rank (:meth:`TensorParallel.whole`), its gradient
+        summed over the model ranks where the cross layers use it in part
+        (by heads, or by the decoder's rows: ``sp``, the decoder's
+        decision)."""
+        tp = self.tp
         x = source_embeds.to(self.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        enc_sp = tp is not None and tp.decide_sp(x.shape[0], x.shape[1], self.cfg.d_model,
+                                                 encoder=True)
+        if enc_sp:
+            lo, hi = tp.rows(x.shape[1])
+            x = x[:, lo:hi]
         blk = params["encoder"]["blk"]
         keys = tuple(blk)
         per = {k: blk[k].unbind(0) for k in keys}
         ld = LayerDef("blk", "attn", causal=False)
-        fn = functools.partial(self._layer, ld, 0, positions, keys)
+        fn = functools.partial(self._layer, ld, 0, positions, keys, enc_sp)
         for layer in range(self.cfg.encoder.num_layers):
             values = [per[k][layer] for k in keys]
             x, _ = _remat(fn, x, None, *values, remat="none" if self.remat == "none" else "full")
-        return rms_norm(x, params["encoder"]["norm"], self.cfg.norm_eps)
+        x = rms_norm(x, params["encoder"]["norm"], self.cfg.norm_eps)
+        return x if tp is None else tp.whole(x, enc_sp, partial=tp.heads or sp)
 
-    def source(self, params, source_embeds):
+    def source(self, params, source_embeds, *, sp: bool = False):
         """What the cross-attention layers read: the encoder's output for
-        encdec, the source embeds themselves for vlm, None otherwise."""
+        encdec, the source embeds themselves for vlm, None otherwise.
+        ``sp``: the decoder's sequence-parallel decision under a rank
+        context."""
         if self.cfg.encoder is not None:
-            return self.encode(params, source_embeds)
+            return self.encode(params, source_embeds, sp=sp)
         return source_embeds if self.cfg.cross_attn is not None else None
 
     def forward(self, params, tokens: torch.Tensor, *, source_embeds=None, positions=None):
@@ -740,11 +792,11 @@ class LM:
             x = self.shard(x, ("batch", "seq", "embed"))
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
-        source = self.source(params, source_embeds)
+        source = self.source(params, source_embeds, sp=sp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for stage in self.stages:
             x, a = self._stage_forward(stage, params[stage.name], x, positions=positions,
-                                       source=source)
+                                       source=source, sp=sp)
             aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if self.tp is not None:  # the rank's vocab shard of every position's logits

@@ -29,16 +29,17 @@ The step's wall is split into those phases in ``step.split`` (seconds, and
 the all-reduced bytes), timed after a device synchronize.
 
 When the model computes partitioned over the model axis (``lm.tp``, a
-:class:`~repro_torch.dist.tensor_parallel.TensorParallel`: the dense family
+:class:`~repro_torch.dist.tensor_parallel.TensorParallel`: every family
 under tensor parallelism), step 1 gathers each weight over the data
 subgroup only, into the rank's model-local tensor (FSDP's gather), and over
 the model subgroup only the weights no rank computes from its shard
 (attention's where its heads do not divide the model axis); step 2 computes
 the rank's partition; the gradients come back model-local (a gathered
 weight's cut to the rank's shard, a replicated weight's summed over the
-model subgroup where the compute was split by rows), the clip takes the
-norm of the model-local gradients with each element counted once, and the
-update reads its moment regions out of the model-local tensors.  The split
+model subgroup where its stream was split by rows or where each rank reads
+it in part), the clip takes the norm of the model-local gradients with each
+element counted once, and the update reads its moment regions out of the
+model-local tensors.  The split
 then adds ``tp_s`` and ``tp_bytes``, the model-subgroup collectives (inside
 the forward and backward, and the gradients' reduction after); ``grad_s``
 is the forward and backward less the collectives inside them.

@@ -24,10 +24,11 @@ shards), computes its rows of each global batch, and the ranks together
 take the single-device step (:mod:`.steps`); the manager saves and restores
 the rank's shards alone (and, with the hot tier, holds its own fragments
 and its buddies' mirrors).  Without a group the trainer is the single-device
-one.  The dense family under tensor parallelism computes partitioned over
-the model axis (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`,
-installed as ``lm.tp``); every other family gathers the whole model on each
-rank.  A MoE layer routes one token group a sequence unless ``moe_groups``
+one.  Under tensor parallelism with a model axis over 1 and no pipe axis
+every family computes partitioned over the model axis
+(:class:`~repro_torch.dist.tensor_parallel.TensorParallel`, installed as
+``lm.tp``: whisper's encoder and decoder streams each take their own
+sequence-parallel decision); otherwise each rank gathers the whole model.  A MoE layer routes one token group a sequence unless ``moe_groups``
 says otherwise, so capacity and the aux loss split over the data axes with
 the batch rows; a ``moe_groups`` that does not divide by the data size is
 refused.

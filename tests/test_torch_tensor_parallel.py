@@ -503,10 +503,11 @@ def test_port_calls_the_hook_at_the_reference_call_sites(arch):
 
 
 def test_partitioned_compute_is_the_dense_family_under_tp():
-    """Under tensor parallelism with a model axis: the dense family, MoE
-    without MLA (EP and expert-TP), the SSM and the hybrid families
-    partition; MLA, vlm and encdec keep the gathered path (as does any run
-    with TP off, no model axis or a pipe axis)."""
+    """Under tensor parallelism with a model axis every family partitions:
+    the dense family, MoE (EP and expert-TP), the SSM and the hybrid
+    families, and since the MLA, vlm and encdec slice those three too; any
+    run with TP off, no model axis or a pipe axis keeps the gathered
+    path."""
     m22 = MeshSpec.from_dict({"data": 2, "model": 2})
     par = TC.ParallelismConfig()
     assert partitions(TC.get_config("smollm-360m"), par, m22)
@@ -516,14 +517,16 @@ def test_partitioned_compute_is_the_dense_family_under_tp():
         {"data": 4, "model": 1}))
     assert not partitions(TC.get_config("smollm-360m"), TC.ParallelismConfig(pipe_axis="pipe"),
                           MeshSpec.from_dict({"pipe": 2, "data": 1, "model": 2}))
-    for arch in ("mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b"):
+    for arch in ("mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-236b"):
         assert partitions(TC.get_config(arch), par, m22), arch
         assert partitions(TC.get_config(arch), TC.ParallelismConfig(expert_parallel=False),
                           m22), arch
         assert not partitions(TC.get_config(arch), TC.ParallelismConfig(tensor_parallel=False),
                               m22), arch
-    for arch in ("deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny"):
-        assert not partitions(TC.get_config(arch), par, m22), arch
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
+        assert partitions(TC.get_config(arch), par, m22), arch
+        assert not partitions(TC.get_config(arch), TC.ParallelismConfig(tensor_parallel=False),
+                              m22), arch
 
 
 # ---------------------------------------------------------------------------
