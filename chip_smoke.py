@@ -79,7 +79,7 @@ nothing falls back to the CPU or to a plain version):
    its all-reduce share (s, GB/s) and the kernels' CUDA-event ms;
 4b. multirank — the multi-rank training runtime on smollm-360m at full
    width, its depth cut from 32 to 2 layers (``CUT_LAYERS``; 8 x 512
-   global, bf16 compute): a one-process baseline (data=1,model=1, 4
+   global, bf16 compute): a one-process baseline (data=1,model=1, 6
    steps); 2 spawned ranks on the one card (gloo with CUDA tensors, a
    ``FileStore``) through ``Trainer.create(..., group=)`` under
    data=2,model=1, steps 1-2 with each rank writing its own ``int8:b256``
@@ -94,10 +94,24 @@ nothing falls back to the CPU or to a plain version):
    ``q_offset`` 256; 16 greedy decode steps), held against one process's
    serve of the same step (prefill logits within 0.1, tokens equal up to
    the first step whose top-2 margin is under it); one process under
-   data=1,model=1 resuming step 2.  Checks (each fails the smoke): the gloo probe takes
-   CUDA tensors for the runtime's collectives (all six probed, values
-   checked, are printed); steps 1-2 and both resumes' steps 3-4 finite and
-   within 2e-2 of the baseline; the 2-rank checkpoint's digests, codec tags
+   data=1,model=1 resuming step 2; then the ``pipe`` stage: 2 new ranks
+   resume step 2 under pipe=2,data=1,model=1 (RESHARD_STREAM, the DP -> PP
+   move), each computing only its chunk of the layers (rank 0 layer 0,
+   rank 1 layer 1: the stream handed along by a ``broadcast`` over the
+   pair's two-member group, each step's split adds ``pipe_s`` and
+   ``pipe_bytes``) for steps 3-4 and saving its own ``int8:b256`` shards at
+   step 4; the same ranks resume step 4 under data=1,model=2 with tensor
+   parallelism off (RESHARD_STREAM, PP -> SP) and take steps 5-6, each its
+   256 rows of the stream from replicated weights; one process resumes step
+   4 under data=1,model=1 for steps 5-6.  Checks (each fails the smoke): the gloo probe takes
+   CUDA tensors for the runtime's collectives (all eight probed, values
+   checked, are printed: point-to-point ``send``/``recv`` each waited with
+   a time limit); steps 1-2, both resumes' steps 3-4 and the pipe stage's
+   steps 3-6 finite and within 2e-2 of the baseline (steps 5-6 also of the
+   one-process resume of step 4); each pipe rank's compute tree and the
+   layers it computed only its chunk; the ranks' step-4 save equal to one
+   process's save of the gathered state, their quantize launches summing to
+   its, all vector; no flash launch in the stage; the 2-rank checkpoint's digests, codec tags
    and files equal to one process's save of the gathered step-2 state; the
    ranks' quantize and dequantize launches summing to that save's, all
    vector; each resumed rank's state bit-equal to ``slice_shard`` of a
@@ -456,9 +470,14 @@ nothing falls back to the CPU or to a plain version):
    read floor; the block-quant rows add ``hot_launches``), the
    ``collectives`` line (JSON: phase 4a; every row adds
    ``collectives_launches``, the block-quant rows by variant too), the
+   ``multirank_pipe`` line (JSON: phase 4b's pipe stage: each step's split
+   ``pipe_s``, ``pipe_bytes``, ``grad_s``, ``all_reduce_s``, ``update_s``,
+   the losses and gaps, the launches by phase, each rank's chunk,
+   compute-weight bytes and peak card memory, the stage's seconds; the flash
+   row adds ``multirank_pipe_launches``, 0 a rank), the
    ``multirank`` line (JSON: phase 4b; the block-quant rows add
-   ``multirank_launches`` and ``multirank_launches_by_phase``, the flash
-   row its serve's launches by rank), the ``multirank_tp`` line (JSON: phase
+   ``multirank_launches`` and ``multirank_launches_by_phase``, the pipe
+   stage's phases included, the flash row its serve's launches by rank), the ``multirank_tp`` line (JSON: phase
    4c; every row adds ``multirank_tp_launches``), the flash row's
    ``q_offset`` shape (``qoff_*``), the ``multirank_mla``,
    ``multirank_vlm`` and ``multirank_encdec`` lines (JSON: each rank's
@@ -5026,8 +5045,16 @@ MULTIRANK_JOIN_S = 300      # a world still running after this fails the smoke
 MULTIRANK_TOL = 2e-2        # tests/test_reconfig_e2e.py: the paper's accepted divergence
 MULTIRANK_CODEC = "int8:b256"
 MULTIRANK_MESH = {"save": "data=2,model=1", "resume": "data=1,model=2"}
+# The multirank phase's pipe stage: step 2 resumed by pipeline stages, then
+# step 4 by sequence rows with tensor parallelism off
+PIPE_MESH = "pipe=2,data=1,model=1"
+SP_MESH = "data=1,model=2"
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
-               "reduce_scatter_tensor", "all_to_all_single")
+               "reduce_scatter_tensor", "all_to_all_single", "send", "recv")
+# send and recv are probed by 2 processes of their own: on a device pointer
+# gloo's TCP transport aborts the sending process (no exception to catch)
+GLOO_P2P = ("send", "recv")
+GLOO_P2P_S = 60             # the point-to-point probe's time limit
 RUNTIME_COLLECTIVES = ("all_reduce", "broadcast", "all_gather")  # what the runtime sends gloo
 SERVE_BATCH = (4, 512)     # a multi-rank serve's prompts
 SERVE_GEN = 17             # tokens generate() returns: the prefill's and 16 greedy decode steps
@@ -5053,7 +5080,8 @@ def gloo_cuda_probe(torch, dist) -> dict[str, str]:
     """Which collectives gloo takes with CUDA tensors (torch as installed):
     each tried once on a small card tensor, in a group of its own, its values
     checked; "ok", "wrong values" or the error's first line.  A probe only:
-    the runtime's collectives (``RUNTIME_COLLECTIVES``) must be "ok"."""
+    the runtime's collectives (``RUNTIME_COLLECTIVES``) must be "ok".
+    ``send`` and ``recv`` are :func:`gloo_p2p_probe`'s."""
     g = dist.new_group(backend="gloo")
     n, me, dev = g.size(), dist.get_rank(g), torch.device("cuda")
     m = 4 * n
@@ -5094,7 +5122,7 @@ def gloo_cuda_probe(torch, dist) -> dict[str, str]:
     calls = {f.__name__: f for f in (all_reduce, broadcast, all_gather, all_gather_into_tensor,
                                      reduce_scatter_tensor, all_to_all_single)}
     out = {}
-    for name in GLOO_PROBES:
+    for name in (n for n in GLOO_PROBES if n not in GLOO_P2P):
         try:
             right = calls[name]()
             torch.cuda.synchronize()
@@ -5103,6 +5131,82 @@ def gloo_cuda_probe(torch, dist) -> dict[str, str]:
             out[name] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
     dist.barrier()
     return out
+
+
+def gloo_p2p_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of the 2 processes of the point-to-point probe (spawned): rank 0
+    sends a card tensor (``send``) to rank 1's ``recv``; each writes what it saw
+    to ``p2p<rank>.json`` ("posted" before the call) and its standard error
+    to ``p2p<rank>.err``, then exits without a teardown."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import resource
+
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))  # an abort leaves no core file
+    out = Path(out_dir)
+    err = os.open(out / f"p2p{rank}.err", os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(err, 2)  # gloo's abort message
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=GLOO_P2P_S))
+    name = GLOO_P2P[rank]
+    record = out / f"p2p{rank}.json"
+    record.write_text(json.dumps({name: "posted"}))
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    try:
+        if rank == 0:
+            dist.send(x, dst=1)
+            res = "ok"
+        else:
+            y = torch.empty_like(x)
+            dist.recv(y, src=0)
+            res = "ok" if torch.equal(y, x) else "wrong values"
+    except Exception as e:  # the probe's answer: recorded, nothing falls back
+        res = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+    record.write_text(json.dumps({name: res}))
+    sys.stderr.flush()
+    os._exit(0)  # a failed pair's teardown may block
+
+
+def gloo_p2p_probe(torch, out_dir: Path):
+    """Start the point-to-point probe's 2 processes (:func:`gloo_p2p_rank`);
+    the returned function joins them (killed after ``GLOO_P2P_S``) and
+    gives {"send": ..., "recv": ...}: "ok", the error's first line, or the
+    process's death with the last line it wrote to its standard error."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = out_dir / "store_p2p"
+    procs = [ctx.Process(target=gloo_p2p_rank, args=(r, str(store), str(out_dir)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+
+    def finish() -> dict[str, str]:
+        deadline = time.monotonic() + 2 * GLOO_P2P_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        out = {}
+        for r, (p, name) in enumerate(zip(procs, GLOO_P2P)):
+            if p.is_alive():
+                p.kill()
+                p.join()
+                out[name] = f"still waiting after {2 * GLOO_P2P_S} s: killed"
+                continue
+            rec = out_dir / f"p2p{r}.json"
+            res = json.loads(rec.read_text())[name] if rec.exists() else "no record"
+            if p.exitcode != 0:
+                lines = [ln for ln in (out_dir / f"p2p{r}.err").read_text().splitlines()
+                         if ln.strip()]
+                res = (f"the process died (exit {p.exitcode}) after '{res}': "
+                       f"{lines[-1].strip()[:160] if lines else 'nothing on stderr'}")
+            out[name] = res
+        return out
+
+    return finish
 
 
 def gather_routes(torch, dist, plan, local: dict, reps: int = 2) -> dict:
@@ -5403,7 +5507,8 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
         out: dict = {"rank": rank, "stage": stage}
         bodies = {"tp": multirank_tp_rank, "hot": multirank_hot_rank, "moe": multirank_moe_rank,
                   "ssm": multirank_ssm_rank, "mla": multirank_serve_rank,
-                  "vlm": multirank_serve_rank, "encdec": multirank_encdec_rank}
+                  "vlm": multirank_serve_rank, "encdec": multirank_encdec_rank,
+                  "pipe": multirank_pipe_rank}
         if stage in bodies:
             body = bodies[stage]
             (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
@@ -5515,6 +5620,138 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             dist.destroy_process_group()
 
 
+def restore_bits_differing(torch, t, state, root: Path, rank: int) -> int:
+    """Elements of a rank's restored state that differ from its
+    ``slice_shard`` of a one-process restore of the same step (under the
+    trainer's plan)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+
+    one = CheckpointManager(str(root), t.plan,
+                            policy=CheckpointPolicy(save_interval=1000, async_save=False))
+    full, _ = one.restore(t.device)
+    diff = 0
+    for kind, field in ((StateKind.FP32, "params"), (StateKind.EXP_AVG, "exp_avg"),
+                        (StateKind.EXP_AVG_SQ, "exp_avg_sq")):
+        want = flatten_with_paths(getattr(full, field))
+        for name, got in flatten_with_paths(getattr(state, field)).items():
+            cut = slice_shard(want[name], t.plan.param_specs[name].layout_for(kind, t.plan.mesh),
+                              rank)
+            diff += int((got.view(torch.int32) != cut.view(torch.int32)).sum())
+    del full, want, cut
+    torch.cuda.empty_cache()
+    return diff
+
+
+def multirank_pipe_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank phase's ``pipe`` stage: smollm-360m at full
+    width, ``CUT_LAYERS`` layers, bf16 compute.  Resumes the phase's step-2
+    ``int8:b256`` checkpoint (saved under data=2,model=1) under
+    ``PIPE_MESH`` (RESHARD_STREAM, the DP -> PP move; each rank's state
+    held bit for bit against ``slice_shard`` of a one-process restore),
+    takes steps 3-4 by pipeline stages (each rank only its chunk of the
+    layers: its compute tree's stacked dims and the layers it computed are
+    checked) and saves its own ``int8:b256`` shards at step 4, beside one
+    process's save of the gathered state (rank 0) for the digests and the
+    launches; then the same ranks resume step 4 under ``SP_MESH`` with
+    tensor parallelism off (RESHARD_STREAM, the PP -> SP move) and take
+    steps 5-6 by sequence rows."""
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.dist_ckpt import DistCheckpoint
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer, gather_state
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+    tcfg = TrainConfig(seed=0)
+    root = out_dir / "ckpt"
+    b, s = MULTIRANK_BATCH
+    out: dict = {"rank": rank, "stage": "pipe"}
+    reset_launches({"flash": fa_ops.flash_attention})
+    t = Trainer.create(cfg, ParallelismConfig(pipe_axis="pipe"), tcfg,
+                       mesh_spec_from_string(PIPE_MESH), batch_size=b, seq_len=s,
+                       ckpt_dir=str(root), group=dist.group.WORLD,
+                       policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=4))
+    pipe = t.lm.pipe
+    check(pipe is not None and t.lm.tp is None, f"pipe rank {rank}: no pipeline stage")
+    out["setup_s"] = time.perf_counter() - t_start
+    reset_launches(fns)
+    state, info = t.init_or_restore()
+    check(info is not None, f"pipe rank {rank}: nothing to resume")
+    out["restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                      "bytes_read": info.restore_stats.bytes_read}
+    out["restore_launches"] = launch_counts(fns)
+    out["bits_differing"] = restore_bits_differing(torch, t, state, root, rank)
+    # the weights this rank computes from: its chunk of every stack, nothing more
+    _, comp = pipe.weights(flatten_with_paths(state.params))
+    out["chunks"] = {k: list(v) for k, v in pipe.chunks.items()}
+    out["held"] = {n: list(x.shape) for n, x in comp.items() if pipe.stacked[n]}
+    out["compute_bytes"] = sum(x.numel() * x.element_size() for x in comp.values())
+    out["stacked_bytes"] = sum(x.numel() * x.element_size() for n, x in comp.items()
+                               if pipe.stacked[n])
+    del comp
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fns)
+    state, hist = t.run(state, 2, 2)  # steps 3-4 by stages, the save at step 4
+    torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launch_counts(fns)
+    out["launches_by_variant"] = {k: dict(fn.launches_by_variant) for k, fn in fns.items()}
+    out["computed"] = [list(c) for c in pipe.computed]
+    (res,) = t.save_results
+    out["save"] = {"s": res.wall_time_s, "bytes": res.bytes_written, "shards": res.shards_written}
+    out["hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")} for h in hist]
+    full = gather_state(state, t.plan, dist.group.WORLD)
+    del state
+    if rank == 0:  # the one-process saver of the gathered step-4 state: digests and launches
+        reset_launches(fns)
+        one = out_dir / "one_pipe"
+        write_distributed(snapshot_state(full, t.manager.codec), t.plan, 4, one,
+                          codec=t.manager.codec, config_fingerprint=t.manager.config_fingerprint)
+        out["one_launches"] = launch_counts(fns)
+        a, c = DistCheckpoint.open(root / "step_00000004"), DistCheckpoint.open(one)
+        out["check"] = {"committed": a.is_committed,
+                        "digests_equal": a.manifest.shard_digests == c.manifest.shard_digests,
+                        "digests": len(a.manifest.shard_digests)}
+        shutil.rmtree(one)
+    del full
+    t.manager.close()
+    del t, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # the PP -> SP move: tensor parallelism off, each rank its rows of the stream
+    t = Trainer.create(cfg, ParallelismConfig(tensor_parallel=False), tcfg,
+                       mesh_spec_from_string(SP_MESH), batch_size=b, seq_len=s,
+                       ckpt_dir=str(root), group=dist.group.WORLD,
+                       policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000))
+    check(t.lm.tp is not None and not t.lm.tp.tensor and t.lm.pipe is None,
+          f"pipe rank {rank}: tensor parallelism off does not compute by rows")
+    reset_launches(fns)
+    state, info = t.init_or_restore()
+    check(info is not None, f"pipe rank {rank}: nothing to resume at step 4")
+    out["sp_restore"] = {"mode": info.mode.value, "step": info.step, "s": info.wall_time_s,
+                         "bytes_read": info.restore_stats.bytes_read}
+    out["sp_restore_launches"] = launch_counts(fns)
+    out["sp_bits_differing"] = restore_bits_differing(torch, t, state, root, rank)
+    reset_launches(fns)
+    state, hist = t.run(state, 4, 2)  # steps 5-6 by rows; no save
+    out["sp_run_launches"] = launch_counts(fns)
+    out["sp_hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")}
+                      for h in hist]
+    out["sp_seq_parallel"] = t.lm.tp.sp
+    t.manager.close()
+    out["flash_launches"] = fa_ops.flash_attention.launches
+    return out
+
+
 def run_multirank_world(torch, stage: str, out_dir: Path,
                         join_s: float = MULTIRANK_JOIN_S) -> tuple[list[dict], float]:
     """Spawn the ranks of one stage, join them with the phase's time limit
@@ -5579,13 +5816,15 @@ def multirank_phase(torch, bq_ops) -> dict:
                               batch_size=b, seq_len=s, device=torch.device("cuda"), **kw)
 
     try:
+        p2p = gloo_p2p_probe(torch, out_dir)  # beside the baseline: 2 small processes
         base = trainer()
-        _, hist = base.run(base.init_state(), 0, 4)
+        _, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
         check(all(map(math.isfinite, baseline)), f"multirank baseline: losses {baseline}")
         del base, hist
         gc.collect()
         torch.cuda.empty_cache()
+        gloo_p2p = p2p()
         saved, save_wall = run_multirank_world(torch, "save", out_dir)
         resumed, resume_wall = run_multirank_world(torch, "resume", out_dir)
         ranked_serve = torch.load(out_dir / "multirank_serve.pt")
@@ -5602,6 +5841,21 @@ def multirank_phase(torch, bq_ops) -> dict:
         del one, state
         gc.collect()
         torch.cuda.empty_cache()
+        # DP -> PP (steps 3-4 by stages, saved at step 4), then PP -> SP (steps 5-6)
+        t_pipe = time.perf_counter()
+        piped, pipe_wall = run_multirank_world(torch, "pipe", out_dir)
+        reset_launches(fns)
+        one = trainer(ckpt_dir=str(out_dir / "ckpt"),
+                      policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000))
+        state, info4 = one.init_or_restore()
+        one_restore4 = launch_counts(fns)
+        _, hist = one.run(state, 4, 2)
+        one.manager.close()
+        one_losses4 = [h["loss"] for h in hist]
+        del one, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe_phase_s = time.perf_counter() - t_pipe
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -5660,11 +5914,13 @@ def multirank_phase(torch, bq_ops) -> dict:
         check(all("tp_s" in h["split"] for h in r["hist"]),
               f"multirank resume rank {r['rank']}: no tp_s in the split")
     held = hold_serve(torch, "multirank serve", ranked_serve, one_serve)
+    pipe_out = hold_pipe(piped, baseline, one_losses4, info4, one_restore4, pipe_wall,
+                         pipe_phase_s)
     out = {
         "model": f"smollm-360m, full width, {CUT_LAYERS} of 32 layers", "world": MULTIRANK_WORLD,
         "backend": "gloo", "tensors": "cuda", "batch": list(MULTIRANK_BATCH),
         "codec": MULTIRANK_CODEC, "meshes": MULTIRANK_MESH,
-        "gloo_cuda": saved[0]["gloo_cuda"],
+        "gloo_cuda": {**saved[0]["gloo_cuda"], **gloo_p2p},
         "baseline": baseline, "save_losses": save_losses, "resume_losses": resume_losses,
         "one_process_losses": one_losses,
         "gaps": {"save": gap_save, "resume": gap_resume, "one_process": gap_one},
@@ -5691,11 +5947,15 @@ def multirank_phase(torch, bq_ops) -> dict:
             "resume_2_ranks": {"quantize": 0, "dequantize": resume_dq},
             "resume_1_process": one_restore,
             "check_one_process_save": one_save,
+            **pipe_out["launches_by_phase"],
         },
+        "pipe": {k: pipe_out[k] for k in ("losses", "sp_losses", "one_process_losses", "gaps",
+                                          "world_s", "phase_s")},
+        "pipe_record": pipe_out,
         "phase_s": time.perf_counter() - t_phase,
     }
-    out["launches"] = {k: summed[k] + out["launches_by_phase"]["resume_2_ranks"][k]
-                       + one_restore[k] for k in fns}
+    out["launches"] = {k: sum(v[k] for p, v in out["launches_by_phase"].items()
+                              if not p.startswith("check_")) for k in fns}
     print(f"multirank smollm-360m ({cfg.num_layers} layers): {MULTIRANK_WORLD} ranks on the one card (gloo, CUDA tensors); "
           f"gloo takes CUDA tensors for: {[k for k, v in out['gloo_cuda'].items() if v == 'ok']}; "
           f"refuses: {{{', '.join(f'{k}: {v[:60]}' for k, v in out['gloo_cuda'].items() if v != 'ok')}}}")
@@ -5741,6 +6001,125 @@ def multirank_phase(torch, bq_ops) -> dict:
               f"model-group collectives {sv['tp_s']:.2f} s ({sv['tp_bytes'] / 1e9:.3f} GB)")
     print(f"  resume 1 process (data=1,model=1): {info.mode.value} in {info.wall_time_s:.2f} s; "
           f"losses {[round(v, 4) for v in one_losses]}; gaps to the baseline {out['gaps']}")
+    return out
+
+
+def hold_pipe(piped: list[dict], baseline: list[float], one_losses: list[float], info,
+              one_restore: dict, world_s: float, phase_s: float) -> dict:
+    """The multirank phase's pipe stage held (each failed check raises):
+    both resumes RESHARD_STREAM and bit-equal to a one-process restore's
+    shard; each rank held and computed only its chunk of the layers; steps
+    3-4 (by stages) and 5-6 (by rows) within ``MULTIRANK_TOL`` of the
+    baseline, 5-6 also of one process resuming the same step-4 checkpoint;
+    the ranks' step-4 save equal to one process's save of the gathered
+    state, their quantize and dequantize (the served digest) launches
+    summing to its, all vector; no launch while training by rows, no flash
+    launch.  Prints the stage and returns its
+    record (the ``multirank_pipe`` line)."""
+    size = 2
+    for r in piped:
+        rk = r["rank"]
+        for key, step in (("restore", 2), ("sp_restore", 4)):
+            check(r[key]["mode"] == "reshard_stream" and r[key]["step"] == step,
+                  f"multirank-pipe rank {rk}: {key} {r[key]}")
+        check(r["bits_differing"] == 0 and r["sp_bits_differing"] == 0,
+              f"multirank-pipe rank {rk}: {r['bits_differing']} / {r['sp_bits_differing']} "
+              "elements differ from the one-process restore's shard")
+        per = -(-CUT_LAYERS // size)
+        lo = min(rk * per, CUT_LAYERS)
+        hi = min(lo + per, CUT_LAYERS)
+        check(r["chunks"] == {"layers": [lo, hi]} and r["computed"] == [["layers", lo, hi]]
+              and all(shape[0] == hi - lo for shape in r["held"].values()),
+              f"multirank-pipe rank {rk}: chunks {r['chunks']}, computed {r['computed']}, held "
+              f"{sorted(set(sh[0] for sh in r['held'].values()))} layers (want [{lo}, {hi}))")
+        check(all("pipe_s" in h["split"] and h["split"]["pipe_bytes"] > 0 for h in r["hist"]),
+              f"multirank-pipe rank {rk}: no pipe exchange in the split")
+        check(r["sp_run_launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank-pipe rank {rk}: launches while training by rows "
+              f"{r['sp_run_launches']}")
+        check(r["flash_launches"] == 0 and r["sp_seq_parallel"],
+              f"multirank-pipe rank {rk}: {r['flash_launches']} flash launches, rows "
+              f"{r['sp_seq_parallel']}")
+    losses = [h["loss"] for h in piped[0]["hist"]]
+    sp_losses = [h["loss"] for h in piped[0]["sp_hist"]]
+    check(all([h["loss"] for h in r["hist"]] == losses and [h["loss"] for h in r["sp_hist"]]
+              == sp_losses for r in piped), "multirank-pipe: the ranks report different losses")
+    gaps = {"pipe": max(abs(x - y) for x, y in zip(losses, baseline[2:4])),
+            "sp": max(abs(x - y) for x, y in zip(sp_losses, baseline[4:6])),
+            "sp_one_process": max(abs(x - y) for x, y in zip(sp_losses, one_losses)),
+            "one_process": max(abs(x - y) for x, y in zip(one_losses, baseline[4:6]))}
+    check(all(map(math.isfinite, losses + sp_losses + one_losses))
+          and max(gaps.values()) <= MULTIRANK_TOL,
+          f"multirank-pipe: steps 3-4 {losses}, 5-6 {sp_losses} and one process's 5-6 "
+          f"{one_losses} against the baseline {baseline}: gaps {gaps}")
+    check(info is not None and info.mode.value == "reshard_stream" and info.step == 4,
+          f"multirank-pipe: the one-process resume of the step-4 checkpoint: {info}")
+    chk = piped[0]["check"]
+    check(chk["committed"] and chk["digests_equal"],
+          f"multirank-pipe: the ranks' step-4 save is not one process's save of the gathered "
+          f"state ({chk})")
+    fns = ("quantize", "dequantize")
+    summed = {k: sum(r["launches"][k] for r in piped) for k in fns}
+    one_save = piped[0]["one_launches"]
+    check(summed == one_save and summed["quantize"] > 0,
+          f"multirank-pipe: the ranks' save launches {[r['launches'] for r in piped]} do not "
+          f"sum to the one-process save's {one_save}")
+    vector = all(set(k for k, n in r["launches_by_variant"][f].items() if n) <= {"vector"}
+                 for r in piped for f in fns)
+    check(vector, f"multirank-pipe: a save launch was not the vector kernel: "
+                  f"{[r['launches_by_variant'] for r in piped]}")
+    splits = [{"rank": r["rank"], "mesh": mesh, "step": h["step"], "loss": h["loss"],
+               "dt": h["dt"], **{k: h["split"].get(k) for k in (
+                   "gather_s", "grad_s", "pipe_s", "pipe_bytes", "tp_s", "tp_bytes",
+                   "all_reduce_s", "all_reduce_bytes", "update_s")}}
+              for r in piped for mesh, hs in ((PIPE_MESH, r["hist"]), (SP_MESH, r["sp_hist"]))
+              for h in hs]
+    out = {
+        "model": f"smollm-360m, full width, {CUT_LAYERS} of 32 layers",
+        "meshes": {"pipe": PIPE_MESH, "rows": f"{SP_MESH}, tensor_parallel=False"},
+        "losses": losses, "sp_losses": sp_losses, "one_process_losses": one_losses,
+        "baseline": baseline, "gaps": gaps, "steps": splits,
+        "restore": [{"rank": r["rank"], "pipe": r["restore"], "rows": r["sp_restore"]}
+                    for r in piped],
+        "one_process_restore": {"mode": info.mode.value, "s": info.wall_time_s},
+        "chunks": [r["chunks"] for r in piped],
+        "compute_bytes": [r["compute_bytes"] for r in piped],
+        "stacked_bytes": [r["stacked_bytes"] for r in piped],
+        "peak_gb": [r["peak_gb"] for r in piped],
+        "save": [{"rank": r["rank"], **r["save"]} for r in piped], "commit": chk,
+        "launches_by_rank": {k: [r["launches"][k] for r in piped] for k in fns},
+        "launches_by_phase": {
+            "pipe_resume_2_ranks": {k: sum(r["restore_launches"][k] for r in piped) for k in fns},
+            "pipe_save_2_ranks": summed,
+            "check_pipe_one_process_save": one_save,
+            "sp_resume_2_ranks": {k: sum(r["sp_restore_launches"][k] for r in piped)
+                                  for k in fns},
+            "resume_step4_1_process": one_restore,
+        },
+        "flash_launches_by_rank": [r["flash_launches"] for r in piped],
+        "setup_s": [r["setup_s"] for r in piped],
+        "world_s": world_s, "phase_s": phase_s,
+    }
+    print(f"multirank-pipe smollm-360m ({CUT_LAYERS} layers): 2 ranks resume the data=2 step-2 "
+          f"checkpoint under {PIPE_MESH} ({piped[0]['restore']['mode']}), steps 3-4 by stages "
+          f"{[round(v, 4) for v in losses]}, then step 4 under {SP_MESH} with TP off "
+          f"({piped[0]['sp_restore']['mode']}), steps 5-6 by rows "
+          f"{[round(v, 4) for v in sp_losses]}; one process from step 4 "
+          f"{[round(v, 4) for v in one_losses]}; baseline {[round(v, 4) for v in baseline]}; "
+          f"gaps {gaps}; world {world_s:.1f} s, stage {phase_s:.1f} s")
+    for r in piped:
+        print(f"  rank {r['rank']}: chunk {r['chunks']}, computed {r['computed']}, compute "
+              f"weights {r['compute_bytes'] / 1e9:.3f} GB (stacked {r['stacked_bytes'] / 1e9:.3f} "
+              f"GB), peak {r['peak_gb']:.2f} GB; save step 4 {r['save']['bytes'] / 1e9:.3f} GB in "
+              f"{r['save']['s']:.2f} s, launches {r['launches']}; restores "
+              f"{r['restore']['s']:.2f} s and {r['sp_restore']['s']:.2f} s")
+    for st in splits:
+        print(f"  {st['mesh']} rank {st['rank']} step {st['step']}: loss {st['loss']:.4f}, wall "
+              f"{st['dt']:.2f} s = gather {st['gather_s']:.2f} + forward/backward "
+              f"{st['grad_s']:.2f} + pipe {st['pipe_s'] or 0:.3f} "
+              f"({(st['pipe_bytes'] or 0) / 1e9:.4f} GB) + model group {st['tp_s'] or 0:.3f} "
+              f"({(st['tp_bytes'] or 0) / 1e9:.4f} GB) + all-reduce {st['all_reduce_s']:.2f} + "
+              f"update {st['update_s']:.2f}")
     return out
 
 
@@ -7050,6 +7429,7 @@ def main() -> int:
     coll = collectives_phase(torch)
     clock.mark("collectives")
     multi = multirank_phase(torch, bq_ops)
+    multi_pipe = multi.pop("pipe_record")
     clock.mark("multirank")
     multi_tp = multirank_tp_phase(torch, bq_ops)
     clock.mark("multirank-tp")
@@ -7247,6 +7627,7 @@ def main() -> int:
                       "(smollm-360m's rank 1 of model=2 under sequence parallelism); library: "
                       "scaled_dot_product_attention with causal_lower_right(256, 512)",
         "multirank_launches": multi["flash_launches_by_rank"],
+        "multirank_pipe_launches": multi_pipe["flash_launches_by_rank"],
         "multirank_tp_launches": multi_tp["flash_launches_by_rank"],
         "multirank_hot_launches": multi_hot["flash_launches"],
         "multirank_moe_launches": multi_moe["flash_launches_by_rank"],
@@ -7405,6 +7786,7 @@ def main() -> int:
     print(json.dumps({"fanout": {k: v for k, v in fanout.items() if k != "launches_by_phase"}}))
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"collectives": coll}))
+    print(json.dumps({"multirank_pipe": multi_pipe}))
     print(json.dumps({"multirank": multi}))
     print(json.dumps({"multirank_tp": multi_tp}))
     print(json.dumps({"multirank_hot": multi_hot}))

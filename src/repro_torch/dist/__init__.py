@@ -6,9 +6,11 @@
   ``torch.distributed`` group over the mesh), :func:`gather_full`,
   :func:`local_shard`, :func:`rank_rows`; the activation and decode-cache
   rules :func:`make_sharder` and :func:`cache_pspecs`.
-* :mod:`repro_torch.dist.tensor_parallel` — the dense family's partitioned
-  compute over the model axis (:class:`TensorParallel`, installed as
-  ``LM.tp``).
+* :mod:`repro_torch.dist.tensor_parallel` — every family's partitioned
+  compute over the model axis, or by rows with tensor parallelism off
+  (:class:`TensorParallel`, installed as ``LM.tp``).
+* :mod:`repro_torch.dist.pipeline` — compute by pipeline stages over a pipe
+  axis (:class:`Pipeline`, installed as ``LM.pipe``).
 * :mod:`repro_torch.dist.collectives` — compressed gradient collectives
   (block-wise int8 quantization with error feedback) over a
   ``torch.distributed`` process group.
@@ -27,10 +29,12 @@ from .sharding import (
     rank_rows,
     vocab_multiple,
 )
+from .pipeline import Pipeline
 from .tensor_parallel import TensorParallel
 
 __all__ = [
     "PartitionSpec",
+    "Pipeline",
     "RankGroups",
     "ShardingPlan",
     "TensorParallel",

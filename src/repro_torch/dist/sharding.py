@@ -79,6 +79,7 @@ __all__ = [
     "model_layout",
     "place",
     "rank_rows",
+    "relocal",
     "vocab_multiple",
 ]
 
@@ -499,13 +500,28 @@ class RankGroups:
                    data_size=dsize, members=members_of)
 
 
-def model_layout(spec: ParamSpec, kind: StateKind, mesh: MeshSpec, model_axis: str) -> ShardLayout:
+def model_layout(spec: ParamSpec, kind: StateKind, mesh: MeshSpec, model_axis: str | None,
+                 pipe_axis: str | None = None) -> ShardLayout:
     """The layout of a tensor of ``kind`` split over the model axis alone
-    (its data and pipe axes dropped): a rank's *model-local* tensor, the
-    full data replica of its model shard."""
-    dims = tuple(DimSpec(tuple(a for a in d.axes if a == model_axis), d.parts)
+    (its data axes dropped, and its pipe axis unless ``pipe_axis`` keeps it):
+    a rank's *model-local* tensor, the full data replica of its model shard,
+    or with ``pipe_axis`` its *stage-local* one (its stage's layers of the
+    stacked dim).  ``model_axis`` None drops the model axis too."""
+    keep = {model_axis, pipe_axis} - {None}
+    dims = tuple(DimSpec(tuple(a for a in d.axes if a in keep), d.parts)
                  for d in spec.states[kind].dims)
     return compute_layout(spec.runtime_shape, dims, mesh)
+
+
+def relocal(t: torch.Tensor, src: ShardLayout, dst: ShardLayout, rank: int) -> torch.Tensor:
+    """A rank's tensor of layout ``src`` cut to its tensor of ``dst`` (whose
+    elements ``src``'s covers; padding zero); ``t`` itself where the two
+    are the same region."""
+    if _same_region(src, dst, rank):
+        return t
+    out = torch.zeros(dst.local_shape, dtype=t.dtype, device=t.device)
+    place(out, dst.entries[rank], t, src.entries[rank])
+    return out
 
 
 def place(dst: torch.Tensor, dst_entries, src: torch.Tensor, src_entries) -> None:

@@ -121,12 +121,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ParallelismConfig
-from repro_torch.core.layout import MeshSpec, slice_shard
+from repro_torch.core.layout import MeshSpec
 from repro_torch.core.patterns import StateKind
 
 from .sharding import (
-    RankGroups, _moe_mode, _same_region, gather_full, gather_shard, make_sharder, model_layout,
-    place,
+    RankGroups, _moe_mode, gather_full, gather_shard, make_sharder, model_layout, relocal,
 )
 
 __all__ = ["TensorParallel", "partitions"]
@@ -143,18 +142,26 @@ _SSM_PARTIAL = ("a_log", "d_skip", "dt_bias", "ssm_norm", "conv_b", "conv_w")
 
 
 def partitions(cfg: ModelConfig, parallel: ParallelismConfig, mesh: MeshSpec) -> bool:
-    """Whether a run computes partitioned over the model axis: under tensor
-    parallelism, with a model axis of size > 1 and no pipe axis over 1,
-    every family (dense, MoE with or without MLA, SSM, hybrid, vlm, encdec),
-    where a MoE layer's experts split (expert parallelism, or each expert's
-    width divides the model size; shared experts' width too).  A mesh with
-    a pipe axis, or tensor parallelism off, gathers the whole model on each
-    rank (ROADMAP items 11b.4.4 and 11b.4.5)."""
+    """Whether a rank computes its part over the model axis (a model axis
+    of size > 1; a pipe axis may lie beside it, :mod:`.pipeline`):
+
+    * under tensor parallelism every family (dense, MoE with or without
+      MLA, SSM, hybrid, vlm, encdec) by the weights' split, where a MoE
+      layer's experts split (expert parallelism, or each expert's width
+      divides the model size; shared experts' width too);
+    * with tensor parallelism off and sequence parallelism on, every family
+      by the rows of each stream that the sharder puts over the model axis,
+      from weights replicated over it (a MoE layer's experts split under
+      expert parallelism).
+
+    Otherwise (no model axis, a MoE layer whose experts would not split, or
+    tensor and sequence parallelism both off) every rank gathers the whole
+    model over the model axis."""
     m = mesh.axis_size(parallel.model_axis) if mesh.has_axis(parallel.model_axis) else 1
-    pipe = (mesh.axis_size(parallel.pipe_axis)
-            if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else 1)
-    if not (parallel.tensor_parallel and m > 1 and pipe == 1):
+    if m <= 1:
         return False
+    if not parallel.tensor_parallel:
+        return parallel.sequence_parallel
     moe = cfg.moe
     if moe is None:
         return True
@@ -192,25 +199,38 @@ class TensorParallel:
         self.members = ranks.members["model"]
         if [mesh.coords(r)[self.axis] for r in self.members] != list(range(self.size)):
             raise ValueError(f"model subgroup {self.members} is not in model-coordinate order")
+        # tensor parallelism splits the weights over the model axis; with it
+        # off the rank computes its rows from replicated weights
+        self.tensor = par.tensor_parallel
         # q heads go over the model axis where the sharder says so; a rank
         # computes them from its own wqkv (cross_wq, cross_wkv) shard only
         # when its GQA groups are whole (the kv heads divide too), MLA's from
         # its wq_b and wkv_b shards when the heads divide; else it computes
         # by rows
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
-        self.heads = hq % self.size == 0 and (cfg.mla is not None or hkv % self.size == 0)
+        self.heads = self.tensor and hq % self.size == 0 and (cfg.mla is not None
+                                                              or hkv % self.size == 0)
         # Mamba-2 by heads (cfg.num_heads is not the SSM's: mamba2's is 1)
-        self.ssm_heads = _ssm_split(cfg, self.size)
+        self.ssm_heads = self.tensor and _ssm_split(cfg, self.size)
         self.moe_mode = ranks.plan.moe_mode  # "ep": experts over model; "tp": their width
+        # a MoE layer's experts split over the model axis (whole ones, or slices)
+        self.experts_split = self.moe_mode == "ep" or (self.moe_mode == "tp" and self.tensor)
         specs = ranks.plan.param_specs
-        self.layouts = {n: model_layout(s, StateKind.FP32, mesh, self.axis)
+        # a pipe axis keeps its stage of the stacked dim (dist.pipeline)
+        pipe = par.pipe_axis if par.pipe_axis and mesh.has_axis(par.pipe_axis) else None
+        self.pipe_axis = pipe if pipe and mesh.axis_size(pipe) > 1 else None
+        self.layouts = {n: model_layout(s, StateKind.FP32, mesh, self.axis, self.pipe_axis)
                         for n, s in specs.items()}
+        # what a gathered weight is whole as: the runtime tensor, or its stage's
+        self.stage_layouts = {n: model_layout(s, StateKind.FP32, mesh, None, self.pipe_axis)
+                              for n, s in specs.items()}
         self.split = {n: any(self.axis in d.axes for d in s.states[StateKind.FP32].dims)
                       for n, s in specs.items()}
         leaf = {n: n.split(".")[-1] for n in specs}
         gather = ((() if self.heads else _ATTN) + (("conv_w",) if self.ssm_heads else _MAMBA))
         self.gathered = frozenset(n for n in specs if self.split[n] and leaf[n] in gather)
-        partial = (("router",) + (_SSM_PARTIAL if self.ssm_heads else ())
+        partial = ((("router",) if self.experts_split else ())
+                   + (_SSM_PARTIAL if self.ssm_heads else ())
                    + (_MLA_PARTIAL if self.heads and cfg.mla is not None else ()))
         self.partial = frozenset(n for n in specs if leaf[n] in partial)
         self.sp = False      # the last forward's decision for the decoder's stream (decide_sp)
@@ -354,7 +374,11 @@ class TensorParallel:
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
         """Vocab-parallel lookup in this rank's rows of ``embed``: masked,
-        then reduce-scattered over seq (``sp``) or all-reduced."""
+        then reduce-scattered over seq (``sp``) or all-reduced.  With tensor
+        parallelism off (``embed`` whole): the lookup of the rank's rows."""
+        if not self.tensor:
+            return F.embedding(tokens[:, slice(*self.rows(tokens.shape[1]))] if sp else tokens,
+                               table)
         vl = table.shape[0]
         ids = tokens - self.vocab_start(vl)
         own = (ids >= 0) & (ids < vl)
@@ -395,15 +419,23 @@ class TensorParallel:
 
     def weights(self, local: dict) -> tuple[dict, dict]:
         """From the rank's checkpoint shards (flat), its model-local weights
-        (gathered over the data subgroup) and the weights it computes from:
-        the model-local ones, and the :attr:`gathered` ones whole (gathered
-        over the model subgroup)."""
+        (gathered over the data subgroup; under a pipe axis its stage's
+        layers of them) and the weights it computes from: the model-local
+        ones, and the :attr:`gathered` ones whole (gathered over the model
+        subgroup: the runtime tensor, or its stage's layers of it)."""
         rg, specs = self.ranks, self.ranks.plan.param_specs
         mloc = {n: gather_shard(t, specs[n].layout_for(StateKind.FP32, self.mesh), self.layouts[n],
                                 rg.rank, rg.data, rg.members["data"])
                 for n, t in local.items()}
-        comp = {n: gather_full(t, self.layouts[n], self.group, self.members)
-                if n in self.gathered else t for n, t in mloc.items()}
+        comp = {}
+        for n, t in mloc.items():
+            if n not in self.gathered:
+                comp[n] = t
+            elif self.pipe_axis is None:
+                comp[n] = gather_full(t, self.layouts[n], self.group, self.members)
+            else:
+                comp[n] = gather_shard(t, self.layouts[n], self.stage_layouts[n], rg.rank,
+                                       self.group, self.members)
         return mloc, comp
 
     def reduce_grads(self, grads: dict) -> dict:
@@ -419,27 +451,24 @@ class TensorParallel:
             if n in self.partial or (sp and (n in self.gathered or not self.split[n])):
                 self.all_reduce(g)
             if n in self.gathered:
-                g = slice_shard(g, self.layouts[n], self.ranks.rank)
+                g = relocal(g, self.stage_layouts[n], self.layouts[n], self.ranks.rank)
             out[n] = g
         return out
 
     def global_norm(self, grads: dict) -> torch.Tensor:
         """The global norm of model-local gradients, each element counted
-        once across the model shards."""
+        once across the model shards (a split one's summed over the model
+        subgroup; with tensor parallelism off only experts under EP split)."""
         split = [g.float().square().sum() for n, g in grads.items() if self.split[n]]
         rep = [g.float().square().sum() for n, g in grads.items() if not self.split[n]]
-        sq = self.all_reduce(torch.stack(split).sum().reshape(1))[0]
+        sq = self.all_reduce(torch.stack(split).sum().reshape(1))[0] if split else 0.0
         return torch.sqrt(sq + torch.stack(rep).sum()) if rep else torch.sqrt(sq)
 
     def relayout(self, name: str, t: torch.Tensor, layout) -> torch.Tensor:
         """A model-local tensor cut to the rank's shard of ``layout`` (which
         the model shard covers: the moments' regions, the weights'); ``t``
         itself where that shard is the model-local tensor."""
-        if _same_region(self.layouts[name], layout, self.ranks.rank):
-            return t
-        out = torch.zeros(layout.local_shape, dtype=t.dtype, device=t.device)
-        place(out, layout.entries[self.ranks.rank], t, self.layouts[name].entries[self.ranks.rank])
-        return out
+        return relocal(t, self.layouts[name], layout, self.ranks.rank)
 
     def local_heads(self, cfg: ModelConfig) -> tuple[int, int]:
         """(q heads, kv heads) this rank computes from its own wqkv (or

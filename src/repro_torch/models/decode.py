@@ -75,8 +75,12 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     positions.  Under a rank context ``batch`` is the global batch and each
     entry is the rank's shard by ``cache_pspecs`` (a cache-length-sharded
     entry, ``shard_cache_seq``, is refused: decode attends to whole caches,
-    ROADMAP item 11b.4.6)."""
+    ROADMAP item 11b.4.4; so is a context with tensor parallelism off, which
+    the reference's serve launcher never sets)."""
     if lm.tp is not None:
+        if not lm.tp.tensor:
+            raise NotImplementedError("serving by rows with tensor parallelism off: the "
+                                      "reference's serve launcher keeps it on")
         return _rank_cache(lm, batch, cache_len, device)
     cfg = lm.cfg
     dt = lm.compute_dtype

@@ -61,7 +61,14 @@ bound into its layers (``sp``), so a layer recomputed in the backward pass
 computes as it did in the forward.  Under it
 :meth:`LM.forward` returns the rank's vocab shard of the logits and
 :meth:`LM.loss_fn` the vocab-parallel cross-entropy, equal on every model
-rank.
+rank; with tensor parallelism off the same context computes each stream's
+rows from replicated weights, the logits and the cross-entropy of the
+rank's rows (its mean over the model group).  Under a pipe axis a rank
+runs only its stage's chunk of each stack (``LM.pipe``,
+:class:`~repro_torch.dist.pipeline.Pipeline`), from the pieces of
+:meth:`LM.forward`: :meth:`LM.embed_tokens`, :meth:`LM._stage_forward`,
+the encoder's :meth:`LM.encoder_input`, :meth:`LM.encoder_layers` and
+:meth:`LM.encoder_output`, :meth:`LM.logits` and :meth:`LM.cross_entropy`.
 """
 
 from __future__ import annotations
@@ -381,6 +388,11 @@ def _no_shard(x, axes):
     return x
 
 
+def _gelu_mlp(p, h):
+    """GPT-3's and whisper's MLP (jax.nn.gelu's default tanh form)."""
+    return F.gelu(h @ p["w1"].to(h.dtype), approximate="tanh") @ p["w2"].to(h.dtype)
+
+
 @dataclasses.dataclass
 class LM:
     """Functional model: nested params in, tensors out."""
@@ -397,6 +409,8 @@ class LM:
     shard: Callable[[torch.Tensor, tuple[str, ...]], torch.Tensor] = _no_shard
     # the rank context of partitioned compute (dist.tensor_parallel), or None
     tp: Any = None
+    # the rank's pipeline stage (dist.pipeline), or None
+    pipe: Any = None
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Fresh fp32 weights from ``generator`` (on its device by default)."""
@@ -569,16 +583,22 @@ class LM:
     def _mlp(self, p, x, *, moe: bool = False, sp: bool = False):
         """Pre-norm MLP (dense, GELU or MoE); returns the residual sum and
         the layer's aux loss (a float32 zero unless it is a MoE layer).
-        Under a rank context the dense MLP (and a MoE layer's shared
-        experts) is column-parallel on the rank's ``mlp`` columns and
-        row-parallel after; a MoE layer routes every token of the data
-        replica and runs the rank's experts (EP) or its slice of each
+        Under a rank context with tensor parallelism the dense MLP (and a
+        MoE layer's shared experts) is column-parallel on the rank's ``mlp``
+        columns and row-parallel after; a MoE layer whose experts split
+        (:attr:`TensorParallel.experts_split`) routes every token of the
+        data replica and runs the rank's experts (EP) or its slice of each
         expert's width (expert-TP), its output partial, its aux loss whole
         with the gradient shared over the model ranks; ``sp``: the stream is
-        seq-sharded."""
+        seq-sharded.  With tensor parallelism off the dense MLP and the
+        shared experts run on the rank's rows, and replicated experts on the
+        gathered rows (a token group is a whole sequence), the rank keeping
+        its own."""
         cfg, tp = self.cfg, self.tp
         h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if tp is not None and not tp.tensor:
+            return self._rows_mlp(p, x, h, moe=moe, sp=sp)
         if tp is not None:
             h = tp.enter(h, sp)
         if moe:
@@ -591,12 +611,42 @@ class LM:
             if tp is not None:
                 aux = tp.shared(aux)
         elif "w1" in p:  # GPT-3: GELU MLP (jax.nn.gelu's default tanh form)
-            out = F.gelu(h @ p["w1"].to(h.dtype), approximate="tanh") @ p["w2"].to(h.dtype)
+            out = _gelu_mlp(p, h)
         else:
             out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
         if tp is not None:
             return x + tp.leave(out, sp), aux
         return x + self.shard(out, ("batch", "seq", "embed")), aux
+
+    def _rows_mlp(self, p, x, h, *, moe: bool, sp: bool):
+        """The MLP under a rank context with tensor parallelism off (every
+        weight replicated over the model axis but a MoE layer's experts
+        under EP): per-token products on the rank's rows ``h``; experts
+        split over the model axis from the entered rows, their partial
+        output reduced (scattered to rows under ``sp``), the shared experts
+        on the rank's rows; replicated experts route the gathered rows
+        (under ``sp``) and the rank keeps its own.  The aux loss is whole on
+        every rank: its gradient is shared where the router's is summed
+        over the model group."""
+        cfg, tp = self.cfg, self.tp
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if not moe:
+            out = _gelu_mlp(p, h) if "w1" in p else swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+            return x + out, aux
+        if tp.experts_split:
+            out, aux = moe_block(tp.enter(h, sp), p["router"], p["we_gate"], p["we_up"],
+                                 p["we_down"], cfg.moe, groups=self.moe_groups,
+                                 owned=tp.experts(cfg.moe.num_experts))
+            out = tp.leave(out, sp)
+        else:
+            out, aux = moe_block(tp.gather_seq(h) if sp else h, p["router"], p["we_gate"],
+                                 p["we_up"], p["we_down"], cfg.moe, groups=self.moe_groups)
+            if sp:
+                lo, hi = tp.rows(out.shape[1])
+                out = out[:, lo:hi]
+        if cfg.moe.num_shared:
+            out = out + swiglu(h, p["ws_gate"], p["ws_up"], p["ws_down"])
+        return x + out, tp.shared(aux) if tp.experts_split or sp else aux
 
     def _mamba(self, p, x, *, return_state: bool = False, sp: bool = False):
         """Pre-norm Mamba-2 block on one layer's params; returns the residual
@@ -717,18 +767,22 @@ class LM:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None,
-                       sp: bool = False):
+                       sp: bool = False, first: int = 0):
+        """The stage's layers on ``x``: as many as ``params`` stacks (the
+        whole stage, or a pipeline rank's chunk of it), layer ``i`` of them
+        being the stage's layer ``first + i``; returns (x, summed aux)."""
         # unbind once: the backward of a per-layer view is then one stack,
         # not a full-size zero tensor per layer
         per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
                for ld in stage.body}
+        count = len(next(iter(per[stage.body[0].name].values())))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in range(stage.count):
+        for i in range(count):
             for ld in stage.body:
                 keys = tuple(per[ld.name])
-                values = [per[ld.name][k][layer] for k in keys]
+                values = [per[ld.name][k][i] for k in keys]
                 fn = functools.partial(
-                    self._layer, ld, stage.window(ld, layer), positions, keys, sp
+                    self._layer, ld, stage.window(ld, first + i), positions, keys, sp
                 )
                 x, a = _remat(fn, x, source, *values, remat=self.remat)
                 aux = aux + a
@@ -746,22 +800,40 @@ class LM:
         summed over the model ranks where the cross layers use it in part
         (by heads, or by the decoder's rows: ``sp``, the decoder's
         decision)."""
+        x, enc_sp = self.encoder_input(source_embeds)
+        x = self.encoder_layers(params["encoder"]["blk"], x, enc_sp)
+        return self.encoder_output(params, x, enc_sp, sp)
+
+    def encoder_input(self, source_embeds: torch.Tensor) -> tuple[torch.Tensor, bool]:
+        """The encoder's stream in the compute dtype (the rank's rows where
+        the rank context's decision, returned beside it, splits it)."""
         tp = self.tp
         x = source_embeds.to(self.compute_dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
         enc_sp = tp is not None and tp.decide_sp(x.shape[0], x.shape[1], self.cfg.d_model,
                                                  encoder=True)
         if enc_sp:
             lo, hi = tp.rows(x.shape[1])
             x = x[:, lo:hi]
-        blk = params["encoder"]["blk"]
+        return x, enc_sp
+
+    def encoder_layers(self, blk, x: torch.Tensor, enc_sp: bool) -> torch.Tensor:
+        """The layers ``blk`` stacks (all of ``encoder.blk``, or a pipeline
+        rank's chunk) on the encoder's stream."""
+        n = x.shape[1] * (self.tp.size if enc_sp else 1)  # the source's positions
         keys = tuple(blk)
         per = {k: blk[k].unbind(0) for k in keys}
         ld = LayerDef("blk", "attn", causal=False)
-        fn = functools.partial(self._layer, ld, 0, positions, keys, enc_sp)
-        for layer in range(self.cfg.encoder.num_layers):
+        fn = functools.partial(self._layer, ld, 0, torch.arange(n, device=x.device), keys, enc_sp)
+        for layer in range(len(per[keys[0]])):
             values = [per[k][layer] for k in keys]
             x, _ = _remat(fn, x, None, *values, remat="none" if self.remat == "none" else "full")
+        return x
+
+    def encoder_output(self, params, x: torch.Tensor, enc_sp: bool, sp: bool) -> torch.Tensor:
+        """``encoder.norm``, then the output whole on every model rank (its
+        gradient summed where the cross layers, by heads or by the
+        decoder's rows ``sp``, use it in part)."""
+        tp = self.tp
         x = rms_norm(x, params["encoder"]["norm"], self.cfg.norm_eps)
         return x if tp is None else tp.whole(x, enc_sp, partial=tp.heads or sp)
 
@@ -782,14 +854,8 @@ class LM:
         accumulated and returned in fp32 (the reference's einsum with
         ``preferred_element_type=float32``): both operands are upcast
         exactly and multiplied in fp32."""
-        cfg = self.cfg
-        sp = False
-        if self.tp is not None:  # the rank's rows of embed, its rows of the stream
-            sp = self.tp.decide_sp(tokens.shape[0], tokens.shape[1], cfg.d_model)
-            x = self.tp.embed(params["embed"].to(self.compute_dtype), tokens, sp)
-        else:
-            x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
-            x = self.shard(x, ("batch", "seq", "embed"))
+        sp = self.stream_sp(tokens)
+        x = self.embed_tokens(params, tokens, sp)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         source = self.source(params, source_embeds, sp=sp)
@@ -798,11 +864,49 @@ class LM:
             x, a = self._stage_forward(stage, params[stage.name], x, positions=positions,
                                        source=source, sp=sp)
             aux = aux + a
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if self.tp is not None:  # the rank's vocab shard of every position's logits
-            return self.tp.enter(x, sp).float() @ self.unembed(params).float(), aux
+        return self.logits(params, x, sp), aux
+
+    def stream_sp(self, tokens: torch.Tensor) -> bool:
+        """Under a rank context, whether the decoder's stream is seq-sharded
+        (:meth:`TensorParallel.decide_sp`); False without one."""
+        return self.tp is not None and self.tp.decide_sp(tokens.shape[0], tokens.shape[1],
+                                                         self.cfg.d_model)
+
+    def embed_tokens(self, params, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
+        """The residual stream's input: under a rank context the rank's rows
+        (``sp``), vocab-parallel where tensor parallelism splits ``embed``."""
+        if self.tp is not None:
+            return self.tp.embed(params["embed"].to(self.compute_dtype), tokens, sp)
+        x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
+        return self.shard(x, ("batch", "seq", "embed"))
+
+    def logits(self, params, x: torch.Tensor, sp: bool) -> torch.Tensor:
+        """``final_norm`` and the fp32 logits of the stream ``x``: under a
+        rank context with tensor parallelism every position's logits of the
+        rank's vocab shard; with it off the rank's rows' whole logits."""
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if self.tp is not None and self.tp.tensor:
+            return self.tp.enter(x, sp).float() @ self.unembed(params).float()
         logits = x.float() @ self.unembed(params).float()
-        return self.shard(logits, ("batch", "seq", "vocab")), aux
+        return logits if self.tp is not None else self.shard(logits, ("batch", "seq", "vocab"))
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The mean next-token cross-entropy over the logical vocabulary of
+        :meth:`logits`' output: vocab-parallel under tensor parallelism; with
+        it off and the stream seq-sharded, the mean over the model group of
+        each rank's rows (every rank the same value, its gradient the
+        rank's rows')."""
+        tp = self.tp
+        if tp is not None and tp.tensor:  # vocab-parallel, the padding masked
+            return tp.cross_entropy(logits, labels.long(), self.cfg.vocab_size).mean()
+        rows = tp is not None and tp.sp
+        if rows:
+            lo, hi = tp.rows(labels.shape[1])
+            labels = labels[:, lo:hi]
+        logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean()
+        return tp.reduce(loss) / tp.size if rows else loss
 
     def loss_fn(self, params, batch):
         """Next-token cross-entropy over the logical vocabulary, plus
@@ -811,13 +915,7 @@ class LM:
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(params, inputs, source_embeds=batch.get("source_embeds"))
-        if self.tp is not None:  # vocab-parallel, the padding masked
-            nll = self.tp.cross_entropy(logits, labels.long(), self.cfg.vocab_size)
-        else:
-            logits = logits[..., : self.cfg.vocab_size]  # mask alignment padding
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-        loss = nll.mean()
+        loss = self.cross_entropy(logits, labels)
         total = loss
         if self.cfg.moe is not None:
             total = total + self.cfg.moe.router_aux_weight * aux

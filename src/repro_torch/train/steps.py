@@ -41,9 +41,26 @@ it in part), the clip takes the norm of the model-local gradients with each
 element counted once, and the update reads its moment regions out of the
 model-local tensors.  The split
 then adds ``tp_s`` and ``tp_bytes``, the model-subgroup collectives (inside
-the forward and backward, and the gradients' reduction after); ``grad_s``
-is the forward and backward less the collectives inside them.
-``grad_transform`` then sees the rank's model-local gradients.
+the forward and backward, the gradients' reduction after, and the norm's);
+``grad_s`` is the forward and backward less the collectives inside them.
+``grad_transform`` then sees the rank's model-local gradients.  With
+tensor parallelism off and sequence parallelism on the same context
+computes each stream's rows from replicated weights (a replicated weight's
+gradient summed over the model subgroup where its stream was split).
+
+Under a pipe axis over 1 (``lm.pipe``, a
+:class:`~repro_torch.dist.pipeline.Pipeline`) step 1 keeps the rank's stage
+of every stacked weight (its chunk of the layers, the data axes gathered;
+over the model axis as above, or gathered); step 2 runs the rank's
+segments of each microbatch forward, then backward in reverse, handing the
+stream and its gradient to the neighbouring stages
+(:meth:`~repro_torch.dist.pipeline.Pipeline.forward_backward`); the
+stacked gradients are the stage's, the unstacked ones summed over the pipe
+group; the clip's norm counts each element once; the update reads its
+moment regions out of the stage-local tensors.  The split adds ``pipe_s``
+and ``pipe_bytes`` (every pipe-group exchange), out of ``grad_s``.
+With ``accum > 1`` the microbatches go through the stages one after
+another, their gradients summed in the one-process order.
 """
 
 from __future__ import annotations
@@ -83,22 +100,29 @@ def make_train_step(
                 n: t.to(lm.compute_dtype) if t.dtype == torch.float32 else t
                 for n, t in leaves.items()
             })
+        if lm.pipe is not None:  # the rank's segments, forward and backward
+            metrics = lm.pipe.forward_backward(tree, batch)
+            grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+                     for t in leaves.values()]
+            return metrics, dict(zip(leaves, grads))
         loss, metrics = lm.loss_fn(tree, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), metrics, dict(zip(leaves, grads))
+        return metrics, dict(zip(leaves, grads))
 
     def loss_and_grads(params: dict, batch: dict):
         if accum == 1:
-            loss, metrics, grads = value_and_grad(params, batch)
+            metrics, grads = value_and_grad(params, batch)
             return {k: v.detach() for k, v in metrics.items()}, grads
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
         gsum: dict[str, torch.Tensor] = {}
         lsum = None
         for i in range(accum):
-            loss_i, _, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
+            metrics, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
             for n, gi in g.items():
                 gsum[n] = gsum[n] + gi.float() if n in gsum else gi.float()
+            # the reference sums the cross-entropy (its m["loss"]), not the total
+            loss_i = metrics["loss"].detach()
             lsum = loss_i if lsum is None else lsum + loss_i
         loss = lsum / accum
         return ({"loss": loss, "aux": torch.zeros((), device=loss.device)},
@@ -114,11 +138,11 @@ def make_train_step(
             return new_state, {**metrics, **opt_metrics}
 
         return train_step
-    return _sharded_step(loss_and_grads, tcfg, grad_transform, group, lm.tp)
+    return _sharded_step(loss_and_grads, tcfg, grad_transform, group, lm.tp, lm.pipe)
 
 
-def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None):
-    from repro_torch.dist.sharding import gather_full, local_shard
+def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None, pipe=None):
+    from repro_torch.dist.sharding import gather_full, local_shard, relocal
 
     specs = rg.plan.param_specs
     mesh, rank = rg.mesh, rg.rank
@@ -138,18 +162,25 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
         local = flatten_with_paths(state.params)
         device = next(iter(local.values())).device
         t0 = clock(device)
-        if tp is None:
+        if pipe is not None:  # the stage's layers; over a model axis as tp computes
+            full, comp = pipe.weights(local)
+        elif tp is None:
             full = {n: gather_full(t, w_layout[n], rg.group) for n, t in local.items()}
             comp = full
         else:  # model-local weights; the gathered ones whole to compute from
             full, comp = tp.weights(local)
-            tp.seconds, tp.bytes = 0.0, 0
+        for ctx in (tp, pipe):
+            if ctx is not None:
+                ctx.seconds, ctx.bytes = 0.0, 0
         t1 = clock(device)
         metrics, grads = loss_and_grads(unflatten_from_paths(comp), batch)
         del comp
-        if tp is not None:  # summed over the model group as the forward sharded the stream
+        if pipe is not None:  # stacked padded back, unstacked summed over the pipe group
+            grads = pipe.reduce_grads(grads)
+        elif tp is not None:  # summed over the model group as the forward sharded the stream
             grads = tp.reduce_grads(grads)
         t2 = clock(device)
+        inside = sum(ctx.seconds for ctx in (tp, pipe) if ctx is not None)
         reduced = 0
         if rg.data is not None:
             for g in grads.values():
@@ -166,7 +197,10 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
         if grad_transform is not None:
             tree = grad_transform(tree)
         grads = flatten_with_paths(tree)
-        if tp is None:
+        if pipe is not None:
+            gnorm = pipe.global_norm(grads)
+            cut = lambda n, t: relocal(t, pipe.layouts[n], m_layout[n], rank)  # noqa: E731
+        elif tp is None:
             gnorm = global_norm(tree)
             cut = lambda n, t: local_shard(t, m_layout[n], rank)  # noqa: E731
         else:
@@ -189,11 +223,13 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
                 new_p[n] = local_shard(gather_full(t, m_layout[n], rg.group), w_layout[n], rank)
         t4 = clock(device)
         split.clear()
-        split.update(gather_s=t1 - t0, grad_s=t2 - t1, all_reduce_s=t3 - t2,
+        # grad_s: the forward and backward less the tp and pipe exchanges inside them
+        split.update(gather_s=t1 - t0, grad_s=t2 - t1 - inside, all_reduce_s=t3 - t2,
                      all_reduce_bytes=reduced, update_s=t4 - t3)
-        if tp is not None:  # the model-subgroup collectives, out of grad_s
-            split.update(grad_s=split["grad_s"] - tp.seconds, tp_s=tp.seconds,
-                         tp_bytes=tp.bytes)
+        if tp is not None:
+            split.update(tp_s=tp.seconds, tp_bytes=tp.bytes)
+        if pipe is not None:
+            split.update(pipe_s=pipe.seconds, pipe_bytes=pipe.bytes)
         new_state = TrainState(unflatten_from_paths(new_p), upd.exp_avg, upd.exp_avg_sq, upd.step)
         return new_state, {**metrics, **opt_metrics}
 

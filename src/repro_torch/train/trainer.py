@@ -1,13 +1,14 @@
 """Trainer: model + optimizer + data + checkpointing on one explicit device
 (port of ``repro.train.trainer``).
 
-The logical model trains on one device.  The :class:`ShardingPlan` built
-for the run's mesh sets the checkpoint geometry only (which shards a save
-writes, and what a resume under another mesh must reshard), as in serving.
-On start-up the trainer asks the :class:`CheckpointManager` for the newest
-committed checkpoint: DIRECT when the layout is unchanged, RESHARD_STREAM
-when it changed; training continues at the checkpointed step with the same
-global data order (the stateless pipeline of :mod:`.data`).
+Without a group the logical model trains on one device, and the
+:class:`ShardingPlan` built for the run's mesh sets the checkpoint geometry
+only (which shards a save writes, and what a resume under another mesh must
+reshard), as in serving.  On start-up the trainer asks the
+:class:`CheckpointManager` for the newest committed checkpoint: DIRECT when
+the layout is unchanged, RESHARD_STREAM when it changed; training continues
+at the checkpointed step with the same global data order (the stateless
+pipeline of :mod:`.data`).
 
 Every family trains: dense, MoE (a MoE config's plan shards its expert
 tensors by expert parallelism or by expert-TP, ``moe_mode``), Mamba-2, the
@@ -20,17 +21,28 @@ loss (0 for a model without experts).
 With ``group`` (an initialized ``torch.distributed`` group of the mesh's
 size) the run is multi-rank: this process is rank ``dist.get_rank(group)``
 of the mesh, holds only its shards of every state kind (its checkpoint
-shards), computes its rows of each global batch, and the ranks together
-take the single-device step (:mod:`.steps`); the manager saves and restores
-the rank's shards alone (and, with the hot tier, holds its own fragments
-and its buddies' mirrors).  Without a group the trainer is the single-device
-one.  Under tensor parallelism with a model axis over 1 and no pipe axis
-every family computes partitioned over the model axis
-(:class:`~repro_torch.dist.tensor_parallel.TensorParallel`, installed as
-``lm.tp``: whisper's encoder and decoder streams each take their own
-sequence-parallel decision); otherwise each rank gathers the whole model.  A MoE layer routes one token group a sequence unless ``moe_groups``
-says otherwise, so capacity and the aux loss split over the data axes with
-the batch rows; a ``moe_groups`` that does not divide by the data size is
+shards), and the ranks together take the single-device step (:mod:`.steps`);
+the manager saves and restores the rank's shards alone (and, with the hot
+tier, holds its own fragments and its buddies' mirrors).  What a rank
+computes follows the mesh:
+
+* the data axes: its rows of each global batch (the gradients averaged
+  over the data subgroup);
+* a model axis over 1, under tensor parallelism: its part of every layer
+  by the plan's split of the weights, each stream's rows where sequence
+  parallelism shards it (:class:`~repro_torch.dist.tensor_parallel.TensorParallel`,
+  installed as ``lm.tp``: whisper's encoder and decoder streams each take
+  their own decision); with tensor parallelism off and sequence
+  parallelism on, each stream's rows from replicated weights (the same
+  class); with both off, the whole model gathered over the model axis;
+* a pipe axis over 1: only its stage's layers of every stack, the chunk of
+  its checkpoint shard, handing the residual stream to the next stage and
+  its gradient back (:class:`~repro_torch.dist.pipeline.Pipeline`,
+  installed as ``lm.pipe``), each stage's model ranks computing as above.
+
+A MoE layer routes one token group a sequence unless ``moe_groups`` says
+otherwise, so capacity and the aux loss split over the data axes with the
+batch rows; a ``moe_groups`` that does not divide by the data size is
 refused.
 """
 
@@ -53,6 +65,7 @@ from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 from repro_torch.dist.sharding import (
     RankGroups, ShardingPlan, batch_axes, gather_full, make_plan, rank_rows, vocab_multiple,
 )
+from repro_torch.dist.pipeline import Pipeline, pipelines
 from repro_torch.dist.tensor_parallel import TensorParallel, partitions
 from repro_torch.models import build_model
 from repro_torch.models.lm import LM
@@ -170,6 +183,8 @@ class Trainer:
             ranks = RankGroups.create(group, plan, parallel)
             if partitions(cfg, parallel, mesh):
                 lm.tp = TensorParallel(ranks, cfg)
+            if pipelines(parallel, mesh):
+                lm.pipe = Pipeline(ranks, lm)
         manager = (
             CheckpointManager(
                 ckpt_dir, plan, policy=policy,

@@ -218,12 +218,13 @@ def world2(rank, out, weights):
     _, _, res["transform"] = _steps(_trainer({"data": 2, "model": 1}, dist.group.WORLD,
                                              grad_transform=halve_port), rank, weights)
     # partitioned over the model axis (the dense family's tensor-parallel
-    # compute), and the int8 one also on the gathered path (every rank the whole model)
+    # compute), and the int8 one also on the gathered path (every rank the
+    # whole model: tensor and sequence parallelism off)
     for key, label, tp in (("raw", "raw", True), ("int8", "int8", True),
                            ("int8_gathered", "int8", False)):
         t = _trainer({"data": 1, "model": 2}, dist.group.WORLD, ckpt_dir=out / f"{label}22",
                      policy=CheckpointPolicy(save_interval=100, async_save=False),
-                     tensor_parallel=tp)
+                     tensor_parallel=tp, sequence_parallel=tp)
         state, info = t.init_or_restore()
         restored = _flat_state(state)
         hist, states = [], []
@@ -752,10 +753,13 @@ def test_four_ranks_resume_as_two_under_another_layout(worlds, codec):
     of the 2 steps after it is the single device's step from the ranks' own
     state (loss, gradient norm, the state it leaves), and the raw resume's 2
     steps follow the single device's trajectory; ``int8_gathered`` resumes
-    the coded checkpoint on the gathered path (``tensor_parallel=False``),
-    whose 2 steps follow the single device's trajectory too."""
+    the coded checkpoint on the gathered path (``tensor_parallel=False``
+    and ``sequence_parallel=False``: with sequence parallelism on, tensor
+    parallelism off computes by rows), whose 2 steps follow the single
+    device's trajectory too."""
     label = codec.removesuffix("_gathered")
-    par = {"tensor_parallel": False} if codec.endswith("_gathered") else {}
+    par = ({"tensor_parallel": False, "sequence_parallel": False}
+           if codec.endswith("_gathered") else {})
     out, ranks = _world(worlds, f"resume_{codec}")
     t, state, info = _one_process_restore(out / f"{label}22", {"data": 1, "model": 2}, **par)
     assert info.mode.value == "reshard_stream"

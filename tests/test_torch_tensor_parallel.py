@@ -505,28 +505,32 @@ def test_port_calls_the_hook_at_the_reference_call_sites(arch):
 def test_partitioned_compute_is_the_dense_family_under_tp():
     """Under tensor parallelism with a model axis every family partitions:
     the dense family, MoE (EP and expert-TP), the SSM and the hybrid
-    families, and since the MLA, vlm and encdec slice those three too; any
-    run with TP off, no model axis or a pipe axis keeps the gathered
-    path."""
+    families, and since the MLA, vlm and encdec slice those three too; a
+    pipe axis beside the model axis partitions too (each stage's model
+    ranks, ``dist.pipeline``), and with TP off every family computes by
+    sequence rows while sequence parallelism is on; a run with no model
+    axis, or with TP and SP both off, keeps the gathered path."""
     m22 = MeshSpec.from_dict({"data": 2, "model": 2})
     par = TC.ParallelismConfig()
+    rows_only = TC.ParallelismConfig(tensor_parallel=False)
+    neither = TC.ParallelismConfig(tensor_parallel=False, sequence_parallel=False)
     assert partitions(TC.get_config("smollm-360m"), par, m22)
-    assert not partitions(TC.get_config("smollm-360m"), TC.ParallelismConfig(
-        tensor_parallel=False), m22)
+    assert partitions(TC.get_config("smollm-360m"), rows_only, m22)
+    assert not partitions(TC.get_config("smollm-360m"), neither, m22)
     assert not partitions(TC.get_config("smollm-360m"), par, MeshSpec.from_dict(
         {"data": 4, "model": 1}))
-    assert not partitions(TC.get_config("smollm-360m"), TC.ParallelismConfig(pipe_axis="pipe"),
-                          MeshSpec.from_dict({"pipe": 2, "data": 1, "model": 2}))
+    assert partitions(TC.get_config("smollm-360m"), TC.ParallelismConfig(pipe_axis="pipe"),
+                      MeshSpec.from_dict({"pipe": 2, "data": 1, "model": 2}))
     for arch in ("mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-236b"):
         assert partitions(TC.get_config(arch), par, m22), arch
         assert partitions(TC.get_config(arch), TC.ParallelismConfig(expert_parallel=False),
                           m22), arch
-        assert not partitions(TC.get_config(arch), TC.ParallelismConfig(tensor_parallel=False),
-                              m22), arch
+        assert partitions(TC.get_config(arch), rows_only, m22), arch
+        assert not partitions(TC.get_config(arch), neither, m22), arch
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         assert partitions(TC.get_config(arch), par, m22), arch
-        assert not partitions(TC.get_config(arch), TC.ParallelismConfig(tensor_parallel=False),
-                              m22), arch
+        assert partitions(TC.get_config(arch), rows_only, m22), arch
+        assert not partitions(TC.get_config(arch), neither, m22), arch
 
 
 # ---------------------------------------------------------------------------

@@ -435,8 +435,11 @@ def test_partitions_the_three_families_at_full_size():
     for arch in ("deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny"):
         cfg = TC.get_config(arch)
         assert partitions(cfg, par, m2), arch
-        assert not partitions(cfg, dataclasses.replace(par, pipe_axis="pipe"), pipe), arch
-        assert not partitions(cfg, dataclasses.replace(par, tensor_parallel=False), m2), arch
+        # each pipe stage's model ranks partition (dist.pipeline); TP off, by rows
+        assert partitions(cfg, dataclasses.replace(par, pipe_axis="pipe"), pipe), arch
+        assert partitions(cfg, dataclasses.replace(par, tensor_parallel=False), m2), arch
+        assert not partitions(cfg, dataclasses.replace(par, tensor_parallel=False,
+                                                       sequence_parallel=False), m2), arch
 
 
 @pytest.mark.parametrize("name", list(TRAIN))
