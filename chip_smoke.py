@@ -93,7 +93,10 @@ nothing falls back to the CPU or to a plain version):
    launches a rank: rank 0 256 x 256 rows, rank 1 256 x 512 at
    ``q_offset`` 256; 16 greedy decode steps), held against one process's
    serve of the same step (prefill logits within 0.1, tokens equal up to
-   the first step whose top-2 margin is under it); one process under
+   the first step whose top-2 margin is under it), and serve it again
+   from a cache sharded over its length (``shard_cache_seq``: half of
+   every ``k``/``v``/``slot_pos`` a rank, fp32 tokens equal to the
+   replicated cache's, bf16 tokens within 0.1 of its top logit); one process under
    data=1,model=1 resuming step 2; then the ``pipe`` stage: 2 new ranks
    resume step 2 under pipe=2,data=1,model=1 (RESHARD_STREAM, the DP -> PP
    move), each computing only its chunk of the layers (rank 0 layer 0,
@@ -120,8 +123,16 @@ nothing falls back to the CPU or to a plain version):
    backward, all-reduce (s, GB/s) and update, the gather through gloo's
    CUDA ``all_gather`` beside one through pinned host buffers, each rank's
    save and restore (s, bytes, shard bytes) and peak card memory;
+4b2. multirank-survivors — 4 spawned ranks of the same model under
+   data=4,model=1 (``int8:b256``, a hot capture a step) take steps 1-2;
+   ranks 1 and 3 exit, ranks 0 and 2 re-form a group (``reform_group``)
+   and recover HOT_RESHARD under the data=2,model=1 ``rebuild_on``
+   proposes (no file opened, no block-quant launch, shards bit-equal to
+   the gathered state's), take step 3 (within 2e-2 of the baseline) and
+   save it coded (digests equal to one process's save of the gathered
+   state, 18 quantize launches a rank);
 4c. multirank-tp — tensor-parallel compute on gpt3-350m at full width (d
-   1024, 16:16 heads of 64, d_ff 4096, vocab 51200), ``TP_LAYERS`` (12) of
+   1024, 16:16 heads of 64, d_ff 4096, vocab 51200), ``TP_LAYERS`` (6) of
    its 24 layers, 8 x 512,
    bf16 compute, remat full: a one-process baseline (steps 1-2
    from seed 0), then 2 spawned ranks under data=1,model=2 computing by
@@ -4948,8 +4959,6 @@ def collectives_phase(torch) -> dict:
     :func:`collectives_rank` in each; joined with a timeout (a rank still
     running is killed, and fails the smoke, as does a non-zero exit).
     Returns the phase's measurements, summed and by rank."""
-    import torch.multiprocessing as mp
-
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -4960,14 +4969,10 @@ def collectives_phase(torch) -> dict:
     out_dir = ROOT / "build" / "chip_smoke_collectives"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=collectives_rank, args=(r, COLLECTIVES_WORLD, str(out_dir / "store"),
-                                                        str(out_dir)))
-             for r in range(COLLECTIVES_WORLD)]
+    procs = WARM.run(collectives_rank, [(r, COLLECTIVES_WORLD, str(out_dir / "store"), str(out_dir))
+                                        for r in range(COLLECTIVES_WORLD)])
     try:
-        for p in procs:
-            p.start()
         deadline = time.monotonic() + COLLECTIVES_JOIN_S
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -4984,6 +4989,7 @@ def collectives_phase(torch) -> dict:
                 p.kill()
                 p.join()
         shutil.rmtree(out_dir, ignore_errors=True)
+    WARM.fill()
     first = ranks[0]
     check(all(r["elements"] == first["elements"] and r["n_params"] == first["n_params"]
               for r in ranks), "collectives: ranks disagree on the model")
@@ -5066,12 +5072,15 @@ SERVE_LOGIT_TOL = 0.1
 # the plain versions (the card-vs-CPU fp32 logits bound of the serve phases)
 SERVE_FP32_TOL = 1e-3
 TP_ARCH = "gpt3-350m"      # the multirank-tp phase: the paper's Table 4 model, heads 16:16
-TP_LAYERS = 12             # of its 24: cut when the smoke reached 1,176 s (PR 29's proof)
+TP_LAYERS = 6              # of its 24: cut to 12, then 6, each time the smoke passed 1,050 s
 TP_MESH = "data=1,model=2"
 # The multirank-hot stage: 2 ranks of smollm-360m under data=2,model=1, each
 # holding 4.34 GB a snapshot (its fp32 weights and moments, its buddy's
 # moments); a ring of 2 snapshots keeps 17.4 GB of host memory over the 2
 HOT_MESH = "data=2,model=1"
+SURVIVORS_WORLD = 4        # the multirank-survivors stage: 4 ranks on the one card
+SURVIVORS_MESH = "data=4,model=1"
+SURVIVORS_FAILED = (1, 3)  # their processes exit; ranks 0 and 2 re-form a group of 2
 HOT_RESHARD_MESH = "data=1,model=2"
 HOT_RING = 2
 
@@ -5266,7 +5275,7 @@ def serve_prompts(torch, cfg, device, prompt_len: int = SERVE_BATCH[1]):
 
 def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out_dir: Path,
                label: str, fp32_prefill: bool = False, moment_dtype: str = "float32",
-               prompt_len: int = SERVE_BATCH[1]) -> dict:
+               prompt_len: int = SERVE_BATCH[1], seq_cache: bool = False) -> dict:
     """One rank of a multi-rank serve, in a spawned process of a world: the
     serve CLI's path (a rank context over ``mesh_str``, the rank's own
     weight shards restored weights-only, gathered over the data axes once,
@@ -5280,7 +5289,8 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
     ``fp32_prefill`` first a prefill of fp32 weights in fp32 (the kernels'
     fp32 versions).  The plan takes the save's ``moment_dtype`` (a layout
     that differs only there is not DIRECT).  Rank 0 saves the logits and
-    tokens for the parent's comparison."""
+    tokens for the parent's comparison.  With ``seq_cache`` a second
+    timed ``generate`` under ``shard_cache_seq=True`` (:func:`seq_cache_decode`)."""
     from repro_torch.core.pytree import unflatten_from_paths
     from repro_torch.dist.sharding import RankGroups, make_plan, vocab_multiple
     from repro_torch.dist.tensor_parallel import TensorParallel
@@ -5324,6 +5334,7 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
                                     source_embeds=source)
             logits32 = lm.tp.gather_vocab(logits32, cfg.vocab_size).cpu()
     params = lm.registry.cast(unflatten_from_paths(comp), torch.bfloat16)
+    params32 = unflatten_from_paths(comp) if seq_cache else None
     del comp
     # warm-up: the prefill and a decode step at the timed shapes
     generate(lm, params, prompts, 2, source_embeds=source)
@@ -5338,19 +5349,83 @@ def rank_serve(torch, dist, cfg, mesh_str: str, step_dir: Path, expect: str, out
     launches = counted["flash_attention"]
     lm.tp.seconds, lm.tp.bytes = 0.0, 0
     seq, prefill_s, decode_s = generate(lm, params, prompts, SERVE_GEN, source_embeds=source)
+    tp_s, tp_bytes = lm.tp.seconds, lm.tp.bytes
     if ranks.rank == 0:
         torch.save({"logits": logits.float().cpu(), "seq": seq.cpu(), "logits32": logits32},
                    out_dir / f"{label}_serve.pt")
-    return {"mode": rp.mode.value, "consolidated": sorted(rp.consolidate_params),
+    extra = {}
+    if seq_cache:
+        extra["seq_cache"] = seq_cache_decode(torch, dist, lm, plan, par, params, params32,
+                                              prompts, seq)
+    return {**extra, "mode": rp.mode.value, "consolidated": sorted(rp.consolidate_params),
             "restore_s": restore_s, "shard_gb": shard_gb, "gather_s": gather_s,
             "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3 / (SERVE_GEN - 1),
-            "tp_s": lm.tp.seconds, "tp_bytes": lm.tp.bytes, "heads_local": lm.tp.heads,
+            "tp_s": tp_s, "tp_bytes": tp_bytes, "heads_local": lm.tp.heads,
             "gathered": sorted(lm.tp.gathered), "flash_launches": launches,
             "flash_calls": shapes.calls, "flash_dims": shapes.shapes,
             "flash_offsets": shapes.offsets,
             "flash_heads": shapes.heads, "ssd_launches": counted["ssd_scan"],
             "ssd_heads": ssd.heads, "ssm_heads_local": lm.tp.ssm_heads,
             "routes": routes_digest(log)}
+
+
+def seq_cache_decode(torch, dist, lm, plan, par, params, params32, prompts, seq) -> dict:
+    """A rank's serve again with its cache sharded over its length
+    (``ParallelismConfig(shard_cache_seq=True)``, a cache of an even length
+    so the model size divides it): a warm-up, then a timed bf16 ``generate``
+    of ``SERVE_GEN`` tokens, and the replicated-cache decode (``lm``) fed
+    those tokens, its top logit and the fed token's logit at each step;
+    then both caches' greedy decodes in fp32 from the fp32 weights
+    ``params32`` (bf16 rounds the two combines apart, and random weights
+    leave near-ties a rounding flips).  Returns the bytes a rank holds of
+    every ``k``/``v``/``slot_pos`` entry under both caches, the bf16 tokens'
+    gap to that decode's top logit and the steps where they equal ``seq``
+    (the replicated cache's), whether the fp32 tokens are equal, the
+    decode's ms/token and the prefill's flash launches; every check is the
+    parent's."""
+    from repro_torch.dist.sharding import RankGroups
+    from repro_torch.dist.tensor_parallel import TensorParallel
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode as D
+
+    b, s = prompts.shape
+    cache_len = s + SERVE_GEN + (s + SERVE_GEN) % lm.tp.size
+    seq_par = dataclasses.replace(par, shard_cache_seq=True)
+    lm_seq = dataclasses.replace(
+        lm, tp=TensorParallel(RankGroups.create(dist.group.WORLD, plan, seq_par), lm.cfg))
+    entries = ("k", "v", "slot_pos")
+    held = {}
+    for label, m in (("replicated", lm), ("seq_sharded", lm_seq)):
+        cache = flatten_with_paths(D.init_cache(m, b, cache_len, device="meta"))
+        held[label] = {p: t.numel() * t.element_size() for p, t in cache.items()
+                       if p.split(".")[-1] in entries}
+    generate(lm_seq, params, prompts, 2, cache_len=cache_len)  # warm-up
+    lm_seq.tp.seconds, lm_seq.tp.bytes = 0.0, 0
+    launches = fa_ops.flash_attention.launches
+    seq2, prefill_s, decode_s = generate(lm_seq, params, prompts, SERVE_GEN, cache_len=cache_len)
+    launches = fa_ops.flash_attention.launches - launches
+    fed = seq2.to(prompts.device)
+    gaps = []
+    with torch.inference_mode():
+        cache = D.init_cache(lm, b, cache_len, device=prompts.device)
+        lg, cache = D.prefill(lm, params, cache, prompts)
+        for i in range(SERVE_GEN):
+            lgf = lm.tp.gather_vocab(lg, lm.cfg.vocab_size).float()
+            gaps.append((lgf.max(-1).values - lgf.gather(-1, fed[:, i:i + 1])[:, 0]).max().item())
+            if i + 1 < SERVE_GEN:
+                lg, cache = D.decode_step(lm, params, cache, fed[:, i:i + 1])
+                lg = lg[:, -1]
+    del cache, lg
+    fp32 = [generate(dataclasses.replace(m, compute_dtype=torch.float32), params32, prompts,
+                     SERVE_GEN, cache_len=cache_len)[0].cpu() for m in (lm, lm_seq)]
+    torch.cuda.empty_cache()
+    return {"cache_len": cache_len, "held_bytes": held, "top_gap": max(gaps),
+            "bf16_equal_steps": (seq2.cpu() == seq.cpu()).sum(1).tolist(),
+            "fp32_tokens_equal": bool(torch.equal(*fp32)),
+            "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3 / (SERVE_GEN - 1),
+            "tp_s": lm_seq.tp.seconds, "tp_bytes": lm_seq.tp.bytes, "flash_launches": launches}
 
 
 def one_process_serve(torch, cfg, step_dir: Path, fed, plain: bool = True,
@@ -5505,7 +5580,8 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             check(not report["compiled"], f"rank {rank} rebuilt {report['library']}")
         fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
         out: dict = {"rank": rank, "stage": stage}
-        bodies = {"tp": multirank_tp_rank, "hot": multirank_hot_rank, "moe": multirank_moe_rank,
+        bodies = {"tp": multirank_tp_rank, "hot": multirank_hot_rank,
+                  "survivors": multirank_survivors_rank, "moe": multirank_moe_rank,
                   "ssm": multirank_ssm_rank, "mla": multirank_serve_rank,
                   "vlm": multirank_serve_rank, "encdec": multirank_encdec_rank,
                   "pipe": multirank_pipe_rank}
@@ -5608,7 +5684,7 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
             torch.cuda.empty_cache()
             out["serve"] = rank_serve(torch, dist, cfg, MULTIRANK_MESH["resume"],
                                       root / "step_00000002", "reshard_stream", Path(out_dir),
-                                      "multirank")
+                                      "multirank", seq_cache=True)
         t.manager.close()
         out["hist"] = [{k: h[k] for k in ("step", "loss", "grad_norm", "dt", "split")}
                        for h in hist]
@@ -5752,22 +5828,113 @@ def multirank_pipe_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_star
     return out
 
 
-def run_multirank_world(torch, stage: str, out_dir: Path,
-                        join_s: float = MULTIRANK_JOIN_S) -> tuple[list[dict], float]:
-    """Spawn the ranks of one stage, join them with the phase's time limit
-    ``join_s`` (a rank still running is killed, and fails the smoke, as does
-    a non-zero exit), and return each rank's record and the world's wall."""
-    import torch.multiprocessing as mp
+PYCACHE = ROOT / "build" / "pycache"
+WARM_RANKS = 2  # rank processes kept started ahead of the next world
 
-    ctx = mp.get_context("spawn")
+
+def bytecode_cache() -> None:
+    """Compile each module once for the whole run: this process writes its
+    bytecode under ``build/pycache`` and every process it spawns reads it
+    there.  The card's environment sets ``PYTHONDONTWRITEBYTECODE`` beside
+    sources it ships without bytecode, so each of the ~30 processes of a
+    run compiled torch anew (~7 s a process on the card's host; spawned
+    children still write none, ``-B``)."""
+    sys.pycache_prefix = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+
+
+def warm_imports() -> None:
+    """What every rank imports before its first step: torch, its
+    ``torch._dynamo`` (which ``torch.utils.checkpoint`` imports at its
+    first call: ~5 s a process), gloo's front end and the port's trainer,
+    checkpoint manager and serving modules.  Touches no CUDA."""
+    import torch._dynamo  # noqa: F401
+    import torch.distributed  # noqa: F401
+
+    import repro_torch.ckpt.manager  # noqa: F401
+    import repro_torch.launch.serve  # noqa: F401
+    import repro_torch.models.decode  # noqa: F401
+    import repro_torch.train.trainer  # noqa: F401
+
+
+def warm_rank(conn) -> None:
+    """A spawned rank started ahead of its world (:class:`WarmRanks`): it
+    imports (:func:`warm_imports`), then waits for ``(function name,
+    arguments)`` and runs it; an end of the pipe with nothing sent ends it."""
+    import torch
+
+    warm_imports()
+    check(not torch.cuda.is_initialized(), "a warm rank initialized CUDA before its work")
+    try:
+        name, args = conn.recv()
+    except EOFError:
+        return
+    conn.close()
+    globals()[name](*args)
+
+
+class WarmRanks:
+    """Rank processes started ahead of their world, so that a world's
+    start-up (the interpreter, :func:`warm_imports`: ~10 s a process)
+    overlaps the work before it.  :meth:`run` hands a world's ranks their
+    work, taking the waiting processes first and starting the rest, and
+    :meth:`fill` starts ``WARM_RANKS`` for the next world; :meth:`close`
+    ends the ones still waiting (``main``, whatever happens)."""
+
+    def __init__(self) -> None:
+        self.idle: list = []  # (process, the sending end of its pipe)
+
+    def _start(self) -> None:
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=warm_rank, args=(recv,))
+        proc.start()
+        recv.close()
+        self.idle.append((proc, send))
+
+    def fill(self, n: int = WARM_RANKS) -> None:
+        while len(self.idle) < n:
+            self._start()
+
+    def run(self, fn, args: list[tuple]) -> list:
+        """Rank r of the world runs ``fn(*args[r])``; returns the processes."""
+        self.fill(len(args))
+        taken, self.idle = self.idle[:len(args)], self.idle[len(args):]
+        for (proc, send), a in zip(taken, args):
+            send.send((fn.__name__, a))
+            send.close()
+        return [proc for proc, _ in taken]
+
+    def close(self) -> None:
+        for proc, send in self.idle:
+            send.close()
+        for proc, _ in self.idle:
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.idle = []
+
+
+WARM = WarmRanks()
+
+
+def run_multirank_world(torch, stage: str, out_dir: Path, join_s: float = MULTIRANK_JOIN_S,
+                        world: int = MULTIRANK_WORLD,
+                        warm_next: int = WARM_RANKS) -> tuple[list[dict], float]:
+    """Run the ``world`` ranks of one stage (:data:`WARM`'s), join them
+    with the phase's time limit ``join_s`` (a rank still running is killed,
+    and fails the smoke, as does a non-zero exit), start the next world's
+    ``warm_next`` ranks, and return each rank's record and the world's
+    wall."""
     store = out_dir / f"store_{stage}"
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=multirank_rank,
-                         args=(r, MULTIRANK_WORLD, str(store), str(out_dir), stage))
-             for r in range(MULTIRANK_WORLD)]
+    procs = WARM.run(multirank_rank,
+                     [(r, world, str(store), str(out_dir), stage) for r in range(world)])
     try:
-        for p in procs:
-            p.start()
         deadline = time.monotonic() + join_s
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -5775,14 +5942,15 @@ def run_multirank_world(torch, stage: str, out_dir: Path,
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
         check(not hung, f"multirank {stage}: ranks {hung} still running after {join_s} s")
         codes = [p.exitcode for p in procs]
-        check(codes == [0] * MULTIRANK_WORLD, f"multirank {stage}: rank exit codes {codes}")
+        check(codes == [0] * world, f"multirank {stage}: rank exit codes {codes}")
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join()
+    WARM.fill(warm_next)
     return [json.loads((out_dir / f"{stage}{r}.json").read_text())
-            for r in range(MULTIRANK_WORLD)], wall
+            for r in range(world)], wall
 
 
 def multirank_phase(torch, bq_ops) -> dict:
@@ -5817,6 +5985,7 @@ def multirank_phase(torch, bq_ops) -> dict:
 
     try:
         p2p = gloo_p2p_probe(torch, out_dir)  # beside the baseline: 2 small processes
+        WARM.fill(3 * MULTIRANK_WORLD)  # the save, resume and pipe worlds follow each other
         base = trainer()
         _, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
@@ -5843,7 +6012,8 @@ def multirank_phase(torch, bq_ops) -> dict:
         torch.cuda.empty_cache()
         # DP -> PP (steps 3-4 by stages, saved at step 4), then PP -> SP (steps 5-6)
         t_pipe = time.perf_counter()
-        piped, pipe_wall = run_multirank_world(torch, "pipe", out_dir)
+        piped, pipe_wall = run_multirank_world(torch, "pipe", out_dir,
+                                               warm_next=SURVIVORS_WORLD)
         reset_launches(fns)
         one = trainer(ckpt_dir=str(out_dir / "ckpt"),
                       policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000))
@@ -5913,6 +6083,16 @@ def multirank_phase(torch, bq_ops) -> dict:
               f"{set(map(tuple, sv['flash_calls']))} at q_offset {set(sv['flash_offsets'])}")
         check(all("tp_s" in h["split"] for h in r["hist"]),
               f"multirank resume rank {r['rank']}: no tp_s in the split")
+        sc = sv["seq_cache"]
+        halved = {p: (n, sc["held_bytes"]["seq_sharded"][p])
+                  for p, n in sc["held_bytes"]["replicated"].items()}
+        check(halved and all(2 * h == n for n, h in halved.values()),
+              f"multirank serve rank {r['rank']}: a length-sharded cache holds {halved}")
+        check(sc["fp32_tokens_equal"] and sc["top_gap"] <= SERVE_LOGIT_TOL,
+              f"multirank serve rank {r['rank']}: the length-sharded cache's fp32 tokens "
+              f"{'equal' if sc['fp32_tokens_equal'] else 'differ from'} the replicated "
+              f"cache's; its bf16 tokens {sc['top_gap']:.4f} under the replicated decode's top "
+              f"logit (tolerance {SERVE_LOGIT_TOL})")
     held = hold_serve(torch, "multirank serve", ranked_serve, one_serve)
     pipe_out = hold_pipe(piped, baseline, one_losses4, info4, one_restore4, pipe_wall,
                          pipe_phase_s)
@@ -5999,6 +6179,17 @@ def multirank_phase(torch, bq_ops) -> dict:
               f"flash launches {sorted(set(map(tuple, sv['flash_calls'])))} at q_offset "
               f"{sorted(set(sv['flash_offsets']))}), decode {sv['decode_ms']:.2f} ms/token, "
               f"model-group collectives {sv['tp_s']:.2f} s ({sv['tp_bytes'] / 1e9:.3f} GB)")
+        sc = sv["seq_cache"]
+        rep_b = sum(sc["held_bytes"]["replicated"].values())
+        seq_b = sum(sc["held_bytes"]["seq_sharded"].values())
+        print(f"  serve rank {r['rank']} with the cache sharded over its length "
+              f"(shard_cache_seq, {sc['cache_len']} slots): k/v/slot_pos {seq_b / 1e6:.3f} MB "
+              f"held against {rep_b / 1e6:.3f} MB replicated; fp32 tokens equal the "
+              f"replicated cache's; bf16 tokens equal at {sc['bf16_equal_steps']} of "
+              f"{SERVE_GEN} steps a row, within {sc['top_gap']:.4f} of its top logit; prefill "
+              f"{sc['prefill_ms']:.1f} ms, decode {sc['decode_ms']:.2f} ms/token (replicated "
+              f"{sv['decode_ms']:.2f}), model-group collectives {sc['tp_s']:.2f} s "
+              f"({sc['tp_bytes'] / 1e9:.3f} GB)")
     print(f"  resume 1 process (data=1,model=1): {info.mode.value} in {info.wall_time_s:.2f} s; "
           f"losses {[round(v, 4) for v in one_losses]}; gaps to the baseline {out['gaps']}")
     return out
@@ -7029,6 +7220,234 @@ def multirank_hot_phase(torch, bq_ops) -> dict:
           f"step {rc['step_after']['step']} loss {rc['step_after']['loss']:.4f}")
     return out
 
+
+def multirank_survivors_rank(torch, dist, rank: int, out_dir: Path, fns: dict,
+                             t_start: float) -> dict:
+    """One rank of the multirank-survivors stage: smollm-360m at full width
+    and ``CUT_LAYERS`` layers under data=4,model=1 through
+    ``Trainer.create(..., group=WORLD)`` with ``CheckpointPolicy(codec=
+    "int8:b256", hot_interval=1, hot_replication=1)`` (nothing drained to
+    disk): steps 1-2, each captured.  Then the ranks of ``SURVIVORS_FAILED``
+    exit, and ranks 0 and 2 destroy the default group, re-form one of 2
+    (``reform_group``), rebuild a trainer on the mesh ``propose_mesh`` gives
+    them with the card's budget (``rebuild_on(..., group=)``) and recover
+    through ``hot_recover(..., group=)`` with a spy on checkpoint opens and
+    the block-quant counts; their shards against ``slice_shard`` of the
+    gathered step-2 state; one step; one ``int8:b256`` save by the new
+    group (block=True), and the new rank 0's one-process save of the
+    gathered state for the digests.  Returns the rank's record."""
+    import repro_torch.core.dist_ckpt as dist_ckpt
+    import repro_torch.obs as obs
+    from repro_torch.ckpt.policy import CheckpointPolicy
+    from repro_torch.ckpt.saver import snapshot_state, write_distributed
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.layout import slice_shard
+    from repro_torch.core.patterns import StateKind
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.elastic import ElasticEvent, hot_recover, rebuild_on, reform_group
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer, gather_state
+
+    dev = torch.device("cuda")
+    world = dist.group.WORLD
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+    tcfg, parallel = TrainConfig(seed=0), ParallelismConfig()
+    b, s = MULTIRANK_BATCH
+    root = out_dir / "survivors"
+    policy = CheckpointPolicy(codec=MULTIRANK_CODEC, hot_interval=1, disk_interval=1000,
+                              hot_replication=1, hot_max_snapshots=HOT_RING,
+                              hot_max_bytes=1 << 40)
+    t = Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string(SURVIVORS_MESH), batch_size=b,
+                       seq_len=s, ckpt_dir=str(root / "old"), policy=policy, device=dev,
+                       group=world)
+    fields = (("params", StateKind.FP32), ("exp_avg", StateKind.EXP_AVG),
+              ("exp_avg_sq", StateKind.EXP_AVG_SQ))
+    out: dict = {"rank": rank, "stage": "survivors", "device": str(t.device)}
+    t_ready = time.perf_counter()
+    state, hist = t.run(t.init_state(), 0, 2)  # captures 1 and 2
+    out["hist"] = [{k: h[k] for k in ("step", "loss", "dt")} for h in hist]
+    full = gather_state(state, t.plan, world)
+    del state
+    torch.cuda.synchronize()
+    dist.barrier()
+    out["setup_s"] = t_ready - t_start
+    if rank in SURVIVORS_FAILED:  # this process dies
+        t.manager.close()
+        out["exited"] = True
+        return out
+
+    event = ElasticEvent(SURVIVORS_WORLD - len(SURVIVORS_FAILED), "failure", SURVIVORS_FAILED)
+    t0 = time.perf_counter()
+    group = reform_group(event, rank, SURVIVORS_WORLD, out_dir / "rendezvous",
+                         timeout=MULTIRANK_JOIN_S)
+    out["reform_s"] = time.perf_counter() - t0
+    new_rank = dist.get_rank(group)
+    t0 = time.perf_counter()
+    new = rebuild_on(event, cfg, parallel, tcfg, batch_size=b, seq_len=s,
+                     ckpt_dir=str(root / "new"), device=dev, group=group,
+                     policy=CheckpointPolicy(codec=MULTIRANK_CODEC, save_interval=1000,
+                                             async_save=False))
+    out["rebuild_s"] = time.perf_counter() - t0
+    check(new is not None, f"multirank-survivors rank {rank}: a spare among 2 survivors")
+    opened: list = []
+    real_open, real_read = dist_ckpt.DistCheckpoint.open.__func__, dist_ckpt.DistCheckpoint.read_shard
+
+    def spy_open(cls, root_, *a, **kw):
+        opened.append(str(root_))
+        return real_open(cls, root_, *a, **kw)
+
+    def spy_read(self, *a, **kw):
+        opened.append(str(self.root))
+        return real_read(self, *a, **kw)
+
+    dist_ckpt.DistCheckpoint.open = classmethod(spy_open)
+    dist_ckpt.DistCheckpoint.read_shard = spy_read
+    reset_launches(fns)
+    try:
+        with obs.enabled() as tracer:
+            t0 = time.perf_counter()
+            st, info = hot_recover(t.manager, event, dev, target_plan=new.plan, group=group)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dist_ckpt.DistCheckpoint.open = classmethod(real_open)
+        dist_ckpt.DistCheckpoint.read_shard = real_read
+    spans = tracer.span_records()
+    split = {name: sum(r["dur_us"] for r in spans if r["name"] == name) / 1e6
+             for name in ("restore.plan", "restore.tier", "restore.prefetch",
+                          "restore.materialize", "restore.consolidate")}
+    diff = 0
+    mesh = new.plan.mesh
+    for field, kind in fields:
+        want = flatten_with_paths(getattr(full, field))
+        for name, got in flatten_with_paths(getattr(st, field)).items():
+            cut = slice_shard(want[name], new.plan.param_specs[name].layout_for(kind, mesh),
+                              new_rank)
+            diff += int((got.contiguous().view(torch.uint8) != cut.contiguous().view(torch.uint8)
+                         ).sum()) if got.shape == cut.shape else got.numel()
+    del full, want, cut
+    torch.cuda.empty_cache()
+    rs = info.restore_stats
+    out["recover"] = {"mode": info.mode.value, "step": info.step, "s": wall,
+                      "files_opened": len(opened), "bits_differing": diff, "spans_s": split,
+                      "mesh": dict(mesh.axes), "new_rank": new_rank,
+                      "fetched_bytes": rs.fetched_bytes, "sent_bytes": rs.sent_bytes,
+                      "fetch_s": rs.fetch_s, "bytes_read": rs.bytes_read,
+                      "launches": launch_counts(fns)}
+    st, hist = new.run(st, info.step, 1)
+    out["step_after"] = {k: hist[0][k] for k in ("step", "loss", "dt")}
+    out["step_after"]["split"] = dict(hist[0]["split"])
+    reset_launches(fns)
+    t0 = time.perf_counter()
+    new.manager.save(st, 3, block=True)
+    out["save"] = {"s": time.perf_counter() - t0, "launches": launch_counts(fns)}
+    full3 = gather_state(st, new.plan, new.ranks.group)
+    del st
+    step3 = new.manager.step_dir(3)
+    if new_rank == 0:  # the one-process save of the gathered state: the digests to match
+        one = root / "one"
+        write_distributed(snapshot_state(full3, new.manager.codec), new.plan, 3, one,
+                          codec=new.manager.codec,
+                          config_fingerprint=new.manager.config_fingerprint)
+        a, c = dist_ckpt.DistCheckpoint.open(step3), dist_ckpt.DistCheckpoint.open(one)
+        out["check"] = {
+            "committed": a.is_committed, "digests": len(a.manifest.shard_digests),
+            "digests_equal": a.manifest.shard_digests == c.manifest.shard_digests,
+            "codecs_equal": a.manifest.shard_codecs == c.manifest.shard_codecs,
+            "codecs": dict(a.manifest.shard_codecs),
+            "bytes": sum(p.stat().st_size for p in step3.rglob("*.npy")),
+        }
+        shutil.rmtree(one)
+    del full3
+    dist.barrier(group=new.ranks.group)
+    t.manager.close()
+    new.manager.close()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def multirank_survivors_phase(torch, bq_ops, baseline: list[float]) -> dict:
+    """Survivors of a rank loss re-form a group and recover from memory, on
+    the one card (:func:`multirank_survivors_rank`): 4 ranks under
+    data=4,model=1, ranks 1 and 3 exit after step 2.  Checks (each fails the
+    smoke): the survivors' re-formed group ranks 0 and 1 (old ranks 0 and
+    2) under data=2,model=1; HOT_RESHARD of step 2 with no checkpoint file
+    opened and no block-quant launch, each survivor's shards bit-equal to
+    ``slice_shard`` of the gathered step-2 state; step 3's loss within
+    ``MULTIRANK_TOL`` of the one-process baseline's; the new group's coded
+    save of step 3 committed, each rank's quantize launches the coded
+    shards it owns, and its digests and codecs the one-process save's of
+    the gathered state.  Returns the record."""
+    fns = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
+    out_dir = ROOT / "build" / "chip_smoke_multirank_survivors"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        ranks, wall = run_multirank_world(torch, "survivors", out_dir, world=SURVIVORS_WORLD)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [h["loss"] for h in ranks[0]["hist"]]
+    gap = max(abs(x - y) for x, y in zip(losses, baseline[:2]))
+    check(all([h["loss"] for h in r["hist"]] == losses for r in ranks) and gap <= MULTIRANK_TOL,
+          f"multirank-survivors: steps 1-2 {losses} left the baseline {baseline[:2]}")
+    dead = [r["rank"] for r in ranks if r.get("exited")]
+    check(dead == list(SURVIVORS_FAILED), f"multirank-survivors: exited {dead}")
+    alive = [r for r in ranks if not r.get("exited")]
+    check([r["recover"]["new_rank"] for r in alive] == [0, 1],
+          f"multirank-survivors: new ranks {[r['recover']['new_rank'] for r in alive]}")
+    chk = alive[0]["check"]
+    for r in alive:
+        rc = r["recover"]
+        check((rc["mode"], rc["step"], rc["files_opened"], rc["bits_differing"])
+              == ("hot_reshard", 2, 0, 0) and rc["mesh"] == {"data": 2, "model": 1}
+              and rc["launches"] == dict.fromkeys(fns, 0),
+              f"multirank-survivors rank {r['rank']}: recovery {rc}")
+        after = r["step_after"]
+        check(after["step"] == 3 and abs(after["loss"] - baseline[2]) <= MULTIRANK_TOL,
+              f"multirank-survivors rank {r['rank']}: step 3 loss {after['loss']} against the "
+              f"baseline's {baseline[2]}")
+        coded = sum(1 for k in chk["codecs"]
+                    if k.startswith(f"rank_{rc['new_rank']:05d}/"))
+        got = r["save"]["launches"]
+        check(got["quantize"] == coded > 0,
+              f"multirank-survivors rank {r['rank']}: save launches {got} for {coded} coded "
+              "shards of its own")
+    check(chk["committed"] and chk["digests_equal"] and chk["codecs_equal"],
+          f"multirank-survivors: the new group's save is not the one-process save of the "
+          f"gathered state ({ {k: v for k, v in chk.items() if k != 'codecs'} })")
+    moved = sum(r["recover"]["fetched_bytes"] for r in alive)  # 0: each holds its buddy's
+    check(moved == sum(r["recover"]["sent_bytes"] for r in alive),
+          f"multirank-survivors: {moved} bytes fetched, "
+          f"{sum(r['recover']['sent_bytes'] for r in alive)} sent")
+    launches = {k: sum(r["save"]["launches"][k] for r in alive) for k in fns}
+    out = {"model": f"smollm-360m, full width, {CUT_LAYERS} of 32 layers",
+           "world": SURVIVORS_WORLD, "mesh": SURVIVORS_MESH, "failed": list(SURVIVORS_FAILED),
+           "batch": list(MULTIRANK_BATCH), "codec": MULTIRANK_CODEC, "losses": losses,
+           "gap": gap, "ranks": ranks, "world_s": wall, "launches": launches,
+           "step_after_gap": max(abs(r["step_after"]["loss"] - baseline[2]) for r in alive),
+           "commit": {k: v for k, v in chk.items() if k != "codecs"},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"multirank-survivors smollm-360m ({CUT_LAYERS} layers): {SURVIVORS_WORLD} ranks under "
+          f"{SURVIVORS_MESH}; ranks {list(SURVIVORS_FAILED)} exit after step 2; world "
+          f"{wall:.1f} s; steps 1-2 losses {[round(v, 4) for v in losses]} (gap {gap:.4f})")
+    for r in alive:
+        rc, after = r["recover"], r["step_after"]
+        sp = after["split"]
+        print(f"  old rank {r['rank']} -> rank {rc['new_rank']} of {rc['mesh']}: re-form "
+              f"{r['reform_s']:.3f} s, rebuild {r['rebuild_s']:.3f} s; {rc['mode']} of step "
+              f"{rc['step']} in {rc['s']:.3f} s (fetch {rc['fetched_bytes'] / 1e9:.3f} GB in, "
+              f"{rc['sent_bytes'] / 1e9:.3f} GB out in {rc['fetch_s']:.3f} s; "
+              f"{', '.join(f'{k} {v:.3f} s' for k, v in rc['spans_s'].items())}), 0 files "
+              f"opened, bit-equal; step 3 loss {after['loss']:.4f} (baseline {baseline[2]:.4f}) "
+              f"in {after['dt']:.2f} s = gather {sp['gather_s']:.2f} + forward/backward "
+              f"{sp['grad_s']:.2f} + all-reduce {sp['all_reduce_s']:.2f} + update "
+              f"{sp['update_s']:.2f}; coded save of step 3 {r['save']['s']:.2f} s, launches "
+              f"{r['save']['launches']}; peak {r['peak_gb']:.2f} GB")
+    print(f"  the new group's save: {chk['digests']} digests and codecs equal the one-process "
+          f"save's of the gathered state; {chk['bytes'] / 1e9:.3f} GB")
+    return out
+
 # The partitioned MLA, cross-attention and encoder-decoder stages: 2 ranks
 # under data=1,model=2 on the one card, by heads (deepseek-v2 64 of 128 a
 # rank, llama-vision 16:4 of 32:8, whisper 3:3 of 6:6)
@@ -7301,7 +7720,8 @@ def multirank_encdec_phase(torch, bq_ops, baseline: list[float]) -> dict:
         cfg, ShapeSpec("train", s, b, "train"), i, seed=0, batch_override=b,
         seq_override=s).items() if k in ("tokens", "source_embeds")}) for i in range(4)]
     try:
-        ranks, wall = run_multirank_world(torch, "encdec", out_dir, join_s=CROSS_JOIN_S)
+        ranks, wall = run_multirank_world(torch, "encdec", out_dir, join_s=CROSS_JOIN_S,
+                                          warm_next=0)  # the last world
         ranked = torch.load(out_dir / "multirank_encdec_serve.pt")
         one = one_process_serve(torch, cfg, out_dir / "ckpt" / "step_00000002", ranked["seq"],
                                 prompt_len=ENCDEC_PROMPT)
@@ -7394,13 +7814,23 @@ class PhaseClock:
 
 
 def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        raise SmokeError(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repo")
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeError("CUDA is not available: this smoke runs on a card, never the CPU")
-    if not (SRC / "repro_torch").is_dir():
-        raise SmokeError(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
+    try:
+        return run(torch)
+    finally:
+        WARM.close()
+
+
+def run(torch) -> int:
+    """Every phase in turn (``main``: the checks before them, and the warm
+    ranks' end after them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.block_quant import kernel as bq_kernel
@@ -7418,7 +7848,14 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    usage = build_all({"flash_attention": kernel, "block_quant": bq_kernel, "ssd_scan": ssd_kernel})
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_all, {"flash_attention": kernel, "block_quant": bq_kernel,
+                                        "ssd_scan": ssd_kernel})
+        # while the kernels build: each module's bytecode written once,
+        # before any rank reads it, then the first world's ranks start up
+        warm_imports()
+        WARM.fill()
+        usage = built.result()
     clock.mark("build")
     check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256, 256>", "fwd_kernel<float, 256, 256>",
                                                "fwd_kernel_tc<192, 128>", "fwd_kernel<float, 192, 128>"))
@@ -7431,6 +7868,8 @@ def main() -> int:
     multi = multirank_phase(torch, bq_ops)
     multi_pipe = multi.pop("pipe_record")
     clock.mark("multirank")
+    multi_surv = multirank_survivors_phase(torch, bq_ops, multi["baseline"])
+    clock.mark("multirank-survivors")
     multi_tp = multirank_tp_phase(torch, bq_ops)
     clock.mark("multirank-tp")
     multi_hot = multirank_hot_phase(torch, bq_ops)
@@ -7698,6 +8137,7 @@ def main() -> int:
         rows[-1]["multirank_launches"] = multi["launches"][which]
         rows[-1]["multirank_tp_launches"] = multi_tp["launches"][which]
         rows[-1]["multirank_hot_launches"] = multi_hot["launches"][which]
+        rows[-1]["multirank_survivors_launches"] = multi_surv["launches"][which]
         rows[-1]["multirank_moe_launches"] = multi_moe["launches"][which]
         rows[-1]["multirank_moe_launches_by_rank"] = multi_moe["launches_by_rank"][which]
         rows[-1]["multirank_ssm_launches"] = multi_ssm["launches"][which]
@@ -7790,6 +8230,7 @@ def main() -> int:
     print(json.dumps({"multirank": multi}))
     print(json.dumps({"multirank_tp": multi_tp}))
     print(json.dumps({"multirank_hot": multi_hot}))
+    print(json.dumps({"multirank_survivors": multi_surv}))
     print(json.dumps({"multirank_moe": multi_moe}))
     print(json.dumps({"multirank_ssm": multi_ssm}))
     print(json.dumps({"multirank_mla": multi_mla}))

@@ -21,6 +21,13 @@ Determinism levers (why the same seed always replays the same run):
 * ``wait()`` after every save — at most one background job is in flight
   when the next event starts, so cross-thread interleaving cannot reorder
   fault-point hits between events;
+* a fault point hit off the driving thread waits while the driving
+  thread is inside ``save()`` (:class:`_SaveGate`, the bootstrap's saves
+  included): ``save()``
+  runs GC and publishes the newest commit after queueing its write, so a
+  writer or drainer that committed first (a loaded host descheduling the
+  driving thread) would move a deletion, a publication and the faults
+  armed on them from the following ``wait()`` into ``save()``;
 * all randomness (state updates, fault generation, restore-mode choice)
   derives from the seed; the commit/GC wall clock is the injectable
   :mod:`repro_torch.core.clock`.
@@ -65,7 +72,7 @@ from repro_torch.serve import FleetReplica, PublicationRegistry
 from repro_torch.train.optimizer import TrainState
 
 from .invariants import Violation, check_invariants, diff_snapshots
-from .points import FaultError
+from .points import FaultError, activate, deactivate
 from .schedule import ChaosController, Schedule, generate_schedule
 
 __all__ = ["ChaosHarness", "ChaosReport", "harness_config", "reachable_points"]
@@ -163,6 +170,47 @@ def _is_fault(err: BaseException | None) -> bool:
     return False
 
 
+class _SaveGate:
+    """A fault-point sink that records nothing: a hit on a thread other than
+    ``owner`` waits for ``saved`` (cleared while ``owner`` is inside
+    ``save()``; a deadlock guard of ``timeout`` seconds).  Every background
+    save and drain hits a fault point before its commit
+    (``dist.pre_commit``), so none commits before ``save()``'s own GC and
+    publication have run.  Active alone during the bootstrap's saves."""
+
+    def __init__(self, owner: threading.Thread, saved: threading.Event, timeout: float = 30.0):
+        self.owner = owner
+        self.saved = saved
+        self.timeout = timeout
+
+    def hold(self) -> None:
+        if threading.current_thread() is not self.owner:
+            self.saved.wait(self.timeout)
+
+    def on_point(self, name: str, ctx) -> None:
+        self.hold()
+
+    def __enter__(self) -> "_SaveGate":
+        activate(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        deactivate(self)
+
+
+class _SaveGatedController(ChaosController):
+    """The harness's controller: each hit first passes ``gate``
+    (:class:`_SaveGate`), so a background hit counts after ``save()``'s."""
+
+    def __init__(self, schedule: Schedule, *, env: Any, gate: _SaveGate):
+        super().__init__(schedule, env=env)
+        self.gate = gate
+
+    def on_point(self, name: str, ctx) -> None:
+        self.gate.hold()
+        super().on_point(name, ctx)
+
+
 class ChaosHarness:
     """One seeded chaos run; see the module docstring.
 
@@ -209,6 +257,8 @@ class ChaosHarness:
         self.references: dict[int, dict] = {}  # step -> snapshot copy
         self.log: list[str] = []
         self._env_lock = threading.Lock()
+        self._saved = threading.Event()  # cleared while the driving thread is in save()
+        self._saved.set()
         self._pending_rank_loss: list[int] = []  #: guarded by self._env_lock
         self._storage_lost = False  #: guarded by self._env_lock
         self._rng = random.Random(seed ^ 0xC0FFEE)
@@ -316,6 +366,15 @@ class ChaosHarness:
         return bool(destructive) and isinstance(
             err, (RuntimeError, ValueError, OSError, KeyError)
         )
+
+    def _save(self, step: int) -> None:
+        """``mgr.save`` of ``step``, background fault points held meanwhile
+        (:class:`_SaveGate`)."""
+        self._saved.clear()
+        try:
+            self.mgr.save(self._train_state(step), step)
+        finally:
+            self._saved.set()
 
     def _recover_from_crash(self, err: BaseException) -> list[Violation]:
         """Simulated process death: host memory (hot tier, async queues) is
@@ -485,20 +544,22 @@ class ChaosHarness:
             # Bootstrap fault-free: commit at least one step so "some tier
             # always serves" is a meaningful promise when faults start.
             self.mgr = self._build_manager()
-            for step in (10, 20):
-                self.references[step] = copy.deepcopy(self._snap)
-                self.mgr.save(self._train_state(step), step)
-                self.mgr.wait()
-                self._advance(step)
+            gate = _SaveGate(threading.current_thread(), self._saved)
+            with gate:
+                for step in (10, 20):
+                    self.references[step] = copy.deepcopy(self._snap)
+                    self._save(step)
+                    self.mgr.wait()
+                    self._advance(step)
             assert self.mgr.latest_step() is not None, "bootstrap never committed"
-            with ChaosController(self.schedule, env=self) as ctrl:
+            with _SaveGatedController(self.schedule, env=self, gate=gate) as ctrl:
                 for event in range(1, self.events + 1):
                     step = 10 * (event + 2)
                     self._advance(event)
                     self.references[step] = copy.deepcopy(self._snap)
                     crash: BaseException | None = None
                     try:
-                        self.mgr.save(self._train_state(step), step)
+                        self._save(step)
                         self.mgr.wait()
                     except BaseException as e:  # repro: allow[except-discipline] -- faults vs real bugs split by _is_fault/_expected_failure; real bugs re-raise
                         if _is_fault(e) or self._expected_failure(e, ctrl):

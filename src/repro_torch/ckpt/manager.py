@@ -59,8 +59,11 @@ rank's writer error.  Under a group too:
 * fan-out is rank 0's: a registry on any other rank is refused, every
   rank enters ``publish`` (a collective) and gets rank 0's publication;
 * after a real process death, :meth:`leave_group` lets a lone survivor
-  carry on as one process from its own memory
-  (:func:`repro_torch.elastic.hot_recover`).
+  carry on as one process from its own memory, and two or more recover
+  over the group they re-formed, spares included
+  (:func:`repro_torch.elastic.hot_recover`); the manager's snapshots keep
+  the old mesh's numbering, mapped to the new group's ranks for the
+  fetch.
 
 Spans, counters, events and fault points are the reference's
 (:mod:`repro_torch.obs`, :mod:`repro_torch.chaos.points`); no fault point
@@ -87,7 +90,7 @@ from repro_torch.core.engine import CheckpointEngine, default_engine, device_key
 from repro_torch.core.plan import ResumeMode, TargetSpec, plan_resume, stream_transforms
 from repro_torch.core.tensor_io import IntegrityError
 from repro_torch.core.pytree import flatten_with_paths
-from repro_torch.dist.sharding import ShardingPlan
+from repro_torch.dist.sharding import ShardingPlan, new_subgroup
 from repro_torch.train.optimizer import TrainState
 
 from .policy import CheckpointPolicy
@@ -180,6 +183,13 @@ class CheckpointManager:
         self.rank = 0
         self._ckpt_group = None
         self._hot_group = None
+        # the ranks that restore, and their group for the restore's
+        # collectives: the whole group, until survivors re-form it with
+        # spares (leave_group)
+        self._compute = group
+        self._compute_size = None if group is None else group.size()
+        # old mesh rank -> group rank after a re-form (None: the identity)
+        self._group_rank = None
         # whether (group) rank 0 publishes: every rank enters publish() then
         self._publishing = self.policy.registry is not None
         self._stash: list[SaveResult] = []  # results drained before a blocking save
@@ -198,11 +208,11 @@ class CheckpointManager:
             ranks = [dist.get_global_rank(group, r) for r in range(group.size())]
             # saves coordinate on a group of their own: the async writer's
             # collectives never interleave with the training step's
-            self._ckpt_group = dist.new_group(ranks, backend="gloo")
+            self._ckpt_group = new_subgroup(group, ranks, "gloo")
             if self.policy.hot_interval is not None:
                 # the capture's and recovery's exchanges (host bytes, the
                 # calling thread) never interleave with a drain's collectives
-                self._hot_group = dist.new_group(ranks, backend="gloo")
+                self._hot_group = new_subgroup(group, ranks, "gloo")
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.plan = plan
@@ -487,10 +497,12 @@ class CheckpointManager:
             return latest
         return self._from_rank0(latest)
 
-    def _from_rank0(self, value):
-        """Rank 0's ``value`` on every rank of the group (a barrier too)."""
+    def _from_rank0(self, value, group=None):
+        """Rank 0's ``value`` on every rank of ``group`` (the manager's by
+        default; a barrier too)."""
+        group = group or self.group
         box = [value]
-        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0), group=self.group)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
         return box[0]
 
     def _inflight_roots(self) -> set[Path]:
@@ -644,10 +656,13 @@ class CheckpointManager:
         state, cstats = None, None
         stats = RestoreStats()
         engine = self.engine_for(device)
-        rank = None if self.group is None else self.rank  # None: the whole state
-        if rank is not None and plan.mesh.size != self.group.size():
-            raise ValueError(f"the target mesh {dict(plan.mesh.axes)} is not the group's size "
-                             f"{self.group.size()}")
+        rank = self._restoring_rank(plan)
+        if rank is not None and rank >= plan.mesh.size:
+            # a spare of a re-formed group: the compute ranks read the disk
+            engine.release(ckpt)
+            return None, RestoreInfo(step=step, mode=mode, reason=f"{reason}; a spare restores "
+                                     "nothing", scalars=dict(ckpt.manifest.scalars),
+                                     wall_time_s=sw.elapsed_s, restore_stats=stats)
         try:
             if mode is ResumeMode.DIRECT:
                 with obs.span("restore.tier", tier="direct"):
@@ -701,11 +716,22 @@ class CheckpointManager:
         )
         return state, info
 
+    def _restoring_rank(self, plan: ShardingPlan) -> int | None:
+        """The target mesh rank this process restores under ``plan`` (None
+        without a group: the whole state); the compute ranks' count must be
+        ``plan``'s mesh size.  A rank at or beyond it is a spare."""
+        if self.group is None:
+            return None
+        if plan.mesh.size != self._compute_size:
+            raise ValueError(f"the target mesh {dict(plan.mesh.axes)} is not the group's "
+                             f"{self._compute_size} compute ranks")
+        return self.rank
+
     def _all_failures(self, failure: str | None) -> list[str]:
-        """Every rank's stream failure (None where it succeeded), as text,
-        on every rank."""
-        everyone: list = [None] * self.group.size()
-        dist.all_gather_object(everyone, failure, group=self.group)
+        """Every compute rank's stream failure (None where it succeeded), as
+        text, on every compute rank."""
+        everyone: list = [None] * self._compute.size()
+        dist.all_gather_object(everyone, failure, group=self._compute)
         return [f"rank {r}: {f}" for r, f in enumerate(everyone) if f is not None]
 
     def _shared_ucp(
@@ -721,7 +747,8 @@ class CheckpointManager:
                 out = cached_ucp(ckpt, engine, convert_workers=convert_workers)
             except Exception as e:  # repro: allow[except-discipline] -- re-raised on every rank below
                 err = e
-        msg = self._from_rank0(None if err is None else f"{type(err).__name__}: {err}")
+        msg = self._from_rank0(None if err is None else f"{type(err).__name__}: {err}",
+                               self._compute)
         if msg is not None:
             raise RuntimeError(f"UCP conversion on rank 0 failed: {msg}") from err
         if out is not None:
@@ -777,10 +804,7 @@ class CheckpointManager:
                 hp = plan_hot_recovery(self.hot, target, min_step=self.latest_step())
             if hp is not None:
                 engine = self.engine_for(device)
-                rank = None if self.group is None else self.rank  # None: the whole state
-                if rank is not None and plan.mesh.size != self.group.size():
-                    raise ValueError(f"the target mesh {dict(plan.mesh.axes)} is not the "
-                                     f"group's size {self.group.size()}")
+                rank = self._restoring_rank(plan)
                 with obs.timed("ckpt.restore", step=hp.step, mode=hp.mode.value,
                                reason=hp.reason) as sw:
                     stats = RestoreStats()
@@ -788,7 +812,8 @@ class CheckpointManager:
                         with obs.span("restore.tier", tier=hp.mode.value):
                             state = state_from_hot(hp.snapshot, plan, device, stats,
                                                    engine=engine, verify=verify, rank=rank,
-                                                   group=self._hot_group)
+                                                   group=self._hot_group,
+                                                   group_rank=self._group_rank)
                     finally:
                         engine.release(hp.snapshot)
                     if device.type == "cuda":
@@ -802,15 +827,31 @@ class CheckpointManager:
                 return state, info
         return self.restore(device, target_plan=target_plan, verify=verify)
 
-    def leave_group(self, failed_ranks) -> None:
-        """Carry on as one process after the group died with
-        ``failed_ranks`` (real process deaths; the default group already
-        destroyed): this rank, the lone survivor, keeps its hot snapshots,
-        its own fragments and its peers' mirrors, and restores, saves and
-        publishes on its own from here (its plan's mesh stays the group's).
+    def leave_group(self, failed_ranks, group=None, *, plan: ShardingPlan | None = None) -> None:
+        """Carry on after the group died with ``failed_ranks`` (real process
+        deaths, old mesh ranks; the default group already destroyed).
 
-        Re-forming a group of two or more survivors is not supported
-        (ROADMAP item 11b.5) and raises; so does a rank among the failed."""
+        Without ``group`` this rank is the lone survivor: it keeps its hot
+        snapshots, its own fragments and its peers' mirrors, and restores,
+        saves and publishes on its own from here (its plan's mesh stays the
+        group's).
+
+        With ``group``, the group the survivors re-formed
+        (:func:`repro_torch.elastic.reform_group`: their ranks in ascending
+        old mesh rank), every survivor calls this (a collective) with
+        ``plan``, the plan they recover onto.  Its mesh's ranks are the
+        group's first ones (the compute ranks); the survivors beyond it are
+        spares, which send what only their memory holds during the
+        recovery's exchange and restore nothing.  The manager then restores
+        over the survivors: ``restore_latest``'s exchange on a new hot group
+        of all of them, the disk tiers' collectives on the compute ranks'
+        checkpoint group (each reading its own shards).  Its snapshots keep
+        the old mesh's numbering; the rebuilt trainer's manager saves.  A
+        registry belongs to the new group rank 0: where the old rank 0 died,
+        its registry died with it and nothing is published.
+
+        A rank among the failed raises, as do two or more survivors without
+        a group."""
         if self.group is None:
             return
         failed = {int(r) for r in failed_ranks}
@@ -818,14 +859,49 @@ class CheckpointManager:
         if self.rank in failed:
             raise ValueError(f"rank {self.rank} is among the failed ranks {sorted(failed)}: "
                              "it has nothing to recover")
-        if len(survivors) > 1:
-            raise NotImplementedError(
-                f"{len(survivors)} ranks survive ({survivors}): re-forming a group of the "
-                "survivors is not supported (ROADMAP item 11b.5); a lone survivor recovers alone")
-        self.group = self._ckpt_group = self._hot_group = None
-        self.rank = 0
-        self._publishing = self.registry is not None
+        if group is None:
+            if len(survivors) > 1:
+                raise ValueError(f"{len(survivors)} ranks survive ({survivors}): they recover "
+                                 "as a group they re-form (elastic.reform_group)")
+            self.group = self._ckpt_group = self._hot_group = self._compute = None
+            self._compute_size = None
+            self.rank = 0
+            self._publishing = self.registry is not None
+            if self.hot is not None:
+                self.hot.leave_group()
+            if self._drainer is not None:
+                self._drainer.group = None
+            return
+        self._adopt(survivors, group, plan)
+
+    def _adopt(self, survivors: list[int], group, plan: ShardingPlan | None) -> None:
+        """:meth:`leave_group` onto the survivors' re-formed ``group``."""
+        rank = dist.get_rank(group)
+        if group.size() != len(survivors) or rank != survivors.index(self.rank):
+            raise ValueError(f"the survivors {survivors} re-form a group of their ranks in that "
+                             f"order; old rank {self.rank} is rank {rank} of a group of "
+                             f"{group.size()}")
+        if plan is None or plan.mesh.size > len(survivors):
+            raise ValueError(f"the survivors' plan must have a mesh of at most {len(survivors)} "
+                             f"ranks, got {None if plan is None else dict(plan.mesh.axes)}")
+        m = plan.mesh.size
+        glob = [dist.get_global_rank(group, r) for r in range(group.size())]
+        # only old rank 0 can hold a registry (__init__), and it is new rank 0 if it lives
+        has: list = [None] * group.size()
+        dist.all_gather_object(has, self.registry is not None, group=group)
+        # every survivor creates the groups, in this order
+        ckpt = dist.new_group(glob[:m], backend="gloo")
+        compute = group if m == len(survivors) else dist.new_group(glob[:m], backend="gloo")
+        hot = dist.new_group(glob, backend="gloo") if self.hot is not None else None
+        spare = rank >= m
+        self.group, self.rank = group, rank
+        self._ckpt_group = None if spare else ckpt
+        self._compute = None if spare else compute
+        self._compute_size = m
+        self._hot_group = hot
+        self._group_rank = {old: new for new, old in enumerate(survivors)}
+        self._publishing = bool(has[0])
         if self.hot is not None:
-            self.hot.leave_group()
+            self.hot.adopt_group(hot)
         if self._drainer is not None:
-            self._drainer.group = None
+            self._drainer.group = self._ckpt_group

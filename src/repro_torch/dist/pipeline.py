@@ -64,7 +64,7 @@ import torch.distributed as dist
 
 from repro_torch.core.patterns import StateKind
 
-from .sharding import RankGroups, axis_groups, gather_shard, model_layout, relocal
+from .sharding import RankGroups, axis_groups, gather_shard, model_layout, new_subgroup, relocal
 
 __all__ = ["Pipeline", "pipelines"]
 
@@ -120,11 +120,10 @@ class Pipeline:
         glob = [dist.get_global_rank(ranks.group, r) for r in range(ranks.group.size())]
         self._glob = glob
         self._pairs: dict[tuple[int, int], object] = {}
-        backend = dist.get_backend(ranks.group)
         pairs = sorted({tuple(sorted((p, (p + 1) % self.size))) for p in range(self.size)})
         for line in axis_groups(mesh, (self.axis,)):
             for a, b in pairs:
-                g = dist.new_group([glob[line[a]], glob[line[b]]], backend=backend)
+                g = new_subgroup(ranks.group, [glob[line[a]], glob[line[b]]])
                 if ranks.rank in line:
                     self._pairs[a, b] = g
         self.seconds = 0.0

@@ -76,6 +76,7 @@ __all__ = [
     "local_shard",
     "make_plan",
     "make_sharder",
+    "new_subgroup",
     "model_layout",
     "place",
     "rank_rows",
@@ -441,6 +442,20 @@ def axis_groups(mesh: MeshSpec, axes: tuple[str, ...]) -> list[list[int]]:
     return sorted(groups.values(), key=lambda m: min(m))
 
 
+def new_subgroup(group, ranks: list[int], backend=None):
+    """A new ``torch.distributed`` group over ``ranks`` (global ranks, all
+    of ``group``), of ``group``'s backend unless ``backend`` is given.
+
+    Where ``group`` is the whole default group every process enters, as
+    ``dist.new_group`` asks, and a non-member gets no group.  Where it is a
+    part of it (the compute ranks of a re-formed group of survivors, whose
+    spares never join them: :func:`repro_torch.elastic.reform_group`) only
+    ``ranks`` enter, and a non-member gets None."""
+    local = group.size() < dist.get_world_size()
+    return dist.new_group(ranks, backend=backend or dist.get_backend(group),
+                          use_local_synchronization=local)
+
+
 @dataclasses.dataclass
 class RankGroups:
     """One rank's place in a ``torch.distributed`` group laid over a plan's
@@ -478,7 +493,6 @@ class RankGroups:
                 f"the group has {group.size()} ranks; the mesh {dict(mesh.axes)} has {mesh.size}"
             )
         rank = dist.get_rank(group)
-        backend = dist.get_backend(group)
         glob = [dist.get_global_rank(group, r) for r in range(group.size())]
         pipe = (parallel.pipe_axis,) if parallel.pipe_axis and mesh.has_axis(parallel.pipe_axis) else ()
         model = (parallel.model_axis,) if mesh.has_axis(parallel.model_axis) else ()
@@ -489,7 +503,7 @@ class RankGroups:
             if math.prod(mesh.axis_size(a) for a in axes) <= 1:
                 continue  # the same on every rank: no group to create
             for members in axis_groups(mesh, axes):
-                g = dist.new_group([glob[r] for r in members], backend=backend)
+                g = new_subgroup(group, [glob[r] for r in members])
                 if rank in members:
                     # a subgroup ranks its members by their global rank
                     mine[label] = g

@@ -301,6 +301,19 @@ class TensorParallel:
         n = t.shape[dim] // self.size
         return t.narrow(dim, self.coord * n, n).contiguous()
 
+    def combine(self, o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+        """Flash-decoding's combine over the model group, without autograd:
+        each rank's attention over its own slots of a cache sharded over
+        its length, unnormalized (``decode_attention_partial``: ``o
+        [..., D]``, its max ``m [...]`` and sum ``l [...]``, float32), to the
+        attention over every slot, the same on every rank.  The group's max
+        M, each part rescaled by ``exp(m - M)``, the packed ``(l, o)``
+        summed, divided: two all-reduces."""
+        top = self.all_reduce(m.clone(), op=dist.ReduceOp.MAX)
+        w = torch.exp(m - top)
+        packed = self.all_reduce(torch.cat([(l * w)[..., None], o * w[..., None]], dim=-1))
+        return packed[..., 1:] / packed[..., :1]
+
     # -- the autograd patterns ----------------------------------------------
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -28,13 +28,18 @@ shared index, the agreed failures and rank 0's newest commit.  Each rank
 then builds its own shards (``state_from_hot(..., rank=, group=)``): it
 reads the fragments it holds, and every fragment its regions need that it
 does not hold comes from the lowest surviving holder, planned by every rank
-from the index alone and moved in one exchange.
+from the index alone and moved in one exchange.  After real deaths the
+survivors re-form a smaller group (:func:`repro_torch.elastic.reform_group`):
+the snapshot keeps the old mesh's numbering, ``group_rank`` maps it to the
+new group's, and the survivors beyond the proposed mesh (spares) send what
+only they hold and restore nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Mapping
 
 import torch
 
@@ -126,34 +131,48 @@ def plan_hot_recovery(
     return None
 
 
-def fetch_plan(snapshot: HotSnapshot, plan, transforms, engine, world: int):
-    """Every fragment some rank's restore under ``plan`` reads and does not
-    hold, in one order on every rank: ``(rank, name, kind value, owner,
-    sender)``, the sender its lowest surviving holder."""
+def fetch_plan(snapshot: HotSnapshot, plan, transforms, engine, group_rank: Mapping[int, int]):
+    """Every fragment some target rank's restore under ``plan`` reads and its
+    process does not hold, in one order on every rank: ``(target rank,
+    name, kind value, owner, sender)``.
+
+    Three numberings meet here.  The snapshot's (its owners, holders and
+    failed ranks) is the old mesh's; a target rank is a rank of ``plan``'s
+    mesh, which is the same process's group rank; ``group_rank`` maps each
+    surviving old mesh rank to its group rank (the identity on a group that
+    was never re-formed).  Target rank r is the process of old mesh rank
+    ``old[r]``; its sender is the fragment's lowest surviving holder, named
+    by its group rank."""
     from repro_torch.ckpt.restore import fragments_needed
 
     out = []
     failed = snapshot.failed_ranks
-    for r in range(world):
+    old = {g: o for o, g in group_rank.items()}
+    for r in range(plan.mesh.size):
         for name, kv, owner in sorted(fragments_needed(snapshot, plan, r, transforms, engine)):
             frag = snapshot.fragment(name, kv, owner)
             alive = [h for h in frag.holders if h not in failed]
-            if r not in alive:
-                out.append((r, name, kv, owner, min(alive)))
+            if old[r] not in alive:
+                out.append((r, name, kv, owner, group_rank[min(alive)]))
     return out
 
 
 def fetch_fragments(snapshot: HotSnapshot, plan, transforms, engine, rank: int, group,
-                    stats=None):
-    """Run the exchange of :func:`fetch_plan`: this rank sends what it is
-    the sender of and receives what it needs; returns the
-    :class:`~repro_torch.ckpt.restore.FetchedSource` serving both."""
+                    stats=None, *, group_rank: Mapping[int, int] | None = None):
+    """Run the exchange of :func:`fetch_plan` over ``group``, in which this
+    process is ``rank``: it sends what it is the sender of and receives what
+    it needs; returns the :class:`~repro_torch.ckpt.restore.FetchedSource`
+    serving both (keyed by the snapshot's owners).  ``group_rank`` (old
+    mesh rank -> group rank) defaults to the identity; a group rank beyond
+    the plan's mesh (a spare) only sends."""
     from repro_torch.ckpt.restore import FetchedSource
 
+    if group_rank is None:
+        group_rank = {r: r for r in range(group.size())}
     t0 = time.perf_counter()
     sends, recvs, fetched, tag = [], [], {}, 0
     for r, name, kv, owner, sender in fetch_plan(snapshot, plan, transforms, engine,
-                                                 group.size()):
+                                                 group_rank):
         frag = snapshot.fragment(name, kv, owner)
         spec = snapshot.manifest.params[name]
         layout = spec.layout_for(StateKind(kv), snapshot.manifest.mesh)
@@ -182,6 +201,7 @@ def state_from_hot(
     verify: bool = False,
     rank: int | None = None,
     group=None,
+    group_rank: Mapping[int, int] | None = None,
 ):
     """Restore a TrainState onto ``device`` from an in-memory snapshot (no
     disk I/O).
@@ -200,7 +220,10 @@ def state_from_hot(
     shards under ``plan``, from the fragments it holds and those fetched
     from its peers (the module notes); ``verify`` failures of any rank
     raise on every rank.  ``stats`` then also counts the bytes fetched and
-    sent.
+    sent.  After a re-form ``group`` is the survivors' and ``group_rank``
+    maps their old mesh ranks to its ranks (:func:`fetch_plan`); a rank
+    beyond ``plan``'s mesh is a spare: it sends what it holds and returns
+    None.
     """
     from repro_torch.ckpt.restore import state_from_source, state_from_stream
 
@@ -222,8 +245,11 @@ def state_from_hot(
     source, own_engine = snapshot, engine is None and group is not None
     if group is not None:
         engine = engine or default_engine(device)
-        source = fetch_fragments(snapshot, plan, transforms, engine, rank, group, stats)
+        source = fetch_fragments(snapshot, plan, transforms, engine, rank, group, stats,
+                                 group_rank=group_rank)
     try:
+        if group is not None and rank >= plan.mesh.size:
+            return None  # a spare: its fragments went to the target ranks
         if transforms is None:
             return state_from_source(source, plan, device, engine=engine, stats=stats, rank=rank)
         return state_from_stream(source, plan, device, transforms, engine=engine, stats=stats,

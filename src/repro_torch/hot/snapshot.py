@@ -547,6 +547,16 @@ class HotTier:
         process's, serving what its snapshots hold."""
         self.group, self.rank = None, None
 
+    def adopt_group(self, group) -> None:
+        """Take ``group``, the group the survivors of a real death re-formed
+        (:func:`repro_torch.elastic.reform_group`), for the failure agreement
+        and the recovery's exchange.  The ring's snapshots keep the old
+        mesh's numbering (owners, holders, failed ranks; ``HotSnapshot.rank``
+        is still this process's old mesh rank), and a capture needs a group
+        of its plan's mesh size, so this tier captures no more: the rebuilt
+        trainer's manager holds the new mesh's snapshots."""
+        self.group, self.rank = group, dist.get_rank(group)
+
     def _evict_locked(self) -> None:  # repro: holds[self._lock]
         def over_budget() -> bool:
             return (
@@ -577,10 +587,13 @@ class HotTier:
 
     # --------------------------------------------------------------- failures
     def fail_ranks(self, ranks: Iterable[int]) -> dict[int, list[str]]:
-        """Simulate losing ``ranks``' host memory across every snapshot.
+        """Lose ``ranks``' host memory (old mesh ranks) across every snapshot.
 
         Returns {step: unrecoverable fragment keys} for snapshots that lost
-        coverage (recovery planning skips those).
+        coverage (recovery planning skips those).  Under a group (the one
+        the tier was built with, or the survivors' it adopted) the ranks
+        first check that they agree on ``ranks``; without one (a lone
+        survivor) it runs locally.
         """
         ranks = set(int(r) for r in ranks)
         if self.group is not None:

@@ -18,7 +18,10 @@ import math
 
 import torch
 
-__all__ = ["full_attention", "chunked_attention", "decode_attention", "repeat_kv"]
+__all__ = [
+    "full_attention", "chunked_attention", "decode_attention", "decode_attention_partial",
+    "decode_scores", "repeat_kv",
+]
 
 _NEG_INF = -2.0e38  # large finite negative: avoids NaN from all-masked rows
 
@@ -118,6 +121,30 @@ def chunked_attention(
     return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, sq, h, dv)
 
 
+def decode_scores(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    *,
+    cache_positions: torch.Tensor,
+    cur_pos: torch.Tensor,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The masked float32 scores ``[B, Hkv, G, C]`` of
+    :func:`decode_attention` (masked slots ``_NEG_INF``)."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = (q.reshape(b, hkv, g, d).float() * scale).to(q.dtype)
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache).float()
+    dpos = cur_pos[:, None] - cache_positions  # [B,C]
+    ok = (cache_positions >= 0) & (dpos >= 0)
+    if window > 0:
+        ok = ok & (dpos < window)
+    return torch.where(ok[:, None, None, :], s, _NEG_INF)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -135,17 +162,36 @@ def decode_attention(
     by position, not slot, so ring buffers need no special case.  GQA is
     handled group-wise: the query is reshaped, never the cache.
     """
-    b, _, h, d = q.shape
-    hkv = k_cache.shape[2]
-    g = h // hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = (q.reshape(b, hkv, g, d).float() * scale).to(q.dtype)
-    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache).float()
-    dpos = cur_pos[:, None] - cache_positions  # [B,C]
-    ok = (cache_positions >= 0) & (dpos >= 0)
-    if window > 0:
-        ok = ok & (dpos < window)
-    s = torch.where(ok[:, None, None, :], s, _NEG_INF)
+    b, _, h, _ = q.shape
+    s = decode_scores(q, k_cache, cache_positions=cache_positions, cur_pos=cur_pos,
+                      window=window, scale=scale)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_cache)
-    return o.reshape(b, 1, h, d)
+    return o.reshape(b, 1, h, v_cache.shape[-1])
+
+
+def decode_attention_partial(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    cache_positions: torch.Tensor,
+    cur_pos: torch.Tensor,
+    window: int = 0,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention` over a part of the cache's slots (a rank's
+    share of a cache sharded over its length), unnormalized: ``(o, m, l)``
+    in float32, ``o [B,1,H,Dv]`` the weighted sum of V before the division,
+    ``m [B,1,H]`` the max of the masked scores and ``l [B,1,H]`` the sum of
+    their exponentials.  The parts combine by flash-decoding's rule
+    (:meth:`~repro_torch.dist.tensor_parallel.TensorParallel.combine`); a
+    part whose every slot is masked has ``l = 0`` and adds nothing."""
+    b, _, h, _ = q.shape
+    s = decode_scores(q, k_cache, cache_positions=cache_positions, cur_pos=cur_pos,
+                      window=window, scale=scale)
+    m = s.amax(dim=-1)
+    p = torch.where(s > _NEG_INF, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype), v_cache).float()
+    return (o.reshape(b, 1, h, v_cache.shape[-1]), m.reshape(b, 1, h),
+            p.sum(dim=-1).reshape(b, 1, h))

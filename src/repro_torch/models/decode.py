@@ -43,6 +43,19 @@ all-reduces after the row-parallel products (an MLA layer's from its heads'
 slice of the absorbed ``wkv_b``; a cross layer's before its gate), and both
 return the rank's vocab shard of the logits (:func:`greedy` picks across the
 shards).
+
+With ``shard_cache_seq`` (the context's ``ParallelismConfig``) the entries
+``cache_pspecs`` shards over their length instead (``k``/``v``/``ck``/``cv``
+whose KV heads do not divide the model axis, MLA's latent cache, every
+``slot_pos``; where the model size divides the length) hold a contiguous
+``C / m`` of the slots on each rank, and the cache holds the rings' whole
+length (``cache_len``).  A token's K/V goes only to the rank
+that owns slot ``pos % C`` (prefill fills only the rank's slots), each rank
+attends over its own slots, and the partial results combine over the
+model group (flash-decoding: :meth:`TensorParallel.combine`): every rank
+then holds the whole attention.  MLA by heads first gathers the absorbed
+queries of every head; a ``slot_pos`` sharded beside whole ``k``/``v``
+(KV heads that divide) is gathered for the mask.
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ import torch.nn.functional as F
 from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 from repro_torch.dist.sharding import cache_pspecs, local_shape
 
-from .attention import decode_attention, full_attention
+from .attention import decode_attention, decode_attention_partial, full_attention
 from .common import apply_rope, rms_norm, rotary_embedding
 from .lm import LM, LayerDef
 from .ssm import conv_decode_step, ssm_decode_step
@@ -73,10 +86,10 @@ def _cache_len_for(ld: LayerDef, cache_len: int) -> int:
 def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     """The empty cache for ``batch`` requests of up to ``cache_len``
     positions.  Under a rank context ``batch`` is the global batch and each
-    entry is the rank's shard by ``cache_pspecs`` (a cache-length-sharded
-    entry, ``shard_cache_seq``, is refused: decode attends to whole caches,
-    ROADMAP item 11b.4.4; so is a context with tensor parallelism off, which
-    the reference's serve launcher never sets)."""
+    entry is the rank's shard by ``cache_pspecs``, over its length too under
+    ``shard_cache_seq`` (the module notes); a context with tensor
+    parallelism off is refused (the reference's serve launcher never sets
+    it)."""
     if lm.tp is not None:
         if not lm.tp.tensor:
             raise NotImplementedError("serving by rows with tensor parallelism off: the "
@@ -132,21 +145,29 @@ def init_cache(lm: LM, batch: int, cache_len: int, *, device=None) -> dict:
     return cache
 
 
+_RINGS = ("k", "v", "c_kv", "k_rope", "slot_pos")  # the self-attention layers' ring entries
+
+
 def _rank_cache(lm: LM, batch: int, cache_len: int, device) -> dict:
+    """The rank's shard of every entry; where a ring is sharded over its
+    length, also ``cache_len`` (a 0-d CPU tensor): the whole rings' length,
+    which tells a rank's part of a ring from a whole one (:func:`_slots`)."""
     tp = lm.tp
     shapes = init_cache(dataclasses.replace(lm, tp=None), batch, cache_len, device="meta")
     specs = flatten_with_paths(cache_pspecs(shapes, tp.parallel, tp.mesh))
     out = {}
+    by_length = False
     for path, t in flatten_with_paths(shapes).items():
         spec = specs[path]
         name = path.split(".")[-1]
-        if name in ("k", "v", "c_kv", "k_rope", "slot_pos") and spec[2] is not None:
-            raise NotImplementedError(f"{path}: a cache sharded over its length (shard_cache_seq)")
         if name in ("h", "conv") and not tp.ssm_heads:  # the whole block on every rank
             spec = type(spec)(*(None if e == tp.axis else e for e in spec))
+        by_length |= name in _RINGS and spec[2] is not None
         out[path] = torch.full(local_shape(tuple(t.shape), spec, tp.mesh),
                                -1 if path.endswith("slot_pos") else 0, dtype=t.dtype,
                                device=device)
+    if by_length:
+        out["cache_len"] = torch.tensor(cache_len)
     return unflatten_from_paths(out)
 
 
@@ -161,26 +182,64 @@ def _layer(stacked: dict, l: int) -> dict:
     return {k: v[l] for k, v in stacked.items()}
 
 
-def _write_ring(cache_arr: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
-    """cache_arr [B,C,...]; new [B,...]; write at slot pos[0] % C, in place.
+def _ring_len(cache: dict) -> int | None:
+    """The whole rings' length of a cache some of whose rings are sharded
+    over their length (:func:`_rank_cache`), else None."""
+    t = cache.get("cache_len")
+    return None if t is None else int(t)
+
+
+def _slots(lm: LM, ld: LayerDef, arr: torch.Tensor, cache_len: int | None) -> tuple[int, int]:
+    """``(lo, C)`` of one layer's ring entry ``arr [B, n, ...]``: it holds
+    slots ``[lo, lo + n)`` of a ring of ``C``, the whole ring (``lo`` 0,
+    ``C`` = n) unless it is sharded over its length (the module notes;
+    ``cache_len`` from :func:`_ring_len`)."""
+    n = arr.shape[1]
+    ring = n if cache_len is None else _cache_len_for(ld, cache_len)
+    return (0, n) if n == ring else (lm.tp.coord * n, ring)
+
+
+def _write_ring(cache_arr: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                lo: int = 0, ring: int | None = None) -> None:
+    """cache_arr [B,n,...] holding slots [lo, lo + n) of a ring of ``ring``
+    (default n); new [B,...]; write at slot pos[0] % ring where this part
+    holds it, in place.
 
     Requests are served in lockstep, so the slot comes from ``pos[0]``, as
     in the reference; it stays a device tensor (no host sync per layer)."""
-    slot = (pos[:1] % cache_arr.shape[1]).long()
-    cache_arr.index_copy_(1, slot, new[:, None].to(cache_arr.dtype))
+    n = cache_arr.shape[1]
+    new = new[:, None].to(cache_arr.dtype)
+    slot = (pos[:1] % (ring or n)).long() - lo
+    if ring is not None and ring != n:  # another rank may own the slot
+        idx = slot.clamp(0, n - 1)
+        hit = ((slot >= 0) & (slot < n)).reshape((1,) * cache_arr.dim())
+        new, slot = torch.where(hit, new, cache_arr.index_select(1, idx)), idx
+    cache_arr.index_copy_(1, slot, new)
 
 
-def _fill_ring(cache_arr: torch.Tensor, seq_vals: torch.Tensor, s: int) -> None:
-    """Write the last min(C,S) sequence entries into ring slots pos % C."""
-    c = cache_arr.shape[1]
-    take = min(c, s)
-    slots = torch.arange(s - take, s, device=cache_arr.device) % c
-    cache_arr[:, slots] = seq_vals[:, s - take:].to(cache_arr.dtype)
+def _fill_ring(cache_arr: torch.Tensor, seq_vals: torch.Tensor, s: int, lo: int = 0,
+               ring: int | None = None) -> None:
+    """Write the last min(C,S) sequence entries into ring slots pos % C,
+    those of them in ``cache_arr``'s slots [lo, lo + n) of a ring of
+    ``ring`` (default n): slot j takes the last position below S that is
+    j mod C, and slots from S on hold none yet."""
+    n = cache_arr.shape[1]
+    ring = ring or n
+    hi = min(lo + n, s)
+    if hi <= lo:
+        return
+    j = torch.arange(lo, hi, device=cache_arr.device)
+    pos = j + ring * torch.div(s - 1 - j, ring, rounding_mode="floor")
+    cache_arr[:, : hi - lo] = seq_vals[:, pos].to(cache_arr.dtype)
 
 
-def _write_source(entry: dict, l: int, kv) -> None:
-    """Layer ``l``'s cross-attention K/V over the source into its cache."""
+def _write_source(lm: LM, entry: dict, l: int, kv) -> None:
+    """Layer ``l``'s cross-attention K/V over the source into its cache (the
+    rank's source positions where the cache is sharded over them)."""
     for name, t in zip(("ck", "cv"), kv):
+        n = entry[name].shape[2]
+        if n != t.shape[1]:
+            t = t[:, lm.tp.coord * n:(lm.tp.coord + 1) * n]
         entry[name][l].copy_(t)
 
 
@@ -210,12 +269,15 @@ def _embed(lm: LM, params, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
     return table[tokens]
 
 
-def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tensor:
+def _attn_decode(lm: LM, ld: LayerDef, p, entry, x, pos, sin, cos, window: int,
+                 cache_len: int | None) -> torch.Tensor:
     """One attention layer of a decode step (MLA's go to :func:`_mla_decode`);
-    writes this token's K/V in place."""
+    writes this token's K/V in place.  K/V sharded over the cache length
+    (KV heads that do not divide, computed whole on every rank): attention
+    over the rank's slots, combined over the model group."""
     cfg = lm.cfg
     if cfg.mla is not None:
-        return _mla_decode(lm, p, entry, x, pos, sin, cos)
+        return _mla_decode(lm, ld, p, entry, x, pos, sin, cos, cache_len)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     heads = lm.tp is not None and lm.tp.heads  # the rank's own heads, its cache's
@@ -227,25 +289,37 @@ def _attn_decode(lm: LM, p, entry, x, pos, sin, cos, window: int) -> torch.Tenso
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = apply_rope(q.reshape(b, 1, hq, hd), sin, cos)
     k = apply_rope(k.reshape(b, 1, hkv, hd), sin, cos)
-    _write_ring(entry["k"], k[:, 0], pos)
-    _write_ring(entry["v"], v.reshape(b, hkv, hd), pos)
-    _write_ring(entry["slot_pos"], pos, pos)
-    o = decode_attention(
-        q, entry["k"], entry["v"], cache_positions=entry["slot_pos"], cur_pos=pos,
-        window=window,
-    )
+    kv_slots = _slots(lm, ld, entry["k"], cache_len)
+    sp_slots = _slots(lm, ld, entry["slot_pos"], cache_len)
+    _write_ring(entry["k"], k[:, 0], pos, *kv_slots)
+    _write_ring(entry["v"], v.reshape(b, hkv, hd), pos, *kv_slots)
+    _write_ring(entry["slot_pos"], pos, pos, *sp_slots)
+    if kv_slots[1] != entry["k"].shape[1]:  # slot_pos alike
+        o = lm.tp.combine(*decode_attention_partial(
+            q, entry["k"], entry["v"], cache_positions=entry["slot_pos"], cur_pos=pos,
+            window=window)).to(q.dtype)
+    else:
+        positions = entry["slot_pos"]
+        if sp_slots[1] != positions.shape[1]:  # whole K/V, slot_pos by length
+            positions = lm.tp.all_gather(positions, 1)
+        o = decode_attention(q, entry["k"], entry["v"], cache_positions=positions, cur_pos=pos,
+                             window=window)
     out = o.reshape(b, 1, hq * hd) @ p["wo"].to(h.dtype)
     return x + (lm.tp.reduce(out) if heads else out)
 
 
-def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
+def _mla_decode(lm: LM, ld: LayerDef, p, entry, x, pos, sin, cos,
+                cache_len: int | None) -> torch.Tensor:
     """One MLA layer of a decode step in the absorbed form
     (``repro/models/decode.py:140-177``): this token's latent and roped key
     head go into the cache in place; q's nope part is absorbed into kv_b's
     key half (q_abs = q_nope · w_k), the latent and rope scores are added in
     the compute dtype, cast to fp32 and scaled by 1/sqrt(nope + rope),
     masked by ``slot_pos``, softmaxed in fp32 and cast back; the context in
-    latent space goes through kv_b's value half, then wo."""
+    latent space goes through kv_b's value half, then wo.  A latent cache
+    sharded over its length: every head's absorbed query (gathered under
+    heads) against the rank's slots, the partial contexts combined over the
+    model group, the rank's heads kept."""
     cfg, m = lm.cfg, lm.cfg.mla
     b = x.shape[0]
     heads = lm.tp is not None and lm.tp.heads  # the rank's heads; the latent cache whole
@@ -260,20 +334,32 @@ def _mla_decode(lm: LM, p, entry, x, pos, sin, cos) -> torch.Tensor:
     c_kv = rms_norm(kva[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     q_rope = apply_rope(q[..., nope:], sin, cos)
     k_rope = apply_rope(kva[..., m.kv_lora_rank:][:, :, None, :], sin, cos)[:, :, 0, :]
-    _write_ring(entry["c_kv"], c_kv[:, 0], pos)
-    _write_ring(entry["k_rope"], k_rope[:, 0], pos)
-    _write_ring(entry["slot_pos"], pos, pos)
+    slots = _slots(lm, ld, entry["c_kv"], cache_len)  # k_rope and slot_pos alike
+    sharded = slots[1] != entry["c_kv"].shape[1]
+    _write_ring(entry["c_kv"], c_kv[:, 0], pos, *slots)
+    _write_ring(entry["k_rope"], k_rope[:, 0], pos, *slots)
+    _write_ring(entry["slot_pos"], pos, pos, *slots)
     wkv_b = p["wkv_b"].to(h.dtype).reshape(m.kv_lora_rank, hq, nope + vhd)
     w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
     q_abs = torch.einsum("bshn,rhn->bshr", q[..., :nope], w_k)  # absorbed q
+    if sharded and heads:  # every head against this rank's slots
+        q_abs, q_rope = lm.tp.all_gather(q_abs, 2), lm.tp.all_gather(q_rope, 2)
     s_lat = torch.einsum("bshr,bcr->bshc", q_abs, entry["c_kv"])
     s_rope = torch.einsum("bshr,bcr->bshc", q_rope, entry["k_rope"])
     scores = (s_lat + s_rope).float() * (1.0 / math.sqrt(nope + rope))
     slot_pos = entry["slot_pos"]
     ok = (slot_pos >= 0) & (pos[:, None] - slot_pos >= 0)
     scores = torch.where(ok[:, None, None, :], scores, -2.0e38)
-    probs = torch.softmax(scores, dim=-1).to(h.dtype)
-    ctx = torch.einsum("bshc,bcr->bshr", probs, entry["c_kv"])
+    if sharded:
+        top = scores.amax(dim=-1)
+        e = torch.where(ok[:, None, None, :], torch.exp(scores - top[..., None]), 0.0)
+        part = torch.einsum("bshc,bcr->bshr", e.to(h.dtype), entry["c_kv"]).float()
+        ctx = lm.tp.combine(part, top, e.sum(dim=-1)).to(h.dtype)
+        if heads:
+            ctx = ctx[:, :, lm.tp.coord * hq:(lm.tp.coord + 1) * hq]
+    else:
+        probs = torch.softmax(scores, dim=-1).to(h.dtype)
+        ctx = torch.einsum("bshc,bcr->bshr", probs, entry["c_kv"])
     o = torch.einsum("bshr,rhn->bshn", ctx, w_v)  # [b, 1, hq, vhd]
     out = o.reshape(b, 1, hq * vhd) @ p["wo"].to(h.dtype)
     return x + (lm.tp.reduce(out) if heads else out)
@@ -285,7 +371,9 @@ def _cross_decode(lm: LM, p, entry, x, *, gated: bool) -> torch.Tensor:
     source's cached ``ck``/``cv``, the plain ``full_attention`` with no
     mask; gated by tanh(``cross_gate``) in a vlm ``cross`` layer.  Under a
     rank context where the heads divide: the rank's q heads against its KV
-    heads' ``ck``/``cv``, reduced before the gate."""
+    heads' ``ck``/``cv``, reduced before the gate; where ``ck``/``cv`` are
+    sharded over the source positions: every head against the rank's
+    positions, combined over the model group."""
     cfg = lm.cfg
     b = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -295,7 +383,14 @@ def _cross_decode(lm: LM, p, entry, x, *, gated: bool) -> torch.Tensor:
     if heads:
         h = lm.tp.copy(h)
     q = (h @ p["cross_wq"].to(h.dtype)).reshape(b, 1, hq, hd)
-    o = full_attention(q, entry["ck"], entry["cv"], causal=False, window=0)
+    src = (cfg.cross_attn if gated else cfg.encoder).source_len
+    n = entry["ck"].shape[1]
+    if n != src:  # this rank's source positions
+        none = torch.zeros((b, n), dtype=torch.int32, device=x.device)
+        o = lm.tp.combine(*decode_attention_partial(
+            q, entry["ck"], entry["cv"], cache_positions=none, cur_pos=none[:, 0])).to(q.dtype)
+    else:
+        o = full_attention(q, entry["ck"], entry["cv"], causal=False, window=0)
     out = o.reshape(b, 1, hq * hd) @ p["cross_wo"].to(h.dtype)
     if heads:
         out = lm.tp.reduce(out)
@@ -374,6 +469,7 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
     # a head (64 of deepseek-v2's 192), every other layer the whole head
     width = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
     sin, cos = rotary_embedding(pos[:, None], width, cfg.rope_theta)
+    rings = _ring_len(cache)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
@@ -384,7 +480,8 @@ def decode_step(lm: LM, params, cache: dict, tokens: torch.Tensor):
                 elif ld.kind == "cross":
                     x = _cross_decode(lm, p, entry, x, gated=True)
                 else:
-                    x = _attn_decode(lm, p, entry, x, pos, sin, cos, stage.window(ld, l))
+                    x = _attn_decode(lm, ld, p, entry, x, pos, sin, cos, stage.window(ld, l),
+                                     rings)
                     if ld.with_cross:
                         x = _cross_decode(lm, p, entry, x, gated=False)
                 if ld.with_mlp:
@@ -411,6 +508,7 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
     sp = lm.tp is not None and lm.tp.decide_sp(b, s, lm.cfg.d_model)
     x = _embed(lm, params, tokens, sp)
     source = lm.source(params, source_embeds, sp=sp)
+    rings = _ring_len(cache)
     for stage in lm.stages:
         for l in range(stage.count):
             for ld in stage.body:
@@ -423,22 +521,21 @@ def prefill(lm: LM, params, cache: dict, tokens: torch.Tensor, *, source_embeds=
                     conv[:, conv.shape[1] - conv_tail.shape[1]:] = conv_tail
                 elif ld.kind == "cross":
                     x, kv = lm._cross_attn(p, x, source, gated=True, sp=sp)
-                    _write_source(entry, l, kv)
+                    _write_source(lm, entry, l, kv)
                 else:
                     x, kv = lm._self_attn(
                         p, x, window=stage.window(ld, l), positions=positions,
                         causal=ld.causal, sp=sp,
                     )
                     for name, t in zip(("c_kv", "k_rope") if lm.cfg.mla else ("k", "v"), kv):
-                        _fill_ring(entry[name][l], t, s)
-                    _fill_ring(
-                        entry["slot_pos"][l],
-                        positions.to(torch.int32).expand(b, s),
-                        s,
-                    )
+                        _fill_ring(entry[name][l], t, s,
+                                   *_slots(lm, ld, entry[name][l], rings))
+                    sp_arr = entry["slot_pos"][l]
+                    _fill_ring(sp_arr, positions.to(torch.int32).expand(b, s), s,
+                               *_slots(lm, ld, sp_arr, rings))
                     if ld.with_cross:
                         x, kv = lm._cross_attn(p, x, source, gated=False, sp=sp)
-                        _write_source(entry, l, kv)
+                        _write_source(lm, entry, l, kv)
                 if ld.with_mlp:
                     x, _ = lm._mlp(p, x, moe=ld.moe, sp=sp)
     cache["pos"] = cache["pos"] + s

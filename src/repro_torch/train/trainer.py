@@ -19,7 +19,10 @@ Each step's record carries the cross-entropy ``loss`` and the MoE ``aux``
 loss (0 for a model without experts).
 
 With ``group`` (an initialized ``torch.distributed`` group of the mesh's
-size) the run is multi-rank: this process is rank ``dist.get_rank(group)``
+size; the whole default group, or a part of it whose members alone create
+its subgroups, as the compute ranks of re-formed survivors,
+:func:`repro_torch.elastic.rebuild_on`) the run is multi-rank: this
+process is rank ``dist.get_rank(group)``
 of the mesh, holds only its shards of every state kind (its checkpoint
 shards), and the ranks together take the single-device step (:mod:`.steps`);
 the manager saves and restores the rank's shards alone (and, with the hot

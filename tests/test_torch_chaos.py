@@ -546,6 +546,24 @@ def _entries(report):
         for e in report.timeline if e["name"] != "engine.index_build")
 
 
+def _points(report):
+    """The ``chaos.point`` events by the fault point they name."""
+    return collections.Counter(e.get("attrs", {}).get("point") for e in report.timeline
+                               if e["name"] == "chaos.point")
+
+
+def _entries_differ(port, ref) -> str:
+    """The differing timeline entries, and the fault points of the
+    ``chaos.point`` events where the two reports part (port, reference)."""
+    a, b = _entries(port), _entries(ref)
+    keys = sorted(set(a) | set(b), key=str)
+    pa, pb = _points(port), _points(ref)
+    points = sorted(set(pa) | set(pb), key=str)
+    return (f"entries (port, reference): "
+            f"{ {k: (a[k], b[k]) for k in keys if a[k] != b[k]} }; chaos.point by point: "
+            f"{ {p: (pa[p], pb[p]) for p in points if pa[p] != pb[p]} }")
+
+
 def _ordered(report):
     return [(e["name"], tuple(sorted((k, str(v)) for k, v in e.get("attrs", {}).items())))
             for e in report.timeline if e["name"] in ("chaos.fault", "chaos.invariant_check")]
@@ -557,6 +575,6 @@ def test_harness_report_equals_the_reference(seed):
     assert (port.ok, port.config, port.schedule.to_json(), port.events_completed,
             port.violations) == (ref.ok, ref.config, ref.schedule.to_json(),
                                  ref.events_completed, ref.violations)
-    assert _entries(port) == _entries(ref)
+    assert _entries(port) == _entries(ref), _entries_differ(port, ref)
     assert _ordered(port) == _ordered(ref)
     assert port.ok, port.describe()

@@ -318,6 +318,27 @@ def test_three_train_steps_match_reference_jit(dtype):
                                        err_msg=name)
 
 
+def test_accumulated_step_reports_the_cross_entropy_as_the_reference_jit():
+    """With ``grad_accum=2`` the reference's step reports the microbatches'
+    mean cross-entropy (its ``m["loss"]``), without the MoE aux loss it
+    differentiates: the port's reported loss and updated weights equal its
+    jitted step's in fp32 (a reported total misses by the whole aux)."""
+    rlm, rp, tlm, tp = _pair(ARCH, jnp.float32, torch.float32)
+    rstep = jax.jit(ref_make_step(rlm, RC.TrainConfig(), RC.ParallelismConfig(grad_accum=2)))
+    tstep = make_train_step(tlm, TC.TrainConfig(), TC.ParallelismConfig(grad_accum=2))
+    toks = _tokens(tlm.cfg.vocab_size, seed=10)
+    rstate, rm = rstep(ref_init_state(rp), {"tokens": jnp.asarray(toks)})
+    tstate, tm = tstep(init_state(tp), {"tokens": torch.from_numpy(toks).long()})
+    _, aux = tlm.forward(tp, torch.from_numpy(toks[:, :-1]).long())
+    assert float(aux) > 1e-3  # the aux a reported total would add
+    assert abs(float(tm["loss"]) - float(rm["loss"])) <= 1e-5
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]), rtol=1e-5)
+    # one AdamW step moves a weight by about lr·sign(g): twice its lr bounds it
+    tt = tflat(tstate.params)
+    for name, a in flatten_with_paths(rstate.params).items():
+        np.testing.assert_allclose(tt[name].numpy(), np.asarray(a), atol=6e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_decode_past_the_window_match_reference(dtype):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
