@@ -303,6 +303,28 @@ nothing falls back to the CPU or to a plain version):
    a publication); then the chaos sweep of seeds 0-2 with the harness's
    state on the card, each report ok with the CPU run's schedule and
    events;
+8c. dryrun (right after train, before 8a) — the dry run
+   (``python -m repro_torch.launch.dryrun``) in processes that see no card
+   (``CUDA_VISIBLE_DEVICES=""``), started together: three production cells
+   of smollm-360m on the 16×16 mesh (``train_4k --grad-accum 2``,
+   ``prefill_32k``, ``decode_32k --shard-cache-seq``), each ``ok``; the
+   prefill's record shows the flash stand-in at (64, 64), one launch for
+   each of the 32 layers; the decode's cache bytes a rank are those of the
+   length-sharded ``cache_pspecs``; each record's memory, roofline,
+   dominant term and wall printed.  Then the prediction against the card:
+   one more such process runs ``run_cell`` on one rank (data=1,model=1) for
+   the train phase's config (``CUT_LAYERS`` layers, 8 × 512, bf16 compute,
+   remat full) and a 4 × 512 prefill, while this process runs the same
+   step and prefill for real from fresh random weights: the record's
+   argument bytes equal the state's and the batch's bytes on the card
+   exactly; its peak (arguments + temporaries) is within 10% or 256 MiB
+   of ``max_memory_allocated`` over the real step less the memory
+   allocated before the state was made; its ``dot_flops`` within 1% of the
+   profiler's FLOPs (``with_flops``) over the mm-family ops of the same
+   step that launched work on the card (not the one a layer's recompute
+   aborts); its flash stand-ins equal the real prefill's launches; the
+   roofline's seconds printed beside the step's measured wall and device
+   time (the ``dryrun`` line, JSON);
 9. mixtral-8x22b (the MoE family) at full width: d 6144, 48:8 heads of
    128, 8 experts top-2 of d_ff 16384, vocab 32768, window 4096.
    serve-moe, depth cut from 56 to 1 layer (2,906,720,256 params): init
@@ -7796,6 +7818,263 @@ def multirank_encdec_phase(torch, bq_ops, baseline: list[float]) -> dict:
     return out
 
 
+# The dry run's production cells (arch, shape, flags), each in a process
+# that sees no card, and the seconds they may take
+DRYRUN_CELLS = (("smollm-360m", "train_4k", ("--grad-accum", "2")),
+                ("smollm-360m", "prefill_32k", ()),
+                ("smollm-360m", "decode_32k", ("--shard-cache-seq",)))
+DRYRUN_JOIN_S = 300
+DRYRUN_PEAK_TOL = (0.10, 256 << 20)  # the larger of 10% and 256 MiB
+DRYRUN_FLOPS_TOL = 0.01
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+# One rank's cells of the train phase's config, traced on meta in a process
+# that sees no card: a train step of 8 x 512 and a 4 x 512 prefill
+DRYRUN_ONE_RANK = """
+import argparse, dataclasses, json, torch
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.core.layout import MeshSpec
+from repro_torch.launch import dryrun
+cfg = dataclasses.replace(get_config("smollm-360m"), num_layers={layers})
+args = argparse.Namespace(remat="full", grad_accum=1, moment_dtype=None, param_dtype=None,
+                          no_fsdp=False, cast_params=False, shard_cache_seq=False)
+for kind, rows in (("train", 8), ("prefill", 4)):
+    rec = dryrun.run_cell("smollm-360m", kind, False, args,
+                          mesh=MeshSpec((("data", 1), ("model", 1))),
+                          shape=ShapeSpec(kind, 512, rows, kind), cfg=cfg)
+    print(json.dumps(rec))
+assert not torch.cuda.is_initialized(), "the dry run initialized CUDA"
+"""
+
+
+def no_card_process(args: list[str]) -> subprocess.Popen:
+    """A process of this checkout's Python that sees no card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def finish_process(proc: subprocess.Popen, label: str, timeout: float) -> list[dict]:
+    """Wait for ``proc`` (killed after ``timeout``); the JSON records it
+    printed, one a line; it must exit 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeError(f"dryrun: {label} still running after {timeout} s: killed")
+    check(proc.returncode == 0, f"dryrun: {label} exited {proc.returncode}: {err[-2000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def cache_bytes_by_length(arch: str, batch: int, cache_len: int) -> tuple[int, int]:
+    """A rank's decode-cache bytes on the production mesh from the cache's
+    ``cache_pspecs``: (the rings sharded over their length, not sharded);
+    meta tensors only."""
+    from repro_torch.configs import ParallelismConfig, get_config
+    from repro_torch.core.pytree import flatten_with_paths
+    from repro_torch.dist.sharding import cache_pspecs, local_shape, vocab_multiple
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.decode import init_cache
+
+    mesh = make_production_mesh()
+    out = []
+    for seq in (True, False):
+        par = ParallelismConfig(shard_cache_seq=seq)
+        lm = build_model(get_config(arch), vocab_multiple=vocab_multiple(par, mesh))
+        cache = init_cache(lm, batch, cache_len, device="meta")
+        flat, specs = flatten_with_paths(cache), flatten_with_paths(cache_pspecs(cache, par, mesh))
+        out.append(sum(math.prod(local_shape(tuple(t.shape), specs[n], mesh)) * t.element_size()
+                       for n, t in flat.items()))
+    return out[0], out[1]
+
+
+def dryrun_phase(torch, ops) -> dict:
+    """The dry run's production cells with no card, and its one-rank
+    prediction held against the same step and prefill on the card."""
+    procs = [(f"{arch} x {shape}", no_card_process(
+        ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, *flags]))
+        for arch, shape, flags in DRYRUN_CELLS]
+    procs.append(("one rank", no_card_process(
+        ["-c", DRYRUN_ONE_RANK.format(layers=CUT_LAYERS)])))
+    t0 = time.perf_counter()
+    try:
+        real = dryrun_real(torch, ops)
+        recs = {label: finish_process(p, label, max(1.0, DRYRUN_JOIN_S - (time.perf_counter() - t0)))
+                for label, p in procs}
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun: the card's total_memory {total} bytes (the dry run's HBM_BYTES)")
+    out = {"real": real, "cells": {}, "total_memory": total}
+    for (arch, shape, flags), label in zip(DRYRUN_CELLS, recs):
+        rec = recs[label][-1]
+        check(rec.get("ok") is True and rec["mesh"] == "16x16",
+              f"dryrun: {label} {' '.join(flags)}: {rec.get('error', rec)}")
+        keep = {k: rec.get(k) for k in ("memory", "roofline", "dominant", "wall_s", "per_device",
+                                        "kernels", "roofline_fraction", "op_count")}
+        print(f"dryrun {label} {' '.join(flags)}: memory {rec['memory']}; roofline "
+              f"{rec['roofline']}; dominant {rec['dominant']}; wall {rec['wall_s']} s "
+              "(estimates from datasheet constants)")
+        out["cells"][f"{shape}{''.join(' ' + f for f in flags)}"] = keep
+    flash = recs["smollm-360m x prefill_32k"][-1]["kernels"]
+    check(set(flash) == {"flash_attention_fwd"}
+          and flash["flash_attention_fwd"]["launches"] == 32
+          and all("heads of (64, 64)" in k for k in flash["flash_attention_fwd"]["shapes"]),
+          f"dryrun prefill_32k: the flash stand-ins {flash} are not 32 at (64, 64)")
+    sharded, whole = cache_bytes_by_length("smollm-360m", 128, 32_768)
+    got = recs["smollm-360m x decode_32k"][-1]["memory"]["cache_bytes_per_device"]
+    print(f"dryrun decode_32k --shard-cache-seq: cache {got} bytes a rank; the length-sharded "
+          f"specs' {sharded}, the unsharded length's {whole}")
+    check(got == sharded < whole, f"dryrun decode_32k: cache {got} bytes a rank, not the "
+          f"length-sharded specs' {sharded}")
+
+    train, prefill = recs["one rank"]
+    check(train["ok"] and prefill["ok"], f"dryrun one rank: {train}, {prefill}")
+    mem = train["memory"]
+    predicted = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    tol = max(DRYRUN_PEAK_TOL[0] * real["peak_bytes"], DRYRUN_PEAK_TOL[1])
+    flops = train["per_device"]["dot_flops"]
+    stand_ins = prefill["kernels"].get("flash_attention_fwd", {}).get("launches", 0)
+    pmem = prefill["memory"]
+    out["one_rank"] = {
+        "argument_bytes": [mem["argument_bytes_per_device"], real["argument_bytes"]],
+        "peak_bytes": [predicted, real["peak_bytes"]],
+        "dot_flops": [flops, real["profiler_flops"]],
+        "flash_launches": [stand_ins, real["flash_launches"]],
+        "prefill_peak_bytes": [pmem["argument_bytes_per_device"] + pmem["temp_bytes_per_device"],
+                               real["prefill_peak_bytes"]],
+        "train_roofline_s": train["roofline"], "train_dominant": train["dominant"],
+        "prefill_roofline_s": prefill["roofline"], "prefill_dominant": prefill["dominant"],
+    }
+    print(f"dryrun one rank (data=1,model=1, smollm-360m {CUT_LAYERS} layers, 8x512): argument "
+          f"bytes predicted {mem['argument_bytes_per_device']}, on the card "
+          f"{real['argument_bytes']}; peak predicted {predicted} (arguments + temporaries), on "
+          f"the card {real['peak_bytes']} (max_memory_allocated less the memory before the "
+          f"state; limit ±{tol:.0f}); dot_flops {flops:.6e}, the profiler's mm-family "
+          f"{real['profiler_flops']:.6e} (ops {real['profiler_mm_ops']}); roofline "
+          f"{train['roofline']} ({train['dominant']}) "
+          f"beside the measured step: wall {real['step_wall_ms']:.2f} ms, device busy "
+          f"{real['step_busy_ms']:.2f} ms (profiler on)")
+    print(f"dryrun one rank prefill 4x512: flash stand-ins {stand_ins}, real launches "
+          f"{real['flash_launches']}; peak predicted {out['one_rank']['prefill_peak_bytes'][0]}, "
+          f"on the card {real['prefill_peak_bytes']}; roofline {prefill['roofline']} beside "
+          f"the measured prefill: wall {real['prefill_wall_ms']:.2f} ms, device busy "
+          f"{real['prefill_busy_ms']:.2f} ms (profiler on)")
+    check(mem["argument_bytes_per_device"] == real["argument_bytes"],
+          "dryrun: the predicted argument bytes are not the state's and batch's on the card")
+    check(abs(predicted - real["peak_bytes"]) <= tol,
+          f"dryrun: predicted peak {predicted} vs {real['peak_bytes']} on the card")
+    check(abs(flops - real["profiler_flops"]) <= DRYRUN_FLOPS_TOL * real["profiler_flops"],
+          f"dryrun: dot_flops {flops} vs the profiler's {real['profiler_flops']}")
+    check(stand_ins == real["flash_launches"] == CUT_LAYERS,
+          f"dryrun: flash stand-ins {stand_ins} vs {real['flash_launches']} real launches")
+    return out
+
+
+def launched_mm_flops(prof) -> tuple[float, dict]:
+    """The profiler's FLOPs over the mm-family ops that launched work on the
+    card (a device record, or a kernel launch under it where the device
+    record was lost), and how many ops each way.  The profiler also records
+    the op that non-reentrant checkpoint's early stop aborts in the
+    recompute before it launches anything: its FLOPs were never computed."""
+
+    def launches(e) -> bool:
+        return any("Launch" in c.name or launches(c) for c in e.cpu_children)
+
+    total, ops = 0.0, {"device": 0, "launch": 0, "aborted": 0}
+    for e in prof.events():
+        if e.name not in MM_OPS or not e.flops:
+            continue
+        way = "device" if e.device_time_total > 0 else "launch" if launches(e) else "aborted"
+        ops[way] += 1
+        total += e.flops if way != "aborted" else 0
+    return total, ops
+
+
+def dryrun_real(torch, ops) -> dict:
+    """The one-rank cells' step and prefill on the card, from fresh random
+    weights: the state's bytes, the step's peak and its mm-family FLOPs,
+    the prefill's flash launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.core.layout import MeshSpec
+    from repro_torch.launch.hlo_analysis import tensors_of
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=CUT_LAYERS)
+    mesh = MeshSpec((("data", 1), ("model", 1)))
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tensors_of(tree))  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0), mesh, batch_size=8,
+                       seq_len=512, device=dev)
+    # the dry run's inputs: the host int32 step counter, int32 tokens
+    state = dataclasses.replace(t.init_state(), step=torch.zeros((), dtype=torch.int32))
+    batch = {"tokens": t.batch(0)["tokens"].int()}
+    out = {"argument_bytes": nbytes((state.params, state.exp_avg, state.exp_avg_sq, batch))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new = t.step_fn(state, batch)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del new
+    # one warm-up step whose records are dropped, as device_profile's: a trace
+    # that starts cold loses a device record now and then
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_flops=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        new = t.step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof.step()
+    del new
+    out["profiler_flops"], out["profiler_mm_ops"] = launched_mm_flops(prof)
+    out["step_wall_ms"], out["step_busy_ms"], _ = device_profile(
+        torch, lambda: t.step_fn(state, batch))
+    del state, batch, t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    lm = build_model(cfg)
+    params = lm.registry.cast(lm.init(torch.Generator(device=dev).manual_seed(0)), lm.compute_dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512), generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev, dtype=torch.int32)
+    cache = D.init_cache(lm, 4, 512, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = ops.flash_attention.launches
+    with torch.inference_mode():
+        logits, cache = D.prefill(lm, params, cache, prompts)
+    torch.cuda.synchronize()
+    out["flash_launches"] = ops.flash_attention.launches - n0
+    out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(logits).all()), "dryrun: the real prefill's logits are not finite")
+    del logits
+
+    def again():
+        with torch.inference_mode():
+            D.prefill(lm, params, D.init_cache(lm, 4, 512, device=dev), prompts)
+
+    out["prefill_wall_ms"], out["prefill_busy_ms"], _ = device_profile(torch, again)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Each phase's wall seconds since the previous mark, printed as the
     phase ends and kept for the ``phase_seconds`` line (the smoke's time
@@ -7894,6 +8173,8 @@ def run(torch) -> int:
     clock.mark("gemma3")
     train = train_phase(torch, ops, bq_ops)
     clock.mark("train")
+    dry = dryrun_phase(torch, ops)
+    clock.mark("dryrun")
     bq_counters = {"quantize": bq_ops.block_quantize, "dequantize": bq_ops.block_dequantize}
     reset_launches(bq_counters)
     hot = hot_phase(torch, bq_ops)
@@ -8090,6 +8371,7 @@ def run(torch) -> int:
         "multirank_mla_launches": multi_mla["flash_launches_by_rank"],
         "multirank_vlm_launches": multi_vlm["flash_launches_by_rank"],
         "multirank_encdec_launches": multi_encdec["flash_launches_by_rank"],
+        "dryrun_launches": dry["real"]["flash_launches"],
     }]
     for name, which in (("quantize_blocks", "quantize"), ("dequantize_blocks", "dequantize")):
         rows.append({
@@ -8226,6 +8508,7 @@ def run(torch) -> int:
     print(json.dumps({"fanout": {k: v for k, v in fanout.items() if k != "launches_by_phase"}}))
     print(json.dumps({"restore_split": RESTORE_SPLIT}))
     print(json.dumps({"collectives": coll}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"multirank_pipe": multi_pipe}))
     print(json.dumps({"multirank": multi}))
     print(json.dumps({"multirank_tp": multi_tp}))

@@ -27,3 +27,26 @@ def row_alignment(*tensors: torch.Tensor) -> int:
         ):
             return vec
     return 1
+
+
+def kernel_path(*tensors: torch.Tensor) -> bool:
+    """Whether the model takes a hand-written kernel for these tensors: they
+    lie on the card, or on the meta device (the dry run's stand-in for the
+    card, ``repro_torch.launch.dryrun``), and no gradient is recorded through
+    them (the kernels have no backward, so training takes the plain
+    differentiable functions on either)."""
+    return tensors[0].device.type in ("cuda", "meta") and not records_grad(*tensors)
+
+
+# The dry run's analyzers (``repro_torch.launch.hlo_analysis``) listening for
+# the kernels' launches on the meta device, innermost last; empty otherwise.
+META_SINKS: list = []
+
+
+def report_meta_launch(name: str, *, flops: float, nbytes: int, shape: str) -> None:
+    """A kernel wrapper's shape function reports one launch on the meta
+    device, with the operations the kernel would do, the bytes it would read
+    and write once, and a description of its shapes, to the innermost
+    active analyzer."""
+    if META_SINKS:
+        META_SINKS[-1](name, flops, nbytes, shape)

@@ -76,10 +76,13 @@ def build() -> tuple[ctypes.CDLL, dict]:
         return lib, report
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, device: str = "cuda") -> None:
+    """The launch's shape and dtype contract, on CUDA tensors (or, for the
+    wrapper's shape function, on meta ones: ``device="meta"``)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"flash_attention_fwd: {name} is on {t.device}, not CUDA")
+        if t.device.type != device:
+            raise ValueError(f"flash_attention_fwd: {name} is on {t.device}, not "
+                             f"{'CUDA' if device == 'cuda' else device}")
         if t.dim() != 4:
             raise ValueError(
                 f"flash_attention_fwd: {name} must be [B, S, H, D], got {tuple(t.shape)}"

@@ -63,10 +63,13 @@ def build() -> tuple[ctypes.CDLL, dict]:
         return lib, report
 
 
-def _check(x, dt, a, b, c, chunk: int) -> None:
+def _check(x, dt, a, b, c, chunk: int, device: str = "cuda") -> None:
+    """The launch's shape and dtype contract, on CUDA tensors (or, for the
+    wrapper's shape function, on meta ones: ``device="meta"``)."""
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
-        if not t.is_cuda:
-            raise ValueError(f"ssd_scan_fwd: {name} is on {t.device}, not CUDA")
+        if t.device.type != device:
+            raise ValueError(f"ssd_scan_fwd: {name} is on {t.device}, not "
+                             f"{'CUDA' if device == 'cuda' else device}")
     if x.dtype not in _DTYPES or not (x.dtype == b.dtype == c.dtype):
         raise TypeError(
             f"ssd_scan_fwd: x/b/c dtypes {x.dtype}, {b.dtype}, {c.dtype} "

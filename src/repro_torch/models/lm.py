@@ -86,7 +86,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import records_grad
+from repro_torch.kernels import kernel_path
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
@@ -419,7 +419,7 @@ class LM:
     def _attention(self, q, k, v, *, causal: bool, window: int, q_offset: int = 0):
         """Row i of q sits at position ``q_offset + i`` in the causal and
         window masks (the reference's ``q_offset``)."""
-        if q.is_cuda and not records_grad(q, k, v):
+        if kernel_path(q, k, v):
             return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
         sq, skv = q.shape[1], k.shape[1]
         if max(sq, skv) <= 2048:
@@ -670,13 +670,13 @@ class LM:
 
     def _scan(self, xin, dt, a, bmat, cmat):
         """The SSD scan at the config's chunk (halved until it divides the
-        length): the kernel on CUDA tensors with no gradient recorded, else
-        ``ssd_chunked``."""
+        length): the kernel on CUDA (or meta) tensors with no gradient
+        recorded, else ``ssd_chunked``."""
         sl = xin.shape[1]
         chunk = min(self.cfg.ssm.chunk, sl)
         while sl % chunk:
             chunk //= 2
-        if xin.is_cuda and not records_grad(xin, dt, a, bmat, cmat):
+        if kernel_path(xin, dt, a, bmat, cmat):
             return ssd_scan(xin, dt, a, bmat, cmat, chunk=chunk)
         return ssd_chunked(xin, dt, a, bmat, cmat, chunk=chunk)
 

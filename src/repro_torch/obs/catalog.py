@@ -49,10 +49,10 @@ TIMED: dict[str, str] = {
     "ckpt.restore": "one restore() call, any tier",
     "ckpt.save": "one write_distributed() call",
     "convert.to_ucp": "one DistCheckpoint -> UCP atom-store conversion",
-    "dryrun.analyze": "dryrun, HLO text rendered + trip-count analysis",  # repro: allow[catalog] -- launch/dryrun.py is ROADMAP item 12, not ported yet
-    "dryrun.cell": "dryrun, one (arch x shape x mesh) cell end-to-end",  # repro: allow[catalog] -- launch/dryrun.py is ROADMAP item 12, not ported yet
-    "dryrun.compile": "dryrun, lowered module compiled",  # repro: allow[catalog] -- launch/dryrun.py is ROADMAP item 12, not ported yet
-    "dryrun.lower": "dryrun, jitted step lowered with abstract inputs",  # repro: allow[catalog] -- launch/dryrun.py is ROADMAP item 12, not ported yet
+    "dryrun.analyze": "dryrun, HLO text rendered + trip-count analysis",
+    "dryrun.cell": "dryrun, one (arch x shape x mesh) cell end-to-end",
+    "dryrun.compile": "dryrun, lowered module compiled",
+    "dryrun.lower": "dryrun, jitted step lowered with abstract inputs",
     "hot.drain": "one snapshot promotion (persist_snapshot)",
     "serve.decode": "serving benchmark decode step",
     "serve.prefill": "serving benchmark prefill step",

@@ -1,4 +1,6 @@
-"""The train step (port of ``repro.train.steps.make_train_step``).
+"""The train step (port of ``repro.train.steps.make_train_step``), and the
+serving steps (``make_serve_step``, ``make_prefill_step``: thin wrappers
+over :mod:`repro_torch.models.decode`, as the reference's).
 
 The step runs eagerly (there is no ``jit``): gradients by
 ``torch.autograd.grad`` of :meth:`LM.loss_fn`, then :func:`adamw_update`.
@@ -74,11 +76,12 @@ import torch.distributed as dist
 from repro_torch.configs.base import ParallelismConfig, TrainConfig
 from repro_torch.core.patterns import StateKind
 from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
+from repro_torch.models import decode as decode_lib
 from repro_torch.models.lm import LM
 
 from .optimizer import TrainState, adamw_update, global_norm
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
 
 
 def make_train_step(
@@ -235,3 +238,21 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
 
     train_step.split = split
     return train_step
+
+
+def make_serve_step(lm: LM) -> Callable:
+    """One-token decode: (params, cache, tokens[B,1]) → (logits, cache)."""
+
+    def serve_step(params, cache, tokens):
+        return decode_lib.decode_step(lm, params, cache, tokens)
+
+    return serve_step
+
+
+def make_prefill_step(lm: LM) -> Callable:
+    """(params, cache, tokens[B,S], source_embeds=None) → (logits, cache)."""
+
+    def prefill_step(params, cache, tokens, source_embeds=None):
+        return decode_lib.prefill(lm, params, cache, tokens, source_embeds=source_embeds)
+
+    return prefill_step

@@ -281,8 +281,9 @@ def test_catalog_single_file_scan_skips_coverage(tmp_path, which):
         f = tmp_path / "solo.py"
         f.write_text("x = 1\n")
     else:
+        # the port's catalog alone: its rows untagged, their call sites elsewhere
         f = _write(tmp_path, "repro_torch/obs/catalog.py",
-                   _untagged(SRC_PORT / "obs" / "catalog.py", "allow[catalog]"))
+                   (SRC_PORT / "obs" / "catalog.py").read_text())
     assert analyze([str(f)], ["catalog"]) == []
 
 
@@ -501,10 +502,12 @@ def _port_copy(tmp_path):
 
 
 def test_untagged_dryrun_catalog_rows_are_stale_in_a_whole_tree_scan(tmp_path):
+    """The four ``dryrun.*`` rows carry no tag: ``launch/dryrun.py`` emits
+    them.  Without that file they are the whole tree's 4 stale rows."""
     dst = _port_copy(tmp_path)
     assert analyze([str(dst)]) == []
-    cat = dst / "obs" / "catalog.py"
-    cat.write_text(_untagged(SRC_PORT / "obs" / "catalog.py", "allow[catalog]"))
+    assert "allow[catalog]" not in (SRC_PORT / "obs" / "catalog.py").read_text()
+    (dst / "launch" / "dryrun.py").unlink()
     diags = analyze([str(dst)])
     assert [(d.rule, Path(d.path).name) for d in diags] == [("catalog", "catalog.py")] * 4
     assert sorted(d.message.split('"')[1] for d in diags) == [

@@ -60,7 +60,8 @@ def test_scan_covers_the_port():
                    "train/steps.py", "train/trainer.py", "launch/train.py",
                    "analysis/__init__.py",
                    "analysis/__main__.py", "analysis/core.py", "analysis/simple_rules.py",
-                   "analysis/locks.py", "analysis/catalog_rules.py", "analysis/pins.py"):
+                   "analysis/locks.py", "analysis/catalog_rules.py", "analysis/pins.py",
+                   "launch/dryrun.py", "launch/hlo_analysis.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 30
 
@@ -78,12 +79,15 @@ def test_kernel_refuses_non_cuda_tensors():
 
 
 def test_wrapper_has_no_fallback_off_cpu():
-    """A tensor that is neither on the CPU nor on CUDA is refused, never
-    routed to the plain version."""
+    """Tensors that are not all on the CPU or all on CUDA are refused, never
+    routed to the plain version; all-meta tensors (the dry run's) get the
+    kernel's shape function: an empty meta output, no launch counted."""
     q = torch.zeros(1, 8, 2, 16, device="meta")
     launches = flash_attention.launches
     with pytest.raises(ValueError, match="all-CPU or all-CUDA"):
-        flash_attention(q, q, q)
+        flash_attention(q, torch.zeros(q.shape), q)
+    o = flash_attention(q, q, q)
+    assert o.device.type == "meta" and o.shape == q.shape
     assert flash_attention.launches == launches
 
 

@@ -381,7 +381,7 @@ OBS_CALLS = {"span", "timed", "event", "add", "gauge"}
 PAIRS = [
     "core/dist_ckpt.py", "core/codec.py", "core/engine.py", "core/convert.py",
     "ckpt/saver.py", "ckpt/restore.py", "ckpt/manager.py", "train/trainer.py",
-    "launch/train.py", "launch/serve.py",
+    "launch/train.py", "launch/serve.py", "launch/dryrun.py",
     "hot/snapshot.py", "hot/drain.py", "hot/recovery.py", "hot/replicate.py",
     "elastic/planner.py", "elastic/resume.py",
     "serve/registry.py", "serve/peer.py", "serve/fleet.py",
