@@ -106,7 +106,16 @@ nothing falls back to the CPU or to a plain version):
    step 4; the same ranks resume step 4 under data=1,model=2 with tensor
    parallelism off (RESHARD_STREAM, PP -> SP) and take steps 5-6, each its
    256 rows of the stream from replicated weights; one process resumes step
-   4 under data=1,model=1 for steps 5-6.  Checks (each fails the smoke): the gloo probe takes
+   4 under data=1,model=1 for steps 5-6; and the ``fsdp`` stage: 2 new
+   ranks train smollm-360m at ``FSDP_LAYERS`` (8) layers under
+   data=2,model=1 from seed 0 (each layer's weights gathered over the data
+   ranks where the layer reads them, and again in its recompute), two
+   steps, each rank's step-2 peak (``max_memory_allocated`` less the
+   memory before the state) held against the dry run's prediction of the
+   same step under a fake 2-rank group (arguments exactly, the peak within
+   ``DRYRUN_PEAK_TOL``; the cell traced in a process that sees no card,
+   beside the phase), its losses against one process's within 2e-2, each
+   step's split with ``gather_bytes``.  Checks (each fails the smoke): the gloo probe takes
    CUDA tensors for the runtime's collectives (all eight probed, values
    checked, are printed: point-to-point ``send``/``recv`` each waited with
    a time limit); steps 1-2, both resumes' steps 3-4 and the pipe stage's
@@ -5073,6 +5082,27 @@ MULTIRANK_JOIN_S = 300      # a world still running after this fails the smoke
 MULTIRANK_TOL = 2e-2        # tests/test_reconfig_e2e.py: the paper's accepted divergence
 MULTIRANK_CODEC = "int8:b256"
 MULTIRANK_MESH = {"save": "data=2,model=1", "resume": "data=1,model=2"}
+# The multirank phase's fsdp stage: smollm-360m at full width and 8 of its 32
+# layers under data=2,model=1 (FSDP: each rank holds half of every weight and
+# moment, and gathers each layer's weights where the layer reads them), two
+# steps from seed 0, each rank's peak held against the dry run's 2-rank
+# prediction of the same step (DRYRUN_PEAK_TOL)
+FSDP_LAYERS = 8
+FSDP_MESH = "data=2,model=1"
+FSDP_PREDICT = """
+import argparse, dataclasses, json, torch
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.core.layout import MeshSpec
+from repro_torch.launch import dryrun
+cfg = dataclasses.replace(get_config("smollm-360m"), num_layers={layers})
+args = argparse.Namespace(remat="full", grad_accum=1, moment_dtype=None, param_dtype=None,
+                          no_fsdp=False, cast_params=False, shard_cache_seq=False)
+rec = dryrun.run_cell("smollm-360m", "train", False, args,
+                      mesh=MeshSpec((("data", 2), ("model", 1))),
+                      shape=ShapeSpec("train", {seq}, {rows}, "train"), cfg=cfg)
+print(json.dumps(rec))
+assert not torch.cuda.is_initialized(), "the dry run initialized CUDA"
+"""
 # The multirank phase's pipe stage: step 2 resumed by pipeline stages, then
 # step 4 by sequence rows with tensor parallelism off
 PIPE_MESH = "pipe=2,data=1,model=1"
@@ -5606,7 +5636,7 @@ def multirank_rank(rank: int, world: int, store: str, out_dir: str, stage: str) 
                   "survivors": multirank_survivors_rank, "moe": multirank_moe_rank,
                   "ssm": multirank_ssm_rank, "mla": multirank_serve_rank,
                   "vlm": multirank_serve_rank, "encdec": multirank_encdec_rank,
-                  "pipe": multirank_pipe_rank}
+                  "pipe": multirank_pipe_rank, "fsdp": multirank_fsdp_rank}
         if stage in bodies:
             body = bodies[stage]
             (Path(out_dir) / f"{stage}{rank}.json").write_text(json.dumps(
@@ -5850,6 +5880,113 @@ def multirank_pipe_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_star
     return out
 
 
+def multirank_fsdp_rank(torch, dist, rank: int, out_dir: Path, fns: dict, t_start: float) -> dict:
+    """One rank of the multirank phase's ``fsdp`` stage: smollm-360m at full
+    width, ``FSDP_LAYERS`` layers, under ``FSDP_MESH`` (each rank holds half
+    of every weight and moment), bf16 compute, remat full, 8 x 512 rows a
+    step (4 a rank), two steps from seed 0 with the dry run's inputs (int32
+    tokens, the host int32 step counter).  Each layer's weights are gathered
+    where the layer reads them (``LM.fsdp``).  Records each step's loss and
+    split, the arguments' bytes and the peak of step 2:
+    ``max_memory_allocated`` over it less the memory before the state."""
+    from repro_torch.configs import ParallelismConfig, TrainConfig, get_config
+    from repro_torch.launch.hlo_analysis import tensors_of
+    from repro_torch.launch.mesh import mesh_spec_from_string
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=FSDP_LAYERS)
+    b, s = MULTIRANK_BATCH
+    t = Trainer.create(cfg, ParallelismConfig(), TrainConfig(seed=0),
+                       mesh_spec_from_string(FSDP_MESH), batch_size=b, seq_len=s,
+                       group=dist.group.WORLD)
+    check(t.lm.tp is None and t.lm.pipe is None and t.lm.fsdp is not None,
+          f"fsdp rank {rank}: not the data-parallel step with the layer gather")
+    nbytes = lambda tree: sum(x.numel() * x.element_size() for x in tensors_of(tree))  # noqa: E731
+    out = {"rank": rank, "setup_s": time.perf_counter() - t_start}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = dataclasses.replace(t.init_state(), step=torch.zeros((), dtype=torch.int32))
+    out["shard_bytes"] = nbytes(state.params)
+    hist = []
+    reset_launches(fns)
+    for step in range(2):
+        batch = {"tokens": t.batch(step)["tokens"].int()}
+        if step == 1:  # the step the prediction is held against
+            out["argument_bytes"] = nbytes((state.params, state.exp_avg, state.exp_avg_sq, batch))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = t.step_fn(state, batch)
+        torch.cuda.synchronize()
+        hist.append({"step": step + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "dt": time.perf_counter() - t0, "split": dict(t.step_fn.split)})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["launches"] = launch_counts(fns)
+    out["hist"] = hist
+    del state
+    return out
+
+
+def hold_fsdp(ranks: list[dict], one_losses: list[float], pred: dict, world_s: float) -> dict:
+    """The multirank phase's fsdp stage held (each failed check raises):
+    every rank's argument bytes the dry run's exactly, its step-2 peak
+    within ``DRYRUN_PEAK_TOL`` of the dry run's 2-rank prediction (arguments
+    + temporaries), both ranks the same losses, within ``MULTIRANK_TOL`` of
+    one process's, layer gathers in every step's split, no block-quant
+    launch.  Prints the stage and returns its record."""
+    check(pred.get("ok") is True, f"multirank-fsdp: the dry run's 2-rank cell: {pred}")
+    mem = pred["memory"]
+    predicted = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    for r in ranks:
+        rk, tol = r["rank"], max(DRYRUN_PEAK_TOL[0] * r["peak_bytes"], DRYRUN_PEAK_TOL[1])
+        check(r["argument_bytes"] == mem["argument_bytes_per_device"],
+              f"multirank-fsdp rank {rk}: argument bytes {r['argument_bytes']}, the dry run's "
+              f"{mem['argument_bytes_per_device']}")
+        check(abs(predicted - r["peak_bytes"]) <= tol,
+              f"multirank-fsdp rank {rk}: peak {r['peak_bytes']} on the card, the dry run's "
+              f"{predicted} (limit ±{tol:.0f})")
+        check(all(h["split"]["gather_bytes"] > 0 for h in r["hist"]),
+              f"multirank-fsdp rank {rk}: no layer gather in the split")
+        check(r["launches"] == {"quantize": 0, "dequantize": 0},
+              f"multirank-fsdp rank {rk}: launches {r['launches']}")
+    losses = [h["loss"] for h in ranks[0]["hist"]]
+    check(all([h["loss"] for h in r["hist"]] == losses for r in ranks),
+          "multirank-fsdp: the ranks report different losses")
+    gap = max(abs(x - y) for x, y in zip(losses, one_losses))
+    check(all(map(math.isfinite, losses)) and gap <= MULTIRANK_TOL,
+          f"multirank-fsdp: steps 1-2 {losses} left one process's {one_losses}")
+    out = {
+        "model": f"smollm-360m, full width, {FSDP_LAYERS} of 32 layers", "mesh": FSDP_MESH,
+        "batch": list(MULTIRANK_BATCH), "losses": losses, "one_process_losses": one_losses,
+        "gap": gap, "predicted_peak_bytes": predicted,
+        "predicted": {"argument_bytes": mem["argument_bytes_per_device"],
+                      "temp_bytes": mem["temp_bytes_per_device"],
+                      "collective_bytes": pred["per_device"]["collective_bytes"],
+                      "wall_s": pred["wall_s"]},
+        "ranks": [{k: r[k] for k in ("rank", "peak_bytes", "argument_bytes", "shard_bytes",
+                                     "setup_s")} for r in ranks],
+        "steps": [{"rank": r["rank"], **h} for r in ranks for h in r["hist"]],
+        "world_s": world_s,
+    }
+    print(f"multirank-fsdp smollm-360m ({FSDP_LAYERS} layers, {FSDP_MESH}, each layer's weights "
+          f"gathered where it reads them): losses {[round(v, 4) for v in losses]}, one process "
+          f"{[round(v, 4) for v in one_losses]} (gap {gap:.5f}); world {world_s:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: step-2 peak {r['peak_bytes']} bytes on the card (less the "
+              f"memory before the state), the dry run's 2-rank prediction {predicted} "
+              f"(arguments {mem['argument_bytes_per_device']} + temporaries "
+              f"{mem['temp_bytes_per_device']}): {100 * (r['peak_bytes'] - predicted) / predicted:+.2f}%")
+        for h in r["hist"]:
+            sp = h["split"]
+            print(f"  rank {r['rank']} step {h['step']}: loss {h['loss']:.4f}, wall {h['dt']:.2f} s "
+                  f"= gather {sp['gather_s']:.2f} ({sp['gather_bytes'] / 1e9:.3f} GB) + "
+                  f"forward/backward {sp['grad_s']:.2f} + all-reduce {sp['all_reduce_s']:.2f} "
+                  f"({sp['all_reduce_bytes'] / 1e9:.3f} GB) + update {sp['update_s']:.2f}")
+    return out
+
+
 PYCACHE = ROOT / "build" / "pycache"
 WARM_RANKS = 2  # rank processes kept started ahead of the next world
 
@@ -6005,19 +6142,28 @@ def multirank_phase(torch, bq_ops) -> dict:
         return Trainer.create(cfg, parallel, tcfg, mesh_spec_from_string("data=1,model=1"),
                               batch_size=b, seq_len=s, device=torch.device("cuda"), **kw)
 
+    predict = no_card_process(["-c", FSDP_PREDICT.format(layers=FSDP_LAYERS, seq=s, rows=b)])
     try:
         p2p = gloo_p2p_probe(torch, out_dir)  # beside the baseline: 2 small processes
-        WARM.fill(3 * MULTIRANK_WORLD)  # the save, resume and pipe worlds follow each other
+        WARM.fill(4 * MULTIRANK_WORLD)  # the save, resume, fsdp and pipe worlds follow each other
         base = trainer()
         _, hist = base.run(base.init_state(), 0, 6)
         baseline = [h["loss"] for h in hist]
         check(all(map(math.isfinite, baseline)), f"multirank baseline: losses {baseline}")
+        del base, hist
+        base = Trainer.create(dataclasses.replace(cfg, num_layers=FSDP_LAYERS), parallel, tcfg,
+                              mesh_spec_from_string("data=1,model=1"), batch_size=b, seq_len=s,
+                              device=torch.device("cuda"))
+        _, hist = base.run(base.init_state(), 0, 2)  # the fsdp stage's one process
+        fsdp_one = [h["loss"] for h in hist]
         del base, hist
         gc.collect()
         torch.cuda.empty_cache()
         gloo_p2p = p2p()
         saved, save_wall = run_multirank_world(torch, "save", out_dir)
         resumed, resume_wall = run_multirank_world(torch, "resume", out_dir)
+        fsdp, fsdp_wall = run_multirank_world(torch, "fsdp", out_dir)
+        (fsdp_pred,) = finish_process(predict, "the fsdp stage's 2-rank cell", MULTIRANK_JOIN_S)
         ranked_serve = torch.load(out_dir / "multirank_serve.pt")
         one_serve = one_process_serve(torch, cfg, out_dir / "ckpt" / "step_00000002",
                                       ranked_serve["seq"])
@@ -6049,8 +6195,12 @@ def multirank_phase(torch, bq_ops) -> dict:
         torch.cuda.empty_cache()
         pipe_phase_s = time.perf_counter() - t_pipe
     finally:
+        if predict.poll() is None:
+            predict.kill()
+            predict.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
 
+    fsdp_out = hold_fsdp(fsdp, fsdp_one, fsdp_pred, fsdp_wall)
     # the 2-rank run: every rank logs the mean, so the ranks agree
     save_losses = [h["loss"] for h in saved[0]["hist"]]
     check(all(r["hist"][i]["loss"] == save_losses[i] for r in saved for i in range(2)),
@@ -6154,6 +6304,7 @@ def multirank_phase(torch, bq_ops) -> dict:
         "pipe": {k: pipe_out[k] for k in ("losses", "sp_losses", "one_process_losses", "gaps",
                                           "world_s", "phase_s")},
         "pipe_record": pipe_out,
+        "fsdp": fsdp_out,
         "phase_s": time.perf_counter() - t_phase,
     }
     out["launches"] = {k: sum(v[k] for p, v in out["launches_by_phase"].items()

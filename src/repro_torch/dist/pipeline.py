@@ -22,10 +22,12 @@ stream along:
   router adds aux loss);
 * **the weights** — a rank computes from its *stage-local* weights: the
   stacked dim its pipe shard (cut to the layers it holds), the data axes
-  gathered; over a model axis as :class:`~.tensor_parallel.TensorParallel`
-  computes (each stage's model ranks partitioned, each handing its own
-  slice of the stream to the rank of the same (data, model) coordinate in
-  the next stage), else gathered.  Unstacked weights (``embed``,
+  gathered layer by layer where the model reads them
+  (:class:`~.sharding.WeightGather`); over a model axis as
+  :class:`~.tensor_parallel.TensorParallel` computes (each stage's model
+  ranks partitioned, each handing its own slice of the stream to the rank
+  of the same (data, model) coordinate in the next stage), else gathered.
+  Unstacked weights (``embed``,
   ``final_norm``, ``unembed``, ``encoder.norm``) are replicated over pipe,
   as in the plan;
 * **the encoder's output** (encdec) is made whole on every pipe rank (a
@@ -64,7 +66,7 @@ import torch.distributed as dist
 
 from repro_torch.core.patterns import StateKind
 
-from .sharding import RankGroups, axis_groups, gather_shard, model_layout, new_subgroup, relocal
+from .sharding import RankGroups, axis_groups, model_layout, new_subgroup
 
 __all__ = ["Pipeline", "pipelines"]
 
@@ -95,24 +97,14 @@ class Pipeline:
         if [mesh.coords(r)[self.axis] for r in self.members] != list(range(self.size)):
             raise ValueError(f"pipe subgroup {self.members} is not in pipe-coordinate order")
         specs = ranks.plan.param_specs
-        tp = lm.tp
-        model = par.model_axis if mesh.has_axis(par.model_axis) else None
-        # the stage-local layouts the update reads: TensorParallel's (model
-        # kept) where it computes, else the whole model over the model axis
-        self.layouts = (dict(tp.layouts) if tp is not None else
-                        {n: model_layout(s, StateKind.FP32, mesh, None, self.axis)
-                         for n, s in specs.items()})
-        self._mid = ({} if tp is not None else
-                     {n: model_layout(s, StateKind.FP32, mesh, model, self.axis)
-                      for n, s in specs.items()})
         self.stacked = {n: self.axis in s.states[StateKind.FP32].dims[0].axes
                         for n, s in specs.items()}
-        # each stack's chunk [lo, hi) of this rank, from its layout's entries
+        # each stack's chunk [lo, hi) of this rank, from its stage-local layout's entries
         self.chunks: dict[str, tuple[int, int]] = {}
         for n, s in specs.items():
             stack = n.split(".")[0]
             if self.stacked[n] and stack not in self.chunks:
-                entries = self.layouts[n].entries[ranks.rank]
+                entries = model_layout(s, StateKind.FP32, mesh, None, self.axis).entries[ranks.rank]
                 count = s.runtime_shape[0]
                 self.chunks[stack] = entries[0].atom_slice[0] if entries else (count, count)
         # one two-member group a pair of adjacent coordinates of a line
@@ -176,38 +168,27 @@ class Pipeline:
     # -- weights and gradients ----------------------------------------------
 
     def weights(self, local: dict) -> tuple[dict, dict]:
-        """From the rank's checkpoint shards (flat), its stage-local weights
-        (the update's tensors, :attr:`layouts`) and the tree it computes
-        from: those, a stack's cut to the layers of the rank's chunk, over a
-        model axis as ``LM.tp`` computes (its gathered weights whole over
-        the model axis) or gathered over it."""
-        rg, specs, tp = self.ranks, self.ranks.plan.param_specs, self.lm.tp
-        if tp is not None:
-            work, comp = tp.weights(local)
-        else:
-            work = {}
-            for n, t in local.items():
-                t = gather_shard(t, specs[n].layout_for(StateKind.FP32, self.mesh), self._mid[n],
-                                 rg.rank, rg.data, rg.members["data"])
-                work[n] = gather_shard(t, self._mid[n], self.layouts[n], rg.rank, rg.model,
-                                       rg.members["model"])
-            comp = work
-        comp = {n: t[: self._held(n)] if self.stacked[n] else t for n, t in comp.items()}
-        return work, comp
+        """From the rank's checkpoint shards (flat), the tensors the update
+        reads (those shards) and the tree the model computes from: the
+        shards, a stack's cut to the layers of the rank's chunk.  The model
+        gathers each layer's weights where it reads them (``LM.fsdp``, a
+        :class:`~.sharding.WeightGather`): over the data axes, and over the
+        model axis as ``LM.tp`` computes, or gathered over it."""
+        return local, {n: t[: self._held(n)] if self.stacked[n] else t for n, t in local.items()}
 
     def _held(self, name: str) -> int:
         lo, hi = self.chunks[name.split(".")[0]]
         return hi - lo
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Gradients of :meth:`weights`' compute tree → stage-local ones: a
-        stack's padded back to its chunk's shape, the model group's sums
-        (``LM.tp``), and the unstacked weights' summed over the pipe group."""
-        tp, out = self.lm.tp, {}
+        """Gradients of :meth:`weights`' compute tree → those of the rank's
+        shards: a stack's padded back to its shard's shape, the model
+        group's sums (``LM.tp``), and the unstacked weights' summed over the
+        pipe group."""
+        tp, specs, out = self.lm.tp, self.ranks.plan.param_specs, {}
         for n, g in grads.items():
             if self.stacked[n]:
-                shape = (self.layouts[n] if tp is None or n not in tp.gathered
-                         else tp.stage_layouts[n]).local_shape
+                shape = specs[n].layout_for(StateKind.FP32, self.mesh).local_shape
                 if g.shape[0] < shape[0]:
                     g = torch.cat([g, g.new_zeros((shape[0] - g.shape[0],) + tuple(g.shape[1:]))])
             out[n] = g
@@ -217,22 +198,6 @@ class Pipeline:
             if not self.stacked[n]:
                 self.all_reduce(g)
         return out
-
-    def global_norm(self, grads: dict) -> torch.Tensor:
-        """The global norm of stage-local gradients, each element counted
-        once: a stack's on its own stage (summed over pipe), split ones over
-        the model ranks (summed over model), the rest once."""
-        tp = self.lm.tp
-        split = (lambda n: tp.split[n]) if tp is not None else (lambda n: False)  # noqa: E731
-        zero = next(iter(grads.values())).new_zeros((), dtype=torch.float32)
-        sums = {(m, p): zero.clone() for m in (True, False) for p in (True, False)}
-        for n, g in grads.items():
-            sums[split(n), self.stacked[n]] += g.float().square().sum()
-        if tp is not None:
-            mp = tp.all_reduce(torch.stack([sums[True, True], sums[True, False]]))
-            sums[True, True], sums[True, False] = mp[0], mp[1]
-        piped = self.all_reduce((sums[True, True] + sums[False, True]).reshape(1))[0]
-        return torch.sqrt(piped + sums[True, False] + sums[False, False])
 
     # -- the schedule ---------------------------------------------------------
 

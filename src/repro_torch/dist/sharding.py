@@ -43,13 +43,17 @@ rank context.  A rank's weights for compute are its *model-local* tensors:
 the full data replica of its model shard (:func:`model_layout`,
 :func:`gather_shard` over the data subgroup), and, for the weights no rank
 computes from its shard alone, the whole tensor (:func:`gather_full` over
-the model subgroup).
+the model subgroup).  A train step gathers them where a layer reads them,
+one layer at a time (:class:`WeightGather`, each read differentiable:
+its backward all-reduces the gradient over the data subgroup and keeps the
+rank's shard); serving gathers them before the model runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable
 
 import torch
@@ -64,9 +68,11 @@ from repro_torch.core.pytree import tree_map_with_path
 from repro_torch.models.common import ParamDef, ParamRegistry
 
 __all__ = [
+    "Exchange",
     "PartitionSpec",
     "RankGroups",
     "ShardingPlan",
+    "WeightGather",
     "axis_groups",
     "batch_axes",
     "cache_pspecs",
@@ -81,6 +87,7 @@ __all__ = [
     "place",
     "rank_rows",
     "relocal",
+    "shard_norm",
     "vocab_multiple",
 ]
 
@@ -530,12 +537,32 @@ def model_layout(spec: ParamSpec, kind: StateKind, mesh: MeshSpec, model_axis: s
 def relocal(t: torch.Tensor, src: ShardLayout, dst: ShardLayout, rank: int) -> torch.Tensor:
     """A rank's tensor of layout ``src`` cut to its tensor of ``dst`` (whose
     elements ``src``'s covers; padding zero); ``t`` itself where the two
-    are the same region."""
+    are the same region.  A ``t`` of one dim fewer than the layouts is one
+    layer of a stacked tensor (:func:`_layer_of`)."""
     if _same_region(src, dst, rank):
         return t
-    out = torch.zeros(dst.local_shape, dtype=t.dtype, device=t.device)
-    place(out, dst.entries[rank], t, src.entries[rank])
+    layer = _layer_of(t, src)
+    out = torch.zeros(dst.local_shape[layer:], dtype=t.dtype, device=t.device)
+    place(out, _entries(dst, rank, layer), t, _entries(src, rank, layer))
     return out
+
+
+def _layer_of(t: torch.Tensor, layout: ShardLayout) -> bool:
+    """Whether ``t`` is one layer of a rank's tensor of ``layout`` (one dim
+    fewer: the leading ``layers`` dim dropped).  Every rank it meets in a
+    gather or a cut must hold the same layers of the stack (no axis of the
+    exchange splits the layers dim), so a layer's index maps are the
+    stack's without their leading dim."""
+    return t.dim() == len(layout.local_shape) - 1
+
+
+def _entries(layout: ShardLayout, rank: int, layer: bool) -> tuple[IndexEntry, ...]:
+    """``rank``'s index entries of ``layout``, of one layer of it where
+    ``layer``."""
+    entries = layout.entries[rank]
+    if not layer:
+        return entries
+    return tuple(IndexEntry(e.atom_slice[1:], e.shard_slice[1:]) for e in entries)
 
 
 def place(dst: torch.Tensor, dst_entries, src: torch.Tensor, src_entries) -> None:
@@ -562,14 +589,17 @@ def gather_shard(local: torch.Tensor, layout: ShardLayout, target: ShardLayout, 
     rank order) holds: one all-gather, or none where the members hold one
     fragment.  Every target element must lie in some member's shard (the
     data subgroup's shards cover the rank's model shard).  Where the rank's
-    shard already is the target (no data axis splits it), ``local`` itself."""
+    shard already is the target (no data axis splits it), ``local`` itself.
+    A ``local`` of one dim fewer than the layouts is one layer of the
+    rank's stacked shard, and the result that layer's target tensor."""
     if _same_region(layout, target, rank):
         return local
-    out = torch.zeros(target.local_shape, dtype=local.dtype, device=local.device)
+    layer = _layer_of(local, layout)
+    out = torch.zeros(target.local_shape[layer:], dtype=local.dtype, device=local.device)
     if group is None or len({layout.fragment_id[r] for r in members}) == 1:
-        place(out, target.entries[rank], local, layout.entries[rank])
+        place(out, _entries(target, rank, layer), local, _entries(layout, rank, layer))
         return out
-    return _gather_into(out, target.entries[rank], local, layout, group, members)
+    return _gather_into(out, _entries(target, rank, layer), local, layout, group, members, layer)
 
 
 def _same_region(a: ShardLayout, b: ShardLayout, rank: int) -> bool:
@@ -585,26 +615,31 @@ def gather_full(local: torch.Tensor, layout: ShardLayout, group,
     rank per fragment; padding dropped).  ``group`` is the whole mesh's
     group, or a subgroup whose members (mesh ranks ``members``, in its rank
     order) together hold every fragment.  A layout with one fragment is
-    every rank's whole tensor already: returned as it is."""
+    every rank's whole tensor already: returned as it is.  A ``local`` of
+    one dim fewer than the layout is one layer of the rank's stacked shard,
+    and the result that layer's runtime tensor."""
     if len(set(layout.fragment_id)) == 1:
         return local
-    whole = tuple((0, n) for n in layout.global_shape)
-    out = torch.empty(layout.global_shape, dtype=local.dtype, device=local.device)
+    layer = _layer_of(local, layout)
+    shape = layout.global_shape[layer:]
+    whole = tuple((0, n) for n in shape)
+    out = torch.empty(shape, dtype=local.dtype, device=local.device)
     members = list(range(group.size())) if members is None else members
-    return _gather_into(out, (IndexEntry(whole, whole),), local, layout, group, members)
+    return _gather_into(out, (IndexEntry(whole, whole),), local, layout, group, members, layer)
 
 
 def _gather_into(out: torch.Tensor, out_entries, local: torch.Tensor, layout: ShardLayout,
-                 group, members: list[int]) -> torch.Tensor:
+                 group, members: list[int], layer: bool = False) -> torch.Tensor:
     """``out`` (mapped by ``out_entries``) filled from the members' shards of
-    ``layout``, all-gathered over ``group``: one member a fragment."""
+    ``layout`` (or of one layer of it), all-gathered over ``group``: one
+    member a fragment."""
     shards = [torch.empty_like(local) for _ in members]
     dist.all_gather(shards, local.contiguous(), group=group)
     done = set()
     for r, shard in zip(members, shards):
         if layout.fragment_id[r] not in done:
             done.add(layout.fragment_id[r])
-            place(out, out_entries, shard, layout.entries[r])
+            place(out, out_entries, shard, _entries(layout, r, layer))
     return out
 
 
@@ -612,3 +647,184 @@ def local_shard(full, layout: ShardLayout, rank: int):
     """Rank ``rank``'s local shard of a runtime-shaped tensor: its
     checkpoint shard (:func:`~repro_torch.core.layout.slice_shard`)."""
     return slice_shard(full, layout, rank)
+
+
+# ---------------------------------------------------------------------------
+# The train step's weights, gathered where the model reads them
+
+
+def _clock(t: torch.Tensor) -> float:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return time.perf_counter()
+
+
+class Exchange(torch.autograd.Function):
+    """One read of a weight, ``Exchange.apply(x, gather, scatter)``:
+    ``gather(x)`` in the forward, ``scatter(g)`` (the reduction of its
+    gradient and the cut back to ``x``'s part) in the backward.  It saves
+    no tensor, so a checkpointed layer gathers again when it is
+    recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, gather, scatter):
+        ctx.scatter = scatter
+        y = gather(x)
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.scatter(g), None, None
+
+
+class WeightGather:
+    """A rank's weights as the model computes from them in a partitioned
+    train step, gathered from the rank's checkpoint shards where a layer
+    reads them (``LM.fsdp``), as the reference's compiled step gathers each
+    layer's FSDP shard inside its layer scan.
+
+    A read (:meth:`__call__`) takes the rank's shard of one layer's slice of
+    a stacked weight (or of an unstacked weight) and all-gathers it over the
+    data subgroup into the rank's *model-local* tensor (:func:`model_layout`:
+    under a pipe axis its stage's layers); then, where the model does not
+    compute from its model shard, over the model subgroup: the
+    :class:`~.tensor_parallel.TensorParallel`'s gathered weights
+    (``tp.gather_weight``), or every weight the model axis splits where no
+    ``tp`` computes partitioned.  The backward all-reduces the model-local
+    gradient over the data subgroup, divides it by the data size (the mean
+    over the data replicas, every replica the same bits) and returns the
+    rank's shard of it.  Where the data axes do not split a weight (ZeRO-1,
+    ``fsdp=False``, a data size of 1) the forward is the identity and the
+    backward still all-reduces.
+
+    The model reads every layer's weights inside the function that remat
+    checkpoints, so under ``remat="full"`` or ``"dots"`` a layer's weights
+    are gathered again when it is recomputed and no layer's stay gathered.
+
+    The one case read otherwise: a stacked weight whose layers dim carries
+    the data axes (:attr:`whole`: the plan may choose it on a small mesh) is
+    gathered whole over the data axes once a forward, before its layers are
+    split (:meth:`stack`); its layers are then read from that tensor.
+
+    The gathers' seconds and bytes (every read, every recompute's) add up in
+    ``gather_s`` and ``gather_bytes``, the backward's data all-reduces in
+    ``reduce_s`` and ``reduce_bytes``; :attr:`seen` names the weights read
+    since :meth:`reset`."""
+
+    def __init__(self, ranks: RankGroups, tp=None, pipe=None):
+        par, mesh, specs = ranks.parallel, ranks.mesh, ranks.plan.param_specs
+        self.ranks, self.tp = ranks, tp
+        model = par.model_axis if mesh.has_axis(par.model_axis) else None
+        piped = pipe.axis if pipe is not None else None
+        data = set(batch_axes(par, mesh))
+        self.shard = {n: s.layout_for(StateKind.FP32, mesh) for n, s in specs.items()}
+        self.local = {n: model_layout(s, StateKind.FP32, mesh, model, piped)
+                      for n, s in specs.items()}
+        # over the model subgroup without a partitioned computation: what the axis splits
+        self.model = {}
+        if tp is None and model is not None and mesh.axis_size(model) > 1:
+            self.model = {n: model_layout(s, StateKind.FP32, mesh, None, piped)
+                          for n, s in specs.items()
+                          if any(model in d.axes for d in self.shard[n].dims)}
+        self.whole = frozenset(n for n, s in specs.items()
+                               if s.stacked_dim == 0 and data & set(self.shard[n].dims[0].axes))
+        self.reset()
+
+    def reset(self) -> None:
+        self.gather_s, self.gather_bytes = 0.0, 0
+        self.reduce_s, self.reduce_bytes = 0.0, 0
+        self.seen: set[str] = set()
+
+    def stack(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A stacked weight before its layers are split: gathered whole over
+        the data subgroup where the data axes lie on its layers dim
+        (:attr:`whole`), else ``t``."""
+        return self._data(name, t) if name in self.whole else t
+
+    def __call__(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The weight ``name`` (``t``: the rank's shard of it, or of one
+        layer of it; one layer of :meth:`stack`'s tensor for :attr:`whole`)
+        as the model computes from it."""
+        if name not in self.whole:
+            t = self._data(name, t)
+        if self.tp is not None:
+            return self.tp.gather_weight(name, t, self) if name in self.tp.gathered else t
+        if name in self.model:
+            return self._model(name, t)
+        return t
+
+    def _data(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        rg, src, dst, dt = self.ranks, self.shard[name], self.local[name], t.dtype
+        self.seen.add(name)
+        split = not _same_region(src, dst, rg.rank)
+        if not split and rg.data is None:
+            return t
+
+        def gather(x):
+            if not split:
+                return x
+            t0 = _clock(x)
+            y = gather_shard(x, src, dst, rg.rank, rg.data, rg.members["data"])
+            self.gather_s += _clock(x) - t0
+            self.gather_bytes += x.numel() * x.element_size() * rg.data_size
+            return y
+
+        def scatter(g):
+            if rg.data is not None:
+                t0 = _clock(g)
+                g = torch.empty(g.shape, dtype=torch.float32, device=g.device).copy_(g)
+                dist.all_reduce(g, group=rg.data)
+                g.div_(rg.data_size)
+                self.reduce_s += _clock(g) - t0
+                self.reduce_bytes += g.numel() * g.element_size()
+            return relocal(g, dst, src, rg.rank).to(dt)
+
+        return Exchange.apply(t, gather, scatter)
+
+    def _model(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Over the model subgroup, where every model rank computes the whole
+        weight from the same rows: each rank's gradient is complete, and it
+        keeps its part."""
+        rg, src, dst = self.ranks, self.local[name], self.model[name]
+
+        def gather(x):
+            t0 = _clock(x)
+            y = gather_shard(x, src, dst, rg.rank, rg.model, rg.members["model"])
+            self.gather_s += _clock(x) - t0
+            self.gather_bytes += x.numel() * x.element_size() * len(rg.members["model"])
+            return y
+
+        return Exchange.apply(t, gather, lambda g: relocal(g, dst, src, rg.rank))
+
+
+def shard_norm(grads: dict, ranks: RankGroups, model_sum: Callable | None = None,
+               pipe_sum: Callable | None = None) -> torch.Tensor:
+    """The global norm of gradients of the rank's shards (the weights'
+    layouts), each element counted once: a weight's sum of squares summed
+    over each subgroup whose axes split it (the data axes under FSDP, the
+    model axis, the pipe axis), and once where they replicate it.
+    ``model_sum`` and ``pipe_sum`` are the in-place sums over those
+    subgroups (timed by their contexts); plain all-reduces by default."""
+    par, mesh, specs = ranks.parallel, ranks.mesh, ranks.plan.param_specs
+
+    def plain(group):
+        def total(t):
+            dist.all_reduce(t, group=group)
+            return t
+        return total
+
+    over = ((set(batch_axes(par, mesh)), ranks.data, plain(ranks.data)),
+            ({par.model_axis}, ranks.model, model_sum or plain(ranks.model)),
+            ({par.pipe_axis}, ranks.pipe, pipe_sum or plain(ranks.pipe)))
+    sums: dict[tuple[bool, ...], torch.Tensor] = {}
+    for n, g in grads.items():
+        on = {a for d in specs[n].states[StateKind.FP32].dims for a in d.axes}
+        key = tuple(group is not None and bool(on & axes) for axes, group, _ in over)
+        sq = g.float().square().sum()
+        sums[key] = sums[key] + sq if key in sums else sq
+    keys = sorted(sums)
+    for i, (_, group, total) in enumerate(over):
+        sel = [k for k in keys if k[i]]
+        if sel:
+            sums.update(zip(sel, total(torch.stack([sums[k] for k in sel])).unbind(0)))
+    return torch.sqrt(torch.stack([sums[k] for k in keys]).sum())

@@ -14,7 +14,9 @@ the transpose of its forward (all-gather ↔ reduce-scatter, identity ↔
 all-reduce).
 
 A rank computes from its *model-local* weights, the full data replica of its
-model shard (FSDP's gather over the data subgroup stays).  With ``m`` ranks
+model shard: in a train step gathered over the data subgroup where a layer
+reads them (``LM.fsdp``, :class:`~.sharding.WeightGather`), for serving
+before the model runs (:meth:`TensorParallel.gathered_weights`).  With ``m`` ranks
 over the model axis and a prompt or batch of ``S`` positions:
 
 * **sequence parallelism** — where the sharder puts the residual stream's
@@ -97,7 +99,8 @@ exchange; a gathered weight's and a replicated weight's (the norms') are
 complete on every rank without sequence parallelism and partial with it
 (by the weight's own stream: ``encoder.*`` weights by the encoder's
 decision, the rest by the decoder's), and are then summed over the model
-subgroup (:meth:`TensorParallel.reduce_grads`).
+subgroup (:meth:`TensorParallel.reduce_grads`; a gathered weight's in the
+backward of its read, :meth:`TensorParallel.gather_weight`).
 Some are partial even without it (:attr:`TensorParallel.partial`): the
 router's (each rank's combine path reaches it through its own experts'
 outputs); where the MLA heads divide, ``wq_a``, ``q_norm``, ``wkv_a`` and
@@ -125,7 +128,8 @@ from repro_torch.core.layout import MeshSpec
 from repro_torch.core.patterns import StateKind
 
 from .sharding import (
-    RankGroups, _moe_mode, gather_full, gather_shard, make_sharder, model_layout, relocal,
+    Exchange, RankGroups, _moe_mode, gather_full, gather_shard, make_sharder, model_layout,
+    relocal,
 )
 
 __all__ = ["TensorParallel", "partitions"]
@@ -431,17 +435,27 @@ class TensorParallel:
     # -- weights and gradients ----------------------------------------------
 
     def weights(self, local: dict) -> tuple[dict, dict]:
-        """From the rank's checkpoint shards (flat), its model-local weights
-        (gathered over the data subgroup; under a pipe axis its stage's
-        layers of them) and the weights it computes from: the model-local
-        ones, and the :attr:`gathered` ones whole (gathered over the model
-        subgroup: the runtime tensor, or its stage's layers of it)."""
+        """From the rank's checkpoint shards (flat), the tensors the update
+        reads and the tree the model computes from in a train step: both the
+        shards themselves.  The model gathers each weight where a layer
+        reads it (``LM.fsdp``, a :class:`~.sharding.WeightGather`): over the
+        data subgroup into the model-local tensor, and the
+        :attr:`gathered` ones over the model subgroup too
+        (:meth:`gather_weight`)."""
+        return local, dict(local)
+
+    def gathered_weights(self, local: dict) -> dict:
+        """From the rank's checkpoint shards (flat), every weight it computes
+        from, gathered before the model runs (the serving path): its
+        model-local weights (gathered over the data subgroup; under a pipe
+        axis its stage's layers of them), the :attr:`gathered` ones whole
+        (gathered over the model subgroup: the runtime tensor, or its
+        stage's layers of it)."""
         rg, specs = self.ranks, self.ranks.plan.param_specs
-        mloc = {n: gather_shard(t, specs[n].layout_for(StateKind.FP32, self.mesh), self.layouts[n],
-                                rg.rank, rg.data, rg.members["data"])
-                for n, t in local.items()}
         comp = {}
-        for n, t in mloc.items():
+        for n, t in local.items():
+            t = gather_shard(t, specs[n].layout_for(StateKind.FP32, self.mesh), self.layouts[n],
+                             rg.rank, rg.data, rg.members["data"])
             if n not in self.gathered:
                 comp[n] = t
             elif self.pipe_axis is None:
@@ -449,39 +463,49 @@ class TensorParallel:
             else:
                 comp[n] = gather_shard(t, self.layouts[n], self.stage_layouts[n], rg.rank,
                                        self.group, self.members)
-        return mloc, comp
+        return comp
+
+    def gather_weight(self, name: str, t: torch.Tensor, sink) -> torch.Tensor:
+        """One of :attr:`gathered` (or one layer of it) whole over the model
+        subgroup from the rank's model-local tensor, its seconds and bytes
+        added to ``sink.gather_s`` and ``sink.gather_bytes``.  Backward: the
+        gradient summed over the model subgroup where it is partial (the
+        weight in :attr:`partial`, or its stream seq-sharded: :attr:`enc_sp`
+        for ``encoder.*``, :attr:`sp` for the rest), then cut to the rank's
+        part."""
+        sp = self.enc_sp if name.startswith("encoder.") else self.sp
+        partial = name in self.partial or sp
+        src, dst, rank = self.layouts[name], self.stage_layouts[name], self.ranks.rank
+
+        def gather(x):
+            t0 = self._clock(x)
+            if self.pipe_axis is None:
+                y = gather_full(x, src, self.group, self.members)
+            else:
+                y = gather_shard(x, src, dst, rank, self.group, self.members)
+            sink.gather_s += self._clock(x) - t0
+            sink.gather_bytes += x.numel() * x.element_size() * self.size
+            return y
+
+        def scatter(g):
+            if partial:
+                g = self.all_reduce(g.clone(memory_format=torch.contiguous_format))
+            return relocal(g, dst, src, rank)
+
+        return Exchange.apply(t, gather, scatter)
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Gradients of the weights the rank computed from (``weights()``'s
-        second tree) → its model-local gradients: a gathered or replicated
-        weight's summed where it is partial (every one where the forward
-        sharded the weight's stream, :attr:`enc_sp` for ``encoder.*`` and
-        :attr:`sp` for the rest; those of :attr:`partial` always), a gathered
-        weight's then cut to the rank's shard."""
-        out = {}
+        """The rank's gradients of its shards (a train step's; those of
+        :attr:`gathered` summed and cut in :meth:`gather_weight`'s backward)
+        with a replicated weight's summed over the model subgroup where it
+        is partial: every one where the forward sharded the weight's stream
+        (:attr:`enc_sp` for ``encoder.*`` and :attr:`sp` for the rest), and
+        those of :attr:`partial` always."""
         for n, g in grads.items():
             sp = self.enc_sp if n.startswith("encoder.") else self.sp
-            if n in self.partial or (sp and (n in self.gathered or not self.split[n])):
+            if n not in self.gathered and (n in self.partial or (sp and not self.split[n])):
                 self.all_reduce(g)
-            if n in self.gathered:
-                g = relocal(g, self.stage_layouts[n], self.layouts[n], self.ranks.rank)
-            out[n] = g
-        return out
-
-    def global_norm(self, grads: dict) -> torch.Tensor:
-        """The global norm of model-local gradients, each element counted
-        once across the model shards (a split one's summed over the model
-        subgroup; with tensor parallelism off only experts under EP split)."""
-        split = [g.float().square().sum() for n, g in grads.items() if self.split[n]]
-        rep = [g.float().square().sum() for n, g in grads.items() if not self.split[n]]
-        sq = self.all_reduce(torch.stack(split).sum().reshape(1))[0] if split else 0.0
-        return torch.sqrt(sq + torch.stack(rep).sum()) if rep else torch.sqrt(sq)
-
-    def relayout(self, name: str, t: torch.Tensor, layout) -> torch.Tensor:
-        """A model-local tensor cut to the rank's shard of ``layout`` (which
-        the model shard covers: the moments' regions, the weights'); ``t``
-        itself where that shard is the model-local tensor."""
-        return relocal(t, self.layouts[name], layout, self.ranks.rank)
+        return grads
 
     def local_heads(self, cfg: ModelConfig) -> tuple[int, int]:
         """(q heads, kv heads) this rank computes from its own wqkv (or

@@ -224,7 +224,7 @@ def rank_weights(lm: LM, ranks: RankGroups, local: dict) -> dict:
     weights (every rank of a family that does not partition computes them
     all)."""
     if lm.tp is not None:
-        return lm.tp.weights(local)[1]
+        return lm.tp.gathered_weights(local)
     plan = ranks.plan
     return {n: gather_full(t, plan.param_specs[n].layout_for(StateKind.FP32, plan.mesh),
                            ranks.group) for n, t in local.items()}

@@ -411,6 +411,10 @@ class LM:
     tp: Any = None
     # the rank's pipeline stage (dist.pipeline), or None
     pipe: Any = None
+    # a partitioned train step's gather of the rank's weight shards where a
+    # layer reads them (dist.sharding.WeightGather), or None: the params
+    # are then the weights the model computes from
+    fsdp: Any = None
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Fresh fp32 weights from ``generator`` (on its device by default)."""
@@ -766,24 +770,47 @@ class LM:
             return self._mlp(p, x, moe=ld.moe, sp=sp)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def _read(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The weight ``name`` as this rank computes from it: under a
+        partitioned train step gathered from the rank's shard ``t``
+        (:attr:`fsdp`), else ``t``."""
+        return t if self.fsdp is None else self.fsdp(name, t)
+
+    def _split(self, prefix: str, stack: dict) -> dict:
+        """A layer kind's stacked weights split into their layers (the rank's
+        shards' layers under :attr:`fsdp`).  Unbind once: the backward of a
+        per-layer view is then one stack, not a full-size zero tensor per
+        layer."""
+        fs = self.fsdp
+        return {k: (v if fs is None else fs.stack(f"{prefix}.{k}", v)).unbind(0)
+                for k, v in stack.items()}
+
+    def _read_layer(self, names, ld, window, positions, keys, sp, x, source, *values):
+        """:meth:`_layer` on its weights as the rank computes from them, each
+        read (:meth:`_read`) inside the function that remat checkpoints: a
+        recomputed layer gathers its weights again, and no layer's stay
+        gathered."""
+        if self.fsdp is not None:
+            values = [self.fsdp(n, v) for n, v in zip(names, values)]
+        return self._layer(ld, window, positions, keys, sp, x, source, *values)
+
     def _stage_forward(self, stage: StageDef, params, x, *, positions, source=None,
                        sp: bool = False, first: int = 0):
         """The stage's layers on ``x``: as many as ``params`` stacks (the
         whole stage, or a pipeline rank's chunk of it), layer ``i`` of them
         being the stage's layer ``first + i``; returns (x, summed aux)."""
-        # unbind once: the backward of a per-layer view is then one stack,
-        # not a full-size zero tensor per layer
-        per = {ld.name: {k: v.unbind(0) for k, v in params[ld.name].items()}
+        per = {ld.name: self._split(f"{stage.name}.{ld.name}", params[ld.name])
                for ld in stage.body}
+        names = {ld.name: tuple(f"{stage.name}.{ld.name}.{k}" for k in per[ld.name])
+                 for ld in stage.body}
         count = len(next(iter(per[stage.body[0].name].values())))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(count):
             for ld in stage.body:
                 keys = tuple(per[ld.name])
                 values = [per[ld.name][k][i] for k in keys]
-                fn = functools.partial(
-                    self._layer, ld, stage.window(ld, first + i), positions, keys, sp
-                )
+                fn = functools.partial(self._read_layer, names[ld.name], ld,
+                                       stage.window(ld, first + i), positions, keys, sp)
                 x, a = _remat(fn, x, source, *values, remat=self.remat)
                 aux = aux + a
         return x, aux
@@ -821,9 +848,10 @@ class LM:
         rank's chunk) on the encoder's stream."""
         n = x.shape[1] * (self.tp.size if enc_sp else 1)  # the source's positions
         keys = tuple(blk)
-        per = {k: blk[k].unbind(0) for k in keys}
+        per = self._split("encoder.blk", blk)
         ld = LayerDef("blk", "attn", causal=False)
-        fn = functools.partial(self._layer, ld, 0, torch.arange(n, device=x.device), keys, enc_sp)
+        fn = functools.partial(self._read_layer, tuple(f"encoder.blk.{k}" for k in keys), ld, 0,
+                               torch.arange(n, device=x.device), keys, enc_sp)
         for layer in range(len(per[keys[0]])):
             values = [per[k][layer] for k in keys]
             x, _ = _remat(fn, x, None, *values, remat="none" if self.remat == "none" else "full")
@@ -834,7 +862,7 @@ class LM:
         gradient summed where the cross layers, by heads or by the
         decoder's rows ``sp``, use it in part)."""
         tp = self.tp
-        x = rms_norm(x, params["encoder"]["norm"], self.cfg.norm_eps)
+        x = rms_norm(x, self._read("encoder.norm", params["encoder"]["norm"]), self.cfg.norm_eps)
         return x if tp is None else tp.whole(x, enc_sp, partial=tp.heads or sp)
 
     def source(self, params, source_embeds, *, sp: bool = False):
@@ -875,16 +903,17 @@ class LM:
     def embed_tokens(self, params, tokens: torch.Tensor, sp: bool) -> torch.Tensor:
         """The residual stream's input: under a rank context the rank's rows
         (``sp``), vocab-parallel where tensor parallelism splits ``embed``."""
+        table = self._read("embed", params["embed"]).to(self.compute_dtype)
         if self.tp is not None:
-            return self.tp.embed(params["embed"].to(self.compute_dtype), tokens, sp)
-        x = F.embedding(tokens, params["embed"].to(self.compute_dtype))
+            return self.tp.embed(table, tokens, sp)
+        x = F.embedding(tokens, table)
         return self.shard(x, ("batch", "seq", "embed"))
 
     def logits(self, params, x: torch.Tensor, sp: bool) -> torch.Tensor:
         """``final_norm`` and the fp32 logits of the stream ``x``: under a
         rank context with tensor parallelism every position's logits of the
         rank's vocab shard; with it off the rank's rows' whole logits."""
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = rms_norm(x, self._read("final_norm", params["final_norm"]), self.cfg.norm_eps)
         if self.tp is not None and self.tp.tensor:
             return self.tp.enter(x, sp).float() @ self.unembed(params).float()
         logits = x.float() @ self.unembed(params).float()
@@ -923,7 +952,10 @@ class LM:
 
     def unembed(self, params) -> torch.Tensor:
         """The [d, vocab_padded] output projection in the compute dtype."""
-        w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
+        if self.cfg.tie_embeddings:
+            w = self._read("embed", params["embed"]).T
+        else:
+            w = self._read("unembed", params["unembed"])
         return w.to(self.compute_dtype)
 
 

@@ -13,56 +13,69 @@ reference.
 
 With ``group`` (a :class:`~repro_torch.dist.sharding.RankGroups`) the state
 holds the rank's local shards and the batch is the rank's rows
-(:func:`~repro_torch.dist.sharding.rank_rows`).  One step:
+(:func:`~repro_torch.dist.sharding.rank_rows`).  The model computes from
+those shards: ``make_train_step`` installs a
+:class:`~repro_torch.dist.sharding.WeightGather` as ``LM.fsdp``, and each
+weight is gathered where a layer reads it, as the reference's compiled step
+gathers each layer's FSDP shard inside its layer scan.  One step:
 
-1. gather each parameter's full fp32 weights from the ranks' shards;
-2. forward and backward on the rank's rows;
-3. all-reduce the gradients over the data subgroup, divided by its size
-   (the loss and ``aux`` are averaged the same way, so every rank reports
-   the single-device value);
-4. ``grad_transform``;
-5. clip by the global norm of the full reduced gradient;
-6. AdamW on the rank's moment regions of the weights and gradients; where
-   the weights' layout is not the moments' (ZeRO-1 keeps the weights
-   replicated over the data axes), the new weights are gathered from the
-   regions' owners, so every replica is bit-identical.
+1. forward and backward on the rank's rows: each layer's weights all-gathered
+   over the data subgroup into the rank's model-local tensors inside the
+   function that remat checkpoints (so a recomputed layer gathers them
+   again and no layer's stay gathered; an unstacked weight where it is
+   read); each read's backward all-reduces the model-local gradient over the
+   data subgroup, divides it by its size and keeps the rank's shard of it,
+   so the gradients come back at the size of the shards and the
+   microbatches' sum is of shards (the loss and ``aux`` are averaged over
+   the data subgroup, so every rank reports the single-device value);
+2. ``grad_transform``;
+3. clip by the global norm of the reduced gradient, each element counted
+   once over the data, model and pipe shards
+   (:func:`~repro_torch.dist.sharding.shard_norm`);
+4. AdamW on the rank's moment regions of its weight and gradient shards
+   (under FSDP the shards themselves); where the weights' layout is not
+   the moments' (ZeRO-1 keeps the weights replicated over the data axes),
+   the new weights are gathered from the regions' owners, so every replica
+   is bit-identical.
 
-The step's wall is split into those phases in ``step.split`` (seconds, and
-the all-reduced bytes), timed after a device synchronize.
+The one weight gathered otherwise is a stack whose layers dim carries the
+data axes (a small mesh's plan may put them there): whole over the data
+axes once a forward, before its layers are split.
+
+The step's wall is split into those phases in ``step.split``, timed after a
+device synchronize: ``gather_s`` and ``gather_bytes`` (every weight gather,
+the recomputes' too, timed inside them), ``all_reduce_s`` and
+``all_reduce_bytes`` (the gradients' data all-reduces inside the backward,
+and the loss's after), ``grad_s`` (the forward and backward less the
+exchanges inside them) and ``update_s``.
 
 When the model computes partitioned over the model axis (``lm.tp``, a
 :class:`~repro_torch.dist.tensor_parallel.TensorParallel`: every family
-under tensor parallelism), step 1 gathers each weight over the data
-subgroup only, into the rank's model-local tensor (FSDP's gather), and over
-the model subgroup only the weights no rank computes from its shard
-(attention's where its heads do not divide the model axis); step 2 computes
-the rank's partition; the gradients come back model-local (a gathered
-weight's cut to the rank's shard, a replicated weight's summed over the
-model subgroup where its stream was split by rows or where each rank reads
-it in part), the clip takes the norm of the model-local gradients with each
-element counted once, and the update reads its moment regions out of the
-model-local tensors.  The split
-then adds ``tp_s`` and ``tp_bytes``, the model-subgroup collectives (inside
-the forward and backward, the gradients' reduction after, and the norm's);
-``grad_s`` is the forward and backward less the collectives inside them.
-``grad_transform`` then sees the rank's model-local gradients.  With
-tensor parallelism off and sequence parallelism on the same context
-computes each stream's rows from replicated weights (a replicated weight's
-gradient summed over the model subgroup where its stream was split).
+under tensor parallelism), a read gathers over the data subgroup into the
+rank's model-local tensor, and over the model subgroup too for the weights
+no rank computes from its shard (attention's where its heads do not divide
+the model axis; their backward sums over the model subgroup where the
+gradient is partial and cuts the rank's part); the rank computes its
+partition; a replicated weight's gradient is summed over the model subgroup
+where its stream was split by rows or where each rank reads it in part.
+The split then adds ``tp_s`` and ``tp_bytes``, the model-subgroup
+collectives (inside the forward and backward, the gradients' reduction
+after, and the norm's), out of ``grad_s``.  ``grad_transform`` sees the
+rank's gradient shards.  With tensor parallelism off and sequence
+parallelism on the same context computes each stream's rows from
+replicated weights.  Without a partitioned computation, every weight the
+model axis splits is gathered over the model subgroup too.
 
 Under a pipe axis over 1 (``lm.pipe``, a
-:class:`~repro_torch.dist.pipeline.Pipeline`) step 1 keeps the rank's stage
-of every stacked weight (its chunk of the layers, the data axes gathered;
-over the model axis as above, or gathered); step 2 runs the rank's
+:class:`~repro_torch.dist.pipeline.Pipeline`) the model reads the rank's
+stage of every stacked weight (its chunk of the layers); the rank runs its
 segments of each microbatch forward, then backward in reverse, handing the
 stream and its gradient to the neighbouring stages
 (:meth:`~repro_torch.dist.pipeline.Pipeline.forward_backward`); the
-stacked gradients are the stage's, the unstacked ones summed over the pipe
-group; the clip's norm counts each element once; the update reads its
-moment regions out of the stage-local tensors.  The split adds ``pipe_s``
-and ``pipe_bytes`` (every pipe-group exchange), out of ``grad_s``.
-With ``accum > 1`` the microbatches go through the stages one after
-another, their gradients summed in the one-process order.
+unstacked gradients are summed over the pipe group.  The split adds
+``pipe_s`` and ``pipe_bytes`` (every pipe-group exchange), out of
+``grad_s``.  With ``accum > 1`` the microbatches go through the stages one
+after another, their gradients summed in the one-process order.
 """
 
 from __future__ import annotations
@@ -79,7 +92,7 @@ from repro_torch.core.pytree import flatten_with_paths, unflatten_from_paths
 from repro_torch.models import decode as decode_lib
 from repro_torch.models.lm import LM
 
-from .optimizer import TrainState, adamw_update, global_norm
+from .optimizer import TrainState, adamw_update
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
 
@@ -141,12 +154,15 @@ def make_train_step(
             return new_state, {**metrics, **opt_metrics}
 
         return train_step
-    return _sharded_step(loss_and_grads, tcfg, grad_transform, group, lm.tp, lm.pipe)
+    return _sharded_step(loss_and_grads, tcfg, grad_transform, group, lm)
 
 
-def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None, pipe=None):
-    from repro_torch.dist.sharding import gather_full, local_shard, relocal
+def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, lm: LM):
+    from repro_torch.dist.sharding import (
+        WeightGather, gather_full, local_shard, relocal, shard_norm,
+    )
 
+    tp, pipe = lm.tp, lm.pipe
     specs = rg.plan.param_specs
     mesh, rank = rg.mesh, rg.rank
     w_layout = {n: s.layout_for(StateKind.FP32, mesh) for n, s in specs.items()}
@@ -154,6 +170,7 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
     for n, s in specs.items():
         if s.states[StateKind.EXP_AVG_SQ].dims != s.states[StateKind.EXP_AVG].dims:
             raise NotImplementedError(f"{n}: the two moments are laid out differently")
+    fsdp = lm.fsdp = WeightGather(rg, tp, pipe)
     split: dict[str, float] = {}
 
     def clock(device) -> float:
@@ -164,55 +181,52 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         local = flatten_with_paths(state.params)
         device = next(iter(local.values())).device
-        t0 = clock(device)
-        if pipe is not None:  # the stage's layers; over a model axis as tp computes
-            full, comp = pipe.weights(local)
-        elif tp is None:
-            full = {n: gather_full(t, w_layout[n], rg.group) for n, t in local.items()}
-            comp = full
-        else:  # model-local weights; the gathered ones whole to compute from
-            full, comp = tp.weights(local)
+        fsdp.reset()
         for ctx in (tp, pipe):
             if ctx is not None:
                 ctx.seconds, ctx.bytes = 0.0, 0
-        t1 = clock(device)
+        t0 = clock(device)
+        # the shards themselves (a stage's cut to its layers): the model
+        # gathers each layer's weights where it reads them
+        comp = local if pipe is None else pipe.weights(local)[1]
         metrics, grads = loss_and_grads(unflatten_from_paths(comp), batch)
         del comp
+        t1 = clock(device)
+        reduced = 0
+        if rg.data is not None:
+            for n, g in grads.items():
+                if n in fsdp.seen:  # reduced over data in the backward of its reads
+                    continue
+                # read by no layer of this rank (another pipeline stage's)
+                dist.all_reduce(g, group=rg.data)
+                g.div_(rg.data_size)
+                reduced += g.numel() * g.element_size()
+        t2 = clock(device)
         if pipe is not None:  # stacked padded back, unstacked summed over the pipe group
             grads = pipe.reduce_grads(grads)
         elif tp is not None:  # summed over the model group as the forward sharded the stream
             grads = tp.reduce_grads(grads)
-        t2 = clock(device)
-        inside = sum(ctx.seconds for ctx in (tp, pipe) if ctx is not None)
-        reduced = 0
+        t3 = clock(device)
+        inside = (sum(ctx.seconds for ctx in (tp, pipe) if ctx is not None)
+                  + fsdp.gather_s + fsdp.reduce_s)
         if rg.data is not None:
-            for g in grads.values():
-                dist.all_reduce(g, group=rg.data)
-                g.div_(rg.data_size)
-                reduced += g.numel() * g.element_size()
             # loss and aux: the mean over the data group, as on one device
             la = torch.stack([metrics["loss"].float(), metrics["aux"].float()])
             dist.all_reduce(la, group=rg.data)
             la = la / rg.data_size
             metrics = {"loss": la[0], "aux": la[1]}
-        t3 = clock(device)
+        t4 = clock(device)
         tree = unflatten_from_paths(grads)
         if grad_transform is not None:
             tree = grad_transform(tree)
         grads = flatten_with_paths(tree)
-        if pipe is not None:
-            gnorm = pipe.global_norm(grads)
-            cut = lambda n, t: relocal(t, pipe.layouts[n], m_layout[n], rank)  # noqa: E731
-        elif tp is None:
-            gnorm = global_norm(tree)
-            cut = lambda n, t: local_shard(t, m_layout[n], rank)  # noqa: E731
-        else:
-            gnorm = tp.global_norm(grads)
-            cut = lambda n, t: tp.relayout(n, t, m_layout[n])  # noqa: E731
         del tree
-        p_mom = {n: cut(n, full[n]) for n in local}
-        g_mom = {n: cut(n, grads.pop(n)) for n in local}
-        del full
+        # each element once; the model and pipe groups' sums timed by their contexts
+        gnorm = shard_norm(grads, rg, model_sum=tp.all_reduce if tp is not None else None,
+                           pipe_sum=pipe.all_reduce if pipe is not None else None)
+        # the shards cut to the moment regions (under FSDP the shards themselves)
+        p_mom = {n: relocal(t, w_layout[n], m_layout[n], rank) for n, t in local.items()}
+        g_mom = {n: relocal(grads.pop(n), w_layout[n], m_layout[n], rank) for n in local}
         upd, opt_metrics = adamw_update(
             TrainState(unflatten_from_paths(p_mom), state.exp_avg, state.exp_avg_sq, state.step),
             unflatten_from_paths(g_mom), tcfg, gnorm=gnorm,
@@ -224,11 +238,14 @@ def _sharded_step(loss_and_grads, tcfg: TrainConfig, grad_transform, rg, tp=None
                 # ZeRO-1: the weights' shard spans several ranks' moment
                 # regions; take each region from its owner
                 new_p[n] = local_shard(gather_full(t, m_layout[n], rg.group), w_layout[n], rank)
-        t4 = clock(device)
+        t5 = clock(device)
         split.clear()
-        # grad_s: the forward and backward less the tp and pipe exchanges inside them
-        split.update(gather_s=t1 - t0, grad_s=t2 - t1 - inside, all_reduce_s=t3 - t2,
-                     all_reduce_bytes=reduced, update_s=t4 - t3)
+        # grad_s: the forward and backward (and the tp and pipe sums after
+        # them) less the exchanges inside them
+        split.update(gather_s=fsdp.gather_s, gather_bytes=fsdp.gather_bytes,
+                     grad_s=t1 - t0 + t3 - t2 - inside,
+                     all_reduce_s=fsdp.reduce_s + t2 - t1 + t4 - t3,
+                     all_reduce_bytes=fsdp.reduce_bytes + reduced, update_s=t5 - t4)
         if tp is not None:
             split.update(tp_s=tp.seconds, tp_bytes=tp.bytes)
         if pipe is not None:
