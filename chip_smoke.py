@@ -10,10 +10,10 @@ nothing falls back to the CPU or to a plain version):
    ``nvidia-smi`` reports them;
 2. build   — compile the three kernel sources of this checkout with nvcc
    (sm_90a), one process each, started together; print the build seconds
-   and ptxas' report, and fail if the head-dim-256 flash instances
-   (``fwd_kernel_tc<256, 256>``, ``fwd_kernel<float, 256, 256>``) or the
-   MLA ones (``fwd_kernel_tc<192, 128>``, ``fwd_kernel<float, 192, 128>``)
-   spill;
+   and ptxas' report, and fail if a bf16 flash instance of the main path
+   (the wgmma kernel's ``fwd_kernel_wgmma<64, 64, 128>``, ``<128, 128,
+   128>``, ``<256, 256, 64>`` and ``<192, 128, 128>``) or the fp32 ones at
+   the head dims 256 and (192, 128) spill;
 3. kernel flash_attention — against its plain PyTorch version at the
    serving slice's shapes (B=4, S=512 and a ragged 500, 15:5 heads, D=64,
    bf16, causal; a window=128 case; an fp32 case), max abs error beside the
@@ -584,10 +584,15 @@ CUT_LAYERS = 2
 EVENT_TIMED: list[str] = []
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}  # (atol, rtol), tests/test_kernels.py
 # The tensor-core (bf16) kernel of each source, as the profiler names it.
-TC_SYMBOL = {"flash_attention": "fwd_kernel_tc", "ssd_scan": "ssd_kernel_tc"}
+TC_SYMBOL = {"flash_attention": "fwd_kernel_wgmma", "ssd_scan": "ssd_kernel_tc"}
 VARIANT = {
-    "flash_attention_fwd": "bf16: fwd_kernel_tc, mma.sync m16n8k16 tensor cores, cp.async "
-                           "double-buffered K/V; fp32: fwd_kernel, CUDA cores",
+    "flash_attention_fwd": "bf16 at D >= 64 (every prefill of the main path): fwd_kernel_wgmma, "
+                           "persistent (a block an SM taking 128-row q-tiles from a counter, "
+                           "L2-sized chunks of heads, heaviest first), a TMA producer warpgroup "
+                           "and two consumer warpgroups, wgmma for Q·Kᵀ (shared memory) and "
+                           "P·V (P in registers), a 2-stage K/V mbarrier ring, softmax "
+                           "overlapped with the products; bf16 at D <= 32: fwd_kernel_tc, "
+                           "mma.sync m16n8k16; fp32: fwd_kernel, CUDA cores",
     "ssd_scan_fwd": "bf16: ssd_kernel_tc, mma.sync m16n8k16 tensor cores, bf16 hi+lo splits "
                     "of the fp32 operands; fp32: ssd_kernel, CUDA cores",
     "quantize_blocks": "n % 8 == 0 <= 1024, 16-byte aligned: quantize_vec_kernel, a row in "
@@ -801,6 +806,10 @@ def profile_counted(torch, fn, counters: dict, kernel: str, want: int):
         wall, busy, rows = device_profile(torch, fn, top=None)
         counted = counters[kernel].launches
         check(counted == want, f"{kernel}: the wrapper launched {counted} times, want {want}")
+        if hasattr(counters[kernel], "launches_by_variant"):  # flash: every bf16 prefill's
+            took = counters[kernel].launches_by_variant       # launch is the wgmma kernel's
+            check(took == dict.fromkeys(took, 0) | {"wgmma": want},
+                  f"{kernel}: launches by variant {took}, want {want} wgmma")
         mine = [(key, ms, n) for key, ms, n in rows if TC_SYMBOL[kernel] in key]
         if len(mine) == 1 and mine[0][2] == want:
             return wall, busy, rows, mine[0]
@@ -8287,8 +8296,10 @@ def run(torch) -> int:
         WARM.fill()
         usage = built.result()
     clock.mark("build")
-    check_no_spills(usage["flash_attention"], ("fwd_kernel_tc<256, 256>", "fwd_kernel<float, 256, 256>",
-                                               "fwd_kernel_tc<192, 128>", "fwd_kernel<float, 192, 128>"))
+    check_no_spills(usage["flash_attention"], (
+        "fwd_kernel_wgmma<64, 64, 128>", "fwd_kernel_wgmma<128, 128, 128>",
+        "fwd_kernel_wgmma<256, 256, 64>", "fwd_kernel_wgmma<192, 128, 128>",
+        "fwd_kernel<float, 256, 256>", "fwd_kernel<float, 192, 128>"))
     k = kernel_phase(torch, F, kernel, ops, ref)
     clock.mark("kernel flash_attention")
     bq = block_quant_phase(torch, bq_ops, bq_ref)

@@ -15,11 +15,16 @@ from q's and k's ``D`` for the pairs the source instantiates
 ``(192, 128)``), and the output is ``[B, Sq, Hq, Dv]``.  It runs on
 PyTorch's current stream, allocates nothing but the output, and raises on
 any launch error.
-The source holds two kernels and the dtype picks one: bfloat16 goes to the
-tensor-core kernel, float32 to the CUDA-core kernel.  The tensor-core
-kernel copies rows with 16-byte ``cp.async``, so a bfloat16 input whose row
+The source holds three kernels, and the dtype, then the head dims, pick
+one (:func:`variant`): bfloat16 at D >= 64 goes to ``"wgmma"`` (Hopper's
+warpgroup products fed by TMA, a producer warpgroup and two consumers),
+bfloat16 at D <= 32 to ``"mma"`` (``mma.sync`` with ``cp.async`` copies),
+float32 to ``"fp32"`` (CUDA cores).  Both bfloat16 kernels copy rows 16
+bytes at a time (TMA boxes, ``cp.async``), so a bfloat16 input whose row
 bases are not 16-byte aligned is refused
-(:func:`repro_torch.kernels.row_alignment`).
+(:func:`repro_torch.kernels.row_alignment`).  :data:`KV_TILE` is each bf16
+instance's KV tile, where its online softmax takes the running max: the
+only thing that moves its rounding.
 """
 
 from __future__ import annotations
@@ -33,24 +38,35 @@ import torch
 from repro_torch.kernels import row_alignment
 from repro_torch.kernels.nvcc import compile_and_load, launch_error
 
-__all__ = ["build", "flash_attention_fwd", "HEAD_DIMS", "ROW_ALIGN"]
+__all__ = ["build", "flash_attention_fwd", "variant", "HEAD_DIMS", "KV_TILE", "ROW_ALIGN"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # The (D, Dv) pairs both kernels are instantiated for (REPRO_FLASH_PAIRS in
 # the source); the kernel returns -2 for any other.
 HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
-ROW_ALIGN = 16  # bytes: the bfloat16 kernel's cp.async copies
+# The KV rows of a tile of each bf16 instance (REPRO_WGMMA_TILES, and
+# TC_BK for REPRO_MMA_PAIRS, in the source).
+KV_TILE = {(8, 8): 64, (16, 16): 64, (32, 32): 64,
+           (64, 64): 128, (128, 128): 128, (256, 256): 64, (192, 128): 128}
+ROW_ALIGN = 16  # bytes: the bfloat16 kernels' TMA boxes and cp.async copies
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REFUSALS = {
     -1: "unsupported dtype",
     -2: "unsupported (D, Dv) head dim pair",
     -3: "a bfloat16 row base is not 16-byte aligned",
+    -4: "cuTensorMapEncodeTiled refused a TMA tensor map",
+    -5: "libcuda has no cuTensorMapEncodeTiled",
 }
 
 # The loaded library and its build report, or None until the first launch.
 _LIB: ctypes.CDLL | None = None
 _REPORT: dict | None = None
 _BUILD_LOCK = threading.Lock()
+# The wgmma kernel's tile counters, one pair of ints a (device, stream):
+# zero when made, and each launch leaves them at zero for the next launch on
+# its stream (launches on one stream never overlap; on two streams they may).
+_SCHED: dict[tuple[int, int], torch.Tensor] = {}
+_SCHED_LOCK = threading.Lock()
 
 
 def build() -> tuple[ctypes.CDLL, dict]:
@@ -66,7 +82,7 @@ def build() -> tuple[ctypes.CDLL, dict]:
         lib, report = compile_and_load(SOURCE, "flash_attention")
         fn = lib.repro_flash_attention_fwd
         fn.argtypes = (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -112,6 +128,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, device: str = "cud
         )
 
 
+def _sched(device: torch.device, stream: int) -> torch.Tensor:
+    """The tile counters for launches on ``stream`` of ``device``."""
+    key = (device.index, stream)
+    with _SCHED_LOCK:
+        if key not in _SCHED:
+            _SCHED[key] = torch.zeros(2, dtype=torch.int32, device=device)
+        return _SCHED[key]
+
+
+def variant(q: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a launch takes: ``"fp32"`` for float32; for bfloat16
+    ``"wgmma"`` at q's head dim 64 and up, ``"mma"`` below it."""
+    if q.dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if q.shape[-1] >= 64 else "mma"
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -129,7 +162,7 @@ def flash_attention_fwd(
         raise ValueError(f"flash_attention_fwd: q_offset {q_offset} < 0")
     if q.dtype == torch.bfloat16 and (got := row_alignment(q, k, v)) < ROW_ALIGN:
         raise ValueError(
-            f"flash_attention_fwd: the bfloat16 kernel copies {ROW_ALIGN}-byte rows; the rows "
+            f"flash_attention_fwd: the bfloat16 kernels copy {ROW_ALIGN}-byte rows; the rows "
             f"of q, k, v are only {got}-byte aligned (data pointer or strides)"
         )
     lib, _ = build()
@@ -139,7 +172,8 @@ def flash_attention_fwd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _sched(q.device, stream).data_ptr(), _DTYPES[q.dtype],
             b, sq, skv, hq, hkv, d, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             float(scale), int(causal), int(window), int(q_offset), stream,

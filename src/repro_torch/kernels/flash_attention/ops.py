@@ -28,8 +28,10 @@ at their place in the whole sequence):
 ``flash_attention.launches`` counts kernel launches (a plain integer; the
 plain version and the shape function do not count), so a run can show
 that its path went through the kernel; ``flash_attention.launches_by_dtype``
-splits the same count by the inputs' dtype, which picks the kernel
-(bfloat16: tensor cores; float32: CUDA cores).
+splits the same count by the inputs' dtype, and
+``flash_attention.launches_by_variant`` by the kernel it took
+(``kernel.variant``: ``"wgmma"`` for bfloat16 at D >= 64, ``"mma"`` below,
+``"fp32"`` for float32).
 """
 
 from __future__ import annotations
@@ -111,6 +113,7 @@ def flash_attention(
                                        q_offset=q_offset)
         flash_attention.launches += 1
         flash_attention.launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
+        flash_attention.launches_by_variant[kernel.variant(q, v)] += 1
         return o
     if devices == {"meta"}:  # the shape function: the launch's contract, no launch
         refuse_grad(q, k, v)
@@ -129,3 +132,4 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_dtype = {"bfloat16": 0, "float32": 0}
+flash_attention.launches_by_variant = {"wgmma": 0, "mma": 0, "fp32": 0}

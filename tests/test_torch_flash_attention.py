@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as ref_oracle  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as port_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import KV_TILE  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 
 SWEEP = [  # tests/test_kernels.py:24-33
@@ -157,9 +158,9 @@ def test_plain_version_takes_kernel_layout():
 
 
 def _emulate_tensor_core_kernel(q, k, v, *, causal, window, scale, tile=64):
-    """The bf16 tensor-core kernel's arithmetic in plain torch, on [B,S,H,D]
+    """The bf16 tensor-core kernels' arithmetic in plain torch, on [B,S,H,D]
     bf16 tensors: fp32 scores of the bf16 inputs, an online softmax over
-    64-column tiles in base 2 (scores times scale·log2(e), exp2), each tile's
+    ``tile``-column tiles in base 2 (scores times scale·log2(e), exp2), each tile's
     P rounded to bf16 before P·V while l sums the fp32 P, and
     O = acc / max(l, 1e-37) rounded once to bf16.  Tiles the kernel skips
     are wholly masked here and change nothing."""
@@ -192,44 +193,68 @@ def _emulate_tensor_core_kernel(q, k, v, *, causal, window, scale, tile=64):
     return (acc / l.clamp_min(1e-37)[..., None]).to(torch.bfloat16).transpose(1, 2)
 
 
-@pytest.mark.parametrize("s", [512, 500])
-@pytest.mark.parametrize("window", [0, 128])
-def test_tensor_core_rounding_within_reference_tolerance(s, window):
-    """The error budget of the bf16 kernel, proved before it runs on a card:
-    its rounding (P to bf16 before P·V, base-2 softmax) emulated in plain
-    torch at the serving slice's head layout (15:5 heads, D = 64), held
+# (s, window, heads, D, tile): the mma.sync kernel's 64-column tile at the serving slice's
+# 15:5 heads of 64 (the ids the cases have always had), then the wgmma
+# kernel's own tile (kernel.KV_TILE) at each of its head dims.
+_ROUNDING_CASES = [pytest.param(s, w, (15, 5), 64, 64, id=f"{w}-{s}")
+                   for w in (0, 128) for s in (512, 500)] + [
+    pytest.param(s, w, heads, d, KV_TILE[(d, d)], id=f"d{d}-bk{KV_TILE[(d, d)]}-{w}-{s}")
+    for d, heads in ((64, (15, 5)), (128, (6, 1)), (256, (4, 2)))
+    for w in (0, 128) for s in (512, 500)
+]
+
+
+@pytest.mark.parametrize("s,window,heads,d,tile", _ROUNDING_CASES)
+def test_tensor_core_rounding_within_reference_tolerance(s, window, heads, d, tile):
+    """The error budget of the bf16 kernels, proved before they run on a
+    card: their rounding (P to bf16 before P·V, base-2 softmax, the running
+    max taken once a ``tile`` of KV columns) emulated in plain torch, held
     against the reference oracle within the bf16 tolerance of
-    tests/test_kernels.py (atol = rtol = 2e-2)."""
-    js, ts = _inputs(1, s, 15, 5, 64, "bfloat16", seed=4)
-    got = _emulate_tensor_core_kernel(*ts, causal=True, window=window, scale=0.125)
+    tests/test_kernels.py (atol = rtol = 2e-2): at the serving slice's head
+    layout (15:5 heads, D = 64) with the mma.sync kernel's 64-column tile,
+    and at D = 64, 128 and 256 (a GQA group of 6 and of 2) with the wgmma
+    kernel's tile for that head dim."""
+    js, ts = _inputs(1, s, *heads, d, "bfloat16", seed=4)
+    scale = 0.125 if d == 64 else d ** -0.5
+    got = _emulate_tensor_core_kernel(*ts, causal=True, window=window, scale=scale, tile=tile)
     q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
-    want = ref_oracle(q, k, v, causal=True, window=window, scale=0.125).transpose(0, 2, 1, 3)
+    want = ref_oracle(q, k, v, causal=True, window=window, scale=scale).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
 
 
 def test_tensor_core_rounding_at_the_mla_head_dims():
     """The same error budget at deepseek-v2's MLA prefill: 8:8 heads (of
-    its 128), q and k of 192, v of 128, scale 1/sqrt(192)."""
+    its 128), q and k of 192, v of 128, scale 1/sqrt(192), over 64-column
+    tiles and over the wgmma kernel's tile for (192, 128)."""
     js, ts = _inputs(1, 512, 8, 8, 192, "bfloat16", seed=6, dv=128)
     scale = 192 ** -0.5
-    got = _emulate_tensor_core_kernel(*ts, causal=True, window=0, scale=scale)
-    assert got.shape == (1, 512, 8, 128)
     q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
     want = ref_oracle(q, k, v, causal=True, scale=scale).transpose(0, 2, 1, 3)
-    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+    for tile in (64, KV_TILE[(192, 128)]):
+        got = _emulate_tensor_core_kernel(*ts, causal=True, window=0, scale=scale, tile=tile)
+        assert got.shape == (1, 512, 8, 128)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
 
 
-@pytest.mark.parametrize("sq,skv,hq,hkv,d", [
+_CROSS_SHAPES = [
     (512, 1600, 4, 1, 128),   # llama-vision's cross layer (4 of its 32:8 heads)
     (432, 1500, 6, 6, 64),    # whisper's cross layers
     (1500, 1500, 6, 6, 64),   # whisper's encoder
-])
-def test_tensor_core_rounding_at_the_cross_attention_shapes(sq, skv, hq, hkv, d):
-    """The bf16 kernel's error budget at Sq != Skv with no mask, and over a
-    ragged last tile of 1500 = 23 x 64 + 28 columns."""
+]
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,tile", [
+    pytest.param(*shape, 64, id="-".join(map(str, shape))) for shape in _CROSS_SHAPES] + [
+    pytest.param(*shape, KV_TILE[(shape[-1],) * 2],
+                 id="-".join(map(str, shape)) + f"-bk{KV_TILE[(shape[-1],) * 2]}")
+    for shape in _CROSS_SHAPES])
+def test_tensor_core_rounding_at_the_cross_attention_shapes(sq, skv, hq, hkv, d, tile):
+    """The bf16 kernels' error budget at Sq != Skv with no mask, and over a
+    ragged last tile (1500 = 23 x 64 + 28 = 11 x 128 + 92 columns), with
+    64-column tiles and with the wgmma kernel's tile."""
     js, ts = _inputs(1, sq, hq, hkv, d, "bfloat16", seed=9, skv=skv)
     scale = d ** -0.5
-    got = _emulate_tensor_core_kernel(*ts, causal=False, window=0, scale=scale)
+    got = _emulate_tensor_core_kernel(*ts, causal=False, window=0, scale=scale, tile=tile)
     q, k, v = (x.transpose(0, 2, 1, 3) for x in js)
     want = ref_oracle(q, k, v, causal=False, scale=scale).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
@@ -265,3 +290,52 @@ def test_alignment_check_takes_the_mla_value_view():
     q = k = torch.zeros(4, 512, 128, 192, dtype=torch.bfloat16)
     assert row_alignment(q, k, v) == kernel.ROW_ALIGN
     assert (192, 128) in kernel.HEAD_DIMS and (24, 16) not in kernel.HEAD_DIMS
+
+
+def _macro_tuples(source: str, name: str) -> list[tuple[int, ...]]:
+    """The X(...) tuples of ``#define name(X) X(..) X(..)`` in the source."""
+    import re
+
+    body = re.search(rf"#define {name}\(X\)((?:[^\n]*\\\n)*[^\n]*)", source).group(1)
+    return [tuple(int(x) for x in m.split(",")) for m in re.findall(r"X\(([\d, ]+)\)", body)]
+
+
+def test_kv_tile_table_matches_the_source_instantiations():
+    """kernel.KV_TILE, the tile the rounding tests above emulate, is the
+    source's own: the wgmma kernel's (D, Dv, BK) instances
+    (REPRO_WGMMA_TILES), the mma.sync kernel's pairs at its TC_BK, and
+    together the fp32 kernel's pairs and the wrapper's HEAD_DIMS."""
+    import re
+
+    from repro_torch.kernels.flash_attention import kernel
+
+    source = kernel.SOURCE.read_text()
+    wgmma = _macro_tuples(source, "REPRO_WGMMA_TILES")
+    mma = _macro_tuples(source, "REPRO_MMA_PAIRS")
+    tc_bk = int(re.search(r"constexpr int TC_BK = (\d+);", source).group(1))
+    assert wgmma and mma
+    table = {(d, dv): bk for d, dv, bk in wgmma} | {pair: tc_bk for pair in mma}
+    assert len(table) == len(wgmma) + len(mma)  # no pair in both kernels
+    assert kernel.KV_TILE == table
+    assert set(_macro_tuples(source, "REPRO_FLASH_PAIRS")) == set(table) == set(kernel.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 8, 8, "mma"), (torch.bfloat16, 32, 32, "mma"),
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 256, 256, "wgmma"),
+    (torch.bfloat16, 192, 128, "wgmma"), (torch.float32, 64, 64, "fp32"),
+    (torch.float32, 192, 128, "fp32"),
+])
+def test_variant_follows_the_source_tables(dtype, d, dv, want):
+    """kernel.variant names the kernel a launch takes, as the source
+    dispatches: bf16 pairs of REPRO_WGMMA_TILES to the wgmma kernel, of
+    REPRO_MMA_PAIRS to the mma.sync one, float32 to the CUDA-core one."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    source = kernel.SOURCE.read_text()
+    q = torch.zeros(1, 2, 1, d, dtype=dtype)
+    v = torch.zeros(1, 2, 1, dv, dtype=dtype)
+    assert kernel.variant(q, v) == want
+    if want != "fp32":
+        macro = "REPRO_WGMMA_TILES" if want == "wgmma" else "REPRO_MMA_PAIRS"
+        assert (d, dv) in {t[:2] for t in _macro_tuples(source, macro)}

@@ -5,8 +5,12 @@ nothing of JAX, so it runs on a machine with a card and no JAX::
 
     python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 
-* the flash-attention kernel against its plain version on the same inputs
-  (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), at
+* the flash-attention kernels against their plain version on the same inputs
+  (bf16 tolerance 2e-2, fp32 2e-5/1e-5 as ``tests/test_kernels.py``), each
+  launch's variant asserted (bf16 at D >= 64: the wgmma kernel; below: the
+  mma.sync one; fp32: the CUDA-core one), its edges (ragged Skv at every head
+  dim, one query row, Sq not a multiple of its 128-row blocks, windows that
+  start inside a ring stage, a GQA group of 8), at
   the serving slice's head layout, with ragged lengths and windows, every
   head dim (8-256) in bf16, non-causal, GQA and MQA, gemma3-12b's head
   layout (16:8 heads of 256, window 1024), jamba's (64:8 heads of 128) and
@@ -176,6 +180,22 @@ def _tol(dtype):
     (torch.float32, 2, 200, 8, 2, 64, 0, True, None, 300),
     (torch.bfloat16, 2, 300, 8, 2, 64, 0, True, None, 130),
     (torch.float32, 2, 300, 8, 2, 64, 0, True, None, 130),
+    # the wgmma kernel's edges (128-row blocks; KV tiles of 128, 64 at D = 256):
+    # Skv that divides no tile (1500 = 23 x 64 + 28 = 11 x 128 + 92, 1600 = 12
+    # x 128 + 64) at every head dim, one query row, Sq not a multiple of 128
+    # (129, 200), windows that start inside a ring stage, a GQA group of 8
+    (torch.bfloat16, 2, 512, 16, 8, 256, 0, False, None, 1500),
+    (torch.bfloat16, 1, 300, 8, 8, 192, 0, False, 128, 1600),
+    (torch.bfloat16, 2, 432, 8, 2, 128, 0, False, None, 1500),
+    (torch.bfloat16, 2, 1, 6, 6, 64, 0, False, None, 1500),
+    (torch.bfloat16, 2, 1, 4, 2, 256, 0, False, None, 300),
+    (torch.bfloat16, 3, 129, 4, 4, 64, 0, True),
+    (torch.bfloat16, 2, 200, 8, 4, 256, 0, True),
+    (torch.bfloat16, 2, 700, 8, 2, 64, 100, True),
+    (torch.bfloat16, 1, 1000, 4, 2, 128, 200, True),
+    (torch.bfloat16, 1, 600, 4, 4, 192, 70, True, 128),
+    (torch.bfloat16, 1, 300, 16, 2, 64, 0, True),
+    (torch.bfloat16, 1, 333, 16, 2, 256, 0, False),
 ]])
 def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv, skv):
     dv, skv = dv or d, skv or s
@@ -185,12 +205,16 @@ def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv,
     v = torch.randn(b, skv, hkv, dv, generator=g, device=cuda).to(dtype)
     launches = flash_attention.launches
     by_dtype = dict(flash_attention.launches_by_dtype)
+    by_variant = dict(flash_attention.launches_by_variant)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
     name = str(dtype).removeprefix("torch.")
     by_dtype[name] += 1
     assert flash_attention.launches_by_dtype == by_dtype
+    # bf16 at D >= 64 (every prefill of the main path) takes the wgmma kernel
+    by_variant["fp32" if dtype == torch.float32 else "wgmma" if d >= 64 else "mma"] += 1
+    assert flash_attention.launches_by_variant == by_variant
     want = ref.attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
     ).transpose(1, 2)
@@ -206,6 +230,10 @@ def test_kernel_matches_plain(cuda, dtype, b, s, hq, hkv, d, window, causal, dv,
     (torch.float32, 2, 200, 700, 8, 2, 64, 128, 500),
     (torch.bfloat16, 1, 77, 130, 4, 2, 128, 0, 53),
     (torch.float32, 2, 100, 160, 6, 3, 16, 32, 37),
+    # the wgmma kernel at an offset: D = 256 (KV tiles of 64), a window that
+    # starts inside a ring stage, a GQA group of 8
+    (torch.bfloat16, 2, 200, 600, 8, 4, 256, 0, 400),
+    (torch.bfloat16, 2, 200, 600, 8, 1, 64, 100, 300),
 ])
 def test_kernel_matches_plain_at_a_q_offset(cuda, dtype, b, sq, skv, hq, hkv, d, window, off):
     g = torch.Generator(device=cuda).manual_seed(sq + off)
@@ -213,9 +241,12 @@ def test_kernel_matches_plain_at_a_q_offset(cuda, dtype, b, sq, skv, hq, hkv, d,
     k = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(b, skv, hkv, d, generator=g, device=cuda).to(dtype)
     launches = flash_attention.launches
+    wgmma = flash_attention.launches_by_variant["wgmma"]
     out = flash_attention(q, k, v, causal=True, window=window, q_offset=off)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
+    assert flash_attention.launches_by_variant["wgmma"] == wgmma + (
+        dtype == torch.bfloat16 and d >= 64)
     want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                              causal=True, window=window, q_offset=off).transpose(1, 2)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), **_tol(dtype))
@@ -238,10 +269,12 @@ def test_kernel_takes_the_mla_value_view(cuda):
     k = torch.cat([kvb[..., :128], q[..., 128:]], dim=-1)
     v = kvb[..., 128:]
     assert not v.is_contiguous()
+    wgmma = flash_attention.launches_by_variant["wgmma"]
     out = flash_attention(q, k, v)
     want = flash_attention(q, k, v.contiguous())
     torch.cuda.synchronize()
     assert out.shape == (2, 100, 16, 128) and torch.equal(out, want)
+    assert flash_attention.launches_by_variant["wgmma"] == wgmma + 2  # v through its own TMA map
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -269,10 +302,38 @@ def test_kernel_reads_strided_views(cuda):
     q, k, v = torch.split(qkv, [15 * 64, 5 * 64, 5 * 64], dim=-1)
     q, k, v = (t.reshape(2, 100, -1, 64) for t in (q, k, v))
     assert not q.is_contiguous()
+    wgmma = flash_attention.launches_by_variant["wgmma"]
     out = flash_attention(q, k, v)
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+    assert flash_attention.launches_by_variant["wgmma"] == wgmma + 2  # strided TMA maps
+
+
+def test_wgmma_tile_counter_is_per_stream_and_returns_to_zero(cuda):
+    """The wgmma kernel's blocks take q-tiles from a counter of the
+    launch's stream (``kernel._sched``): each launch leaves it at zero for
+    the next, and launches on two streams at once, each with its own,
+    give the outputs of one stream."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = [(4, 512, 48, 8, 128), (2, 1500, 6, 6, 64)]  # 512 and 288 q-tiles: >132 blocks
+    inputs = [tuple(torch.randn(b, s, h, d, generator=g, device=cuda, dtype=torch.bfloat16)
+                    for h in (hq, hkv, hkv)) for b, s, hq, hkv, d in shapes]
+    want = [flash_attention(*x, causal=True) for x in inputs]
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream().cuda_stream
+    assert kernel._sched(q_device := inputs[0][0].device, main).tolist() == [0, 0]
+    side = torch.cuda.Stream()
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            got_side = flash_attention(*inputs[0], causal=True)
+        got_main = flash_attention(*inputs[1], causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got_side, want[0]) and torch.equal(got_main, want[1])
+    assert kernel._sched(q_device, side.cuda_stream).tolist() == [0, 0]
+    assert kernel._sched(q_device, main).tolist() == [0, 0]
 
 
 def test_kernel_refuses_a_misaligned_bf16_view(cuda):
